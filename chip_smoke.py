@@ -1,0 +1,426 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with one CUDA card and nvcc:
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases (every check raises, so any failure exits non-zero):
+
+1. The card: ``nvidia-smi`` name and power limit; the CUDA kernels are built
+   from ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel)
+   and their ``-Xptxas -v`` register report is printed.
+2. Each kernel against its plain PyTorch version on the card, at 65,536^2
+   with about 1M nonzeros: values in {f32, bf16, i8, i32} x {SpMV, SpMM B=8,
+   B=40 ragged}.  Integer-valued inputs must agree bit for bit; random f32
+   at rtol=atol=2e-4 (tests/test_kernels.py's tolerance).  SpMM results must
+   be bit-identical across two batch tiles.
+3. The main path, through ``SparseMatrix.from_parts(...).plan(scheme="auto")
+   .compile()``, on three matrices built from ``--seed`` after the recipes of
+   ``repro/data/matrices.py`` (integer values in {±1, ±2}; x in {-2..2}, so
+   every float32 sum is exact): regular 2,097,152^2 (COO and CSR),
+   scale-free 2,097,152^2 (COO), block 1,048,576^2 in (8, 16) blocks (BCOO and
+   BCSR).  Each plan answers 16 ``exe(x)`` and 4 ``exe.batch(X)``; every
+   answer must equal the kernel's plain version on the card and cuSPARSE
+   (``torch.sparse_csr_tensor @ x``, an independent oracle the port never
+   calls) bit for bit, and the launch counters must rise by the requests.
+4. Times at the main-path shapes (CUDA events, after warm-up): the kernel,
+   its plain version, cuSPARSE, and the bound — the bytes the product must
+   move (each input once, each output once) over 3.35 TB/s, or its
+   operations over 67 TFLOP/s (f32, no tensor cores), whichever is larger.
+
+Prints JSON lines; the line before the last is ``{"kernels": [...]}`` and the
+last ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
+F32_OPS_S = 67e12  # H100 SXM data sheet, float32 without tensor cores
+PM12 = np.array([-2, -1, 1, 2], np.float32)
+
+KERNELS = {  # kernel -> (source, TPU kernel it replaces)
+    "coo_spmv": ("src/repro_torch/kernels/csrc/coo_spmv.cu",
+                 "src/repro/kernels/coo_spmv.py:165"),
+    "bcoo_spmv": ("src/repro_torch/kernels/csrc/bcoo_spmv.cu",
+                  "src/repro/kernels/bcsr_spmv.py:76"),
+}
+KIND = {"coo_spmv": "coo", "bcoo_spmv": "bcoo"}
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+# ------------------------------------------------------------- matrices
+
+
+def regular_triplets(rng, n: int, k: int = 16):
+    """Banded-jitter rows (data/matrices.py:regular_matrix) with k distinct
+    columns per row: one jittered offset in each of k strata of the band,
+    wrapped around the matrix edge."""
+    band = n // 16
+    width = 2 * band // k
+    offs = -band + np.arange(k) * width + rng.integers(0, width, (n, k))
+    cols = (np.arange(n)[:, None] + offs) % n
+    rows = np.repeat(np.arange(n, dtype=np.int64), k)
+    return rows, cols.reshape(-1), rng.choice(PM12, n * k), (n, n)
+
+
+def scale_free_triplets(rng, n: int, nnz_target: int, alpha: float = 1.6):
+    """Zipf row degrees toward ``nnz_target`` capped at n, and Zipf hub
+    columns (data/matrices.py:scale_free_matrix).  Rows above 64 nonzeros
+    take distinct uniform columns; the rest draw from the hub distribution,
+    duplicates in a row merged."""
+    ranks = np.arange(1, n + 1, dtype=np.float64)
+    deg = ranks ** (-alpha)
+    deg = np.maximum(1, np.round(deg / deg.sum() * nnz_target)).astype(np.int64)
+    deg = np.minimum(deg, n)
+    rng.shuffle(deg)
+    cdf = np.cumsum(ranks ** (-alpha))
+    cdf /= cdf[-1]
+    col_ids = rng.permutation(n)
+    light = deg <= 64
+    rows = np.repeat(np.flatnonzero(light), deg[light])
+    cols = col_ids[np.minimum(np.searchsorted(cdf, rng.random(len(rows))), n - 1)]
+    keys = [np.unique(rows * n + cols)]
+    for r in np.flatnonzero(~light):
+        keys.append(r * n + np.sort(rng.choice(n, deg[r], replace=False)))
+    keys = np.sort(np.concatenate(keys))
+    return keys // n, keys % n, rng.choice(PM12, len(keys)), (n, n)
+
+
+def block_triplets(rng, n: int, block=(8, 16), per: int = 3):
+    """Dense (r, c) blocks, ``per`` in every block-row, at distinct, jittered,
+    banded block-columns (data/matrices.py:block_matrix, banded)."""
+    r, c = block
+    nbr, nbc = n // r, n // c
+    band = nbc // 16
+    width = 2 * band // per
+    offs = -band + np.arange(per) * width + rng.integers(0, width, (nbr, per))
+    bc = (np.arange(nbr)[:, None] * nbc // nbr + offs) % nbc  # (nbr, per)
+    shape4 = (nbr, per, r, c)
+    rows = np.broadcast_to(np.arange(nbr)[:, None, None, None] * r
+                           + np.arange(r)[None, None, :, None], shape4)
+    cols = np.broadcast_to(bc[:, :, None, None] * c + np.arange(c), shape4)
+    nnz = nbr * per * r * c
+    return rows.reshape(-1), cols.reshape(-1), rng.choice(PM12, nnz), (n, n)
+
+
+def random_triplets(rng, n: int, per_row: int, integer: bool):
+    rows = np.repeat(np.arange(n, dtype=np.int64), per_row)
+    cols = rng.integers(0, n, n * per_row)
+    vals = (rng.choice(PM12, n * per_row) if integer
+            else rng.standard_normal(n * per_row).astype(np.float32))
+    return rows, cols, vals, (n, n)
+
+
+def random_block_triplets(rng, n: int, integer: bool, block=(8, 16)):
+    """One dense (r, c) block per block-row at a random block-column."""
+    r, c = block
+    nbr = n // r
+    bc = rng.integers(0, n // c, nbr)
+    shape4 = (nbr, r, c)
+    rows = np.broadcast_to(np.arange(nbr)[:, None, None] * r
+                           + np.arange(r)[None, :, None], shape4)
+    cols = np.broadcast_to(bc[:, None, None] * c + np.arange(c), shape4)
+    size = nbr * r * c
+    vals = (rng.choice(PM12, size) if integer
+            else rng.standard_normal(size).astype(np.float32))
+    return rows.reshape(-1), cols.reshape(-1), vals, (n, n)
+
+
+# ------------------------------------------------------------- helpers
+
+
+def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(torch, got, want) -> float:
+    return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+
+
+def ptxas_lines(build) -> list:
+    """One line per compiled kernel: template arguments, registers, spills."""
+    names = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
+             "a": "i8", "s": "i16", "i": "i32"}
+    out = []
+    for name in build.SOURCES:
+        entry, spill = None, ""
+        for line in build.build_log(name).splitlines():
+            m = re.search(r"Compiling entry function "
+                          r"'\S*?_kernelI(\w+?)(?:Li(\d+)E)?EEv", line)
+            if m:
+                entry = names.get(m.group(1), m.group(1)) + (
+                    f" BT={m.group(2)}" if m.group(2) else "")
+            elif "spill" in line and entry:
+                spill = line.strip()
+            elif "Used" in line and entry:
+                out.append(f"ptxas {name}[{entry}]: {line.split(':', 1)[1].strip()}; "
+                           f"{spill}")
+                entry = None
+    return out
+
+
+# ------------------------------------------------------------- phases
+
+
+def phase_kernels(torch, rng, device, n: int, errs: dict) -> None:
+    """Each kernel vs its plain version at 65,536^2 x ~1M nnz."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "i8": torch.int8,
+              "i32": torch.int32}
+    makers = {"coo_spmv": (lambda integer: random_triplets(rng, n, 16, integer),
+                           lambda ri, ci, v, s: F.triplets_to_coo(ri, ci, v, s)),
+              "bcoo_spmv": (lambda integer: random_block_triplets(rng, n, integer),
+                            lambda ri, ci, v, s: F.triplets_to_bcoo(
+                                ri, ci, v, s, block=(8, 16)))}
+    for kernel, (triplets, build) in makers.items():
+        cases = [(name, dt, True) for name, dt in dtypes.items()]
+        cases.append(("f32-random", torch.float32, False))
+        for name, dtype, integer in cases:
+            ri, ci, vals, shape = triplets(integer)
+            m = build(ri, ci, F.to_tensor(vals, dtype), shape)
+            prog = ops.kernel_program(m, device=device)
+            nnz, case_err = len(ri), 0.0
+            for batch in (None, 8, 40):
+                xshape = (n,) if batch is None else (n, batch)
+                xv = (rng.integers(-2, 3, xshape) if integer
+                      else rng.standard_normal(xshape))
+                x = torch.from_numpy(xv).to(device, dtype)
+                got, want = prog(x), prog.plain(x)
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype and got.shape == want.shape,
+                      f"{kernel} {name} B={batch}: {got.dtype}{tuple(got.shape)} "
+                      f"vs plain {want.dtype}{tuple(want.shape)}")
+                err = max_err(torch, got, want)
+                case_err = max(case_err, err)
+                if integer:
+                    check(torch.equal(got, want),
+                          f"{kernel} {name} B={batch}: max |kernel - plain| = {err}")
+                else:
+                    check(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
+                          f"{kernel} {name} B={batch}: max |kernel - plain| = {err}")
+                if batch is not None:
+                    other = dataclasses.replace(prog, batch_tile=8)
+                    check(torch.equal(other(x), got),
+                          f"{kernel} {name} B={batch}: batch tiles 8 and 32 differ")
+            emit({"phase": "kernel_vs_plain", "kernel": kernel, "values": name,
+                  "shape": list(shape), "nnz": nnz, "max_abs_err": case_err,
+                  "ok": True})
+            errs[kernel] = max(errs[kernel], case_err)
+            del prog, m
+    torch.cuda.empty_cache()
+
+
+def library_csr(torch, sm, device):
+    csr = sm.container("csr")
+    nnz = csr.nnz
+    return torch.sparse_csr_tensor(csr.rowptr.to(device), csr.colind[:nnz].to(device),
+                                   csr.values[:nnz].to(device), size=sm.shape)
+
+
+def phase_main_path(torch, rng, device, sizes, errs, records) -> None:
+    """Serve requests through the public pipeline at real size."""
+    from repro_torch.api import SparseMatrix
+    from repro_torch.kernels import instrument
+
+    n_reg, n_sf, n_blk = sizes
+    cells = [
+        ("regular", lambda: regular_triplets(rng, n_reg),
+         [(None, "2d.equally-sized.coo.psum_scatter"),
+          ("csr", "2d.equally-sized.csr.psum_scatter")]),
+        ("scale-free", lambda: scale_free_triplets(rng, n_sf, 8 * n_sf),
+         [(None, "1d.nnz.coo.ppermute")]),
+        ("block", lambda: block_triplets(rng, n_blk),
+         [(None, "2d.equally-sized.bcoo.psum_scatter"),
+          ("bcsr", "2d.equally-sized.bcsr.psum_scatter")]),
+    ]
+    instrument.reset()
+    requests = {"coo": 0, "coo.spmm": 0, "bcoo": 0, "bcoo.spmm": 0}
+    for name, make, plans in cells:
+        t0 = time.perf_counter()
+        ri, ci, vals, shape = make()
+        sm = SparseMatrix.from_parts(ri, ci, vals, shape)
+        del ri, ci, vals
+        st = sm.stats
+        setup_s = time.perf_counter() - t0
+        A = library_csr(torch, sm, device)
+        emit({"phase": "matrix", "matrix": name, "shape": list(shape),
+              "nnz": st.nnz, "nnz_r_std": st.nnz_r_std, "nnz_r_max": st.nnz_r_max,
+              "block_fill": st.block_fill, "setup_s": setup_s})
+        for fmt, want_id in plans:
+            pln = sm.plan(scheme="auto", fmt=fmt, device=device)
+            check(pln.scheme_id == want_id,
+                  f"{name}: auto gave {pln.scheme_id}, expected {want_id}")
+            print(pln.describe(), flush=True)
+            t0 = time.perf_counter()
+            exe = pln.compile()
+            compile_s = time.perf_counter() - t0
+            prog = exe.program
+            kernel = "coo_spmv" if prog.kind == "coo" else "bcoo_spmv"
+            lat = {1: [], 8: [], 64: []}
+            for i in range(20):
+                batch = None if i < 16 else (8, 64)[i % 2]
+                xshape = (shape[1],) if batch is None else (shape[1], batch)
+                x = rng.integers(-2, 3, xshape).astype(np.float32)
+                t0 = time.perf_counter()
+                y = exe(x) if batch is None else exe.batch(x)
+                lat[batch or 1].append(time.perf_counter() - t0)
+                requests[prog.kind] += 1
+                requests[prog.kind + ".spmm"] += batch is not None
+                check(y.shape == (shape[0],) + xshape[1:] and np.isfinite(y).all(),
+                      f"{name}/{pln.fmt}: bad answer shape {y.shape}")
+                xd = torch.from_numpy(x).to(device)
+                plain = prog.plain(xd).cpu().numpy()
+                lib = (A @ xd).cpu().numpy()
+                errs[kernel] = max(errs[kernel], float(np.abs(y - plain).max()))
+                check(np.array_equal(y, plain),
+                      f"{name}/{pln.fmt} request {i}: kernel != plain version")
+                check(np.array_equal(y, lib),
+                      f"{name}/{pln.fmt} request {i}: kernel != cuSPARSE")
+            emit({"phase": "main_path", "matrix": name, "fmt": pln.fmt,
+                  "scheme_id": pln.scheme_id, "requests": 20, "compile_s": compile_s,
+                  "host_ms_p50": {b: 1e3 * statistics.median(v)
+                                  for b, v in lat.items()},
+                  "answers": "bit-equal to plain and cuSPARSE"})
+            records.append(dict(matrix=name, fmt=pln.fmt, kernel=kernel, exe=exe,
+                                prog=prog, A=A, st=st, shape=shape,
+                                host_ms=1e3 * statistics.median(lat[1])))
+        del sm
+    got = {k: instrument.launches(k) for k in requests}
+    emit({"phase": "launch_counts", "launches": got, "requests": requests})
+    return got, requests
+
+
+def phase_times(torch, rng, device, records) -> dict:
+    """Kernel, plain and cuSPARSE times at the main-path shapes."""
+    rows = {}
+    for rec in records:
+        prog, A, st = rec["prog"], rec["A"], rec["st"]
+        rows_, cols = rec["shape"]
+        for batch in (1, 8, 64):
+            xshape = (cols,) if batch == 1 else (cols, batch)
+            x = rng.integers(-2, 3, xshape).astype(np.float32)
+            x = torch.from_numpy(x).to(device)
+            if prog.kind == "coo":
+                nbytes = st.nnz * (8 + 4)
+            else:
+                r, c = prog.bvalues.shape[1:]
+                nbytes = prog.nblocks * (r * c * 4 + 4) + (prog.browptr.numel()) * 4
+            nbytes += cols * batch * 4 + rows_ * batch * 4
+            ops_ = 2 * st.nnz * batch
+            by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops_ / F32_OPS_S * 1e3
+            row = {
+                "matrix": rec["matrix"], "fmt": rec["fmt"], "kernel": rec["kernel"],
+                "B": batch, "nnz": st.nnz,
+                "ms": time_ms(torch, lambda: prog(x), 30),
+                "plain_ms": time_ms(torch, lambda: prog.plain(x), 5, warmup=1),
+                "library_ms": time_ms(torch, lambda: A @ x, 30),
+                "bound_ms": max(by_bytes, by_ops),
+                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                "bytes": nbytes,
+            }
+            row["roofline_share"] = row["bound_ms"] / row["ms"]
+            if batch == 1:
+                row["host_exe_ms_p50"] = rec["host_ms"]
+            emit({"phase": "times", **row})
+            rows[(rec["matrix"], rec["fmt"], batch)] = row
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    try:
+        from repro_torch.kernels import _build, instrument  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: repro_torch not found beside this script: {e}",
+              file=sys.stderr)
+        return 2
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32 in the oracles
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(args.seed)
+    t_start = time.perf_counter()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    for line in ptxas_lines(_build):
+        print(line)
+    emit({"phase": "build", "seconds": build_s, "kernels": list(_build.SOURCES)})
+
+    errs = {k: 0.0 for k in KERNELS}
+    phase_kernels(torch, rng, device, 1 << 16, errs)
+    records = []
+    launches, requests = phase_main_path(
+        torch, rng, device, (1 << 21, 1 << 21, 1 << 20), errs, records)
+    check(launches == requests, f"launch counters {launches} != requests {requests}")
+    times = phase_times(torch, rng, device, records)
+
+    main_shape = {"coo_spmv": ("regular", "coo", 1), "bcoo_spmv": ("block", "bcoo", 1)}
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        t = times[main_shape[name]]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[KIND[name]], "max_abs_err": errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start, "card": card})
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

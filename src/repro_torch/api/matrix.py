@@ -1,0 +1,298 @@
+"""SparseMatrix — the single front door of the SpMV pipeline.
+
+Counterpart of ``repro/api/matrix.py``:
+
+    sm  = SparseMatrix.from_parts(rowind, colind, values, shape)
+    pln = sm.plan(scheme="auto")          # ExecutionPlan (impl="cuda", device="cuda")
+    exe = pln.compile()                   # Executor
+    y   = exe(x)                          # host rows
+
+Entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``); ``device="cuda"`` without a card raises.  The JAX
+package densifies before it builds a format; here a matrix given as
+triplets (or as a container) never is: its containers come from the
+coalesced triplets (``formats.triplets_to_*``), which give the same arrays.
+"""
+from __future__ import annotations
+
+import hashlib
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import formats as F
+from ..core.adaptive import HardwareModel, estimate_time
+from ..core.stats import MatrixStats, compute_stats
+from .plan import IMPLS, ExecutionPlan, check_device, resolve_scheme
+
+__all__ = ["SparseMatrix", "fingerprint_matrix"]
+
+_CONTAINERS = (F.CSR, F.COO, F.BCSR, F.BCOO)
+_FMT_OF = {F.CSR: "csr", F.COO: "coo", F.BCSR: "bcsr", F.BCOO: "bcoo"}
+_NOT_YET = "not ported yet: see ROADMAP.md"
+
+
+def _dtype_str(dtype: torch.dtype) -> str:
+    """numpy's ``dtype.str`` ("<f4", ...); bfloat16 is ml_dtypes' "<V2"."""
+    if dtype == torch.bfloat16:
+        return "<V2"
+    return np.dtype(F.dtype_name(dtype)).str
+
+
+def _fingerprint(shape, dtype, ri, ci, vals) -> str:
+    h = hashlib.sha256()
+    h.update(repr((tuple(shape), _dtype_str(dtype))).encode())
+    h.update(ri.to(torch.int64).numpy().tobytes())
+    h.update(ci.to(torch.int64).numpy().tobytes())
+    if vals.dtype == torch.bfloat16:
+        vals = vals.view(torch.int16)
+    h.update(vals.contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def fingerprint_matrix(a) -> str:
+    """Stable content hash of a dense matrix's sparsity structure + values
+    (the JAX package's hash of the same matrix)."""
+    t = F.to_tensor(a)
+    ri, ci = (t != 0).nonzero(as_tuple=True)
+    return _fingerprint(t.shape, t.dtype, ri, ci, t[ri, ci])
+
+
+class SparseMatrix:
+    """A sparse matrix plus its stats, behind every SpMV entry point."""
+
+    def __init__(self, *, dense=None, triplets=None, container=None,
+                 shape: Tuple[int, int] = None, dtype=None,
+                 stats_block: Tuple[int, int] = (8, 16)):
+        if dense is None and triplets is None and container is None:
+            raise ValueError("SparseMatrix needs a dense array, triplets or "
+                             "a container; use the from_* constructors")
+        self._dense = dense
+        self._triplets = triplets  # (rowind, colind, values), as given
+        self._containers: dict = {}
+        if container is not None:
+            self._containers[_FMT_OF[type(container)]] = container.to("cpu")
+        self.shape = tuple(shape)
+        self.dtype = F.torch_dtype(dtype)
+        self._stats_block = stats_block
+        self._stats: Optional[MatrixStats] = None
+        self._fingerprint: Optional[str] = None
+        self._coalesced = None
+
+    # ------------------------------------------------------------ constructors
+
+    @classmethod
+    def from_dense(cls, a, dtype=None,
+                   stats_block: Tuple[int, int] = (8, 16)) -> "SparseMatrix":
+        """Wrap a dense host array (numpy or torch).
+
+        Raises:
+          ValueError: if ``a`` is not 2D.
+        """
+        a = F.to_tensor(a, dtype).cpu()
+        if a.ndim != 2:
+            raise ValueError(f"expected a 2D matrix, got shape {tuple(a.shape)}")
+        return cls(dense=a, shape=a.shape, dtype=a.dtype, stats_block=stats_block)
+
+    @classmethod
+    def from_scipy(cls, m, dtype=None) -> "SparseMatrix":
+        """Wrap anything with scipy.sparse's ``tocoo()`` protocol.
+
+        Raises:
+          TypeError: if ``m`` has no ``tocoo`` method.
+        """
+        if not hasattr(m, "tocoo"):
+            raise TypeError(f"{type(m).__name__} has no .tocoo(); "
+                            "expected a scipy.sparse matrix")
+        coo = m.tocoo()
+        return cls.from_parts(coo.row, coo.col, coo.data, coo.shape, dtype=dtype)
+
+    @classmethod
+    def from_parts(cls, rowind, colind, values, shape,
+                   dtype=None) -> "SparseMatrix":
+        """Wrap raw COO triplets (duplicate coordinates are summed).
+
+        Never densified: containers are built from the coalesced triplets.
+
+        Raises:
+          ValueError: on length mismatches or out-of-range indices.
+        """
+        rowind = F.to_tensor(rowind).to(torch.int64).reshape(-1).cpu()
+        colind = F.to_tensor(colind).to(torch.int64).reshape(-1).cpu()
+        values = F.to_tensor(values, dtype).reshape(-1).cpu()
+        if not (len(rowind) == len(colind) == len(values)):
+            raise ValueError("rowind/colind/values lengths differ")
+        rows, cols = shape
+        if len(rowind) and (int(rowind.min()) < 0 or int(rowind.max()) >= rows
+                            or int(colind.min()) < 0 or int(colind.max()) >= cols):
+            raise ValueError(f"indices out of range for shape {tuple(shape)}")
+        return cls(triplets=(rowind, colind, values), shape=(rows, cols),
+                   dtype=values.dtype)
+
+    @classmethod
+    def from_format(cls, container) -> "SparseMatrix":
+        """Wrap an existing CSR/COO/BCSR/BCOO container (kept and reused
+        when a plan requests the same format).
+
+        Raises:
+          TypeError: for any other container type.
+        """
+        if not isinstance(container, _CONTAINERS):
+            raise TypeError(f"unknown container {type(container).__name__}")
+        return cls(container=container, shape=container.shape,
+                   dtype=container.dtype)
+
+    # ------------------------------------------------------------ inspection
+
+    @property
+    def rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def cols(self) -> int:
+        return self.shape[1]
+
+    def coalesced(self):
+        """Sorted, duplicate-free, zero-free (rowind, colind, values) — the
+        nonzeros of the matrix in the matrix dtype (cached)."""
+        if self._coalesced is None:
+            if self._dense is not None:
+                ri, ci, vals, _ = F.nonzero(self._dense)
+            else:
+                src = (self._triplets if self._triplets is not None else
+                       F.to_triplets(next(iter(self._containers.values()))))
+                ri, ci, vals = F.coalesce(*src, self.shape)
+            self._coalesced = (ri, ci, vals)
+        return self._coalesced
+
+    def dense(self) -> torch.Tensor:
+        """Materialize (and cache) the dense host tensor (small matrices)."""
+        if self._dense is None:
+            ri, ci, vals = self.coalesced()
+            a = torch.zeros(self.shape, dtype=self.dtype)
+            a[ri, ci] = vals
+            self._dense = a
+        return self._dense
+
+    @property
+    def stats(self) -> MatrixStats:
+        """Paper Table-4 statistics (drives the adaptive scheme selection)."""
+        if self._stats is None:
+            # as in the JAX package: raw triplets when the matrix holds them
+            ri, ci, _ = (self._triplets if self._dense is None
+                         and self._triplets is not None else self.coalesced())
+            self._stats = compute_stats((ri.numpy(), ci.numpy(), self.shape),
+                                        block=self._stats_block)
+        return self._stats
+
+    @property
+    def nnz(self) -> int:
+        return self.stats.nnz
+
+    def fingerprint(self) -> str:
+        """Content hash (the JAX package's hash of the same matrix)."""
+        if self._fingerprint is None:
+            self._fingerprint = _fingerprint(self.shape, self.dtype,
+                                             *self.coalesced())
+        return self._fingerprint
+
+    def container(self, fmt: str, block: Tuple[int, int] = (8, 16),
+                  dtype=None):
+        """Build (and cache) the requested container format, on the host.
+
+        Args:
+          fmt: "csr" | "coo" | "bcsr" | "bcoo".
+          block: (r, c) tile shape for the block formats.
+          dtype: value dtype of the built container (default: matrix dtype).
+
+        Raises:
+          ValueError: for an unknown ``fmt``.
+        """
+        if fmt not in _FMT_OF.values():
+            raise ValueError(f"unknown format {fmt!r}")
+        dtype = self.dtype if dtype is None else F.torch_dtype(dtype)
+        key = fmt if dtype == self.dtype else f"{fmt}:{F.dtype_name(dtype)}"
+        got = self._containers.get(key)
+        if got is not None and (fmt not in ("bcsr", "bcoo")
+                                or got.block == tuple(block)):
+            return got
+        ri, ci, vals = self.coalesced()
+        if vals.dtype != dtype:  # cast, then drop what became zero
+            vals = vals.to(dtype)
+            keep = vals != 0
+            ri, ci, vals = ri[keep], ci[keep], vals[keep]
+        built = F.from_coalesced(fmt, ri, ci, vals, self.shape, tuple(block))
+        self._containers[key] = built
+        return built
+
+    def __repr__(self) -> str:
+        return (f"SparseMatrix({self.rows}x{self.cols}, nnz={self.nnz}, "
+                f"dtype={F.dtype_name(self.dtype)})")
+
+    # ------------------------------------------------------------ planning
+
+    def plan(
+        self,
+        *,
+        scheme="auto",
+        impl: str = "cuda",
+        device="cuda",
+        hw: Optional[HardwareModel] = None,
+        mesh=None,
+        devices=None,
+        partitioning: Optional[str] = None,
+        fmt: Optional[str] = None,
+        merge: Optional[str] = None,
+        grid: Optional[tuple] = None,
+        block: Tuple[int, int] = (8, 16),
+        fit: bool = True,
+        topology=None,
+    ) -> ExecutionPlan:
+        """Resolve scheme + placement into an inspectable ExecutionPlan.
+
+        Args:
+          scheme: "auto" (paper Rec. #3 rules fitted to one device), a
+            string like "1d.nnz" / "2d.equally-sized", or an adaptive.Plan.
+          impl: "cuda" (the hand-written kernels; on a CPU device their
+            plain versions) or "torch" (the plain oracles).
+          device: "cuda" (default) or "cpu".
+          hw: HardwareModel driving the analytic selection/estimates.
+          partitioning: force "1d"/"2d" over the adaptive choice.
+          fmt/merge/grid: override single dimensions of the resolved scheme.
+          block: (r, c) tile for the block formats.
+          fit: False inspects the paper plan for ``hw`` as-is.
+
+        Raises:
+          ValueError: unknown impl or scheme.
+          RuntimeError: ``device="cuda"`` without a CUDA device.
+          NotImplementedError: ``scheme="tune"``, ``mesh=``, ``devices=`` or
+            ``topology=`` (later slices of the port).
+        """
+        if impl not in IMPLS:
+            raise ValueError(f"unknown impl {impl!r}: one of {IMPLS}")
+        if scheme == "tune":
+            raise NotImplementedError(f"scheme='tune' is {_NOT_YET}, 'repro.tune'")
+        if mesh is not None or devices is not None:
+            raise NotImplementedError(f"mesh=/devices= (partitioned schemes) "
+                                      f"are {_NOT_YET}, 'Partitioned schemes'")
+        if topology is not None:
+            raise NotImplementedError(f"topology= is {_NOT_YET}, 'repro.topo'")
+        device = check_device(device)
+        plan = resolve_scheme(
+            self.stats, self.shape, 1, scheme, hw=hw,
+            partitioning=partitioning, fmt=fmt, merge=merge, grid=grid,
+            block=block, fit=fit, dtype_bytes=self.dtype.itemsize,
+        )
+        hw = hw if hw is not None else HardwareModel(chips=1)
+        # an unfitted 2D plan (fit=False) may carry no grid yet: no estimate
+        est = (estimate_time(self.stats, plan, hw, dtype_bytes=self.dtype.itemsize)
+               if len(plan.grid) == 2 else {})
+        return ExecutionPlan(
+            matrix=self, scheme=plan, impl=impl, device=device,
+            dtype=self.dtype, block=tuple(block), hw=hw, estimate=est,
+        )
+
+    def compile(self, **plan_kwargs):
+        """Shorthand: ``.plan(**plan_kwargs).compile()``."""
+        return self.plan(**plan_kwargs).compile()

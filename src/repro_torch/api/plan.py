@@ -1,0 +1,378 @@
+"""ExecutionPlan — the inspectable middle of the pipeline (single device).
+
+Counterpart of ``repro/api/plan.py``.  ``SparseMatrix.plan(...)`` resolves
+*what to run* (an adaptive :class:`~repro_torch.core.adaptive.Plan`:
+partitioning, balancing scheme, format, merge, grid), fits it to the device
+pool and returns an :class:`ExecutionPlan` that also pins *how to run it*
+(impl, device, dtype) and the analytic time estimate.  ``.compile()`` turns
+it into an :class:`~repro_torch.api.executor.Executor`.
+
+The plan IR (``to_ir`` / :func:`plan_from_ir`) is the JAX package's: the
+wire keeps its impl names ("xla" / "pallas"), mapped to "torch" / "cuda"
+at the boundary, so each package reads the other's JSON.
+
+Partitioned (mesh) plans, topology-aware fitting and the ring schedule wait
+for the partitioned slice of the port (ROADMAP.md) and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.adaptive import HardwareModel, Plan, select_scheme
+from ..core.formats import dtype_name, torch_dtype
+from ..core.stats import MatrixStats
+from ..kernels.ops import IMPLS
+from .executor import Executor, SingleDeviceExecutor
+
+__all__ = [
+    "ExecutionPlan",
+    "fit_plan",
+    "resolve_scheme",
+    "plan_from_ir",
+    "IR_VERSION",
+    "FORMATS",
+    "IMPLS",
+]
+
+FORMATS = ("coo", "csr", "bcoo", "bcsr")
+# 1D balances and 2D schemes of repro/core/partition.py (paper Tables 1-2)
+BALANCE_1D = ("rows", "nnz-rgrn", "nnz")
+SCHEMES_2D = ("equally-sized", "equally-wide", "variable-sized")
+
+# Plan-IR version of the JAX package; v1 payloads carry no "topo" key.
+IR_VERSION = 2
+_IR_READABLE = (1, 2)
+_IMPL_TO_WIRE = {"torch": "xla", "cuda": "pallas"}
+_IMPL_FROM_WIRE = {v: k for k, v in _IMPL_TO_WIRE.items()}
+
+_PARTITIONED = ("partitioned (mesh) plans are not ported yet: see ROADMAP.md, "
+                "'Partitioned schemes'")
+
+
+# ---------------------------------------------------------------------------
+# scheme resolution + device fitting
+# ---------------------------------------------------------------------------
+
+
+def _plan_from_string(spec: str, n_devices: int, fmt: Optional[str],
+                      merge: Optional[str]) -> Plan:
+    """Parse "1d" / "1d.nnz" / "2d" / "2d.equally-sized" into a Plan."""
+    head, _, tail = spec.partition(".")
+    fmt = fmt or "coo"
+    if head == "1d":
+        balance = tail or "nnz"
+        if balance not in BALANCE_1D:
+            raise ValueError(f"unknown 1D balance {balance!r}; one of {BALANCE_1D}")
+        return Plan("1d", balance, fmt, merge or "ppermute", (n_devices, 1),
+                    f"user scheme {spec!r}")
+    if head == "2d":
+        scheme = tail or "equally-sized"
+        if scheme not in SCHEMES_2D:
+            raise ValueError(f"unknown 2D scheme {scheme!r}; one of {SCHEMES_2D}")
+        default = "psum_scatter" if scheme == "equally-sized" else "global"
+        return Plan("2d", scheme, fmt, merge or default, (), f"user scheme {spec!r}")
+    raise ValueError(
+        f"unknown scheme {spec!r}: expected 'auto', '1d[.balance]', "
+        f"'2d[.scheme]' or an adaptive.Plan"
+    )
+
+
+def fit_plan(plan: Plan, shape: tuple, n_devices: int,
+             block: Tuple[int, int], *, topology=None,
+             dtype_bytes: int = 4) -> Plan:
+    """Adapt a paper plan to the device pool + divisibility rules.
+
+    The JAX package's rules: 2D equally-sized requires rows % R == 0 and
+    cols % C == 0 (and psum_scatter additionally (rows/R) % C == 0, else
+    psum); with no fitting factorization, fall back to the 1D element-
+    balanced plan.  An empty ``plan.grid`` prefers near-square grids.
+    """
+    if topology is not None:
+        raise NotImplementedError("topology-aware fitting is not ported yet: "
+                                  "see ROADMAP.md, 'repro.topo'")
+    n = n_devices
+    rows, cols = shape
+    fmt = plan.fmt
+    if fmt in ("bcoo", "bcsr") and not (
+        rows % block[0] == 0 and cols % block[1] == 0
+    ):
+        fmt = "coo"  # block tiling must cover the matrix exactly
+    if plan.partitioning == "1d":
+        balance = plan.scheme if plan.scheme in BALANCE_1D else "nnz"
+        if fmt in ("csr", "bcsr") and balance == "nnz":
+            balance = "nnz-rgrn"
+        return Plan("1d", balance, fmt, "ppermute", (n, 1), plan.reason)
+    scheme = plan.scheme if plan.scheme in SCHEMES_2D else "equally-sized"
+    want_c = plan.grid[1] if len(plan.grid) == 2 else None
+    cands = sorted((r, n // r) for r in range(1, n + 1) if n % r == 0)
+    if scheme == "equally-sized":
+        fits = [(r, c) for r, c in cands if rows % r == 0 and cols % c == 0]
+    elif scheme == "equally-wide":
+        fits = [(r, c) for r, c in cands if cols % c == 0]
+    else:  # variable-sized: no alignment constraints
+        fits = cands
+    if not fits:
+        return Plan(
+            "1d", "nnz", "coo" if fmt in ("csr", "coo") else "bcoo",
+            "ppermute", (n, 1),
+            plan.reason + " [2d grid unfit for shape; 1d fallback]",
+        )
+
+    def _norm_merge(r: int, c: int) -> str:
+        if scheme == "equally-sized":
+            valid = ("psum", "psum_scatter", "global")
+            m = plan.merge if plan.merge in valid else "psum"
+            if m == "psum_scatter" and (rows // r) % c != 0:
+                m = "psum"
+            return m
+        return "global"  # unaligned rows can only merge via the paper path
+
+    if want_c is not None:
+        R, C = min(fits, key=lambda rc: abs(rc[1] - want_c))
+    else:
+        R, C = min(fits, key=lambda rc: abs(rc[0] - rc[1]))
+    return Plan("2d", scheme, fmt, _norm_merge(R, C), (R, C), plan.reason)
+
+
+def resolve_scheme(
+    stats: MatrixStats,
+    shape: tuple,
+    n_devices: int,
+    scheme="auto",
+    *,
+    hw: Optional[HardwareModel] = None,
+    partitioning: Optional[str] = None,
+    fmt: Optional[str] = None,
+    merge: Optional[str] = None,
+    grid: Optional[tuple] = None,
+    block: Tuple[int, int] = (8, 16),
+    fit: bool = True,
+    topology=None,
+    dtype_bytes: int = 4,
+) -> Plan:
+    """Turn "auto" / a scheme string / an adaptive.Plan into a fitted Plan."""
+    hw = hw if hw is not None else HardwareModel(chips=max(1, n_devices))
+    if isinstance(scheme, Plan):
+        plan = scheme
+    elif scheme == "auto":
+        plan = select_scheme(stats, hw)
+        if partitioning is not None and plan.partitioning != partitioning:
+            if partitioning == "1d":
+                plan = Plan("1d", "nnz", plan.fmt, "ppermute",
+                            (n_devices, 1), "forced 1d")
+            else:
+                plan = Plan("2d", "equally-sized", plan.fmt, "psum_scatter",
+                            plan.grid, "forced 2d")
+    elif isinstance(scheme, str):
+        plan = _plan_from_string(scheme, n_devices, fmt, merge)
+    else:
+        raise TypeError(f"scheme must be 'auto', a string or a Plan; got {scheme!r}")
+    if fmt is not None:
+        plan = replace(plan, fmt=fmt)
+    if merge is not None:
+        plan = replace(plan, merge=merge)
+    if plan.fmt not in FORMATS:
+        raise ValueError(f"unknown format {plan.fmt!r}; one of {FORMATS}")
+    if grid is not None:
+        plan = replace(plan, grid=tuple(grid))
+    if fit:
+        plan = fit_plan(plan, shape, n_devices, block, topology=topology,
+                        dtype_bytes=dtype_bytes)
+    return plan
+
+
+def check_device(device) -> torch.device:
+    """A torch.device; raises when a CUDA device is asked for and absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' but no CUDA device is available; "
+                           "pass device='cpu' to run on the CPU")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+# ---------------------------------------------------------------------------
+# ExecutionPlan
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ExecutionPlan:
+    """Everything needed to compile one SpMV program, inspectable up front."""
+
+    matrix: object  # repro_torch.api.matrix.SparseMatrix
+    scheme: Plan  # fitted adaptive plan: partitioning/balance/fmt/merge/grid
+    impl: str  # "torch" | "cuda"
+    device: torch.device
+    dtype: torch.dtype
+    block: Tuple[int, int] = (8, 16)
+    hw: Optional[HardwareModel] = None
+    estimate: dict = field(default_factory=dict)  # analytic Fig.-4 step times
+    measured: dict = field(default_factory=dict)  # tuned metadata (plan IR)
+
+    # -- inspection --------------------------------------------------------
+
+    @property
+    def partitioning(self) -> str:
+        return self.scheme.partitioning
+
+    @property
+    def fmt(self) -> str:
+        return self.scheme.fmt
+
+    @property
+    def grid(self) -> tuple:
+        return tuple(self.scheme.grid)
+
+    @property
+    def merge(self) -> str:
+        return self.scheme.merge
+
+    @property
+    def is_distributed(self) -> bool:
+        return False
+
+    @property
+    def scheme_id(self) -> str:
+        """Stable scheme identity (``partitioning.scheme.fmt.merge``)."""
+        return self.scheme.tag
+
+    def describe(self) -> str:
+        """Human-readable one-plan summary (scheme, impl, device, reason,
+        analytic Fig.-4 estimate)."""
+        s = self.scheme
+        lines = [
+            f"ExecutionPlan[{s.partitioning}.{s.scheme} fmt={s.fmt} "
+            f"merge={s.merge} grid={tuple(s.grid)} impl={self.impl} "
+            f"dtype={dtype_name(self.dtype)} single-device({self.device})]",
+            f"  reason: {s.reason}",
+        ]
+        if self.estimate:
+            est = ", ".join(f"{k}={v:.2e}" for k, v in self.estimate.items())
+            lines.append(f"  model estimate: {est}")
+        if self.measured:
+            m = self.measured
+            line = f"  measured: {m['mean_s']:.2e}s/call"
+            if m.get("candidates"):
+                line += f" over {m['candidates']} candidates"
+            if m.get("from_cache"):
+                line += " (TuningCache hit)"
+            base = m.get("baseline_mean_s")
+            if base is not None:
+                line += (f"; analytic pick {m.get('baseline_scheme_id')} "
+                         f"measured {base:.2e}s ({m.get('speedup', 1.0):.2f}x)")
+            lines.append(line)
+        return "\n".join(lines)
+
+    # -- serialization (plan IR) -------------------------------------------
+
+    def to_ir(self) -> dict:
+        """Serialize everything needed to rebuild this plan elsewhere — in
+        the JAX package's IR v2 layout, impl names on the wire as "xla" /
+        "pallas"."""
+        return {
+            "ir_version": IR_VERSION,
+            "scheme": {
+                "partitioning": self.scheme.partitioning,
+                "scheme": self.scheme.scheme,
+                "fmt": self.scheme.fmt,
+                "merge": self.scheme.merge,
+                "grid": [int(g) for g in self.scheme.grid],
+                "reason": self.scheme.reason,
+            },
+            "impl": _IMPL_TO_WIRE[self.impl],
+            "dtype": dtype_name(self.dtype),
+            "block": [int(b) for b in self.block],
+            "interpret": self.device.type != "cuda",
+            "ring": False,
+            "ring_counts": None,
+            "mesh": None,
+            "estimate": {k: float(v) for k, v in self.estimate.items()},
+            "measured": _jsonable(self.measured),
+            "topo": None,
+        }
+
+    # -- compilation -------------------------------------------------------
+
+    def compile(self) -> Executor:
+        """Build the container and return the single-device Executor (for
+        impl="cuda" the kernel program is built and placed here, once)."""
+        container = self.matrix.container(self.fmt, block=self.block,
+                                          dtype=self.dtype)
+        return SingleDeviceExecutor(self, container, self.impl, self.device)
+
+
+def _jsonable(obj):
+    """Deep-copy ``obj`` into plain JSON types; rejects anything else."""
+    if obj is None or isinstance(obj, (str, bool, int)):
+        return obj
+    if isinstance(obj, float):
+        return float(obj)
+    if isinstance(obj, np.generic):
+        return obj.item()
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, dict):
+        return {str(k): _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    raise TypeError(f"not IR-serializable: {type(obj).__name__}: {obj!r}")
+
+
+def plan_from_ir(ir: dict, matrix, *, device="cuda",
+                 hw: Optional[HardwareModel] = None) -> ExecutionPlan:
+    """Rehydrate a ``to_ir()`` record (of either package) for ``device``.
+
+    The fitted decision is taken verbatim (no re-fitting); ``interpret`` on
+    the wire is ignored — ``device`` says where the plan runs.
+
+    Raises:
+      ValueError: unknown ``ir_version``, malformed record, unknown fmt or
+        impl.
+      NotImplementedError: the record is a partitioned (mesh) or ring plan.
+      RuntimeError: ``device="cuda"`` without a CUDA device.
+    """
+    version = ir.get("ir_version")
+    if version not in _IR_READABLE:
+        raise ValueError(
+            f"unknown plan-IR version {version!r} (this reader speaks "
+            f"{_IR_READABLE}); re-export the plan with a matching writer"
+        )
+    try:
+        s = ir["scheme"]
+        plan = Plan(
+            partitioning=s["partitioning"],
+            scheme=s["scheme"],
+            fmt=s["fmt"],
+            merge=s["merge"],
+            grid=tuple(int(g) for g in s["grid"]),
+            reason=s.get("reason", "rehydrated from plan IR"),
+        )
+        wire_impl = ir["impl"]
+        dtype = torch_dtype(ir["dtype"])
+        block = tuple(int(b) for b in ir.get("block", (8, 16)))
+    except (KeyError, TypeError) as e:
+        raise ValueError(f"malformed plan IR: {type(e).__name__}: {e}") from e
+    if plan.fmt not in FORMATS:
+        raise ValueError(f"plan IR carries unknown format {plan.fmt!r}")
+    if wire_impl not in _IMPL_FROM_WIRE:
+        raise ValueError(f"plan IR carries unknown impl {wire_impl!r}")
+    if ir.get("mesh") is not None or ir.get("ring"):
+        raise NotImplementedError(_PARTITIONED)
+    return ExecutionPlan(
+        matrix=matrix,
+        scheme=plan,
+        impl=_IMPL_FROM_WIRE[wire_impl],
+        device=check_device(device),
+        dtype=dtype,
+        block=block,
+        hw=hw,
+        estimate=dict(ir.get("estimate") or {}),
+        measured=dict(ir.get("measured") or {}),
+    )

@@ -1,0 +1,37 @@
+"""Launch counters for the CUDA kernel wrappers.
+
+Counterpart of ``repro/kernels/instrument.py``.  There the Pallas wrappers
+count kernel *builds* (one per trace); here each wrapper adds one to its
+count where it launches its CUDA kernel, and nowhere else — a CPU tensor
+that runs the plain version counts nothing.  So a run can show that a path
+really went through the kernels.  Keys are the kernel kind ("coo",
+"bcoo"); launches with more than one right-hand side are also counted under
+``f"{kind}.spmm"``.
+"""
+from __future__ import annotations
+
+from collections import Counter
+
+__all__ = ["LAUNCHES", "record_launch", "launches", "reset"]
+
+# kind -> number of CUDA kernel launches
+LAUNCHES: Counter = Counter()
+
+
+def record_launch(kind: str, batch: int = 1) -> None:
+    """Record one launch of ``kind`` for ``batch`` right-hand sides."""
+    LAUNCHES[kind] += 1
+    if batch > 1:
+        LAUNCHES[f"{kind}.spmm"] += 1
+
+
+def launches(kind: str | None = None) -> int:
+    """Launches recorded (of one ``kind``, or the sum over every key)."""
+    if kind is not None:
+        return LAUNCHES[kind]
+    return sum(LAUNCHES.values())
+
+
+def reset() -> None:
+    """Zero all counters."""
+    LAUNCHES.clear()

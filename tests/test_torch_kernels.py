@@ -1,0 +1,265 @@
+"""repro_torch.kernels against repro.kernels on the CPU.
+
+Chunk plans must equal the JAX package's array for array; the kernels'
+plain versions must equal the Pallas kernels run in interpret mode on the
+same plan (exactly on integer-valued inputs and integer dtypes, at
+rtol=atol=2e-4 on random float32 — tests/test_kernels.py's tolerance — and
+in the same output dtype); the torch oracles must equal repro.kernels.ref.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.bcsr_spmv import bcoo_spmv_pallas
+from repro.kernels.coo_spmv import coo_spmv_pallas
+from repro.kernels.coo_spmv import plan_chunks as j_plan_chunks
+from repro.kernels.csr_spmv import csr_plan_chunks as j_csr_plan_chunks
+from repro.core import formats as JF
+from repro_torch import convert
+from repro_torch.core import formats as TF
+from repro_torch.kernels import instrument, ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.bcsr_spmv import bcoo_spmv, bcoo_spmv_plain, block_row_ptr
+from repro_torch.kernels.coo_spmv import coo_spmv, coo_spmv_plain, plan_chunks
+from repro_torch.kernels.csr_spmv import csr_plan_chunks, csr_spmv
+
+from _torch_common import BF16, as_f32, assert_same_fields, jax_fields, rand_sparse
+
+SHAPES = [(16, 32), (64, 96), (130, 70), (256, 512)]  # tests/test_kernels.py
+
+
+def _x(n, batch, dtype, seed, integer=True):
+    rng = np.random.default_rng(seed)
+    shape = (n,) if batch is None else (n, batch)
+    vals = rng.integers(-2, 3, shape) if integer else rng.standard_normal(shape)
+    return vals.astype(dtype)
+
+
+def _compare(got: torch.Tensor, want, exact: bool):
+    want = np.asarray(want)
+    assert str(got.dtype).removeprefix("torch.") == want.dtype.name
+    assert tuple(got.shape) == want.shape
+    if exact:
+        np.testing.assert_array_equal(as_f32(got) if got.is_floating_point()
+                                      else got.numpy(), want.astype(
+                                          np.float32 if got.is_floating_point()
+                                          else want.dtype))
+    else:
+        np.testing.assert_allclose(as_f32(got), want.astype(np.float32),
+                                   rtol=2e-4, atol=2e-4)
+
+
+# --------------------------------------------------------------- planners
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("row_granular", [False, True])
+def test_plan_chunks_match_jax(shape, row_granular):
+    m, n = shape
+    a = rand_sparse(m, n, 0.08, np.float32, seed=m + n)
+    a[m // 2] = 1.0  # a row longer than one chunk
+    ri, ci = np.nonzero(a)
+    want = j_plan_chunks(ri, ci, a[ri, ci], m, chunk=64, span=64,
+                         row_granular=row_granular)
+    got = plan_chunks(ri, ci, a[ri, ci], m, chunk=64, span=64,
+                      row_granular=row_granular)
+    assert_same_fields(got, want)
+    assert got.window_start.tolist() == np.searchsorted(
+        np.asarray(want.window), np.arange(want.n_windows + 1)).tolist()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_csr_plan_chunks_match_jax(shape):
+    m, n = shape
+    a = rand_sparse(m, n, 0.08, np.int32, seed=2 * m + n)
+    jc = JF.dense_to_csr(a)
+    want = j_csr_plan_chunks(np.asarray(jc.rowptr), np.asarray(jc.colind),
+                             np.asarray(jc.values), m, chunk=64, span=64)
+    tc = TF.dense_to_csr(a)
+    got = csr_plan_chunks(tc.rowptr, tc.colind, tc.values, m, chunk=64, span=64)
+    assert_same_fields(got, want)
+
+
+def test_dense_row_pathology_plan_matches_jax():
+    """Paper Obs. 4: one very dense row splits into many chunks."""
+    a = np.zeros((64, 128), np.float32)
+    a[7] = np.arange(1, 129)
+    a[20, 3] = 1.0
+    ri, ci = np.nonzero(a)
+    want = j_plan_chunks(ri, ci, a[ri, ci], 64, chunk=32, span=64)
+    got = plan_chunks(ri, ci, a[ri, ci], 64, chunk=32, span=64)
+    assert got.n_chunks >= 4
+    assert_same_fields(got, want)
+
+
+# ------------------------------------------------- plain versions vs Pallas
+
+
+COO_CASES = [  # (shape, dtype, integer-valued, batch)
+    ((16, 32), np.int32, True, None),
+    ((64, 96), np.int32, True, None),
+    ((130, 70), np.int32, True, None),
+    ((256, 512), np.int32, True, None),
+    ((130, 70), np.float32, True, None),
+    ((130, 70), np.float32, False, None),
+    ((256, 512), np.float32, False, None),
+    ((130, 70), np.int8, True, None),
+    ((130, 70), BF16, True, None),
+    ((130, 70), np.float32, True, 3),
+    ((64, 96), BF16, True, 8),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,integer,batch", COO_CASES)
+def test_coo_plain_matches_pallas(shape, dtype, integer, batch):
+    m, n = shape
+    a = rand_sparse(m, n, 0.08, np.float32, seed=m + n, integer=integer)
+    a[m // 3] = rand_sparse(1, n, 1.0, np.float32, seed=9, integer=True)[0]
+    a = a.astype(dtype)
+    x = _x(n, batch, dtype, seed=n, integer=integer)
+    ri, ci = np.nonzero(a)
+    jplan = j_plan_chunks(ri, ci, a[ri, ci], m, chunk=64, span=64)
+    want = coo_spmv_pallas(jplan, jnp.asarray(x))
+    plan = convert.chunk_plan(jax_fields(jplan))
+    got = coo_spmv_plain(plan, TF.to_tensor(x))
+    exact = integer or np.issubdtype(np.dtype(dtype), np.integer)
+    _compare(got, want, exact)
+    # the dispatcher takes the plain version for a CPU tensor; csr_spmv too
+    assert torch.equal(coo_spmv(plan, TF.to_tensor(x)), got)
+    assert torch.equal(csr_spmv(plan, TF.to_tensor(x)), got)
+
+
+BCOO_CASES = [  # (block, dtype, integer-valued, batch)
+    ((8, 16), np.float32, True, None),
+    ((8, 16), np.float32, False, None),
+    ((8, 16), np.float32, False, 3),
+    ((8, 16), BF16, True, None),
+    ((8, 16), np.int8, True, 4),
+    ((8, 16), np.int32, True, None),
+    ((4, 8), np.int8, True, None),
+    ((8, 128), np.float32, True, 3),
+]
+
+
+@pytest.mark.parametrize("block,dtype,integer,batch", BCOO_CASES)
+def test_bcoo_plain_matches_pallas(block, dtype, integer, batch):
+    r, c = block
+    m, n = r * 10, c * 6 - 3  # x is zero-padded up to a multiple of c
+    a = rand_sparse(m, c * 6, 0.15, np.float32, seed=r * c, integer=integer)
+    a[:, n:] = 0
+    a[r:2 * r] = 0  # an empty block-row is written as zeros
+    a = a.astype(dtype)
+    x = _x(n, batch, dtype, seed=5, integer=integer)
+    jm = JF.dense_to_bcoo(a, block=block, capacity=80)
+    want = bcoo_spmv_pallas(jm.browind, jm.bcolind, jm.bvalues, jnp.asarray(x),
+                            m, jm.nblocks)
+    tm = TF.dense_to_bcoo(a, block=block, capacity=80)
+    got = bcoo_spmv_plain(tm.browind, tm.bcolind, tm.bvalues, TF.to_tensor(x),
+                          m, tm.nblocks)
+    exact = integer or np.issubdtype(np.dtype(dtype), np.integer)
+    _compare(got, want, exact)
+    assert torch.equal(bcoo_spmv(tm.browind, tm.bcolind, tm.bvalues,
+                                 TF.to_tensor(x), m, tm.nblocks), got)
+
+
+def test_block_row_ptr_matches_bcsr():
+    a = rand_sparse(80, 96, 0.1, np.float32, seed=12)
+    a[8:24] = 0
+    bcoo = TF.dense_to_bcoo(a, block=(8, 16), capacity=60)
+    bcsr = TF.dense_to_bcsr(a, block=(8, 16), capacity=60)
+    assert torch.equal(block_row_ptr(bcoo.browind, bcoo.nblocks, 10), bcsr.browptr)
+
+
+def test_wrappers_raise_on_non_cpu_non_cuda_tensors():
+    """A wrapper runs the plain version only for a CPU tensor; any other
+    device goes to the kernel, which refuses what is not on a CUDA device."""
+    a = rand_sparse(32, 48, 0.2, np.float32, seed=13)
+    ri, ci = np.nonzero(a)
+    plan = plan_chunks(ri, ci, a[ri, ci], 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        coo_spmv(plan, torch.zeros(48, device="meta"))
+    m = TF.dense_to_bcoo(a, block=(8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        bcoo_spmv(m.browind, m.bcolind, m.bvalues, torch.zeros(48, device="meta"),
+                  32, m.nblocks, browptr=block_row_ptr(m.browind, m.nblocks, 4))
+
+
+# ------------------------------------------------------ oracles vs ref.py
+
+
+JREF = {
+    "csr": lambda m, x: jref.csr_spmv_ref(m.rowptr, m.colind, m.values, x, m.rows),
+    "coo": lambda m, x: jref.coo_spmv_ref(m.rowind, m.colind, m.values, x,
+                                          m.rows, m.nnz),
+    "bcsr": lambda m, x: jref.bcsr_spmv_ref(m.browptr, m.bcolind, m.bvalues, x,
+                                            m.rows),
+    "bcoo": lambda m, x: jref.bcoo_spmv_ref(m.browind, m.bcolind, m.bvalues, x,
+                                            m.rows, m.nblocks),
+}
+MAKERS = {
+    "csr": (JF.dense_to_csr, TF.dense_to_csr),
+    "coo": (JF.dense_to_coo, TF.dense_to_coo),
+    "bcsr": (lambda a: JF.dense_to_bcsr(a, (8, 16), 100),
+             lambda a: TF.dense_to_bcsr(a, (8, 16), 100)),
+    "bcoo": (lambda a: JF.dense_to_bcoo(a, (8, 16), 100),
+             lambda a: TF.dense_to_bcoo(a, (8, 16), 100)),
+}
+
+
+@pytest.mark.parametrize("fmt", list(MAKERS))
+@pytest.mark.parametrize("dtype", [np.float32, BF16, np.int8, np.int32],
+                         ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("batch", [None, 3])
+def test_torch_oracles_match_jax_ref(fmt, dtype, batch):
+    a = rand_sparse(64, 96, 0.1, np.float32, seed=21, integer=True).astype(dtype)
+    x = _x(96, batch, dtype, seed=22)
+    jm, tm = (make(a) for make in MAKERS[fmt])
+    want = JREF[fmt](jm, jnp.asarray(x))
+    got = ops.spmv(tm, TF.to_tensor(x), impl="torch")
+    _compare(got, want, exact=True)  # integer-valued: every order is exact
+    assert got.dtype == tm.dtype  # cast back to the values dtype
+
+
+def test_torch_oracles_random_f32_within_tolerance():
+    a = rand_sparse(64, 96, 0.1, np.float32, seed=23)
+    X = _x(96, 5, np.float32, seed=24, integer=False)
+    for fmt, (jmake, tmake) in MAKERS.items():
+        want = JREF[fmt](jmake(a), jnp.asarray(X))
+        _compare(ops.spmm(tmake(a), TF.to_tensor(X), impl="torch"), want, False)
+    np.testing.assert_allclose(as_f32(tref.coo_spmv_ref(
+        *[torch.from_numpy(t) for t in (np.nonzero(a)[0], np.nonzero(a)[1],
+                                        a[np.nonzero(a)])],
+        TF.to_tensor(X), 64)), a @ X, rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------------------------------------ ops
+
+
+@pytest.mark.parametrize("fmt", list(MAKERS))
+def test_ops_cuda_impl_on_cpu_runs_the_plain_versions(fmt):
+    a = rand_sparse(64, 96, 0.1, np.float32, seed=31, integer=True)
+    m = MAKERS[fmt][1](a)
+    X = TF.to_tensor(_x(96, 4, np.float32, seed=32))
+    instrument.reset()
+    y = ops.spmm(m, X, impl="cuda")
+    assert torch.equal(y, ops.spmm(m, X, impl="torch"))
+    assert torch.equal(ops.kernel_program(m)(X[:, 1]), y[:, 1])
+    assert instrument.launches() == 0  # no kernel ran
+    with pytest.raises(ValueError, match="cols, B"):
+        ops.spmm(m, X[:, 0])
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.spmv(m, X, impl="pallas")
+
+
+def test_instrument_counts_like_the_jax_counter():
+    instrument.reset()
+    instrument.record_launch("coo", 1)
+    instrument.record_launch("coo", 8)
+    instrument.record_launch("bcoo", 3)
+    assert instrument.launches("coo") == 2 and instrument.launches("coo.spmm") == 1
+    assert instrument.launches("bcoo.spmm") == 1
+    assert instrument.launches() == 5  # every key, as repro's builds()
+    instrument.reset()
+    assert instrument.launches() == 0
