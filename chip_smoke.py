@@ -28,9 +28,27 @@ Phases (every check raises, so any failure exits non-zero):
    its plain version, cuSPARSE, and the bound — the bytes the product must
    move (each input once, each output once) over 3.35 TB/s, or its
    operations over 67 TFLOP/s (f32, no tensor cores), whichever is larger.
+5. The ELL kernel against its plain version at 65,536^2, as phase 2.
+6. The ELL path at full width, through the ``kernels`` entry point
+   ``ell_spmv``: the regular matrix with K=16 and the block matrix read as
+   scalar ELL with K=48 (the scale-free matrix is left out: its densest row
+   would pad every row to K = 2,097,152).  Answers equal the plain version
+   and cuSPARSE bit for bit; kernel, plain and cuSPARSE times and the bound.
+7. The partitioned path at full width: each matrix through
+   ``SparseMatrix.plan(scheme="auto", devices=["cuda"] * 16).compile()``,
+   and on the regular matrix the forced schemes 1d.nnz, 2d.equally-wide and
+   2d.variable-sized, 16 ``exe(x)`` and 4 ``exe.batch(X)`` each.  Answers
+   equal the single-device kernel and cuSPARSE bit for bit, and the
+   launch counters rise by one part-axis launch per request.  Then each
+   plan's part-axis launch is held against its per-part plain versions and
+   timed next to the single-device kernel.  The 1D ring (torch local kernel
+   only) runs at 65,536^2.
 
-Prints JSON lines; the line before the last is ``{"kernels": [...]}`` and the
-last ``{"ok": true, "device": {...}}``.
+Each path's launch counters are set to 0 just before it runs and read just
+after; the partitioned path does so around each plan's requests and sums
+the counts, so that the single-device answers it compares with are
+launched outside the count.  Prints JSON lines; the line before the last
+is ``{"kernels": [...]}`` and the last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -56,8 +74,13 @@ KERNELS = {  # kernel -> (source, TPU kernel it replaces)
                  "src/repro/kernels/coo_spmv.py:165"),
     "bcoo_spmv": ("src/repro_torch/kernels/csrc/bcoo_spmv.cu",
                   "src/repro/kernels/bcsr_spmv.py:76"),
+    "ell_spmv": ("src/repro_torch/kernels/csrc/ell_spmv.cu",
+                 "src/repro/kernels/ell_spmv.py:66"),
 }
-KIND = {"coo_spmv": "coo", "bcoo_spmv": "bcoo"}
+# the same CUDA kernel also replaces these TPU kernels
+ALSO_REPLACES = {"coo_spmv": ["src/repro/kernels/csr_spmv.py:52"]}
+KIND = {"coo_spmv": "coo", "bcoo_spmv": "bcoo", "ell_spmv": "ell"}
+PARTS = 16  # parts of the partitioned path, all on the one card
 
 
 def check(cond, msg: str) -> None:
@@ -316,7 +339,7 @@ def phase_main_path(torch, rng, device, sizes, errs, records) -> None:
                                   for b, v in lat.items()},
                   "answers": "bit-equal to plain and cuSPARSE"})
             records.append(dict(matrix=name, fmt=pln.fmt, kernel=kernel, exe=exe,
-                                prog=prog, A=A, st=st, shape=shape,
+                                prog=prog, A=A, st=st, shape=shape, sm=sm,
                                 host_ms=1e3 * statistics.median(lat[1])))
         del sm
     got = {k: instrument.launches(k) for k in requests}
@@ -358,6 +381,259 @@ def phase_times(torch, rng, device, records) -> dict:
             emit({"phase": "times", **row})
             rows[(rec["matrix"], rec["fmt"], batch)] = row
     return rows
+
+
+def ell_bound(rows: int, K: int, cols: int, batch: int, vbytes: int = 4,
+              abytes: int = 4):
+    """(bound ms, bound_by, bytes): the ELL arrays, row_nnz, x and y moved
+    once; 2 operations per real slot and column."""
+    nbytes = rows * K * (4 + vbytes) + rows * 4 + cols * batch * vbytes \
+        + rows * batch * abytes
+    ops_ = 2 * rows * K * batch
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops_ / F32_OPS_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations"), nbytes
+
+
+def phase_ell_kernel(torch, rng, device, n: int, errs: dict) -> None:
+    """The ELL kernel vs its plain version at 65,536^2 x ~1M slots."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels.ell_spmv import _pack_ell, ell_spmv, ell_spmv_plain
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "i8": torch.int8,
+              "i32": torch.int32}
+    cases = [(name, dt, True) for name, dt in dtypes.items()]
+    cases.append(("f32-random", torch.float32, False))
+    for name, dtype, integer in cases:
+        ri, ci, vals, shape = random_triplets(rng, n, 16, integer)
+        ri, ci, v = F.coalesce(ri, ci, F.to_tensor(vals, dtype), shape)
+        arrs = [t.to(device) for t in _pack_ell(ri, ci, v, n)]
+        case_err = 0.0
+        for batch in (None, 8, 40):
+            xshape = (n,) if batch is None else (n, batch)
+            xv = (rng.integers(-2, 3, xshape) if integer
+                  else rng.standard_normal(xshape))
+            x = torch.from_numpy(xv).to(device, dtype)
+            got, want = ell_spmv(*arrs, x), ell_spmv_plain(*arrs, x)
+            torch.cuda.synchronize()
+            check(got.dtype == want.dtype and got.shape == want.shape,
+                  f"ell_spmv {name} B={batch}: {got.dtype}{tuple(got.shape)} "
+                  f"vs plain {want.dtype}{tuple(want.shape)}")
+            err = max_err(torch, got, want)
+            case_err = max(case_err, err)
+            if integer:
+                check(torch.equal(got, want),
+                      f"ell_spmv {name} B={batch}: max |kernel - plain| = {err}")
+            else:
+                check(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
+                      f"ell_spmv {name} B={batch}: max |kernel - plain| = {err}")
+            if batch is not None:
+                check(torch.equal(ell_spmv(*arrs, x, 8), got),
+                      f"ell_spmv {name} B={batch}: batch tiles 8 and 32 differ")
+        emit({"phase": "kernel_vs_plain", "kernel": "ell_spmv", "values": name,
+              "shape": [n, n], "K": int(arrs[0].shape[1]),
+              "slots": int(arrs[2].sum()), "max_abs_err": case_err, "ok": True})
+        errs["ell_spmv"] = max(errs["ell_spmv"], case_err)
+    torch.cuda.empty_cache()
+
+
+def phase_ell_path(torch, rng, device, records, errs) -> tuple:
+    """The ELL path at full width through ``kernels.ell_spmv``."""
+    from repro_torch.kernels import ell_spmv, instrument
+    from repro_torch.kernels.ell_spmv import _pack_ell, ell_spmv_plain
+
+    by_matrix = {r["matrix"]: r for r in records}
+    emit({"phase": "ell_path", "matrix": "scale-free", "skipped": True,
+          "why": "its densest row has 2,097,152 nonzeros, so ELL would pad "
+                 "every row to K = 2,097,152"})
+    cells = []
+    for name, K in (("regular", 16), ("block", 48)):
+        rec = by_matrix[name]
+        rows, cols = rec["shape"]
+        t0 = time.perf_counter()
+        ri, ci, vals = rec["sm"].coalesced()
+        arrs = [t.to(device) for t in _pack_ell(ri, ci, vals, rows, K)]
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        slots = rows * K
+        check(int(arrs[2].sum()) == slots == rec["st"].nnz,
+              f"ELL {name}: K={K} pads or drops slots")
+        cells.append((name, K, rec, arrs, pack_s))
+    instrument.reset()
+    requests = 0
+    for name, K, rec, arrs, pack_s in cells:
+        rows, cols = rec["shape"]
+        for i in range(10):
+            batch = None if i < 8 else 8
+            xshape = (cols,) if batch is None else (cols, batch)
+            x = torch.from_numpy(rng.integers(-2, 3, xshape).astype(np.float32)
+                                 ).to(device)
+            y = ell_spmv(*arrs, x)
+            requests += 1
+            plain, lib = ell_spmv_plain(*arrs, x), rec["A"] @ x
+            errs["ell_spmv"] = max(errs["ell_spmv"], max_err(torch, y, plain))
+            check(torch.equal(y, plain), f"ELL {name} request {i}: != plain")
+            check(torch.equal(y, lib), f"ELL {name} request {i}: != cuSPARSE")
+    launches = instrument.launches("ell")
+    check(launches == requests, f"ELL launches {launches} != requests {requests}")
+    rows_out = {}
+    for name, K, rec, arrs, pack_s in cells:
+        rows, cols = rec["shape"]
+        x = torch.from_numpy(rng.integers(-2, 3, cols).astype(np.float32)
+                             ).to(device)
+        bound, by, nbytes = ell_bound(rows, K, cols, 1)
+        row = {"matrix": name, "K": K, "slots": rows * K, "pack_s": pack_s,
+               "ms": time_ms(torch, lambda: ell_spmv(*arrs, x), 30),
+               "plain_ms": time_ms(torch, lambda: ell_spmv_plain(*arrs, x), 5,
+                                   warmup=1),
+               "library_ms": time_ms(torch, lambda: rec["A"] @ x, 30),
+               "bound_ms": bound, "bound_by": by, "bytes": nbytes}
+        row["roofline_share"] = bound / row["ms"]
+        emit({"phase": "ell_times", **row})
+        rows_out[name] = row
+    emit({"phase": "ell_launch_counts", "launches": launches,
+          "requests": requests, "answers": "bit-equal to plain and cuSPARSE"})
+    return launches, rows_out
+
+
+def part_bound(prog, st, batch: int = 1):
+    """(bound ms, bound_by): the parts' nonzeros (or blocks), x and the
+    per-part y slices moved once."""
+    part = prog.mat
+    P = part.n_parts
+    if part.fmt in ("coo", "csr"):
+        nbytes = st.nnz * (8 + 4)
+    else:
+        r, c = part.block
+        nbytes = int(part.nnz.sum()) * (r * c * 4 + 4)
+    nbytes += part.shape[1] * batch * 4 + P * part.h_pad * batch * 4
+    ops_ = 2 * st.nnz * batch
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops_ / F32_OPS_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def phase_partitioned(torch, rng, device, records, n_ring: int) -> tuple:
+    """The partitioned path: P = 16 parts on the card, one part-axis launch
+    per request."""
+    from repro_torch.api import SparseMatrix, plan_from_partitioned
+    from repro_torch.core import distributed as D
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.core.partition import partition_1d_coalesced
+    from repro_torch.kernels import instrument
+
+    by_matrix = {}
+    for r in records:
+        by_matrix.setdefault(r["matrix"], r)
+    plans = [("regular", dict(scheme="auto")), ("scale-free", dict(scheme="auto")),
+             ("block", dict(scheme="auto")), ("regular", dict(scheme="1d.nnz")),
+             ("regular", dict(scheme="2d.equally-wide")),
+             ("regular", dict(scheme="2d.variable-sized"))]
+    built = []
+    for name, kw in plans:
+        rec = by_matrix[name]
+        pln = rec["sm"].plan(devices=[device] * PARTS, **kw)
+        exe = pln.compile()
+        print(pln.describe(), flush=True)
+        built.append((name, pln, exe, rec))
+        emit({"phase": "partitioned_plan", "matrix": name, "scheme_id": pln.scheme_id,
+              "grid": list(pln.grid), "partition_s": exe.build_seconds,
+              "h_pad": exe.part.h_pad, "w_pad": exe.part.w_pad,
+              "padding_efficiency": exe.part.padding_efficiency})
+    requests = {"coo": 0, "coo.spmm": 0, "bcoo": 0, "bcoo.spmm": 0}
+    launches = dict.fromkeys(requests, 0)
+    lat = {}
+    for name, pln, exe, rec in built:
+        kind = "coo" if pln.fmt in ("coo", "csr") else "bcoo"
+        shape = rec["shape"]
+        xs = [rng.integers(-2, 3, (shape[1],) if i < 16 else
+                           (shape[1], (8, 64)[i % 2])).astype(np.float32)
+              for i in range(20)]
+        # the single-device kernel's answers, launched before this plan's
+        # counted requests
+        singles = [rec["prog"](torch.from_numpy(x).to(device)) for x in xs]
+        lat[(name, pln.scheme_id)] = []
+        instrument.reset()
+        for i, x in enumerate(xs):
+            t0 = time.perf_counter()
+            y = exe(x) if x.ndim == 1 else exe.batch(x)
+            if x.ndim == 1:
+                lat[(name, pln.scheme_id)].append(time.perf_counter() - t0)
+            requests[kind] += 1
+            requests[kind + ".spmm"] += x.ndim == 2
+            check(y.shape == (shape[0],) + x.shape[1:] and np.isfinite(y).all(),
+                  f"{name}/{pln.scheme_id}: bad answer shape {y.shape}")
+            check(np.array_equal(y, singles[i].cpu().numpy()),
+                  f"{name}/{pln.scheme_id} request {i}: != single-device kernel")
+            lib = rec["A"] @ torch.from_numpy(x).to(device)
+            check(np.array_equal(y, lib.cpu().numpy()),
+                  f"{name}/{pln.scheme_id} request {i}: != cuSPARSE")
+        for k in launches:
+            launches[k] += instrument.launches(k)
+        del singles
+    emit({"phase": "partitioned_launch_counts", "launches": launches,
+          "requests": requests})
+    check(launches == requests,
+          f"partitioned launch counters {launches} != requests {requests}")
+
+    rows_out = []
+    for name, pln, exe, rec in built:
+        prog, local = exe.program, exe.program.local
+        arrs = D._flat(exe.arrays) if pln.partitioning == "2d" else exe.arrays
+        err = 0.0
+        for batch in (None, 8):
+            xshape = (rec["shape"][1],) if batch is None else (rec["shape"][1],
+                                                               batch)
+            xb = prog.x_buffer(exe.place(rng.integers(-2, 3, xshape)
+                                         .astype(np.float32)))
+            got, want = local.raw(arrs, xb), local.plain(arrs, xb)
+            torch.cuda.synchronize()
+            err = max(err, max_err(torch, got, want))
+            check(torch.equal(got, want),
+                  f"{name}/{pln.scheme_id} B={batch}: part-axis launch != its "
+                  f"per-part plain versions (max err {err})")
+        xb = prog.x_buffer(exe.place(rng.integers(-2, 3, rec["shape"][1])
+                                     .astype(np.float32)))
+        xd = xb[: rec["shape"][1]].contiguous()
+        bound, by = part_bound(prog, rec["st"])
+        row = {"matrix": name, "scheme_id": pln.scheme_id, "grid": list(pln.grid),
+               "kernel": rec["kernel"], "partition_s": exe.build_seconds,
+               "exe_ms_p50": 1e3 * statistics.median(lat[(name, pln.scheme_id)]),
+               "single_exe_ms_p50": rec["host_ms"],
+               "part_ms": time_ms(torch, lambda: local.raw(arrs, xb), 30),
+               "single_ms": time_ms(torch, lambda: rec["prog"](xd), 30),
+               "part_plain_ms": time_ms(torch, lambda: local.plain(arrs, xb), 3,
+                                        warmup=1),
+               "library_ms": time_ms(torch, lambda: rec["A"] @ xd, 30),
+               "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+        emit({"phase": "partitioned_times", **row})
+        rows_out.append(row)
+
+    # the 1D ring: torch local kernel only (the reference runs it under xla)
+    ri, ci, vals, shape = regular_triplets(rng, n_ring)
+    sm = SparseMatrix.from_parts(ri, ci, vals, shape)
+    part = partition_1d_coalesced(*sm.triplets(), shape, PARTS, "coo", "nnz")
+    part_r, counts = D.bucket_by_source_shard(part, PARTS)
+    mesh = make_mesh((PARTS,), ("parts",), [device] * PARTS)
+    exe = plan_from_partitioned(part_r, mesh, impl="torch", ring=True,
+                                ring_counts=counts, matrix=sm).compile()
+    A = library_csr(torch, sm, device)
+    instrument.reset()
+    t_ring = []
+    for i in range(6):
+        batch = None if i < 4 else 8
+        xshape = (shape[1],) if batch is None else (shape[1], batch)
+        x = rng.integers(-2, 3, xshape).astype(np.float32)
+        t0 = time.perf_counter()
+        y = exe(x)
+        t_ring.append(time.perf_counter() - t0)
+        check(np.array_equal(y, (A @ torch.from_numpy(x).to(device)).cpu().numpy()),
+              f"ring request {i}: != cuSPARSE")
+    check(instrument.launches() == 0, "the ring launched a CUDA kernel")
+    emit({"phase": "ring", "shape": list(shape), "nnz": sm.nnz,
+          "scheme_id": exe.plan.scheme_id, "requests": 6,
+          "exe_ms_p50": 1e3 * statistics.median(t_ring),
+          "answers": "bit-equal to cuSPARSE"})
+    return launches, rows_out
 
 
 def main(argv=None) -> int:
@@ -403,14 +679,28 @@ def main(argv=None) -> int:
         torch, rng, device, (1 << 21, 1 << 21, 1 << 20), errs, records)
     check(launches == requests, f"launch counters {launches} != requests {requests}")
     times = phase_times(torch, rng, device, records)
+    phase_ell_kernel(torch, rng, device, 1 << 16, errs)
+    ell_launches, ell_times = phase_ell_path(torch, rng, device, records, errs)
+    part_launches, part_rows = phase_partitioned(torch, rng, device, records,
+                                                 1 << 16)
 
+    by_path = {
+        "coo_spmv": {"single_device": launches["coo"],
+                     "partitioned": part_launches["coo"]},
+        "bcoo_spmv": {"single_device": launches["bcoo"],
+                      "partitioned": part_launches["bcoo"]},
+        "ell_spmv": {"ell": ell_launches},
+    }
     main_shape = {"coo_spmv": ("regular", "coo", 1), "bcoo_spmv": ("block", "bcoo", 1)}
+    times["ell_spmv"] = ell_times["regular"]
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        t = times[main_shape[name]]
+        t = times[main_shape.get(name, name)]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[KIND[name]], "max_abs_err": errs[name],
+            "also_replaces": ALSO_REPLACES.get(name, []),
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })

@@ -1,4 +1,4 @@
-"""repro_torch.api — the single-device planner -> executor pipeline.
+"""repro_torch.api — the planner -> executor pipeline.
 
     from repro_torch.api import SparseMatrix
 
@@ -6,8 +6,17 @@
     pln = sm.plan(scheme="auto")            # impl="cuda", device="cuda"
     exe = pln.compile()                     # Executor
     y   = exe(x)                            # host rows; exe.batch(X) for SpMM
+
+    # the partitioned schemes: P parts on one card, one launch per request
+    exe = sm.plan(scheme="auto", devices=["cuda"] * 16).compile()
 """
-from .executor import Executor, SingleDeviceExecutor  # noqa: F401
+from .executor import (  # noqa: F401
+    AXES_2D,
+    AXIS_1D,
+    Executor,
+    MeshExecutor,
+    SingleDeviceExecutor,
+)
 from .matrix import SparseMatrix, fingerprint_matrix  # noqa: F401
 from .plan import (  # noqa: F401
     FORMATS,
@@ -16,6 +25,7 @@ from .plan import (  # noqa: F401
     ExecutionPlan,
     fit_plan,
     plan_from_ir,
+    plan_from_partitioned,
     resolve_scheme,
 )
 
@@ -24,11 +34,15 @@ __all__ = [
     "ExecutionPlan",
     "Executor",
     "SingleDeviceExecutor",
+    "MeshExecutor",
     "fit_plan",
     "resolve_scheme",
     "plan_from_ir",
+    "plan_from_partitioned",
     "IR_VERSION",
     "FORMATS",
     "IMPLS",
+    "AXIS_1D",
+    "AXES_2D",
     "fingerprint_matrix",
 ]

@@ -1,27 +1,37 @@
 """Executor — one call signature for every SpMV path.
 
-Counterpart of ``repro/api/executor.py`` (single-device part).  An
-:class:`Executor` is the compiled end of the ``SparseMatrix ->
-ExecutionPlan -> Executor`` pipeline: ``y = exe(x)`` for one vector and
-``Y = exe.batch(X)`` for multi-RHS SpMM.  Both return host NumPy rows.
+Counterpart of ``repro/api/executor.py``.  An :class:`Executor` is the
+compiled end of the ``SparseMatrix -> ExecutionPlan -> Executor`` pipeline:
+``y = exe(x)`` for one vector and ``Y = exe.batch(X)`` for multi-RHS SpMM,
+whether the plan runs
 
-x may be a NumPy array or a torch tensor.  Results whose dtype is bfloat16
-are returned widened to float32 (exactly): NumPy has no bfloat16 unless
-``ml_dtypes`` is installed.  Under ``impl="cuda"`` a bfloat16 matrix yields
-float32 anyway (the kernels' accumulation dtype).
+  * on one device through :mod:`repro_torch.kernels.ops`
+    (:class:`SingleDeviceExecutor`), or
+  * partitioned over the P parts of a mesh through
+    :mod:`repro_torch.core.distributed` (:class:`MeshExecutor`), which also
+    exposes the paper's three phases (``place`` / ``run_raw`` /
+    ``assemble``, Fig. 4 load / kernel / retrieve).
 
-The mesh executor of the partitioned schemes and ``iterate`` are not
-ported yet (ROADMAP.md).
+Both return host NumPy rows.  x may be a NumPy array or a torch tensor.
+Results whose dtype is bfloat16 are returned widened to float32 (exactly):
+NumPy has no bfloat16 unless ``ml_dtypes`` is installed.  Under
+``impl="cuda"`` a single-device bfloat16 matrix yields float32 anyway (the
+kernels' accumulation dtype).
+
+``iterate`` is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core import distributed as D
 from ..core import formats as F
+from ..core.mesh import AXES_2D, AXIS_1D
 from ..kernels import ops
 
-__all__ = ["Executor", "SingleDeviceExecutor", "to_host"]
+__all__ = ["Executor", "SingleDeviceExecutor", "MeshExecutor", "to_host",
+           "AXIS_1D", "AXES_2D"]
 
 
 def to_host(y: torch.Tensor) -> np.ndarray:
@@ -126,3 +136,135 @@ class SingleDeviceExecutor(Executor):
         self._released = True
         self.container = None
         self.program = None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class MeshExecutor(Executor):
+    """Partitioned executor: the matrix partitioned, placed and its program
+    built once.
+
+    Every part lies on the mesh's one device; the program
+    (:class:`~repro_torch.core.distributed.PartitionedProgram`) runs the
+    per-part tile kernel for all parts at once — for ``impl="cuda"`` one
+    part-axis launch per request — and the merge as tensor operations on
+    the part axis.
+    """
+
+    def __init__(self, plan, part, mesh, axes: tuple, program, x_spec,
+                 x_pad: int, merge: str):
+        self.plan = plan
+        self.part = part
+        self.mesh = mesh
+        self.device = mesh.device
+        self.axes = axes
+        self.program = program
+        self.x_spec = x_spec
+        self.x_pad = x_pad
+        self.merge = merge
+        self.arrays = None  # placed matrix arrays (set by place_matrix)
+        self.build_seconds = 0.0
+
+    @property
+    def trace_count(self) -> int:
+        """Programs built for this executor: 1, built in ``compile``.
+
+        The JAX package counts ``jit`` (re)traces here; torch runs eagerly
+        and traces nothing, so the port counts program builds instead.  A
+        request never builds one.
+        """
+        return 1
+
+    def place_matrix(self, placed_arrays) -> "MeshExecutor":
+        self.arrays = placed_arrays
+        return self
+
+    # -- the paper's three phases (Fig. 4), individually timeable ---------
+
+    def place(self, x) -> torch.Tensor:
+        """Load phase: validate, pad and place x on the mesh's device (blocks).
+
+        Args:
+          x: (cols,) vector or (cols, B) batch (host array or tensor).
+
+        Returns:
+          The placed x, zero-padded to the plan's x width.
+
+        Raises:
+          TypeError/ValueError: on dtype or length mismatches.
+        """
+        x = self._check_x(x, self.part.shape[1], self.part.dtype)
+        if self.x_pad != x.shape[0]:
+            pad = torch.zeros((self.x_pad - x.shape[0],) + tuple(x.shape[1:]),
+                              dtype=x.dtype)
+            x = torch.cat([x, pad])
+        xs = x.to(self.device).contiguous()
+        _sync(self.device)
+        return xs
+
+    def run_raw(self, xs: torch.Tensor) -> D.SpmvOutput:
+        """Kernel phase: the per-part kernels and the merge (blocks).
+
+        Args:
+          xs: the placed x from :meth:`place`.
+
+        Returns:
+          The per-part output slices (:class:`SpmvOutput`, on the device).
+
+        Raises:
+          RuntimeError: if the executor was released.
+        """
+        if self.arrays is None:
+            raise RuntimeError("executor released or never placed; recompile")
+        out = self.program(self.arrays, xs)
+        _sync(self.device)
+        return out
+
+    def assemble(self, raw: D.SpmvOutput) -> np.ndarray:
+        """Retrieve phase: assemble the global rows and fetch them.
+
+        Returns:
+          The global y as a host ndarray (rows[, B]).
+        """
+        return to_host(D.assemble_rows(raw))
+
+    # -- public surface ----------------------------------------------------
+
+    def __call__(self, x) -> np.ndarray:
+        """y = A @ x: place -> run_raw -> assemble (the three Fig.-4 phases).
+
+        Args:
+          x: (cols,) vector or (cols, B) batch.
+
+        Returns:
+          Host rows (rows[, B]).
+
+        Raises:
+          TypeError/ValueError: on dtype/shape mismatch.
+          RuntimeError: if the executor was released.
+        """
+        return self.assemble(self.run_raw(self.place(x)))
+
+    def batch(self, X) -> np.ndarray:
+        """Y = A @ X as ONE partitioned SpMM (the batch rides through the same
+        program; impl="cuda" runs one part-axis launch for all of it).
+
+        Raises:
+          ValueError: if X is not 2D (plus the __call__ errors).
+        """
+        if F.to_tensor(X).ndim != 2:
+            raise ValueError(f"batch expects X of shape (cols, B); got "
+                             f"{tuple(F.to_tensor(X).shape)}")
+        return self(X)
+
+    def warmup(self) -> None:
+        """Run the vector-shaped program once, off the request path."""
+        self.run_raw(self.place(torch.zeros(self.part.shape[1],
+                                            dtype=self.part.dtype)))
+
+    def release(self) -> None:
+        """Drop the placed matrix arrays (idempotent); recompile to reuse."""
+        self.arrays = None

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..core import formats as F
-from ..core.adaptive import HardwareModel, estimate_time
+from ..core.adaptive import HardwareModel, Plan, estimate_time
+from ..core.mesh import AXES_2D, AXIS_1D, make_mesh, same_device
 from ..core.stats import MatrixStats, compute_stats
 from .plan import IMPLS, ExecutionPlan, check_device, resolve_scheme
 
@@ -197,6 +198,18 @@ class SparseMatrix:
                                              *self.coalesced())
         return self._fingerprint
 
+    def triplets(self, dtype=None):
+        """The coalesced triplets in ``dtype`` (default: the matrix dtype),
+        entries that became zero in the cast dropped — the nonzeros of the
+        cast matrix, sorted by (row, col)."""
+        dtype = self.dtype if dtype is None else F.torch_dtype(dtype)
+        ri, ci, vals = self.coalesced()
+        if vals.dtype != dtype:  # cast, then drop what became zero
+            vals = vals.to(dtype)
+            keep = vals != 0
+            ri, ci, vals = ri[keep], ci[keep], vals[keep]
+        return ri, ci, vals
+
     def container(self, fmt: str, block: Tuple[int, int] = (8, 16),
                   dtype=None):
         """Build (and cache) the requested container format, on the host.
@@ -217,12 +230,8 @@ class SparseMatrix:
         if got is not None and (fmt not in ("bcsr", "bcoo")
                                 or got.block == tuple(block)):
             return got
-        ri, ci, vals = self.coalesced()
-        if vals.dtype != dtype:  # cast, then drop what became zero
-            vals = vals.to(dtype)
-            keep = vals != 0
-            ri, ci, vals = ri[keep], ci[keep], vals[keep]
-        built = F.from_coalesced(fmt, ri, ci, vals, self.shape, tuple(block))
+        built = F.from_coalesced(fmt, *self.triplets(dtype), self.shape,
+                                 tuple(block))
         self._containers[key] = built
         return built
 
@@ -252,45 +261,79 @@ class SparseMatrix:
         """Resolve scheme + placement into an inspectable ExecutionPlan.
 
         Args:
-          scheme: "auto" (paper Rec. #3 rules fitted to one device), a
+          scheme: "auto" (paper Rec. #3 rules fitted to the device pool), a
             string like "1d.nnz" / "2d.equally-sized", or an adaptive.Plan.
           impl: "cuda" (the hand-written kernels; on a CPU device their
             plain versions) or "torch" (the plain oracles).
-          device: "cuda" (default) or "cpu".
+          device: "cuda" (default) or "cpu", for a single-device plan.
           hw: HardwareModel driving the analytic selection/estimates.
+          mesh: a :class:`~repro_torch.core.mesh.Mesh` to partition over;
+            the fitted plan must lay out on its shape.
+          devices: a pool of P devices, all the same one (e.g.
+            ``["cuda"] * 16``): the plan is fitted to P parts and a mesh of
+            the fitted grid is built on them.  ``device`` is then unused.
           partitioning: force "1d"/"2d" over the adaptive choice.
           fmt/merge/grid: override single dimensions of the resolved scheme.
           block: (r, c) tile for the block formats.
           fit: False inspects the paper plan for ``hw`` as-is.
 
         Raises:
-          ValueError: unknown impl or scheme.
-          RuntimeError: ``device="cuda"`` without a CUDA device.
-          NotImplementedError: ``scheme="tune"``, ``mesh=``, ``devices=`` or
-            ``topology=`` (later slices of the port).
+          ValueError: unknown impl or scheme, both mesh= and devices=, or a
+            mesh whose shape the fitted plan cannot lay out on.
+          RuntimeError: a CUDA device is asked for and none is present.
+          NotImplementedError: ``scheme="tune"``, ``topology=`` (later
+            slices of the port), or ``devices`` that name distinct devices
+            (multi-card meshes, ROADMAP.md).
         """
         if impl not in IMPLS:
             raise ValueError(f"unknown impl {impl!r}: one of {IMPLS}")
+        if mesh is not None and devices is not None:
+            raise ValueError("pass mesh= or devices=, not both")
         if scheme == "tune":
             raise NotImplementedError(f"scheme='tune' is {_NOT_YET}, 'repro.tune'")
-        if mesh is not None or devices is not None:
-            raise NotImplementedError(f"mesh=/devices= (partitioned schemes) "
-                                      f"are {_NOT_YET}, 'Partitioned schemes'")
         if topology is not None:
             raise NotImplementedError(f"topology= is {_NOT_YET}, 'repro.topo'")
-        device = check_device(device)
+        distributed = mesh is not None or devices is not None
+        if mesh is not None:
+            mesh_shape = tuple(mesh.devices.shape)
+            n_devices = int(np.prod(mesh_shape))
+            if grid is None and len(mesh_shape) == 2 \
+                    and not isinstance(scheme, Plan):
+                grid = mesh_shape  # prefer grids that match the given mesh
+        elif devices is not None:
+            devices = list(devices)
+            n_devices = len(devices)
+            same_device(devices)  # fail before any planning work
+        else:
+            n_devices = 1
+            device = check_device(device)
         plan = resolve_scheme(
-            self.stats, self.shape, 1, scheme, hw=hw,
+            self.stats, self.shape, n_devices, scheme, hw=hw,
             partitioning=partitioning, fmt=fmt, merge=merge, grid=grid,
             block=block, fit=fit, dtype_bytes=self.dtype.itemsize,
         )
-        hw = hw if hw is not None else HardwareModel(chips=1)
+        if mesh is not None:
+            want = ((plan.grid[0],) if plan.partitioning == "1d"
+                    else tuple(plan.grid))
+            if mesh_shape != want:
+                raise ValueError(
+                    f"mesh shape {mesh_shape} does not match the "
+                    f"{plan.partitioning} plan grid {tuple(plan.grid)}; "
+                    "pass grid=/scheme= that fits the mesh, or use devices= "
+                    "and let plan() build the mesh")
+        elif distributed:
+            mesh_shape = ((plan.grid[0],) if plan.partitioning == "1d"
+                          else tuple(plan.grid))
+            axes = (AXIS_1D,) if plan.partitioning == "1d" else AXES_2D
+            mesh = make_mesh(mesh_shape, axes, devices)
+        hw = hw if hw is not None else HardwareModel(chips=max(1, n_devices))
         # an unfitted 2D plan (fit=False) may carry no grid yet: no estimate
         est = (estimate_time(self.stats, plan, hw, dtype_bytes=self.dtype.itemsize)
                if len(plan.grid) == 2 else {})
         return ExecutionPlan(
-            matrix=self, scheme=plan, impl=impl, device=device,
-            dtype=self.dtype, block=tuple(block), hw=hw, estimate=est,
+            matrix=self, scheme=plan, impl=impl,
+            device=mesh.device if distributed else device, dtype=self.dtype,
+            block=tuple(block), hw=hw, estimate=est, mesh=mesh,
         )
 
     def compile(self, **plan_kwargs):

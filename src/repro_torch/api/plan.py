@@ -1,57 +1,58 @@
-"""ExecutionPlan — the inspectable middle of the pipeline (single device).
+"""ExecutionPlan — the inspectable middle of the pipeline.
 
 Counterpart of ``repro/api/plan.py``.  ``SparseMatrix.plan(...)`` resolves
 *what to run* (an adaptive :class:`~repro_torch.core.adaptive.Plan`:
 partitioning, balancing scheme, format, merge, grid), fits it to the device
 pool and returns an :class:`ExecutionPlan` that also pins *how to run it*
-(impl, device, dtype) and the analytic time estimate.  ``.compile()`` turns
-it into an :class:`~repro_torch.api.executor.Executor`.
+(impl, device or mesh, dtype) and the analytic time estimate.
+``.compile()`` turns it into an :class:`~repro_torch.api.executor.Executor`:
+a single-device one, or for a mesh plan a
+:class:`~repro_torch.api.executor.MeshExecutor` over the partitioned matrix.
 
 The plan IR (``to_ir`` / :func:`plan_from_ir`) is the JAX package's: the
 wire keeps its impl names ("xla" / "pallas"), mapped to "torch" / "cuda"
 at the boundary, so each package reads the other's JSON.
 
-Partitioned (mesh) plans, topology-aware fitting and the ring schedule wait
-for the partitioned slice of the port (ROADMAP.md) and raise
-``NotImplementedError``.
+Topology-aware fitting waits for ``repro.topo``'s port (ROADMAP.md) and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field, replace
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..core import distributed as D
 from ..core.adaptive import HardwareModel, Plan, select_scheme
 from ..core.formats import dtype_name, torch_dtype
+from ..core.mesh import make_mesh
+from ..core.partition import (BALANCE_1D, SCHEMES_2D, PartitionedMatrix,
+                              partition_1d_coalesced, partition_2d_coalesced)
 from ..core.stats import MatrixStats
 from ..kernels.ops import IMPLS
-from .executor import Executor, SingleDeviceExecutor
+from .executor import Executor, MeshExecutor, SingleDeviceExecutor
 
 __all__ = [
     "ExecutionPlan",
     "fit_plan",
     "resolve_scheme",
     "plan_from_ir",
+    "plan_from_partitioned",
     "IR_VERSION",
     "FORMATS",
     "IMPLS",
 ]
 
 FORMATS = ("coo", "csr", "bcoo", "bcsr")
-# 1D balances and 2D schemes of repro/core/partition.py (paper Tables 1-2)
-BALANCE_1D = ("rows", "nnz-rgrn", "nnz")
-SCHEMES_2D = ("equally-sized", "equally-wide", "variable-sized")
 
 # Plan-IR version of the JAX package; v1 payloads carry no "topo" key.
 IR_VERSION = 2
 _IR_READABLE = (1, 2)
 _IMPL_TO_WIRE = {"torch": "xla", "cuda": "pallas"}
 _IMPL_FROM_WIRE = {v: k for k, v in _IMPL_TO_WIRE.items()}
-
-_PARTITIONED = ("partitioned (mesh) plans are not ported yet: see ROADMAP.md, "
-                "'Partitioned schemes'")
 
 
 # ---------------------------------------------------------------------------
@@ -209,12 +210,16 @@ class ExecutionPlan:
     matrix: object  # repro_torch.api.matrix.SparseMatrix
     scheme: Plan  # fitted adaptive plan: partitioning/balance/fmt/merge/grid
     impl: str  # "torch" | "cuda"
-    device: torch.device
+    device: torch.device  # where it runs (a mesh plan: the mesh's device)
     dtype: torch.dtype
     block: Tuple[int, int] = (8, 16)
     hw: Optional[HardwareModel] = None
     estimate: dict = field(default_factory=dict)  # analytic Fig.-4 step times
     measured: dict = field(default_factory=dict)  # tuned metadata (plan IR)
+    mesh: object = None  # repro_torch.core.mesh.Mesh; None => single device
+    part: Optional[PartitionedMatrix] = None  # prebuilt partition (optional)
+    ring: bool = False  # 1D ring schedule (requires a bucketed part)
+    ring_counts: Optional[np.ndarray] = None
 
     # -- inspection --------------------------------------------------------
 
@@ -236,21 +241,24 @@ class ExecutionPlan:
 
     @property
     def is_distributed(self) -> bool:
-        return False
+        return self.mesh is not None
 
     @property
     def scheme_id(self) -> str:
-        """Stable scheme identity (``partitioning.scheme.fmt.merge``)."""
-        return self.scheme.tag
+        """Stable scheme identity (``partitioning.scheme.fmt.merge``, plus
+        ``.ring`` for the ring schedule)."""
+        return self.scheme.tag + (".ring" if self.ring else "")
 
     def describe(self) -> str:
         """Human-readable one-plan summary (scheme, impl, device, reason,
         analytic Fig.-4 estimate)."""
         s = self.scheme
+        where = (f"mesh{tuple(self.mesh.devices.shape)}" if self.is_distributed
+                 else "single-device")
         lines = [
             f"ExecutionPlan[{s.partitioning}.{s.scheme} fmt={s.fmt} "
             f"merge={s.merge} grid={tuple(s.grid)} impl={self.impl} "
-            f"dtype={dtype_name(self.dtype)} single-device({self.device})]",
+            f"dtype={dtype_name(self.dtype)} {where}({self.device})]",
             f"  reason: {s.reason}",
         ]
         if self.estimate:
@@ -275,7 +283,19 @@ class ExecutionPlan:
     def to_ir(self) -> dict:
         """Serialize everything needed to rebuild this plan elsewhere — in
         the JAX package's IR v2 layout, impl names on the wire as "xla" /
-        "pallas"."""
+        "pallas".
+
+        Raises:
+          ValueError: for a plan carrying a prebuilt partition (``part``).
+        """
+        if self.part is not None:
+            raise ValueError(
+                "plans wrapping a prebuilt PartitionedMatrix (part=...) "
+                "cannot be serialized; re-plan from the SparseMatrix instead")
+        mesh_spec = None
+        if self.is_distributed:
+            mesh_spec = {"shape": [int(n) for n in self.mesh.devices.shape],
+                         "axes": [str(a) for a in self.axes]}
         return {
             "ir_version": IR_VERSION,
             "scheme": {
@@ -290,22 +310,138 @@ class ExecutionPlan:
             "dtype": dtype_name(self.dtype),
             "block": [int(b) for b in self.block],
             "interpret": self.device.type != "cuda",
-            "ring": False,
-            "ring_counts": None,
-            "mesh": None,
+            "ring": bool(self.ring),
+            "ring_counts": (None if self.ring_counts is None
+                            else np.asarray(self.ring_counts).tolist()),
+            "mesh": mesh_spec,
             "estimate": {k: float(v) for k, v in self.estimate.items()},
             "measured": _jsonable(self.measured),
             "topo": None,
         }
 
+    # -- axes / specs ------------------------------------------------------
+
+    @property
+    def axes(self) -> tuple:
+        return tuple(self.mesh.axis_names) if self.is_distributed else ()
+
+    def _x_spec(self) -> tuple:
+        """The mesh axis x is split over (the JAX package's PartitionSpec):
+        the part axis for 1D, the column axis for 2D."""
+        axes = self.axes
+        return (axes[0],) if self.partitioning == "1d" else (axes[1],)
+
+    def _x_pad(self, part: PartitionedMatrix) -> int:
+        cols = part.shape[1]
+        if self.partitioning == "1d":
+            parts = part.n_parts
+            return -(-cols // parts) * parts
+        C = part.grid[1]
+        # variable-sized tiles do not align with the uniform x shards: pad x
+        # so the shards divide it (the aligned schemes require cols % C)
+        return cols if self.scheme.scheme != "variable-sized" else -(-cols // C) * C
+
     # -- compilation -------------------------------------------------------
 
+    def _partition(self) -> PartitionedMatrix:
+        """Partition the matrix's coalesced triplets (never densified)."""
+        if self.part is not None:
+            return self.part
+        ri, ci, vals = self.matrix.triplets(self.dtype)
+        if self.partitioning == "1d":
+            return partition_1d_coalesced(
+                ri, ci, vals, self.matrix.shape, self.scheme.grid[0],
+                fmt=self.fmt, balance=self.scheme.scheme, block=self.block)
+        return partition_2d_coalesced(
+            ri, ci, vals, self.matrix.shape, tuple(self.scheme.grid),
+            fmt=self.fmt, scheme=self.scheme.scheme, block=self.block)
+
+    def _program(self, part: PartitionedMatrix) -> D.PartitionedProgram:
+        if self.partitioning == "1d":
+            if self.ring:
+                if self.ring_counts is None:
+                    raise ValueError("ring plans need ring_counts "
+                                     "(see distributed.bucket_by_source_shard)")
+                if self.impl != "torch":
+                    raise ValueError("the 1D ring schedule runs the torch local "
+                                     "kernel only (impl='torch')")
+                return D.spmv_1d_ring(part, self.ring_counts, self.mesh)
+            return D.spmv_1d(part, self.mesh, impl=self.impl)
+        return D.spmv_2d(part, self.mesh, merge=self.merge, impl=self.impl)
+
+    def _kernel_extra(self, part: PartitionedMatrix) -> Optional[dict]:
+        """Host arrays the CUDA kernels read, placed with the matrix: the
+        stacked chunk plans (scalar formats) or the per-part block-row
+        pointers (block formats)."""
+        if self.impl != "cuda" or self.ring:
+            return None
+        if self.fmt in ("coo", "csr"):
+            return D.kernel_chunk_arrays(part)
+        return D.kernel_block_arrays(part)
+
+    def program(self, part: Optional[PartitionedMatrix] = None
+                ) -> D.PartitionedProgram:
+        """Build the partitioned program WITHOUT placing the matrix.
+
+        Raises:
+          ValueError: for single-device plans (no partitioned program).
+        """
+        if not self.is_distributed:
+            raise ValueError("single-device plans have no partitioned "
+                             "program; call .compile() instead")
+        return self._program(part if part is not None else self._partition())
+
     def compile(self) -> Executor:
-        """Build the container and return the single-device Executor (for
-        impl="cuda" the kernel program is built and placed here, once)."""
-        container = self.matrix.container(self.fmt, block=self.block,
-                                          dtype=self.dtype)
-        return SingleDeviceExecutor(self, container, self.impl, self.device)
+        """Build and place everything a request needs, once.
+
+        Single-device plans wrap the chosen container in a
+        :class:`SingleDeviceExecutor` (for impl="cuda" the kernel program
+        is built and placed here).  Mesh plans partition the matrix, build
+        the program with the selected per-part kernel, place the matrix —
+        plus, for impl="cuda", the kernels' chunk plans or block-row
+        pointers — and return a :class:`MeshExecutor`.
+        """
+        if not self.is_distributed:
+            container = self.matrix.container(self.fmt, block=self.block,
+                                              dtype=self.dtype)
+            return SingleDeviceExecutor(self, container, self.impl, self.device)
+        t0 = time.perf_counter()
+        part = self._partition()
+        axes = self.axes
+        program = self._program(part)
+        extra = self._kernel_extra(part)
+        if self.partitioning == "1d":
+            placed = D.place_1d(part, self.mesh, extra=extra)
+        else:
+            placed = D.place_2d(part, self.mesh, extra=extra)
+        exe = MeshExecutor(
+            self, part, self.mesh, axes, program, x_spec=self._x_spec(),
+            x_pad=self._x_pad(part), merge=self.merge,
+        ).place_matrix(placed)
+        exe.build_seconds = time.perf_counter() - t0
+        return exe
+
+
+def plan_from_partitioned(part: PartitionedMatrix, mesh, *,
+                          impl: str = "torch", merge: Optional[str] = None,
+                          ring: bool = False,
+                          ring_counts: Optional[np.ndarray] = None,
+                          matrix=None) -> ExecutionPlan:
+    """Wrap an already-partitioned matrix (e.g. a ring-bucketed one) in an
+    ExecutionPlan so it flows through the same program-building path."""
+    partitioning = "1d" if part.grid[1] == 1 else "2d"
+    scheme_name = part.scheme.split(".", 1)[-1].replace("+ring", "")
+    if merge is None:
+        if partitioning == "1d":
+            merge = "ppermute"
+        else:
+            merge = "psum" if scheme_name == "equally-sized" else "global"
+    plan = Plan(partitioning, scheme_name, part.fmt, merge, tuple(part.grid),
+                "prebuilt partition")
+    return ExecutionPlan(
+        matrix=matrix, scheme=plan, impl=impl, device=mesh.device,
+        dtype=part.dtype, block=part.block, mesh=mesh, part=part, ring=ring,
+        ring_counts=ring_counts)
 
 
 def _jsonable(obj):
@@ -325,17 +461,20 @@ def _jsonable(obj):
     raise TypeError(f"not IR-serializable: {type(obj).__name__}: {obj!r}")
 
 
-def plan_from_ir(ir: dict, matrix, *, device="cuda",
-                 hw: Optional[HardwareModel] = None) -> ExecutionPlan:
+def plan_from_ir(ir: dict, matrix, *, device="cuda", devices=None,
+                 mesh=None, hw: Optional[HardwareModel] = None
+                 ) -> ExecutionPlan:
     """Rehydrate a ``to_ir()`` record (of either package) for ``device``.
 
     The fitted decision is taken verbatim (no re-fitting); ``interpret`` on
-    the wire is ignored — ``device`` says where the plan runs.
+    the wire is ignored — ``device`` says where the plan runs.  A mesh
+    record is laid out on ``mesh``, or on ``devices`` (default: ``device``
+    at every place of the recorded grid).
 
     Raises:
       ValueError: unknown ``ir_version``, malformed record, unknown fmt or
-        impl.
-      NotImplementedError: the record is a partitioned (mesh) or ring plan.
+        impl, or too few devices for the recorded mesh.
+      NotImplementedError: ``devices`` name distinct devices.
       RuntimeError: ``device="cuda"`` without a CUDA device.
     """
     version = ir.get("ir_version")
@@ -357,22 +496,35 @@ def plan_from_ir(ir: dict, matrix, *, device="cuda",
         wire_impl = ir["impl"]
         dtype = torch_dtype(ir["dtype"])
         block = tuple(int(b) for b in ir.get("block", (8, 16)))
+        mesh_spec = ir.get("mesh")
+        if mesh_spec is not None:
+            mesh_shape = tuple(int(n) for n in mesh_spec["shape"])
+            mesh_axes = tuple(str(a) for a in mesh_spec["axes"])
     except (KeyError, TypeError) as e:
         raise ValueError(f"malformed plan IR: {type(e).__name__}: {e}") from e
     if plan.fmt not in FORMATS:
         raise ValueError(f"plan IR carries unknown format {plan.fmt!r}")
     if wire_impl not in _IMPL_FROM_WIRE:
         raise ValueError(f"plan IR carries unknown impl {wire_impl!r}")
-    if ir.get("mesh") is not None or ir.get("ring"):
-        raise NotImplementedError(_PARTITIONED)
+    if mesh_spec is None:
+        mesh = None
+    elif mesh is None:
+        n = int(np.prod(mesh_shape))
+        mesh = make_mesh(mesh_shape, mesh_axes,
+                         [device] * n if devices is None else devices)
+    ring_counts = ir.get("ring_counts")
     return ExecutionPlan(
         matrix=matrix,
         scheme=plan,
         impl=_IMPL_FROM_WIRE[wire_impl],
-        device=check_device(device),
+        device=mesh.device if mesh is not None else check_device(device),
         dtype=dtype,
         block=block,
         hw=hw,
         estimate=dict(ir.get("estimate") or {}),
         measured=dict(ir.get("measured") or {}),
+        mesh=mesh,
+        ring=bool(ir.get("ring", False)),
+        ring_counts=(None if ring_counts is None
+                     else np.asarray(ring_counts, dtype=np.int64)),
     )

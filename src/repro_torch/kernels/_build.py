@@ -18,12 +18,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
 __all__ = ["SOURCES", "DTYPE_CODES", "BUILD_DIR", "build_all", "library",
-           "build_log", "check", "check_index", "check_x", "stream_of"]
+           "build_log", "check", "check_index", "check_x", "stream_of",
+           "XWindows", "check_windows"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -35,9 +37,11 @@ _I = ctypes.c_int
 # kernel -> (source file, C entry point, its argtypes)
 SOURCES = {
     "coo_spmv": ("coo_spmv.cu", "repro_coo_spmv",
-                 [_P] * 7 + [_I] * 8 + [_P]),
+                 [_P] * 8 + [_I] * 10 + [_P]),
     "bcoo_spmv": ("bcoo_spmv.cu", "repro_bcoo_spmv",
-                  [_P] * 5 + [_I] * 7 + [_P]),
+                  [_P] * 6 + [_I] * 9 + [_P]),
+    "ell_spmv": ("ell_spmv.cu", "repro_ell_spmv",
+                 [_P] * 5 + [_I] * 6 + [_P]),
 }
 # value dtype -> code of csrc/common.cuh:DType
 DTYPE_CODES = {
@@ -148,6 +152,50 @@ def check_x(x: torch.Tensor, dtype: torch.dtype, name: str) -> tuple:
         raise ValueError(f"x must be a contiguous (cols,) or (cols, B) tensor; "
                          f"got shape {tuple(x.shape)}")
     return (x.shape[1] if x.ndim == 2 else 1), x.ndim == 1
+
+
+@dataclass(frozen=True)
+class XWindows:
+    """Per-part x windows of a part-axis launch.
+
+    Part p reads x rows ``[offsets[p], offsets[p] + length)``, the
+    reference's ``x_local`` of that part, and clips its column indices to
+    that window.  ``offsets`` is the host copy, ``offset`` the same values
+    as a (P,) int32 tensor on the kernel's device; both are built once per
+    program, so a launch checks its bounds without reading the device.
+    """
+
+    offsets: tuple
+    length: int
+    offset: torch.Tensor
+
+    @classmethod
+    def build(cls, offsets, length: int, device) -> "XWindows":
+        offsets = tuple(int(o) for o in offsets)
+        return cls(offsets, int(length),
+                   torch.tensor(offsets, dtype=torch.int32, device=device))
+
+    def local(self, x: torch.Tensor, p: int) -> torch.Tensor:
+        """Part p's window of x (a view)."""
+        return x[self.offsets[p]: self.offsets[p] + self.length]
+
+
+def check_windows(win, n_parts: int, x: torch.Tensor, name: str):
+    """Validate the x windows of a launch; returns (offset pointer, length).
+
+    ``win=None`` means every part reads the whole x from row 0.
+    """
+    if win is None:
+        return None, x.shape[0]
+    if len(win.offsets) != n_parts:
+        raise ValueError(f"{name}: {len(win.offsets)} x windows for {n_parts} parts")
+    if win.length < 1 or min(win.offsets) < 0 \
+            or max(win.offsets) + win.length > x.shape[0]:
+        raise ValueError(f"{name}: x windows of length {win.length} at "
+                         f"{min(win.offsets)}..{max(win.offsets)} overrun x of "
+                         f"{x.shape[0]} rows")
+    check_index(win.offset, x.device, f"{name} x offsets")
+    return win.offset.data_ptr(), win.length
 
 
 def stream_of(t: torch.Tensor) -> int:

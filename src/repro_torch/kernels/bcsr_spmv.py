@@ -12,6 +12,11 @@ once from ``browind[:nblocks]`` (:func:`block_row_ptr`).
 :func:`bcoo_spmv` dispatches on the device of ``x``: a CPU tensor runs the
 plain version :func:`bcoo_spmv_plain`, a CUDA tensor launches the kernel
 (:func:`bcoo_spmv_cuda`) or raises.
+
+Blocks may carry a leading part axis (``bvalues`` (P, cap, r, c), one row
+per part of a partitioned matrix): then one launch runs every part, each on
+its own window of x (:class:`~repro_torch.kernels._build.XWindows`), and y
+gains the part axis too.
 """
 from __future__ import annotations
 
@@ -29,7 +34,12 @@ BATCH_TILE = 32  # SpMM columns per thread tile (r * BATCH_TILE <= 1024)
 
 
 def block_row_ptr(browind: torch.Tensor, nblocks, n_brows: int) -> torch.Tensor:
-    """(n_brows + 1,) int32 block-row pointer of a block-row-sorted stream."""
+    """(n_brows + 1,) int32 block-row pointer of a block-row-sorted stream;
+    (P, n_brows + 1) for per-part streams ``browind`` (P, cap) with
+    ``nblocks`` (P,)."""
+    if browind.ndim == 2:
+        return torch.stack([block_row_ptr(browind[p], nblocks[p], n_brows)
+                            for p in range(browind.shape[0])])
     ptr = torch.zeros(n_brows + 1, dtype=torch.int64, device=browind.device)
     ptr[1:] = torch.bincount(browind[: int(nblocks)].long(), minlength=n_brows)
     return torch.cumsum(ptr, 0).to(torch.int32)
@@ -45,13 +55,23 @@ def _pad_x(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def bcoo_spmv_plain(browind, bcolind, bvalues, x, out_rows: int,
-                    nblocks=None) -> torch.Tensor:
+                    nblocks=None, windows=None) -> torch.Tensor:
     """The kernel's function in plain torch, on any device.
 
     x is zero-padded to a multiple of c; blocks at or past ``nblocks`` add
     nothing.  Returns y (out_rows[, B]) in the accumulation dtype; empty
-    block-rows are zero.
+    block-rows are zero.  Per-part blocks run part by part, part p on
+    ``windows.local(x, p)`` (default: the whole x), and return y with a
+    leading part axis.
     """
+    if bvalues.ndim == 4:
+        return torch.stack([
+            bcoo_spmv_plain(browind[p], bcolind[p], bvalues[p],
+                            x if windows is None else windows.local(x, p),
+                            out_rows, None if nblocks is None else nblocks[p])
+            for p in range(bvalues.shape[0])])
+    if windows is not None:
+        x = windows.local(x, 0)
     nb_cap, r, c = bvalues.shape
     nb = nb_cap if nblocks is None else int(nblocks)
     acc = acc_dtype(bvalues.dtype)
@@ -66,15 +86,19 @@ def bcoo_spmv_plain(browind, bcolind, bvalues, x, out_rows: int,
 
 
 def bcoo_spmv_cuda(browptr, bcolind, bvalues, x, out_rows: int,
-                   batch_tile: int | None = None) -> torch.Tensor:
+                   batch_tile: int | None = None,
+                   windows: _build.XWindows | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on blocks and x that lie on one CUDA device.
 
-    ``browptr`` is the (out_rows / r + 1,) block-row pointer.  Returns y
-    (out_rows[, B]) in the accumulation dtype.
+    ``browptr`` is the (out_rows / r + 1,) block-row pointer; per-part
+    blocks (``bvalues`` (P, cap, r, c)) take one pointer row per part and
+    run in one launch, part p on its x window (``windows``; default: the
+    whole x).  Returns y ([P,] out_rows[, B]) in the accumulation dtype.
 
     Raises:
       ValueError/TypeError: wrong device, dtype, shape or contiguity
-        (float64 and int64 values included: the kernel does not take them).
+        (float64 and int64 values included: the kernel does not take them),
+        or x windows that overrun x.
       RuntimeError: the launch failed.
     """
     if x.device.type != "cuda":
@@ -82,45 +106,61 @@ def bcoo_spmv_cuda(browptr, bcolind, bvalues, x, out_rows: int,
     B, squeeze = _build.check_x(x, bvalues.dtype, "bcoo_spmv_cuda")
     _build.check_index(browptr, x.device, "browptr")
     _build.check_index(bcolind, x.device, "bcolind")
+    stacked = bvalues.ndim == 4
     if bvalues.device != x.device or not bvalues.is_contiguous() \
-            or bvalues.ndim != 3:
-        raise ValueError(f"bvalues must be a contiguous (nb, r, c) tensor on "
-                         f"{x.device}")
-    _, r, c = bvalues.shape
+            or bvalues.ndim - stacked != 3:
+        raise ValueError(f"bvalues must be a contiguous ([P,] nb, r, c) tensor "
+                         f"on {x.device}")
+    n_parts = bvalues.shape[0] if stacked else 1
+    cap, r, c = bvalues.shape[-3:]
     n_brows = out_rows // r
-    if out_rows % r or browptr.shape[0] != n_brows + 1:
-        raise ValueError(f"browptr has {browptr.shape[0]} entries; out_rows="
-                         f"{out_rows} with r={r} needs {n_brows + 1}")
+    parts = bvalues.shape[:-3]  # () or (P,)
+    if out_rows % r or browptr.shape != parts + (n_brows + 1,) \
+            or bcolind.shape != bvalues.shape[:-2]:
+        raise ValueError(f"browptr has shape {tuple(browptr.shape)}; out_rows="
+                         f"{out_rows} with r={r} needs {n_brows + 1} entries "
+                         f"per part")
+    x_off, n_cols = _build.check_windows(windows, n_parts, x, "bcoo_spmv_cuda")
     bt = min(B, BATCH_TILE if batch_tile is None else batch_tile, 1024 // r)
     if not 1 <= bt <= BATCH_TILE:
         raise ValueError(f"batch_tile must be in [1, {BATCH_TILE}]; got {batch_tile}")
     acc = acc_dtype(bvalues.dtype)
-    y = torch.empty((out_rows, B), dtype=acc, device=x.device)
-    if n_brows == 0 or x.shape[0] == 0:
+    y = torch.empty((n_parts, out_rows, B), dtype=acc, device=x.device)
+    if n_brows == 0 or n_cols == 0:
         y.zero_()
     else:
         fn = _build.library("bcoo_spmv")
         with torch.cuda.device(x.device):
             err = fn(browptr.data_ptr(), bcolind.data_ptr(), bvalues.data_ptr(),
-                     x.data_ptr(), y.data_ptr(), n_brows, r, c, x.shape[0], B, bt,
-                     _build.DTYPE_CODES[bvalues.dtype], _build.stream_of(x))
+                     x.data_ptr(), y.data_ptr(), x_off, n_brows, r, c, n_cols, B,
+                     bt, n_parts, cap, _build.DTYPE_CODES[bvalues.dtype],
+                     _build.stream_of(x))
         _build.check(err, "bcoo_spmv")
         record_launch("bcoo", B)
-    return y[:, 0] if squeeze else y
+    y = y if stacked else y[0]
+    return y[..., 0] if squeeze else y
 
 
 def bcoo_spmv(browind, bcolind, bvalues, x, out_rows: int, nblocks=None,
-              batch_tile: int | None = None, *, browptr=None) -> torch.Tensor:
+              batch_tile: int | None = None, *, browptr=None,
+              windows: _build.XWindows | None = None) -> torch.Tensor:
     """Block-sparse y = A @ x, A given as a block-row-sorted BCOO stream.
 
     The signature of ``bcoo_spmv_pallas`` minus ``interpret``: the plain
     version on a CPU tensor, the CUDA kernel on a CUDA tensor.  ``browptr``
     (CUDA only) skips rebuilding the block-row pointer from ``browind``;
-    ``batch_tile`` (CUDA only) does not change the result.
+    ``batch_tile`` (CUDA only) does not change the result.  Per-part blocks
+    (a leading part axis) run every part, part p on its window of x
+    (``windows``).
     """
     if x.device.type == "cpu":
-        return bcoo_spmv_plain(browind, bcolind, bvalues, x, out_rows, nblocks)
+        return bcoo_spmv_plain(browind, bcolind, bvalues, x, out_rows, nblocks,
+                               windows)
     if browptr is None:
-        nb = bvalues.shape[0] if nblocks is None else nblocks
-        browptr = block_row_ptr(browind, nb, out_rows // bvalues.shape[1])
-    return bcoo_spmv_cuda(browptr, bcolind, bvalues, x, out_rows, batch_tile)
+        nb = nblocks
+        if nb is None:
+            nb = (bvalues.shape[0] if bvalues.ndim == 3
+                  else [bvalues.shape[1]] * bvalues.shape[0])
+        browptr = block_row_ptr(browind, nb, out_rows // bvalues.shape[-2])
+    return bcoo_spmv_cuda(browptr, bcolind, bvalues, x, out_rows, batch_tile,
+                          windows)

@@ -13,6 +13,11 @@ per (window, batch tile), no atomics.
 :func:`coo_spmv` dispatches on the device of ``x``: a CPU tensor runs the
 plain version :func:`coo_spmv_plain`, a CUDA tensor launches the kernel
 (:func:`coo_spmv_cuda`) or raises.
+
+A plan may carry a leading part axis (:func:`stack_chunk_plans`, one plan
+per part of a partitioned matrix): then one launch runs every part, each on
+its own window of x (:class:`~repro_torch.kernels._build.XWindows`), and y
+gains the part axis too.
 """
 from __future__ import annotations
 
@@ -27,8 +32,9 @@ from . import _build
 from .instrument import record_launch
 from .ref import acc_dtype
 
-__all__ = ["ChunkPlan", "plan_chunks", "coo_spmv", "coo_spmv_plain",
-           "coo_spmv_cuda", "CHUNK_E", "ROW_SPAN", "BATCH_TILE"]
+__all__ = ["ChunkPlan", "plan_chunks", "stack_chunk_plans", "coo_spmv",
+           "coo_spmv_plain", "coo_spmv_cuda", "CHUNK_E", "ROW_SPAN",
+           "BATCH_TILE"]
 
 CHUNK_E = 512  # nnz per chunk
 ROW_SPAN = 512  # output window height
@@ -41,7 +47,8 @@ class ChunkPlan:
 
     Fields as in the JAX package, as tensors; ``window_start`` (built once,
     here) brackets each window's contiguous chunk range — window ids are
-    non-decreasing — for the CUDA kernel's per-window CTAs.
+    non-decreasing — for the CUDA kernel's per-window CTAs.  A stacked plan
+    (:func:`stack_chunk_plans`) has a leading part axis on every tensor.
     """
 
     rowind: torch.Tensor  # (n_chunks, E) int32 — rows, relative to window start
@@ -58,6 +65,7 @@ class ChunkPlan:
         if self.window_start is None:
             w = torch.arange(self.n_windows + 1, dtype=torch.int32,
                              device=self.window.device)
+            w = w.expand(self.window.shape[:-1] + w.shape).contiguous()
             ws = torch.searchsorted(self.window.contiguous(), w).to(torch.int32)
             object.__setattr__(self, "window_start", ws)
 
@@ -69,7 +77,18 @@ class ChunkPlan:
 
     @property
     def n_chunks(self) -> int:
-        return self.rowind.shape[0]
+        """Chunks (per part, for a stacked plan)."""
+        return self.rowind.shape[-2]
+
+    @property
+    def n_parts(self) -> int | None:
+        """Parts of a stacked plan; None for a single plan."""
+        return self.rowind.shape[0] if self.rowind.ndim == 3 else None
+
+    def part(self, p: int) -> "ChunkPlan":
+        """Part ``p`` of a stacked plan, as a single plan (views)."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f)[p] for f in self._tensors})
 
 
 def plan_chunks(
@@ -128,12 +147,64 @@ def plan_chunks(
                      n_windows, out_rows, span)
 
 
-def coo_spmv_plain(plan: ChunkPlan, x: torch.Tensor) -> torch.Tensor:
+def stack_chunk_plans(plans) -> dict:
+    """Stack per-part ChunkPlans with a leading part axis.
+
+    The JAX package's function, array for array: every plan must share
+    span / n_windows / out_rows / chunk width; parts with fewer chunks are
+    padded with empty chunks (count 0) whose window id repeats the part's
+    last real window.  Returns a dict of host tensors — ``window`` /
+    ``count`` (P, n_chunks), ``rowind`` / ``colind`` / ``values``
+    (P, n_chunks, E) — plus ``window_start`` (P, n_windows + 1), each
+    part's own window brackets over its real chunks, and the shared static
+    ``span`` / ``n_windows`` / ``out_rows``.  ``ChunkPlan(**stacked)`` is
+    the stacked plan one part-axis launch runs.
+
+    Raises:
+      ValueError: no plans, or plans with mismatched metadata.
+    """
+    if not plans:
+        raise ValueError("stack_chunk_plans needs at least one plan")
+    first = plans[0]
+    meta = (first.span, first.n_windows, first.out_rows, first.rowind.shape[1])
+    if any((p.span, p.n_windows, p.out_rows, p.rowind.shape[1]) != meta
+           for p in plans[1:]):
+        raise ValueError("per-shard chunk plans have mismatched metadata")
+    E = first.rowind.shape[1]
+    nc = max(1, max(p.n_chunks for p in plans))
+    Pn = len(plans)
+    out = dict(rowind=torch.zeros((Pn, nc, E), dtype=torch.int32),
+               colind=torch.zeros((Pn, nc, E), dtype=torch.int32),
+               values=torch.zeros((Pn, nc, E), dtype=first.values.dtype),
+               window=torch.zeros((Pn, nc), dtype=torch.int32),
+               count=torch.zeros((Pn, nc), dtype=torch.int32))
+    for p, plan in enumerate(plans):
+        n = plan.n_chunks
+        for f in ("rowind", "colind", "values", "window", "count"):
+            out[f][p, :n] = getattr(plan, f)
+        if n:  # padding chunks revisit the last real window with count 0
+            out["window"][p, n:] = plan.window[-1]
+    out["window_start"] = torch.stack([p.window_start for p in plans])
+    return dict(out, span=first.span, n_windows=first.n_windows,
+                out_rows=first.out_rows)
+
+
+def coo_spmv_plain(plan: ChunkPlan, x: torch.Tensor,
+                   windows: _build.XWindows | None = None) -> torch.Tensor:
     """The kernel's function in plain torch, on any device.
 
     Returns y of shape (out_rows,) or (out_rows, B) in the accumulation
-    dtype; windows no chunk touches are zero.
+    dtype; windows no chunk touches are zero.  A stacked plan runs part by
+    part, part p on ``windows.local(x, p)`` (default: the whole x), and
+    returns y with a leading part axis.
     """
+    if plan.n_parts is not None:
+        return torch.stack([
+            coo_spmv_plain(plan.part(p), x if windows is None
+                           else windows.local(x, p))
+            for p in range(plan.n_parts)])
+    if windows is not None:
+        x = windows.local(x, 0)
     acc = acc_dtype(plan.values.dtype)
     E = plan.rowind.shape[1]
     mask = torch.arange(E, device=plan.count.device) < plan.count[:, None]
@@ -147,15 +218,19 @@ def coo_spmv_plain(plan: ChunkPlan, x: torch.Tensor) -> torch.Tensor:
 
 
 def coo_spmv_cuda(plan: ChunkPlan, x: torch.Tensor,
-                  batch_tile: int | None = None) -> torch.Tensor:
+                  batch_tile: int | None = None,
+                  windows: _build.XWindows | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on a plan and x that lie on one CUDA device.
 
-    One launch covers every batch tile; an empty plan launches nothing.
-    Returns y (out_rows[, B]) in the accumulation dtype.
+    One launch covers every batch tile and, for a stacked plan, every part
+    (part p on its x window, ``windows``; default: the whole x); an empty
+    plan launches nothing.  Returns y ([P,] out_rows[, B]) in the
+    accumulation dtype.
 
     Raises:
       ValueError/TypeError: wrong device, dtype, shape or contiguity
-        (float64 and int64 values included: the kernel does not take them).
+        (float64 and int64 values included: the kernel does not take them),
+        or x windows that overrun x.
       RuntimeError: the launch failed.
     """
     if x.device.type != "cuda":
@@ -165,32 +240,44 @@ def coo_spmv_cuda(plan: ChunkPlan, x: torch.Tensor,
         _build.check_index(getattr(plan, f), x.device, f"plan.{f}")
     if plan.values.device != x.device or not plan.values.is_contiguous():
         raise ValueError(f"plan.values must be contiguous on {x.device}")
+    n_parts = plan.n_parts or 1
+    lead = plan.rowind.shape[:-1]  # ([P,] n_chunks)
+    if plan.window_start.shape != lead[:-1] + (plan.n_windows + 1,) \
+            or plan.count.shape != lead or plan.colind.shape != plan.rowind.shape \
+            or plan.values.shape != plan.rowind.shape:
+        raise ValueError(f"plan arrays disagree: rowind {tuple(plan.rowind.shape)}, "
+                         f"count {tuple(plan.count.shape)}, window_start "
+                         f"{tuple(plan.window_start.shape)} for {plan.n_windows} "
+                         f"windows")
+    x_off, n_cols = _build.check_windows(windows, n_parts, x, "coo_spmv_cuda")
     bt = min(B, BATCH_TILE if batch_tile is None else batch_tile)
     if not 1 <= bt <= BATCH_TILE:
         raise ValueError(f"batch_tile must be in [1, {BATCH_TILE}]; got {batch_tile}")
     acc = acc_dtype(plan.values.dtype)
-    y = torch.empty((plan.out_rows, B), dtype=acc, device=x.device)
-    if plan.n_chunks == 0 or plan.out_rows == 0 or x.shape[0] == 0:
+    y = torch.empty((n_parts, plan.out_rows, B), dtype=acc, device=x.device)
+    if plan.n_chunks == 0 or plan.out_rows == 0 or n_cols == 0:
         y.zero_()
     else:
         fn = _build.library("coo_spmv")
         with torch.cuda.device(x.device):
             err = fn(plan.window_start.data_ptr(), plan.count.data_ptr(),
                      plan.rowind.data_ptr(), plan.colind.data_ptr(),
-                     plan.values.data_ptr(), x.data_ptr(), y.data_ptr(),
-                     plan.n_windows, plan.rowind.shape[1], plan.span,
-                     plan.out_rows, x.shape[0], B, bt,
+                     plan.values.data_ptr(), x.data_ptr(), y.data_ptr(), x_off,
+                     plan.n_windows, plan.rowind.shape[-1], plan.span,
+                     plan.out_rows, n_cols, B, bt, n_parts, plan.n_chunks,
                      _build.DTYPE_CODES[plan.values.dtype], _build.stream_of(x))
         _build.check(err, "coo_spmv")
         record_launch("coo", B)
-    return y[:, 0] if squeeze else y
+    y = y if plan.n_parts is not None else y[0]
+    return y[..., 0] if squeeze else y
 
 
-def coo_spmv(plan: ChunkPlan, x: torch.Tensor,
-             batch_tile: int | None = None) -> torch.Tensor:
+def coo_spmv(plan: ChunkPlan, x: torch.Tensor, batch_tile: int | None = None,
+             windows: _build.XWindows | None = None) -> torch.Tensor:
     """y = plan @ x: the plain version on a CPU tensor, the CUDA kernel on a
     CUDA tensor.  ``batch_tile`` (CUDA only) sets the SpMM columns per CTA;
-    the result does not depend on it."""
+    the result does not depend on it.  ``windows`` gives each part of a
+    stacked plan its window of x."""
     if x.device.type == "cpu":
-        return coo_spmv_plain(plan, x)
-    return coo_spmv_cuda(plan, x, batch_tile)
+        return coo_spmv_plain(plan, x, windows)
+    return coo_spmv_cuda(plan, x, batch_tile, windows)

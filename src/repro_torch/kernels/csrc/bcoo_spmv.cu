@@ -20,6 +20,12 @@
 // of a column, through L1), sums stay in registers and y is written once;
 // the arithmetic (2 flops per 4-byte value) is far below the card's rate,
 // so tensor-core mma/wgmma is left for a later change.
+//
+// Part axis.  As in coo_spmv.cu, blockIdx.z is the part of a partitioned
+// matrix: part p walks its own block-row pointer (n_brows + 1 entries per
+// part) over its own cap blocks, writes its own n_brows * r x B slice of y
+// and reads x from its own window x[x_offset[p] :][: n_cols].  With one part
+// and no x_offset the kernel is the single-device kernel, to the bit.
 
 #include "common.cuh"
 
@@ -32,9 +38,17 @@ bcoo_rows_kernel(const int* __restrict__ browptr,
                  const V* __restrict__ bvalues,
                  const V* __restrict__ x,
                  typename repro::Acc<V>::type* __restrict__ y,
+                 const int* __restrict__ x_offset,
                  int n_brows, int r, int c, int n_cols, int B, int bt,
-                 int brows_per_cta) {
+                 int brows_per_cta, int cap) {
   using A = typename repro::Acc<V>::type;
+  const int part = blockIdx.z;
+  browptr += static_cast<size_t>(part) * (n_brows + 1);
+  bcolind += static_cast<size_t>(part) * cap;
+  bvalues += static_cast<size_t>(part) * cap * r * c;
+  y += static_cast<size_t>(part) * n_brows * r * B;
+  if (x_offset != nullptr) x += static_cast<size_t>(x_offset[part]) * B;
+
   const int t = threadIdx.x % bt;
   const int i = (threadIdx.x / bt) % r;
   const int local = threadIdx.x / (bt * r);
@@ -62,24 +76,28 @@ bcoo_rows_kernel(const int* __restrict__ browptr,
 
 }  // namespace
 
-// y (n_brows * r, B) in the accumulation dtype = blocks @ x, x (n_cols, B)
-// row-major.  Returns the cudaError_t of the launch (0 on success).
+// y (n_parts, n_brows * r, B) in the accumulation dtype = blocks @ x, part p
+// reading x rows [x_offset[p], x_offset[p] + n_cols) (x_offset may be null:
+// every part reads x from row 0), x row-major with B columns.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int repro_bcoo_spmv(const int* browptr, const int* bcolind,
                                const void* bvalues, const void* x, void* y,
-                               int n_brows, int r, int c, int n_cols, int B,
-                               int bt, int dtype, void* stream) {
+                               const int* x_offset, int n_brows, int r, int c,
+                               int n_cols, int B, int bt, int n_parts, int cap,
+                               int dtype, void* stream) {
   if (n_brows < 1 || r < 1 || c < 1 || n_cols < 1 || B < 1 || bt < 1 ||
-      r * bt > 1024)
+      r * bt > 1024 || n_parts < 1 || n_parts > 65535 || cap < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int brows_per_cta = max(1, 256 / (r * bt));
-  const dim3 grid((n_brows + brows_per_cta - 1) / brows_per_cta, (B + bt - 1) / bt);
+  const dim3 grid((n_brows + brows_per_cta - 1) / brows_per_cta, (B + bt - 1) / bt,
+                  n_parts);
   const int threads = brows_per_cta * r * bt;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH_DTYPE(dtype, {
     bcoo_rows_kernel<V><<<grid, threads, 0, s>>>(
         browptr, bcolind, static_cast<const V*>(bvalues), static_cast<const V*>(x),
-        static_cast<typename repro::Acc<V>::type*>(y), n_brows, r, c, n_cols, B, bt,
-        brows_per_cta);
+        static_cast<typename repro::Acc<V>::type*>(y), x_offset, n_brows, r, c,
+        n_cols, B, bt, brows_per_cta, cap);
   });
   return static_cast<int>(cudaGetLastError());
 }

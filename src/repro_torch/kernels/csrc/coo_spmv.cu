@@ -28,6 +28,16 @@
 // random x gathers are served by L2 while x fits in it (~50 MB).
 // Known weakness (paper Obs. 4): a window holding one very dense row is
 // walked by a single CTA.
+//
+// Part axis.  The partitioned schemes (repro/core/distributed.py) run this
+// kernel once per part of a PartitionedMatrix.  blockIdx.z is the part:
+// part p reads its own slice of the stacked plan (n_chunks chunks and
+// n_windows + 1 window starts per part), writes its own out_rows x B slice
+// of y, and gathers x from its own window x[x_offset[p] :][: n_cols] (the
+// reference's x_local), clipping every column to that window.  One launch
+// serves every part that lies on the card, as one shard_map step serves
+// every device.  With one part and no x_offset the kernel is the
+// single-device kernel, to the bit.
 
 #include "common.cuh"
 
@@ -45,12 +55,23 @@ coo_window_kernel(const int* __restrict__ window_start,
                   const V* __restrict__ values,
                   const V* __restrict__ x,
                   typename repro::Acc<V>::type* __restrict__ y,
-                  int E, int span, int out_rows, int n_cols, int B, int bt) {
+                  const int* __restrict__ x_offset,
+                  int E, int span, int out_rows, int n_cols, int B, int bt,
+                  int n_chunks) {
   using A = typename repro::Acc<V>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   A* tile = reinterpret_cast<A*>(smem);                        // [span][bt]
   A* bsum = tile + static_cast<size_t>(span) * bt;              // [kWarps][2][BT]
   int* brow = reinterpret_cast<int*>(bsum + kWarps * 2 * BT);  // [kWarps][2]
+
+  const int part = blockIdx.z;
+  window_start += static_cast<size_t>(part) * (gridDim.x + 1);
+  count += static_cast<size_t>(part) * n_chunks;
+  rowind += static_cast<size_t>(part) * n_chunks * E;
+  colind += static_cast<size_t>(part) * n_chunks * E;
+  values += static_cast<size_t>(part) * n_chunks * E;
+  y += static_cast<size_t>(part) * out_rows * B;
+  if (x_offset != nullptr) x += static_cast<size_t>(x_offset[part]) * B;
 
   const int w = blockIdx.x;
   const int b0 = blockIdx.y * bt;
@@ -164,8 +185,9 @@ coo_window_kernel(const int* __restrict__ window_start,
 template <typename V, int BT>
 int launch(const int* window_start, const int* count, const int* rowind,
            const int* colind, const void* values, const void* x, void* y,
-           int n_windows, int E, int span, int out_rows, int n_cols, int B,
-           int bt, cudaStream_t stream) {
+           const int* x_offset, int n_windows, int E, int span, int out_rows,
+           int n_cols, int B, int bt, int n_parts, int n_chunks,
+           cudaStream_t stream) {
   using A = typename repro::Acc<V>::type;
   const size_t smem = sizeof(A) * (static_cast<size_t>(span) * bt + kWarps * 2 * BT) +
                       sizeof(int) * kWarps * 2;
@@ -175,28 +197,33 @@ int launch(const int* window_start, const int* count, const int* rowind,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(n_windows, (B + bt - 1) / bt);
+  const dim3 grid(n_windows, (B + bt - 1) / bt, n_parts);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       window_start, count, rowind, colind, static_cast<const V*>(values),
-      static_cast<const V*>(x), static_cast<typename repro::Acc<V>::type*>(y), E,
-      span, out_rows, n_cols, B, bt);
+      static_cast<const V*>(x), static_cast<typename repro::Acc<V>::type*>(y),
+      x_offset, E, span, out_rows, n_cols, B, bt, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// y (out_rows, B) in the accumulation dtype = plan @ x, x (n_cols, B)
-// row-major.  Returns the cudaError_t of the launch (0 on success).
+// y (n_parts, out_rows, B) in the accumulation dtype = plan @ x, part p
+// reading x rows [x_offset[p], x_offset[p] + n_cols) (x_offset may be null:
+// every part reads x from row 0), x row-major with B columns.  Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int repro_coo_spmv(const int* window_start, const int* count,
                               const int* rowind, const int* colind,
                               const void* values, const void* x, void* y,
-                              int n_windows, int E, int span, int out_rows,
-                              int n_cols, int B, int bt, int dtype, void* stream) {
-  if (n_windows < 1 || B < 1 || bt < 1 || bt > 32 || n_cols < 1)
+                              const int* x_offset, int n_windows, int E,
+                              int span, int out_rows, int n_cols, int B, int bt,
+                              int n_parts, int n_chunks, int dtype, void* stream) {
+  if (n_windows < 1 || B < 1 || bt < 1 || bt > 32 || n_cols < 1 || n_parts < 1 ||
+      n_parts > 65535 || n_chunks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_COO_ARGS \
-  window_start, count, rowind, colind, values, x, y, n_windows, E, span, out_rows, n_cols, B, bt, s
+#define REPRO_COO_ARGS                                                            \
+  window_start, count, rowind, colind, values, x, y, x_offset, n_windows, E, span, \
+      out_rows, n_cols, B, bt, n_parts, n_chunks, s
   REPRO_DISPATCH_DTYPE(dtype, {
     if (bt == 1) return launch<V, 1>(REPRO_COO_ARGS);
     if (bt <= 8) return launch<V, 8>(REPRO_COO_ARGS);

@@ -5,7 +5,7 @@ count kernel *builds* (one per trace); here each wrapper adds one to its
 count where it launches its CUDA kernel, and nowhere else — a CPU tensor
 that runs the plain version counts nothing.  So a run can show that a path
 really went through the kernels.  Keys are the kernel kind ("coo",
-"bcoo"); launches with more than one right-hand side are also counted under
+"bcoo", "ell"); launches with more than one right-hand side are also counted under
 ``f"{kind}.spmm"``.
 """
 from __future__ import annotations

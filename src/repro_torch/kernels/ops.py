@@ -23,8 +23,10 @@ from . import ref
 from .bcsr_spmv import bcoo_spmv, bcoo_spmv_plain, block_row_ptr
 from .coo_spmv import ChunkPlan, coo_spmv, coo_spmv_plain, plan_chunks
 from .csr_spmv import csr_plan_chunks
+from .ell_spmv import ell_spmv
 
-__all__ = ["spmv", "spmm", "kernel_program", "KernelProgram", "IMPLS"]
+__all__ = ["spmv", "spmm", "kernel_program", "KernelProgram", "IMPLS",
+           "ell_spmv"]
 
 IMPLS = ("torch", "cuda")
 

@@ -9,8 +9,6 @@ on any device and hold the same conventions:
   * output length/height is passed explicitly;
   * products and sums are taken in the accumulation dtype (bf16/f16 -> f32,
     i8/i16 -> i32) and cast back to the values dtype at the end.
-
-The ELL oracle is ported together with its kernel.
 """
 from __future__ import annotations
 
@@ -22,6 +20,7 @@ __all__ = [
     "csr_spmv_ref",
     "bcoo_spmv_ref",
     "bcsr_spmv_ref",
+    "ell_spmv_ref",
 ]
 
 
@@ -126,3 +125,21 @@ def bcsr_spmv_ref(browptr, bcolind, bvalues, x, out_rows: int | None = None):
     browind = browind.clamp(0, out_rows // r - 1)
     return bcoo_spmv_ref(browind, bcolind, bvalues, x, out_rows,
                          nblocks=browptr[-1])
+
+
+def ell_spmv_ref(colind, values, x, row_nnz=None):
+    """ELL (padded-row) SpMV/SpMM: gather + row sum, no scatter.
+
+    colind/values: (rows, K); contributions at k >= row_nnz[r] are masked;
+    columns are clipped to x's rows (``take(mode="clip")``).
+    """
+    rows, K = values.shape
+    acc = acc_dtype(values.dtype)
+    xv = x[colind.long().clamp(0, x.shape[0] - 1)].to(acc)
+    prod = _bcast(values.to(acc), x.ndim) * xv
+    if row_nnz is not None:
+        mask = torch.arange(K, device=values.device)[None, :] < row_nnz[:, None]
+        prod = torch.where(_bcast(mask, x.ndim), prod,
+                           torch.zeros((), dtype=acc, device=prod.device))
+    y = prod.sum(1, dtype=acc)
+    return y.to(values.dtype) if values.dtype != acc else y

@@ -16,8 +16,9 @@ import torch
 from repro.api import SparseMatrix as JSparseMatrix
 from repro.api import plan_from_ir as j_plan_from_ir
 from repro.data.matrices import block_matrix, regular_matrix, scale_free_matrix
-from repro_torch.api import SparseMatrix, plan_from_ir
+from repro_torch.api import AXES_2D, SparseMatrix, plan_from_ir
 from repro_torch.core import formats as TF
+from repro_torch.core.mesh import make_mesh
 
 from _torch_common import BF16, rand_sparse
 
@@ -172,22 +173,51 @@ def test_plan_ir_errors():
         plan_from_ir({"ir_version": 2}, tsm, device="cpu")
     with pytest.raises(ValueError, match="impl"):
         plan_from_ir({**ir, "impl": "triton"}, tsm, device="cpu")
+    # a mesh record lays every part on the one device it is given
+    mesh_ir = {**ir, "scheme": {**ir["scheme"], "partitioning": "1d",
+                                "scheme": "nnz", "merge": "ppermute",
+                                "grid": [4, 1]},
+               "mesh": {"shape": [4], "axes": ["parts"]}}
+    pln = plan_from_ir(mesh_ir, tsm, device="cpu")
+    assert pln.is_distributed and pln.mesh.devices.shape == (4,)
+    assert pln.device.type == "cpu" and pln.scheme_id == "1d.nnz.coo.ppermute"
+    x = np.arange(16, dtype=np.float32)
+    np.testing.assert_allclose(pln.compile()(x), tsm.dense().numpy() @ x,
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="4 devices"):
+        plan_from_ir(mesh_ir, tsm, devices=["cpu"] * 3)
+    # distinct cards wait for multi-card meshes
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan_from_ir({**ir, "mesh": {"shape": [4], "axes": ["parts"]}}, tsm,
-                     device="cpu")
+        plan_from_ir(mesh_ir, tsm, devices=["cuda:0", "cuda:1"] * 2)
 
 
 def test_plan_errors_and_unported_options():
+    """Unported options raise; mesh= / devices= plan P parts on one device."""
     sm = SparseMatrix.from_dense(rand_sparse(16, 16, 0.3, np.float32, seed=2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             sm.plan()  # device="cuda" is the default: no fallback to the CPU
     with pytest.raises(ValueError, match="unknown impl"):
         sm.plan(impl="pallas", device="cpu")
-    for kw in ({"scheme": "tune"}, {"devices": [0, 1]}, {"mesh": object()},
-               {"topology": object()}):
+    for kw in ({"scheme": "tune"}, {"devices": ["cuda:0", "cuda:1"]},
+               {"devices": ["cpu", "cuda:0"]}, {"topology": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sm.plan(device="cpu", **kw)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sm.plan(devices=["cuda"] * 4)  # the card, and no fallback
+    # P parts on one device: by devices= or by a mesh of that device
+    mesh = make_mesh((2, 2), AXES_2D, ["cpu"] * 4)
+    by_mesh = sm.plan(scheme="2d.equally-sized", mesh=mesh)
+    by_pool = sm.plan(scheme="2d.equally-sized", devices=["cpu"] * 4)
+    for pln in (by_mesh, by_pool):
+        assert pln.is_distributed and pln.grid == (2, 2)
+        assert pln.mesh.axis_names == AXES_2D and pln.device.type == "cpu"
+        assert "mesh(2, 2)(cpu)" in pln.describe()
+    with pytest.raises(ValueError, match="not both"):
+        sm.plan(mesh=mesh, devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="does not match"):
+        sm.plan(scheme="1d", mesh=mesh)
     pln = sm.plan(scheme="2d.equally-sized", device="cpu")
     assert pln.scheme_id == "2d.equally-sized.coo.psum_scatter"
     assert pln.grid == (1, 1) and not pln.is_distributed

@@ -17,11 +17,15 @@ import pytest
 import torch
 
 from repro_torch.api import SparseMatrix
+from repro_torch.core import distributed as D
 from repro_torch.core import formats as F
-from repro_torch.kernels import instrument, ops
+from repro_torch.core.partition import partition_1d, partition_2d
+from repro_torch.kernels import _build, instrument, ops
 from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_cuda,
                                            bcoo_spmv_plain, block_row_ptr)
-from repro_torch.kernels.coo_spmv import coo_spmv, coo_spmv_plain, plan_chunks
+from repro_torch.kernels.coo_spmv import (ChunkPlan, coo_spmv, coo_spmv_plain,
+                                          plan_chunks)
+from repro_torch.kernels.ell_spmv import dense_to_ell, ell_spmv, ell_spmv_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -198,3 +202,136 @@ def test_pipeline_on_card_matches_torch_impl(cuda, fmt, dtype):
     np.testing.assert_array_equal(exe.batch(X), ref.batch(X).astype(exe(x).dtype))
     assert np.array_equal(ops.spmv(sm.container(fmt).to(cuda), x.to(cuda),
                                    impl="cuda").cpu().numpy(), exe(x))
+
+
+# ------------------------------------------------------------------- ELL
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("k_pad", [None, 3])
+def test_ell_kernel_matches_plain(cuda, dtype, batch, k_pad):
+    rng = np.random.default_rng(9)
+    a = _matrix(rng, 300, 200, 0.05, dtype)
+    a[11] = torch.from_numpy(_ints(rng, 200)).to(dtype)  # K = a full row
+    ci, vv, rn = dense_to_ell(a, k=k_pad)
+    x = _x(rng, 200, batch, dtype)
+    want = ell_spmv_plain(ci, vv, rn, x)
+    instrument.reset()
+    got = ell_spmv(ci.to(cuda), vv.to(cuda), rn.to(cuda), x.to(cuda))
+    torch.cuda.synchronize()
+    assert instrument.launches("ell") == 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+def test_ell_masked_clipped_and_tile_invariant(cuda):
+    rng = np.random.default_rng(10)
+    ci = torch.from_numpy(rng.integers(-5, 80, (257, 6)).astype(np.int32))
+    vv = torch.from_numpy(rng.standard_normal((257, 6)).astype(np.float32))
+    rn = torch.from_numpy(rng.integers(0, 8, 257).astype(np.int32))
+    X = _x(rng, 64, 40, torch.float32, integer=False)
+    want = ell_spmv_plain(ci, vv, rn, X)
+    args = [t.to(cuda) for t in (ci, vv, rn, X)]
+    runs = [ell_spmv(*args, bt) for bt in (1, 2, 8, 13, 32)]
+    torch.testing.assert_close(runs[0].cpu(), want, rtol=2e-4, atol=2e-4)
+    for y in runs[1:]:
+        assert torch.equal(y, runs[0])
+
+
+# ------------------------------------------------------------- part axis
+
+
+def _parts(rng, fmt, scheme, dtype):
+    a = _matrix(rng, 96, 128, 0.12, dtype)
+    a[21] = torch.from_numpy(_ints(rng, 128)).to(dtype)  # split by 1d.nnz
+    head, tail = scheme.split(".")
+    if head == "1d":
+        return partition_1d(a, 4, fmt, tail, (8, 16)), a
+    return partition_2d(a, (2, 2), fmt, tail, (8, 16)), a
+
+
+PART_CASES = [("coo", "1d.nnz"), ("csr", "1d.nnz-rgrn"),
+              ("coo", "2d.variable-sized"), ("coo", "2d.equally-sized"),
+              ("bcoo", "1d.nnz"), ("bcoo", "2d.variable-sized"),
+              ("bcsr", "2d.equally-wide")]
+
+
+@pytest.mark.parametrize("fmt,scheme", PART_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=str)
+@pytest.mark.parametrize("batch", BATCHES)
+def test_part_axis_launch_equals_single_part_launches(cuda, fmt, scheme, dtype,
+                                                      batch):
+    """One launch over P parts == P single-part launches (each on its own x
+    window) == the per-part plain versions, bit for bit."""
+    rng = np.random.default_rng(11)
+    part, _ = _parts(rng, fmt, scheme, dtype)
+    P = part.n_parts
+    width = part.w_pad
+    offsets = [0] * P if scheme.startswith("1d") else part.col_start.tolist()
+    x = _x(rng, max(offsets) + width, batch, dtype).to(cuda)
+    win = _build.XWindows.build(offsets, width, cuda)
+    dev = part.to(cuda)
+    if fmt in ("coo", "csr"):
+        arrs = {k[6:]: v.to(cuda) for k, v in D.kernel_chunk_arrays(part).items()}
+        span = D._span(part.h_pad)
+        plan = ChunkPlan(**arrs, n_windows=-(-part.h_pad // span),
+                         out_rows=part.h_pad, span=span)
+        instrument.reset()
+        got = coo_spmv(plan, x, windows=win)
+        assert instrument.launches("coo") == 1
+        singles = [coo_spmv(plan.part(p), win.local(x, p)) for p in range(P)]
+        plains = coo_spmv_plain(plan, x, win)
+    else:
+        ptr = D.kernel_block_arrays(part)["browptr"].to(cuda)
+        instrument.reset()
+        got = bcoo_spmv(dev.rowind, dev.colind, dev.values, x, part.h_pad,
+                        dev.nnz, browptr=ptr, windows=win)
+        assert instrument.launches("bcoo") == 1
+        singles = [bcoo_spmv(dev.rowind[p], dev.colind[p], dev.values[p],
+                             win.local(x, p), part.h_pad, dev.nnz[p],
+                             browptr=ptr[p]) for p in range(P)]
+        plains = bcoo_spmv_plain(dev.rowind, dev.colind, dev.values, x,
+                                 part.h_pad, dev.nnz, win)
+    torch.cuda.synchronize()
+    assert got.shape[0] == P and torch.equal(got, torch.stack(singles))
+    assert torch.equal(got, plains)
+
+
+def test_part_axis_rejects_windows_that_overrun_x(cuda):
+    rng = np.random.default_rng(12)
+    part, _ = _parts(rng, "bcoo", "2d.variable-sized", torch.float32)
+    dev = part.to(cuda)
+    ptr = D.kernel_block_arrays(part)["browptr"].to(cuda)
+    win = _build.XWindows.build(part.col_start.tolist(), part.w_pad, cuda)
+    x = torch.zeros(max(part.col_start.tolist()) + part.w_pad - 1, device=cuda)
+    with pytest.raises(ValueError, match="overrun"):
+        bcoo_spmv(dev.rowind, dev.colind, dev.values, x, part.h_pad, dev.nnz,
+                  browptr=ptr, windows=win)
+
+
+@pytest.mark.parametrize("scheme,fmt,merge", [
+    ("1d.nnz", "coo", None), ("1d.rows", "csr", None),
+    ("1d.nnz", "bcoo", None), ("2d.equally-sized", "coo", "psum_scatter"),
+    ("2d.equally-sized", "bcsr", "psum"), ("2d.equally-wide", "coo", None),
+    ("2d.variable-sized", "bcoo", None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=str)
+def test_mesh_executor_on_card_matches_cpu(cuda, scheme, fmt, merge, dtype):
+    """P parts on the card answer as the same plan on the CPU (the plain
+    versions there), one part-axis launch per request."""
+    rng = np.random.default_rng(13)
+    a = _matrix(rng, 96, 128, 0.12, dtype)
+    a[21] = torch.from_numpy(_ints(rng, 128)).to(dtype)
+    sm = SparseMatrix.from_dense(a)
+    kw = dict(scheme=scheme, fmt=fmt, merge=merge, block=(8, 16))
+    ref = sm.plan(devices=["cpu"] * 4, **kw).compile()
+    exe = sm.plan(devices=["cuda"] * 4, **kw).compile()
+    assert exe.device.type == "cuda" and exe.plan.scheme_id == ref.plan.scheme_id
+    x, X = _x(rng, 128, None, dtype), _x(rng, 128, 40, dtype)
+    instrument.reset()
+    np.testing.assert_array_equal(exe(x), ref(x))
+    np.testing.assert_array_equal(exe.batch(X), ref.batch(X))
+    kind = "coo" if fmt in ("coo", "csr") else "bcoo"
+    assert instrument.launches(kind) == 2 and instrument.launches() == 3

@@ -16,6 +16,8 @@ from repro.kernels.bcsr_spmv import bcoo_spmv_pallas
 from repro.kernels.coo_spmv import coo_spmv_pallas
 from repro.kernels.coo_spmv import plan_chunks as j_plan_chunks
 from repro.kernels.csr_spmv import csr_plan_chunks as j_csr_plan_chunks
+from repro.kernels.ell_spmv import dense_to_ell as j_dense_to_ell
+from repro.kernels.ell_spmv import ell_spmv_pallas
 from repro.core import formats as JF
 from repro_torch import convert
 from repro_torch.core import formats as TF
@@ -24,8 +26,11 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.bcsr_spmv import bcoo_spmv, bcoo_spmv_plain, block_row_ptr
 from repro_torch.kernels.coo_spmv import coo_spmv, coo_spmv_plain, plan_chunks
 from repro_torch.kernels.csr_spmv import csr_plan_chunks, csr_spmv
+from repro_torch.kernels.ell_spmv import (_pack_ell, dense_to_ell, ell_spmv,
+                                          ell_spmv_plain)
 
-from _torch_common import BF16, as_f32, assert_same_fields, jax_fields, rand_sparse
+from _torch_common import (BF16, as_f32, assert_same_fields, jax_fields, np_of,
+                           rand_sparse)
 
 SHAPES = [(16, 32), (64, 96), (130, 70), (256, 512)]  # tests/test_kernels.py
 
@@ -186,6 +191,84 @@ def test_wrappers_raise_on_non_cpu_non_cuda_tensors():
                   32, m.nblocks, browptr=block_row_ptr(m.browind, m.nblocks, 4))
 
 
+# ------------------------------------------------------------------- ELL
+
+
+@pytest.mark.parametrize("k_pad", [None, 3, 17])  # tests/test_kernels.py:88
+@pytest.mark.parametrize("dtype", [np.float32, BF16, np.int8, np.int32],
+                         ids=lambda d: np.dtype(d).name)
+def test_dense_to_ell_matches_jax(k_pad, dtype):
+    a = rand_sparse(90, 64, 0.1, np.float32, seed=11, integer=True)
+    a[4] = 0  # an empty row
+    a = a.astype(dtype)
+    want = j_dense_to_ell(a, k=k_pad)
+    got = dense_to_ell(a, k=k_pad)
+    for g, w, name in zip(got, want, ("colind", "values", "row_nnz")):
+        assert isinstance(g, torch.Tensor), name
+        assert np_of(g).dtype == np_of(w).dtype, name
+        np.testing.assert_array_equal(np_of(g), np_of(w), err_msg=name)
+    ri, ci = np.nonzero(a)  # the packer the dense door uses never densifies
+    for g, t in zip(got, _pack_ell(ri, ci, TF.to_tensor(a[ri, ci]), 90, k_pad)):
+        assert torch.equal(g, t)
+
+
+ELL_CASES = [  # (k_pad, dtype, integer-valued, batch, batch_tile)
+    (None, np.float32, False, None, None),  # tests/test_kernels.py:88-97
+    (3, np.float32, False, None, None),  # rows truncated to 3 slots
+    (17, np.float32, False, None, None),  # padded past every row
+    (None, np.float32, False, 5, 2),  # tests/test_kernels.py:161-170
+    (None, np.float32, True, 5, None),
+    (3, np.int8, True, None, None),
+    (17, BF16, True, 4, None),
+    (None, np.int32, True, 3, 1),
+]
+
+
+@pytest.mark.parametrize("k_pad,dtype,integer,batch,bt", ELL_CASES)
+def test_ell_plain_matches_pallas_and_ref(k_pad, dtype, integer, batch, bt):
+    a = rand_sparse(90, 64, 0.1, np.float32, seed=11, integer=integer)
+    a = a.astype(dtype)
+    ci, vv, rn = j_dense_to_ell(a, k=k_pad)
+    x = _x(64, batch, dtype, seed=12, integer=integer)
+    exact = integer or np.issubdtype(np.dtype(dtype), np.integer)
+    want = ell_spmv_pallas(jnp.asarray(ci), jnp.asarray(vv), jnp.asarray(rn),
+                           jnp.asarray(x), batch_tile=bt)
+    tci, tvv, trn = (TF.to_tensor(t) for t in (ci, vv, rn))
+    got = ell_spmv_plain(tci, tvv, trn, TF.to_tensor(x))
+    _compare(got, want, exact)  # the accumulation dtype, as the Pallas kernel
+    assert torch.equal(ell_spmv(tci, tvv, trn, TF.to_tensor(x), bt), got)
+    jwant = jref.ell_spmv_ref(jnp.asarray(ci), jnp.asarray(vv), jnp.asarray(x),
+                              jnp.asarray(rn))
+    tgot = tref.ell_spmv_ref(tci, tvv, TF.to_tensor(x), trn)
+    _compare(tgot, jwant, exact)
+    assert tgot.dtype == tvv.dtype  # the oracle casts back, the kernel does not
+
+
+def test_ell_masked_and_clipped_slots_match_jax():
+    """Slots at or past row_nnz add nothing, even with nonzero values, and
+    out-of-range columns clip to the edge of x (take(mode="clip"))."""
+    rng = np.random.default_rng(13)
+    ci = rng.integers(-5, 80, (40, 6)).astype(np.int32)  # some outside [0, 64)
+    vv = rng.integers(-3, 4, (40, 6)).astype(np.float32)
+    rn = rng.integers(0, 8, 40).astype(np.int32)  # some beyond K = 6
+    x = rng.integers(-2, 3, (64, 3)).astype(np.float32)
+    want = ell_spmv_pallas(*(jnp.asarray(t) for t in (ci, vv, rn, x)))
+    got = ell_spmv(*(TF.to_tensor(t) for t in (ci, vv, rn, x)))
+    _compare(got, want, exact=True)
+    jwant = jref.ell_spmv_ref(*(jnp.asarray(t) for t in (ci, vv, x[:, 0], rn)))
+    _compare(tref.ell_spmv_ref(*(TF.to_tensor(t) for t in (ci, vv, x[:, 0], rn))),
+             jwant, exact=True)
+
+
+def test_ell_exported_like_the_jax_package():
+    from repro_torch import kernels
+
+    assert kernels.ell_spmv is ell_spmv and ops.ell_spmv is ell_spmv
+    a = rand_sparse(16, 24, 0.2, np.float32, seed=14)
+    with pytest.raises(ValueError, match="CUDA"):
+        ell_spmv(*dense_to_ell(a), torch.zeros(24, device="meta"))
+
+
 # ------------------------------------------------------ oracles vs ref.py
 
 
@@ -258,8 +341,9 @@ def test_instrument_counts_like_the_jax_counter():
     instrument.record_launch("coo", 1)
     instrument.record_launch("coo", 8)
     instrument.record_launch("bcoo", 3)
+    instrument.record_launch("ell", 1)
     assert instrument.launches("coo") == 2 and instrument.launches("coo.spmm") == 1
-    assert instrument.launches("bcoo.spmm") == 1
-    assert instrument.launches() == 5  # every key, as repro's builds()
+    assert instrument.launches("bcoo.spmm") == 1 and instrument.launches("ell") == 1
+    assert instrument.launches() == 6  # every key, as repro's builds()
     instrument.reset()
     assert instrument.launches() == 0
