@@ -14,7 +14,9 @@ Phases (every check raises, so any failure exits non-zero):
    with about 1M nonzeros: values in {f32, bf16, i8, i32} x {SpMV, SpMM B=8,
    B=40 ragged}.  Integer-valued inputs must agree bit for bit; random f32
    at rtol=atol=2e-4 (tests/test_kernels.py's tolerance).  SpMM results must
-   be bit-identical across two batch tiles.
+   be bit-identical across two batch tiles.  The COO kernel also runs a
+   matrix whose first window holds 262,144 nonzeros (a full row of 65,536
+   and 384 rows of 512), which it splits into pieces.
 3. The main path, through ``SparseMatrix.from_parts(...).plan(scheme="auto")
    .compile()``, on three matrices built from ``--seed`` after the recipes of
    ``repro/data/matrices.py`` (integer values in {±1, ±2}; x in {-2..2}, so
@@ -24,11 +26,14 @@ Phases (every check raises, so any failure exits non-zero):
    answer must equal the kernel's plain version on the card and cuSPARSE
    (``torch.sparse_csr_tensor @ x``, an independent oracle the port never
    calls) bit for bit, and the launch counters must rise by the requests.
-4. Times at the main-path shapes (CUDA events, after warm-up): the kernel,
-   its plain version, cuSPARSE, and the bound — the bytes the product must
-   move (each input once, each output once) over 3.35 TB/s, or its
-   operations over 67 TFLOP/s (f32, no tensor cores), whichever is larger.
-5. The ELL kernel against its plain version at 65,536^2, as phase 2.
+4. Times at the main-path shapes (CUDA events, after warm-up) at B = 1, 8
+   and 64: the kernel, its plain version, cuSPARSE, and the bound — the
+   bytes the product must move (each input once, each output once) over
+   3.35 TB/s, or its operations over 67 TFLOP/s (f32, no tensor cores),
+   whichever is larger.  Then the COO kernel's piece size M swept on the
+   COO plans at B=1, and its two passes timed apart by torch.profiler.
+5. The ELL kernel against its plain version at 65,536^2 with K = 16 and 48,
+   as phase 2.
 6. The ELL path at full width, through the ``kernels`` entry point
    ``ell_spmv``: the regular matrix with K=16 and the block matrix read as
    scalar ELL with K=48 (the scale-free matrix is left out: its densest row
@@ -155,6 +160,27 @@ def random_triplets(rng, n: int, per_row: int, integer: bool):
     return rows, cols, vals, (n, n)
 
 
+def heavy_window_triplets(rng, n: int, integer: bool):
+    """``random_triplets`` with 16 per row, but the first 512-row window
+    holds 262,144 nonzeros: row 0 full (n columns) and rows 1..384 with 512
+    distinct columns each (rows 385..511 empty).  The CUDA kernel splits
+    that window into pieces.  Random values of a heavy row are scaled by
+    1/sqrt(its length), so that its sum has unit spread and the 2e-4
+    tolerance holds the kernel, not float32's rounding of a 65,536-term
+    sum, to account."""
+    rows, cols, vals, shape = random_triplets(rng, n, 16, integer)
+    keep = rows >= 512
+    heavy_rows = np.concatenate([np.zeros(n, np.int64), np.repeat(np.arange(1, 385), 512)])
+    heavy_cols = np.concatenate([np.arange(n)] + [np.sort(rng.choice(n, 512, replace=False))
+                                                  for _ in range(384)])
+    heavy_vals = (rng.choice(PM12, len(heavy_rows)) if integer
+                  else (rng.standard_normal(len(heavy_rows)) / np.sqrt(
+                      np.where(heavy_rows == 0, n, 512))).astype(np.float32))
+    return (np.concatenate([heavy_rows, rows[keep]]),
+            np.concatenate([heavy_cols, cols[keep]]),
+            np.concatenate([heavy_vals, vals[keep]]), shape)
+
+
 def random_block_triplets(rng, n: int, integer: bool, block=(8, 16)):
     """One dense (r, c) block per block-row at a random block-column."""
     r, c = block
@@ -201,10 +227,10 @@ def ptxas_lines(build) -> list:
         entry, spill = None, ""
         for line in build.build_log(name).splitlines():
             m = re.search(r"Compiling entry function "
-                          r"'\S*?_kernelI(\w+?)(?:Li(\d+)E)?EEv", line)
+                          r"'\S*?\d+([a-z_]+_kernel)I(\w+?)(?:Li(\d+)E)?EEv", line)
             if m:
-                entry = names.get(m.group(1), m.group(1)) + (
-                    f" BT={m.group(2)}" if m.group(2) else "")
+                entry = m.group(1) + " " + names.get(m.group(2), m.group(2)) + (
+                    f" G={m.group(3)}" if m.group(3) else "")
             elif "spill" in line and entry:
                 spill = line.strip()
             elif "Used" in line and entry:
@@ -224,12 +250,16 @@ def phase_kernels(torch, rng, device, n: int, errs: dict) -> None:
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "i8": torch.int8,
               "i32": torch.int32}
-    makers = {"coo_spmv": (lambda integer: random_triplets(rng, n, 16, integer),
-                           lambda ri, ci, v, s: F.triplets_to_coo(ri, ci, v, s)),
-              "bcoo_spmv": (lambda integer: random_block_triplets(rng, n, integer),
-                            lambda ri, ci, v, s: F.triplets_to_bcoo(
-                                ri, ci, v, s, block=(8, 16)))}
-    for kernel, (triplets, build) in makers.items():
+    to_coo = lambda ri, ci, v, s: F.triplets_to_coo(ri, ci, v, s)  # noqa: E731
+    makers = {("coo_spmv", "random"): (
+                  lambda integer: random_triplets(rng, n, 16, integer), to_coo),
+              ("coo_spmv", "heavy-window"): (
+                  lambda integer: heavy_window_triplets(rng, n, integer), to_coo),
+              ("bcoo_spmv", "random"): (
+                  lambda integer: random_block_triplets(rng, n, integer),
+                  lambda ri, ci, v, s: F.triplets_to_bcoo(
+                      ri, ci, v, s, block=(8, 16)))}
+    for (kernel, matrix), (triplets, build) in makers.items():
         cases = [(name, dt, True) for name, dt in dtypes.items()]
         cases.append(("f32-random", torch.float32, False))
         for name, dtype, integer in cases:
@@ -259,9 +289,14 @@ def phase_kernels(torch, rng, device, n: int, errs: dict) -> None:
                     other = dataclasses.replace(prog, batch_tile=8)
                     check(torch.equal(other(x), got),
                           f"{kernel} {name} B={batch}: batch tiles 8 and 32 differ")
-            emit({"phase": "kernel_vs_plain", "kernel": kernel, "values": name,
-                  "shape": list(shape), "nnz": nnz, "max_abs_err": case_err,
-                  "ok": True})
+            pieces = {}
+            if matrix == "heavy-window":
+                pieces = {"window0_chunks": int(prog.plan.window_start[1]),
+                          "window0_pieces": int((prog.plan.pieces[:, 0] == 0).sum())}
+                check(pieces["window0_pieces"] > 1, f"heavy window not split: {pieces}")
+            emit({"phase": "kernel_vs_plain", "kernel": kernel, "matrix": matrix,
+                  "values": name, "shape": list(shape), "nnz": nnz, **pieces,
+                  "max_abs_err": case_err, "ok": True})
             errs[kernel] = max(errs[kernel], case_err)
             del prog, m
     torch.cuda.empty_cache()
@@ -383,6 +418,64 @@ def phase_times(torch, rng, device, records) -> dict:
     return rows
 
 
+def phase_pieces(torch, rng, device, records) -> list:
+    """The piece size M of the COO kernel: the single-device COO plans at
+    B=1 with pieces of at most M chunks (answers equal at every M), and at
+    the default M the device time of its two passes from torch.profiler."""
+    from repro_torch.kernels.coo_spmv import PIECE_CHUNKS, coo_spmv, plan_pieces
+
+    rows_out = []
+    for rec in records:
+        if rec["fmt"] != "coo":
+            continue
+        prog = rec["prog"]
+        x = torch.from_numpy(rng.integers(-2, 3, rec["shape"][1])
+                             .astype(np.float32)).to(device)
+        want = prog(x)
+        for M in (8, 16, 32, 64, 128):
+            pieces, splits = plan_pieces(prog.plan.window_start, M)
+            plan = dataclasses.replace(prog.plan, pieces=pieces.to(device),
+                                       splits=splits.to(device))
+            check(torch.equal(coo_spmv(plan, x), want),
+                  f"{rec['matrix']}: pieces of {M} chunks change the answer")
+            row = {"matrix": rec["matrix"], "M": M, "default": M == PIECE_CHUNKS,
+                   "pieces": int((plan.pieces[:, 0] >= 0).sum()),
+                   "slots": int(plan.splits.shape[0]),
+                   "ms": time_ms(torch, lambda: coo_spmv(plan, x), 30)}
+            emit({"phase": "piece_size", **row})
+            rows_out.append(row)
+        emit({"phase": "coo_passes", "matrix": rec["matrix"],
+              **device_split(torch, lambda: prog(x), ("coo_piece_kernel",
+                                                      "coo_merge_kernel"))})
+    return rows_out
+
+
+def device_split(torch, fn, names, iters: int = 20) -> dict:
+    """Mean device ms per call of each named kernel, from torch.profiler;
+    {"profiler": "not measured", ...} when the trace holds no device time."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(names, 0.0)
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            us = getattr(ev, "cuda_time_total", 0.0) if us is None else us
+            for name in names:
+                if name in ev.key:
+                    out[name] += us / 1e3 / iters
+        if not any(out.values()):
+            return {"profiler": "not measured: no device time in the trace"}
+        return {f"{k}_ms": v for k, v in out.items()}
+    except Exception as e:  # a measurement only; the checks stand apart
+        return {"profiler": f"not measured: {type(e).__name__}: {e}"}
+
+
 def ell_bound(rows: int, K: int, cols: int, batch: int, vbytes: int = 4,
               abytes: int = 4):
     """(bound ms, bound_by, bytes): the ELL arrays, row_nnz, x and y moved
@@ -396,18 +489,19 @@ def ell_bound(rows: int, K: int, cols: int, batch: int, vbytes: int = 4,
 
 
 def phase_ell_kernel(torch, rng, device, n: int, errs: dict) -> None:
-    """The ELL kernel vs its plain version at 65,536^2 x ~1M slots."""
+    """The ELL kernel vs its plain version at 65,536^2 with K = 16 and 48."""
     from repro_torch.core import formats as F
     from repro_torch.kernels.ell_spmv import _pack_ell, ell_spmv, ell_spmv_plain
 
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16, "i8": torch.int8,
               "i32": torch.int32}
-    cases = [(name, dt, True) for name, dt in dtypes.items()]
-    cases.append(("f32-random", torch.float32, False))
-    for name, dtype, integer in cases:
-        ri, ci, vals, shape = random_triplets(rng, n, 16, integer)
+    cases = [(name, dt, True, per) for per in (16, 48)
+             for name, dt in dtypes.items()]
+    cases += [("f32-random", torch.float32, False, per) for per in (16, 48)]
+    for name, dtype, integer, per in cases:
+        ri, ci, vals, shape = random_triplets(rng, n, per, integer)
         ri, ci, v = F.coalesce(ri, ci, F.to_tensor(vals, dtype), shape)
-        arrs = [t.to(device) for t in _pack_ell(ri, ci, v, n)]
+        arrs = [t.to(device) for t in _pack_ell(ri, ci, v, n, per)]
         case_err = 0.0
         for batch in (None, 8, 40):
             xshape = (n,) if batch is None else (n, batch)
@@ -679,6 +773,7 @@ def main(argv=None) -> int:
         torch, rng, device, (1 << 21, 1 << 21, 1 << 20), errs, records)
     check(launches == requests, f"launch counters {launches} != requests {requests}")
     times = phase_times(torch, rng, device, records)
+    phase_pieces(torch, rng, device, records)
     phase_ell_kernel(torch, rng, device, 1 << 16, errs)
     ell_launches, ell_times = phase_ell_path(torch, rng, device, records, errs)
     part_launches, part_rows = phase_partitioned(torch, rng, device, records,

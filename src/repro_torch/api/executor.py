@@ -12,15 +12,21 @@ whether the plan runs
     exposes the paper's three phases (``place`` / ``run_raw`` /
     ``assemble``, Fig. 4 load / kernel / retrieve).
 
-Both return host NumPy rows.  x may be a NumPy array or a torch tensor.
-Results whose dtype is bfloat16 are returned widened to float32 (exactly):
-NumPy has no bfloat16 unless ``ml_dtypes`` is installed.  Under
-``impl="cuda"`` a single-device bfloat16 matrix yields float32 anyway (the
-kernels' accumulation dtype).
+Both return host NumPy rows in the dtype the JAX package returns.  x may
+be a NumPy array or a torch tensor.  NumPy has no bfloat16 of its own:
+where ``ml_dtypes`` imports (it comes with JAX), bfloat16 results are
+``ml_dtypes.bfloat16`` arrays, bit for bit, as the JAX package's are;
+where it does not (the card's machine has no JAX), they are widened to
+float32, exactly.  Under ``impl="cuda"`` a single-device bfloat16 matrix
+yields float32 (the kernels' accumulation dtype), as the JAX package's
+``impl="pallas"`` does; partitioned plans cast each part to the values
+dtype before the merge, as the reference does.
 
 ``iterate`` is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -34,10 +40,26 @@ __all__ = ["Executor", "SingleDeviceExecutor", "MeshExecutor", "to_host",
            "AXIS_1D", "AXES_2D"]
 
 
+@functools.cache
+def _np_bfloat16():
+    """numpy's bfloat16 from ml_dtypes, or None where it does not import
+    (imported on the first bfloat16 result, not with the package)."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        return None
+    return np.dtype(ml_dtypes.bfloat16)
+
+
 def to_host(y: torch.Tensor) -> np.ndarray:
-    """Device result -> host ndarray (bfloat16 widened to float32)."""
+    """Device result -> host ndarray.  bfloat16 comes back as
+    ``ml_dtypes.bfloat16`` (same bits) where ml_dtypes imports, else
+    widened to float32 (exact)."""
     if y.dtype == torch.bfloat16:
-        y = y.float()
+        bf16 = _np_bfloat16()
+        if bf16 is None:
+            return y.float().cpu().numpy()
+        return y.cpu().view(torch.int16).numpy().view(bf16)
     return y.cpu().numpy()
 
 

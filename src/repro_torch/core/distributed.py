@@ -96,8 +96,10 @@ def kernel_chunk_arrays(mat: PartitionedMatrix,
 
     Returns host tensors keyed ``chunk_rowind`` / ``chunk_colind`` /
     ``chunk_values`` (P, n_chunks, E), ``chunk_window`` / ``chunk_count``
-    (P, n_chunks) — the JAX package's arrays — and ``chunk_window_start``
-    (P, n_windows + 1) for the CUDA kernel.
+    (P, n_chunks) — the JAX package's arrays — and, for the CUDA kernel,
+    ``chunk_window_start`` (P, n_windows + 1) and the piece table
+    ``chunk_pieces`` (P, Q, 4) / ``chunk_splits`` (P, Z, 3)
+    (:func:`~repro_torch.kernels.coo_spmv.plan_pieces`).
 
     Raises:
       ValueError: for a block-format partition.
@@ -165,7 +167,8 @@ class LocalKernel:
             values=arrs["chunk_values"], window=arrs["chunk_window"],
             count=arrs["chunk_count"], n_windows=self.n_windows,
             out_rows=self.mat.h_pad, span=self.span,
-            window_start=arrs["chunk_window_start"])
+            window_start=arrs["chunk_window_start"], pieces=arrs["chunk_pieces"],
+            splits=arrs["chunk_splits"])
 
     def raw(self, arrs: dict, x: torch.Tensor) -> torch.Tensor:
         """impl="cuda": one part-axis launch (accumulation dtype)."""
@@ -226,7 +229,8 @@ def place_2d(mat: PartitionedMatrix, mesh,
 
 def _flat(arrs: dict) -> dict:
     """(R, C, ...) placed arrays -> (P, ...) views."""
-    return {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in arrs.items()}
+    return {k: v.reshape((v.shape[0] * v.shape[1],) + tuple(v.shape[2:]))
+            for k, v in arrs.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 # kernel -> (source file, C entry point, its argtypes)
 SOURCES = {
     "coo_spmv": ("coo_spmv.cu", "repro_coo_spmv",
-                 [_P] * 8 + [_I] * 10 + [_P]),
+                 [_P] * 10 + [_I] * 11 + [_P]),
     "bcoo_spmv": ("bcoo_spmv.cu", "repro_bcoo_spmv",
                   [_P] * 6 + [_I] * 9 + [_P]),
     "ell_spmv": ("ell_spmv.cu", "repro_ell_spmv",

@@ -1,14 +1,17 @@
-"""Windowed, element-granular COO SpMV/SpMM: chunk planner, plain version
-and the CUDA kernel's wrapper.
+"""Windowed, element-granular COO SpMV/SpMM: chunk planner, piece table,
+plain version and the CUDA kernel's wrapper.
 
 Counterpart of ``repro/kernels/coo_spmv.py``.  The host side is the same:
 the row-sorted nonzero stream is cut into *chunks* of at most E elements,
 each confined to one output *window* of SPAN rows (:func:`plan_chunks`
 builds, array for array, the JAX package's :class:`ChunkPlan`).  The TPU
-kernel merged each chunk into its window with a one-hot MXU matmul; the
-Hopper kernel (``csrc/coo_spmv.cu``, see its header for the design and what
-bounds it) merges with a warp-level segmented reduction instead, one CTA
-per (window, batch tile), no atomics.
+kernel merged each chunk into its window with a one-hot MXU matmul, one
+grid step per chunk.  The Hopper kernel (``csrc/coo_spmv.cu``, see its
+header for the design and what bounds it) balances nonzeros across SMs: each
+window's chunk range is cut into *pieces* of at most
+:data:`PIECE_CHUNKS` chunks (:func:`plan_pieces`, built once with the
+plan), one CTA per (piece, batch tile), and the pieces of a split window
+are summed in piece order by a second pass.  No atomics.
 
 :func:`coo_spmv` dispatches on the device of ``x``: a CPU tensor runs the
 plain version :func:`coo_spmv_plain`, a CUDA tensor launches the kernel
@@ -32,22 +35,29 @@ from . import _build
 from .instrument import record_launch
 from .ref import acc_dtype
 
-__all__ = ["ChunkPlan", "plan_chunks", "stack_chunk_plans", "coo_spmv",
-           "coo_spmv_plain", "coo_spmv_cuda", "CHUNK_E", "ROW_SPAN",
-           "BATCH_TILE"]
+__all__ = ["ChunkPlan", "plan_chunks", "plan_pieces", "stack_chunk_plans",
+           "coo_spmv", "coo_spmv_plain", "coo_spmv_cuda", "CHUNK_E", "ROW_SPAN",
+           "BATCH_TILE", "PIECE_CHUNKS"]
 
 CHUNK_E = 512  # nnz per chunk
 ROW_SPAN = 512  # output window height
-BATCH_TILE = 32  # SpMM columns per CTA (register tile of the CUDA kernel)
+BATCH_TILE = 32  # SpMM columns per CTA (one per lane of the CUDA kernel)
+# chunks per piece: a regular window (16 chunks) stays whole, and a
+# scale-free matrix ran fastest at 16 of 8..128 on the H100 (chip_smoke.py's
+# piece-size sweep)
+PIECE_CHUNKS = 16
+MAX_CHUNK_E = 2048  # widest chunk the CUDA kernel takes (its product buffer)
 
 
 @dataclass(frozen=True)
 class ChunkPlan:
     """Host-side chunking of a row-sorted COO stream (static per matrix).
 
-    Fields as in the JAX package, as tensors; ``window_start`` (built once,
-    here) brackets each window's contiguous chunk range — window ids are
-    non-decreasing — for the CUDA kernel's per-window CTAs.  A stacked plan
+    Fields as in the JAX package, as tensors, plus three the port derives
+    once, here, when they are not given: ``window_start`` brackets each
+    window's contiguous chunk range (window ids are non-decreasing), and
+    ``pieces`` / ``splits`` are the CUDA kernel's piece table
+    (:func:`plan_pieces`).  A stacked plan
     (:func:`stack_chunk_plans`) has a leading part axis on every tensor.
     """
 
@@ -60,6 +70,8 @@ class ChunkPlan:
     out_rows: int
     span: int = ROW_SPAN
     window_start: torch.Tensor = None  # (n_windows + 1,) int32
+    pieces: torch.Tensor = None  # (Q, 4) int32, see plan_pieces
+    splits: torch.Tensor = None  # (Z, 3) int32, see plan_pieces
 
     def __post_init__(self):
         if self.window_start is None:
@@ -68,8 +80,14 @@ class ChunkPlan:
             w = w.expand(self.window.shape[:-1] + w.shape).contiguous()
             ws = torch.searchsorted(self.window.contiguous(), w).to(torch.int32)
             object.__setattr__(self, "window_start", ws)
+        if self.pieces is None or self.splits is None:
+            pieces, splits = plan_pieces(self.window_start)
+            dev = self.window_start.device
+            object.__setattr__(self, "pieces", pieces.to(dev))
+            object.__setattr__(self, "splits", splits.to(dev))
 
-    _tensors = ("rowind", "colind", "values", "window", "count", "window_start")
+    _tensors = ("rowind", "colind", "values", "window", "count", "window_start",
+                "pieces", "splits")
 
     def to(self, device) -> "ChunkPlan":
         return dataclasses.replace(
@@ -147,6 +165,58 @@ def plan_chunks(
                      n_windows, out_rows, span)
 
 
+def plan_pieces(window_start, max_chunks: int = PIECE_CHUNKS):
+    """The CUDA kernel's piece table: each window's chunk range cut into
+    pieces of at most ``max_chunks`` chunks (host side, once per plan).
+
+    ``window_start`` is ([P,] n_windows + 1).  A window of n chunks becomes
+    ceil(n / max_chunks) pieces of near-equal size (at least one, so that
+    an empty window still writes its zeros), contiguous and in chunk order.
+    The pieces of a split window (more than one piece) each own a scratch
+    slot, numbered per part in piece order.
+
+    Returns ``(pieces, splits)``, int32 CPU tensors with the part axis of
+    ``window_start``:
+
+      * ``pieces`` ([P,] Q, 4): window, first chunk, end chunk, scratch
+        slot (-1 when the window is a single piece and writes y itself);
+      * ``splits`` ([P,] Z, 3): one row per scratch slot: window, the first
+        and the end slot of that window's pieces.
+
+    Parts with fewer pieces or slots are padded with rows whose window is
+    -1 (Q, Z: the most over the parts; Z may be 0).
+    """
+    if max_chunks < 1:
+        raise ValueError(f"max_chunks must be >= 1; got {max_chunks}")
+    ws = np.asarray(torch.as_tensor(window_start).cpu(), np.int64)
+    stacked = ws.ndim == 2
+    per_part = []
+    for w_start in (ws if stacked else ws[None]):
+        n = np.diff(w_start)  # chunks per window
+        k = np.maximum(1, -(-n // max_chunks))  # pieces per window
+        win = np.repeat(np.arange(len(n)), k)
+        first = np.repeat(np.cumsum(k) - k, k)  # first piece of each window
+        i, kw, nw = np.arange(len(win)) - first, k[win], n[win]
+        lo = w_start[win] + i * nw // kw
+        hi = w_start[win] + (i + 1) * nw // kw
+        split = kw > 1
+        slot = np.full(len(win), -1, np.int64)
+        slot[split] = np.arange(int(split.sum()))
+        s_lo = slot[split] - i[split]
+        per_part.append((np.stack([win, lo, hi, slot], 1),
+                         np.stack([win[split], s_lo, s_lo + kw[split]], 1)))
+    Q = max(len(p) for p, _ in per_part)
+    Z = max(len(s) for _, s in per_part)
+    pieces = np.tile(np.array([-1, 0, 0, -1], np.int32), (len(per_part), Q, 1))
+    splits = np.tile(np.array([-1, 0, 0], np.int32), (len(per_part), Z, 1))
+    for p, (pc, sp) in enumerate(per_part):
+        pieces[p, : len(pc)] = pc
+        splits[p, : len(sp)] = sp
+    if not stacked:
+        pieces, splits = pieces[0], splits[0]
+    return torch.from_numpy(pieces), torch.from_numpy(splits)
+
+
 def stack_chunk_plans(plans) -> dict:
     """Stack per-part ChunkPlans with a leading part axis.
 
@@ -156,7 +226,9 @@ def stack_chunk_plans(plans) -> dict:
     last real window.  Returns a dict of host tensors — ``window`` /
     ``count`` (P, n_chunks), ``rowind`` / ``colind`` / ``values``
     (P, n_chunks, E) — plus ``window_start`` (P, n_windows + 1), each
-    part's own window brackets over its real chunks, and the shared static
+    part's own window brackets over its real chunks, the stacked piece
+    table ``pieces`` / ``splits`` (:func:`plan_pieces` over those brackets,
+    so the count-0 padding chunks lie in no piece), and the shared static
     ``span`` / ``n_windows`` / ``out_rows``.  ``ChunkPlan(**stacked)`` is
     the stacked plan one part-axis launch runs.
 
@@ -185,6 +257,7 @@ def stack_chunk_plans(plans) -> dict:
         if n:  # padding chunks revisit the last real window with count 0
             out["window"][p, n:] = plan.window[-1]
     out["window_start"] = torch.stack([p.window_start for p in plans])
+    out["pieces"], out["splits"] = plan_pieces(out["window_start"])
     return dict(out, span=first.span, n_windows=first.n_windows,
                 out_rows=first.out_rows)
 
@@ -222,50 +295,63 @@ def coo_spmv_cuda(plan: ChunkPlan, x: torch.Tensor,
                   windows: _build.XWindows | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on a plan and x that lie on one CUDA device.
 
-    One launch covers every batch tile and, for a stacked plan, every part
-    (part p on its x window, ``windows``; default: the whole x); an empty
-    plan launches nothing.  Returns y ([P,] out_rows[, B]) in the
-    accumulation dtype.
+    One launch covers every piece, batch tile and, for a stacked plan, every
+    part (part p on its x window, ``windows``; default: the whole x), and is
+    followed by the merge of split windows when the plan has any; an empty
+    plan launches nothing.  The scratch of split windows comes from torch's
+    caching allocator.  Returns y ([P,] out_rows[, B]) in the accumulation
+    dtype.
 
     Raises:
       ValueError/TypeError: wrong device, dtype, shape or contiguity
         (float64 and int64 values included: the kernel does not take them),
-        or x windows that overrun x.
+        a chunk wider than ``MAX_CHUNK_E``, or x windows that overrun x.
       RuntimeError: the launch failed.
     """
     if x.device.type != "cuda":
         raise ValueError(f"coo_spmv_cuda needs a CUDA tensor; x is on {x.device}")
     B, squeeze = _build.check_x(x, plan.values.dtype, "coo_spmv_cuda")
-    for f in ("rowind", "colind", "window_start", "count"):
+    for f in ("rowind", "colind", "count", "pieces", "splits"):
         _build.check_index(getattr(plan, f), x.device, f"plan.{f}")
     if plan.values.device != x.device or not plan.values.is_contiguous():
         raise ValueError(f"plan.values must be contiguous on {x.device}")
     n_parts = plan.n_parts or 1
     lead = plan.rowind.shape[:-1]  # ([P,] n_chunks)
-    if plan.window_start.shape != lead[:-1] + (plan.n_windows + 1,) \
-            or plan.count.shape != lead or plan.colind.shape != plan.rowind.shape \
-            or plan.values.shape != plan.rowind.shape:
+    E = plan.rowind.shape[-1]
+    if plan.count.shape != lead or plan.colind.shape != plan.rowind.shape \
+            or plan.values.shape != plan.rowind.shape \
+            or plan.pieces.shape[:-2] != lead[:-1] or plan.pieces.shape[-1] != 4 \
+            or plan.splits.shape[:-2] != lead[:-1] or plan.splits.shape[-1] != 3 \
+            or plan.pieces.data_ptr() % 16:
         raise ValueError(f"plan arrays disagree: rowind {tuple(plan.rowind.shape)}, "
-                         f"count {tuple(plan.count.shape)}, window_start "
-                         f"{tuple(plan.window_start.shape)} for {plan.n_windows} "
-                         f"windows")
+                         f"count {tuple(plan.count.shape)}, pieces "
+                         f"{tuple(plan.pieces.shape)}, splits "
+                         f"{tuple(plan.splits.shape)}")
+    if E > MAX_CHUNK_E:
+        raise ValueError(f"coo_spmv_cuda takes chunks of at most {MAX_CHUNK_E} "
+                         f"elements; the plan's are {E}")
     x_off, n_cols = _build.check_windows(windows, n_parts, x, "coo_spmv_cuda")
     bt = min(B, BATCH_TILE if batch_tile is None else batch_tile)
     if not 1 <= bt <= BATCH_TILE:
         raise ValueError(f"batch_tile must be in [1, {BATCH_TILE}]; got {batch_tile}")
     acc = acc_dtype(plan.values.dtype)
     y = torch.empty((n_parts, plan.out_rows, B), dtype=acc, device=x.device)
-    if plan.n_chunks == 0 or plan.out_rows == 0 or n_cols == 0:
+    Q, Z = plan.pieces.shape[-2], plan.splits.shape[-2]
+    if plan.n_chunks == 0 or plan.out_rows == 0 or n_cols == 0 or Q == 0:
         y.zero_()
     else:
+        scratch = (torch.empty((n_parts, Z, plan.span, B), dtype=acc,
+                               device=x.device) if Z else None)
         fn = _build.library("coo_spmv")
         with torch.cuda.device(x.device):
-            err = fn(plan.window_start.data_ptr(), plan.count.data_ptr(),
-                     plan.rowind.data_ptr(), plan.colind.data_ptr(),
-                     plan.values.data_ptr(), x.data_ptr(), y.data_ptr(), x_off,
-                     plan.n_windows, plan.rowind.shape[-1], plan.span,
-                     plan.out_rows, n_cols, B, bt, n_parts, plan.n_chunks,
-                     _build.DTYPE_CODES[plan.values.dtype], _build.stream_of(x))
+            err = fn(plan.pieces.data_ptr(), plan.splits.data_ptr(),
+                     plan.count.data_ptr(), plan.rowind.data_ptr(),
+                     plan.colind.data_ptr(), plan.values.data_ptr(), x.data_ptr(),
+                     y.data_ptr(), x_off,
+                     None if scratch is None else scratch.data_ptr(), Q, Z, E,
+                     plan.span, plan.out_rows, n_cols, B, bt, n_parts,
+                     plan.n_chunks, _build.DTYPE_CODES[plan.values.dtype],
+                     _build.stream_of(x))
         _build.check(err, "coo_spmv")
         record_launch("coo", B)
     y = y if plan.n_parts is not None else y[0]

@@ -7,7 +7,9 @@ the real slots per row.  SpMV is a gather of x, a multiply and a row sum
 over the real slots, with no merge step at all.  The TPU kernel took a
 (64-row, 128-lane) tile per grid step; the Hopper kernel
 (``csrc/ell_spmv.cu``, see its header for the design and what bounds it)
-gives each (row, batch column) one thread that loops over the row's slots.
+copies each tile of rows, one contiguous run of the row-major arrays, into
+shared memory with the TMA, double-buffered, and sums every (row, batch
+column) over the row's real slots in slot order.
 
 :func:`ell_spmv` dispatches on the device of ``x``: a CPU tensor runs the
 plain version :func:`ell_spmv_plain`, a CUDA tensor launches the kernel
@@ -25,7 +27,7 @@ from .ref import acc_dtype
 __all__ = ["dense_to_ell", "ell_spmv", "ell_spmv_plain", "ell_spmv_cuda",
            "BATCH_TILE"]
 
-BATCH_TILE = 32  # SpMM columns per thread tile of the CUDA kernel
+BATCH_TILE = 32  # SpMM columns per CTA of the CUDA kernel
 
 
 def _pack_ell(rowind, colind, values, rows: int, k: int | None = None):

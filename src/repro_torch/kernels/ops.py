@@ -93,8 +93,8 @@ class KernelProgram:
 def kernel_program(m, batch_tile: int | None = None, device=None) -> KernelProgram:
     """Build the kernel SpMV/SpMM program for a container (plan once).
 
-    The host-side preprocessing (chunk planning for COO/CSR, the block-row
-    pointer for BCOO) runs exactly once here, and its arrays are placed on
+    The host-side preprocessing (chunk planning and the CUDA kernel's piece
+    table for COO/CSR, the block-row pointer for BCOO) runs exactly once here, and its arrays are placed on
     ``device`` (default: the container's) once; the returned program takes
     x of shape (cols,) or (cols, B), moves it to that device if needed, and
     runs only the kernel — or, on a CPU device, its plain version.

@@ -5,10 +5,13 @@ jax imports).  For every case of tests/_torch_mesh_cases.py it builds the
 JAX ``MeshExecutor`` and stores, in the .npz file named on the command
 line, the three phases' outputs (``place`` / ``run_raw`` / ``assemble``),
 ``exe.batch(X)`` and the scheme id; plus the plan IRs of IR_PLANS in both
-directions.  bfloat16 arrays are stored widened to float32 (exact).
+directions.  bfloat16 arrays are stored widened to float32 (exact), and the
+dtype the executor returned is stored beside ``assemble`` / ``batch``.
 Prints ``DEVICES <n>`` first and ``MESH SKIP`` when forcing devices failed.
 
-    python tests/_torch_mesh_runner.py OUT.npz
+    python tests/_torch_mesh_runner.py OUT.npz [CASE_ID ...]
+
+Given case ids, it runs only those cases and no plan IRs.
 """
 import json
 import os
@@ -44,7 +47,7 @@ def inputs(dtype):
     return a, x, X
 
 
-def main(out_path: str) -> None:
+def main(out_path: str, only=()) -> None:
     print(f"DEVICES {jax.device_count()}", flush=True)
     if jax.device_count() < PARTS:
         print("MESH SKIP")
@@ -52,6 +55,8 @@ def main(out_path: str) -> None:
     devices = jax.devices()[:PARTS]
     res = {}
     for case_id, plan, dtype, (_, impl) in cases():
+        if only and case_id not in only:
+            continue
         _, scheme, fmt, merge, grid, ring = plan
         a, x, X = inputs(dtype)
         sm = SparseMatrix.from_dense(a)
@@ -71,8 +76,14 @@ def main(out_path: str) -> None:
         res[f"{case_id}|scheme_id"] = np.array(pln.scheme_id)
         res[f"{case_id}|place"] = host(xs)
         res[f"{case_id}|raw"] = host(raw)
-        res[f"{case_id}|y"] = host(exe.assemble(raw))
-        res[f"{case_id}|Y"] = host(exe.batch(X))
+        y, Y = np.asarray(exe.assemble(raw)), np.asarray(exe.batch(X))
+        res[f"{case_id}|y"], res[f"{case_id}|Y"] = host(y), host(Y)
+        res[f"{case_id}|y_dtype"] = np.array(y.dtype.name)
+        res[f"{case_id}|Y_dtype"] = np.array(Y.dtype.name)
+    if only:
+        np.savez(out_path, **res)
+        print("MESH DONE")
+        return
 
     # plan IRs, both ways
     import repro_torch.api as T
@@ -98,4 +109,4 @@ def main(out_path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], tuple(sys.argv[2:]))

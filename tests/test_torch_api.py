@@ -7,6 +7,9 @@ packages: the auto scheme resolves to the same ``scheme_id``, results of
 plan IR is read across both packages.
 """
 import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -16,11 +19,17 @@ import torch
 from repro.api import SparseMatrix as JSparseMatrix
 from repro.api import plan_from_ir as j_plan_from_ir
 from repro.data.matrices import block_matrix, regular_matrix, scale_free_matrix
-from repro_torch.api import AXES_2D, SparseMatrix, plan_from_ir
+from repro_torch.api import AXES_2D, SparseMatrix, executor, plan_from_ir
 from repro_torch.core import formats as TF
 from repro_torch.core.mesh import make_mesh
 
 from _torch_common import BF16, rand_sparse
+from _torch_mesh_cases import BLOCK as MESH_BLOCK
+from _torch_mesh_cases import cases as mesh_cases
+from _torch_mesh_cases import matrix as mesh_matrix
+from _torch_mesh_cases import vectors as mesh_vectors
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 FORMATS = ["coo", "csr", "bcoo", "bcsr"]
 
@@ -80,13 +89,83 @@ def test_torch_impl_matches_jax_xla(fmt):
     np.testing.assert_array_equal(exe(X[:, 0]), want[:, 0])
 
 
-def test_bf16_results_come_back_widened_to_f32():
+def test_bf16_results_come_back_widened_to_f32(monkeypatch):
+    """The rule per impl: impl="cuda" returns float32 (the kernels'
+    accumulation dtype, as JAX impl="pallas"); impl="torch" returns
+    ml_dtypes bfloat16 where ml_dtypes imports (as JAX impl="xla") and is
+    widened to float32, exactly, where it does not (the card's machine)."""
     a = rand_sparse(32, 48, 0.2, np.float32, seed=43, integer=True).astype(BF16)
     x = np.ones(48, BF16)
-    for impl in ("torch", "cuda"):
-        y = SparseMatrix.from_dense(a).plan(impl=impl, device="cpu").compile()(x)
-        assert y.dtype == np.float32
-        np.testing.assert_array_equal(y, a.astype(np.float32).sum(1))
+    want = a.astype(np.float32).sum(1)
+
+    def run(impl):
+        return SparseMatrix.from_dense(a).plan(impl=impl, device="cpu").compile()(x)
+
+    y = run("cuda")
+    assert y.dtype == np.float32
+    np.testing.assert_array_equal(y, want)
+    y = run("torch")
+    assert y.dtype == BF16
+    np.testing.assert_array_equal(y.astype(np.float32), want)
+    monkeypatch.setattr(executor, "_np_bfloat16", lambda: None)  # no ml_dtypes
+    y = run("torch")
+    assert y.dtype == np.float32
+    np.testing.assert_array_equal(y, want)
+
+
+MESH_BF16_CASES = ["1d-rows-coo-torch-bf16", "2d-es-scatter-bcoo-torch-bf16"]
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_bf16(tmp_path_factory):
+    """The JAX MeshExecutor's answers for MESH_BF16_CASES on 4 fake devices
+    (tests/_torch_mesh_runner.py, which owns its process)."""
+    out = tmp_path_factory.mktemp("bf16") / "jax.npz"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([
+        os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tests", "_torch_mesh_runner.py"),
+         str(out), *MESH_BF16_CASES], capture_output=True, text=True, env=env,
+        timeout=600)
+    if proc.returncode != 0:
+        pytest.fail(f"mesh runner crashed:\n{proc.stderr[-3000:]}")
+    if "MESH SKIP" in proc.stdout:
+        pytest.skip("forcing 4 fake JAX devices failed")
+    with np.load(out) as z:
+        return dict(z)
+
+
+def _bits(y: np.ndarray) -> np.ndarray:
+    assert y.dtype == BF16, y.dtype
+    return y.view(np.uint16)
+
+
+def test_bf16_torch_impl_matches_jax_xla_dtype_and_bits(jax_mesh_bf16):
+    """impl="torch" hands back what JAX impl="xla" does for a bfloat16
+    matrix — the dtype and every bit — on one device and on 4 parts."""
+    a = _ints(block_matrix(96, 128, block=(8, 16), block_density=0.3, seed=3))
+    a[5, :] = 2.0  # a row the element-granular 1D split cuts
+    a = a.astype(BF16)
+    X = np.random.default_rng(5).integers(-2, 3, (128, 3)).astype(BF16)
+    for fmt in FORMATS:
+        want = np.asarray(JSparseMatrix.from_dense(a).plan(fmt=fmt).compile()
+                          .batch(X))
+        got = SparseMatrix.from_dense(a).plan(fmt=fmt, impl="torch",
+                                              device="cpu").compile().batch(X)
+        np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=fmt)
+    for case_id in MESH_BF16_CASES:
+        plan = next(c[1] for c in mesh_cases() if c[0] == case_id)
+        _, scheme, fmt, merge, grid, _ = plan
+        ma, mx, mX = (t.astype(BF16) for t in (mesh_matrix("bf16"),
+                                                *mesh_vectors("bf16")))
+        exe = SparseMatrix.from_dense(ma).plan(
+            scheme=scheme, fmt=fmt, merge=merge, grid=grid, impl="torch",
+            devices=["cpu"] * 4, block=MESH_BLOCK).compile()
+        for got, key in ((exe(mx), "y"), (exe.batch(mX), "Y")):
+            assert got.dtype.name == str(jax_mesh_bf16[f"{case_id}|{key}_dtype"])
+            wide = jax_mesh_bf16[f"{case_id}|{key}"]  # stored widened, exactly
+            np.testing.assert_array_equal(_bits(got),
+                                          _bits(wide.astype(BF16)), err_msg=key)
 
 
 def test_x_may_be_a_tensor_and_is_checked():

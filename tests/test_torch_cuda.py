@@ -19,8 +19,10 @@ import torch
 from repro_torch.api import SparseMatrix
 from repro_torch.core import distributed as D
 from repro_torch.core import formats as F
-from repro_torch.core.partition import partition_1d, partition_2d
+from repro_torch.core.partition import (partition_1d, partition_1d_coalesced,
+                                        partition_2d)
 from repro_torch.kernels import _build, instrument, ops
+from repro_torch.kernels import coo_spmv as coo_mod
 from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_cuda,
                                            bcoo_spmv_plain, block_row_ptr)
 from repro_torch.kernels.coo_spmv import (ChunkPlan, coo_spmv, coo_spmv_plain,
@@ -335,3 +337,140 @@ def test_mesh_executor_on_card_matches_cpu(cuda, scheme, fmt, merge, dtype):
     np.testing.assert_array_equal(exe.batch(X), ref.batch(X))
     kind = "coo" if fmt in ("coo", "csr") else "bcoo"
     assert instrument.launches(kind) == 2 and instrument.launches() == 3
+
+
+# ------------------------------------------------------------- heavy windows
+
+
+def _heavy_triplets(rng, dtype, integer=True, m=1024, n=262144, heavy=200000,
+                    row=300):
+    """m x n with 8 nonzeros in every row and one row of ``heavy``: its
+    window is split into pieces of the CUDA kernel.  Random values of the
+    heavy row are scaled by 1/sqrt(heavy), so that its sum has unit spread
+    and the 2e-4 tolerance is not spent on float32's rounding of a
+    200,000-term sum."""
+    rows = np.concatenate([np.repeat(np.arange(m), 8), np.full(heavy, row)])
+    cols = np.concatenate([rng.integers(0, n, m * 8),
+                           np.sort(rng.choice(n, heavy, replace=False))])
+    key = np.unique(rows * n + cols)
+    vals = _ints(rng, len(key)) if integer else rng.standard_normal(len(key))
+    vals = np.where(vals == 0, 1, vals)
+    if not integer:
+        vals = np.where(key // n == row, vals / np.sqrt(heavy), vals)
+    return key // n, key % n, torch.from_numpy(vals).to(dtype), (m, n)
+
+
+@pytest.fixture(scope="module")
+def heavy_plans():
+    """Single-device and 4-part plans of the heavy matrix, per dtype (host)."""
+    cache = {}
+
+    def get(dtype):
+        if dtype not in cache:
+            ri, ci, v, shape = _heavy_triplets(np.random.default_rng(14), dtype)
+            plan = plan_chunks(ri, ci, v, shape[0])
+            part = partition_1d_coalesced(ri, ci, v, shape, 4, "coo", "nnz")
+            cache[dtype] = plan, part, shape
+        return cache[dtype]
+    return get
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("batch", BATCHES)
+def test_heavy_window_single_device(cuda, heavy_plans, dtype, batch):
+    plan, _, (m, n) = heavy_plans(dtype)
+    assert plan.splits.shape[0] >= 200000 // (coo_mod.CHUNK_E *
+                                               coo_mod.PIECE_CHUNKS)
+    x = _x(np.random.default_rng(15), n, batch, dtype)
+    want = coo_spmv_plain(plan, x)
+    instrument.reset()
+    got = coo_spmv(plan.to(cuda), x.to(cuda))
+    torch.cuda.synchronize()
+    assert instrument.launches("coo") == 1  # the merge pass is not counted
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("batch", BATCHES)
+def test_heavy_window_part_axis(cuda, heavy_plans, dtype, batch):
+    _, part, (m, n) = heavy_plans(dtype)
+    arrs = {k[6:]: v.to(cuda) for k, v in D.kernel_chunk_arrays(part).items()}
+    span = D._span(part.h_pad)
+    plan = ChunkPlan(**arrs, n_windows=-(-part.h_pad // span),
+                     out_rows=part.h_pad, span=span)
+    assert (plan.splits[..., 0] >= 0).any()  # some part splits a window
+    x = _x(np.random.default_rng(16), n, batch, dtype).to(cuda)
+    got = coo_spmv(plan, x)
+    singles = [coo_spmv(plan.part(p), x) for p in range(part.n_parts)]
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.stack(singles))
+    assert torch.equal(got.cpu(), coo_spmv_plain(plan.to("cpu"), x.cpu()))
+
+
+@pytest.mark.parametrize("extra", [0, 1], ids=["M", "M+1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=str)
+@pytest.mark.parametrize("batch", BATCHES)
+def test_windows_of_M_and_M_plus_1_chunks(cuda, extra, dtype, batch):
+    """A window of exactly M chunks is one piece; M + 1 chunks are two,
+    merged by the second pass.  Both equal the plain version."""
+    rng = np.random.default_rng(17)
+    M, E = coo_mod.PIECE_CHUNKS, 64
+    n_el = M * E + extra
+    a = torch.zeros((128, n_el + 64), dtype=dtype)
+    a[5, :n_el] = torch.from_numpy(_ints(rng, n_el, 1, 3)).to(dtype)  # window 0
+    a[70] = torch.from_numpy(_ints(rng, n_el + 64, 1, 3)).to(dtype)  # window 1
+    plan = _coo_plan(a, chunk=E)
+    assert int(plan.window_start[1]) == M + extra
+    assert (plan.pieces[:, 0] == 0).sum() == 1 + extra
+    x = _x(rng, n_el + 64, batch, dtype)
+    got = coo_spmv(plan.to(cuda), x.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), coo_spmv_plain(plan, x))
+
+
+def test_heavy_window_batch_tiles_are_bit_identical(cuda):
+    """Random float32 on a split window: batch tiles 8 and 32 and the
+    column-by-column SpMV give the same bits (the order is the plan's)."""
+    ri, ci, v, (m, n) = _heavy_triplets(np.random.default_rng(18), torch.float32,
+                                        integer=False)
+    plan = plan_chunks(ri, ci, v, m).to(cuda)
+    X = _x(np.random.default_rng(19), n, 40, torch.float32, integer=False).to(cuda)
+    y8, y32 = coo_spmv(plan, X, 8), coo_spmv(plan, X, 32)
+    cols = torch.stack([coo_spmv(plan, X[:, j].contiguous()) for j in range(40)], 1)
+    assert torch.equal(y8, y32) and torch.equal(y8, cols)
+    torch.testing.assert_close(y8.cpu(), coo_spmv_plain(plan.to("cpu"), X.cpu()),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8], ids=str)
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("K", [48, 3])
+def test_ell_unaligned_tiles(cuda, dtype, batch, K):
+    """K = 48 and K = 3 with 1,001 rows: the last tile's runs are not a
+    multiple of 16 bytes, and its tail goes by ordinary loads."""
+    rng = np.random.default_rng(20)
+    a = _matrix(rng, 1001, 300, 0.1, dtype)
+    ci, vv, rn = dense_to_ell(a, k=K)
+    x = _x(rng, 300, batch, dtype)
+    want = ell_spmv_plain(ci, vv, rn, x)
+    got = ell_spmv(ci.to(cuda), vv.to(cuda), rn.to(cuda), x.to(cuda))
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+    if batch is not None:
+        assert torch.equal(ell_spmv(ci.to(cuda), vv.to(cuda), rn.to(cuda),
+                                    x.to(cuda), 8), got)
+
+
+def test_ell_rows_too_long_for_a_tile(cuda):
+    """K = 20,000 f32 slots a row do not fit 16 rows in shared memory: the
+    kernel takes a thread per (row, column) from global memory instead."""
+    rng = np.random.default_rng(21)
+    a = _matrix(rng, 40, 20000, 0.9, torch.float32)
+    ci, vv, rn = dense_to_ell(a)
+    assert ci.shape[1] > 14000
+    for batch in (None, 8):
+        x = _x(rng, 20000, batch, torch.float32)
+        got = ell_spmv(ci.to(cuda), vv.to(cuda), rn.to(cuda), x.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ell_spmv_plain(ci, vv, rn, x))

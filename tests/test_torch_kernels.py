@@ -6,6 +6,8 @@ same plan (exactly on integer-valued inputs and integer dtypes, at
 rtol=atol=2e-4 on random float32 — tests/test_kernels.py's tolerance — and
 in the same output dtype); the torch oracles must equal repro.kernels.ref.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +26,13 @@ from repro_torch.core import formats as TF
 from repro_torch.kernels import instrument, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.bcsr_spmv import bcoo_spmv, bcoo_spmv_plain, block_row_ptr
-from repro_torch.kernels.coo_spmv import coo_spmv, coo_spmv_plain, plan_chunks
+from repro_torch.core import distributed as D
+from repro_torch.core.mesh import make_mesh
+from repro_torch.core.partition import partition_1d
+from repro_torch.kernels import coo_spmv as coo_mod
+from repro_torch.kernels.coo_spmv import (ChunkPlan, coo_spmv, coo_spmv_plain,
+                                          plan_chunks, plan_pieces,
+                                          stack_chunk_plans)
 from repro_torch.kernels.csr_spmv import csr_plan_chunks, csr_spmv
 from repro_torch.kernels.ell_spmv import (_pack_ell, dense_to_ell, ell_spmv,
                                           ell_spmv_plain)
@@ -97,6 +105,183 @@ def test_dense_row_pathology_plan_matches_jax():
     got = plan_chunks(ri, ci, a[ri, ci], 64, chunk=32, span=64)
     assert got.n_chunks >= 4
     assert_same_fields(got, want)
+
+
+# ------------------------------------------------------------ piece table
+
+
+def _check_pieces(pieces, splits, window_start, M):
+    """Every chunk of [0, window_start[-1]) in exactly one piece; each
+    window's pieces contiguous, in chunk order, at most M chunks, one for
+    an empty window; slots numbered in piece order; padding rows last."""
+    pc, sp, ws = pieces.numpy(), splits.numpy(), window_start.numpy()
+    real = pc[pc[:, 0] >= 0]
+    assert (pc[len(real):, 0] == -1).all()  # padding only after the pieces
+    covered = np.zeros(ws[-1], int)
+    for lo, hi in real[:, 1:3]:
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    assert (real[:, 2] - real[:, 1] <= M).all()
+    for w in range(len(ws) - 1):
+        mine = real[real[:, 0] == w]
+        n = ws[w + 1] - ws[w]
+        assert len(mine) == max(1, -(-n // M)), (w, n)
+        assert mine[0, 1] == ws[w] and mine[-1, 2] == ws[w + 1]
+        assert (mine[1:, 1] == mine[:-1, 2]).all()  # contiguous, in order
+        if len(mine) == 1:
+            assert mine[0, 3] == -1
+        else:
+            slots = mine[:, 3]
+            assert (np.diff(slots) == 1).all()
+            for z in slots:
+                assert sp[z].tolist() == [w, slots[0], slots[-1] + 1]
+    n_slots = int((real[:, 3] >= 0).sum())
+    assert (real[real[:, 3] >= 0, 3] == np.arange(n_slots)).all()
+    assert (sp[n_slots:, 0] == -1).all()
+
+
+@pytest.mark.parametrize("M", [1, 2, 4, 16, 32])
+@pytest.mark.parametrize("row_granular", [False, True])
+def test_pieces_cover_every_chunk_once(M, row_granular):
+    a = rand_sparse(300, 200, 0.1, np.float32, seed=51, integer=True)
+    a[17] = 1.0  # a row over several chunks
+    a[150:210] = 0  # an empty window
+    ri, ci = np.nonzero(a)
+    plan = plan_chunks(ri, ci, a[ri, ci], 300, chunk=16, span=64,
+                       row_granular=row_granular)
+    pieces, splits = plan_pieces(plan.window_start, M)
+    assert pieces.dtype == splits.dtype == torch.int32
+    _check_pieces(pieces, splits, plan.window_start, M)
+    if M == coo_mod.PIECE_CHUNKS:  # the plan carries the default table
+        assert torch.equal(plan.pieces, pieces) and torch.equal(plan.splits, splits)
+
+
+@pytest.mark.parametrize("M", [3, 8, 32])
+def test_window_of_M_chunks_is_one_piece_and_M_plus_1_two(M):
+    ws = torch.tensor([0, M, 2 * M + 1, 2 * M + 1, 2 * M + 1 + 3 * M + 2],
+                      dtype=torch.int32)
+    pieces, splits = plan_pieces(ws, M)
+    _check_pieces(pieces, splits, ws, M)
+    per_window = np.bincount(pieces[:, 0].numpy(), minlength=4).tolist()
+    assert per_window == [1, 2, 1, 4]  # M, M + 1, empty, 3M + 2 chunks
+    half = (M + 1) // 2
+    assert pieces[1:3, 2].sub(pieces[1:3, 1]).tolist() == [half, M + 1 - half]
+    assert splits.shape == (6, 3)  # one row per slot of the split windows
+
+
+def test_stacked_pieces_carry_part_and_skip_padding_chunks():
+    a = rand_sparse(96, 128, 0.12, np.float32, seed=52, integer=True)
+    a[21] = 1.0  # split by 1d.nnz
+    part = partition_1d(a, 4, "coo", "rows")
+    arrs = D.kernel_chunk_arrays(part, chunk=16)
+    ws, count = arrs["chunk_window_start"], arrs["chunk_count"]
+    pieces, splits = arrs["chunk_pieces"], arrs["chunk_splits"]
+    assert pieces.shape[0] == splits.shape[0] == 4  # the part axis leads
+    assert pieces.shape[-1] == 4 and splits.shape[-1] == 3
+    n_real = (count > 0).sum(1)
+    assert (n_real < count.shape[1]).any()  # some part carries padding chunks
+    for p in range(4):
+        _check_pieces(pieces[p], splits[p], ws[p], coo_mod.PIECE_CHUNKS)
+        real = pieces[p][pieces[p, :, 0] >= 0]
+        assert int(real[:, 2].max()) == int(n_real[p])  # padding in no piece
+    small = stack_chunk_plans([plan_chunks(*np.nonzero(b), b[np.nonzero(b)], 96,
+                                           chunk=8, span=32)
+                               for b in (a[:48], a[48:])])
+    for p in range(2):
+        want = plan_pieces(small["window_start"][p])
+        assert torch.equal(small["pieces"][p][: len(want[0])], want[0])
+    assert ChunkPlan(**small).part(1).pieces.shape == small["pieces"].shape[1:]
+
+
+def test_local_kernel_is_given_the_piece_table(monkeypatch):
+    """The table is built once, at placement: a request through the local
+    kernel carries it in from the placed arrays and builds none."""
+    a = rand_sparse(96, 128, 0.12, np.float32, seed=53, integer=True)
+    a[21] = 2.0
+    sm_part = partition_1d(a, 4, "coo", "nnz")
+    arrs = D.place_1d(sm_part, make_mesh((4,), ("parts",), ["cpu"] * 4),
+                      extra=D.kernel_chunk_arrays(sm_part, chunk=16))
+    local = D.LocalKernel(sm_part, "cuda")
+    x = TF.to_tensor(_x(128, 3, np.float32, seed=54))
+    want = local.plain(arrs, x)
+
+    def boom(*args, **kw):
+        raise AssertionError("the piece table was rebuilt")
+
+    monkeypatch.setattr(coo_mod, "plan_pieces", boom)
+    plan = local._plan(arrs)
+    assert plan.pieces is arrs["chunk_pieces"] and plan.splits is arrs["chunk_splits"]
+    assert torch.equal(local.raw(arrs, x), want)
+    assert torch.equal(local(arrs, x), want.to(sm_part.dtype))
+
+
+def _emulate_pieces(plan: ChunkPlan, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's two passes in plain torch: the plain version over each
+    piece's chunks alone (pass 1), then each split window's partial tiles
+    summed in piece order (pass 2); single pieces write their tile."""
+    span, y = plan.span, None
+    partial = {}
+    for w, lo, hi, slot in plan.pieces.tolist():
+        if w < 0:
+            continue
+        sub = ChunkPlan(plan.rowind[lo:hi], plan.colind[lo:hi], plan.values[lo:hi],
+                        plan.window[lo:hi], plan.count[lo:hi], plan.n_windows,
+                        plan.out_rows, span)
+        tile = coo_spmv_plain(sub, x)
+        if y is None:
+            y = torch.zeros_like(tile)
+        rows = slice(w * span, (w + 1) * span)
+        if slot < 0:
+            y[rows] = tile[rows]
+        else:
+            partial[slot] = tile[rows]
+    for z, (w, lo, hi) in enumerate(plan.splits.tolist()):
+        if w >= 0 and z == lo:  # the slot that opens its window
+            acc = partial[lo]
+            for z in range(lo + 1, hi):
+                acc = acc + partial[z]
+            y[w * span: (w + 1) * span] = acc
+    return y
+
+
+@pytest.mark.parametrize("M", [1, 3, 32])
+@pytest.mark.parametrize("dtype", [np.int32, np.int8, np.float32],
+                         ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("batch", [None, 4])
+def test_piece_emulation_equals_the_whole_plan(M, dtype, batch):
+    a = rand_sparse(300, 200, 0.1, np.float32, seed=55, integer=True).astype(dtype)
+    a[70] = 1  # a row over several chunks and pieces
+    ri, ci = np.nonzero(a)
+    plan = plan_chunks(ri, ci, TF.to_tensor(a[ri, ci]), 300, chunk=16, span=64)
+    pieces, splits = plan_pieces(plan.window_start, M)
+    plan = dataclasses.replace(plan, pieces=pieces, splits=splits)
+    assert plan.splits.shape[0] > 0 or M == 32  # row 70's window is split
+    x = TF.to_tensor(_x(200, batch, dtype, seed=56))
+    assert torch.equal(_emulate_pieces(plan, x), coo_spmv_plain(plan, x))
+
+
+@pytest.mark.parametrize("row_granular", [False, True], ids=["coo", "csr"])
+def test_piece_emulation_matches_pallas_on_a_heavy_window(row_granular):
+    """2,048 x 65,536 with one row of 40,000 nonzeros: its window is split
+    into pieces; the two passes equal the JAX kernel in interpret mode."""
+    rng = np.random.default_rng(57)
+    m, n = 2048, 65536
+    rows = np.concatenate([np.repeat(np.arange(m), 6), np.full(40000, 700)])
+    cols = np.concatenate([rng.integers(0, n, m * 6),
+                           np.sort(rng.choice(n, 40000, replace=False))])
+    key = np.unique(rows * n + cols)
+    ri, ci = key // n, key % n
+    vals = rng.choice(np.array([-2, -1, 1, 2], np.float32), len(ri))
+    x = rng.integers(-2, 3, n).astype(np.float32)
+    jplan = j_plan_chunks(ri, ci, vals, m, row_granular=row_granular)
+    want = coo_spmv_pallas(jplan, jnp.asarray(x), interpret=True)
+    plan = plan_chunks(ri, ci, vals, m, row_granular=row_granular)
+    assert_same_fields(plan, jplan)
+    n_split = int((plan.splits[:, 0] >= 0).sum())
+    assert n_split >= 40000 // (512 * 32)  # the heavy window is split
+    got = _emulate_pieces(plan, TF.to_tensor(x))
+    _compare(got, want, exact=True)
+    assert torch.equal(got, coo_spmv_plain(plan, TF.to_tensor(x)))
 
 
 # ------------------------------------------------- plain versions vs Pallas

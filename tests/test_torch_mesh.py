@@ -59,10 +59,12 @@ def _inputs(dtype):
 
 
 def _host(t) -> np.ndarray:
+    """A result as numpy, bfloat16 (tensor or ml_dtypes) widened to f32."""
     if isinstance(t, torch.Tensor):
         t = t.float() if t.dtype == torch.bfloat16 else t
         return t.cpu().numpy()
-    return np.asarray(t)
+    t = np.asarray(t)
+    return t.astype(np.float32) if t.dtype == BF16 else t
 
 
 def _same(got, want, exact: bool, what: str):
@@ -107,7 +109,11 @@ def test_mesh_executor_matches_jax(jax_side, case):
     _same(raw.y_parts, want["raw"], exact, "run_raw")
     y = exe.assemble(raw)
     _same(y, want["y"], exact, "assemble")
-    _same(exe.batch(X), want["Y"], exact, "batch")
+    Y = exe.batch(X)
+    _same(Y, want["Y"], exact, "batch")
+    # host rows come back in the JAX executor's dtype (bfloat16 included)
+    assert (y.dtype.name, Y.dtype.name) == (str(want["y_dtype"]),
+                                            str(want["Y_dtype"]))
     np.testing.assert_array_equal(exe(x), y)  # the three phases == exe(x)
     assert instrument.launches() == 0  # CPU tensors: the plain versions
 

@@ -166,7 +166,8 @@ def test_kernel_chunk_arrays_match_jax_pallas_chunk_arrays(scheme, fmt):
         tp = TP.partition_2d(a, (2, 2), fmt, tail, BLOCK)
     want = JD.pallas_chunk_arrays(jp, chunk=16)
     got = TD.kernel_chunk_arrays(tp, chunk=16)
-    assert set(got) == set(want) | {"chunk_window_start"}
+    assert set(got) == set(want) | {"chunk_window_start", "chunk_pieces",
+                                    "chunk_splits"}
     for k, v in want.items():
         np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
     with pytest.raises(ValueError, match="scalar formats"):
