@@ -9,10 +9,11 @@ Phases (every check raises, so any failure exits non-zero):
 
 1. The card: ``nvidia-smi`` name and power limit; the CUDA kernels are built
    from ``src/repro_torch/kernels/csrc`` (one nvcc per source, in parallel)
-   and their ``-Xptxas -v`` register report is printed.
+   and their ``-Xptxas -v`` register report is printed, with the count of
+   tensor-core instructions (HMMA) in the block kernel's SASS.
 2. Each kernel against its plain PyTorch version on the card, at 65,536^2
    with about 1M nonzeros: values in {f32, bf16, i8, i32} x {SpMV, SpMM B=8,
-   B=40 ragged}.  Integer-valued inputs must agree bit for bit; random f32
+   B=40 ragged, and B=64 for the block kernel}.  Integer-valued inputs must agree bit for bit; random f32
    at rtol=atol=2e-4 (tests/test_kernels.py's tolerance).  SpMM results must
    be bit-identical across two batch tiles.  The COO kernel also runs a
    matrix whose first window holds 262,144 nonzeros (a full row of 65,536
@@ -30,8 +31,9 @@ Phases (every check raises, so any failure exits non-zero):
    and 64: the kernel, its plain version, cuSPARSE, and the bound — the
    bytes the product must move (each input once, each output once) over
    3.35 TB/s, or its operations over 67 TFLOP/s (f32, no tensor cores),
-   whichever is larger.  Then the COO kernel's piece size M swept on the
-   COO plans at B=1, and its two passes timed apart by torch.profiler.
+   whichever is larger; each block case names the route it took.  Then the
+   COO kernel's piece size M swept on the COO plans at B=1, and its two
+   passes timed apart by torch.profiler.
 5. The ELL kernel against its plain version at 65,536^2 with K = 16 and 48,
    as phase 2.
 6. The ELL path at full width, through the ``kernels`` entry point
@@ -218,33 +220,61 @@ def max_err(torch, got, want) -> float:
     return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
 
 
-def ptxas_lines(build) -> list:
-    """One line per compiled kernel: template arguments, registers, spills."""
+def ptxas_summary(log: str) -> list:
+    """(kernel with template arguments, "Used ..." line, spill line) for each
+    kernel that an ``nvcc -Xptxas -v`` log compiles."""
     names = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
              "a": "i8", "s": "i16", "i": "i32"}
-    out = []
-    for name in build.SOURCES:
-        entry, spill = None, ""
-        for line in build.build_log(name).splitlines():
-            m = re.search(r"Compiling entry function "
-                          r"'\S*?\d+([a-z_]+_kernel)I(\w+?)(?:Li(\d+)E)?EEv", line)
-            if m:
-                entry = m.group(1) + " " + names.get(m.group(2), m.group(2)) + (
-                    f" G={m.group(3)}" if m.group(3) else "")
-            elif "spill" in line and entry:
-                spill = line.strip()
-            elif "Used" in line and entry:
-                out.append(f"ptxas {name}[{entry}]: {line.split(':', 1)[1].strip()}; "
-                           f"{spill}")
-                entry = None
+    out, entry, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function "
+                      r"'\S*?\d+([a-z_]+_kernel)I(\w+?)((?:Li\d+E)*)EEv", line)
+        if m:
+            ints = re.findall(r"Li(\d+)E", m.group(3))
+            entry = " ".join([m.group(1), names.get(m.group(2), m.group(2))] + ints)
+        elif "spill" in line and entry:
+            spill = line.strip()
+        elif "Used" in line and entry:
+            out.append((entry, line.split(":", 1)[1].strip(), spill))
+            entry = None
     return out
+
+
+def ptxas_lines(build) -> list:
+    """One line per compiled kernel: template arguments, registers, spills."""
+    return [f"ptxas {name}[{entry}]: {used}; {spill}"
+            for name in build.SOURCES
+            for entry, used, spill in ptxas_summary(build.build_log(name))]
+
+
+def sass_mma_counts(build, name: str) -> dict:
+    """Tensor-core instructions (HMMA) per kernel in the SASS of a built
+    library, from cuobjdump; {"cuobjdump": "not run: ..."} without it."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "cuobjdump")
+    if not os.path.exists(tool):
+        return {"cuobjdump": "not run: not found"}
+    res = subprocess.run([tool, "-sass", str(build._lib_path(name))],
+                         capture_output=True, text=True, timeout=120)
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : \S*?\d+([a-z_]+_kernel)I(\w+?)((?:Li\d+E)*)EEv",
+                      line)
+        if m:
+            args = [m.group(2)] + re.findall(r"Li(\d+)E", m.group(3))
+            fn = f"{m.group(1)}<{','.join(args)}>"
+        elif fn and re.search(r"\bHMMA\b", line):
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
 
 
 # ------------------------------------------------------------- phases
 
 
-def phase_kernels(torch, rng, device, n: int, errs: dict) -> None:
-    """Each kernel vs its plain version at 65,536^2 x ~1M nnz."""
+def phase_kernels(torch, rng, device, n: int, errs: dict, rng64) -> None:
+    """Each kernel vs its plain version at 65,536^2 x ~1M nnz.  The block
+    kernel's B=64 inputs come from ``rng64``, so that ``rng`` feeds every
+    later phase the same matrices whatever cases this phase adds."""
     from repro_torch.core import formats as F
     from repro_torch.kernels import ops
 
@@ -267,10 +297,12 @@ def phase_kernels(torch, rng, device, n: int, errs: dict) -> None:
             m = build(ri, ci, F.to_tensor(vals, dtype), shape)
             prog = ops.kernel_program(m, device=device)
             nnz, case_err = len(ri), 0.0
-            for batch in (None, 8, 40):
+            batches = (None, 8, 40) + ((64,) if kernel == "bcoo_spmv" else ())
+            for batch in batches:
                 xshape = (n,) if batch is None else (n, batch)
-                xv = (rng.integers(-2, 3, xshape) if integer
-                      else rng.standard_normal(xshape))
+                g = rng64 if batch == 64 else rng
+                xv = (g.integers(-2, 3, xshape) if integer
+                      else g.standard_normal(xshape))
                 x = torch.from_numpy(xv).to(device, dtype)
                 got, want = prog(x), prog.plain(x)
                 torch.cuda.synchronize()
@@ -382,6 +414,15 @@ def phase_main_path(torch, rng, device, sizes, errs, records) -> None:
     return got, requests
 
 
+def kernel_route(prog, batch: int) -> str:
+    """The route of the block kernel that a program takes at B (COO: one)."""
+    if prog.kind != "bcoo":
+        return "coo"
+    from repro_torch.kernels.bcsr_spmv import block_route
+
+    return block_route(prog.bvalues.dtype, *prog.bvalues.shape[-2:], batch)
+
+
 def phase_times(torch, rng, device, records) -> dict:
     """Kernel, plain and cuSPARSE times at the main-path shapes."""
     rows = {}
@@ -402,7 +443,7 @@ def phase_times(torch, rng, device, records) -> dict:
             by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops_ / F32_OPS_S * 1e3
             row = {
                 "matrix": rec["matrix"], "fmt": rec["fmt"], "kernel": rec["kernel"],
-                "B": batch, "nnz": st.nnz,
+                "B": batch, "nnz": st.nnz, "route": kernel_route(prog, batch),
                 "ms": time_ms(torch, lambda: prog(x), 30),
                 "plain_ms": time_ms(torch, lambda: prog.plain(x), 5, warmup=1),
                 "library_ms": time_ms(torch, lambda: A @ x, 30),
@@ -690,7 +731,8 @@ def phase_partitioned(torch, rng, device, records, n_ring: int) -> tuple:
         xd = xb[: rec["shape"][1]].contiguous()
         bound, by = part_bound(prog, rec["st"])
         row = {"matrix": name, "scheme_id": pln.scheme_id, "grid": list(pln.grid),
-               "kernel": rec["kernel"], "partition_s": exe.build_seconds,
+               "kernel": rec["kernel"], "route": kernel_route(rec["prog"], 1),
+               "partition_s": exe.build_seconds,
                "exe_ms_p50": 1e3 * statistics.median(lat[(name, pln.scheme_id)]),
                "single_exe_ms_p50": rec["host_ms"],
                "part_ms": time_ms(torch, lambda: local.raw(arrs, xb), 30),
@@ -764,10 +806,17 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     for line in ptxas_lines(_build):
         print(line)
+    hmma = sass_mma_counts(_build, "bcoo_spmv")
+    emit({"phase": "sass", "kernel": "bcoo_spmv", "hmma": hmma})
+    if "cuobjdump" not in hmma:  # both f32 tensor-core kernels issue mma
+        for kern in ("bcoo_mma_kernel<f,", "bcoo_mma_reg_kernel<f,"):
+            check(any(n.startswith(kern) for n in hmma),
+                  f"no HMMA in {kern}...>: {hmma}")
     emit({"phase": "build", "seconds": build_s, "kernels": list(_build.SOURCES)})
 
     errs = {k: 0.0 for k in KERNELS}
-    phase_kernels(torch, rng, device, 1 << 16, errs)
+    phase_kernels(torch, rng, device, 1 << 16, errs,
+                  np.random.default_rng([args.seed, 64]))
     records = []
     launches, requests = phase_main_path(
         torch, rng, device, (1 << 21, 1 << 21, 1 << 20), errs, records)

@@ -39,7 +39,7 @@ SOURCES = {
     "coo_spmv": ("coo_spmv.cu", "repro_coo_spmv",
                  [_P] * 10 + [_I] * 11 + [_P]),
     "bcoo_spmv": ("bcoo_spmv.cu", "repro_bcoo_spmv",
-                  [_P] * 6 + [_I] * 9 + [_P]),
+                  [_P] * 6 + [_I] * 10 + [_P]),
     "ell_spmv": ("ell_spmv.cu", "repro_ell_spmv",
                  [_P] * 5 + [_I] * 6 + [_P]),
 }

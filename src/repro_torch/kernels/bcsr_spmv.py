@@ -4,10 +4,12 @@ kernel's wrapper.
 Counterpart of ``repro/kernels/bcsr_spmv.py``.  The TPU kernel took one grid
 step per nonzero (r, c) block and accumulated each block-row in VMEM across
 consecutive steps; the Hopper kernel (``csrc/bcoo_spmv.cu``, see its header
-for the design and what bounds it) gives each output row of a block-row one
-thread per batch column, which walks the block-row's blocks through a
-block-row pointer array: BCSR's ``browptr`` itself, or for BCOO one built
-once from ``browind[:nblocks]`` (:func:`block_row_ptr`).
+for the design and what bounds each route) walks each block-row's blocks
+through a block-row pointer array: BCSR's ``browptr`` itself, or for BCOO
+one built once from ``browind[:nblocks]`` (:func:`block_row_ptr`).  It has
+three routes, chosen by :func:`block_route` from (dtype, r, c, B): a warp
+per block-row with 128-bit loads for SpMV, tensor-core ``mma.sync`` for
+floating-point SpMM, and a register-tiled CUDA-core kernel for the rest.
 
 :func:`bcoo_spmv` dispatches on the device of ``x``: a CPU tensor runs the
 plain version :func:`bcoo_spmv_plain`, a CUDA tensor launches the kernel
@@ -27,10 +29,44 @@ from .instrument import record_launch
 from .ref import acc_dtype, block_products
 
 __all__ = ["bcoo_spmv", "bcoo_spmv_plain", "bcoo_spmv_cuda", "block_row_ptr",
-           "DEFAULT_BLOCK", "BATCH_TILE"]
+           "block_route", "route_takes", "ROUTES", "DEFAULT_BLOCK", "BATCH_TILE",
+           "MMA_MIN_BATCH"]
 
 DEFAULT_BLOCK = (8, 128)
-BATCH_TILE = 32  # SpMM columns per thread tile (r * BATCH_TILE <= 1024)
+BATCH_TILE = 32  # SpMM columns per thread tile of the CUDA-core route
+# route -> its code in csrc/bcoo_spmv.cu (enum Route)
+ROUTES = {"rows": 0, "warp": 1, "mma": 2}
+MMA_MIN_BATCH = 8  # the smallest B that takes the tensor cores (PERF.md: faster at 8)
+
+
+def route_takes(route: str, dtype: torch.dtype, r: int, c: int, B: int) -> bool:
+    """Whether kernel route ``route`` can run (dtype, (r, c) blocks, B)."""
+    if route == "warp":  # 4-column groups of a block tile the warp
+        groups = r * c // 4
+        return B == 1 and c % 4 == 0 and groups <= 32 and 32 % groups == 0
+    if route == "mma":  # m16n8k8 (f32, 3xTF32) or m16n8k16 (bf16 / f16)
+        if dtype == torch.float32:
+            return r in (8, 16) and c % 8 == 0
+        return dtype in (torch.bfloat16, torch.float16) and r in (8, 16) \
+            and c % 16 == 0
+    return route == "rows"
+
+
+def block_route(dtype: torch.dtype, r: int, c: int, B: int) -> str:
+    """The kernel route for (value dtype, block shape, batch columns).
+
+    ``"warp"`` (a warp per block-row) for SpMV where the block's 4-column
+    groups tile a warp; ``"mma"`` (tensor cores) for SpMM with
+    B >= :data:`MMA_MIN_BATCH` where :func:`route_takes` allows it;
+    ``"rows"`` (register-tiled CUDA cores) for everything else, integer
+    values among them.  The route fixes the order of every sum; the batch
+    tile does not.
+    """
+    if B == 1:
+        return "warp" if route_takes("warp", dtype, r, c, B) else "rows"
+    if B >= MMA_MIN_BATCH and route_takes("mma", dtype, r, c, B):
+        return "mma"
+    return "rows"
 
 
 def block_row_ptr(browind: torch.Tensor, nblocks, n_brows: int) -> torch.Tensor:
@@ -87,18 +123,21 @@ def bcoo_spmv_plain(browind, bcolind, bvalues, x, out_rows: int,
 
 def bcoo_spmv_cuda(browptr, bcolind, bvalues, x, out_rows: int,
                    batch_tile: int | None = None,
-                   windows: _build.XWindows | None = None) -> torch.Tensor:
+                   windows: _build.XWindows | None = None,
+                   route: str | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on blocks and x that lie on one CUDA device.
 
     ``browptr`` is the (out_rows / r + 1,) block-row pointer; per-part
     blocks (``bvalues`` (P, cap, r, c)) take one pointer row per part and
     run in one launch, part p on its x window (``windows``; default: the
-    whole x).  Returns y ([P,] out_rows[, B]) in the accumulation dtype.
+    whole x).  ``route`` (default :func:`block_route`) names the kernel;
+    ``batch_tile`` is the CUDA-core route's and changes no bit.  Returns y
+    ([P,] out_rows[, B]) in the accumulation dtype.
 
     Raises:
       ValueError/TypeError: wrong device, dtype, shape or contiguity
         (float64 and int64 values included: the kernel does not take them),
-        or x windows that overrun x.
+        x windows that overrun x, or a route that cannot take the shape.
       RuntimeError: the launch failed.
     """
     if x.device.type != "cuda":
@@ -121,9 +160,13 @@ def bcoo_spmv_cuda(browptr, bcolind, bvalues, x, out_rows: int,
                          f"{out_rows} with r={r} needs {n_brows + 1} entries "
                          f"per part")
     x_off, n_cols = _build.check_windows(windows, n_parts, x, "bcoo_spmv_cuda")
-    bt = min(B, BATCH_TILE if batch_tile is None else batch_tile, 1024 // r)
+    bt = min(B, BATCH_TILE if batch_tile is None else batch_tile)
     if not 1 <= bt <= BATCH_TILE:
         raise ValueError(f"batch_tile must be in [1, {BATCH_TILE}]; got {batch_tile}")
+    route = block_route(bvalues.dtype, r, c, B) if route is None else route
+    if route not in ROUTES or not route_takes(route, bvalues.dtype, r, c, B):
+        raise ValueError(f"route {route!r} cannot take {bvalues.dtype} ({r}, {c}) "
+                         f"blocks at B={B}")
     acc = acc_dtype(bvalues.dtype)
     y = torch.empty((n_parts, out_rows, B), dtype=acc, device=x.device)
     if n_brows == 0 or n_cols == 0:
@@ -133,9 +176,9 @@ def bcoo_spmv_cuda(browptr, bcolind, bvalues, x, out_rows: int,
         with torch.cuda.device(x.device):
             err = fn(browptr.data_ptr(), bcolind.data_ptr(), bvalues.data_ptr(),
                      x.data_ptr(), y.data_ptr(), x_off, n_brows, r, c, n_cols, B,
-                     bt, n_parts, cap, _build.DTYPE_CODES[bvalues.dtype],
-                     _build.stream_of(x))
-        _build.check(err, "bcoo_spmv")
+                     bt, n_parts, cap, ROUTES[route],
+                     _build.DTYPE_CODES[bvalues.dtype], _build.stream_of(x))
+        _build.check(err, f"bcoo_spmv ({route} route)")
         record_launch("bcoo", B)
     y = y if stacked else y[0]
     return y[..., 0] if squeeze else y

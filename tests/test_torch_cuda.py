@@ -23,8 +23,9 @@ from repro_torch.core.partition import (partition_1d, partition_1d_coalesced,
                                         partition_2d)
 from repro_torch.kernels import _build, instrument, ops
 from repro_torch.kernels import coo_spmv as coo_mod
-from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_cuda,
-                                           bcoo_spmv_plain, block_row_ptr)
+from repro_torch.kernels.bcsr_spmv import (ROUTES, bcoo_spmv, bcoo_spmv_cuda,
+                                           bcoo_spmv_plain, block_route,
+                                           block_row_ptr, route_takes)
 from repro_torch.kernels.coo_spmv import (ChunkPlan, coo_spmv, coo_spmv_plain,
                                           plan_chunks)
 from repro_torch.kernels.ell_spmv import dense_to_ell, ell_spmv, ell_spmv_plain
@@ -82,8 +83,8 @@ def test_coo_kernel_matches_plain(cuda, dtype, batch, row_granular):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("batch", BATCHES)
-@pytest.mark.parametrize("block", [(8, 16), (4, 8), (8, 128)])
+@pytest.mark.parametrize("batch", BATCHES + [64])
+@pytest.mark.parametrize("block", [(8, 16), (4, 8), (8, 128), (16, 16)])
 def test_bcoo_kernel_matches_plain(cuda, dtype, batch, block):
     rng = np.random.default_rng(2)
     r, c = block
@@ -97,6 +98,91 @@ def test_bcoo_kernel_matches_plain(cuda, dtype, batch, block):
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(got.cpu(), want)
+
+
+def _block_case(rng, block, dtype, integer=True, n_cut=0):
+    """A (24 r) x (10 c - n_cut) matrix in (r, c) blocks with three empty
+    block-rows; n_cut > 0 leaves the last block-column partial (x is
+    shorter than the blocks)."""
+    r, c = block
+    a = _matrix(rng, r * 24, c * 10, 0.08, dtype, integer)
+    a[: r * 3] = 0
+    if n_cut:
+        a[:, c * 10 - n_cut:] = 0
+    return F.dense_to_bcoo(a, block=block), c * 10 - n_cut
+
+
+def _routes(dtype, block, batch):
+    B = 1 if batch is None else batch
+    return [rt for rt in ROUTES if route_takes(rt, dtype, *block, B)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("block", [(8, 16), (4, 8), (8, 128), (16, 16)])
+@pytest.mark.parametrize("n_cut", [0, 5], ids=["whole", "partial-last-bcol"])
+def test_bcoo_every_route_matches_plain(cuda, dtype, block, n_cut):
+    """Integer-valued inputs: every route that takes the shape is bit-equal
+    to the plain version, at B = 1, 8, 40 and 64, also when the last
+    block-column is cut short by x."""
+    rng = np.random.default_rng(22)
+    m, n = _block_case(rng, block, dtype, n_cut=n_cut)
+    d = m.to(cuda)
+    ptr = block_row_ptr(d.browind, d.nblocks, d.block_rows)
+    for batch in BATCHES + [64]:
+        x = _x(rng, n, batch, dtype)
+        want = bcoo_spmv_plain(m.browind, m.bcolind, m.bvalues, x, m.rows, m.nblocks)
+        for route in _routes(dtype, block, batch):
+            got = bcoo_spmv_cuda(ptr, d.bcolind, d.bvalues, x.to(cuda), d.rows,
+                                 route=route)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert torch.equal(got.cpu(), want), (route, batch)
+
+
+def test_bcoo_route_choice_on_card(cuda):
+    """The main path's (8, 16) f32 blocks take the warp at B = 1 and the
+    tensor cores at B = 8 and 64; a route that cannot take a shape raises."""
+    assert [block_route(torch.float32, 8, 16, B) for B in (1, 8, 64)] == \
+        ["warp", "mma", "mma"]
+    rng = np.random.default_rng(23)
+    m, n = _block_case(rng, (8, 16), torch.int32)
+    d = m.to(cuda)
+    ptr = block_row_ptr(d.browind, d.nblocks, d.block_rows)
+    with pytest.raises(ValueError, match="route"):
+        bcoo_spmv_cuda(ptr, d.bcolind, d.bvalues,
+                       _x(rng, n, 8, torch.int32).to(cuda), d.rows, route="mma")
+
+
+@pytest.mark.parametrize("batch", [None, 8, 40, 64])
+@pytest.mark.parametrize("block", [(8, 16), (16, 16), (4, 8)])
+def test_bcoo_random_f32_every_route(cuda, batch, block):
+    """Random float32 holds 2e-4 on every route (3xTF32 on the tensor
+    cores)."""
+    rng = np.random.default_rng(24)
+    m, n = _block_case(rng, block, torch.float32, integer=False)
+    d = m.to(cuda)
+    ptr = block_row_ptr(d.browind, d.nblocks, d.block_rows)
+    x = _x(rng, n, batch, torch.float32, integer=False)
+    want = bcoo_spmv_plain(m.browind, m.bcolind, m.bvalues, x, m.rows, m.nblocks)
+    for route in _routes(torch.float32, block, batch):
+        got = bcoo_spmv_cuda(ptr, d.bcolind, d.bvalues, x.to(cuda), d.rows,
+                             route=route)
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_bcoo_spmm_columns_equal_spmv(cuda):
+    """(8, 16) f32, integer-valued: the tensor-core SpMM's columns equal
+    the warp SpMV run column by column."""
+    rng = np.random.default_rng(25)
+    m, n = _block_case(rng, (8, 16), torch.float32)
+    d = m.to(cuda)
+    for batch in (8, 40, 64):
+        X = _x(rng, n, batch, torch.float32).to(cuda)
+        Y = bcoo_spmv(d.browind, d.bcolind, d.bvalues, X, d.rows, d.nblocks)
+        cols = torch.stack([bcoo_spmv(d.browind, d.bcolind, d.bvalues,
+                                      X[:, j].contiguous(), d.rows, d.nblocks)
+                            for j in range(batch)], 1)
+        assert torch.equal(Y, cols)
 
 
 @pytest.mark.parametrize("batch", BATCHES)
@@ -176,6 +262,10 @@ def test_batch_tile_invariance(cuda, kind):
         m = F.dense_to_bcoo(a, block=(8, 16)).to(cuda)
         runs = [bcoo_spmv(m.browind, m.bcolind, m.bvalues, X, m.rows, m.nblocks,
                           bt) for bt in (1, 2, 4, 8, 13, 32)]
+        ptr = block_row_ptr(m.browind, m.nblocks, m.block_rows)
+        rows = [bcoo_spmv_cuda(ptr, m.bcolind, m.bvalues, X, m.rows, bt,
+                               route="rows") for bt in (1, 2, 4, 8, 13, 32)]
+        assert all(torch.equal(y, rows[0]) for y in rows[1:])
     for y in runs[1:]:
         assert torch.equal(y, runs[0])
 
@@ -299,6 +389,36 @@ def test_part_axis_launch_equals_single_part_launches(cuda, fmt, scheme, dtype,
     torch.cuda.synchronize()
     assert got.shape[0] == P and torch.equal(got, torch.stack(singles))
     assert torch.equal(got, plains)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=str)
+@pytest.mark.parametrize("batch", [None, 8, 10, 40])
+def test_part_axis_unaligned_x_windows(cuda, dtype, batch):
+    """Block parts whose x windows start one row past their columns, so that
+    x_offset * B * 4 is not a multiple of 16 (B = 1 and 10): the kernel
+    takes scalar x loads there and still equals the per-part plain
+    versions and the single-part launches."""
+    rng = np.random.default_rng(26)
+    part, _ = _parts(rng, "bcoo", "2d.variable-sized", dtype)
+    P, width = part.n_parts, part.w_pad
+    offsets = [o + 1 for o in part.col_start.tolist()]
+    B = 1 if batch is None else batch
+    if B in (1, 10):
+        assert any(o * B * 4 % 16 for o in offsets)
+    x = _x(rng, max(offsets) + width, batch, dtype).to(cuda)
+    win = _build.XWindows.build(offsets, width, cuda)
+    dev = part.to(cuda)
+    ptr = D.kernel_block_arrays(part)["browptr"].to(cuda)
+    got = bcoo_spmv(dev.rowind, dev.colind, dev.values, x, part.h_pad, dev.nnz,
+                    browptr=ptr, windows=win)
+    singles = [bcoo_spmv(dev.rowind[p], dev.colind[p], dev.values[p],
+                         win.local(x, p), part.h_pad, dev.nnz[p], browptr=ptr[p])
+               for p in range(P)]
+    plains = bcoo_spmv_plain(dev.rowind, dev.colind, dev.values, x, part.h_pad,
+                             dev.nnz, win)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.stack(singles)) and torch.equal(got, plains)
 
 
 def test_part_axis_rejects_windows_that_overrun_x(cuda):

@@ -25,7 +25,8 @@ from repro_torch import convert
 from repro_torch.core import formats as TF
 from repro_torch.kernels import instrument, ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.bcsr_spmv import bcoo_spmv, bcoo_spmv_plain, block_row_ptr
+from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_plain, block_route,
+                                           block_row_ptr, route_takes)
 from repro_torch.core import distributed as D
 from repro_torch.core.mesh import make_mesh
 from repro_torch.core.partition import partition_1d
@@ -352,6 +353,98 @@ def test_bcoo_plain_matches_pallas(block, dtype, integer, batch):
     _compare(got, want, exact)
     assert torch.equal(bcoo_spmv(tm.browind, tm.bcolind, tm.bvalues,
                                  TF.to_tensor(x), m, tm.nblocks), got)
+
+
+ROUTE_CASES = [  # (dtype, block, B, the block kernel's route)
+    (torch.float32, (8, 16), 1, "warp"),
+    (torch.float32, (8, 16), 8, "mma"),
+    (torch.float32, (8, 16), 64, "mma"),
+    (torch.float32, (8, 16), 3, "rows"),
+    (torch.float32, (4, 8), 1, "warp"),
+    (torch.float32, (4, 8), 64, "rows"),
+    (torch.float32, (8, 128), 1, "rows"),
+    (torch.float32, (8, 128), 64, "mma"),
+    (torch.float32, (16, 16), 1, "rows"),
+    (torch.float32, (16, 16), 40, "mma"),
+    (torch.bfloat16, (8, 16), 1, "warp"),
+    (torch.bfloat16, (8, 16), 64, "mma"),
+    (torch.float16, (8, 16), 8, "mma"),
+    (torch.bfloat16, (8, 8), 64, "rows"),
+    (torch.float32, (8, 12), 64, "rows"),
+    (torch.int8, (8, 16), 1, "warp"),
+    (torch.int8, (8, 16), 8, "rows"),
+    (torch.int16, (8, 16), 1, "warp"),
+    (torch.int16, (8, 16), 64, "rows"),
+    (torch.int32, (8, 16), 1, "warp"),
+    (torch.int32, (8, 16), 64, "rows"),
+    (torch.int8, (4, 8), 64, "rows"),
+]
+
+
+@pytest.mark.parametrize("dtype,block,B,route", ROUTE_CASES,
+                         ids=lambda v: str(v).removeprefix("torch."))
+def test_block_route_choice(dtype, block, B, route):
+    assert block_route(dtype, *block, B) == route
+    assert route_takes(route, dtype, *block, B)
+    # the CUDA-core route takes every shape; integer values never the mma
+    assert route_takes("rows", dtype, *block, B)
+    assert not (route_takes("mma", dtype, *block, B)
+                and not dtype.is_floating_point)
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits, ties away from zero), as
+    the kernel's cvt.rna.tf32.f32, on the int32 view."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_bcoo(m, x, passes: int = 3) -> torch.Tensor:
+    """The tensor-core route's f32 arithmetic in plain torch: a = a_hi + a_lo
+    and x = x_hi + x_lo in TF32, and the products a_lo x_hi + a_hi x_lo +
+    a_hi x_hi summed in float32 (``passes=1``: a_hi x_hi alone)."""
+    def run(v, xx):
+        return bcoo_spmv_plain(m.browind, m.bcolind, v, xx, m.rows, m.nblocks)
+
+    ah, xh = _tf32(m.bvalues), _tf32(x)
+    if passes == 1:
+        return run(ah, xh)
+    al, xl = _tf32(m.bvalues - ah), _tf32(x - xh)
+    return run(al, xh) + run(ah, xl) + run(ah, xh)
+
+
+def _dense_blocks(integer: bool):
+    a = rand_sparse(8 * 12, 16 * 8, 0.6, np.float32, seed=31, integer=integer)
+    a[8:16] = 0
+    return a, TF.dense_to_bcoo(a, block=(8, 16), capacity=96)
+
+
+@pytest.mark.parametrize("batch", [None, 8, 40])
+def test_3xtf32_is_exact_on_integer_values(batch):
+    _, m = _dense_blocks(integer=True)
+    x = TF.to_tensor(_x(m.cols, batch, np.float32, seed=32))
+    assert torch.equal(_tf32(m.bvalues), m.bvalues)
+    assert torch.equal(_tf32_bcoo(m, x), bcoo_spmv_plain(
+        m.browind, m.bcolind, m.bvalues, x, m.rows, m.nblocks))
+
+
+@pytest.mark.parametrize("batch", [8, 40])
+def test_3xtf32_holds_the_tolerance_and_one_pass_does_not(batch):
+    """Random float32: three TF32 passes stay within 2e-4 of the Pallas
+    kernel and of the plain version; one pass (10 mantissa bits) misses it,
+    which is why the tensor-core route takes three."""
+    a, m = _dense_blocks(integer=False)
+    xn = _x(m.cols, batch, np.float32, seed=33, integer=False)
+    x = TF.to_tensor(xn)
+    jm = JF.dense_to_bcoo(a, block=(8, 16), capacity=96)
+    pallas = np.asarray(bcoo_spmv_pallas(jm.browind, jm.bcolind, jm.bvalues,
+                                         jnp.asarray(xn), m.rows, jm.nblocks))
+    plain = bcoo_spmv_plain(m.browind, m.bcolind, m.bvalues, x, m.rows, m.nblocks)
+    three = _tf32_bcoo(m, x)
+    _compare(three, pallas, exact=False)
+    torch.testing.assert_close(three, plain, rtol=2e-4, atol=2e-4)
+    one = _tf32_bcoo(m, x, passes=1)
+    assert not torch.allclose(one, plain, rtol=2e-4, atol=2e-4)
 
 
 def test_block_row_ptr_matches_bcsr():
