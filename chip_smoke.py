@@ -50,17 +50,42 @@ Phases (every check raises, so any failure exits non-zero):
    plan's part-axis launch is held against its per-part plain versions and
    timed next to the single-device kernel.  The 1D ring (torch local kernel
    only) runs at 65,536^2.
+8. The serving path at full width (``repro_torch.engine`` /
+   ``repro_torch.serve``): the three matrices registered from their
+   triplets in one ``SpmvEngine()`` on the card (one part each), wrapped in
+   an ``AsyncSpmvService`` with an rt, a standard and a batch tenant.  Per
+   matrix 64 concurrent single vectors (coalesced by the batcher into
+   SpMMs of the bucket widths 1, 2, 4, 8) and explicit B=4 and B=8 batches,
+   every answer bit-equal to cuSPARSE; then a seeded bursty trace of 600
+   requests (Zipf 1.1 over the matrices, 300 requests/s, widths 1/4/8,
+   5 % expired deadlines) replayed in real time: nothing lost, no error,
+   every expired request shed.  Latency p50/p99 and throughput per matrix
+   and per class, the load / kernel / retrieve split, the widths served and
+   the launches per kernel route.  An engine with ``cache_capacity=1``
+   evicts a plan and ``torch.cuda.memory_allocated`` must fall by its
+   placed bytes; an engine over 16 parts of the card answers a few
+   requests, checked the same way.  The block kernel is timed at the
+   batcher's widths B = 2 and 4 (the route it takes, and the tensor-core
+   route for comparison, each held bit-equal to its plain version first).
+9. A replay at 65,536^2 (the three recipes) with dense oracles on the card
+   (``replay(..., oracles=...)``): every completed answer bit-equal.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
 the counts, so that the single-device answers it compares with are
-launched outside the count.  Prints JSON lines; the line before the last
+launched outside the count.  The serving path does so around each
+service's traffic and requires the COO and block launches to equal the
+engine's multiplies: the batcher's coalesced batches plus the explicit
+batches served (one part-axis launch each).  Prints JSON lines; the line before the last
 is ``{"kernels": [...]}`` and the last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
+import collections
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -88,6 +113,9 @@ KERNELS = {  # kernel -> (source, TPU kernel it replaces)
 ALSO_REPLACES = {"coo_spmv": ["src/repro/kernels/csr_spmv.py:52"]}
 KIND = {"coo_spmv": "coo", "bcoo_spmv": "bcoo", "ell_spmv": "ell"}
 PARTS = 16  # parts of the partitioned path, all on the one card
+# the serving path's tenants, one per SLO class
+TENANTS = {"tenant-rt": "rt", "tenant-std": "standard", "tenant-batch": "batch"}
+SERVE_WAIT_S = 600  # bound on any one await of the serving phases
 
 
 def check(cond, msg: str) -> None:
@@ -772,6 +800,379 @@ def phase_partitioned(torch, rng, device, records, n_ring: int) -> tuple:
     return launches, rows_out
 
 
+# ------------------------------------------------------------- serving
+
+
+def pctl(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), q)) if values else 0.0
+
+
+def served_multiplies(svc) -> int:
+    """Engine multiplies a service ran: the batcher's coalesced batches plus
+    the explicit batches it served (every served request that did not ride
+    the batcher)."""
+    mb = svc.batcher
+    return mb.batches_run + (svc.served - mb.vectors_run)
+
+
+def check_launches(svc, what: str) -> dict:
+    """The COO + block launches since the last reset equal the engine's
+    multiplies: one part-axis launch per coalesced or explicit batch."""
+    from repro_torch.kernels import instrument
+
+    got = {k: instrument.launches(k) for k in ("coo", "bcoo")}
+    want = served_multiplies(svc)
+    recorded = sum(bd["requests"] for bd in svc.engine.telemetry.breakdown().values())
+    emit({"phase": "serve_launch_counts", "what": what, "launches": got,
+          "batches_run": svc.batcher.batches_run,
+          "explicit_batches": svc.served - svc.batcher.vectors_run,
+          "engine_multiplies": recorded})
+    check(sum(got.values()) == want == recorded,
+          f"{what}: launches {got} != multiplies {want} (telemetry {recorded})")
+    return got
+
+
+def make_service(engine):
+    from repro_torch.serve import AsyncSpmvService, TenantConfig
+
+    return AsyncSpmvService(engine, tenants={
+        t: TenantConfig(priority=c) for t, c in TENANTS.items()})
+
+
+async def bounded(aw):
+    return await asyncio.wait_for(aw, SERVE_WAIT_S)
+
+
+async def direct_requests(torch, svc, name, rec, rng, device, singles: int) -> int:
+    """``singles`` concurrent single vectors (tenants in turn) and explicit
+    B=4 and B=8 batches, their payloads made beforehand; every answer
+    bit-equal to cuSPARSE on the card.  Emits the burst's latencies, its
+    throughput and the widths the engine served."""
+    cols = rec["shape"][1]
+    tenants = list(TENANTS)
+    xs = [rng.integers(-2, 3, cols).astype(np.float32) for _ in range(singles)]
+    xs += [rng.integers(-2, 3, (cols, b)).astype(np.float32) for b in (4, 8)]
+
+    async def timed(tenant, x):
+        t0 = time.perf_counter()
+        y = await svc.multiply(tenant, name, x)
+        return y, (time.perf_counter() - t0) * 1e3
+
+    since = len(svc.engine.telemetry.records)
+    t0 = time.perf_counter()
+    done = await bounded(asyncio.gather(*[
+        timed(tenants[i % len(tenants)], x) for i, x in enumerate(xs)]))
+    wall_s = time.perf_counter() - t0
+    lat = [ms for _, ms in done]
+    emit({"phase": "serve_direct", "matrix": name, "requests": len(xs),
+          "vectors": singles + 12, "wall_s": wall_s,
+          "p50_ms": pctl(lat, 50), "p99_ms": pctl(lat, 99),
+          "throughput_rps": len(xs) / wall_s,
+          "widths": dict(sorted(collections.Counter(
+              r.batch for r in svc.engine.telemetry.records[since:]).items()))})
+    for i, (x, (y, _)) in enumerate(zip(xs, done)):
+        lib = (rec["A"] @ torch.from_numpy(x).to(device)).cpu().numpy()
+        check(y.shape == lib.shape and np.array_equal(y, lib),
+              f"serving {name} request {i} (B={x.shape[1:] or 1}): != cuSPARSE")
+    return len(xs)
+
+
+def trace_rows(svc, start_mark: float, wall_s: float) -> dict:
+    """Latency p50/p99 and throughput per matrix of the completed requests
+    traced after ``start_mark`` (a trace's extent: admit to deliver)."""
+    from repro_torch.obs import trace_summary
+
+    spans = [s for s in svc.tracer.spans() if s.start_s >= start_mark]
+    lat = collections.defaultdict(list)
+    for t in trace_summary(spans).values():
+        if "deliver" in t["phases"]:
+            lat[t["label"].split("/", 1)[1]].append(t["total_s"] * 1e3)
+    return {name: {"completed": len(v), "p50_ms": pctl(v, 50),
+                   "p99_ms": pctl(v, 99), "throughput_rps": len(v) / wall_s}
+            for name, v in lat.items()}
+
+
+def payload_host_ms(trace, by_matrix) -> None:
+    """Host time the replay spends making one payload (``request_vector``,
+    on the event loop) per width, next to the trace's arrival span: where
+    the payloads take longer than the gaps, the replay fires late."""
+    from repro_torch.serve import request_vector
+
+    ms = {}
+    for b in sorted({r.batch for r in trace}):
+        req = next(r for r in trace if r.batch == b)
+        cols = by_matrix[req.name]["shape"][1]
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            request_vector(req, cols, integer=True)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ms[b] = statistics.median(runs)
+    total_s = sum(ms[r.batch] for r in trace) / 1e3
+    emit({"phase": "serve_payload", "host_ms_by_width": ms,
+          "trace_payload_s": total_s, "trace_span_s": trace[-1].t})
+
+
+def width_rows(torch, engine, since: int, block_shape: dict) -> dict:
+    """Per matrix: the batch widths the engine served (telemetry records
+    from index ``since``), the launches per kernel route they took, and the
+    load / kernel / retrieve split of those requests."""
+    from repro_torch.kernels.bcsr_spmv import block_route
+
+    out = {}
+    for r in engine.telemetry.records[since:]:
+        row = out.setdefault(r.name, {"widths": collections.Counter(),
+                                      "routes": collections.Counter(),
+                                      "load_s": 0.0, "kernel_s": 0.0,
+                                      "retrieve_s": 0.0})
+        row["widths"][r.batch] += 1
+        shape = block_shape.get(r.name)
+        route = ("coo" if shape is None
+                 else "bcoo." + block_route(torch.float32, *shape, r.batch))
+        row["routes"][route] += 1
+        for k in ("load_s", "kernel_s", "retrieve_s"):
+            row[k] += getattr(r, k)
+    for row in out.values():
+        total = row["load_s"] + row["kernel_s"] + row["retrieve_s"]
+        row["split"] = {k[:-2]: row[k] / total for k in ("load_s", "kernel_s",
+                                                         "retrieve_s")}
+        row["widths"] = dict(sorted(row["widths"].items()))
+        row["routes"] = dict(row["routes"])
+    return out
+
+
+def block_widths(torch, rng, device, rec) -> list:
+    """The block kernel at B = 1, 2, 4, 8 on the main-path block program:
+    the route ``block_route`` takes, and the tensor-core route at B = 2 and
+    4 for comparison (PERF.md's open question), each bit-equal to the plain
+    version before it is timed."""
+    from repro_torch.kernels.bcsr_spmv import bcoo_spmv_cuda, block_route
+
+    prog, A, st = rec["prog"], rec["A"], rec["st"]
+    rows_, cols = rec["shape"]
+    r, c = prog.bvalues.shape[1:]
+    out = []
+    for batch in (1, 2, 4, 8):
+        x = torch.from_numpy(rng.integers(-2, 3, (cols, batch)).astype(np.float32)
+                             ).to(device)
+        x = x[:, 0].contiguous() if batch == 1 else x
+        want = prog.plain(x)
+        default = block_route(prog.bvalues.dtype, r, c, batch)
+        routes = [default] + (["mma"] if batch in (2, 4) else [])
+        nbytes = (prog.nblocks * (r * c * 4 + 4) + prog.browptr.numel() * 4
+                  + cols * batch * 4 + rows_ * batch * 4)
+        ops_ = 2 * st.nnz * batch
+        by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops_ / F32_OPS_S * 1e3
+        for route in routes:
+            fn = (lambda: bcoo_spmv_cuda(prog.browptr, prog.bcolind, prog.bvalues,
+                                         x, prog.rows, route=route))
+            got = fn()
+            torch.cuda.synchronize()
+            row = {"B": batch, "route": route, "taken_by_engine": route == default,
+                   "bit_equal_to_plain": bool(torch.equal(got, want)),
+                   "bound_ms": max(by_bytes, by_ops),
+                   "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+            if route == default:
+                check(row["bit_equal_to_plain"],
+                      f"block kernel B={batch} ({route}): != plain version")
+            if row["bit_equal_to_plain"]:
+                row["ms"] = time_ms(torch, fn, 30)
+                row["roofline_share"] = row["bound_ms"] / row["ms"]
+            else:
+                row["ms"] = "not measured: differs from the plain version"
+            if route == default:
+                row["plain_ms"] = time_ms(torch, lambda: prog.plain(x), 5, warmup=1)
+                row["library_ms"] = time_ms(torch, lambda: A @ x, 30)
+            emit({"phase": "block_batcher_widths", **row})
+            out.append(row)
+    return out
+
+
+def phase_serving(torch, rng, device, records, seed: int) -> dict:
+    """The serving path at full width: engine, batcher, service, replay."""
+    from repro_torch.api import SparseMatrix
+    from repro_torch.engine import SpmvEngine
+    from repro_torch.kernels import instrument
+    from repro_torch.obs.tracing import clock as obs_clock
+    from repro_torch.serve import WorkloadSpec, generate_trace, replay
+
+    by_matrix = {}
+    for r in records:
+        by_matrix.setdefault(r["matrix"], r)
+    eng = SpmvEngine(cache_capacity=4)  # one part on the card
+    for name, rec in by_matrix.items():
+        t0 = time.perf_counter()
+        entry = eng.register(name, rec["sm"])
+        register_s = time.perf_counter() - t0
+        cp = eng.plan_for(name)
+        check(cp.impl == "cuda" and cp.executor.device.type == device.type,
+              f"serving {name}: plan runs {cp.impl} on {cp.executor.device}")
+        emit({"phase": "serve_register", "matrix": name, "shape": list(entry.shape),
+              "nnz": entry.stats.nnz, "scheme_id": entry.plan.tag,
+              "grid": list(entry.plan.grid), "register_s": register_s,
+              "placed_bytes": sum(t.numel() * t.element_size()
+                                  for t in cp.arrays.values())})
+    block_shape = {n: tuple(eng.plan_for(n).part.block) for n in by_matrix
+                   if eng.plan_for(n).plan.fmt in ("bcoo", "bcsr")}
+    svc = make_service(eng)
+    spec = WorkloadSpec(names=tuple(by_matrix), tenants=tuple(TENANTS),
+                        n_requests=600, seed=seed, zipf_alpha=1.1, rate_rps=300.0,
+                        arrivals="bursty", infeasible_frac=0.05,
+                        integer_values=True, tenant_classes=TENANTS)
+    trace = generate_trace(spec)
+
+    async def run():
+        svc.start()
+        try:
+            direct = 0
+            for name, rec in by_matrix.items():
+                direct += await direct_requests(torch, svc, name, rec, rng, device, 64)
+            since, mark = len(eng.telemetry.records), obs_clock()
+            report = await bounded(replay(svc, trace, time_scale=1.0,
+                                          integer_values=True))
+            return direct, since, mark, report
+        finally:
+            await bounded(svc.aclose())
+            svc.batcher.stop(drain=False)
+
+    instrument.reset()
+    direct, since, mark, report = asyncio.run(run())
+    launches = check_launches(svc, "full-width service")
+    n_inf = sum(r.infeasible for r in trace)
+    emit({"phase": "serve_replay", "requests": report.requests,
+          "completed": report.completed, "rejected": report.rejected,
+          "reject_reasons": report.reject_reasons, "errors": report.errors,
+          "lost": report.lost, "infeasible": n_inf,
+          "infeasible_rejected": report.infeasible_rejected,
+          "infeasible_served": report.infeasible_served, "wall_s": report.wall_s,
+          "throughput_rps": report.throughput_rps, "latency": report.latency,
+          "phases": report.phases, "queue_wait": report.queue_wait,
+          "direct_requests": direct})
+    check(report.lost == 0 and report.errors == 0,
+          f"replay lost {report.lost}, errors {report.errors}")
+    check(report.infeasible_rejected == n_inf and report.infeasible_served == 0,
+          f"replay shed {report.infeasible_rejected} of {n_inf} expired requests")
+    payload_host_ms(trace, by_matrix)
+    per_matrix = trace_rows(svc, mark, report.wall_s)
+    widths = width_rows(torch, eng, since, block_shape)
+    for name in by_matrix:
+        emit({"phase": "serve_matrix", "matrix": name, **per_matrix.get(name, {}),
+              **widths.get(name, {})})
+    for cls, d in sorted(report.per_class.items()):
+        emit({"phase": "serve_class", "class": cls,
+              "throughput_rps": d["completed"] / report.wall_s, **d})
+
+    # eviction: a plan evicted from a one-plan cache frees its card memory
+    ev = SpmvEngine(cache_capacity=1)
+    ev.register("block", by_matrix["block"]["sm"], warmup=False)
+    evicted = ev.plan_for("block")
+    placed = sum(t.numel() * t.element_size() for t in evicted.arrays.values())
+    ri, ci, vals, shape = regular_triplets(rng, 1 << 16)
+    fourth = SparseMatrix.from_parts(ri, ci, vals, shape)
+    probe = SpmvEngine(cache_capacity=1)  # the fourth plan's own allocation
+    torch.cuda.synchronize()
+    m = torch.cuda.memory_allocated()
+    probe.register("fourth", fourth, warmup=False)
+    torch.cuda.synchronize()
+    alloc_fourth = torch.cuda.memory_allocated() - m
+    del probe
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    ev.register("fourth", fourth, warmup=False)  # evicts the block plan
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
+    freed = m0 + alloc_fourth - m1
+    emit({"phase": "serve_eviction", "evicted_placed_bytes": placed,
+          "freed_bytes": freed, "fourth_plan_bytes": alloc_fourth,
+          "evictions": ev.cache.stats.evictions})
+    check(ev.cache.stats.evictions == 1 and evicted.arrays is None,
+          "eviction: the block plan was not evicted")
+    check(freed >= placed, f"eviction freed {freed} bytes < placed {placed}")
+    del ev, evicted
+
+    # the same service over 16 parts of the card
+    e16 = SpmvEngine(devices=[device] * PARTS)
+    rec = by_matrix["regular"]
+    entry = e16.register("regular", rec["sm"])
+    svc16 = make_service(e16)
+
+    async def run16():
+        svc16.start()
+        try:
+            return await direct_requests(torch, svc16, "regular", rec, rng, device, 16)
+        finally:
+            await bounded(svc16.aclose())
+            svc16.batcher.stop(drain=False)
+
+    instrument.reset()
+    n16 = asyncio.run(run16())
+    launches16 = check_launches(svc16, f"16-part service {entry.plan.tag}")
+    emit({"phase": "serve_parts", "matrix": "regular", "scheme_id": entry.plan.tag,
+          "grid": list(entry.plan.grid), "requests": n16,
+          "widths": dict(sorted(collections.Counter(
+              r.batch for r in e16.telemetry.records).items())),
+          "answers": "bit-equal to cuSPARSE"})
+    del e16, svc16
+    block_widths(torch, rng, device, by_matrix["block"])
+    return {k: launches[k] + launches16[k] for k in launches}
+
+
+def phase_serving_oracle(torch, rng, device, n: int, seed: int) -> dict:
+    """A replay at n^2 over the three recipes with dense oracles on the
+    card: every completed answer bit-equal."""
+    from repro_torch.api import SparseMatrix
+    from repro_torch.engine import SpmvEngine
+    from repro_torch.kernels import instrument
+    from repro_torch.serve import WorkloadSpec, generate_trace, replay
+
+    makers = {"regular": lambda: regular_triplets(rng, n),
+              "scale-free": lambda: scale_free_triplets(rng, n, 8 * n),
+              "block": lambda: block_triplets(rng, n)}
+    eng = SpmvEngine(cache_capacity=4)
+    svc = make_service(eng)
+    oracles = {}
+    for name, make in makers.items():
+        ri, ci, vals, shape = make()
+        sm = SparseMatrix.from_parts(ri, ci, vals, shape)
+        svc.register(None, name, sm)
+        dense = torch.zeros(shape, dtype=torch.float32, device=device)
+        cri, cci, cv = sm.coalesced()
+        dense[cri.to(device), cci.to(device)] = cv.to(device)
+        oracles[name] = dense
+    spec = WorkloadSpec(names=tuple(makers), tenants=tuple(TENANTS),
+                        n_requests=120, seed=seed + 1, rate_rps=300.0,
+                        arrivals="bursty", infeasible_frac=0.05,
+                        integer_values=True, tenant_classes=TENANTS)
+    trace = generate_trace(spec)
+
+    async def run():
+        svc.start()
+        try:
+            return await bounded(replay(svc, trace, oracles=oracles, time_scale=0.0,
+                                        integer_values=True))
+        finally:
+            await bounded(svc.aclose())
+            svc.batcher.stop(drain=False)
+
+    instrument.reset()
+    report = asyncio.run(run())
+    launches = check_launches(svc, f"{n}^2 oracle replay")
+    emit({"phase": "serve_oracle_replay", "shape": [n, n],
+          "requests": report.requests, "completed": report.completed,
+          "rejected": report.rejected, "errors": report.errors, "lost": report.lost,
+          "verified": report.verified, "bitexact": report.bitexact,
+          "max_abs_err": report.max_abs_err, "oracles": "dense, on the card"})
+    check(report.lost == 0 and report.errors == 0,
+          f"oracle replay lost {report.lost}, errors {report.errors}")
+    check(report.bitexact == report.verified == report.completed > 0,
+          f"oracle replay: {report.bitexact} bit-exact of {report.verified} "
+          f"verified of {report.completed} completed")
+    check(report.infeasible_rejected == sum(r.infeasible for r in trace),
+          "oracle replay: an expired request was not shed")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -827,12 +1228,20 @@ def main(argv=None) -> int:
     ell_launches, ell_times = phase_ell_path(torch, rng, device, records, errs)
     part_launches, part_rows = phase_partitioned(torch, rng, device, records,
                                                  1 << 16)
+    serve_launches_ = phase_serving(torch, rng, device, records, args.seed)
+    records.clear()  # free the main path's plans for the dense oracles
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "memory", "allocated_bytes": torch.cuda.memory_allocated()})
+    oracle_launches = phase_serving_oracle(torch, rng, device, 1 << 16, args.seed)
 
     by_path = {
         "coo_spmv": {"single_device": launches["coo"],
-                     "partitioned": part_launches["coo"]},
+                     "partitioned": part_launches["coo"],
+                     "serving": serve_launches_["coo"] + oracle_launches["coo"]},
         "bcoo_spmv": {"single_device": launches["bcoo"],
-                      "partitioned": part_launches["bcoo"]},
+                      "partitioned": part_launches["bcoo"],
+                      "serving": serve_launches_["bcoo"] + oracle_launches["bcoo"]},
         "ell_spmv": {"ell": ell_launches},
     }
     main_shape = {"coo_spmv": ("regular", "coo", 1), "bcoo_spmv": ("block", "bcoo", 1)}

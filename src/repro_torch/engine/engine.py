@@ -1,0 +1,461 @@
+"""SpmvEngine — register once, multiply many times.
+
+Counterpart of ``repro/engine/engine.py``.  The serving layer on top of the
+``repro_torch.api`` pipeline: ``register(name, a)`` runs
+``SparseMatrix -> ExecutionPlan -> Executor`` a single time (stats ->
+adaptive plan fitted to the device pool -> partition -> device placement ->
+built partitioned program) and parks the compiled executor in a
+:class:`PlanCache`; ``multiply(name, x)`` afterwards only places x, runs
+the cached program — for ``impl="cuda"`` one part-axis launch of the COO
+or block kernel, whatever the batch width — and assembles the rows: zero
+re-partitioning, zero program rebuilds, which is what makes repeated SpMV
+pay off (paper §3.1, Gómez-Luna et al. §5 on amortizing DPU transfer cost).
+
+The engine adapts the paper plan to the device pool: the adaptive selector
+is asked for a scheme as if every pool entry were a PIM core, and the
+resulting grid is fitted to the divisibility constraints of the 2D schemes
+(falling back to 1D element-balanced COO, which always fits) — the same
+``repro_torch.api.fit_plan`` rules every other entry point uses.  As in
+``plan(devices=...)``, every entry of the pool names the same device: P
+entries are P parts on one card (or on the CPU), one launch serving them
+all.
+
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP.md item: :meth:`SpmvEngine.solve` (``api/iterate.py``), ``tune=True``
+and :meth:`SpmvEngine.refine` (``repro.tune``), ``topology=``
+(``repro.topo``).
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..api import AXES_2D, AXIS_1D, SparseMatrix, resolve_scheme
+from ..api.matrix import _dtype_str
+from ..api.plan import IMPLS, fit_plan
+from ..core.adaptive import HardwareModel, Plan
+from ..core.formats import torch_dtype
+from ..core.mesh import make_mesh, same_device
+from ..obs import profile as obs_profile
+from .plan_cache import CompiledPlan, PlanCache, PlanKey
+from .registry import MatrixRegistry, RegisteredMatrix
+from .telemetry import RequestRecord, Telemetry
+
+__all__ = ["SpmvEngine"]
+
+_NOT_YET = "is not ported yet: see ROADMAP.md"
+
+
+class SpmvEngine:
+    """Batched SpMV serving over a registry of named matrices."""
+
+    def __init__(
+        self,
+        devices=None,
+        cache_capacity: int = 8,
+        telemetry: Optional[Telemetry] = None,
+        block: Tuple[int, int] = (8, 16),
+        hw: Optional[HardwareModel] = None,
+        impl: str = "cuda",
+        tune: bool = False,
+        tuner=None,
+        topology=None,
+    ) -> None:
+        """Create a serving engine over a device pool.
+
+        Args:
+          devices: the pool to serve from: one device (``"cuda"``, a
+            ``torch.device``) or a list of P entries naming the same device
+            (``["cuda"] * 16``: 16 parts on the card).  Default: one part
+            on the current CUDA device.  There is no CPU fallback: pass
+            ``["cpu"]`` to serve from the CPU.
+          cache_capacity: max compiled plans held (LRU; placed matrices pin
+            device memory, so this is the engine's memory bound).
+          telemetry: a shared Telemetry sink (default: a fresh one).
+          block: (r, c) block shape for the block formats and matrix stats.
+          hw: HardwareModel driving adaptive scheme selection.
+          impl: default per-part kernel for registered matrices — "cuda"
+            (the hand-written kernels; on CPU devices their plain versions)
+            or "torch" (the plain oracles).  ``register(..., impl=...)``
+            overrides per matrix.
+          tune / tuner: measure-and-refine tuning (and its knobs
+            ``tune_after``, ``tune_margin``, ``drift_factor``,
+            ``drift_alpha``) waits for the port of ``repro.tune``;
+            ``tune=True`` or a tuner raises.
+          topology: topology-aware placement waits for the port of
+            ``repro.topo``; anything but None raises.
+
+        Raises:
+          ValueError: for an unknown ``impl``.
+          NotImplementedError: ``tune=True``, a ``tuner``, ``topology=``,
+            or a pool naming distinct devices (multi-card meshes).
+          RuntimeError: a CUDA device is asked for and none is present.
+        """
+        if impl not in IMPLS:
+            raise ValueError(f"unknown impl {impl!r}: one of {IMPLS}")
+        if tune or tuner is not None:
+            raise NotImplementedError(
+                f"tune=True {_NOT_YET}, 'repro.tune'")
+        if topology is not None:
+            raise NotImplementedError(f"topology= {_NOT_YET}, 'repro.topo'")
+        if devices is None:
+            devices = [torch.device("cuda")]
+        elif isinstance(devices, (str, torch.device)):
+            devices = [devices]
+        self.devices = list(devices)
+        same_device(self.devices)  # distinct devices / no card: raise now
+        self.impl = impl
+        self.cache = PlanCache(cache_capacity)
+        self.registry = MatrixRegistry()
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
+        self.block = block
+        self.hw = hw if hw is not None else HardwareModel(chips=len(self.devices))
+        self.partition_count = 0  # host preprocessing runs (cache misses)
+        self._meshes: dict = {}
+        self._swap_lock = threading.Lock()  # registry/cache swap atomicity
+        # eviction spills the host-side partition to the registry entry so
+        # reactivate() re-places without re-partitioning (let alone
+        # rebuilding from dense)
+        self.cache.on_evict = self._spill_evicted
+
+    # ------------------------------------------------------------------ mesh
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.devices)
+
+    def _mesh(self, shape: tuple, axes: tuple):
+        key = (shape, axes)
+        if key not in self._meshes:
+            n = int(np.prod(shape))
+            self._meshes[key] = make_mesh(shape, axes, self.devices[:n])
+        return self._meshes[key]
+
+    # ------------------------------------------------------------ plan fitting
+
+    def _fit_plan(self, plan: Plan, shape: tuple, dtype) -> Plan:
+        """Adapt the paper plan to the device pool (api.fit_plan rules)."""
+        return fit_plan(plan, shape, self.n_devices, self.block,
+                        dtype_bytes=torch_dtype(dtype).itemsize)
+
+    # -------------------------------------------------------------- building
+
+    def _spill_evicted(self, compiled: CompiledPlan) -> None:
+        """PlanCache eviction hook: keep the host-side PartitionedMatrix on
+        every registry entry the evicted plan was serving, so reactivation
+        replans with zero re-partitioning (the device tensors still go).
+        Iterates a snapshot: register()/unregister() may mutate the registry
+        from another thread while an eviction runs."""
+        for entry in list(self.registry):
+            if entry.cache_key == compiled.key:
+                entry.spill = compiled.part
+
+    def _build(self, sm: SparseMatrix, plan: Plan, key: PlanKey,
+               impl: str, part=None) -> CompiledPlan:
+        """Run the api chain once for ``plan`` and wrap the MeshExecutor.
+
+        ``part`` short-circuits host partitioning with a spilled
+        PartitionedMatrix (reactivation after eviction): the build then
+        only re-places the matrix and rebuilds the program.
+        """
+        t0 = time.perf_counter()
+        if plan.partitioning == "1d":
+            mesh = self._mesh((plan.grid[0],), (AXIS_1D,))
+        else:
+            mesh = self._mesh(tuple(plan.grid), AXES_2D)
+        ep = sm.plan(scheme=plan, mesh=mesh, impl=impl, block=self.block,
+                     hw=self.hw)
+        if part is not None:
+            ep.part = part  # spilled host partition: skip re-partitioning
+        else:
+            self.partition_count += 1
+        # label the (expensive) partition + place + build region in any
+        # captured profile; a no-op while annotations are disabled
+        with obs_profile.annotate(f"plan_compile:{plan.tag}:{impl}"):
+            exe = ep.compile()
+        return CompiledPlan(
+            key=key,
+            impl=impl,
+            plan=plan,
+            part=exe.part,
+            arrays=exe.arrays,
+            run=exe.program,
+            mesh=exe.mesh,
+            axes=tuple(exe.axes),
+            x_spec=exe.x_spec,
+            x_pad=exe.x_pad,
+            trace_count_fn=lambda: exe.trace_count,
+            build_seconds=time.perf_counter() - t0,
+            assemble_meta=exe.program.meta,
+            executor=exe,
+        )
+
+    # ------------------------------------------------------------ public API
+
+    def register(
+        self,
+        name: str,
+        a=None,
+        *,
+        dtype=None,
+        plan: Optional[Plan] = None,
+        partitioning: Optional[str] = None,
+        warmup: bool = True,
+        impl: Optional[str] = None,
+    ) -> RegisteredMatrix:
+        """Fingerprint, plan, partition, place and compile ``a`` under ``name``.
+
+        Identical matrices (same fingerprint) registered again — under the
+        same or another name — reuse the cached executable.
+
+        Args:
+          name: serving handle for :meth:`multiply`.
+          a: a dense host matrix (2D ndarray or tensor), a
+            :class:`~repro_torch.api.SparseMatrix`, or None to re-register
+            ``name`` from the host-side SparseMatrix the registry kept (the
+            spill-cache path: stats, fingerprint and containers are already
+            cached, and an eviction-spilled partition additionally skips
+            re-partitioning).  A SparseMatrix is the one departure from the
+            JAX engine, which takes dense arrays only: at the sizes served
+            on the card (tens of millions of nonzeros on a 2M x 2M matrix)
+            no dense array can exist, so the matrix comes as triplets
+            (``SparseMatrix.from_parts``).  It opens at the entry point the
+            route the JAX engine already takes for ``a=None`` and adds no
+            capability.
+          dtype: optionally convert values before planning (a SparseMatrix
+            is converted from its triplets, never densified).
+          plan: explicit adaptive.Plan override (still fitted to the pool).
+          partitioning: force "1d"/"2d" over the adaptive choice.
+          warmup: run the vector-shaped program once now, off the request
+            path.
+          impl: per-part kernel override — "cuda" or "torch"; default is
+            the engine-wide ``self.impl``.  "cuda" plans carry the kernels'
+            chunk plans or block-row pointers in the cached placement, so
+            the micro-batched SpMM is one part-axis launch.
+
+        Returns:
+          The RegisteredMatrix registry entry.
+
+        Raises:
+          ValueError: for a non-2D matrix, an unknown ``impl``, or ``a=None``
+            without a prior registration holding the host-side matrix.
+        """
+        prior = self.registry.find(name)
+        if a is None:
+            if prior is None or prior.matrix is None:
+                raise ValueError(
+                    f"register({name!r}) without a matrix needs a prior "
+                    "registration holding its host-side SparseMatrix"
+                )
+            sm = prior.matrix
+        elif isinstance(a, SparseMatrix):
+            sm = a
+        else:
+            sm = SparseMatrix.from_dense(a, dtype=dtype, stats_block=self.block)
+        if dtype is not None and torch_dtype(dtype) != sm.dtype:
+            sm = SparseMatrix.from_parts(*sm.triplets(dtype), sm.shape)
+        impl = self.impl if impl is None else impl
+        if impl not in IMPLS:
+            raise ValueError(f"unknown impl {impl!r}: one of {IMPLS}")
+        plan = resolve_scheme(
+            sm.stats, sm.shape, self.n_devices,
+            plan if plan is not None else "auto",
+            hw=self.hw, partitioning=partitioning, block=self.block,
+        )
+        fp = sm.fingerprint()
+        dtype_str = _dtype_str(sm.dtype)
+        key: PlanKey = (fp, tuple(plan.grid), dtype_str, plan.tag, impl)
+        with self._swap_lock:
+            compiled = self.cache.get(key)
+        if compiled is None:
+            # an eviction-spilled partition for this exact plan identity
+            # short-circuits host partitioning
+            part = (prior.spill
+                    if prior is not None and prior.cache_key == key else None)
+            compiled = self._build(sm, plan, key, impl, part=part)
+            with self._swap_lock:
+                self.cache.put(compiled)
+        entry = RegisteredMatrix(
+            name=name,
+            fingerprint=fp,
+            shape=sm.shape,
+            dtype=dtype_str,
+            stats=sm.stats,
+            plan=compiled.plan,
+            cache_key=key,
+            matrix=sm,  # host-side; lets reactivation re-plan
+        )
+        # overwriting a name must not strand the old plan in the cache
+        self.registry.add(entry)
+        if prior is not None and prior.cache_key != key and not any(
+            e.cache_key == prior.cache_key for e in self.registry
+        ):
+            with self._swap_lock:
+                self.cache.evict(prior.cache_key)
+        if warmup:
+            compiled.executor.warmup()
+        return entry
+
+    def _compiled(self, entry: RegisteredMatrix) -> CompiledPlan:
+        # lock: requests on several threads touch the LRU order, and
+        # OrderedDict move_to_end racing popitem corrupts it
+        with self._swap_lock:
+            compiled = self.cache.get(entry.cache_key)
+        if compiled is None:
+            raise RuntimeError(
+                f"plan for {entry.name!r} was evicted from the cache; "
+                f"reactivate({entry.name!r}) rebuilds it from the host-side "
+                "spill (or grow cache_capacity)"
+            )
+        return compiled
+
+    def reactivate(self, name: str, warmup: bool = True) -> RegisteredMatrix:
+        """Rebuild the compiled plan for an evicted entry — cheaply.
+
+        The registry keeps each entry's host-side ``SparseMatrix`` (stats,
+        fingerprint, containers all cached) and, after an eviction, the
+        spilled ``PartitionedMatrix``; reactivation therefore only re-places
+        the partitions and rebuilds the program — no dense rebuild, no
+        re-partitioning.  A no-op when the plan is still cached.
+
+        Args:
+          name: a registered matrix whose plan may have been evicted.
+          warmup: run the vector-shaped program now (off the request path).
+
+        Returns:
+          The (unchanged) registry entry, its plan compiled again.
+
+        Raises:
+          KeyError: unknown ``name``.
+          ValueError: the entry has no host-side matrix to rebuild from.
+        """
+        entry = self.registry.get(name)
+        with self._swap_lock:
+            if self.cache.get(entry.cache_key) is not None:
+                return entry  # still live; nothing to do
+        if entry.matrix is None:
+            raise ValueError(
+                f"{name!r} carries no host-side SparseMatrix to reactivate "
+                "from; re-register it with the matrix"
+            )
+        built = self._build(entry.matrix, entry.plan, entry.cache_key,
+                            entry.cache_key[4], part=entry.spill)
+        with self._swap_lock:
+            if self.cache.peek(entry.cache_key) is not None:
+                built.release()  # lost a race; the cached build wins
+                self.cache.get(entry.cache_key)
+            else:
+                self.cache.put(built)
+        entry.spill = None  # the live CompiledPlan owns the partition again
+        if warmup:
+            self.plan_for(name).executor.warmup()
+        return entry
+
+    def multiply(self, name: str, x, *, obs=None) -> np.ndarray:
+        """y = A @ x for registered ``name``.
+
+        Serves from the cached executor: place x -> run the program ->
+        assemble rows; the three phase times land in telemetry (Fig.-17
+        load/kernel/retrieve split).  Each phase ends in a device-wide
+        synchronize, so under concurrent requests from several host threads
+        a phase time can include another request's kernel.
+
+        Args:
+          name: handle from :meth:`register`.
+          x: (cols,) vector, or (cols, B) for a batched SpMM request (host
+            ndarray or tensor).
+          obs: optional :class:`repro_torch.obs.Trace` handle — or a
+            sequence of them, one per rider of a coalesced batch — on which
+            the three phase spans (load/kernel/retrieve) of THIS execution
+            are recorded.  Riders share the batch's phase timestamps: the
+            batch ran once, and that once is each rider's kernel time.
+
+        Returns:
+          Host rows (rows[, B]).
+
+        Raises:
+          KeyError: unknown ``name``.
+          RuntimeError: the plan was evicted from the cache (re-register).
+          TypeError/ValueError: dtype or shape mismatch with the matrix.
+        """
+        entry = self.registry.get(name)
+        cp = self._compiled(entry)
+        exe = cp.executor
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x)
+        batch = x.shape[1] if x.ndim == 2 else 1
+
+        traces_before = cp.trace_count
+        t0 = time.perf_counter()
+        with obs_profile.annotate(f"spmv_load:{name}"):
+            xs = exe.place(x)  # load: validate dtype/shape, pad, copy to device
+        t1 = time.perf_counter()
+        with obs_profile.annotate(f"spmv_kernel:{name}:b{batch}"):
+            raw = exe.run_raw(xs)  # kernel: one part-axis launch + merge
+        t2 = time.perf_counter()
+        with obs_profile.annotate(f"spmv_retrieve:{name}"):
+            y = exe.assemble(raw)  # retrieve: assemble rows, copy to host
+        t3 = time.perf_counter()
+        if obs is not None:
+            for ctx in (obs if isinstance(obs, (list, tuple)) else (obs,)):
+                ctx.add("load", t0, t1)
+                ctx.add("kernel", t1, t2, batch=batch)
+                ctx.add("retrieve", t2, t3)
+
+        entry.requests += batch
+        warm = cp.requests_served > 0
+        cp.requests_served += 1
+        self.telemetry.record(RequestRecord(
+            name=name,
+            batch=batch,
+            load_s=t1 - t0,
+            kernel_s=t2 - t1,
+            retrieve_s=t3 - t2,
+            cache_hit=warm,
+            traced=cp.trace_count > traces_before,
+        ))
+        return y
+
+    def solve(self, name: str, x0, **kwargs):
+        """On-device solver sessions wait for the port of ``api/iterate.py``.
+
+        Raises:
+          NotImplementedError: always (ROADMAP.md, 'api/iterate.py').
+        """
+        raise NotImplementedError(
+            f"SpmvEngine.solve {_NOT_YET}, 'api/iterate.py'")
+
+    def refine(self, name: str, x=None, trigger: str = "manual") -> dict:
+        """Measure-and-refine waits for the port of ``repro.tune``.
+
+        Raises:
+          NotImplementedError: always (ROADMAP.md, 'repro.tune').
+        """
+        raise NotImplementedError(f"SpmvEngine.refine {_NOT_YET}, 'repro.tune'")
+
+    # -------------------------------------------------------- introspection
+
+    def trace_count(self, name: str) -> int:
+        """Programs built for the plan serving ``name`` (test hook; the JAX
+        package counts jit traces here)."""
+        cp = self.cache.peek(self.registry.get(name).cache_key)
+        return cp.trace_count if cp is not None else 0
+
+    def plan_for(self, name: str) -> Optional[CompiledPlan]:
+        """The CompiledPlan serving ``name`` (None if evicted); does not
+        touch LRU order."""
+        return self.cache.peek(self.registry.get(name).cache_key)
+
+    def unregister(self, name: str) -> None:
+        """Drop ``name``; evicts its compiled plan unless another registered
+        name still shares it (same fingerprint/scheme/impl)."""
+        entry = self.registry.remove(name)
+        if entry is not None and not any(
+            e.cache_key == entry.cache_key for e in self.registry
+        ):
+            with self._swap_lock:
+                self.cache.evict(entry.cache_key)

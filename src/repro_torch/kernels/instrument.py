@@ -10,28 +10,36 @@ really went through the kernels.  Keys are the kernel kind ("coo",
 """
 from __future__ import annotations
 
+import threading
 from collections import Counter
 
 __all__ = ["LAUNCHES", "record_launch", "launches", "reset"]
 
 # kind -> number of CUDA kernel launches
 LAUNCHES: Counter = Counter()
+# the serving path launches from the batcher's flush thread and the
+# service's workers at once; an unlocked += could lose a count
+_LOCK = threading.Lock()
 
 
 def record_launch(kind: str, batch: int = 1) -> None:
-    """Record one launch of ``kind`` for ``batch`` right-hand sides."""
-    LAUNCHES[kind] += 1
-    if batch > 1:
-        LAUNCHES[f"{kind}.spmm"] += 1
+    """Record one launch of ``kind`` for ``batch`` right-hand sides
+    (thread-safe)."""
+    with _LOCK:
+        LAUNCHES[kind] += 1
+        if batch > 1:
+            LAUNCHES[f"{kind}.spmm"] += 1
 
 
 def launches(kind: str | None = None) -> int:
     """Launches recorded (of one ``kind``, or the sum over every key)."""
-    if kind is not None:
-        return LAUNCHES[kind]
-    return sum(LAUNCHES.values())
+    with _LOCK:
+        if kind is not None:
+            return LAUNCHES[kind]
+        return sum(LAUNCHES.values())
 
 
 def reset() -> None:
     """Zero all counters."""
-    LAUNCHES.clear()
+    with _LOCK:
+        LAUNCHES.clear()

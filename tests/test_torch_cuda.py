@@ -139,6 +139,28 @@ def test_bcoo_every_route_matches_plain(cuda, dtype, block, n_cut):
             assert torch.equal(got.cpu(), want), (route, batch)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=str)
+@pytest.mark.parametrize("block", [(8, 16), (16, 16)])
+def test_bcoo_every_route_at_batcher_widths(cuda, dtype, block):
+    """B = 2 and 4, the micro-batcher's bucket widths below 8: every route
+    that takes the shape (the CUDA-core route the engine takes there, and
+    the tensor cores) is bit-equal to the plain version."""
+    rng = np.random.default_rng(27)
+    m, n = _block_case(rng, block, dtype, n_cut=0)
+    d = m.to(cuda)
+    ptr = block_row_ptr(d.browind, d.nblocks, d.block_rows)
+    for batch in (2, 4):
+        assert block_route(dtype, *block, batch) == "rows"
+        x = _x(rng, n, batch, dtype)
+        want = bcoo_spmv_plain(m.browind, m.bcolind, m.bvalues, x, m.rows, m.nblocks)
+        for route in _routes(dtype, block, batch):
+            got = bcoo_spmv_cuda(ptr, d.bcolind, d.bvalues, x.to(cuda), d.rows,
+                                 route=route)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (route, batch)
+
+
 def test_bcoo_route_choice_on_card(cuda):
     """The main path's (8, 16) f32 blocks take the warp at B = 1 and the
     tensor cores at B = 8 and 64; a route that cannot take a shape raises."""
@@ -594,3 +616,117 @@ def test_ell_rows_too_long_for_a_tile(cuda):
         got = ell_spmv(ci.to(cuda), vv.to(cuda), rn.to(cuda), x.to(cuda))
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), ell_spmv_plain(ci, vv, rn, x))
+
+
+# ------------------------------------------------------------ serving path
+
+def _serve_matrix(fmt_seed: int, block: bool):
+    """A 512 x 768 integer-valued matrix: random scalars, or (8, 16) blocks."""
+    rng = np.random.default_rng(fmt_seed)
+    if not block:
+        return _matrix(rng, 512, 768, 0.05, torch.float32)
+    mask = np.kron(rng.random((64, 48)) < 0.15, np.ones((8, 16)))
+    return torch.from_numpy(mask * _ints(rng, (512, 768))).float()
+
+
+SERVE_CASES = [("coo", None, False), ("csr", None, False), ("bcoo", None, True),
+               ("bcsr", None, True), ("coo", "1d", False), ("bcoo", "2d", True)]
+
+
+@pytest.mark.parametrize("fmt,partitioning,block", SERVE_CASES)
+@pytest.mark.parametrize("parts", [1, 4])
+def test_engine_on_card_matches_plain_versions(cuda, fmt, partitioning, block,
+                                               parts):
+    """The engine on the card against the same engine on the CPU (the
+    kernels' plain versions) at B = 1, 2, 4 and 8; one part-axis launch a
+    multiply."""
+    from repro_torch.core.adaptive import Plan
+    from repro_torch.engine import SpmvEngine
+
+    a = _serve_matrix(len(fmt) + parts, block)
+    plan = None
+    if partitioning is None:
+        plan = Plan("2d", "equally-sized", fmt, "psum_scatter", (1, 1), "forced")
+    engines = [SpmvEngine(devices=[d] * parts)
+               for d in (cuda, torch.device("cpu"))]
+    for eng in engines:
+        eng.register("m", a, plan=plan, partitioning=partitioning)
+    card, cpu = engines
+    assert card.registry.get("m").plan.fmt == cpu.registry.get("m").plan.fmt
+    rng = np.random.default_rng(23)
+    instrument.reset()
+    for batch in (None, 2, 4, 8):
+        x = _x(rng, 768, batch, torch.float32)
+        got, want = card.multiply("m", x), cpu.multiply("m", x)
+        assert got.dtype == want.dtype and np.array_equal(got, want), batch
+    kind = "bcoo" if card.registry.get("m").plan.fmt in ("bcoo", "bcsr") \
+        else "coo"
+    assert instrument.launches(kind) == 4
+    assert instrument.launches(kind + ".spmm") == 3
+
+
+def test_engine_eviction_frees_card_memory(cuda):
+    from repro_torch.engine import SpmvEngine
+
+    eng = SpmvEngine(devices=[cuda], cache_capacity=1)
+    rng = np.random.default_rng(24)
+    eng.register("a", _matrix(rng, 4096, 4096, 0.05, torch.float32))
+    cp = eng.plan_for("a")
+    placed = sum(t.numel() * t.element_size() for t in cp.arrays.values())
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng.register("b", _matrix(rng, 64, 64, 0.05, torch.float32))  # evicts a
+    torch.cuda.synchronize()
+    assert cp.arrays is None
+    assert before - torch.cuda.memory_allocated() >= placed - (1 << 20)
+
+
+def test_one_launch_per_coalesced_batch_under_two_threads(cuda):
+    """The batcher flushing on one host thread while explicit batches run
+    on another: every answer is right and the launches equal the engine's
+    multiplies (one part-axis launch each)."""
+    import threading
+
+    from repro_torch.engine import MicroBatcher, SpmvEngine
+
+    a = _serve_matrix(25, True)
+    eng = SpmvEngine(devices=[cuda])
+    eng.register("m", a)
+    mb = MicroBatcher(eng, max_batch=8, auto_flush=False)
+    rng = np.random.default_rng(26)
+    vecs = [_x(rng, 768, None, torch.float32).numpy() for _ in range(40)]
+    batches = [_x(rng, 768, 4, torch.float32).numpy() for _ in range(10)]
+    a_np = a.numpy()
+    instrument.reset()
+    errors = []
+
+    def submitter():
+        try:
+            futs = []
+            for k, v in enumerate(vecs):
+                futs.append(mb.submit("m", v))
+                if k % 5 == 4:
+                    mb.flush()
+            mb.flush()
+            for f, v in zip(futs, vecs):
+                assert np.array_equal(f.result(timeout=60), a_np @ v)
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
+    def explicit():
+        try:
+            for X in batches:
+                assert np.array_equal(eng.multiply("m", X), a_np @ X)
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=submitter),
+               threading.Thread(target=explicit)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors, errors
+    multiplies = mb.batches_run + len(batches)
+    assert eng.telemetry.breakdown("m")["requests"] == multiplies
+    assert instrument.launches("bcoo") == multiplies

@@ -1,5 +1,6 @@
 """repro_torch and chip_smoke.py stand alone: importing every module of the
-port pulls in no jax and nothing of the JAX package ``repro``."""
+port pulls in no jax and nothing of the JAX package ``repro``, and starts
+no thread (the serving path's threads start with a service or batcher)."""
 import os
 import pkgutil
 import subprocess
@@ -8,7 +9,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = r"""
-import importlib, pkgutil, sys
+import importlib, pkgutil, sys, threading
+import numpy, torch
+threads = {t.ident for t in threading.enumerate()}
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
@@ -21,6 +24,8 @@ bad = sorted(m for m in sys.modules
              or m == "repro")
 print("MODULES", len(names))
 print("BAD", bad)
+print("NEW_THREADS", sorted(t.name for t in threading.enumerate()
+                            if t.ident not in threads))
 """
 
 
@@ -33,11 +38,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
     assert lines["BAD"] == "[]", lines["BAD"]
+    assert lines["NEW_THREADS"] == "[]", lines["NEW_THREADS"]
     import repro_torch
 
     n_modules = 1 + len(list(pkgutil.walk_packages(repro_torch.__path__,
                                                     "repro_torch.")))
-    assert int(lines["MODULES"]) == n_modules >= 15
+    assert int(lines["MODULES"]) == n_modules >= 37
 
 
 def test_port_sources_name_no_jax_import():
