@@ -69,11 +69,34 @@ Phases (every check raises, so any failure exits non-zero):
    route for comparison, each held bit-equal to its plain version first).
 9. A replay at 65,536^2 (the three recipes) with dense oracles on the card
    (``replay(..., oracles=...)``): every completed answer bit-equal.
+10. Solver sessions (``exe.iterate``, ``SpmvEngine.solve``,
+   ``AsyncSpmvService.solve``), x on the card between steps, with inputs
+   from their own generator (seeded from ``--seed``), so phases 1-9 draw
+   as before.  (a) Every main-path plan and the three 16-part auto plans of
+   phase 7: 3 plain steps bit-equal to 3 host ``exe(x)`` calls, and on the
+   regular and block matrices to 3 cuSPARSE products (rows sum |a| <= 32
+   and <= 96, so every partial sum stays below 2^24).  (b) Tol mode:
+   Jacobi on the regular recipe plus 64 on the diagonal, tol 1e-2, checked
+   every 8 steps: converged in a multiple of 8 steps, bit-equal to a numpy
+   float32 host loop over ``exe(x)``.  (c) 100-step power sessions on the
+   regular COO, scale-free COO and block BCOO plans: per-step us, the cold
+   (first) session apart from the warm ones, beside the B=1 kernel ms of
+   phase 4 and the host loop's ms per step.  Runs after phase 7.  (d) After
+   phase 8, on its engine: per matrix four concurrent 20-step power
+   sessions and a burst of 64 single multiplies; multiplies bit-equal to
+   cuSPARSE, sessions within 1e-4 of a float64 power loop (cuSPARSE in
+   float64), one ``kind="solve"`` record of 20 steps per session, and the
+   load / kernel / retrieve split of the multiplies with every thread on
+   its own stream.  (e) After phase 9, on its engine and oracles: a replay
+   of 120 requests with 30 % six-step power sessions; nothing lost, no
+   error, every completed session verified, max |err| <= 1e-4.  Each part
+   requires its launches to equal the multiplies plus the sessions' steps.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
 the counts, so that the single-device answers it compares with are
-launched outside the count.  The serving path does so around each
+launched outside the count; the solver sessions do so around each session.
+The serving path does so around each
 service's traffic and requires the COO and block launches to equal the
 engine's multiplies: the batcher's coalesced batches plus the explicit
 batches served (one part-axis launch each).  Prints JSON lines; the line before the last
@@ -797,7 +820,9 @@ def phase_partitioned(torch, rng, device, records, n_ring: int) -> tuple:
           "scheme_id": exe.plan.scheme_id, "requests": 6,
           "exe_ms_p50": 1e3 * statistics.median(t_ring),
           "answers": "bit-equal to cuSPARSE"})
-    return launches, rows_out
+    autos = [(name, exe, rec) for (name, pln, exe, rec), (_, kw)
+             in zip(built, plans) if kw["scheme"] == "auto"]
+    return launches, rows_out, autos
 
 
 # ------------------------------------------------------------- serving
@@ -1115,7 +1140,7 @@ def phase_serving(torch, rng, device, records, seed: int) -> dict:
           "answers": "bit-equal to cuSPARSE"})
     del e16, svc16
     block_widths(torch, rng, device, by_matrix["block"])
-    return {k: launches[k] + launches16[k] for k in launches}
+    return {k: launches[k] + launches16[k] for k in launches}, eng
 
 
 def phase_serving_oracle(torch, rng, device, n: int, seed: int) -> dict:
@@ -1170,6 +1195,283 @@ def phase_serving_oracle(torch, rng, device, n: int, seed: int) -> dict:
           f"verified of {report.completed} completed")
     check(report.infeasible_rejected == sum(r.infeasible for r in trace),
           "oracle replay: an expired request was not shed")
+    solver = solver_replay(torch, eng, oracles, makers, seed)
+    return launches, solver
+
+
+# ------------------------------------------------------------- solver sessions
+
+
+def session_launches(engine, since: int) -> int:
+    """Launches the engine's requests since telemetry record ``since`` made:
+    one per multiply, ``steps`` per solver session (power sessions spend no
+    extra multiply on their start)."""
+    return sum(r.steps if r.kind == "solve" else 1
+               for r in engine.telemetry.records[since:])
+
+
+def host_power_ms(exe, x0, steps: int = 10) -> float:
+    """ms per step of the host loop a session replaces: ``exe(x)`` (x and y
+    cross to the card and back) plus the normalization in numpy."""
+    x = x0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        y = exe(x)
+        x = y / max(float(np.linalg.norm(y)), 1e-30)
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def phase_solver(torch, rng, device, records, autos, times) -> dict:
+    """Phase 10 (a)-(c): solver sessions through ``exe.iterate`` at full
+    width on the card — plain parity, tol mode, per-step times."""
+    from repro_torch.api import SparseMatrix
+    from repro_torch.kernels import instrument
+
+    launches, want = {"coo": 0, "bcoo": 0}, {"coo": 0, "bcoo": 0}
+
+    def counted(kind, steps, fn):
+        instrument.reset()
+        out = fn()
+        for k in launches:
+            launches[k] += instrument.launches(k)
+        want[kind] += steps
+        return out
+
+    # (a) plain, 3 steps: bit-equal to 3 host exe(x) calls (and, where every
+    # partial sum stays below 2^24, to 3 cuSPARSE products)
+    plans = [(r["matrix"], r["fmt"], r["exe"], r) for r in records]
+    plans += [(name, f"{exe.plan.scheme_id} ({PARTS} parts)", exe, rec)
+              for name, exe, rec in autos]
+    for name, label, exe, rec in plans:
+        n = rec["shape"][1]
+        kind = "coo" if exe.plan.fmt in ("coo", "csr") else "bcoo"
+        x0 = rng.integers(-2, 3, n).astype(np.float32)
+        x = x0
+        for _ in range(3):
+            x = exe(x)
+        res = counted(kind, 3, lambda: exe.iterate(x0, steps=3, combine="plain"))
+        check(res.steps == 3 and res.x.shape == (n,) and np.isfinite(res.x).all(),
+              f"solver {name}/{label}: bad session {res.steps} {res.x.shape}")
+        check(np.array_equal(res.x, x),
+              f"solver {name}/{label}: 3 plain steps != 3 host exe(x) calls")
+        lib = None
+        if name in ("regular", "block"):
+            xd = torch.from_numpy(x0).to(device)
+            for _ in range(3):
+                xd = rec["A"] @ xd
+            lib = bool(np.array_equal(res.x, xd.cpu().numpy()))
+            check(lib, f"solver {name}/{label}: 3 plain steps != 3 cuSPARSE products")
+        emit({"phase": "solver_plain", "matrix": name, "plan": label, "steps": 3,
+              "equal_host_loop": True, "equal_cusparse": lib,
+              "kernel_s": res.kernel_s})
+
+    # (b) tol mode: Jacobi on the regular recipe plus 64 on the diagonal
+    n = records[0]["shape"][1]
+    ri, ci, vals, shape = regular_triplets(rng, n)
+    diag_idx = np.arange(n)
+    sm = SparseMatrix.from_parts(np.concatenate([ri, diag_idx]),
+                                 np.concatenate([ci, diag_idx]),
+                                 np.concatenate([vals, np.full(n, 64, np.float32)]),
+                                 shape)
+    del ri, ci, vals
+    cri, cci, cv = sm.coalesced()
+    on = cri == cci
+    diag = np.zeros(n, np.float32)
+    diag[cri[on].numpy()] = cv[on].numpy()
+    check(bool((diag >= 62).all()), "jacobi matrix: a diagonal entry below 62")
+    exe = sm.plan(scheme="auto", device=device).compile()
+    b = rng.integers(-2, 3, n).astype(np.float32)
+    kind = "coo" if exe.plan.fmt in ("coo", "csr") else "bcoo"
+    res = exe.iterate(np.zeros(n, np.float32), tol=1e-2, combine="jacobi", b=b,
+                      diag=diag, check_every=8, max_steps=200)  # cold, uncounted
+    res = counted(kind, res.steps, lambda: exe.iterate(
+        np.zeros(n, np.float32), tol=1e-2, combine="jacobi", b=b, diag=diag,
+        check_every=8, max_steps=200))
+    check(res.converged and res.steps % 8 == 0 and res.steps < 200,
+          f"jacobi: converged={res.converged} after {res.steps} steps")
+    x = np.zeros(n, np.float32)
+    for _ in range(res.steps):
+        x = x + (b - exe(x)) / diag
+    check(x.dtype == np.float32 and np.array_equal(res.x, x),
+          f"jacobi: {res.steps} steps != the numpy float32 host loop")
+    emit({"phase": "solver_tol", "matrix": "regular + 64 I", "shape": list(shape),
+          "nnz": sm.nnz, "scheme_id": exe.plan.scheme_id, "steps": res.steps,
+          "residual": res.residual, "converged": res.converged,
+          "per_iter_us": res.per_iter_s * 1e6, "equal_host_loop": True})
+    del exe, sm
+
+    # (c) times: 100-step power sessions, cold (first of its loop) and warm
+    for rec in records:
+        if (rec["matrix"], rec["fmt"]) not in (("regular", "coo"),
+                                               ("scale-free", "coo"),
+                                               ("block", "bcoo")):
+            continue
+        exe, n = rec["exe"], rec["shape"][1]
+        kind = "coo" if rec["fmt"] == "coo" else "bcoo"
+        x0 = rng.integers(-2, 3, n).astype(np.float32)
+        sessions = [counted(kind, 100, lambda: exe.iterate(
+            x0, steps=100, combine="power")) for _ in range(4)]
+        check(sessions[0].compiled and not any(r.compiled for r in sessions[1:]),
+              f"solver {rec['matrix']}: the first power session is not the cold one")
+        check(all(np.array_equal(r.x, sessions[0].x) for r in sessions)
+              and np.isfinite(sessions[0].x).all(),
+              f"solver {rec['matrix']}: power sessions disagree")
+        warm = [r.per_iter_s * 1e6 for r in sessions[1:]]
+        row = {"matrix": rec["matrix"], "fmt": rec["fmt"], "steps": 100,
+               "per_iter_us_cold": sessions[0].per_iter_s * 1e6,
+               "per_iter_us_warm": statistics.median(warm),
+               "per_iter_us_warm_runs": warm,
+               "load_ms_warm": sessions[-1].load_s * 1e3,
+               "retrieve_ms_warm": sessions[-1].retrieve_s * 1e3,
+               "kernel_ms_b1": times[(rec["matrix"], rec["fmt"], 1)]["ms"],
+               "host_loop_ms_per_step": host_power_ms(exe, x0)}
+        emit({"phase": "solver_times", **row})
+    emit({"phase": "solver_launch_counts", "launches": launches,
+          "steps": want})
+    check(launches == want, f"solver launches {launches} != steps {want}")
+    return launches
+
+
+def phase_solver_service(torch, rng, device, engine, records) -> dict:
+    """Phase 10 (d): four concurrent 20-step power sessions per matrix on
+    phase 8's engine, under a burst of 64 single multiplies on the same
+    matrix; multiplies bit-equal to cuSPARSE, sessions within 1e-4 of a
+    float64 power loop (cuSPARSE in float64 on the card)."""
+    from repro_torch.kernels import instrument
+
+    by_matrix = {}
+    for r in records:
+        by_matrix.setdefault(r["matrix"], r)
+    svc = make_service(engine)
+    tenants = list(TENANTS)
+    work = {}
+    for name, rec in by_matrix.items():
+        cols = rec["shape"][1]
+        work[name] = ([rng.standard_normal(cols).astype(np.float32)
+                       for _ in range(4)],
+                      [rng.integers(-2, 3, cols).astype(np.float32)
+                       for _ in range(64)])
+
+    async def run():
+        svc.start()
+        try:
+            out = {}
+            for name, (x0s, xs) in work.items():
+                coros = [svc.solve(tenants[i % 3], name, x0, steps=20,
+                                   combine="power") for i, x0 in enumerate(x0s)]
+                coros += [svc.multiply(tenants[i % 3], name, x)
+                          for i, x in enumerate(xs)]
+                t0 = time.perf_counter()
+                done = await bounded(asyncio.gather(*coros))
+                out[name] = (done, time.perf_counter() - t0)
+            return out
+        finally:
+            await bounded(svc.aclose())
+            svc.batcher.stop(drain=False)
+
+    since = len(engine.telemetry.records)
+    instrument.reset()
+    out = asyncio.run(run())
+    launches = {k: instrument.launches(k) for k in ("coo", "bcoo")}
+    recs = engine.telemetry.records[since:]
+    expect = session_launches(engine, since)
+    emit({"phase": "solver_serve_launch_counts", "launches": launches,
+          "multiplies": sum(r.kind == "multiply" for r in recs),
+          "session_steps": sum(r.steps for r in recs if r.kind == "solve")})
+    check(sum(launches.values()) == expect,
+          f"solver service: launches {launches} != multiplies + steps {expect}")
+    max_err = 0.0
+    for name, (done, wall_s) in out.items():
+        rec = by_matrix[name]
+        x0s, xs = work[name]
+        mine = [r for r in recs if r.name == name]
+        solves = [r for r in mine if r.kind == "solve"]
+        check(len(solves) == 4 and all(r.steps == 20 for r in solves),
+              f"solver service {name}: solve records {[r.steps for r in solves]}")
+        for i, (x, y) in enumerate(zip(xs, done[4:])):
+            lib = (rec["A"] @ torch.from_numpy(x).to(device)).cpu().numpy()
+            check(np.array_equal(y, lib),
+                  f"solver service {name} multiply {i}: != cuSPARSE")
+        csr = rec["A"]
+        A64 = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                      csr.values().double(), size=csr.shape)
+        for i, (x0, res) in enumerate(zip(x0s, done[:4])):
+            x = torch.from_numpy(x0).to(device, torch.float64)
+            for _ in range(20):
+                y = A64 @ x
+                x = y / max(float(torch.linalg.vector_norm(y)), 1e-30)
+            err = float(np.abs(res.x.astype(np.float64) - x.cpu().numpy()).max())
+            max_err = max(max_err, err)
+            check(res.steps == 20 and err <= 1e-4,
+                  f"solver service {name} session {i}: max err {err} vs float64")
+        del A64
+        muls = [r for r in mine if r.kind == "multiply"]
+        split = {k: sum(getattr(r, k + "_s") for r in muls)
+                 for k in ("load", "kernel", "retrieve")}
+        total = sum(split.values())
+        emit({"phase": "solver_serve", "matrix": name, "sessions": 4,
+              "multiplies": len(muls), "wall_s": wall_s,
+              "widths": dict(sorted(collections.Counter(
+                  r.batch for r in muls).items())),
+              "multiply_split": {k: v / total for k, v in split.items()},
+              "multiply_kernel_ms_mean": split["kernel"] * 1e3 / len(muls),
+              "session_per_iter_us": [r.per_iter_s * 1e6 for r in solves],
+              "session_ms": [r.total_s * 1e3 for r in solves],
+              "sessions_max_abs_err_vs_f64": max_err})
+    snap = svc.metrics.snapshot()
+    emit({"phase": "solver_serve_metrics",
+          "per_iter_us": snap.get("serve.solve.per_iter_us"),
+          "e2e_ms": snap.get("serve.solve.e2e_ms")})
+    return launches
+
+
+def solver_replay(torch, eng, oracles, makers, seed: int) -> dict:
+    """Phase 10 (e): a replay with 30 % six-step power sessions over phase
+    9's engine and dense oracles: every completed session verified."""
+    from repro_torch.kernels import instrument
+    from repro_torch.serve import WorkloadSpec, generate_trace, replay
+
+    svc = make_service(eng)
+    spec = WorkloadSpec(names=tuple(makers), tenants=tuple(TENANTS),
+                        n_requests=120, seed=seed + 2, rate_rps=300.0,
+                        arrivals="bursty", infeasible_frac=0.05,
+                        integer_values=True, tenant_classes=TENANTS,
+                        solve_frac=0.3, solve_steps=6, solve_combine="power")
+    trace = generate_trace(spec)
+
+    async def run():
+        svc.start()
+        try:
+            return await bounded(replay(svc, trace, oracles=oracles, time_scale=0.0,
+                                        integer_values=True))
+        finally:
+            await bounded(svc.aclose())
+            svc.batcher.stop(drain=False)
+
+    since = len(eng.telemetry.records)
+    instrument.reset()
+    report = asyncio.run(run())
+    launches = {k: instrument.launches(k) for k in ("coo", "bcoo")}
+    expect = session_launches(eng, since)
+    emit({"phase": "solver_oracle_replay", "requests": report.requests,
+          "completed": report.completed, "rejected": report.rejected,
+          "errors": report.errors, "lost": report.lost,
+          "sessions": sum(r.is_solve for r in trace), "solves": report.solves,
+          "solve_iters": report.solve_iters,
+          "solve_per_iter_us": report.solve_per_iter_us,
+          "verified": report.verified, "bitexact": report.bitexact,
+          "max_abs_err": report.max_abs_err, "launches": launches,
+          "oracles": "dense, on the card"})
+    check(report.lost == 0 and report.errors == 0,
+          f"solver replay lost {report.lost}, errors {report.errors}")
+    check(report.solves > 0 and report.verified == report.completed,
+          f"solver replay: {report.verified} verified of {report.completed} "
+          f"completed ({report.solves} sessions)")
+    check(report.bitexact >= report.completed - report.solves
+          and report.max_abs_err <= 1e-4,
+          f"solver replay: {report.bitexact} bit-exact, max err {report.max_abs_err}")
+    check(sum(launches.values()) == expect,
+          f"solver replay: launches {launches} != multiplies + steps {expect}")
     return launches
 
 
@@ -1226,24 +1528,34 @@ def main(argv=None) -> int:
     phase_pieces(torch, rng, device, records)
     phase_ell_kernel(torch, rng, device, 1 << 16, errs)
     ell_launches, ell_times = phase_ell_path(torch, rng, device, records, errs)
-    part_launches, part_rows = phase_partitioned(torch, rng, device, records,
-                                                 1 << 16)
-    serve_launches_ = phase_serving(torch, rng, device, records, args.seed)
+    part_launches, part_rows, autos = phase_partitioned(torch, rng, device,
+                                                        records, 1 << 16)
+    rng10 = np.random.default_rng([args.seed, 10])  # phases 1-9 draw as before
+    t10 = time.perf_counter()
+    solver_launches = phase_solver(torch, rng10, device, records, autos, times)
+    solver_s = time.perf_counter() - t10
+    del autos
+    serve_launches_, eng = phase_serving(torch, rng, device, records, args.seed)
+    t10 = time.perf_counter()
+    solver_serve = phase_solver_service(torch, rng10, device, eng, records)
+    solver_s += time.perf_counter() - t10
+    del eng
     records.clear()  # free the main path's plans for the dense oracles
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "memory", "allocated_bytes": torch.cuda.memory_allocated()})
-    oracle_launches = phase_serving_oracle(torch, rng, device, 1 << 16, args.seed)
+    oracle_launches, solver_replay_ = phase_serving_oracle(
+        torch, rng, device, 1 << 16, args.seed)
 
     by_path = {
-        "coo_spmv": {"single_device": launches["coo"],
-                     "partitioned": part_launches["coo"],
-                     "serving": serve_launches_["coo"] + oracle_launches["coo"]},
-        "bcoo_spmv": {"single_device": launches["bcoo"],
-                      "partitioned": part_launches["bcoo"],
-                      "serving": serve_launches_["bcoo"] + oracle_launches["bcoo"]},
-        "ell_spmv": {"ell": ell_launches},
+        kernel: {"single_device": launches[kind],
+                 "partitioned": part_launches[kind],
+                 "serving": serve_launches_[kind] + oracle_launches[kind],
+                 "solver": (solver_launches[kind] + solver_serve[kind]
+                            + solver_replay_[kind])}
+        for kernel, kind in (("coo_spmv", "coo"), ("bcoo_spmv", "bcoo"))
     }
+    by_path["ell_spmv"] = {"ell": ell_launches}
     main_shape = {"coo_spmv": ("regular", "coo", 1), "bcoo_spmv": ("block", "bcoo", 1)}
     times["ell_spmv"] = ell_times["regular"]
     kernels = []
@@ -1257,7 +1569,8 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start, "card": card})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start,
+          "solver_phase_s": solver_s, "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@
     pln = sm.plan(scheme="auto")            # impl="cuda", device="cuda"
     exe = pln.compile()                     # Executor
     y   = exe(x)                            # host rows; exe.batch(X) for SpMM
+    res = exe.iterate(x0, steps=20, combine="power")  # x stays on the card
 
     # the partitioned schemes: P parts on one card, one launch per request
     exe = sm.plan(scheme="auto", devices=["cuda"] * 16).compile()
@@ -17,6 +18,7 @@ from .executor import (  # noqa: F401
     MeshExecutor,
     SingleDeviceExecutor,
 )
+from .iterate import COMBINES, IterateResult, make_combine  # noqa: F401
 from .matrix import SparseMatrix, fingerprint_matrix  # noqa: F401
 from .plan import (  # noqa: F401
     FORMATS,
@@ -45,4 +47,7 @@ __all__ = [
     "AXIS_1D",
     "AXES_2D",
     "fingerprint_matrix",
+    "IterateResult",
+    "make_combine",
+    "COMBINES",
 ]

@@ -22,7 +22,14 @@ yields float32 (the kernels' accumulation dtype), as the JAX package's
 ``impl="pallas"`` does; partitioned plans cast each part to the values
 dtype before the merge, as the reference does.
 
-``iterate`` is not ported yet (ROADMAP.md).
+``exe.iterate(x0, steps=k | tol=...)`` runs a solver session with x on
+the device between steps (:mod:`repro_torch.api.iterate`).
+
+Every request runs on the calling thread's own CUDA stream
+(:mod:`repro_torch.core.streams`), and each phase that blocks waits on
+that stream alone, as the reference blocks on the request's own arrays:
+with several host threads serving at once, one request's phase times hold
+its own work only.
 """
 from __future__ import annotations
 
@@ -34,10 +41,12 @@ import torch
 from ..core import distributed as D
 from ..core import formats as F
 from ..core.mesh import AXES_2D, AXIS_1D
+from ..core.streams import on_thread_stream, wait
 from ..kernels import ops
+from .iterate import IterateResult, run_iterate
 
 __all__ = ["Executor", "SingleDeviceExecutor", "MeshExecutor", "to_host",
-           "AXIS_1D", "AXES_2D"]
+           "IterateResult", "AXIS_1D", "AXES_2D"]
 
 
 @functools.cache
@@ -79,6 +88,56 @@ class Executor:
     def release(self) -> None:
         """Free device buffers held by this executor (idempotent)."""
 
+    # -- iterative-solver sessions ----------------------------------------
+
+    def iterate(self, x0, steps=None, tol=None, combine="plain", *,
+                b=None, diag=None, omega: float = 1.0,
+                max_steps: int = 1000, check_every: int = 8) -> IterateResult:
+        """Run a solver loop of SpMVs with x resident on the device.
+
+        Exactly ``steps=k`` steps, or (``tol=...``) steps until the
+        residual, read every ``check_every`` steps, falls to ``tol``,
+        bounded by ``max_steps``; each step is ``y = A @ x`` plus the
+        per-step ``combine`` (``plain`` / ``power`` / ``richardson`` /
+        ``jacobi`` / ``cg`` or a callable ``f(x, y) -> x_next``) — see
+        :mod:`repro_torch.api.iterate`.  Requires a square matrix.  Runs on
+        the calling thread's own stream; the loop is cached per (combine,
+        mode), so repeated solves — including with new ``b`` — reuse it.
+
+        Returns:
+          :class:`IterateResult` — x on host, steps executed, convergence
+          flag + residual, per-phase seconds.
+
+        Raises:
+          ValueError: non-square matrix, both/neither of steps and tol,
+            batched x0, or missing combine params (b / diag).
+          TypeError: x0 dtype cannot safely cast to the matrix dtype.
+          RuntimeError: the executor was released.
+        """
+        with on_thread_stream(self.device):
+            return run_iterate(
+                self, self._iterate_apply(), x0, steps=steps, tol=tol,
+                combine=combine, b=b, diag=diag, omega=omega,
+                max_steps=max_steps, check_every=check_every,
+            )
+
+    def _iterate_shape(self):
+        """(n, dtype) for solver loops; raises unless the matrix is square."""
+        raise NotImplementedError
+
+    def _iterate_apply(self):
+        """Device function, logical (n,) -> (n,) in the matrix dtype."""
+        raise NotImplementedError
+
+    @staticmethod
+    def _require_square(rows: int, cols: int):
+        if rows != cols:
+            raise ValueError(
+                f"iterate() feeds y back as the next x and therefore needs "
+                f"a square matrix; got {rows}x{cols}"
+            )
+        return cols
+
     # -- shared input validation ------------------------------------------
 
     def _check_x(self, x, cols: int, dtype: torch.dtype) -> torch.Tensor:
@@ -114,7 +173,6 @@ class SingleDeviceExecutor(Executor):
         else:
             self.container = container.to(self.device)
             self.program = None
-        self._released = False
 
     def __call__(self, x) -> np.ndarray:
         """y = A @ x (host rows).
@@ -146,23 +204,44 @@ class SingleDeviceExecutor(Executor):
         return self._run(X)
 
     def _run(self, x: torch.Tensor) -> np.ndarray:
-        if self._released:
+        spmv = self._device_spmv()
+        # the copy back to the host waits on this thread's stream alone
+        with on_thread_stream(self.device):
+            return to_host(spmv(x.to(self.device).contiguous()))
+
+    def _device_spmv(self):
+        """y = A @ x on the device: the kernel program, or the oracle on
+        the placed container; the caller holds it, so a concurrent
+        release cannot pull it away mid-request."""
+        program, container = self.program, self.container
+        if container is None:  # released (release drops both)
             raise RuntimeError("executor released; recompile")
-        x = x.to(self.device).contiguous()
-        if self.program is not None:
-            return to_host(self.program(x))
-        return to_host(ops.spmv(self.container, x, impl="torch"))
+        if program is not None:
+            return program
+        return functools.partial(ops.spmv, container, impl="torch")
 
     def release(self) -> None:
         """Drop the device-placed matrix and kernel program (idempotent)."""
-        self._released = True
         self.container = None
         self.program = None
 
+    # -- solver-loop backend ----------------------------------------------
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    def _iterate_shape(self):
+        return self._require_square(*self.shape), self.dtype
+
+    def _iterate_apply(self):
+        """y = A @ v on the device — the same kernel program (or oracle) as
+        ``exe(x)``, cast back to the matrix dtype so the recurrence matches
+        k host-side calls bit for bit (``_check_x`` applies the same cast on
+        the host loop: bfloat16 matrices yield float32 from the kernels)."""
+        spmv, dtype = self._device_spmv(), self.dtype
+
+        def apply(v):
+            y = spmv(v)
+            return y.to(dtype) if y.dtype != dtype else y
+
+        return apply
 
 
 class MeshExecutor(Executor):
@@ -223,8 +302,9 @@ class MeshExecutor(Executor):
             pad = torch.zeros((self.x_pad - x.shape[0],) + tuple(x.shape[1:]),
                               dtype=x.dtype)
             x = torch.cat([x, pad])
-        xs = x.to(self.device).contiguous()
-        _sync(self.device)
+        with on_thread_stream(self.device):
+            xs = x.to(self.device).contiguous()
+            wait(self.device)
         return xs
 
     def run_raw(self, xs: torch.Tensor) -> D.SpmvOutput:
@@ -239,10 +319,12 @@ class MeshExecutor(Executor):
         Raises:
           RuntimeError: if the executor was released.
         """
-        if self.arrays is None:
+        arrays = self.arrays  # held until the wait: a release may race
+        if arrays is None:
             raise RuntimeError("executor released or never placed; recompile")
-        out = self.program(self.arrays, xs)
-        _sync(self.device)
+        with on_thread_stream(self.device):
+            out = self.program(arrays, xs)
+            wait(self.device)
         return out
 
     def assemble(self, raw: D.SpmvOutput) -> np.ndarray:
@@ -251,7 +333,8 @@ class MeshExecutor(Executor):
         Returns:
           The global y as a host ndarray (rows[, B]).
         """
-        return to_host(D.assemble_rows(raw))
+        with on_thread_stream(self.device):
+            return to_host(D.assemble_rows(raw))
 
     # -- public surface ----------------------------------------------------
 
@@ -286,6 +369,32 @@ class MeshExecutor(Executor):
         """Run the vector-shaped program once, off the request path."""
         self.run_raw(self.place(torch.zeros(self.part.shape[1],
                                             dtype=self.part.dtype)))
+
+    # -- solver-loop backend ----------------------------------------------
+
+    def _iterate_shape(self):
+        rows, cols = self.part.shape
+        return self._require_square(rows, cols), self.part.dtype
+
+    def _iterate_apply(self):
+        """y = A @ v entirely on the device: pad v to the plan's x width (as
+        :meth:`place` does on the host), run the partitioned program, and
+        assemble the global rows with :func:`D.assemble_rows` — the exact
+        operations of ``exe(x)`` minus the host copies, so the recurrence
+        stays bit-identical to the host loop."""
+        arrays = self.arrays
+        if arrays is None:
+            raise RuntimeError("executor released or never placed; recompile")
+        n, dtype = self._iterate_shape()
+        x_pad, program = self.x_pad, self.program
+
+        def apply(v):
+            if x_pad != n:
+                v = torch.cat([v, v.new_zeros(x_pad - n)])
+            y = D.assemble_rows(program(arrays, v))
+            return y.to(dtype) if y.dtype != dtype else y
+
+        return apply
 
     def release(self) -> None:
         """Drop the placed matrix arrays (idempotent); recompile to reuse."""

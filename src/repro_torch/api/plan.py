@@ -32,6 +32,7 @@ from ..core.mesh import make_mesh
 from ..core.partition import (BALANCE_1D, SCHEMES_2D, PartitionedMatrix,
                               partition_1d_coalesced, partition_2d_coalesced)
 from ..core.stats import MatrixStats
+from ..core.streams import wait
 from ..kernels.ops import IMPLS
 from .executor import Executor, MeshExecutor, SingleDeviceExecutor
 
@@ -399,12 +400,16 @@ class ExecutionPlan:
         is built and placed here).  Mesh plans partition the matrix, build
         the program with the selected per-part kernel, place the matrix —
         plus, for impl="cuda", the kernels' chunk plans or block-row
-        pointers — and return a :class:`MeshExecutor`.
+        pointers — and return a :class:`MeshExecutor`.  Ends in one wait on
+        the placing stream, so every thread's stream may read the placed
+        arrays from the first request on.
         """
         if not self.is_distributed:
             container = self.matrix.container(self.fmt, block=self.block,
                                               dtype=self.dtype)
-            return SingleDeviceExecutor(self, container, self.impl, self.device)
+            exe = SingleDeviceExecutor(self, container, self.impl, self.device)
+            wait(exe.device)
+            return exe
         t0 = time.perf_counter()
         part = self._partition()
         axes = self.axes
@@ -418,6 +423,7 @@ class ExecutionPlan:
             self, part, self.mesh, axes, program, x_spec=self._x_spec(),
             x_pad=self._x_pad(part), merge=self.merge,
         ).place_matrix(placed)
+        wait(exe.device)
         exe.build_seconds = time.perf_counter() - t0
         return exe
 

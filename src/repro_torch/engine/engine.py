@@ -20,10 +20,13 @@ resulting grid is fitted to the divisibility constraints of the 2D schemes
 entries are P parts on one card (or on the CPU), one launch serving them
 all.
 
+:meth:`SpmvEngine.solve` runs an on-device solver session
+(``Executor.iterate``: x stays on the card across the steps) as one
+request: one plan lookup and one Telemetry record (``kind="solve"``).
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: :meth:`SpmvEngine.solve` (``api/iterate.py``), ``tune=True``
-and :meth:`SpmvEngine.refine` (``repro.tune``), ``topology=``
-(``repro.topo``).
+ROADMAP.md item: ``tune=True`` and :meth:`SpmvEngine.refine`
+(``repro.tune``), ``topology=`` (``repro.topo``).
 """
 from __future__ import annotations
 
@@ -63,6 +66,10 @@ class SpmvEngine:
         impl: str = "cuda",
         tune: bool = False,
         tuner=None,
+        tune_after: int = 8,
+        tune_margin: float = 0.9,
+        drift_factor: Optional[float] = 2.0,
+        drift_alpha: float = 0.25,
         topology=None,
     ) -> None:
         """Create a serving engine over a device pool.
@@ -82,21 +89,34 @@ class SpmvEngine:
             (the hand-written kernels; on CPU devices their plain versions)
             or "torch" (the plain oracles).  ``register(..., impl=...)``
             overrides per matrix.
-          tune / tuner: measure-and-refine tuning (and its knobs
-            ``tune_after``, ``tune_margin``, ``drift_factor``,
-            ``drift_alpha``) waits for the port of ``repro.tune``;
-            ``tune=True`` or a tuner raises.
+          tune / tuner: measure-and-refine tuning waits for the port of
+            ``repro.tune``; ``tune=True`` or a tuner raises.
+          tune_after / tune_margin / drift_factor / drift_alpha: the
+            tuning knobs of the JAX engine, with its defaults and its
+            validation; kept on the engine, read by no code until
+            ``repro.tune`` is ported.
           topology: topology-aware placement waits for the port of
             ``repro.topo``; anything but None raises.
 
         Raises:
-          ValueError: for an unknown ``impl``.
+          ValueError: for an unknown ``impl``, a ``tune_margin`` outside
+            (0, 1], a ``drift_factor`` <= 1 or a ``drift_alpha`` outside
+            (0, 1].
           NotImplementedError: ``tune=True``, a ``tuner``, ``topology=``,
             or a pool naming distinct devices (multi-card meshes).
           RuntimeError: a CUDA device is asked for and none is present.
         """
         if impl not in IMPLS:
             raise ValueError(f"unknown impl {impl!r}: one of {IMPLS}")
+        if not 0.0 < tune_margin <= 1.0:
+            raise ValueError(f"tune_margin must be in (0, 1]; got {tune_margin}")
+        if drift_factor is not None and drift_factor <= 1.0:
+            raise ValueError(
+                f"drift_factor must be > 1 (or None to disable); "
+                f"got {drift_factor}"
+            )
+        if not 0.0 < drift_alpha <= 1.0:
+            raise ValueError(f"drift_alpha must be in (0, 1]; got {drift_alpha}")
         if tune or tuner is not None:
             raise NotImplementedError(
                 f"tune=True {_NOT_YET}, 'repro.tune'")
@@ -109,6 +129,10 @@ class SpmvEngine:
         self.devices = list(devices)
         same_device(self.devices)  # distinct devices / no card: raise now
         self.impl = impl
+        self.tune_after = tune_after
+        self.tune_margin = tune_margin
+        self.drift_factor = drift_factor
+        self.drift_alpha = drift_alpha
         self.cache = PlanCache(cache_capacity)
         self.registry = MatrixRegistry()
         self.telemetry = telemetry if telemetry is not None else Telemetry()
@@ -360,9 +384,10 @@ class SpmvEngine:
 
         Serves from the cached executor: place x -> run the program ->
         assemble rows; the three phase times land in telemetry (Fig.-17
-        load/kernel/retrieve split).  Each phase ends in a device-wide
-        synchronize, so under concurrent requests from several host threads
-        a phase time can include another request's kernel.
+        load/kernel/retrieve split).  The request runs on the calling
+        thread's own CUDA stream and each phase ends in a wait on that
+        stream alone, so under concurrent requests from several host
+        threads a phase time holds this request's work only.
 
         Args:
           name: handle from :meth:`register`.
@@ -420,14 +445,86 @@ class SpmvEngine:
         ))
         return y
 
-    def solve(self, name: str, x0, **kwargs):
-        """On-device solver sessions wait for the port of ``api/iterate.py``.
+    def solve(
+        self,
+        name: str,
+        x0,
+        *,
+        steps: Optional[int] = None,
+        tol: Optional[float] = None,
+        combine="plain",
+        b=None,
+        diag=None,
+        omega: float = 1.0,
+        max_steps: int = 1000,
+        check_every: int = 8,
+        obs=None,
+    ):
+        """Run an on-device solver session over registered ``name``.
+
+        One plan lookup, one solver loop
+        (:meth:`repro_torch.api.Executor.iterate` — x stays on the device
+        across all SpMVs, on the calling thread's own stream), one
+        Telemetry record for the whole session (``kind="solve"`` with the
+        step count, so per-iteration cost is ``rec.per_iter_s``;
+        :meth:`Telemetry.last` keeps reporting per-multiply times).  An
+        evicted plan is reactivated transparently from the host-side spill —
+        a session never fails just because the LRU rotated.
+
+        Args:
+          name: handle from :meth:`register` (square matrices only).
+          x0: (n,) start vector.
+          steps / tol / combine / b / diag / omega / max_steps /
+            check_every: forwarded to ``Executor.iterate``.
+          obs: optional :class:`repro_torch.obs.Trace` — the session's
+            load / kernel / retrieve spans are recorded on it (kernel is the
+            whole loop; ``steps`` rides as a span attribute).
+
+        Returns:
+          :class:`repro_torch.api.IterateResult`.
 
         Raises:
-          NotImplementedError: always (ROADMAP.md, 'api/iterate.py').
+          KeyError: unknown ``name``.
+          ValueError: non-square matrix, bad steps/tol/combine params.
+          TypeError: x0 dtype mismatch.
         """
-        raise NotImplementedError(
-            f"SpmvEngine.solve {_NOT_YET}, 'api/iterate.py'")
+        entry = self.registry.get(name)
+        try:
+            cp = self._compiled(entry)
+        except RuntimeError:
+            # evicted mid-lifetime: rebuild from the spilled partition and
+            # carry on — the session contract is one lookup, not one prayer
+            self.reactivate(name, warmup=False)
+            cp = self._compiled(entry)
+        traces_before = cp.trace_count
+        t0 = time.perf_counter()
+        with obs_profile.annotate(f"spmv_solve:{name}"):
+            result = cp.executor.iterate(
+                x0, steps=steps, tol=tol, combine=combine, b=b, diag=diag,
+                omega=omega, max_steps=max_steps, check_every=check_every,
+            )
+        if obs is not None:
+            t1 = t0 + result.load_s
+            t2 = t1 + result.kernel_s
+            for ctx in (obs if isinstance(obs, (list, tuple)) else (obs,)):
+                ctx.add("load", t0, t1)
+                ctx.add("kernel", t1, t2, steps=result.steps)
+                ctx.add("retrieve", t2, t2 + result.retrieve_s)
+        entry.requests += result.steps  # a session is `steps` SpMVs of traffic
+        warm = cp.requests_served > 0
+        cp.requests_served += 1
+        self.telemetry.record(RequestRecord(
+            name=name,
+            batch=1,
+            load_s=result.load_s,
+            kernel_s=result.kernel_s,
+            retrieve_s=result.retrieve_s,
+            cache_hit=warm,
+            traced=result.compiled or cp.trace_count > traces_before,
+            kind="solve",
+            steps=result.steps,
+        ))
+        return result
 
     def refine(self, name: str, x=None, trigger: str = "manual") -> dict:
         """Measure-and-refine waits for the port of ``repro.tune``.

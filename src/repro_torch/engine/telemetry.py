@@ -9,8 +9,12 @@ The engine's serving path has the same three phases on the card
     kernel   — the part-axis kernel launch and the merge on the part axis
     retrieve — device -> host copy and row assembly of the output
 
-Each phase ends in a device-wide synchronize, so with two host threads
-serving at once one request's phase time can include the other's kernel.
+Each request runs on its host thread's own CUDA stream and each phase ends
+in a wait on that stream alone, so with several host threads serving at
+once a phase time holds its own request's work only.  A solver session
+(``SpmvEngine.solve``) is one record of ``kind="solve"``: load is x0 and
+its parameters, kernel the whole loop of ``steps`` SpMVs, retrieve the
+solution.
 
 Each request appends one :class:`RequestRecord`; :meth:`Telemetry.breakdown`
 aggregates the per-phase fractions per matrix, which is exactly the stacked

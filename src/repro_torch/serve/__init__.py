@@ -9,7 +9,8 @@ this package is the front door that turns it into a servable system:
 
   * :mod:`service`   — ``AsyncSpmvService``: ``await multiply(tenant, name,
                        x, deadline_s=...)`` bridging the MicroBatcher onto
-                       the event loop, with ``drain()``/``aclose()``
+                       the event loop, ``await solve(...)`` for on-device
+                       solver sessions, with ``drain()``/``aclose()``
   * :mod:`admission` — per-tenant bounded pending queues, token-bucket rate
                        limits, deadline-based load shedding
                        (``RequestRejected`` with a machine-readable reason),
@@ -23,8 +24,7 @@ this package is the front door that turns it into a servable system:
                        phase splits, dense-oracle verification
 
 Knobs and report fields: ``docs/serving.md`` (written for the JAX package;
-the port keeps its names).  ``AsyncSpmvService.solve`` waits for the port
-of ``api/iterate.py`` (ROADMAP.md).
+the port keeps its names).
 """
 
 from .admission import (

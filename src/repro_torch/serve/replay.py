@@ -267,8 +267,15 @@ class SLOReport:
         return "\n".join(lines)
 
 
-def _np_power(a: np.ndarray, x0: np.ndarray, steps: int) -> np.ndarray:
-    """Host-side power-iteration reference (mirrors the device combine)."""
+def _np_power(a, x0: np.ndarray, steps: int) -> np.ndarray:
+    """Power-iteration reference (mirrors the device combine), computed
+    where the oracle lies; returns a host array."""
+    if isinstance(a, torch.Tensor):
+        x = torch.from_numpy(x0).to(a.device, a.dtype)
+        for _ in range(steps):
+            y = a @ x
+            x = y / torch.clamp_min(torch.linalg.vector_norm(y), 1e-30)
+        return x.cpu().numpy()
     x = x0.astype(a.dtype, copy=True)
     for _ in range(steps):
         y = a @ x

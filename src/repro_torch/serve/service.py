@@ -1,7 +1,6 @@
 """AsyncSpmvService — the asyncio, multi-tenant front door of the engine.
 
 Counterpart of ``repro/serve/service.py``, over the port's engine.
-``solve`` waits for the port of ``api/iterate.py`` and raises.
 
 ``SpmvEngine`` serves synchronously and ``MicroBatcher`` hands back
 ``concurrent.futures`` futures — fine inside one process, useless to an
@@ -21,7 +20,9 @@ amortize-the-matrix-traffic rule applied to serving), explicit ``(cols, B)``
 batches straight onto a worker thread.  The returned future is bridged onto
 the event loop with ``asyncio.wrap_future``; the loop thread never runs a
 kernel: requests reach the card from the batcher's flush thread and the
-worker pool, concurrently.
+worker pool, concurrently, each thread on its own CUDA stream.
+``await solve(tenant, name, x0, steps=k | tol=...)`` runs an on-device
+solver session on a worker thread as one admitted request.
 
 Rejected requests raise :class:`~repro_torch.serve.admission.RequestRejected`
 *immediately* — load shedding means the caller finds out now, not after the
@@ -142,6 +143,7 @@ class AsyncSpmvService:
                 self.admission.configure(tenant, config)
         self.est_alpha = est_alpha
         self._est: Dict[str, float] = {}  # scoped name -> service-time EWMA
+        self._solve_est: Dict[str, float] = {}  # scoped name -> per-iter EWMA
         self._tenant_names: Dict[str, set] = {}  # tenant -> scoped names
         self._inflight: set = set()  # asyncio futures awaiting backend work
         self._pool = ThreadPoolExecutor(
@@ -370,15 +372,123 @@ class AsyncSpmvService:
         finally:
             self.admission.finished(tenant)
 
-    async def solve(self, tenant: str, name: str, x0, **kwargs):
-        """Solver sessions wait for the port of ``api/iterate.py``.
+    async def solve(
+        self,
+        tenant: str,
+        name: str,
+        x0,
+        *,
+        steps: Optional[int] = None,
+        tol: Optional[float] = None,
+        combine="plain",
+        deadline_s: Optional[float] = None,
+        **iterate_kwargs,
+    ):
+        """Run an on-device solver session for ``tenant`` — one admission.
+
+        A session of k SpMV steps is *one* request to the admission
+        controller (one pending slot, one token), not k: the whole point of
+        :meth:`SpmvEngine.solve` is that the iterations amortize one
+        admission and one plan lookup.  Deadline feasibility is checked
+        against ``steps x per-iteration EWMA`` (observed from previous
+        sessions on this matrix; tol-mode sessions budget ``max_steps``),
+        so an infeasible 500-step session is shed up front, before burning
+        its budget on device.  The session runs on a worker thread, on that
+        thread's own CUDA stream.
+
+        Args:
+          tenant: tenant identity (admission budgets apply per tenant).
+          name: matrix name (square); resolved tenant-scoped then global.
+          x0: (n,) start vector.
+          steps / tol / combine: forwarded to the engine
+            (:meth:`SpmvEngine.solve`), as are ``iterate_kwargs``
+            (``b`` / ``diag`` / ``omega`` / ``max_steps`` /
+            ``check_every``).
+          deadline_s: SLO budget for the *whole* session.  ``None`` falls
+            back to the tenant class's default budget (see docs/slo.md).
+
+        Returns:
+          :class:`repro_torch.api.IterateResult`.
 
         Raises:
-          NotImplementedError: always (ROADMAP.md, 'api/iterate.py').
+          RequestRejected: admission refused the session (``.reason`` in
+            REJECT_REASONS) or the service is closed.
+          KeyError / TypeError / ValueError: as :meth:`SpmvEngine.solve`.
         """
-        raise NotImplementedError(
-            "AsyncSpmvService.solve is not ported yet: see ROADMAP.md, "
-            "'api/iterate.py'")
+        t_start = obs_clock()
+        if self._closed:
+            self.admission.reject_all(tenant, "shutdown")
+            raise RequestRejected(tenant, "shutdown", "service is closed")
+        if not self._started:
+            self.start()
+        rname = self.resolve(tenant, name)
+        entry = self.engine.registry.get(rname)
+        x0 = np.asarray(x0)
+        if x0.ndim != 1 or x0.shape[0] != entry.shape[1]:
+            raise ValueError(
+                f"x0 must be ({entry.shape[1]},) for matrix {name!r}; "
+                f"got shape {x0.shape}"
+            )
+        steps_budget = steps if steps is not None else \
+            int(iterate_kwargs.get("max_steps", 1000))
+        per_iter = self._solve_est.get(rname)
+        estimate = None if per_iter is None else per_iter * steps_budget
+        cls = self.admission.state(tenant).config.priority
+        if deadline_s is None:
+            deadline_s = default_deadline(cls)
+        trace = self.tracer.trace(f"{tenant}/{name}:solve")
+        ctx = trace if trace.enabled else None
+        try:
+            self.admission.admit(
+                tenant, vectors=1, deadline_s=deadline_s,
+                estimate_s=estimate, queue_depth=0,
+            )
+        except RequestRejected as rej:
+            if ctx is not None:
+                ctx.add("admit", t_start, obs_clock(), outcome=rej.reason,
+                        steps=steps_budget, cls=cls)
+            raise
+        loop = asyncio.get_running_loop()
+        try:
+            t_admitted = obs_clock()
+            if ctx is not None:
+                ctx.add("admit", t_start, t_admitted, outcome="admitted",
+                        steps=steps_budget, cls=cls)
+
+            def run_solve():
+                t_run = obs_clock()
+                if ctx is not None:
+                    ctx.add("queue_wait", t_admitted, t_run)
+                return self.engine.solve(
+                    rname, x0, steps=steps, tol=tol, combine=combine,
+                    obs=ctx, **iterate_kwargs,
+                )
+
+            future = asyncio.wrap_future(self._pool.submit(run_solve),
+                                         loop=loop)
+            self._inflight.add(future)
+            future.add_done_callback(self._inflight.discard)
+            try:
+                result = await future
+            except Exception:
+                self.errors += 1
+                raise
+            t_end = obs_clock()
+            if ctx is not None:
+                ctx.add("deliver",
+                        ctx.last_end if ctx.last_end is not None else t_end,
+                        t_end)
+            self._observe_solve(rname)
+            self.metrics.histogram("serve.solve.e2e_ms").observe(
+                (t_end - t_start) * 1e3)
+            self.metrics.histogram("serve.solve.e2e_ms", cls=cls).observe(
+                (t_end - t_start) * 1e3)
+            self.metrics.histogram("serve.solve.per_iter_us").observe(
+                result.per_iter_s * 1e6)
+            self.served += 1
+            return result
+        finally:
+            self.admission.finished(tenant)
 
     def _flush_budget(self, deadline_s: Optional[float],
                       estimate_s: Optional[float]) -> Optional[float]:
@@ -416,6 +526,23 @@ class AsyncSpmvService:
         self._est[rname] = (sample if old is None else
                             self.est_alpha * sample
                             + (1.0 - self.est_alpha) * old)
+
+    def _observe_solve(self, rname: str) -> None:
+        """Fold one finished solve session into the per-iteration EWMA.
+
+        Reads :meth:`Telemetry.last_solve` — never :meth:`Telemetry.last`,
+        which stays per-multiply (solve sessions must not inflate the
+        multiply shedding estimate, and vice versa).  Sessions that
+        built their loop are skipped as cold-start outliers.
+        """
+        rec = self.engine.telemetry.last_solve(rname)
+        if rec is None or rec.traced:
+            return
+        sample = rec.per_iter_s
+        old = self._solve_est.get(rname)
+        self._solve_est[rname] = (sample if old is None else
+                                  self.est_alpha * sample
+                                  + (1.0 - self.est_alpha) * old)
 
     def _record_metrics(self, rname: str, e2e_s: float,
                         cls: str = "standard") -> None:

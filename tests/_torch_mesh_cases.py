@@ -96,3 +96,46 @@ IR_PLANS = [
     ("ir-2d-es-bcoo", "2d.equally-sized", "bcoo", "torch"),
     ("ir-2d-vs-csr", "2d.variable-sized", "csr", "cuda"),
 ]
+
+
+# solver sessions on 4 parts: (case id, scheme, fmt, combine, impl pair).
+# "power-tol" runs power iteration to tol=1e-6 on a PageRank matrix.
+SOLVER_N = 64
+SOLVER_STEPS = 5
+SOLVER_CASES = [(f"solve-{fmt}-{part}-{impl[0]}", part, fmt, "plain", impl)
+                for fmt in ("coo", "csr", "bcsr") for part in ("1d", "2d")
+                for impl in IMPLS]
+SOLVER_CASES += [
+    ("solve-richardson-1d", "1d", "coo", "richardson", IMPLS[0]),
+    ("solve-jacobi-2d", "2d", "csr", "jacobi", IMPLS[1]),
+    ("solve-power-tol-1d", "1d", "coo", "power-tol", IMPLS[0]),
+]
+
+
+def solver_inputs(combine: str, seed: int = 5):
+    """(a, x0, iterate kwargs) of a solver case.
+
+    The linear combines run on a 64 x 64 matrix with 3 off-diagonal
+    entries in {-1, 1} per row and a diagonal of 4 (row sums of |a| <= 7),
+    from integer x0 and b: plain steps stay below 2^24, Richardson
+    (omega = 1/4) and Jacobi (diagonal 4) stay dyadic, so every sum is
+    exact and results compare bit for bit.  "power-tol" is the PageRank
+    matrix of tests/_solver_runner.py."""
+    from _solver_runner import pagerank_matrix
+
+    n = SOLVER_N
+    if combine == "power-tol":
+        return (pagerank_matrix(n), np.full(n, 1.0 / n, np.float32),
+                dict(tol=1e-6, combine="power", max_steps=200,
+                     check_every=8))
+    rng = np.random.default_rng(seed)
+    a = 4.0 * np.eye(n, dtype=np.float32)
+    for i in range(n):
+        cols = rng.choice(np.delete(np.arange(n), i), 3, replace=False)
+        a[i, cols] = rng.choice([-1.0, 1.0], 3)
+    x0 = rng.integers(-2, 3, n).astype(np.float32)
+    b = rng.integers(-3, 4, n).astype(np.float32)
+    kw = {"plain": dict(),
+          "richardson": dict(b=b, omega=0.25),
+          "jacobi": dict(b=b, diag=np.diag(a).copy())}[combine]
+    return a, x0, dict(steps=SOLVER_STEPS, combine=combine, **kw)

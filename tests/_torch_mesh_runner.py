@@ -7,7 +7,8 @@ line, the three phases' outputs (``place`` / ``run_raw`` / ``assemble``),
 ``exe.batch(X)`` and the scheme id; plus the plan IRs of IR_PLANS in both
 directions.  bfloat16 arrays are stored widened to float32 (exact), and the
 dtype the executor returned is stored beside ``assemble`` / ``batch``.
-Prints ``DEVICES <n>`` first and ``MESH SKIP`` when forcing devices failed.
+For every solver case (SOLVER_CASES) it stores ``exe.iterate``'s x, step
+count and convergence flag.  Prints ``DEVICES <n>`` first and ``MESH SKIP`` when forcing devices failed.
 
     python tests/_torch_mesh_runner.py OUT.npz [CASE_ID ...]
 
@@ -28,8 +29,8 @@ from repro.api import SparseMatrix, plan_from_ir, plan_from_partitioned  # noqa:
 from repro.core import distributed as D  # noqa: E402
 from repro.core.partition import partition_1d  # noqa: E402
 
-from _torch_mesh_cases import (BLOCK, IR_PLANS, PARTS, cases, matrix,  # noqa: E402
-                               vectors)
+from _torch_mesh_cases import (BLOCK, IR_PLANS, PARTS, SOLVER_CASES,  # noqa: E402
+                               cases, matrix, solver_inputs, vectors)
 
 BF16 = np.dtype(jnp.bfloat16)
 
@@ -80,6 +81,17 @@ def main(out_path: str, only=()) -> None:
         res[f"{case_id}|y"], res[f"{case_id}|Y"] = host(y), host(Y)
         res[f"{case_id}|y_dtype"] = np.array(y.dtype.name)
         res[f"{case_id}|Y_dtype"] = np.array(Y.dtype.name)
+    for case_id, scheme, fmt, combine, (_, impl) in SOLVER_CASES:
+        if only and case_id not in only:
+            continue
+        a, x0, kw = solver_inputs(combine)
+        pln = SparseMatrix.from_dense(a).plan(scheme=scheme, fmt=fmt, impl=impl,
+                                              devices=devices, block=BLOCK)
+        out = pln.compile().iterate(x0, **kw)
+        res[f"{case_id}|scheme_id"] = np.array(pln.scheme_id)
+        res[f"{case_id}|x"] = np.asarray(out.x)
+        res[f"{case_id}|steps"] = np.array(out.steps)
+        res[f"{case_id}|converged"] = np.array(out.converged)
     if only:
         np.savez(out_path, **res)
         print("MESH DONE")

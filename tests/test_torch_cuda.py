@@ -730,3 +730,216 @@ def test_one_launch_per_coalesced_batch_under_two_threads(cuda):
     multiplies = mb.batches_run + len(batches)
     assert eng.telemetry.breakdown("m")["requests"] == multiplies
     assert instrument.launches("bcoo") == multiplies
+
+
+# ------------------------------------------------------- solver sessions
+
+def _solver_square(seed: int, n: int = 512, per_row: int = 3):
+    """n x n: ``per_row`` off-diagonal entries in {-1, 1} per row and a
+    diagonal of 4 (row sums of |a| <= 7): 5 plain steps from x0 in {-2..2}
+    stay below 2^24, and Richardson (omega 1/4) and Jacobi stay dyadic, so
+    every sum is exact."""
+    rng = np.random.default_rng(seed)
+    a = 4.0 * np.eye(n, dtype=np.float32)
+    rows = np.repeat(np.arange(n), per_row)
+    cols = (rows + rng.integers(1, n, n * per_row)) % n
+    a[rows, cols] = rng.choice([-1.0, 1.0], n * per_row)
+    return a
+
+
+SOLVER_PLANS = [(fmt, None) for fmt in ("coo", "csr", "bcoo", "bcsr")]
+SOLVER_PLANS += [("coo", "1d"), ("csr", "2d"), ("bcoo", "1d"), ("bcsr", "2d")]
+
+
+@pytest.mark.parametrize("fmt,scheme", SOLVER_PLANS)
+@pytest.mark.parametrize("combine", ["plain", "richardson", "jacobi"])
+def test_iterate_on_card_equals_host_loop(cuda, fmt, scheme, combine):
+    """k steps on the card: bit-equal to k host ``exe(x)`` calls and to the
+    session on the CPU (the plain versions), k kernel launches."""
+    import _solver_runner as sr
+
+    a = _solver_square(len(fmt) + (scheme == "2d"))
+    rng = np.random.default_rng(31)
+    x0 = rng.integers(-2, 3, 512).astype(np.float32)
+    b = rng.integers(-3, 4, 512).astype(np.float32)
+    kw = {"plain": {}, "richardson": dict(b=b, omega=0.25),
+          "jacobi": dict(b=b, diag=np.diag(a).copy())}[combine]
+    sm = SparseMatrix.from_dense(a)
+    plan_kw = dict(fmt=fmt, block=(8, 16))
+    exes = [sm.plan(device=d, **plan_kw) if scheme is None else
+            sm.plan(scheme=scheme, devices=[d] * 4, **plan_kw)
+            for d in (cuda, torch.device("cpu"))]
+    card, cpu = [p.compile() for p in exes]
+    instrument.reset()
+    res = card.iterate(x0, steps=5, combine=combine, **kw)
+    kind = "bcoo" if fmt in ("bcoo", "bcsr") else "coo"
+    assert instrument.launches(kind) == 5 and instrument.launches() == 5
+    want = cpu.iterate(x0, steps=5, combine=combine, **kw)
+    np.testing.assert_array_equal(res.x, want.x)
+    np.testing.assert_array_equal(res.x, sr.host_loop(card, x0, 5, combine,
+                                                      **kw))
+    assert res.steps == 5 and res.kernel_s > 0
+
+
+def test_iterate_on_card_bf16_casts_each_f32_result_back(cuda):
+    a = torch.from_numpy(_solver_square(9, per_row=2)).to(torch.bfloat16)
+    x0 = torch.from_numpy(np.random.default_rng(32).integers(
+        -2, 3, 512).astype(np.float32)).to(torch.bfloat16)
+    exe = SparseMatrix.from_dense(a).plan(device=cuda).compile()
+    res = exe.iterate(x0, steps=3)
+    y = x0
+    for _ in range(3):
+        y = exe(y)  # float32 host rows (the kernels' accumulation dtype)
+        assert y.dtype == np.float32
+    np.testing.assert_array_equal(np.asarray(res.x, np.float32),
+                                  torch.from_numpy(y).to(torch.bfloat16)
+                                  .float().numpy())
+
+
+def test_iterate_steps_mode_never_syncs_the_host(cuda):
+    """The loop body (kernel launch + combine) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host read or blocking
+    copy between steps would raise."""
+    from repro_torch.api.iterate import _build_loop, make_combine
+
+    a = _solver_square(33)
+    for kw in (dict(fmt="coo", device=cuda),
+               dict(scheme="2d", devices=[cuda] * 4, fmt="csr")):
+        exe = SparseMatrix.from_dense(a).plan(**kw).compile()
+        for name in ("power", "cg"):
+            comb = make_combine(name)
+            params = {"omega": torch.ones((), device=cuda),
+                      "b": torch.ones(512, device=cuda)}
+            x0 = torch.ones(512, device=cuda)
+            loop = _build_loop(comb, 6, 0, 0)
+            apply = exe._iterate_apply()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                carry, k = loop(apply, x0, params, None)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert k == 6 and bool(torch.isfinite(carry["x"]).all())
+
+
+@pytest.mark.parametrize("impl_fmt", [("cuda", "csr"), ("cuda", "coo")])
+def test_pinned_solver_counts_on_card(cuda, impl_fmt):
+    """CG 11 and PageRank 12 steps to tolerance, and max_steps=17 never
+    converged, on the CUDA kernels (the counts of tests/test_solver.py)."""
+    import _solver_runner as sr
+
+    _, fmt = impl_fmt
+
+    def exe(a):
+        return SparseMatrix.from_dense(a).plan(fmt=fmt, device=cuda).compile()
+
+    n = 64
+    a = sr.spd_laplacian(n)
+    b = np.random.default_rng(1).integers(-2, 3, n).astype(np.float32)
+    res = exe(a).iterate(np.zeros(n, np.float32), tol=1e-5, combine="cg",
+                         b=b, max_steps=200, check_every=1)
+    assert res.converged and res.steps == 11
+    g = sr.pagerank_matrix(32, seed=5)
+    res = exe(g).iterate(np.full(32, 1.0 / 32, np.float32), tol=1e-6,
+                         combine="power", max_steps=100, check_every=4)
+    assert res.converged and res.steps == 12
+    x0 = np.random.default_rng(0).standard_normal(24).astype(np.float32)
+    res = exe((-np.eye(24)).astype(np.float32)).iterate(
+        x0, tol=1e-9, combine="power", max_steps=17, check_every=5)
+    assert not res.converged and res.steps == 17
+
+
+def test_thread_phase_times_exclude_another_threads_kernel(cuda):
+    """One thread holds its own stream busy (``torch.cuda._sleep``, about
+    1 s); meanwhile another thread's place / run_raw / assemble, a solver
+    session and an engine multiply finish in a fraction of that: each
+    waits on its own stream, never on the device."""
+    import threading
+    import time
+
+    from repro_torch.core.streams import on_thread_stream, wait
+    from repro_torch.engine import SpmvEngine
+
+    a = _solver_square(34)
+    x = np.random.default_rng(35).integers(-2, 3, 512).astype(np.float32)
+    sm = SparseMatrix.from_dense(a)
+    mesh = sm.plan(scheme="2d", devices=[cuda] * 4).compile()
+    single = sm.plan(device=cuda).compile()
+    eng = SpmvEngine(devices=[cuda])
+    eng.register("m", a)
+    single.iterate(x, steps=3)  # warm every path once
+    mesh(x), eng.multiply("m", x)
+    # calibrate the sleep to about 1 s on this card
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(10_000_000 * 1000.0 / start.elapsed_time(end))
+    busy, released = threading.Event(), threading.Event()
+
+    def sleeper():
+        with on_thread_stream(cuda):
+            torch.cuda._sleep(cycles)
+            busy.set()
+            wait(cuda)
+        released.set()
+
+    t = threading.Thread(target=sleeper)
+    t.start()
+    assert busy.wait(60)
+    t0 = time.perf_counter()
+    xs = mesh.place(x)
+    raw = mesh.run_raw(xs)
+    y = mesh.assemble(raw)
+    res = single.iterate(x, steps=3)
+    eng.multiply("m", x)
+    elapsed = time.perf_counter() - t0
+    overlapped = not released.is_set()
+    t.join(60)
+    assert overlapped, "the sleeping kernel ended before the phases did"
+    assert elapsed < 0.25, f"phases took {elapsed:.3f} s beside a 1 s kernel"
+    rec = eng.telemetry.last("m")
+    assert rec.load_s + rec.kernel_s + rec.retrieve_s < 0.25
+    np.testing.assert_array_equal(y, a @ x)
+    np.testing.assert_array_equal(res.x, np.linalg.matrix_power(
+        a.astype(np.float64), 3) @ x)
+
+
+def test_live_threads_get_distinct_streams(cuda):
+    """16 threads take their stream at once (a short switch interval to
+    mix them): no two live threads share one, and each keeps its own."""
+    import sys
+    import threading
+
+    from repro_torch.core.streams import thread_stream
+
+    n = 16
+    barrier = threading.Barrier(n)
+    got, errors = {}, []
+
+    def take(i):
+        try:
+            s = thread_stream(cuda)
+            barrier.wait(timeout=60)  # all n alive while each takes its own
+            got[i] = (s.cuda_stream, thread_stream(cuda).cuda_stream)
+            barrier.wait(timeout=60)
+        except Exception as e:  # reported by the main thread
+            errors.append(e)
+
+    mine = thread_stream(cuda).cuda_stream  # the main thread's, held
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=take, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert all(a == b for a, b in got.values())
+    assert len({a for a, _ in got.values()}) == n
+    assert mine not in {a for a, _ in got.values()}

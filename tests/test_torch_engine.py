@@ -432,8 +432,25 @@ def test_register_without_matrix_requires_prior_entry(engine):
         engine.register("ghost")
 
 
+def _solve_agrees_with_jax(engine):
+    """``solve`` is ported: a session on a square matrix equals the JAX
+    engine's, bit for bit on integer values, and leaves one solve record."""
+    a = matrices()["regular"][:, :96]  # square; 4 steps stay exact
+    x0 = np.random.default_rng(5).integers(-3, 4, 96).astype(np.float32)
+    engine.register("sq", a, warmup=False)
+    got = engine.solve("sq", x0, steps=4, combine="plain")
+    jeng = JEngine(devices=jax.devices()[:1])
+    jeng.register("sq", a)
+    want = jeng.solve("sq", x0, steps=4, combine="plain")
+    np.testing.assert_array_equal(got.x, np.asarray(want.x))
+    assert got.steps == want.steps == 4
+    assert engine.telemetry.last_solve("sq").steps == 4
+    with pytest.raises(ValueError, match="square"):  # as the JAX engine
+        engine.solve("m", np.zeros(128, np.float32), steps=2)
+
+
 @pytest.mark.parametrize("call,item", [
-    (lambda e: e.solve("m", np.zeros(128, np.float32)), "api/iterate.py"),
+    (_solve_agrees_with_jax, None),  # ported: works, no longer raises
     (lambda e: e.refine("m"), "repro.tune"),
     (lambda e: SpmvEngine(devices=CPU, tune=True), "repro.tune"),
     (lambda e: SpmvEngine(devices=CPU, tuner=object()), "repro.tune"),
@@ -441,6 +458,9 @@ def test_register_without_matrix_requires_prior_entry(engine):
 ], ids=["solve", "refine", "tune", "tuner", "topology"])
 def test_not_ported_yet_raises_naming_its_roadmap_item(engine, call, item):
     engine.register("m", _mats()["regular"], warmup=False)
+    if item is None:
+        call(engine)
+        return
     with pytest.raises(NotImplementedError, match=item):
         call(engine)
 
@@ -460,6 +480,28 @@ def test_engine_validation():
     eng = SpmvEngine(devices=CPU)
     with pytest.raises(ValueError, match="unknown impl"):
         eng.register("m", _mats()["regular"], impl="xla")
+
+
+@pytest.mark.parametrize("bad", [dict(tune_margin=0.0), dict(tune_margin=1.5),
+                                 dict(drift_factor=1.0),
+                                 dict(drift_alpha=0.0)], ids=str)
+def test_tuning_knobs_match_jax_signature(bad):
+    """The JAX engine's tuning knobs are accepted with its defaults and
+    validated as it validates them; tune=True still names repro.tune."""
+    eng, jeng = SpmvEngine(devices=CPU), JEngine(devices=jax.devices()[:1])
+    for knob in ("tune_after", "tune_margin", "drift_factor", "drift_alpha"):
+        assert getattr(eng, knob) == getattr(jeng, knob)
+    eng = SpmvEngine(devices=CPU, tune_after=4, tune_margin=0.8,
+                     drift_factor=None, drift_alpha=0.5)
+    assert (eng.tune_after, eng.tune_margin, eng.drift_factor,
+            eng.drift_alpha) == (4, 0.8, None, 0.5)
+    with pytest.raises(ValueError) as want:
+        JEngine(devices=jax.devices()[:1], **bad)
+    with pytest.raises(ValueError) as got:
+        SpmvEngine(devices=CPU, **bad)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError, match="repro.tune"):
+        SpmvEngine(devices=CPU, tune=True, tune_after=2)
 
 
 def test_same_matrix_torch_and_cuda_are_separate_cache_entries(engine):

@@ -10,7 +10,10 @@ versions) against impl="pallas" (interpret mode), phase by phase: the
 placed x, the raw per-part outputs, the assembled y and ``exe.batch(X)``.
 Integer-valued float32, int8 and bfloat16 inputs must agree bit for bit;
 random float32 within rtol=atol=2e-4 (tests/test_kernels.py's tolerance:
-sums run in another order).
+sums run in another order).  Solver sessions (``exe.iterate``) on 4 parts:
+plain, Richardson and Jacobi bit for bit with the JAX session and with the
+port's host loop of ``exe(x)`` calls, power to tolerance in the same
+number of steps and within 1e-5.
 """
 import json
 import os
@@ -27,8 +30,10 @@ from repro_torch.core.mesh import make_mesh
 from repro_torch.core.partition import partition_1d
 from repro_torch.kernels import instrument
 
+import _solver_runner as sr
 from _torch_common import BF16
-from _torch_mesh_cases import BLOCK, IR_PLANS, PARTS, cases, matrix, vectors
+from _torch_mesh_cases import (BLOCK, IR_PLANS, PARTS, SOLVER_CASES, cases,
+                               matrix, solver_inputs, vectors)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU4 = ["cpu"] * PARTS
@@ -219,3 +224,29 @@ def test_part_axis_call_equals_its_per_part_plain_versions(scheme, fmt):
                                          arrs["values"][p], xp, exe.part.h_pad,
                                          arrs["nnz"][p])
             assert torch.equal(got[p], want)
+
+
+@pytest.mark.parametrize("case", SOLVER_CASES, ids=lambda c: c[0])
+def test_mesh_solver_session_matches_jax(jax_side, case):
+    case_id, scheme, fmt, combine, (impl, _) = case
+    want = {k.split("|", 1)[1]: v for k, v in jax_side.items()
+            if k.startswith(case_id + "|")}
+    a, x0, kw = solver_inputs(combine)
+    pln = SparseMatrix.from_dense(a).plan(scheme=scheme, fmt=fmt, impl=impl,
+                                          devices=CPU4, block=BLOCK)
+    assert pln.is_distributed and pln.scheme_id == str(want["scheme_id"])
+    exe = pln.compile()
+    instrument.reset()
+    res = exe.iterate(x0, **kw)
+    assert instrument.launches() == 0  # CPU tensors: the plain versions
+    assert res.steps == int(want["steps"])
+    assert res.converged == bool(want["converged"])
+    if combine == "power-tol":
+        assert res.converged and res.steps % kw["check_every"] == 0
+        np.testing.assert_allclose(res.x, want["x"], rtol=1e-5, atol=1e-5)
+        return
+    np.testing.assert_array_equal(res.x, want["x"])
+    np.testing.assert_array_equal(
+        res.x, sr.host_loop(exe, x0, kw["steps"], combine,
+                            b=kw.get("b"), diag=kw.get("diag"),
+                            omega=kw.get("omega", 1.0)))

@@ -24,6 +24,7 @@ import repro.obs as jobs
 import repro.serve as jserve
 import repro_torch.obs as tobs
 import repro_torch.serve as tserve
+from repro.api import SparseMatrix as JSparseMatrix
 from repro.engine import SpmvEngine as JEngine
 from repro_torch.engine import SpmvEngine
 from repro_torch.serve import (AsyncSpmvService, RequestRejected, TenantConfig,
@@ -311,7 +312,17 @@ def test_errors_sheds_and_shutdown():
         with pytest.raises(RequestRejected) as exc:
             await svc.multiply("t", "regular", x, deadline_s=est * 1e-6)
         assert exc.value.reason == "deadline_infeasible"
-        with pytest.raises(NotImplementedError, match="api/iterate.py"):
+        # solve is ported: a square matrix's session equals the JAX
+        # package's; a non-square one raises ValueError, as there
+        sq = matrices()["regular"][:, :96]
+        svc.register(None, "square", sq)
+        x0 = np.random.default_rng(5).integers(-3, 4, 96).astype(np.float32)
+        res = await svc.solve("t", "square", x0, steps=3)
+        want = JSparseMatrix.from_dense(sq).plan().compile().iterate(
+            x0, steps=3)
+        np.testing.assert_array_equal(res.x, np.asarray(want.x))
+        assert res.steps == want.steps == 3
+        with pytest.raises(ValueError, match="square"):
             await svc.solve("t", "regular", x, steps=3)
         await svc.aclose()
         with pytest.raises(RequestRejected) as exc:
@@ -321,7 +332,7 @@ def test_errors_sheds_and_shutdown():
     _serve(svc, body)
     rejected = svc.stats()["tenants"]["t"]["rejected"]
     assert rejected["deadline_infeasible"] == 2 and rejected["shutdown"] == 1
-    assert svc.served == 3
+    assert svc.served == 4  # 3 multiplies and the session
 
 
 def test_backend_failure_propagates_and_drain_resolves_inflight():
