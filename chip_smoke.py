@@ -91,6 +91,31 @@ Phases (every check raises, so any failure exits non-zero):
    of 120 requests with 30 % six-step power sessions; nothing lost, no
    error, every completed session verified, max |err| <= 1e-4.  Each part
    requires its launches to equal the multiplies plus the sessions' steps.
+11. Tuning on the card (``repro_torch.tune``), after phase 10 (d), with
+   inputs from its own generator.  (a) ``plan(scheme="tune")`` with a real
+   Measurer (warmup 2, iters 5, trim 1) and a cache file: the three
+   matrices at B=1, block and regular at B=8, single-device.  One line per
+   candidate: ``mean_s`` (exe(x) with both copies, what the tuner ranks),
+   ``compile_s`` and the kernel's ms by CUDA events on the program it
+   compiled, with its rank by each.  Every planned candidate must be
+   measured (a kernel candidate that raises stops the tune; each exception
+   is printed),
+   the launches must equal the measured calls plus the timing launches,
+   and the winner must answer bit-equal to cuSPARSE and to the plain
+   version.  (b) The same tunes from the cache file: no miss, no
+   measurement, no launch, the same winner.  (c) Scale-free on 16 parts:
+   every candidate's load / kernel / retrieve > 0 and its kernel phase no
+   shorter than its part-axis launch.  (e) The card memory allocated after
+   (a)-(c) equals that before.  (d) ``SpmvEngine(tune=True, tune_after=8)``
+   over the three matrices, a client thread multiplying all through: 8
+   width-1 multiplies per matrix give one ``traffic`` refinement each,
+   then width 8 a ``drift`` one; every event measured all the candidates
+   it planned, every answer bit-equal to cuSPARSE, and
+   launches = multiplies + 4 per measured candidate (warmup 1, iters 3) +
+   1 per swap (the winner's warm-up).  (f) The tuner over
+   ``paper_large_suite()`` of ``repro_torch.data.matrices`` (22 matrices at
+   2048^2), every winner within 2e-4 of the dense product; a correctness
+   sweep whose times are host overhead.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -1475,6 +1500,376 @@ def solver_replay(torch, eng, oracles, makers, seed: int) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- tuning
+
+
+def total_launches(instrument) -> int:
+    """Kernel launches of both kernels of the tuning path (the ``.spmm``
+    keys count a subset again)."""
+    return instrument.launches("coo") + instrument.launches("bcoo")
+
+
+def add_launches(into: dict, instrument) -> dict:
+    for k in into:
+        into[k] += instrument.launches(k)
+    return into
+
+
+def kernel_fn(torch, exe, x, device):
+    """The compiled program's kernel alone on input ``x``: the single-device
+    kernel program, or the part-axis launch of a mesh executor."""
+    if not exe.plan.is_distributed:
+        prog = exe.program
+        xd = torch.as_tensor(x).to(device)
+        return lambda: prog(xd)
+    from repro_torch.core import distributed as D
+
+    prog, local = exe.program, exe.program.local
+    arrs = D._flat(exe.arrays) if exe.plan.partitioning == "2d" else exe.arrays
+    xb = prog.x_buffer(exe.place(x))
+    return lambda: local.raw(arrs, xb)
+
+
+def timed_measurer(torch, device):
+    """The reference Measurer (warmup 2, iters 5, trim 1) that also times
+    each candidate's kernel with CUDA events on the program it compiled,
+    before measuring it, and logs every measurement and every exception."""
+    from repro_torch.kernels import instrument
+    from repro_torch.tune import Measurer
+
+    class Timed(Measurer):
+        def __init__(self):
+            super().__init__()
+            self.log, self.errors, self.timing_launches = [], [], 0
+
+        def measure(self, plan, x):
+            try:
+                return super().measure(plan, x)
+            except Exception as e:
+                self.errors.append(f"{plan.scheme_id}: {type(e).__name__}: {e}")
+                emit({"phase": "tune_error", "scheme_id": plan.scheme_id,
+                      "error": self.errors[-1]})
+                raise
+
+        def _time(self, plan, exe, x, compile_s):
+            n0 = total_launches(instrument)
+            ms = time_ms(torch, kernel_fn(torch, exe, x, device), 20, warmup=2)
+            self.timing_launches += total_launches(instrument) - n0
+            m = super()._time(plan, exe, x, compile_s)
+            self.log.append((m, ms))
+            return m
+
+    return Timed()
+
+
+def winner_check(torch, exe, rec, device, rng, batch, what: str) -> None:
+    """The winner's answers on an integer-valued x: bit-equal to cuSPARSE
+    and to the plain version of the single-device kernel."""
+    cols = rec["shape"][1]
+    x = rng.integers(-2, 3, (cols,) if batch is None else (cols, batch)) \
+        .astype(np.float32)
+    xd = torch.from_numpy(x).to(device)
+    y = exe(x)
+    check(np.array_equal(y, (rec["A"] @ xd).cpu().numpy()),
+          f"{what}: tuned winner != cuSPARSE")
+    check(np.array_equal(y, rec["prog"].plain(xd).cpu().numpy()),
+          f"{what}: tuned winner != plain version")
+
+
+def tune_rows(what: dict, pln, timed) -> dict:
+    """Emit one line per measured candidate and one for the tune: the
+    winner, the analytic pick, and the candidates ranked by ``mean_s``
+    (what the tuner ranks by: exe(x) with both copies) and by kernel ms."""
+    log = timed.log
+    by_mean = sorted(range(len(log)), key=lambda i: log[i][0].mean_s)
+    by_kernel = sorted(range(len(log)), key=lambda i: log[i][1])
+    for i, (m, ms) in enumerate(log):
+        emit({"phase": "tune_candidate", **what, "scheme_id": m.scheme_id,
+              "impl": m.impl, "grid": list(m.grid), "fmt": m.fmt,
+              "mean_s": m.mean_s, "times_s": list(m.times_s),
+              "compile_s": m.compile_s, "phases": m.phases, "kernel_ms": ms,
+              "rank_by_mean": by_mean.index(i), "rank_by_kernel": by_kernel.index(i)})
+    row = {"phase": "tune", **what, "winner": pln.scheme_id,
+           "winner_fmt": pln.fmt, "analytic": pln.measured["baseline_scheme_id"],
+           "speedup": pln.measured["speedup"], "measured": len(log),
+           "fastest_kernel": log[by_kernel[0]][0].scheme_id,
+           "fastest_kernel_fmt": log[by_kernel[0]][0].fmt,
+           "rankings_agree": by_mean == by_kernel,
+           "winner_fmt_has_fastest_kernel":
+               pln.fmt == log[by_kernel[0]][0].fmt}
+    emit(row)
+    return row
+
+
+def phase_tune_single(torch, rng, device, by_matrix, path) -> tuple:
+    """Phase 11 (a) and (b): single-device tuning at full width, B=1 on all
+    three matrices and B=8 on block and regular, into one cache file; then
+    the same tunes again from the file, measuring nothing."""
+    from repro_torch.kernels import instrument
+    from repro_torch.tune import CandidateGenerator, Tuner, TuningCache
+
+    runs = [(name, None) for name in by_matrix] + [("block", 8), ("regular", 8)]
+    launches, rows = {"coo": 0, "bcoo": 0}, []
+    for name, batch in runs:
+        rec = by_matrix[name]
+        sm = rec["sm"]
+        planned = CandidateGenerator().plans(sm, device=device)
+        timed = timed_measurer(torch, device)
+        instrument.reset()
+        t0 = time.perf_counter()
+        pln = sm.plan(scheme="tune", device=device, batch=batch,
+                      tuner=Tuner(measurer=timed, cache=TuningCache(path)))
+        wall_s = time.perf_counter() - t0
+        n = total_launches(instrument)
+        add_launches(launches, instrument)
+        what = {"matrix": name, "B": batch or 1}
+        row = tune_rows(what, pln, timed)
+        row.update(planned=len(planned), wall_s=wall_s, launches=n)
+        rows.append(row)
+        check(not timed.errors, f"tune {what}: candidates raised {timed.errors}")
+        check(len(timed.log) == len(planned) == pln.measured["candidates"],
+              f"tune {what}: measured {len(timed.log)} of {len(planned)} planned")
+        expect = len(planned) * (timed.warmup + timed.iters) + timed.timing_launches
+        check(n == expect, f"tune {what}: {n} launches != measured calls + "
+              f"kernel timing {expect}")
+        check(not pln.is_distributed and pln.impl == "cuda",
+              f"tune {what}: winner {pln.describe()}")
+        exe = pln.compile()
+        winner_check(torch, exe, rec, device, rng, batch, f"tune {what}")
+        exe.release()
+        del exe
+    # (b) the same tunes from the file: no measurement, no launch
+    for row in rows:
+        cache, timed = TuningCache(path), timed_measurer(torch, device)
+        instrument.reset()
+        pln = by_matrix[row["matrix"]]["sm"].plan(
+            scheme="tune", device=device, batch=row["B"],
+            tuner=Tuner(measurer=timed, cache=cache))
+        hit = {"phase": "tune_cache_hit", "matrix": row["matrix"], "B": row["B"],
+               "hits": cache.hits, "misses": cache.misses,
+               "measured": len(timed.log), "launches": total_launches(instrument),
+               "scheme_id": pln.scheme_id, "from_cache": pln.measured["from_cache"]}
+        emit(hit)
+        check(cache.misses == 0 and cache.hits == 1 and not timed.log
+              and hit["launches"] == 0 and pln.measured["from_cache"]
+              and pln.scheme_id == row["winner"],
+              f"second tune from the cache file measured or changed: {hit}")
+    cache = TuningCache(path)  # the tune_cache= route, with its default tuner
+    pln = by_matrix["scale-free"]["sm"].plan(scheme="tune", tune_cache=path,
+                                             device=device)
+    check(pln.measured["from_cache"], "tune_cache= did not read the cache file")
+    emit({"phase": "tune_cache_file", "entries": len(cache),
+          "keys": sorted(cache.export())})
+    return launches, rows
+
+
+def phase_tune_parts(torch, rng, device, rec, path) -> tuple:
+    """Phase 11 (c): tuning on 16 parts of the card (scale-free, whose
+    partition is the cheapest): load / kernel / retrieve per candidate, the
+    kernel phase no shorter than its part-axis launch by CUDA events."""
+    from repro_torch.kernels import instrument
+    from repro_torch.tune import CandidateGenerator, Tuner, TuningCache
+
+    sm = rec["sm"]
+    planned = CandidateGenerator().plans(sm, devices=[device] * PARTS)
+    timed = timed_measurer(torch, device)
+    instrument.reset()
+    t0 = time.perf_counter()
+    pln = sm.plan(scheme="tune", devices=[device] * PARTS,
+                  tuner=Tuner(measurer=timed, cache=TuningCache(path)))
+    wall_s = time.perf_counter() - t0
+    n = total_launches(instrument)
+    launches = add_launches({"coo": 0, "bcoo": 0}, instrument)
+    what = {"matrix": "scale-free", "B": 1, "parts": PARTS}
+    row = tune_rows(what, pln, timed)
+    row.update(planned=len(planned), wall_s=wall_s, launches=n)
+    check(not timed.errors, f"tune {what}: candidates raised {timed.errors}")
+    check(len(timed.log) == len(planned) == pln.measured["candidates"],
+          f"tune {what}: measured {len(timed.log)} of {len(planned)} planned")
+    check(n == len(planned) * (timed.warmup + timed.iters) + timed.timing_launches,
+          f"tune {what}: {n} launches")
+    for m, ms in timed.log:
+        check(set(m.phases) == {"load", "kernel", "retrieve"}
+              and all(v > 0 for v in m.phases.values()),
+              f"tune {what} {m.scheme_id}: phases {m.phases}")
+        check(m.phases["kernel"] * 1e3 >= ms,
+              f"tune {what} {m.scheme_id}: kernel phase "
+              f"{m.phases['kernel'] * 1e3} ms < part-axis launch {ms} ms")
+    exe = pln.compile()
+    winner_check(torch, exe, rec, device, rng, None, f"tune {what}")
+    exe.release()
+    return launches, row
+
+
+def phase_tune_engine(torch, rng, device, by_matrix) -> tuple:
+    """Phase 11 (d): ``SpmvEngine(tune=True, tune_after=8)`` over the three
+    matrices.  A client thread multiplies all through; the main thread
+    serves 8 width-1 multiplies per matrix (one ``traffic`` refinement
+    each), then width 8 until each matrix has a ``drift`` refinement.
+    Every answer is bit-equal to cuSPARSE; launches equal the multiplies
+    plus each refinement's measured calls and its winner's warm-up."""
+    import threading
+
+    from repro_torch.engine import SpmvEngine
+    from repro_torch.kernels import instrument
+
+    eng = SpmvEngine(tune=True, tune_after=8)
+    for name, rec in by_matrix.items():
+        eng.register(name, rec["sm"])
+    pools = {}  # (matrix, width) -> [(x, cuSPARSE answer)]
+    for name, rec in by_matrix.items():
+        cols = rec["shape"][1]
+        for width in (1, 8):
+            xs = [rng.integers(-2, 3, (cols,) if width == 1 else (cols, width))
+                  .astype(np.float32) for _ in range(3)]
+            pools[(name, width)] = [
+                (x, (rec["A"] @ torch.from_numpy(x).to(device)).cpu().numpy())
+                for x in xs]
+    state = {"width": 1, "errors": [], "served": 0}
+    stop = threading.Event()
+
+    def ask(name, i):
+        x, want = pools[(name, state["width"])][i % 3]
+        y = eng.multiply(name, x)
+        if not np.array_equal(y, want):
+            state["errors"].append(f"{name} width {x.shape[1:] or 1}: != cuSPARSE")
+
+    def client():
+        i = 0
+        try:
+            while not stop.is_set():
+                ask(list(by_matrix)[i % 3], i)
+                i += 1
+        except Exception as e:  # reported by the check below
+            state["errors"].append(f"client: {type(e).__name__}: {e}")
+
+    instrument.reset()
+    since = len(eng.telemetry.records)
+    thread = threading.Thread(target=client, name="tune-client")
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        for i in range(8):
+            for name in by_matrix:
+                ask(name, i)
+        eng.drain_tuning(timeout=SERVE_WAIT_S)
+        traffic_s = time.perf_counter() - t0
+        state["width"] = 8
+        for i in range(200):
+            if all(any(e["name"] == n and e["trigger"] == "drift"
+                       for e in eng.tune_events) for n in by_matrix):
+                break
+            for name in by_matrix:
+                ask(name, i)
+            eng.drain_tuning(timeout=SERVE_WAIT_S)
+    finally:
+        stop.set()
+        thread.join(SERVE_WAIT_S)
+    eng.drain_tuning(timeout=SERVE_WAIT_S)
+    wall_s = time.perf_counter() - t0
+    check(not thread.is_alive(), "tune engine: client thread still running")
+    multiplies = len(eng.telemetry.records) - since
+    got = total_launches(instrument)
+    events = list(eng.tune_events)
+    expect = multiplies + sum(e["candidates"] * 4 + e["swapped"] for e in events)
+    for e in events:
+        emit({"phase": "tune_event", **e})
+    emit({"phase": "tune_engine", "multiplies": multiplies, "launches": got,
+          "expected_launches": expect, "events": len(events),
+          "traffic_s": traffic_s, "wall_s": wall_s,
+          "plans": {n: eng.registry.get(n).plan.tag for n in by_matrix},
+          "errors": state["errors"][:5]})
+    check(not state["errors"], f"tune engine: {state['errors'][:5]}")
+    for name in by_matrix:
+        mine = [e for e in events if e["name"] == name]
+        check(not any("error" in e for e in mine), f"tune engine {name}: {mine}")
+        check(all(e["candidates"] == e["planned"] for e in mine),
+              f"tune engine {name}: a candidate was planned but not measured: {mine}")
+        check(sum(e["trigger"] == "traffic" for e in mine) == 1
+              and any(e["trigger"] == "drift" for e in mine),
+              f"tune engine {name}: triggers {[e['trigger'] for e in mine]}")
+    check(got == expect, f"tune engine: launches {got} != multiplies + "
+          f"measurements + warm-ups {expect}")
+    del eng
+    return add_launches({"coo": 0, "bcoo": 0}, instrument)
+
+
+def phase_tune_suite(torch, rng, device) -> tuple:
+    """Phase 11 (f): the tuner over ``paper_large_suite()`` from the port's
+    data module (22 matrices at 2048^2): every winner within 2e-4 of the
+    dense product.  A correctness sweep: at this size the times are host
+    overhead, not kernel times."""
+    from repro_torch.api import SparseMatrix
+    from repro_torch.data.matrices import paper_large_suite
+    from repro_torch.kernels import instrument
+
+    instrument.reset()
+    t0 = time.perf_counter()
+    winners, worst = {}, 0.0
+    for spec in paper_large_suite():
+        a = spec.build()
+        pln = SparseMatrix.from_dense(a).plan(scheme="tune", device=device)
+        exe = pln.compile()
+        x = rng.standard_normal(a.shape[1]).astype(np.float32)
+        y, want = exe(x), a.astype(np.float64) @ x
+        err = float(np.abs(y - want).max())
+        worst = max(worst, err)
+        check(np.allclose(y, want, rtol=2e-4, atol=2e-4),
+              f"suite {spec.name}: tuned {pln.scheme_id} max err {err}")
+        winners[spec.name] = [spec.cls, pln.scheme_id, pln.measured["candidates"]]
+        exe.release()
+    launches = add_launches({"coo": 0, "bcoo": 0}, instrument)
+    emit({"phase": "tune_suite", "matrices": len(winners), "max_abs_err": worst,
+          "wall_s": time.perf_counter() - t0, "launches": launches,
+          "winners": winners,
+          "note": "2048^2 matrices: a correctness sweep; times are host overhead"})
+    return launches
+
+
+def phase_tuning(torch, rng, device, records) -> dict:
+    """Phase 11: tuning on the card, (a)-(f); returns the tuning path's
+    launches per kernel kind (measurements, kernel timing, engine
+    multiplies and refinements, the suite)."""
+    import shutil
+    import tempfile
+
+    by_matrix = {}
+    for r in records:
+        by_matrix.setdefault(r["matrix"], r)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="tune-", dir=os.path.join(ROOT, "build"))
+    path = os.path.join(tmp, "tune.json")
+    seconds, parts = {}, []
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        parts.append(phase_tune_single(torch, rng, device, by_matrix, path)[0])
+        seconds["single_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        parts.append(phase_tune_parts(torch, rng, device, by_matrix["scale-free"],
+                                      path)[0])
+        seconds["parts_s"] = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        emit({"phase": "tune_memory", "before_bytes": mem0, "after_bytes": mem1})
+        check(mem1 == mem0, f"tuning left {mem1 - mem0} bytes on the card")
+        t1 = time.perf_counter()
+        parts.append(phase_tune_engine(torch, rng, device, by_matrix))
+        seconds["engine_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        parts.append(phase_tune_suite(torch, rng, device))
+        seconds["suite_s"] = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: sum(p[k] for p in parts) for k in ("coo", "bcoo")}
+    emit({"phase": "tuning_done", "seconds": time.perf_counter() - t0,
+          "launches": launches, **seconds})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1540,6 +1935,11 @@ def main(argv=None) -> int:
     solver_serve = phase_solver_service(torch, rng10, device, eng, records)
     solver_s += time.perf_counter() - t10
     del eng
+    gc.collect()
+    t11 = time.perf_counter()
+    tune_launches = phase_tuning(torch, np.random.default_rng([args.seed, 11]),
+                                 device, records)
+    tuning_s = time.perf_counter() - t11
     records.clear()  # free the main path's plans for the dense oracles
     gc.collect()
     torch.cuda.empty_cache()
@@ -1552,7 +1952,8 @@ def main(argv=None) -> int:
                  "partitioned": part_launches[kind],
                  "serving": serve_launches_[kind] + oracle_launches[kind],
                  "solver": (solver_launches[kind] + solver_serve[kind]
-                            + solver_replay_[kind])}
+                            + solver_replay_[kind]),
+                 "tuning": tune_launches[kind]}
         for kernel, kind in (("coo_spmv", "coo"), ("bcoo_spmv", "bcoo"))
     }
     by_path["ell_spmv"] = {"ell": ell_launches}
@@ -1570,7 +1971,7 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
-          "solver_phase_s": solver_s, "card": card})
+          "solver_phase_s": solver_s, "tuning_phase_s": tuning_s, "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

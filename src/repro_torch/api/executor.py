@@ -46,7 +46,13 @@ from ..kernels import ops
 from .iterate import IterateResult, run_iterate
 
 __all__ = ["Executor", "SingleDeviceExecutor", "MeshExecutor", "to_host",
-           "IterateResult", "AXIS_1D", "AXES_2D"]
+           "IterateResult", "ExecutorReleased", "AXIS_1D", "AXES_2D"]
+
+
+class ExecutorReleased(RuntimeError):
+    """The executor's device arrays were released before this call used
+    them; nothing was launched.  Recompile (or, in the engine, look the
+    plan up again)."""
 
 
 @functools.cache
@@ -112,7 +118,7 @@ class Executor:
           ValueError: non-square matrix, both/neither of steps and tol,
             batched x0, or missing combine params (b / diag).
           TypeError: x0 dtype cannot safely cast to the matrix dtype.
-          RuntimeError: the executor was released.
+          ExecutorReleased: the executor was released.
         """
         with on_thread_stream(self.device):
             return run_iterate(
@@ -183,7 +189,7 @@ class SingleDeviceExecutor(Executor):
         Raises:
           TypeError: if x's dtype cannot safely cast to the matrix dtype.
           ValueError: on a length mismatch with the matrix columns.
-          RuntimeError: if the executor was released.
+          ExecutorReleased: if the executor was released.
         """
         x = self._check_x(x, self.shape[1], self.dtype)
         if x.ndim == 2:
@@ -215,7 +221,7 @@ class SingleDeviceExecutor(Executor):
         release cannot pull it away mid-request."""
         program, container = self.program, self.container
         if container is None:  # released (release drops both)
-            raise RuntimeError("executor released; recompile")
+            raise ExecutorReleased("executor released; recompile")
         if program is not None:
             return program
         return functools.partial(ops.spmv, container, impl="torch")
@@ -317,11 +323,11 @@ class MeshExecutor(Executor):
           The per-part output slices (:class:`SpmvOutput`, on the device).
 
         Raises:
-          RuntimeError: if the executor was released.
+          ExecutorReleased: if the executor was released.
         """
         arrays = self.arrays  # held until the wait: a release may race
         if arrays is None:
-            raise RuntimeError("executor released or never placed; recompile")
+            raise ExecutorReleased("executor released or never placed; recompile")
         with on_thread_stream(self.device):
             out = self.program(arrays, xs)
             wait(self.device)
@@ -349,7 +355,7 @@ class MeshExecutor(Executor):
 
         Raises:
           TypeError/ValueError: on dtype/shape mismatch.
-          RuntimeError: if the executor was released.
+          ExecutorReleased: if the executor was released.
         """
         return self.assemble(self.run_raw(self.place(x)))
 
@@ -384,7 +390,7 @@ class MeshExecutor(Executor):
         stays bit-identical to the host loop."""
         arrays = self.arrays
         if arrays is None:
-            raise RuntimeError("executor released or never placed; recompile")
+            raise ExecutorReleased("executor released or never placed; recompile")
         n, dtype = self._iterate_shape()
         x_pad, program = self.x_pad, self.program
 

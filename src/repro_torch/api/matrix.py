@@ -256,13 +256,18 @@ class SparseMatrix:
         grid: Optional[tuple] = None,
         block: Tuple[int, int] = (8, 16),
         fit: bool = True,
+        tuner=None,
+        tune_cache=None,
+        batch: Optional[int] = None,
         topology=None,
     ) -> ExecutionPlan:
         """Resolve scheme + placement into an inspectable ExecutionPlan.
 
         Args:
-          scheme: "auto" (paper Rec. #3 rules fitted to the device pool), a
-            string like "1d.nnz" / "2d.equally-sized", or an adaptive.Plan.
+          scheme: "auto" (paper Rec. #3 rules fitted to the device pool),
+            "tune" (measure candidates with :mod:`repro_torch.tune` on the
+            device and return the fastest), a string like "1d.nnz" /
+            "2d.equally-sized", or an adaptive.Plan.
           impl: "cuda" (the hand-written kernels; on a CPU device their
             plain versions) or "torch" (the plain oracles).
           device: "cuda" (default) or "cpu", for a single-device plan.
@@ -276,23 +281,56 @@ class SparseMatrix:
           fmt/merge/grid: override single dimensions of the resolved scheme.
           block: (r, c) tile for the block formats.
           fit: False inspects the paper plan for ``hw`` as-is.
+          tuner: ``scheme="tune"`` only — a :class:`repro_torch.tune.Tuner`
+            override (bring your own generator/measurer/cache); the default
+            tuner measures the candidates of the requested ``impl`` with an
+            in-memory cache.
+          tune_cache: ``scheme="tune"`` only — a
+            :class:`repro_torch.tune.TuningCache` (or a path for one) so
+            winners persist across processes; ignored when ``tuner`` is given.
+          batch: ``scheme="tune"`` only — representative SpMM width B the
+            candidates are measured at (part of the tuning-cache key).
 
         Raises:
-          ValueError: unknown impl or scheme, both mesh= and devices=, or a
-            mesh whose shape the fitted plan cannot lay out on.
+          ValueError: unknown impl or scheme, both mesh= and devices=, a
+            mesh whose shape the fitted plan cannot lay out on, or
+            ``scheme="tune"`` with partitioning/fmt/merge/grid forced.
           RuntimeError: a CUDA device is asked for and none is present.
-          NotImplementedError: ``scheme="tune"``, ``topology=`` (later
-            slices of the port), or ``devices`` that name distinct devices
-            (multi-card meshes, ROADMAP.md).
+          NotImplementedError: ``topology=`` (a later slice of the port),
+            or ``devices`` that name distinct devices (multi-card meshes,
+            ROADMAP.md).
         """
         if impl not in IMPLS:
             raise ValueError(f"unknown impl {impl!r}: one of {IMPLS}")
         if mesh is not None and devices is not None:
             raise ValueError("pass mesh= or devices=, not both")
-        if scheme == "tune":
-            raise NotImplementedError(f"scheme='tune' is {_NOT_YET}, 'repro.tune'")
         if topology is not None:
             raise NotImplementedError(f"topology= is {_NOT_YET}, 'repro.topo'")
+        if scheme == "tune":
+            # measure-and-refine: delegate to repro_torch.tune (lazy import:
+            # the tuner itself plans through this very method)
+            overrides = dict(partitioning=partitioning, fmt=fmt, merge=merge,
+                             grid=grid)
+            forced = [k for k, v in overrides.items() if v is not None]
+            if forced:
+                raise ValueError(
+                    f"scheme='tune' searches {forced} itself; either drop "
+                    "the override or constrain the search with a custom "
+                    "tuner= (repro_torch.tune.Tuner / CandidateGenerator)"
+                )
+            from ..tune import CandidateGenerator, Tuner, TuningCache
+
+            if tuner is None:
+                cache = tune_cache
+                if cache is not None and not isinstance(cache, TuningCache):
+                    cache = TuningCache(path=cache)
+                tuner = Tuner(
+                    generator=CandidateGenerator(impls=(impl,)), cache=cache
+                )
+            return tuner.tune(
+                self, device=device, devices=devices, mesh=mesh, block=block,
+                hw=hw, batch=batch,
+            ).best
         distributed = mesh is not None or devices is not None
         if mesh is not None:
             mesh_shape = tuple(mesh.devices.shape)

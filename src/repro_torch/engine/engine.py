@@ -24,9 +24,11 @@ all.
 (``Executor.iterate``: x stays on the card across the steps) as one
 request: one plan lookup and one Telemetry record (``kind="solve"``).
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``tune=True`` and :meth:`SpmvEngine.refine`
-(``repro.tune``), ``topology=`` (``repro.topo``).
+``SpmvEngine(tune=True)`` measures and refines plans off live traffic
+(:mod:`repro_torch.tune`): a background thread compiles and times the
+candidates on its own CUDA stream while the serving threads go on, and
+swaps the cached executor when one clears the margin.  ``topology=``
+waits for the port of ``repro.topo`` and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,11 +40,13 @@ import numpy as np
 import torch
 
 from ..api import AXES_2D, AXIS_1D, SparseMatrix, resolve_scheme
+from ..api.executor import ExecutorReleased
 from ..api.matrix import _dtype_str
 from ..api.plan import IMPLS, fit_plan
 from ..core.adaptive import HardwareModel, Plan
 from ..core.formats import torch_dtype
 from ..core.mesh import make_mesh, same_device
+from ..core.streams import on_thread_stream
 from ..obs import profile as obs_profile
 from .plan_cache import CompiledPlan, PlanCache, PlanKey
 from .registry import MatrixRegistry, RegisteredMatrix
@@ -89,12 +93,23 @@ class SpmvEngine:
             (the hand-written kernels; on CPU devices their plain versions)
             or "torch" (the plain oracles).  ``register(..., impl=...)``
             overrides per matrix.
-          tune / tuner: measure-and-refine tuning waits for the port of
-            ``repro.tune``; ``tune=True`` or a tuner raises.
-          tune_after / tune_margin / drift_factor / drift_alpha: the
-            tuning knobs of the JAX engine, with its defaults and its
-            validation; kept on the engine, read by no code until
-            ``repro.tune`` is ported.
+          tune: measure-and-refine plans in the background off live traffic
+            (:mod:`repro_torch.tune`): once a matrix has served
+            ``tune_after`` vectors, candidates are measured on its most
+            recent input and the cached executor is atomically swapped when
+            the winner beats the incumbent by the ``tune_margin`` factor.
+          tuner: a :class:`repro_torch.tune.Tuner` override (e.g. a
+            persistent TuningCache, or a FakeMeasurer in tests); the
+            default measures candidates of the engine's ``impl`` with
+            ``Measurer(warmup=1, iters=3)``.
+          tune_after: vectors a matrix must serve before refinement starts.
+          tune_margin: swap only when measured best < incumbent * margin
+            (guards against measurement-noise flapping).
+          drift_factor: re-tune a tuned entry when the EWMA of its served
+            batch widths drifts this factor away (either direction) from
+            the width it was tuned at — the serving-drift trigger.  None
+            disables drift re-tuning (one refinement per entry, ever).
+          drift_alpha: EWMA weight for the observed batch width.
           topology: topology-aware placement waits for the port of
             ``repro.topo``; anything but None raises.
 
@@ -102,8 +117,8 @@ class SpmvEngine:
           ValueError: for an unknown ``impl``, a ``tune_margin`` outside
             (0, 1], a ``drift_factor`` <= 1 or a ``drift_alpha`` outside
             (0, 1].
-          NotImplementedError: ``tune=True``, a ``tuner``, ``topology=``,
-            or a pool naming distinct devices (multi-card meshes).
+          NotImplementedError: ``topology=``, or a pool naming distinct
+            devices (multi-card meshes).
           RuntimeError: a CUDA device is asked for and none is present.
         """
         if impl not in IMPLS:
@@ -117,9 +132,6 @@ class SpmvEngine:
             )
         if not 0.0 < drift_alpha <= 1.0:
             raise ValueError(f"drift_alpha must be in (0, 1]; got {drift_alpha}")
-        if tune or tuner is not None:
-            raise NotImplementedError(
-                f"tune=True {_NOT_YET}, 'repro.tune'")
         if topology is not None:
             raise NotImplementedError(f"topology= {_NOT_YET}, 'repro.topo'")
         if devices is None:
@@ -127,12 +139,16 @@ class SpmvEngine:
         elif isinstance(devices, (str, torch.device)):
             devices = [devices]
         self.devices = list(devices)
-        same_device(self.devices)  # distinct devices / no card: raise now
+        # distinct devices / no card: raise now
+        self.device = same_device(self.devices)
         self.impl = impl
+        self.tune = tune
         self.tune_after = tune_after
         self.tune_margin = tune_margin
         self.drift_factor = drift_factor
         self.drift_alpha = drift_alpha
+        self._tuner = tuner
+        self.tune_events: list = []  # refinement outcomes, append-only
         self.cache = PlanCache(cache_capacity)
         self.registry = MatrixRegistry()
         self.telemetry = telemetry if telemetry is not None else Telemetry()
@@ -141,6 +157,8 @@ class SpmvEngine:
         self.partition_count = 0  # host preprocessing runs (cache misses)
         self._meshes: dict = {}
         self._swap_lock = threading.Lock()  # registry/cache swap atomicity
+        self._tuning: set = set()  # names with a refinement in flight
+        self._tune_threads: list = []
         # eviction spills the host-side partition to the registry entry so
         # reactivate() re-places without re-partitioning (let alone
         # rebuilding from dense)
@@ -337,6 +355,13 @@ class SpmvEngine:
             )
         return compiled
 
+    def _serving(self, entry: RegisteredMatrix) -> Optional[CompiledPlan]:
+        """The CompiledPlan now serving ``entry`` (None if evicted), without
+        touching LRU order.  Callers compare it with the plan they looked
+        up by identity: a swap back to the same key installs a new one."""
+        with self._swap_lock:
+            return self.cache.peek(entry.cache_key)
+
     def reactivate(self, name: str, warmup: bool = True) -> RegisteredMatrix:
         """Rebuild the compiled plan for an evicted entry — cheaply.
 
@@ -389,6 +414,13 @@ class SpmvEngine:
         stream alone, so under concurrent requests from several host
         threads a phase time holds this request's work only.
 
+        Under ``tune=True`` a request whose plan a refinement swapped out
+        between its lookup and its launch runs again on the winner: the
+        released executor launched nothing, so the caller sees one answer
+        and the launch count one launch (the JAX engine raises its
+        deleted-array error there).  The request also feeds the batch-width
+        EWMA and may start a refinement (:meth:`refine`).
+
         Args:
           name: handle from :meth:`register`.
           x: (cols,) vector, or (cols, B) for a batched SpMM request (host
@@ -408,19 +440,30 @@ class SpmvEngine:
           TypeError/ValueError: dtype or shape mismatch with the matrix.
         """
         entry = self.registry.get(name)
-        cp = self._compiled(entry)
-        exe = cp.executor
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x)
         batch = x.shape[1] if x.ndim == 2 else 1
 
-        traces_before = cp.trace_count
-        t0 = time.perf_counter()
-        with obs_profile.annotate(f"spmv_load:{name}"):
-            xs = exe.place(x)  # load: validate dtype/shape, pad, copy to device
-        t1 = time.perf_counter()
-        with obs_profile.annotate(f"spmv_kernel:{name}:b{batch}"):
-            raw = exe.run_raw(xs)  # kernel: one part-axis launch + merge
+        while True:
+            cp = self._compiled(entry)
+            exe = cp.executor
+            traces_before = cp.trace_count
+            t0 = time.perf_counter()
+            with obs_profile.annotate(f"spmv_load:{name}"):
+                xs = exe.place(x)  # load: validate dtype/shape, pad, copy
+            t1 = time.perf_counter()
+            try:
+                with obs_profile.annotate(f"spmv_kernel:{name}:b{batch}"):
+                    raw = exe.run_raw(xs)  # kernel: one part-axis launch + merge
+                break
+            except ExecutorReleased:
+                # released by a refinement's swap after the lookup: rerun on
+                # the plan now serving the entry (each rerun needs another
+                # swap, so this ends); a release without a swap (an
+                # eviction) raises, and so does every other error
+                current = self._serving(entry)
+                if current is None or current is cp:
+                    raise
         t2 = time.perf_counter()
         with obs_profile.annotate(f"spmv_retrieve:{name}"):
             y = exe.assemble(raw)  # retrieve: assemble rows, copy to host
@@ -443,6 +486,18 @@ class SpmvEngine:
             cache_hit=warm,
             traced=cp.trace_count > traces_before,
         ))
+        if self.tune:
+            entry.batch_ewma = (
+                float(batch) if entry.batch_ewma is None
+                else (1.0 - self.drift_alpha) * entry.batch_ewma
+                + self.drift_alpha * batch
+            )
+            if entry.tuned and self._batch_drifted(entry):
+                # the serving batch width left the regime the last tuning
+                # measured: re-qualify the entry for a background re-tune
+                entry.tuned = False
+            if not entry.tuned:
+                self._maybe_refine(entry, x)
         return y
 
     def solve(
@@ -469,7 +524,10 @@ class SpmvEngine:
         step count, so per-iteration cost is ``rec.per_iter_s``;
         :meth:`Telemetry.last` keeps reporting per-multiply times).  An
         evicted plan is reactivated transparently from the host-side spill —
-        a session never fails just because the LRU rotated.
+        a session never fails just because the LRU rotated.  Under
+        ``tune=True`` a session whose plan a refinement swapped out between
+        its lookup and its loop runs on the winner, as :meth:`multiply`
+        does.
 
         Args:
           name: handle from :meth:`register` (square matrices only).
@@ -489,20 +547,31 @@ class SpmvEngine:
           TypeError: x0 dtype mismatch.
         """
         entry = self.registry.get(name)
-        try:
-            cp = self._compiled(entry)
-        except RuntimeError:
-            # evicted mid-lifetime: rebuild from the spilled partition and
-            # carry on — the session contract is one lookup, not one prayer
-            self.reactivate(name, warmup=False)
-            cp = self._compiled(entry)
-        traces_before = cp.trace_count
-        t0 = time.perf_counter()
-        with obs_profile.annotate(f"spmv_solve:{name}"):
-            result = cp.executor.iterate(
-                x0, steps=steps, tol=tol, combine=combine, b=b, diag=diag,
-                omega=omega, max_steps=max_steps, check_every=check_every,
-            )
+        while True:
+            try:
+                cp = self._compiled(entry)
+            except RuntimeError:
+                # evicted mid-lifetime: rebuild from the spilled partition
+                # and carry on — the session contract is one lookup, not
+                # one prayer
+                self.reactivate(name, warmup=False)
+                cp = self._compiled(entry)
+            traces_before = cp.trace_count
+            t0 = time.perf_counter()
+            try:
+                with obs_profile.annotate(f"spmv_solve:{name}"):
+                    result = cp.executor.iterate(
+                        x0, steps=steps, tol=tol, combine=combine, b=b,
+                        diag=diag, omega=omega, max_steps=max_steps,
+                        check_every=check_every,
+                    )
+                break
+            except ExecutorReleased:
+                # swapped out by a refinement, or evicted, after the lookup
+                # and before the loop took the arrays (nothing launched):
+                # look up again — the winner, or the reactivated plan
+                if self._serving(entry) is cp:
+                    raise
         if obs is not None:
             t1 = t0 + result.load_s
             t2 = t1 + result.kernel_s
@@ -526,13 +595,224 @@ class SpmvEngine:
         ))
         return result
 
+    # --------------------------------------------------- measure-and-refine
+
+    def _make_tuner(self):
+        """Default background tuner: same-impl candidates, in-memory cache."""
+        if self._tuner is None:
+            from ..tune import CandidateGenerator, Measurer, Tuner
+
+            self._tuner = Tuner(
+                generator=CandidateGenerator(impls=(self.impl,)),
+                measurer=Measurer(warmup=1, iters=3),
+            )
+        return self._tuner
+
+    def _batch_drifted(self, entry: RegisteredMatrix) -> bool:
+        """Has the served batch width drifted drift_factor x away (either
+        direction) from the width the entry was last tuned at?"""
+        if self.drift_factor is None or entry.tuned_batch is None \
+                or entry.batch_ewma is None:
+            return False
+        hi = max(entry.batch_ewma, entry.tuned_batch)
+        lo = max(1e-9, min(entry.batch_ewma, entry.tuned_batch))
+        return hi / lo >= self.drift_factor
+
+    @staticmethod
+    def _snapshot(x):
+        """(copy, ready): a copy of request input ``x`` the caller cannot
+        mutate, and for a card tensor the event a reader on another stream
+        waits on.  The card copy is made on the caller's current stream,
+        after whatever made ``x`` there; nothing waits on the host."""
+        if not isinstance(x, torch.Tensor):
+            return np.array(x), None
+        copy = x.clone()
+        if copy.device.type != "cuda":
+            return copy, None
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(copy.device))
+        return copy, ready
+
+    def _maybe_refine(self, entry: RegisteredMatrix, x) -> None:
+        """Kick one background refinement per entry once traffic qualifies."""
+        if entry.tuned or entry.requests < self.tune_after \
+                or entry.name in self._tuning:  # unlocked fast path
+            return
+        trigger = "drift" if entry.tuned_batch is not None else "traffic"
+        thread = threading.Thread(
+            target=self._refine_bg, args=(entry.name, trigger),
+            name=f"spmv-tune-{entry.name}", daemon=True,
+        )
+        with self._swap_lock:
+            if entry.name in self._tuning or entry.tuned:
+                return
+            self._tuning.add(entry.name)
+            # prune+append under the lock: concurrent triggers must not
+            # lose a live thread reference (drain_tuning joins these)
+            self._tune_threads = [
+                t for t in self._tune_threads if t.is_alive()
+            ] + [thread]
+        # snapshot the triggering request only — not every request in
+        # flight while the (possibly long) refinement runs
+        entry.last_x, entry.last_x_ready = self._snapshot(x)
+        thread.start()
+
+    def _refine_bg(self, name: str, trigger: str = "traffic") -> None:
+        try:
+            self.refine(name, trigger=trigger)
+        except Exception as e:  # background thread: record, never propagate
+            self.tune_events.append({
+                "name": name, "swapped": False, "trigger": trigger,
+                "error": f"{type(e).__name__}: {e}",
+            })
+            # one shot per entry, success or not: a persistently failing
+            # refinement must not re-spawn (and re-compile every candidate)
+            # on each subsequent request — which requires disarming the
+            # drift trigger too, by anchoring tuned_batch at the width that
+            # failed (only a NEW drift regime re-arms it, once)
+            entry = self.registry.find(name)
+            if entry is not None:
+                entry.tuned = True
+                if entry.batch_ewma is not None:
+                    entry.tuned_batch = entry.batch_ewma
+        finally:
+            self._tuning.discard(name)
+
     def refine(self, name: str, x=None, trigger: str = "manual") -> dict:
-        """Measure-and-refine waits for the port of ``repro.tune``.
+        """Measure candidate plans for ``name`` and swap in a faster one.
+
+        The incumbent plan is always among the measured candidates, so the
+        decision is apples-to-apples on the same representative input: the
+        most recent live vector (``entry.last_x``), or ``x`` when given, or
+        the tuner's seeded synthetic input.  Candidates are compiled, timed
+        and the winner built on the calling thread's own CUDA stream; each
+        placement ends in a wait on that stream, so a swapped-in plan is
+        ready before any request can see it.  The executor swap is atomic
+        with respect to :meth:`multiply`'s plan lookup — a request resolves
+        either the old plan or the new one — and the superseded plan is
+        evicted (device tensors freed) unless another registered name still
+        shares it.  A request already launched on the old executor holds
+        its tensors until its own wait; one that looked it up but has not
+        launched yet reruns on the winner (:meth:`multiply`).
+
+        Args:
+          name: a registered matrix.
+          x: representative input override, (cols,) or (cols, B).
+          trigger: provenance recorded on the tune event — "manual",
+            "traffic" (first qualification) or "drift" (batch-width
+            re-tune).
+
+        Returns:
+          The tune event dict (also appended to ``self.tune_events``):
+          winner/incumbent scheme ids, measured times, the number of
+          candidates measured (0 on a cache hit), whether it swapped.
 
         Raises:
-          NotImplementedError: always (ROADMAP.md, 'repro.tune').
+          KeyError: unknown ``name``.
+          RuntimeError: the entry carries no matrix to re-plan from.
         """
-        raise NotImplementedError(f"SpmvEngine.refine {_NOT_YET}, 'repro.tune'")
+        entry = self.registry.get(name)
+        if entry.matrix is None:
+            raise RuntimeError(
+                f"{name!r} has no host-side SparseMatrix to tune from"
+            )
+        ready = None
+        if x is None:
+            x, ready = entry.last_x, entry.last_x_ready
+        batch = None
+        if x is not None and getattr(x, "ndim", 1) == 2:
+            batch = int(x.shape[1])
+        tuner = self._make_tuner()
+        with on_thread_stream(self.device):
+            if ready is not None:  # the snapshot's copy, on another stream
+                torch.cuda.current_stream(self.device).wait_event(ready)
+            return self._refine(entry, tuner, x, batch, trigger)
+
+    def _refine(self, entry: RegisteredMatrix, tuner, x, batch,
+                trigger: str) -> dict:
+        result = tuner.tune(
+            entry.matrix,
+            devices=self.devices,
+            block=self.block,
+            hw=self.hw,
+            batch=batch,
+            x=x,
+            baseline=(entry.plan, entry.cache_key[4]),
+        )
+        best, incumbent = result.best_measurement, result.baseline
+        event = {
+            "name": entry.name,
+            "trigger": trigger,
+            "batch": batch,
+            "incumbent": incumbent.scheme_id,
+            "incumbent_s": incumbent.mean_s,
+            "winner": best.scheme_id,
+            "winner_impl": result.best.impl,
+            "winner_s": best.mean_s,
+            "speedup": result.speedup,
+            "from_cache": result.from_cache,
+            "candidates": len(result.measurements),
+            "planned": result.planned,
+            "swapped": False,
+        }
+        plan, impl = result.best.scheme, result.best.impl
+        key: PlanKey = (entry.fingerprint, tuple(plan.grid),
+                        entry.dtype, result.best.scheme_id, impl)
+        beats = best.mean_s < incumbent.mean_s * self.tune_margin
+        if key != entry.cache_key and beats:
+            # fast path: the winner is already compiled — swap under ONE
+            # lock acquisition so the peeked plan cannot be evicted (and
+            # released) between the lookup and the swap
+            with self._swap_lock:
+                if self.cache.peek(key) is not None:
+                    self.cache.get(key)  # mark MRU: it is about to serve
+                    self._swap_entry(entry, key, plan)
+                    event["swapped"] = True
+            if not event["swapped"]:
+                built = self._build(entry.matrix, plan, key, impl)
+                built.executor.warmup()  # first launch off the request path
+                with self._swap_lock:
+                    if self.cache.peek(key) is not None:
+                        built.release()  # lost a race; the cached one wins
+                        self.cache.get(key)
+                        self._swap_entry(entry, key, plan)
+                    else:
+                        # evict-old before put: net-zero occupancy when the
+                        # old key was unshared (the common case); a shared
+                        # old key falls back to the normal LRU capacity
+                        # contract on insert
+                        self._swap_entry(entry, key, plan)
+                        self.cache.put(built)
+                event["swapped"] = True
+        entry.tuned = True
+        # anchor the drift detector at the *observed width EWMA*, not the
+        # width of the one representative request: under a stationary
+        # mixed-width stream (ewma ~2.5, coalesced batches of 1 or 8) a
+        # per-request anchor would re-trigger drift forever; only a real
+        # shift of the traffic mix should re-arm _batch_drifted
+        entry.tuned_batch = (entry.batch_ewma if entry.batch_ewma is not None
+                             else (float(batch) if batch else 1.0))
+        entry.batch_ewma = entry.tuned_batch
+        self.tune_events.append(event)
+        return event
+
+    def _swap_entry(self, entry: RegisteredMatrix, key: PlanKey,
+                    plan: Plan) -> None:
+        """Point ``entry`` at the new compiled plan and evict its old plan
+        unless another registered name still shares it — net-zero cache
+        occupancy, so a background swap never pushes a *different* matrix's
+        only executable out of the LRU.  Caller holds ``_swap_lock``."""
+        old_key, entry.cache_key, entry.plan = entry.cache_key, key, plan
+        if old_key != key and not any(
+            e.cache_key == old_key for e in self.registry
+        ):
+            self.cache.evict(old_key)
+
+    def drain_tuning(self, timeout: float = 30.0) -> None:
+        """Block until in-flight background refinements finish (tests)."""
+        for thread in list(self._tune_threads):
+            thread.join(timeout)
+        self._tune_threads = [t for t in self._tune_threads if t.is_alive()]
 
     # -------------------------------------------------------- introspection
 

@@ -39,7 +39,9 @@ class RegisteredMatrix:
     # re-providing the dense array
     tuned: bool = False  # a measure-and-refine pass completed for this entry
     last_x: Optional[object] = None  # most recent input (representative
-    # traffic the tuner measures candidates on)
+    # traffic the tuner measures candidates on): a copy, never the caller's
+    last_x_ready: Optional[object] = None  # torch.cuda.Event recorded after
+    # a card copy of last_x, on the stream that made it; None off the card
     spill: Optional[object] = None  # host-side PartitionedMatrix kept at
     # plan-cache eviction, so reactivation re-places without re-partitioning
     # (let alone rebuilding from dense)

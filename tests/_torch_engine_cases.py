@@ -1,10 +1,13 @@
-"""Cases shared by tests/test_torch_engine.py and its JAX runner
-(tests/_torch_engine_runner.py): the serving engine on P = 4 parts.
+"""Cases shared by tests/test_torch_engine.py, tests/test_torch_tune.py and
+their JAX runner (tests/_torch_engine_runner.py): the serving engine and
+the tuner on P = 4 parts.
 
 Both processes build the same matrices and vectors from the same seeds.
 Matrix values and x are integer-valued float32, so every answer is exact
 and compares bit for bit; ``x_rand`` is random float32 (compared at 2e-4).
 """
+import itertools
+
 import numpy as np
 
 from repro.data.matrices import block_matrix, regular_matrix, scale_free_matrix
@@ -19,6 +22,27 @@ CASES = [(m, part, "xla") for m in ("regular", "scale-free", "block")
 CASES += [("regular", "1d", "pallas"), ("block", "2d", "pallas")]
 # the batcher case: vectors submitted to this engine name and flushed once
 BATCHER = ("scale-free", "1d", 3)
+
+
+# tuning on P = 4 parts: candidate lists per (matrix, include_exotic,
+# max_candidates), searched over both impls
+TUNE_CASES = [(m, exotic, cap) for m in ("regular", "scale-free", "block")
+              for exotic in (False, True) for cap in (16, 3)]
+# 4-part plans a Measurer times under quadratic_clock: (matrix, scheme, B)
+TUNE_MEASURE = [("regular", "1d.nnz", None), ("block", "2d.equally-sized", 3)]
+# Tuner.tune with FakeMeasurer(seed=TUNE_SEED) on P = 4 parts, per matrix
+TUNE_SEED = 5
+
+
+def quadratic_clock():
+    """A clock that reads k**2 at its k-th call: every difference depends
+    on the order and the number of calls made before it."""
+    ticks = itertools.count()
+    return lambda: float(next(ticks)) ** 2
+
+
+def case_key(case) -> str:
+    return "|".join(str(v) for v in case)
 
 
 def matrices() -> dict:

@@ -8,7 +8,11 @@ answers to x, X and x_rand; then it flushes the batcher case through a
 ``MicroBatcher`` and stores each future's answer.  Prints ``DEVICES <n>``
 first and ``ENGINE SKIP`` when forcing devices failed.
 
-    python tests/_torch_engine_runner.py OUT.npz
+With ``--tune`` it runs the tuning cases instead (tests/test_torch_tune.py):
+the candidate lists of TUNE_CASES, the Measurements of TUNE_MEASURE under
+a quadratic clock, and the FakeMeasurer winner of each matrix, as JSON.
+
+    python tests/_torch_engine_runner.py OUT.npz [--tune]
 """
 import json
 import os
@@ -19,16 +23,52 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.api import SparseMatrix  # noqa: E402
 from repro.engine import MicroBatcher, SpmvEngine  # noqa: E402
+from repro.tune import CandidateGenerator, FakeMeasurer, Measurer, Tuner  # noqa: E402
 
-from _torch_engine_cases import (BATCHER, CASES, PARTS, case_id,  # noqa: E402
-                                 matrices, vectors)
+from _torch_engine_cases import (BATCHER, CASES, PARTS, TUNE_CASES,  # noqa: E402
+                                 TUNE_MEASURE, TUNE_SEED, case_id, case_key,
+                                 matrices, quadratic_clock, vectors)
 
 
-def main(out_path: str) -> None:
+def tune_cases(devices) -> dict:
+    """The tuner's side on P parts, each result as a JSON string."""
+    mats, vecs = matrices(), vectors()
+    res = {}
+    for case in TUNE_CASES:
+        matrix, exotic, cap = case
+        gen = CandidateGenerator(impls=("xla", "pallas"), include_exotic=exotic,
+                                 max_candidates=cap)
+        plans = gen.plans(SparseMatrix.from_dense(mats[matrix]), devices=devices)
+        res[f"cands|{case_key(case)}"] = [[p.scheme_id, p.impl, list(p.grid), p.fmt]
+                                          for p in plans]
+    for case in TUNE_MEASURE:
+        matrix, scheme, batch = case
+        plan = SparseMatrix.from_dense(mats[matrix]).plan(scheme=scheme,
+                                                          devices=devices)
+        x = vecs["x"] if batch is None else vecs["X"][:, :batch]
+        m = Measurer(clock=quadratic_clock()).measure(plan, x)
+        res[f"measure|{case_key(case)}"] = [m.scheme_id, m.impl, list(m.grid), m.fmt,
+                                            m.mean_s, list(m.times_s), m.compile_s,
+                                            m.phases]
+    for matrix, a in mats.items():
+        r = Tuner(measurer=FakeMeasurer(seed=TUNE_SEED)).tune(
+            SparseMatrix.from_dense(a), devices=devices)
+        res[f"tuner|{matrix}"] = [r.best.scheme_id, list(r.best.grid),
+                                  r.baseline.scheme_id, r.speedup,
+                                  [m.scheme_id for m in r.measurements]]
+    return {k: np.array(json.dumps(v)) for k, v in res.items()}
+
+
+def main(out_path: str, tune: bool = False) -> None:
     print(f"DEVICES {jax.device_count()}", flush=True)
     if jax.device_count() < PARTS:
         print("ENGINE SKIP")
+        return
+    if tune:
+        np.savez(out_path, **tune_cases(jax.devices()[:PARTS]))
+        print("ENGINE DONE")
         return
     mats, vecs = matrices(), vectors()
     eng = SpmvEngine(devices=jax.devices()[:PARTS], cache_capacity=16)
@@ -52,4 +92,4 @@ def main(out_path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], tune="--tune" in sys.argv[2:])

@@ -278,10 +278,14 @@ def test_plan_errors_and_unported_options():
             sm.plan()  # device="cuda" is the default: no fallback to the CPU
     with pytest.raises(ValueError, match="unknown impl"):
         sm.plan(impl="pallas", device="cpu")
-    for kw in ({"scheme": "tune"}, {"devices": ["cuda:0", "cuda:1"]},
+    for kw in ({"devices": ["cuda:0", "cuda:1"]},
                {"devices": ["cpu", "cuda:0"]}, {"topology": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sm.plan(device="cpu", **kw)
+    tuned = sm.plan(scheme="tune", device="cpu")  # ported: repro_torch.tune
+    assert tuned.measured["candidates"] >= 1 and tuned.impl == "cuda"
+    with pytest.raises(ValueError, match="searches"):
+        sm.plan(scheme="tune", fmt="csr", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             sm.plan(devices=["cuda"] * 4)  # the card, and no fallback

@@ -943,3 +943,125 @@ def test_live_threads_get_distinct_streams(cuda):
     assert all(a == b for a, b in got.values())
     assert len({a for a, _ in got.values()}) == n
     assert mine not in {a for a, _ in got.values()}
+
+
+# ------------------------------------------------------------ tuning
+
+TUNE_CASES = [(False, None, 1), (True, None, 1), (True, 8, 1), (False, 8, 4),
+              (True, None, 4)]
+
+
+@pytest.mark.parametrize("block,batch,parts", TUNE_CASES)
+def test_tune_on_card_matches_plain_versions(cuda, block, batch, parts):
+    """plan(scheme="tune") on the card: every planned candidate measured
+    (COO/CSR and, on a block matrix, BCOO/BCSR kernels), each measurement
+    launching the kernel once per call; the winner's answers equal the
+    same plan's answers on the CPU (the plain versions) bit for bit; the
+    candidates release what they placed."""
+    from repro_torch.api import SparseMatrix
+    from repro_torch.tune import CandidateGenerator, Measurer, Tuner
+
+    a = _serve_matrix(31 + parts, block)
+    sm = SparseMatrix.from_dense(a)
+    pool = dict(devices=[cuda] * parts) if parts > 1 else dict(device=cuda)
+    planned = CandidateGenerator().plans(sm, **pool)
+    kinds = {"coo" if p.fmt in ("coo", "csr") else "bcoo" for p in planned}
+    assert kinds == ({"coo", "bcoo"} if block else {"coo"})
+    meas = Measurer(warmup=1, iters=2, trim=0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    instrument.reset()
+    pln = sm.plan(scheme="tune", tuner=Tuner(measurer=meas), batch=batch, **pool)
+    launched = instrument.launches("coo") + instrument.launches("bcoo")
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    assert pln.measured["candidates"] == pln.measured["planned"] == len(planned)
+    assert launched == len(planned) * 3  # warmup 1 + iters 2, one launch each
+    if parts > 1:
+        assert pln.measured["phases"]["kernel"] > 0
+    rng = np.random.default_rng(32)
+    x = _x(rng, 768, batch, torch.float32)
+    exe = pln.compile()
+    want = sm.plan(scheme=pln.scheme, impl=pln.impl, device="cpu",
+                   **({"devices": ["cpu"] * parts} if parts > 1 else {}))
+    got, ref = exe(x), want.compile()(x)
+    assert got.dtype == ref.dtype and np.array_equal(got, ref)
+    np.testing.assert_array_equal(got, a.numpy() @ x.numpy())
+    exe.release()
+
+
+def test_refine_swap_while_another_thread_multiplies(cuda):
+    """A refinement compiles, times and swaps plans on its own thread and
+    stream while another thread multiplies: every answer before, during and
+    after each swap is exact, and the launches equal the multiplies plus
+    the measurements and the winners' warm-ups."""
+    import threading
+
+    from repro_torch.engine import SpmvEngine
+    from repro_torch.tune import CandidateGenerator, Measurer, Tuner
+
+    a = _serve_matrix(33, True)
+    a_np = a.numpy()
+    tuner = Tuner(generator=CandidateGenerator(), measurer=Measurer(warmup=1,
+                                                                    iters=2))
+    eng = SpmvEngine(devices=[cuda], tune=True, tuner=tuner, tune_margin=1.0,
+                     tune_after=10**9)
+    eng.register("m", a)
+    rng = np.random.default_rng(34)
+    xs = [_x(rng, 768, (None, 4)[i % 2], torch.float32).numpy()
+          for i in range(8)]
+    stop, errors, served = threading.Event(), [], [0]
+
+    def client():
+        try:
+            i = 0
+            while not stop.is_set():
+                x = xs[i % len(xs)]
+                assert np.array_equal(eng.multiply("m", x), a_np @ x)
+                served[0] += 1
+                i += 1
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    instrument.reset()
+    thread = threading.Thread(target=client)
+    thread.start()
+    try:
+        events = []
+        for k in range(4):
+            tuner.cache.clear()  # measure anew every time
+            events.append(eng.refine("m", x=xs[k % 2]))
+    finally:
+        stop.set()
+        thread.join(60)
+    assert not thread.is_alive() and errors == []
+    assert served[0] > 0
+    launched = instrument.launches("coo") + instrument.launches("bcoo")
+    expect = (served[0] + sum(e["candidates"] * 3 + e["swapped"] for e in events))
+    assert launched == expect, (launched, expect, events)
+    assert all(e["candidates"] == e["planned"] for e in events), events
+    for x in xs:
+        assert np.array_equal(eng.multiply("m", x), a_np @ x)
+
+
+def test_engine_snapshots_a_card_input_with_an_event(cuda):
+    """A card tensor as input: the traffic trigger snapshots it on the
+    caller's stream with an event; the refinement measures on it."""
+    from repro_torch.engine import SpmvEngine
+
+    a = _serve_matrix(35, False)
+    eng = SpmvEngine(devices=[cuda], tune=True, tune_after=2)
+    eng.register("m", a)
+    x = _x(np.random.default_rng(36), 768, None, torch.float32).to(cuda)
+    for _ in range(2):
+        eng.multiply("m", x)
+    entry = eng.registry.get("m")
+    eng.drain_tuning(timeout=120)
+    assert isinstance(entry.last_x_ready, torch.cuda.Event)
+    assert entry.last_x.device.type == "cuda"
+    assert entry.last_x.data_ptr() != x.data_ptr()
+    assert torch.equal(entry.last_x, x)
+    [event] = eng.tune_events
+    assert "error" not in event and event["candidates"] == event["planned"] >= 2
+    np.testing.assert_array_equal(eng.multiply("m", x),
+                                  a.numpy() @ x.cpu().numpy())

@@ -449,11 +449,17 @@ def _solve_agrees_with_jax(engine):
         engine.solve("m", np.zeros(128, np.float32), steps=2)
 
 
+def _refine_works(engine):
+    event = engine.refine("m")
+    assert "error" not in event and event["candidates"] >= 1
+    assert engine.registry.get("m").tuned
+
+
 @pytest.mark.parametrize("call,item", [
     (_solve_agrees_with_jax, None),  # ported: works, no longer raises
-    (lambda e: e.refine("m"), "repro.tune"),
-    (lambda e: SpmvEngine(devices=CPU, tune=True), "repro.tune"),
-    (lambda e: SpmvEngine(devices=CPU, tuner=object()), "repro.tune"),
+    (_refine_works, None),  # ported with repro.tune
+    (lambda e: SpmvEngine(devices=CPU, tune=True), None),
+    (lambda e: SpmvEngine(devices=CPU, tuner=object()), None),
     (lambda e: SpmvEngine(devices=CPU, topology=object()), "repro.topo"),
 ], ids=["solve", "refine", "tune", "tuner", "topology"])
 def test_not_ported_yet_raises_naming_its_roadmap_item(engine, call, item):
@@ -487,7 +493,7 @@ def test_engine_validation():
                                  dict(drift_alpha=0.0)], ids=str)
 def test_tuning_knobs_match_jax_signature(bad):
     """The JAX engine's tuning knobs are accepted with its defaults and
-    validated as it validates them; tune=True still names repro.tune."""
+    validated as it validates them; tune=True is accepted with them."""
     eng, jeng = SpmvEngine(devices=CPU), JEngine(devices=jax.devices()[:1])
     for knob in ("tune_after", "tune_margin", "drift_factor", "drift_alpha"):
         assert getattr(eng, knob) == getattr(jeng, knob)
@@ -500,8 +506,8 @@ def test_tuning_knobs_match_jax_signature(bad):
     with pytest.raises(ValueError) as got:
         SpmvEngine(devices=CPU, **bad)
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="repro.tune"):
-        SpmvEngine(devices=CPU, tune=True, tune_after=2)
+    eng = SpmvEngine(devices=CPU, tune=True, tune_after=2)
+    assert eng.tune and eng.tune_after == 2 and eng.tune_events == []
 
 
 def test_same_matrix_torch_and_cuda_are_separate_cache_entries(engine):
