@@ -116,6 +116,33 @@ Phases (every check raises, so any failure exits non-zero):
    ``paper_large_suite()`` of ``repro_torch.data.matrices`` (22 matrices at
    2048^2), every winner within 2e-4 of the dense product; a correctness
    sweep whose times are host overhead.
+12. The multi-process cluster (``repro_torch.cluster``) at full width, last,
+   after phase 9, with inputs from its own generator: the three recipes
+   again (scipy CSR in float32 as the host oracles), a ``ClusterRouter``
+   of two engine workers, each its own process with its own CUDA context
+   and ``SpmvEngine`` on the one card.  (a) Each matrix registered from
+   int32-index triplets on one worker: frame bytes (under the protocol's
+   1 GiB cap), the router's wall s, the worker's register s and the card
+   memory it took.  (b) Per matrix 8 B=1, 2 B=4 and 2 B=8 multiplies
+   through the router, bit-equal to the oracle, their router-clock p50
+   beside phase 3's ``exe(x)`` p50 and phase 4's kernel ms; on every
+   worker the kernel launches equal the multiplies it served.  (c) The
+   block matrix tuned here at B=1 (real Measurer, cache file) and shipped
+   as a tune record (0 measurements on the worker, a cache hit, the
+   winner's scheme id), and the regular matrix's ``1d.nnz`` CSR plan
+   shipped as IR (its scheme id kept); answers bit-equal.  (d) One 20-step
+   power session per matrix through ``router.solve`` within 1e-4 of a
+   float64 host loop, its steps charged to its placement and launched by
+   its worker.  (e) Generator mode: two spawned load processes (no CUDA)
+   replay 120 requests (Zipf 1.1 over the three, widths 1/4/8 at
+   0.6/0.25/0.15) straight at the workers: 0 mismatched, 0 lost.  (f)
+   Router mode on 4 threads over another 120 requests, worker w0 killed
+   (SIGKILL) after 40 answers: 0 lost, 0 mismatched, every shed
+   ``worker_lost``, w0's own matrices re-homed on w1, which then answers
+   every matrix bit-exactly, and within 10 s of the kill the card's free
+   bytes (``mem_get_info``, sampled every 20 ms) rise by at least half of
+   what w0 took.  The workers' launch counters start at 0 with them; their
+   sum before the kill is the cluster path's count.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -1870,6 +1897,351 @@ def phase_tuning(torch, rng, device, records) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- cluster
+
+CLUSTER_NAMES = ("regular", "scale-free", "block")
+ORACLE_OF = {"block-tuned": "block", "regular-ir": "regular"}  # phase 12 (c)
+CLUSTER_MIX = {1: 0.6, 4: 0.25, 8: 0.15}  # the replays' widths and shares
+POWER_STEPS = 20  # steps of each phase-12 session
+
+
+def mem_free(torch) -> int:
+    """Free bytes on the card, all processes' contexts counted."""
+    return torch.cuda.mem_get_info()[0]
+
+
+def worker_stats(router) -> dict:
+    return {w: s for w, s in router.stats()["workers"].items() if not s.get("lost")}
+
+
+def kernel_launches(stats: dict) -> int:
+    """A worker's launches of the two kernels of the serving path."""
+    return stats["launches"].get("coo", 0) + stats["launches"].get("bcoo", 0)
+
+
+def registrations(stats: dict) -> int:
+    return int(stats["metrics"].get("cluster.worker.registered", 0))
+
+
+def check_worker_launches(before: dict, after: dict, what: str, steps=None) -> dict:
+    """Each live worker launched one kernel per multiply it served, one per
+    step of the sessions it ran (``steps[w]``: sessions, steps) and one per
+    registration (its warm-up): the proof that the workers ran the kernels,
+    not their plain versions."""
+    out = {}
+    for w, st in after.items():
+        launched = kernel_launches(st) - kernel_launches(before[w])
+        served = st["served"] - before[w]["served"]
+        registered = registrations(st) - registrations(before[w])
+        sessions = (steps or {}).get(w, (0, 0))
+        want = served - sessions[0] + sessions[1] + registered
+        out[w] = {"served": served, "launches": launched}
+        check(launched == want,
+              f"{what}: worker {w} launched {launched} kernels for {served} "
+              f"served requests ({sessions[0]} sessions of {sessions[1]} steps) "
+              f"and {registered} registrations")
+    return out
+
+
+def csr_oracle(sm):
+    """The host oracle: the matrix as scipy CSR in float32."""
+    import scipy.sparse as sp
+
+    ri, ci, vals = (t.numpy() for t in sm.coalesced())
+    rows, cols = sm.shape
+    indptr = np.zeros(rows + 1, np.int64)
+    np.cumsum(np.bincount(ri, minlength=rows), out=indptr[1:])
+    return sp.csr_matrix((vals.astype(np.float32), ci.astype(np.int32), indptr),
+                         shape=(rows, cols))
+
+
+def power_f64(a, x0, steps: int) -> np.ndarray:
+    """float64 power iteration on the host (the sessions' oracle)."""
+    a64, x = a.astype(np.float64), x0.astype(np.float64)
+    for _ in range(steps):
+        y = a64 @ x
+        x = y / max(np.linalg.norm(y), 1e-30)
+    return x
+
+
+def cluster_register(torch, router, name, sm, drops, **kw) -> dict:
+    """Register ``sm`` as int32-index triplets on one worker; print the
+    frame's bytes, the router's wall s, the worker's register s and the
+    card memory its placement took (all other processes idle)."""
+    import pickle
+
+    from repro_torch.cluster.protocol import HEADER, MAX_FRAME
+
+    free0 = mem_free(torch)
+    t0 = time.perf_counter()
+    info = router.register(name, sm, replicas=1, **kw)
+    wall_s = time.perf_counter() - t0
+    drop = free0 - mem_free(torch)
+    entry = router.entries[name]
+    check(entry.triplets is not None and entry.triplets[0].dtype == np.int32
+          and entry.triplets[1].dtype == np.int32,
+          f"cluster {name}: not shipped as int32-index triplets")
+    frame = HEADER.size + len(pickle.dumps(
+        {"verb": "register", **entry.register_fields()},
+        protocol=pickle.HIGHEST_PROTOCOL))
+    check(frame <= MAX_FRAME, f"cluster {name}: frame {frame} B > {MAX_FRAME}")
+    check(info["placements"] == entry.placements and len(entry.placements) == 1,
+          f"cluster {name}: placements {info['placements']}")
+    drops[info["placements"][0]] += drop
+    emit({"phase": "cluster_register", "matrix": name, "source": info["source"],
+          "scheme_id": info["scheme_id"], "impl": info["impl"],
+          "nnz": len(entry.triplets[0]), "frame_mb": frame / 1e6,
+          "router_wall_s": wall_s, "worker_register_s": info["register_s"],
+          "placements": info["placements"], "card_bytes": drop})
+    return info
+
+
+def cluster_direct(router, oracles, rng, times) -> None:
+    """(b) Per matrix 8 B=1, 2 B=4 and 2 B=8 multiplies through the router,
+    each bit-equal to the scipy oracle; launches = served on every worker."""
+    before = worker_stats(router)
+    fmt = {"regular": "coo", "scale-free": "coo", "block": "bcoo"}
+    for name in CLUSTER_NAMES:
+        a = oracles[name]
+        lat = {}
+        for batch, count in ((1, 8), (4, 2), (8, 2)):
+            for _ in range(count):
+                shape = (a.shape[1],) if batch == 1 else (a.shape[1], batch)
+                x = rng.integers(-2, 3, shape).astype(np.float32)
+                t0 = time.perf_counter()
+                y = router.multiply(name, x)
+                lat.setdefault(batch, []).append(time.perf_counter() - t0)
+                check(np.array_equal(y, (a @ x).astype(np.float32)),
+                      f"cluster {name} B={batch}: answer != scipy oracle")
+        t1, t8 = times[(name, fmt[name], 1)], times[(name, fmt[name], 8)]
+        emit({"phase": "cluster_direct", "matrix": name,
+              "router_ms_p50": {b: 1e3 * statistics.median(v) for b, v in lat.items()},
+              "phase3_exe_ms_p50": t1["host_exe_ms_p50"],
+              "phase4_kernel_ms": {1: t1["ms"], 8: t8["ms"]},
+              "answers": "bit-equal to scipy"})
+    got = check_worker_launches(before, worker_stats(router), "direct multiplies")
+    emit({"phase": "cluster_direct_launches", "workers": got})
+
+
+def cluster_plans(torch, router, sms, oracles, rng, device, tmp, drops) -> None:
+    """(c) A tune record made in this process and a plan IR, shipped."""
+    from repro_torch.tune import CandidateGenerator, Measurer, Tuner, TuningCache
+
+    tuner = Tuner(generator=CandidateGenerator(impls=("cuda",)), measurer=Measurer(),
+                  cache=TuningCache(os.path.join(tmp, "tune.json")))
+    t0 = time.perf_counter()
+    result = tuner.tune(sms["block"], device=device)
+    tune_s = time.perf_counter() - t0
+    check(result.key.topology == "cuda:1" and not result.from_cache,
+          f"cluster tune: key {result.key}, from_cache {result.from_cache}")
+    record = {"entries": tuner.cache.export(result.key), "impls": ["cuda"],
+              "batch": None, "block": [8, 16]}
+    winner = result.best.scheme_id
+    del result, tuner
+    gc.collect()
+    torch.cuda.empty_cache()
+    info = cluster_register(torch, router, "block-tuned", sms["block"], drops,
+                            tune_record=record)
+    emit({"phase": "cluster_tune_record", "tune_s": tune_s, "winner": winner,
+          "source": info["source"], "from_cache": info["from_cache"],
+          "measurements": info["measurements"], "tune_hits": info["tune_hits"],
+          "scheme_id": info["scheme_id"]})
+    check(info["source"] == "tune_cache" and info["from_cache"] is True
+          and info["measurements"] == 0 and info["tune_hits"] >= 1
+          and info["scheme_id"] == winner,
+          f"cluster tune record: {info} (parent's winner {winner})")
+    ep = sms["regular"].plan(scheme="1d.nnz", fmt="csr", device=device)
+    info = cluster_register(torch, router, "regular-ir", sms["regular"], drops,
+                            ir=ep.to_ir())
+    check(info["source"] == "ir" and info["scheme_id"] == ep.scheme_id,
+          f"cluster IR: {info['source']} {info['scheme_id']} != {ep.scheme_id}")
+    for name, oracle in (("block-tuned", "block"), ("regular-ir", "regular")):
+        a = oracles[oracle]
+        for batch in (1, 8):
+            shape = (a.shape[1],) if batch == 1 else (a.shape[1], batch)
+            x = rng.integers(-2, 3, shape).astype(np.float32)
+            check(np.array_equal(router.multiply(name, x), (a @ x).astype(np.float32)),
+                  f"cluster {name} B={batch}: answer != scipy oracle")
+
+
+def cluster_sessions(router, oracles, rng) -> None:
+    """(d) One 20-step power session per matrix through ``router.solve``."""
+    before = worker_stats(router)
+    steps = {}
+    for name in CLUSTER_NAMES:
+        a = oracles[name]
+        x0 = rng.integers(-2, 3, a.shape[1]).astype(np.float32)
+        requests = router.entries[name].requests
+        t0 = time.perf_counter()
+        res = router.solve(name, x0, steps=POWER_STEPS, combine="power")
+        wall_s = time.perf_counter() - t0
+        err = float(np.abs(res["x"] - power_f64(a, x0, POWER_STEPS)).max())
+        check(res["steps"] == POWER_STEPS and err <= 1e-4,
+              f"cluster session {name}: {res['steps']} steps, max err {err}")
+        check(router.entries[name].requests == requests + POWER_STEPS,
+              f"cluster session {name}: steps not charged to its placement")
+        n, s = steps.get(res["worker_id"], (0, 0))
+        steps[res["worker_id"]] = (n + 1, s + POWER_STEPS)
+        emit({"phase": "cluster_session", "matrix": name, "steps": res["steps"],
+              "worker": res["worker_id"], "max_abs_err": err, "wall_s": wall_s,
+              "worker_s": res["seconds"]})
+    got = check_worker_launches(before, worker_stats(router), "sessions", steps)
+    emit({"phase": "cluster_session_launches", "workers": got})
+
+
+def cluster_spec(seed: int, *salt):
+    from repro_torch.serve import WorkloadSpec
+
+    return WorkloadSpec(names=CLUSTER_NAMES, n_requests=120, seed=[seed, 12, *salt],
+                        zipf_alpha=1.1, batch_mix=CLUSTER_MIX, integer_values=True)
+
+
+def cluster_report_row(phase: str, report) -> dict:
+    s = report.summary()
+    return {"phase": phase, **{k: s[k] for k in (
+        "requests", "accepted", "mismatched", "shed", "shed_reasons", "lost",
+        "wall_s", "accepted_rps", "per_worker", "failovers", "latency")}}
+
+
+def cluster_generators(router, oracles, seed: int) -> None:
+    """(e) Two spawned load generators straight at the workers' sockets."""
+    from repro_torch.cluster.replay import replay_generators
+    from repro_torch.serve import generate_trace
+
+    trace = generate_trace(cluster_spec(seed))
+    before = worker_stats(router)
+    report = replay_generators(router, trace, oracles, generators=2, timeout=300.0)
+    got = check_worker_launches(before, worker_stats(router), "generator replay")
+    emit({**cluster_report_row("cluster_generators", report), "workers": got})
+    check(report.accepted + len(report.shed) == len(trace) and report.mismatched == 0
+          and report.lost == 0,
+          f"generator replay: {report.summary()}")
+
+
+def cluster_chaos(torch, router, oracles, rng, seed: int, drops) -> None:
+    """(f) A router-mode replay on 4 threads; w0 is killed after 40 answers."""
+    import threading
+
+    from repro_torch.cluster.replay import replay_cluster
+    from repro_torch.serve import generate_trace
+
+    victim, survivor = "w0", "w1"
+    trace = generate_trace(cluster_spec(seed, 1))
+    samples, stop, kill = [], threading.Event(), {}
+
+    def monitor():  # the card's free bytes every 20 ms
+        while not stop.is_set():
+            samples.append((time.perf_counter(), mem_free(torch)))
+            stop.wait(0.02)
+
+    def kill_worker(wid):
+        with router._lock:
+            kill["exclusive"] = sorted(n for n, e in router.entries.items()
+                                       if e.placements == [wid])
+        kill["free"], kill["t"] = mem_free(torch), time.perf_counter()
+        type(router).kill_worker(router, wid)
+
+    router.kill_worker = kill_worker
+    mon = threading.Thread(target=monitor, daemon=True)
+    mon.start()
+    try:
+        report = replay_cluster(router, trace, oracles, threads=4, kill_after=40,
+                                kill_worker=victim)
+    finally:
+        stop.set()
+        mon.join(timeout=5)
+        del router.kill_worker
+    window = [f for t, f in samples if kill["t"] <= t <= kill["t"] + 10]
+    rise = max(window, default=kill["free"]) - kill["free"]
+    event = next(f for f in router.failovers if f["worker_id"] == victim)
+    emit({**cluster_report_row("cluster_chaos", report),
+          "exclusive": kill["exclusive"], "rehomed": event["rehomed"],
+          "failover_stall_ms": 1e3 * max(report.latencies_s),
+          "victim_card_bytes": drops[victim], "freed_within_10s_bytes": rise})
+    check(report.lost == 0 and report.mismatched == 0
+          and {s["reason"] for s in report.shed} <= {"worker_lost"},
+          f"chaos replay: {report.summary()}")
+    check(report.failovers >= 1 and sorted(event["rehomed"]) == kill["exclusive"]
+          and kill["exclusive"], f"chaos replay: rehomed {event}, "
+          f"{victim} held {kill['exclusive']} alone")
+    check(router.workers[survivor].alive() and not router.workers[victim].alive(),
+          "chaos replay: the wrong worker died")
+    check(rise >= drops[victim] / 2,
+          f"chaos replay: {rise} B freed within 10 s of the kill < half of "
+          f"the {drops[victim]} B {victim} took")
+    for name, entry in router.entries.items():
+        a = oracles[ORACLE_OF.get(name, name)]
+        x = rng.integers(-2, 3, a.shape[1]).astype(np.float32)
+        check(entry.placements == [survivor]
+              and np.array_equal(router.multiply(name, x), (a @ x).astype(np.float32)),
+              f"after the kill {name} on {entry.placements}: answer != scipy oracle")
+
+
+def phase_cluster(torch, rng, device, n: int, seed: int, times) -> dict:
+    """Phase 12: the multi-process cluster at full width (see the module
+    docstring; the block matrix is n/2 square); returns the workers'
+    kernel launches before the kill."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import SparseMatrix
+    from repro_torch.cluster import ClusterRouter
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    _build.build_all()  # built in phase 1: the workers only load them
+    makers = {"regular": lambda: regular_triplets(rng, n),
+              "scale-free": lambda: scale_free_triplets(rng, n, 8 * n),
+              "block": lambda: block_triplets(rng, n // 2)}
+    sms, oracles = {}, {}
+    t0 = time.perf_counter()
+    for name, make in makers.items():
+        ri, ci, vals, shape = make()
+        sms[name] = SparseMatrix.from_parts(ri, ci, vals, shape)
+        oracles[name] = csr_oracle(sms[name])
+    setup_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-cluster-")
+    free0 = mem_free(torch)
+    t0 = time.perf_counter()
+    # replication off: each matrix stays on its ring owner, so the kill in
+    # (f) re-homes what w0 alone held (tests/test_torch_cluster.py holds
+    # popularity replication)
+    router = ClusterRouter(workers=2, socket_dir=tmp, connect_timeout=300,
+                           replicate_share=1.0)
+    try:
+        spawn_s = time.perf_counter() - t0
+        free1 = mem_free(torch)
+        mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, timeout=60).stdout.strip()
+        emit({"phase": "cluster_fleet", "workers": 2, "spawn_s": spawn_s,
+              "setup_s": setup_s, "compute_mode": mode, "free_before_bytes": free0,
+              "free_after_spawn_bytes": free1})
+        drops = {w: (free0 - free1) // 2 for w in router.workers}  # start-up
+        for name in CLUSTER_NAMES:
+            cluster_register(torch, router, name, sms[name], drops)
+        cluster_direct(router, oracles, rng, times)
+        cluster_plans(torch, router, sms, oracles, rng, device, tmp, drops)
+        del sms
+        cluster_sessions(router, oracles, rng)
+        cluster_generators(router, oracles, seed)
+        launches = {k: 0 for k in ("coo", "bcoo")}
+        for st in worker_stats(router).values():
+            for k in launches:
+                launches[k] += st["launches"].get(k, 0)
+        check(all(launches.values()), f"cluster: a kernel never launched: {launches}")
+        cluster_chaos(torch, router, oracles, rng, seed, drops)
+    finally:
+        router.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "cluster_done", "seconds": time.perf_counter() - t_phase,
+          "launches": launches, "free_after_close_bytes": mem_free(torch),
+          "free_before_bytes": free0})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1946,6 +2318,12 @@ def main(argv=None) -> int:
     emit({"phase": "memory", "allocated_bytes": torch.cuda.memory_allocated()})
     oracle_launches, solver_replay_ = phase_serving_oracle(
         torch, rng, device, 1 << 16, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t12 = time.perf_counter()
+    cluster_launches = phase_cluster(torch, np.random.default_rng([args.seed, 12]),
+                                     device, 1 << 21, args.seed, times)
+    cluster_s = time.perf_counter() - t12
 
     by_path = {
         kernel: {"single_device": launches[kind],
@@ -1953,7 +2331,8 @@ def main(argv=None) -> int:
                  "serving": serve_launches_[kind] + oracle_launches[kind],
                  "solver": (solver_launches[kind] + solver_serve[kind]
                             + solver_replay_[kind]),
-                 "tuning": tune_launches[kind]}
+                 "tuning": tune_launches[kind],
+                 "cluster": cluster_launches[kind]}
         for kernel, kind in (("coo_spmv", "coo"), ("bcoo_spmv", "bcoo"))
     }
     by_path["ell_spmv"] = {"ell": ell_launches}
@@ -1971,7 +2350,8 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
-          "solver_phase_s": solver_s, "tuning_phase_s": tuning_s, "card": card})
+          "solver_phase_s": solver_s, "tuning_phase_s": tuning_s,
+          "cluster_phase_s": cluster_s, "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ from __future__ import annotations
 import threading
 from collections import Counter
 
-__all__ = ["LAUNCHES", "record_launch", "launches", "reset"]
+__all__ = ["LAUNCHES", "record_launch", "launches", "snapshot", "reset"]
 
 # kind -> number of CUDA kernel launches
 LAUNCHES: Counter = Counter()
@@ -37,6 +37,12 @@ def launches(kind: str | None = None) -> int:
         if kind is not None:
             return LAUNCHES[kind]
         return sum(LAUNCHES.values())
+
+
+def snapshot() -> dict:
+    """Every counter, as a plain dict (thread-safe)."""
+    with _LOCK:
+        return dict(LAUNCHES)
 
 
 def reset() -> None:

@@ -12,6 +12,8 @@ equal; random float32 inputs are compared at rtol=atol=2e-4, the tolerance
 of tests/test_kernels.py (sums are taken in another order than the plain
 version's).
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -968,6 +970,8 @@ def test_tune_on_card_matches_plain_versions(cuda, block, batch, parts):
     kinds = {"coo" if p.fmt in ("coo", "csr") else "bcoo" for p in planned}
     assert kinds == ({"coo", "bcoo"} if block else {"coo"})
     meas = Measurer(warmup=1, iters=2, trim=0)
+    gc.collect()  # an earlier test's engine (a reference cycle) frees its
+    # plan when the collector runs, which must not be inside the tune
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     instrument.reset()
@@ -1065,3 +1069,66 @@ def test_engine_snapshots_a_card_input_with_an_event(cuda):
     assert "error" not in event and event["candidates"] == event["planned"] >= 2
     np.testing.assert_array_equal(eng.multiply("m", x),
                                   a.numpy() @ x.cpu().numpy())
+
+
+def _regular_triplets(rng, n: int, k: int = 16):
+    """chip_smoke.py's regular recipe: k banded, jittered columns per row,
+    values in {-2, -1, 1, 2}."""
+    band = n // 16
+    width = 2 * band // k
+    offs = -band + np.arange(k) * width + rng.integers(0, width, (n, k))
+    cols = ((np.arange(n)[:, None] + offs) % n).reshape(-1)
+    vals = rng.choice(np.array([-2, -1, 1, 2], np.float32), n * k)
+    return np.repeat(np.arange(n), k), cols, vals
+
+
+def test_cluster_workers_on_the_card(cuda):
+    """Two engine workers, each its own process and CUDA context on the
+    card, at 65,536^2: answers at B=1 and B=8 bit-equal to torch's sparse
+    product on the host, every multiply a kernel launch in the worker that
+    served it, and a SIGKILLed worker's card memory given back."""
+    import time
+
+    from repro_torch.cluster import ClusterRouter
+
+    n = 1 << 16
+    rng = np.random.default_rng(12)
+    ri, ci, vals = _regular_triplets(rng, n)
+    sm = SparseMatrix.from_parts(ri, ci, vals, (n, n))
+    host = torch.sparse_coo_tensor(torch.from_numpy(np.stack([ri, ci])),
+                                   torch.from_numpy(vals), (n, n)).coalesce()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    router = ClusterRouter(workers=2, connect_timeout=120)
+    try:
+        info = router.register("reg", sm, replicas=2)
+        assert sorted(info["placements"]) == ["w0", "w1"] and info["impl"] == "cuda"
+        free1 = torch.cuda.mem_get_info()[0]
+        before = router.stats()["workers"]
+        for batch in (1, 1, 8, 8):
+            x = _x(rng, n, None if batch == 1 else batch, torch.float32)
+            want = torch.sparse.mm(host, x.reshape(n, -1)).reshape(x.shape)
+            np.testing.assert_array_equal(router.multiply("reg", x.numpy()),
+                                          want.numpy())
+        after = router.stats()["workers"]
+        for w, st in after.items():
+            served = st["served"] - before[w]["served"]
+            launched = sum(st["launches"].get(k, 0) - before[w]["launches"].get(k, 0)
+                           for k in ("coo", "bcoo"))
+            assert served == launched == 2, (w, served, launched)
+        router.kill_worker("w0")
+        deadline = time.monotonic() + 10
+        while (torch.cuda.mem_get_info()[0] < free1 + (free0 - free1) / 4
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        assert torch.cuda.mem_get_info()[0] >= free1 + (free0 - free1) / 4
+        for _ in range(2):  # round robin: one of the two finds w0 dead
+            x = _x(rng, n, None, torch.float32)
+            np.testing.assert_array_equal(
+                router.multiply("reg", x.numpy()),
+                torch.sparse.mm(host, x[:, None])[:, 0].numpy())
+        assert [f["worker_id"] for f in router.failovers] == ["w0"]
+        assert router.entries["reg"].placements == ["w1"]
+    finally:
+        router.close()

@@ -43,7 +43,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
     n_modules = 1 + len(list(pkgutil.walk_packages(repro_torch.__path__,
                                                     "repro_torch.")))
-    assert int(lines["MODULES"]) == n_modules >= 44
+    assert int(lines["MODULES"]) == n_modules >= 49
 
 
 def test_port_sources_name_no_jax_import():
