@@ -143,6 +143,34 @@ Phases (every check raises, so any failure exits non-zero):
    bytes (``mem_get_info``, sampled every 20 ms) rise by at least half of
    what w0 took.  The workers' launch counters start at 0 with them; their
    sum before the kill is the cluster path's count.
+13. Topology-aware placement (``repro_torch.topo``) at full width, right
+   after phase 10 (a)-(c), on phase 3's matrices, with inputs from its own
+   generator (``[seed, 13]``); integer-valued x throughout.  (a) The
+   detector: ``detect_topology()`` and ``detect_topology(["cuda"] * 16)``
+   (one flat axis); 16 parts of the regular matrix under the second, by
+   ``scheme="auto"`` and ``"2d"``, bit-equal to phase 7's flat plan.  (b)
+   ``FakeTopology.pim_like((2, 2))`` over ``["cuda"] * 4`` and
+   ``pim_like((4, 4))`` over ``["cuda"] * 16``: each matrix through
+   ``plan(scheme="2d", topology=)`` and ``plan(topology=)``: the grid
+   beside the flat near-square one, the assignment, the transfer the
+   model prices (modelled on the preset's declared links, not a time),
+   partition s, part-axis kernel ms, bound, cuSPARSE ms and ``exe(x)``
+   p50; answers at B=1 and B=8 bit-equal to the single-device kernel and
+   cuSPARSE, one part-axis launch per request.  (c) Every assignment of
+   ``pim2x2`` on the (2, 2) grid of the block and regular matrices: y
+   identical across assignments, ``Mesh.slots`` the ``device_order`` of
+   arange(4), kernel ms side by side (the model's assignment is (b)'s
+   ``"2d"`` executor, not built twice).  (d) The worst placement's plan IR
+   read back with and without the topology: the same ``@`` scheme id and
+   answers; the recorded slots with it, flat slots without (as the JAX
+   package lays it out).  (e) ``SpmvEngine(devices=["cuda"] * 4,
+   topology=pim2x2, tune=True)`` on the block matrix, refined at B=1 over
+   four candidates: one per assignment of each of the first two schemes'
+   grids, the key's pool ``cuda:4|pim2x2:2x2``, the winner bit-equal,
+   launches = warm-up +
+   multiplies + 4 per measured candidate + the swap's warm-up; a second
+   tune hits the cache: 0 measurements, 0 launches, card memory unchanged
+   to the byte.  Its launches are ``launches_by_path[...]["topology"]``.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -1897,6 +1925,292 @@ def phase_tuning(torch, rng, device, records) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- topology
+
+TOPO_SHAPES = ((2, 2), (4, 4))  # the pim_like presets of phase 13 (b)
+MODELLED = "modelled on the preset's declared links, not a time on any device"
+
+
+def topo_requests(torch, rng, device, exe, rec, others=(), n1: int = 6,
+                  n8: int = 2) -> tuple:
+    """Serve n1 B=1 and n8 B=8 integer-valued requests through ``exe``,
+    each bit-equal to the single-device kernel, cuSPARSE and every
+    executor of ``others`` (all launched before the counted window).
+    Returns (launches, B=1 latencies): one part-axis launch per request."""
+    from repro_torch.kernels import instrument
+
+    cols = rec["shape"][1]
+    xs = [rng.integers(-2, 3, (cols,) if i < n1 else (cols, 8))
+          .astype(np.float32) for i in range(n1 + n8)]
+    wants = []
+    for x in xs:
+        xd = torch.from_numpy(x).to(device)
+        want = rec["prog"](xd).cpu().numpy()
+        check(np.array_equal(want, (rec["A"] @ xd).cpu().numpy()),
+              f"{rec['matrix']}: single-device kernel != cuSPARSE")
+        for other in others:
+            got = other(x) if x.ndim == 1 else other.batch(x)
+            check(np.array_equal(got, want), f"{rec['matrix']} "
+                  f"{other.plan.scheme_id}: != single-device kernel")
+        wants.append(want)
+    kind = "coo" if exe.plan.fmt in ("coo", "csr") else "bcoo"
+    lat = []
+    instrument.reset()
+    for x, want in zip(xs, wants):
+        t0 = time.perf_counter()
+        y = exe(x) if x.ndim == 1 else exe.batch(x)
+        if x.ndim == 1:
+            lat.append(time.perf_counter() - t0)
+        check(np.array_equal(y, want), f"{rec['matrix']} {exe.plan.scheme_id} "
+              f"B={x.shape[1:] or 1}: != single-device kernel and cuSPARSE")
+    got = {k: instrument.launches(k) for k in ("coo", "bcoo")}
+    want_l = {"coo": 0, "bcoo": 0, kind: len(xs)}
+    check(got == want_l, f"{rec['matrix']} {exe.plan.scheme_id}: launches "
+          f"{got} != one part-axis launch per request {want_l}")
+    return got, lat
+
+
+def topo_row(torch, rng, device, exe, rec, lat) -> dict:
+    """The placed plan's part-axis launch timed at B=1 beside its bound and
+    cuSPARSE, with its partition s and exe(x) p50."""
+    pln = exe.plan
+    cols = rec["shape"][1]
+    x = rng.integers(-2, 3, cols).astype(np.float32)
+    xd = torch.from_numpy(x).to(device)
+    bound, by = part_bound(exe.program, rec["st"])
+    ta = pln.topo_assignment
+    return {"matrix": rec["matrix"], "scheme_id": pln.scheme_id,
+            "grid": list(pln.grid), "kernel": rec["kernel"],
+            "assignment": ta and ",".join(
+                f"{l}={'*'.join(g) or '-'}"
+                for l, g in zip(ta["logical"], ta["physical"])),
+            "slots": exe.mesh.slots.reshape(-1).tolist(),
+            "modelled_transfer_s": ta and ta["transfer"],
+            "modelled_note": MODELLED,
+            "partition_s": exe.build_seconds,
+            "exe_ms_p50": 1e3 * statistics.median(lat),
+            "part_ms": time_ms(torch, kernel_fn(torch, exe, x, device), 30),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(torch, lambda: rec["A"] @ xd, 30)}
+
+
+def phase_topology(torch, rng, device, records, autos) -> dict:
+    """Phase 13: topology-aware placement (``repro_torch.topo``) at full
+    width on the card, on phase 3's matrices; returns its launches."""
+    from repro_torch.api import plan_from_ir, resolve_scheme
+    from repro_torch.engine import SpmvEngine
+    from repro_torch.kernels import instrument
+    from repro_torch.topo import (CollectiveCostModel, FakeTopology,
+                                  detect_topology)
+    from repro_torch.tune import (CandidateGenerator, Measurer, Tuner,
+                                  TuningCache, make_key)
+
+    by_matrix = {}
+    for r in records:
+        by_matrix.setdefault(r["matrix"], r)
+    launches = {"coo": 0, "bcoo": 0}
+
+    def count(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    # (a) the detector: one flat axis; 16 parts of the regular matrix under
+    # it answer as phase 7's flat plan
+    here, many = detect_topology(), detect_topology([device.type] * PARTS)
+    emit({"phase": "topo_detect", "default": [here.name, list(here.axis_sizes)],
+          "cuda16": [many.name, list(many.axis_sizes)]})
+    check((here.name, here.axis_sizes) == ("cuda:flat", (1,))
+          and (many.name, many.axis_sizes) == ("cuda:flat", (PARTS,)),
+          f"detector: {here} / {many}")
+    rec = by_matrix["regular"]
+    flat = next(exe for name, exe, _ in autos if name == "regular")
+    for scheme in ("auto", "2d"):
+        exe = rec["sm"].plan(scheme=scheme, topology=many).compile()
+        got, lat = topo_requests(torch, rng, device, exe, rec, others=(flat,))
+        count(got)
+        emit({"phase": "topo_detect_plan", "scheme": scheme,
+              "scheme_id": exe.plan.scheme_id, "grid": list(exe.plan.grid),
+              "flat_scheme_id": flat.plan.scheme_id,
+              "flat_grid": list(flat.plan.grid),
+              "answers": "bit-equal to phase 7's flat plan, the single-device "
+                         "kernel and cuSPARSE"})
+        exe.release()
+
+    # (b) the model's picks under the two presets, "2d" and auto
+    kept = {}  # pim2x2's "2d" picks of block and regular, for (c)
+    for shape2d in TOPO_SHAPES:
+        n = shape2d[0] * shape2d[1]
+        topo = FakeTopology.pim_like(shape2d, devices=[device.type] * n)
+        for name, rec in by_matrix.items():
+            built = {}
+            for scheme in ("2d", "auto"):
+                fmt = rec["fmt"] if scheme == "2d" else None
+                pln = rec["sm"].plan(scheme=scheme, fmt=fmt, topology=topo)
+                flat_grid = resolve_scheme(rec["st"], rec["shape"], n, scheme,
+                                           fmt=fmt).grid
+                key = (pln.scheme_id, pln.grid)
+                if key not in built:
+                    print(pln.describe(), flush=True)
+                    exe = pln.compile()
+                    got, lat = topo_requests(torch, rng, device, exe, rec)
+                    count(got)
+                    built[key] = topo_row(torch, rng, device, exe, rec, lat)
+                    if (n, scheme) == (4, "2d") and name != "scale-free":
+                        kept[name] = exe
+                    else:
+                        exe.release()
+                emit({"phase": "topo_pick", "topology": topo.name,
+                      "scheme": scheme, "flat_grid": list(flat_grid),
+                      **built[key]})
+
+    # (c) every assignment of pim2x2 on the (2, 2) grid: y identical, slots
+    # the device order of arange(4), kernel ms side by side
+    topo = FakeTopology.pim_like((2, 2), devices=[device.type] * 4)
+    abstract = FakeTopology.pim_like((2, 2))
+    placed = {}
+    for name in ("block", "regular"):
+        rec = by_matrix[name]
+        base = rec["sm"].plan(scheme="2d", fmt=rec["fmt"], grid=(2, 2),
+                              topology=topo)
+        ranked = CollectiveCostModel(topo).rank(
+            base.scheme, rec["shape"], rec["sm"].dtype.itemsize, base.axes)
+        check(len(ranked) == 2, f"{name}: assignments {ranked}")
+        xs = [rng.integers(-2, 3, rec["shape"][1]).astype(np.float32)
+              for _ in range(2)]
+        ys, rows = [], []
+        for a, price in ranked:
+            reuse = kept.get(name)
+            if reuse is not None and reuse.plan.scheme_id.endswith("@" + a.tag):
+                exe = kept.pop(name)  # (b) built this placement already
+            else:
+                exe = rec["sm"].plan(scheme="2d", fmt=rec["fmt"], grid=(2, 2),
+                                     topology=topo, assignment=a).compile()
+            want_slots = abstract.device_order(a, devices=range(4))
+            check(exe.mesh.slots.reshape(-1).tolist() == want_slots,
+                  f"{name} {a.tag}: slots {exe.mesh.slots} != {want_slots}")
+            check(exe.plan.scheme_id.endswith("@" + a.tag),
+                  f"{name}: {exe.plan.scheme_id} lacks @{a.tag}")
+            got, lat = topo_requests(torch, rng, device, exe, rec, n1=4, n8=1)
+            count(got)
+            ys.append([exe(x) for x in xs])  # compared, not counted
+            row = topo_row(torch, rng, device, exe, rec, lat)
+            emit({"phase": "topo_forced", "topology": topo.name, **row})
+            rows.append(row)
+            if name == "block" and a is ranked[-1][0]:
+                placed[name] = exe  # the worst placement: phase 13 (d)
+            else:
+                exe.release()
+        check(all(np.array_equal(u, v) for y in ys[1:] for u, v in zip(ys[0], y)),
+              f"{name}: answers differ between assignments")
+        ms = [r["part_ms"] for r in rows]
+        emit({"phase": "topo_forced_spread", "matrix": name,
+              "part_ms": ms, "spread": max(ms) / min(ms) - 1.0,
+              "answers": "identical across assignments"})
+    for exe in kept.values():
+        exe.release()
+
+    # (d) the plan IR: the worst placement of the block matrix, round trip
+    exe = placed.pop("block")
+    rec = by_matrix["block"]
+    ir = json.loads(json.dumps(exe.plan.to_ir()))
+    check(ir["topo"] and ir["topo"]["topology"] == "pim2x2", f"IR topo {ir['topo']}")
+    x = rng.integers(-2, 3, rec["shape"][1]).astype(np.float32)
+    y = exe(x)
+    for how, kw in (("with topology", {"topology": topo}), ("without", {})):
+        back = plan_from_ir(ir, rec["sm"], device=device,
+                            devices=[device] * 4, **kw).compile()
+        slots = back.mesh.slots.reshape(-1).tolist()
+        want_slots = (exe.mesh.slots.reshape(-1).tolist() if kw
+                      else list(range(4)))  # no topology: flat, as JAX lays it
+        check(back.plan.scheme_id == exe.plan.scheme_id,
+              f"IR {how}: {back.plan.scheme_id} != {exe.plan.scheme_id}")
+        check(slots == want_slots, f"IR {how}: slots {slots} != {want_slots}")
+        check(back.plan.to_ir()["topo"] == ir["topo"], f"IR {how}: topo lost")
+        instrument.reset()
+        check(np.array_equal(back(x), y), f"IR {how}: answers differ")
+        count({k: instrument.launches(k) for k in launches})
+        emit({"phase": "topo_ir", "how": how, "scheme_id": back.plan.scheme_id,
+              "slots": slots, "answers": "bit-equal to the placed plan"})
+        back.release()
+    exe.release()
+
+    # (e) tuning under pim2x2 on the block matrix at B=1
+    rec = by_matrix["block"]
+    # four candidates: the first two schemes, each under both assignments
+    tuner = Tuner(generator=CandidateGenerator(max_candidates=4),
+                  measurer=Measurer(warmup=1, iters=3), cache=TuningCache())
+    instrument.reset()
+    eng = SpmvEngine(devices=[device.type] * 4, topology=topo, tune=True,
+                     tuner=tuner)
+    eng.register("block", rec["sm"])
+    xs = [rng.integers(-2, 3, rec["shape"][1]).astype(np.float32)
+          for _ in range(4)]
+    for x in xs:
+        want = (rec["A"] @ torch.from_numpy(x).to(device)).cpu().numpy()
+        check(np.array_equal(eng.multiply("block", x), want),
+              "topo engine: != cuSPARSE")
+    t0 = time.perf_counter()
+    event = eng.refine("block", x=xs[0])
+    tune_s = time.perf_counter() - t0
+    key = make_key(rec["sm"], devices=eng.devices, impls=tuner.generator.impls,
+                   block=eng.block, topology=topo)
+    record = tuner.cache.get(key)
+    check(record is not None and key.topology == "cuda:4|pim2x2:2x2",
+          f"topo tune key {key.encode()}")
+    groups = {}
+    for c in record["candidates"]:
+        sid, _, tag = c["scheme_id"].partition("@")
+        groups.setdefault((sid, tuple(c["grid"])), set()).add(tag)
+    grid = tuple(eng.registry.get("block").plan.grid)
+    complete = []
+    for (sid, g), tags in groups.items():
+        axes = ("parts",) if sid.startswith("1d") else ("rows", "cols")
+        n_alt = len(topo.assignments(g[:1] if sid.startswith("1d") else g, axes))
+        complete.append(len(tags) == n_alt)
+        emit({"phase": "topo_tune_group", "scheme": sid, "grid": list(g),
+              "assignments_measured": sorted(tags), "assignments": n_alt})
+    for c in record["candidates"]:
+        emit({"phase": "topo_tune_candidate", **c})
+    # the generator's cap may cut the last scheme's assignments short
+    capped = len(record["candidates"]) >= tuner.generator.max_candidates
+    check(complete and all(complete[:-1]) and (complete[-1] or capped),
+          f"topo tune: not one candidate per assignment: {groups}")
+    y = eng.multiply("block", xs[1])
+    got = total_launches(instrument)
+    count({k: instrument.launches(k) for k in launches})
+    xd = torch.from_numpy(xs[1]).to(device)  # compared, not counted
+    check(np.array_equal(y, (rec["A"] @ xd).cpu().numpy())
+          and np.array_equal(y, rec["prog"](xd).cpu().numpy()),
+          "topo tune: the winner != cuSPARSE / single-device kernel")
+    # the registration's warm-up, 5 multiplies, 4 calls per measured
+    # candidate (warmup 1, iters 3) and a swap's warm-up
+    expect = 1 + 5 + 4 * event["candidates"] + event["swapped"]
+    check(event["candidates"] == event["planned"] and got == expect,
+          f"topo tune: {event} launches {got} != {expect}")
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0, calls0 = torch.cuda.memory_allocated(), instrument.launches()
+    again = tuner.tune(rec["sm"], devices=eng.devices, block=eng.block,
+                       hw=eng.hw, topology=topo)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    emit({"phase": "topo_tune", "key": key.encode(), "event": event,
+          "tune_s": tune_s, "winner": eng.registry.get("block").plan.tag,
+          "winner_scheme_id": event["winner"], "serving_grid": list(grid),
+          "second": {"from_cache": again.from_cache,
+                     "measurements": len(again.measurements),
+                     "launches": instrument.launches() - calls0,
+                     "memory_delta_bytes": mem1 - mem0,
+                     "scheme_id": again.best.scheme_id}})
+    check(again.from_cache and not again.measurements
+          and instrument.launches() == calls0 and mem1 == mem0,
+          "topo tune: the second tune measured, launched or kept memory")
+    del eng
+    emit({"phase": "topology_launches", "launches": launches})
+    return launches
+
+
 # ------------------------------------------------------------- cluster
 
 CLUSTER_NAMES = ("regular", "scale-free", "block")
@@ -2301,7 +2615,12 @@ def main(argv=None) -> int:
     t10 = time.perf_counter()
     solver_launches = phase_solver(torch, rng10, device, records, autos, times)
     solver_s = time.perf_counter() - t10
+    t13 = time.perf_counter()
+    topo_launches = phase_topology(torch, np.random.default_rng([args.seed, 13]),
+                                   device, records, autos)
+    topology_s = time.perf_counter() - t13
     del autos
+    gc.collect()
     serve_launches_, eng = phase_serving(torch, rng, device, records, args.seed)
     t10 = time.perf_counter()
     solver_serve = phase_solver_service(torch, rng10, device, eng, records)
@@ -2332,7 +2651,8 @@ def main(argv=None) -> int:
                  "solver": (solver_launches[kind] + solver_serve[kind]
                             + solver_replay_[kind]),
                  "tuning": tune_launches[kind],
-                 "cluster": cluster_launches[kind]}
+                 "cluster": cluster_launches[kind],
+                 "topology": topo_launches[kind]}
         for kernel, kind in (("coo_spmv", "coo"), ("bcoo_spmv", "bcoo"))
     }
     by_path["ell_spmv"] = {"ell": ell_launches}
@@ -2351,7 +2671,8 @@ def main(argv=None) -> int:
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "solver_phase_s": solver_s, "tuning_phase_s": tuning_s,
-          "cluster_phase_s": cluster_s, "card": card})
+          "cluster_phase_s": cluster_s, "topology_phase_s": topology_s,
+          "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

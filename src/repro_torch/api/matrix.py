@@ -31,7 +31,6 @@ __all__ = ["SparseMatrix", "fingerprint_matrix"]
 
 _CONTAINERS = (F.CSR, F.COO, F.BCSR, F.BCOO)
 _FMT_OF = {F.CSR: "csr", F.COO: "coo", F.BCSR: "bcsr", F.BCOO: "bcoo"}
-_NOT_YET = "not ported yet: see ROADMAP.md"
 
 
 def _dtype_str(dtype: torch.dtype) -> str:
@@ -260,6 +259,7 @@ class SparseMatrix:
         tune_cache=None,
         batch: Optional[int] = None,
         topology=None,
+        assignment=None,
     ) -> ExecutionPlan:
         """Resolve scheme + placement into an inspectable ExecutionPlan.
 
@@ -290,22 +290,43 @@ class SparseMatrix:
             winners persist across processes; ignored when ``tuner`` is given.
           batch: ``scheme="tune"`` only — representative SpMM width B the
             candidates are measured at (part of the tuning-cache key).
+          topology: a :class:`repro_torch.topo.DeviceTopology` describing
+            the physical axes behind the pool.  2D grid fitting then ranks
+            factorizations by modelled collective cost, the mesh is laid out
+            in the device order of the cheapest axis assignment
+            (``Mesh.slots``), and the plan records it (``topo_assignment``,
+            ``scheme_id``'s ``@`` suffix, ``describe()``, plan IR v2).  When
+            neither ``mesh`` nor ``devices`` is given, the topology's own
+            devices are the pool.  On one card the placement changes no
+            answer and no launch.
+          assignment: force a specific axis assignment (an
+            :class:`repro_torch.topo.AxisAssignment` or its dict form)
+            instead of the model's pick — how the tuner measures one
+            candidate per assignment.  Requires ``topology``.
 
         Raises:
           ValueError: unknown impl or scheme, both mesh= and devices=, a
-            mesh whose shape the fitted plan cannot lay out on, or
-            ``scheme="tune"`` with partitioning/fmt/merge/grid forced.
+            mesh whose shape the fitted plan cannot lay out on,
+            ``scheme="tune"`` with partitioning/fmt/merge/grid forced,
+            ``assignment`` without ``topology``, or an abstract topology
+            without ``devices``.
           RuntimeError: a CUDA device is asked for and none is present.
-          NotImplementedError: ``topology=`` (a later slice of the port),
-            or ``devices`` that name distinct devices (multi-card meshes,
-            ROADMAP.md).
+          NotImplementedError: ``devices`` that name distinct devices
+            (multi-card meshes, ROADMAP.md).
         """
         if impl not in IMPLS:
             raise ValueError(f"unknown impl {impl!r}: one of {IMPLS}")
         if mesh is not None and devices is not None:
             raise ValueError("pass mesh= or devices=, not both")
-        if topology is not None:
-            raise NotImplementedError(f"topology= is {_NOT_YET}, 'repro.topo'")
+        if assignment is not None and topology is None:
+            raise ValueError("assignment= requires topology=")
+        if topology is not None and mesh is None and devices is None:
+            # a topology with a bound device grid implies the pool
+            devices = topology.flat_devices()
+            if devices is None:
+                raise ValueError(
+                    "topology= is abstract (no devices); pass devices= too"
+                )
         if scheme == "tune":
             # measure-and-refine: delegate to repro_torch.tune (lazy import:
             # the tuner itself plans through this very method)
@@ -329,7 +350,7 @@ class SparseMatrix:
                 )
             return tuner.tune(
                 self, device=device, devices=devices, mesh=mesh, block=block,
-                hw=hw, batch=batch,
+                hw=hw, batch=batch, topology=topology,
             ).best
         distributed = mesh is not None or devices is not None
         if mesh is not None:
@@ -348,7 +369,8 @@ class SparseMatrix:
         plan = resolve_scheme(
             self.stats, self.shape, n_devices, scheme, hw=hw,
             partitioning=partitioning, fmt=fmt, merge=merge, grid=grid,
-            block=block, fit=fit, dtype_bytes=self.dtype.itemsize,
+            block=block, fit=fit, topology=topology,
+            dtype_bytes=self.dtype.itemsize,
         )
         if mesh is not None:
             want = ((plan.grid[0],) if plan.partitioning == "1d"
@@ -359,20 +381,55 @@ class SparseMatrix:
                     f"{plan.partitioning} plan grid {tuple(plan.grid)}; "
                     "pass grid=/scheme= that fits the mesh, or use devices= "
                     "and let plan() build the mesh")
-        elif distributed:
+        topo_assignment = None
+        if mesh is None and distributed:
             mesh_shape = ((plan.grid[0],) if plan.partitioning == "1d"
                           else tuple(plan.grid))
             axes = (AXIS_1D,) if plan.partitioning == "1d" else AXES_2D
-            mesh = make_mesh(mesh_shape, axes, devices)
+            if topology is not None:
+                mesh, topo_assignment = self._place(
+                    plan, mesh_shape, axes, devices, topology, assignment)
+            else:
+                mesh = make_mesh(mesh_shape, axes, devices)
         hw = hw if hw is not None else HardwareModel(chips=max(1, n_devices))
         # an unfitted 2D plan (fit=False) may carry no grid yet: no estimate
         est = (estimate_time(self.stats, plan, hw, dtype_bytes=self.dtype.itemsize)
                if len(plan.grid) == 2 else {})
+        if topo_assignment is not None:
+            # the topology-priced transfer split beside the Fig.-4 numbers
+            est = dict(est)
+            est["topo_load_s"] = topo_assignment["transfer"]["load_s"]
+            est["topo_merge_s"] = topo_assignment["transfer"]["merge_s"]
         return ExecutionPlan(
             matrix=self, scheme=plan, impl=impl,
             device=mesh.device if distributed else device, dtype=self.dtype,
             block=tuple(block), hw=hw, estimate=est, mesh=mesh,
+            topo_assignment=topo_assignment,
         )
+
+    def _place(self, plan: Plan, mesh_shape: tuple, axes: tuple, devices,
+               topology, assignment) -> tuple:
+        """(mesh, topo_assignment record or None): the mesh of ``plan``
+        laid out by ``topology`` — in ``assignment``'s device order, or the
+        cost model's cheapest — and the record of the placement."""
+        from .. import topo as _topo
+
+        n = int(np.prod(mesh_shape))
+        dtype_bytes = self.dtype.itemsize
+        model = _topo.CollectiveCostModel(topology)
+        chosen, price = assignment, None
+        if chosen is None:
+            best = model.best(plan, self.shape, dtype_bytes, axes)
+            if best is not None:
+                chosen, price = best
+        mesh, chosen = _topo.build_mesh(topology, mesh_shape, axes,
+                                        assignment=chosen, devices=devices[:n])
+        if chosen is None:
+            return mesh, None
+        if price is None:
+            price = model.price(plan, self.shape, dtype_bytes, chosen)
+        return mesh, {**chosen.to_dict(), "topology": topology.name,
+                      "transfer": {k: float(v) for k, v in price.items()}}
 
     def compile(self, **plan_kwargs):
         """Shorthand: ``.plan(**plan_kwargs).compile()``."""

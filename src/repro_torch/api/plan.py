@@ -11,10 +11,8 @@ a single-device one, or for a mesh plan a
 
 The plan IR (``to_ir`` / :func:`plan_from_ir`) is the JAX package's: the
 wire keeps its impl names ("xla" / "pallas"), mapped to "torch" / "cuda"
-at the boundary, so each package reads the other's JSON.
-
-Topology-aware fitting waits for ``repro.topo``'s port (ROADMAP.md) and
-raises ``NotImplementedError``.
+at the boundary, so each package reads the other's JSON — the v2 "topo"
+record (the axis assignment of a topology-placed plan) included.
 """
 from __future__ import annotations
 
@@ -28,7 +26,7 @@ import torch
 from ..core import distributed as D
 from ..core.adaptive import HardwareModel, Plan, select_scheme
 from ..core.formats import dtype_name, torch_dtype
-from ..core.mesh import make_mesh
+from ..core.mesh import AXES_2D, make_mesh
 from ..core.partition import (BALANCE_1D, SCHEMES_2D, PartitionedMatrix,
                               partition_1d_coalesced, partition_2d_coalesced)
 from ..core.stats import MatrixStats
@@ -92,11 +90,11 @@ def fit_plan(plan: Plan, shape: tuple, n_devices: int,
     The JAX package's rules: 2D equally-sized requires rows % R == 0 and
     cols % C == 0 (and psum_scatter additionally (rows/R) % C == 0, else
     psum); with no fitting factorization, fall back to the 1D element-
-    balanced plan.  An empty ``plan.grid`` prefers near-square grids.
+    balanced plan.  An empty ``plan.grid`` prefers near-square grids,
+    unless a :class:`repro_torch.topo.DeviceTopology` is given: the fitting
+    grids are then ranked by the modelled collective cost of each grid's
+    *best* axis assignment, ties broken by near-squareness, then by R.
     """
-    if topology is not None:
-        raise NotImplementedError("topology-aware fitting is not ported yet: "
-                                  "see ROADMAP.md, 'repro.topo'")
     n = n_devices
     rows, cols = shape
     fmt = plan.fmt
@@ -136,6 +134,20 @@ def fit_plan(plan: Plan, shape: tuple, n_devices: int,
 
     if want_c is not None:
         R, C = min(fits, key=lambda rc: abs(rc[1] - want_c))
+    elif topology is not None:
+        from ..topo import CollectiveCostModel
+
+        model = CollectiveCostModel(topology)
+
+        def _cost(rc):
+            r, c = rc
+            cand = Plan("2d", scheme, fmt, _norm_merge(r, c), (r, c),
+                        plan.reason)
+            best = model.best(cand, shape, dtype_bytes, AXES_2D)
+            total = best[1]["total_s"] if best else float("inf")
+            return (total, abs(r - c), r)
+
+        R, C = min(fits, key=_cost)
     else:
         R, C = min(fits, key=lambda rc: abs(rc[0] - rc[1]))
     return Plan("2d", scheme, fmt, _norm_merge(R, C), (R, C), plan.reason)
@@ -157,7 +169,11 @@ def resolve_scheme(
     topology=None,
     dtype_bytes: int = 4,
 ) -> Plan:
-    """Turn "auto" / a scheme string / an adaptive.Plan into a fitted Plan."""
+    """Turn "auto" / a scheme string / an adaptive.Plan into a fitted Plan.
+
+    ``topology`` (a :class:`repro_torch.topo.DeviceTopology`) makes the 2D
+    grid fitting collective-cost-aware — see :func:`fit_plan`.
+    """
     hw = hw if hw is not None else HardwareModel(chips=max(1, n_devices))
     if isinstance(scheme, Plan):
         plan = scheme
@@ -221,6 +237,10 @@ class ExecutionPlan:
     part: Optional[PartitionedMatrix] = None  # prebuilt partition (optional)
     ring: bool = False  # 1D ring schedule (requires a bucketed part)
     ring_counts: Optional[np.ndarray] = None
+    # topology-aware placement metadata (repro_torch.topo; None = flat):
+    # {"logical": [...], "physical": [[...], ...], "topology": name,
+    #  "transfer": {"load_s", "merge_s", "total_s"}}
+    topo_assignment: Optional[dict] = None
 
     # -- inspection --------------------------------------------------------
 
@@ -247,12 +267,26 @@ class ExecutionPlan:
     @property
     def scheme_id(self) -> str:
         """Stable scheme identity (``partitioning.scheme.fmt.merge``, plus
-        ``.ring`` for the ring schedule)."""
-        return self.scheme.tag + (".ring" if self.ring else "")
+        ``.ring`` for the ring schedule); part of the engine's plan-cache
+        key.
+
+        Topology-placed plans carry their axis assignment as an ``@`` suffix
+        (e.g. ``...@rows=host,cols=bank``) so two placements of the same
+        scheme never collide in plan caches or tuning records.
+        """
+        sid = self.scheme.tag + (".ring" if self.ring else "")
+        if self.topo_assignment:
+            phys = self.topo_assignment.get("physical") or ()
+            logical = self.topo_assignment.get("logical") or ()
+            sid += "@" + ",".join(
+                f"{l}={'*'.join(g) if g else '-'}"
+                for l, g in zip(logical, phys)
+            )
+        return sid
 
     def describe(self) -> str:
         """Human-readable one-plan summary (scheme, impl, device, reason,
-        analytic Fig.-4 estimate)."""
+        analytic Fig.-4 estimate, the axis assignment of a placed plan)."""
         s = self.scheme
         where = (f"mesh{tuple(self.mesh.devices.shape)}" if self.is_distributed
                  else "single-device")
@@ -265,6 +299,19 @@ class ExecutionPlan:
         if self.estimate:
             est = ", ".join(f"{k}={v:.2e}" for k, v in self.estimate.items())
             lines.append(f"  model estimate: {est}")
+        if self.topo_assignment:
+            ta = self.topo_assignment
+            axes = ", ".join(
+                f"{l}->{'*'.join(g) if g else '-'}"
+                for l, g in zip(ta.get("logical") or (),
+                                ta.get("physical") or ())
+            )
+            line = f"  topo: {axes} on {ta.get('topology', '?')}"
+            tr = ta.get("transfer") or {}
+            if tr:
+                line += (f" (load={tr.get('load_s', 0.0):.2e}s "
+                         f"merge={tr.get('merge_s', 0.0):.2e}s)")
+            lines.append(line)
         if self.measured:
             m = self.measured
             line = f"  measured: {m['mean_s']:.2e}s/call"
@@ -317,7 +364,7 @@ class ExecutionPlan:
             "mesh": mesh_spec,
             "estimate": {k: float(v) for k, v in self.estimate.items()},
             "measured": _jsonable(self.measured),
-            "topo": None,
+            "topo": _jsonable(self.topo_assignment),
         }
 
     # -- axes / specs ------------------------------------------------------
@@ -468,14 +515,19 @@ def _jsonable(obj):
 
 
 def plan_from_ir(ir: dict, matrix, *, device="cuda", devices=None,
-                 mesh=None, hw: Optional[HardwareModel] = None
-                 ) -> ExecutionPlan:
+                 mesh=None, hw: Optional[HardwareModel] = None,
+                 topology=None) -> ExecutionPlan:
     """Rehydrate a ``to_ir()`` record (of either package) for ``device``.
 
     The fitted decision is taken verbatim (no re-fitting); ``interpret`` on
     the wire is ignored — ``device`` says where the plan runs.  A mesh
     record is laid out on ``mesh``, or on ``devices`` (default: ``device``
-    at every place of the recorded grid).
+    at every place of the recorded grid).  A v2 record's "topo" axis
+    assignment rides along either way (``scheme_id``, ``describe()`` and
+    ``to_ir`` keep it); with ``topology`` (a
+    :class:`repro_torch.topo.DeviceTopology` of this process) the mesh is
+    also laid out in the recorded placement (``Mesh.slots``), as the
+    reference re-realizes it.
 
     Raises:
       ValueError: unknown ``ir_version``, malformed record, unknown fmt or
@@ -512,12 +564,22 @@ def plan_from_ir(ir: dict, matrix, *, device="cuda", devices=None,
         raise ValueError(f"plan IR carries unknown format {plan.fmt!r}")
     if wire_impl not in _IMPL_FROM_WIRE:
         raise ValueError(f"plan IR carries unknown impl {wire_impl!r}")
+    topo_assignment = ir.get("topo") or None
     if mesh_spec is None:
         mesh = None
     elif mesh is None:
         n = int(np.prod(mesh_shape))
-        mesh = make_mesh(mesh_shape, mesh_axes,
-                         [device] * n if devices is None else devices)
+        devices = [device] * n if devices is None else list(devices)
+        if topology is not None and topo_assignment is not None:
+            from ..topo import build_mesh
+
+            mesh, _ = build_mesh(
+                topology, mesh_shape, mesh_axes, devices=devices[:n],
+                assignment={k: topo_assignment[k]
+                            for k in ("logical", "physical")},
+            )
+        else:
+            mesh = make_mesh(mesh_shape, mesh_axes, devices)
     ring_counts = ir.get("ring_counts")
     return ExecutionPlan(
         matrix=matrix,
@@ -533,4 +595,5 @@ def plan_from_ir(ir: dict, matrix, *, device="cuda", devices=None,
         ring=bool(ir.get("ring", False)),
         ring_counts=(None if ring_counts is None
                      else np.asarray(ring_counts, dtype=np.int64)),
+        topo_assignment=topo_assignment,
     )

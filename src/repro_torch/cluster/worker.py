@@ -123,7 +123,8 @@ class _WorkerState:
             slice; ingested, then replayed through a Tuner whose only legal
             outcome here is a cache hit (zero re-measurements).
           * ``ir``: an ``ExecutionPlan.to_ir()`` dict, rehydrated against
-            this worker's devices.
+            this worker's devices; a topology-placed IR's axis assignment
+            stays in the reply's ``scheme_id`` (its ``@`` suffix).
           * neither: the worker plans adaptively (``scheme``/
             ``partitioning`` overrides pass through to the engine).
 
@@ -141,6 +142,7 @@ class _WorkerState:
         ir = msg.get("ir")
         tune_record = msg.get("tune_record")
         info: dict = {"worker_id": self.config.worker_id, "name": name}
+        placement = ""  # a topology-placed IR's "@<axis assignment>"
         if tune_record is not None:
             self.tune_cache.ingest(dict(tune_record.get("entries", {})))
             block = tuple(tune_record.get("block", self.engine.block))
@@ -174,6 +176,7 @@ class _WorkerState:
             entry = self.engine.register(
                 name, sm, plan=ep.scheme, impl=ep.impl,
             )
+            placement = "".join(ep.scheme_id.partition("@")[1:])
             info.update(source="ir")
         else:
             entry = self.engine.register(
@@ -188,7 +191,7 @@ class _WorkerState:
         summary = entry.summary()
         info.update(
             fingerprint=summary["fingerprint"],
-            scheme_id=summary["scheme_id"],
+            scheme_id=summary["scheme_id"] + placement,
             impl=summary["impl"],
             shape=tuple(int(n) for n in summary["shape"]),
             dtype=summary["dtype"],

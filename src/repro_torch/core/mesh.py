@@ -10,11 +10,18 @@ card (or on the CPU) and each collective is a tensor operation on the part
 axis (:mod:`repro_torch.core.distributed`).  A grid that names distinct
 devices raises: multi-card meshes over ``torch.distributed`` / NCCL are a
 later item of ROADMAP.md, and no grid falls back to one device silently.
+
+Since every place holds the same device, the order a topology gives the
+devices (:func:`repro_torch.topo.build_mesh`) would be invisible in
+``devices``; ``Mesh.slots`` records it instead: at each place of the grid,
+that place's position in the topology's flat device order (``arange`` for
+a flat mesh) — what the JAX mesh shows as its devices' ids.  It is
+metadata: the parts run in logical order in the one part-axis launch.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +71,18 @@ class Mesh:
 
     devices: np.ndarray  # object array of torch.device, shape = the grid
     axis_names: Tuple[str, ...]
+    # int array, shape = the grid: each place's position in the topology's
+    # flat device order
+    slots: Optional[np.ndarray] = None
+
+    def __post_init__(self):
+        n = self.devices.size
+        slots = np.asarray(range(n) if self.slots is None else self.slots,
+                           dtype=np.int64)
+        if sorted(slots.reshape(-1).tolist()) != list(range(n)):
+            raise ValueError(f"mesh slots {slots.tolist()} are not a "
+                             f"permutation of range({n})")
+        object.__setattr__(self, "slots", slots.reshape(self.devices.shape))
 
     @property
     def device(self) -> torch.device:
@@ -72,13 +91,14 @@ class Mesh:
 
 
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
-              devices=None) -> Mesh:
+              devices=None, slots: Optional[Sequence[int]] = None) -> Mesh:
     """Lay ``devices`` (default: the current CUDA device, repeated) out as a
-    grid of ``axis_shapes`` named ``axis_names``.
+    grid of ``axis_shapes`` named ``axis_names``; ``slots`` (flat, default
+    ``arange``) is the places' topology order (see :class:`Mesh`).
 
     Raises:
-      ValueError: the shape and names differ in length, or the pool is too
-        small for the grid.
+      ValueError: the shape and names differ in length, the pool is too
+        small for the grid, or ``slots`` is not a permutation of its places.
       NotImplementedError: the devices are distinct (see :func:`same_device`).
       RuntimeError: a CUDA device is named and none is present.
     """
@@ -95,4 +115,4 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
     grid = np.empty(n, dtype=object)
     for i in range(n):
         grid[i] = dev
-    return Mesh(grid.reshape(shape), names)
+    return Mesh(grid.reshape(shape), names, slots)

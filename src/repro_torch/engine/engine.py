@@ -27,8 +27,10 @@ request: one plan lookup and one Telemetry record (``kind="solve"``).
 ``SpmvEngine(tune=True)`` measures and refines plans off live traffic
 (:mod:`repro_torch.tune`): a background thread compiles and times the
 candidates on its own CUDA stream while the serving threads go on, and
-swaps the cached executor when one clears the margin.  ``topology=``
-waits for the port of ``repro.topo`` and raises ``NotImplementedError``.
+swaps the cached executor when one clears the margin.
+``SpmvEngine(topology=...)`` lays every plan's mesh out by the topology's
+axis assignment (:mod:`repro_torch.topo`), and tunes one candidate per
+assignment.
 """
 from __future__ import annotations
 
@@ -53,8 +55,6 @@ from .registry import MatrixRegistry, RegisteredMatrix
 from .telemetry import RequestRecord, Telemetry
 
 __all__ = ["SpmvEngine"]
-
-_NOT_YET = "is not ported yet: see ROADMAP.md"
 
 
 class SpmvEngine:
@@ -81,9 +81,10 @@ class SpmvEngine:
         Args:
           devices: the pool to serve from: one device (``"cuda"``, a
             ``torch.device``) or a list of P entries naming the same device
-            (``["cuda"] * 16``: 16 parts on the card).  Default: one part
-            on the current CUDA device.  There is no CPU fallback: pass
-            ``["cpu"]`` to serve from the CPU.
+            (``["cuda"] * 16``: 16 parts on the card).  Default: the
+            devices of ``topology``, else one part on the current CUDA
+            device.  There is no CPU fallback: pass ``["cpu"]`` to serve
+            from the CPU.
           cache_capacity: max compiled plans held (LRU; placed matrices pin
             device memory, so this is the engine's memory bound).
           telemetry: a shared Telemetry sink (default: a fresh one).
@@ -110,15 +111,18 @@ class SpmvEngine:
             the width it was tuned at — the serving-drift trigger.  None
             disables drift re-tuning (one refinement per entry, ever).
           drift_alpha: EWMA weight for the observed batch width.
-          topology: topology-aware placement waits for the port of
-            ``repro.topo``; anything but None raises.
+          topology: a :class:`repro_torch.topo.DeviceTopology` over the
+            pool — each plan's mesh is then laid out in the device order of
+            the cheapest axis assignment (``Mesh.slots``; see
+            ``SparseMatrix.plan``) instead of flat order, and refinements
+            measure one candidate per assignment.
 
         Raises:
           ValueError: for an unknown ``impl``, a ``tune_margin`` outside
             (0, 1], a ``drift_factor`` <= 1 or a ``drift_alpha`` outside
             (0, 1].
-          NotImplementedError: ``topology=``, or a pool naming distinct
-            devices (multi-card meshes).
+          NotImplementedError: a pool naming distinct devices (multi-card
+            meshes).
           RuntimeError: a CUDA device is asked for and none is present.
         """
         if impl not in IMPLS:
@@ -132,8 +136,9 @@ class SpmvEngine:
             )
         if not 0.0 < drift_alpha <= 1.0:
             raise ValueError(f"drift_alpha must be in (0, 1]; got {drift_alpha}")
-        if topology is not None:
-            raise NotImplementedError(f"topology= {_NOT_YET}, 'repro.topo'")
+        self.topology = topology
+        if devices is None and topology is not None:
+            devices = topology.flat_devices()
         if devices is None:
             devices = [torch.device("cuda")]
         elif isinstance(devices, (str, torch.device)):
@@ -182,6 +187,7 @@ class SpmvEngine:
     def _fit_plan(self, plan: Plan, shape: tuple, dtype) -> Plan:
         """Adapt the paper plan to the device pool (api.fit_plan rules)."""
         return fit_plan(plan, shape, self.n_devices, self.block,
+                        topology=self.topology,
                         dtype_bytes=torch_dtype(dtype).itemsize)
 
     # -------------------------------------------------------------- building
@@ -197,20 +203,29 @@ class SpmvEngine:
                 entry.spill = compiled.part
 
     def _build(self, sm: SparseMatrix, plan: Plan, key: PlanKey,
-               impl: str, part=None) -> CompiledPlan:
+               impl: str, part=None, assignment=None) -> CompiledPlan:
         """Run the api chain once for ``plan`` and wrap the MeshExecutor.
 
         ``part`` short-circuits host partitioning with a spilled
         PartitionedMatrix (reactivation after eviction): the build then
-        only re-places the matrix and rebuilds the program.
+        only re-places the matrix and rebuilds the program.  ``assignment``
+        pins a measured axis assignment (tuned winners) instead of the cost
+        model's pick.
         """
         t0 = time.perf_counter()
-        if plan.partitioning == "1d":
-            mesh = self._mesh((plan.grid[0],), (AXIS_1D,))
+        if self.topology is not None:
+            # plan() lays the mesh out by the cheapest (or the pinned) axis
+            # assignment of the topology
+            ep = sm.plan(scheme=plan, devices=self.devices,
+                         topology=self.topology, impl=impl, block=self.block,
+                         hw=self.hw, assignment=assignment)
         else:
-            mesh = self._mesh(tuple(plan.grid), AXES_2D)
-        ep = sm.plan(scheme=plan, mesh=mesh, impl=impl, block=self.block,
-                     hw=self.hw)
+            if plan.partitioning == "1d":
+                mesh = self._mesh((plan.grid[0],), (AXIS_1D,))
+            else:
+                mesh = self._mesh(tuple(plan.grid), AXES_2D)
+            ep = sm.plan(scheme=plan, mesh=mesh, impl=impl, block=self.block,
+                         hw=self.hw)
         if part is not None:
             ep.part = part  # spilled host partition: skip re-partitioning
         else:
@@ -738,6 +753,7 @@ class SpmvEngine:
             batch=batch,
             x=x,
             baseline=(entry.plan, entry.cache_key[4]),
+            topology=self.topology,
         )
         best, incumbent = result.best_measurement, result.baseline
         event = {
@@ -756,6 +772,8 @@ class SpmvEngine:
             "swapped": False,
         }
         plan, impl = result.best.scheme, result.best.impl
+        # the ExecutionPlan's scheme_id carries the axis-assignment suffix,
+        # so a tuned placement of the same scheme gets its own cache slot
         key: PlanKey = (entry.fingerprint, tuple(plan.grid),
                         entry.dtype, result.best.scheme_id, impl)
         beats = best.mean_s < incumbent.mean_s * self.tune_margin
@@ -769,7 +787,8 @@ class SpmvEngine:
                     self._swap_entry(entry, key, plan)
                     event["swapped"] = True
             if not event["swapped"]:
-                built = self._build(entry.matrix, plan, key, impl)
+                built = self._build(entry.matrix, plan, key, impl,
+                                    assignment=result.best.topo_assignment)
                 built.executor.warmup()  # first launch off the request path
                 with self._swap_lock:
                     if self.cache.peek(key) is not None:

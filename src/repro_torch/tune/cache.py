@@ -4,8 +4,9 @@ Counterpart of ``repro/tune/cache.py``: the same version-1 JSON document,
 the same key encoding, file lock and merge-on-write, so the port reads a
 file the reference wrote.  Two things differ: the pool identity is
 ``"<device type>:<count>"`` (``cuda:1`` for one card, ``cuda:16`` for
-``["cuda"] * 16``, ``cpu:1`` on the CPU), and impls are the port's names
-(``"cuda"``, ``"torch"``).
+``["cuda"] * 16``, ``cpu:1`` on the CPU; a topology appends
+``|<name>:<sizes>``, e.g. ``cuda:4|pim2x2:2x2``), and impls are the port's
+names (``"cuda"``, ``"torch"``).
 
 Measuring candidates costs real compiles and real runs; the result is a
 property of (matrix content, device topology, dtype, batch shape) and
@@ -73,22 +74,27 @@ def topology_key(devices=None, mesh=None, topology=None, *,
 
     ``type:count`` (e.g. ``cuda:1``, ``cuda:16``, ``cpu:1``) — measurements
     on another device type or pool size are different cache entries.  The
-    pool is ``mesh``'s devices, else ``devices``, else the one ``device``.
-
-    Raises:
-      NotImplementedError: ``topology=`` (ROADMAP.md, 'repro.topo').
+    pool is ``mesh``'s devices, else ``devices``, else the devices of a
+    bound ``topology``, else the one ``device``.  A
+    :class:`repro_torch.topo.DeviceTopology` appends its name and axis
+    sizes (e.g. ``cuda:4|pim2x2:2x2``): placements measured against one
+    declared interconnect say nothing about another.
     """
-    if topology is not None:
-        raise NotImplementedError(
-            "topology= is not ported yet: see ROADMAP.md, 'repro.topo'")
     if mesh is not None:
         devices = list(mesh.devices.flat)
+    elif devices is None and topology is not None \
+            and topology.devices is not None:
+        devices = topology.flat_devices()
     elif devices is None:
         devices = [device]
     else:
         devices = list(devices)
     types = sorted({torch.device(d).type for d in devices})
-    return f"{'+'.join(types)}:{len(devices)}"
+    key = f"{'+'.join(types)}:{len(devices)}"
+    if topology is not None:
+        sizes = "x".join(str(s) for s in topology.axis_sizes)
+        key += f"|{topology.name}:{sizes}"
+    return key
 
 
 @dataclass(frozen=True)

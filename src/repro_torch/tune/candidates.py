@@ -13,8 +13,7 @@ what would actually compile.
 The impls are the port's: ``"cuda"`` (the hand-written kernels, the
 counterpart of the reference's ``"pallas"``) and ``"torch"`` (the plain
 oracles, the counterpart of ``"xla"``).  The default searches ``"cuda"``,
-as ``SparseMatrix.plan`` defaults to it.  Expanding distributed candidates
-per axis assignment of a ``topology`` waits for the port of ``repro.topo``.
+as ``SparseMatrix.plan`` defaults to it.
 """
 
 from __future__ import annotations
@@ -65,19 +64,17 @@ class CandidateGenerator:
           block: (r, c) tile for the block formats.
           hw: HardwareModel for the analytic ranking (default: one chip per
             device in the pool).
-          topology: waits for the port of ``repro.topo``; anything but None
-            raises.
+          topology: a :class:`repro_torch.topo.DeviceTopology` — each
+            distributed candidate is then expanded into one plan *per viable
+            axis assignment* (model-ranked order), so the measurements can
+            overrule the cost model's placement pick, not just its scheme
+            pick.  Assignment-expanded candidates count against
+            ``max_candidates`` like any other.
 
         Returns:
           A list of ExecutionPlans, analytic pick first, capped at
           ``max_candidates``; never empty (the "auto" plan always fits).
-
-        Raises:
-          NotImplementedError: ``topology=`` (ROADMAP.md, 'repro.topo').
         """
-        if topology is not None:
-            raise NotImplementedError(
-                "topology= is not ported yet: see ROADMAP.md, 'repro.topo'")
         if mesh is not None:
             n_devices = int(mesh.devices.size)
         elif devices is not None:
@@ -92,6 +89,15 @@ class CandidateGenerator:
             include_exotic=self.include_exotic,
         )
         out, seen = [], set()
+
+        def _admit(plan) -> None:
+            # scheme_id includes the axis-assignment suffix, so two
+            # placements of one scheme are distinct candidates
+            key = (plan.scheme_id, plan.impl, plan.grid)
+            if key not in seen:
+                seen.add(key)
+                out.append(plan)
+
         for scheme in schemes:
             for impl in self.impls:
                 if len(out) >= self.max_candidates:
@@ -105,11 +111,30 @@ class CandidateGenerator:
                         devices=devices,
                         block=block,
                         hw=hw,
+                        topology=topology,
                     )
                 except ValueError:
                     continue  # unfit for this pool/mesh; not a candidate
-                key = (plan.scheme_id, plan.impl, plan.grid)
-                if key not in seen:
-                    seen.add(key)
-                    out.append(plan)
+                _admit(plan)
+                if topology is None or plan.topo_assignment is None:
+                    continue
+                # expand: one candidate per alternative axis assignment of
+                # the fitted grid (model pick already admitted above)
+                from ..topo import CollectiveCostModel
+
+                ranked = CollectiveCostModel(topology).rank(
+                    plan.scheme, matrix.shape, matrix.dtype.itemsize,
+                    plan.axes,
+                )
+                for alt, _price in ranked:
+                    if len(out) >= self.max_candidates:
+                        return out
+                    try:
+                        _admit(matrix.plan(
+                            scheme=plan.scheme, impl=impl, device=device,
+                            devices=devices, block=block, hw=hw,
+                            topology=topology, assignment=alt,
+                        ))
+                    except ValueError:
+                        continue
         return out

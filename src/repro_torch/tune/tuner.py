@@ -16,7 +16,8 @@ so the same (matrix, topology, dtype, batch) never measures twice.
 traffic and swaps executors when a candidate clears the margin.  On the
 card every candidate is compiled and timed for real: the COO/CSR kernel
 runs the ``coo``/``csr`` candidates, the block kernel the ``bcoo``/``bcsr``
-ones.  ``topology=`` waits for the port of ``repro.topo``.
+ones.  Under a ``topology`` the candidates are expanded per axis
+assignment and the winner's record keeps its placement ("topo").
 """
 
 from __future__ import annotations
@@ -113,8 +114,11 @@ class Tuner:
           baseline: optional (Plan, impl) incumbent to measure alongside
             the generated candidates (the engine passes its current plan);
             default baseline is the analytic "auto" pick.
-          topology: waits for the port of ``repro.topo``; anything but None
-            raises.
+          topology: a :class:`repro_torch.topo.DeviceTopology` — candidates
+            are then expanded per axis assignment (measured placements can
+            overrule the cost model's pick), the topology name keys the
+            cache, and the cached winner records its assignment so
+            rebuilds reproduce the placement without re-measuring.
 
         Returns:
           A TuningResult; ``result.best.measured`` carries the measured
@@ -125,7 +129,6 @@ class Tuner:
           Exception: whatever a ``cuda`` candidate on a CUDA device raised —
             a kernel that fails to build or launch is a fault, not an unfit
             candidate, and must not leave the plain version to win.
-          NotImplementedError: ``topology=`` (ROADMAP.md, 'repro.topo').
         """
         key = make_key(
             matrix, device=device, devices=devices, mesh=mesh, batch=batch,
@@ -136,11 +139,11 @@ class Tuner:
             return self._from_record(
                 matrix, record, key, device=device,
                 devices=devices, mesh=mesh, block=block, hw=hw,
-                baseline=baseline,
+                baseline=baseline, topology=topology,
             )
         plans = self.generator.plans(
             matrix, device=device, devices=devices, mesh=mesh, block=block,
-            hw=hw,
+            hw=hw, topology=topology,
         )
         if baseline is not None:
             base_plan, base_impl = baseline
@@ -149,6 +152,7 @@ class Tuner:
                 inc = matrix.plan(
                     scheme=base_plan, impl=base_impl, device=device,
                     devices=devices, mesh=mesh, block=block, hw=hw,
+                    topology=topology,
                 )
                 if (inc.scheme_id, inc.impl) not in have:
                     plans.insert(0, inc)
@@ -249,7 +253,7 @@ class Tuner:
                 "reason": s.reason,
             },
             "impl": result.best.impl,
-            "topo": None,  # no axis assignment until repro.topo is ported
+            "topo": result.best.topo_assignment,
             "mean_s": result.best_measurement.mean_s,
             "baseline_scheme_id": result.baseline.scheme_id,
             "baseline_impl": result.baseline.impl,
@@ -268,14 +272,20 @@ class Tuner:
 
     def _from_record(
         self, matrix, record: dict, key: TuneKey, *,
-        device, devices, mesh, block, hw, baseline=None,
+        device, devices, mesh, block, hw, baseline=None, topology=None,
     ) -> TuningResult:
         """Rebuild the cached winner WITHOUT re-measuring (the cache's whole
-        point: re-register never pays the measurement loop again)."""
+        point: re-register never pays the measurement loop again), in its
+        recorded placement when it has one."""
+        topo_rec = record.get("topo")
+        assignment = None
+        if topology is not None and topo_rec:
+            assignment = {k: topo_rec[k] for k in ("logical", "physical")}
         plan = matrix.plan(
             scheme=record_to_plan(record),
             impl=record.get("impl", "cuda"),
             device=device, devices=devices, mesh=mesh, block=block, hw=hw,
+            topology=topology, assignment=assignment,
         )
         best_m = Measurement(
             scheme_id=plan.scheme_id,

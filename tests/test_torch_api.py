@@ -22,6 +22,7 @@ from repro.data.matrices import block_matrix, regular_matrix, scale_free_matrix
 from repro_torch.api import AXES_2D, SparseMatrix, executor, plan_from_ir
 from repro_torch.core import formats as TF
 from repro_torch.core.mesh import make_mesh
+from repro_torch.topo import AxisAssignment, FakeTopology
 
 from _torch_common import BF16, rand_sparse
 from _torch_mesh_cases import BLOCK as MESH_BLOCK
@@ -271,7 +272,8 @@ def test_plan_ir_errors():
 
 
 def test_plan_errors_and_unported_options():
-    """Unported options raise; mesh= / devices= plan P parts on one device."""
+    """Unported options raise; mesh= / devices= plan P parts on one device;
+    topology= places them, and its wrong inputs raise as the reference's."""
     sm = SparseMatrix.from_dense(rand_sparse(16, 16, 0.3, np.float32, seed=2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -279,9 +281,18 @@ def test_plan_errors_and_unported_options():
     with pytest.raises(ValueError, match="unknown impl"):
         sm.plan(impl="pallas", device="cpu")
     for kw in ({"devices": ["cuda:0", "cuda:1"]},
-               {"devices": ["cpu", "cuda:0"]}, {"topology": object()}):
+               {"devices": ["cpu", "cuda:0"]}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sm.plan(device="cpu", **kw)
+    # topology=: its devices are the pool (ported: repro_torch.topo)
+    placed = sm.plan(scheme="2d.equally-sized",
+                     topology=FakeTopology.pim_like((2, 2), devices=["cpu"] * 4))
+    assert placed.grid == (2, 2) and placed.mesh.slots.size == 4
+    assert placed.scheme_id.startswith("2d.equally-sized.coo.psum_scatter@rows=")
+    with pytest.raises(ValueError, match="abstract"):
+        sm.plan(device="cpu", topology=FakeTopology.pim_like((2, 2)))
+    with pytest.raises(ValueError, match="requires topology"):
+        sm.plan(device="cpu", assignment=AxisAssignment(("parts",), (("flat",),)))
     tuned = sm.plan(scheme="tune", device="cpu")  # ported: repro_torch.tune
     assert tuned.measured["candidates"] >= 1 and tuned.impl == "cuda"
     with pytest.raises(ValueError, match="searches"):

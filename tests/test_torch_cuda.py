@@ -1132,3 +1132,81 @@ def test_cluster_workers_on_the_card(cuda):
         assert router.entries["reg"].placements == ["w1"]
     finally:
         router.close()
+
+
+# ------------------------------------------------------------- topology
+
+
+def test_detect_topology_on_card(cuda):
+    from repro_torch.topo import detect_topology
+    from repro_torch.topo.topology import HOST_LINK
+
+    here = detect_topology()
+    assert (here.name, here.axis_sizes, here.links) == ("cuda:flat", (1,),
+                                                        (HOST_LINK,))
+    assert torch.device(here.flat_devices()[0]) == torch.device(
+        "cuda", torch.cuda.current_device())
+
+
+@pytest.mark.parametrize("fmt", ["coo", "csr", "bcoo", "bcsr"])
+def test_every_assignment_on_card_answers_alike(cuda, fmt):
+    """Each assignment of pim2x2 on the (2, 2) grid: its slots, one
+    part-axis launch per request, answers bit-equal to the single-device
+    kernel and across assignments."""
+    from repro_torch.topo import CollectiveCostModel, FakeTopology
+
+    rng = np.random.default_rng(19)
+    a = _matrix(rng, 256, 512, 0.1, torch.float32).numpy()
+    sm = SparseMatrix.from_dense(a)
+    topo = FakeTopology.pim_like((2, 2), devices=["cuda"] * 4)
+    base = sm.plan(scheme="2d", fmt=fmt, grid=(2, 2), topology=topo)
+    ranked = CollectiveCostModel(topo).rank(base.scheme, sm.shape, 4, base.axes)
+    assert len(ranked) == 2
+    single = sm.plan(fmt=fmt, device=cuda).compile()
+    xs = [_x(rng, 512, b, torch.float32).numpy() for b in (None, 8)]
+    ys = []
+    for assignment, _ in ranked:
+        exe = sm.plan(scheme="2d", fmt=fmt, grid=(2, 2), topology=topo,
+                      assignment=assignment).compile()
+        want_slots = FakeTopology.pim_like((2, 2)).device_order(
+            assignment, devices=range(4))
+        assert exe.mesh.slots.reshape(-1).tolist() == want_slots
+        wants = [single(x) if x.ndim == 1 else single.batch(x) for x in xs]
+        kind = "coo" if fmt in ("coo", "csr") else "bcoo"
+        instrument.reset()
+        got = [exe(x) if x.ndim == 1 else exe.batch(x) for x in xs]
+        assert instrument.launches(kind) == len(xs)
+        for g, w in zip(got, wants):
+            np.testing.assert_array_equal(g, w)
+        ys.append(got)
+    for u, v in zip(*ys):
+        np.testing.assert_array_equal(u, v)
+
+
+def test_tune_under_a_topology_on_card(cuda):
+    """One candidate per assignment on the card; a second tune is a cache
+    hit that launches nothing and keeps card memory to the byte."""
+    from repro_torch.topo import FakeTopology
+    from repro_torch.tune import Measurer, Tuner
+
+    rng = np.random.default_rng(23)
+    a = _matrix(rng, 256, 512, 0.1, torch.float32).numpy()
+    sm = SparseMatrix.from_dense(a)
+    topo = FakeTopology.pim_like((2, 2), devices=["cuda"] * 4)
+    tuner = Tuner(measurer=Measurer(warmup=1, iters=2))
+    first = tuner.tune(sm, topology=topo)
+    assert first.key.topology == "cuda:4|pim2x2:2x2"
+    ids = [m.scheme_id for m in first.measurements]
+    assert sum("@" in i for i in ids) >= 2
+    exe = first.best.compile()
+    x = _x(rng, 512, None, torch.float32).numpy()
+    np.testing.assert_array_equal(exe(x), sm.plan(device=cuda).compile()(x))
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0, n0 = torch.cuda.memory_allocated(), instrument.launches()
+    again = tuner.tune(sm, topology=topo)
+    assert again.from_cache and not again.measurements
+    assert again.best.scheme_id == first.best.scheme_id
+    gc.collect()
+    torch.cuda.synchronize()
+    assert instrument.launches() == n0 and torch.cuda.memory_allocated() == mem0

@@ -41,6 +41,7 @@ from repro_torch.core.adaptive import Plan
 from repro_torch.engine import (CompiledPlan, MicroBatcher, PlanCache,
                                 SpmvEngine, fingerprint_matrix)
 from repro_torch.kernels import instrument
+from repro_torch.topo import FakeTopology
 
 from _torch_engine_cases import (BATCHER, CASES, PARTS, case_id, matrices,
                                  vectors)
@@ -455,12 +456,27 @@ def _refine_works(engine):
     assert engine.registry.get("m").tuned
 
 
+def _topology_places_the_mesh(engine):
+    topo = FakeTopology.pim_like((2, 2), devices=CPU * 4)
+    placed = SpmvEngine(topology=topo)  # the topology's devices: the pool
+    assert placed.devices == topo.flat_devices() and placed.n_devices == 4
+    entry = placed.register("m", _mats()["regular"], warmup=False)
+    mesh = placed.plan_for("m").mesh
+    assert entry.plan.grid == tuple(mesh.devices.shape)
+    if entry.plan.partitioning == "2d":  # laid out by an axis assignment
+        assert sorted(mesh.slots.reshape(-1).tolist()) == [0, 1, 2, 3]
+    x = np.arange(entry.shape[1], dtype=np.float32) % 5 - 2
+    # random f32 values summed over 4 parts: the reference's tolerance
+    np.testing.assert_allclose(placed.multiply("m", x), engine.multiply("m", x),
+                               rtol=2e-4, atol=2e-4)
+
+
 @pytest.mark.parametrize("call,item", [
     (_solve_agrees_with_jax, None),  # ported: works, no longer raises
     (_refine_works, None),  # ported with repro.tune
     (lambda e: SpmvEngine(devices=CPU, tune=True), None),
     (lambda e: SpmvEngine(devices=CPU, tuner=object()), None),
-    (lambda e: SpmvEngine(devices=CPU, topology=object()), "repro.topo"),
+    (_topology_places_the_mesh, None),  # ported with repro.topo
 ], ids=["solve", "refine", "tune", "tuner", "topology"])
 def test_not_ported_yet_raises_naming_its_roadmap_item(engine, call, item):
     engine.register("m", _mats()["regular"], warmup=False)

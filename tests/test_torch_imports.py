@@ -23,6 +23,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.", "ml_dtypes"))
              or m == "repro")
 print("MODULES", len(names))
+print("TOPO", sorted(n for n in names if n.startswith("repro_torch.topo")))
 print("BAD", bad)
 print("NEW_THREADS", sorted(t.name for t in threading.enumerate()
                             if t.ident not in threads))
@@ -43,7 +44,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
     n_modules = 1 + len(list(pkgutil.walk_packages(repro_torch.__path__,
                                                     "repro_torch.")))
-    assert int(lines["MODULES"]) == n_modules >= 49
+    assert int(lines["MODULES"]) == n_modules >= 56
+    # the topology package and its modules are among them
+    assert lines["TOPO"] == str(["repro_torch.topo", "repro_torch.topo.cost",
+                                 "repro_torch.topo.mesh",
+                                 "repro_torch.topo.topology"])
 
 
 def test_port_sources_name_no_jax_import():

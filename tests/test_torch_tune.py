@@ -20,7 +20,7 @@ The same seeded numpy inputs go through both packages:
   event counts and the answers after a swap — must be equal, answers bit
   for bit (integer-valued inputs).
 
-Then the port's own: ``topology=`` raising, the snapshot of ``last_x``, a
+Then the port's own: ``topology=`` at every layer, the snapshot of ``last_x``, a
 request or a solver session racing a swap (and a kernel error racing one,
 which is not rerun), a ``cuda`` candidate on a CUDA device that raises
 (reported, not dropped), a real Measurer on the CPU, and a time-bounded
@@ -47,6 +47,7 @@ from repro.api import SparseMatrix as JSparseMatrix
 from repro.engine import SpmvEngine as JEngine
 from repro_torch.api import SparseMatrix
 from repro_torch.engine import SpmvEngine
+from repro_torch.topo import FakeTopology
 
 from _torch_common import BF16
 from _torch_engine_cases import (PARTS, TUNE_CASES, TUNE_MEASURE, TUNE_SEED,
@@ -492,16 +493,30 @@ def test_make_key_folds_in_dtype_batch_impls_block(dtype):
 
 
 def test_topology_raises_naming_repro_topo():
+    """topology= is taken at every layer that takes it in the reference
+    (ported: repro_torch.topo, whose own parity is tests/test_torch_topo.py);
+    an abstract topology with no pool raises the reference's errors."""
     sm = SparseMatrix.from_dense(_matrix())
+    topo = FakeTopology.pim_like((2, 2), devices=CPU * 4)
+    abstract = FakeTopology.pim_like((2, 2))
     tuner = ttune.Tuner(measurer=ttune.FakeMeasurer())
-    for call in (lambda: sm.plan(scheme="tune", device="cpu", topology=object()),
-                 lambda: ttune.CandidateGenerator().plans(sm, device="cpu",
-                                                          topology=object()),
-                 lambda: ttune.topology_key(topology=object()),
-                 lambda: tuner.tune(sm, device="cpu", topology=object()),
-                 lambda: SpmvEngine(devices=CPU, tune=True, topology=object())):
-        with pytest.raises(NotImplementedError, match="repro.topo"):
-            call()
+    best = sm.plan(scheme="tune", topology=topo, tuner=tuner)
+    assert best.measured["candidates"] >= 2 and best.device.type == "cpu"
+    plans = ttune.CandidateGenerator().plans(sm, topology=topo)
+    placed = [p.scheme_id.split("@") for p in plans if "@" in p.scheme_id]
+    schemes = [sid for sid, _ in placed]  # one candidate per assignment
+    assert placed and all(schemes.count(sid) == 2 for sid in schemes)
+    assert ttune.topology_key(topology=topo) == "cpu:4|pim2x2:2x2"
+    result = tuner.tune(sm, topology=topo)
+    assert result.from_cache and result.key.topology == "cpu:4|pim2x2:2x2"
+    engine = SpmvEngine(tune=True, topology=topo)
+    assert engine.n_devices == 4 and engine.topology is topo
+    with pytest.raises(ValueError, match="abstract"):
+        sm.plan(scheme="tune", device="cpu", topology=abstract)
+    assert ttune.CandidateGenerator().plans(sm, device="cpu",
+                                            topology=abstract) == []
+    with pytest.raises(RuntimeError, match="zero runnable"):
+        tuner.tune(sm, device="cpu", topology=abstract)
 
 
 # ----------------------------------------------------------- scenarios
