@@ -171,6 +171,32 @@ Phases (every check raises, so any failure exits non-zero):
    multiplies + 4 per measured candidate + the swap's warm-up; a second
    tune hits the cache: 0 measurements, 0 launches, card memory unchanged
    to the byte.  Its launches are ``launches_by_path[...]["topology"]``.
+14. LM serving (``repro_torch.launch.serve.Server``, ``models/``,
+   ``sparse/layers.py``) at qwen1.5-0.5b's full width (24 layers, d_model
+   1024, d_ff 2816, vocab 151,936; seeded random params), last, with
+   inputs from its own generator (``[seed, 14]``).  (a) Dense, float32,
+   TF32 off: ``Server(cfg, 160).generate(prompts (4, 128), 32)`` in range;
+   decode(prefill(S)) within 5e-3 of prefill(S+1) (tests/test_archs.py's
+   tolerance); a teacher-forced ``forward`` over [prompt, out[:, :-1]]
+   gives argmax == out wherever its top-2 margin exceeds 1e-3; a B=1,
+   S=4,096 prefill runs the query-chunked attention (one call per layer)
+   and agrees with the unchunked path within 1e-3.  (b) Block-sparse
+   (``ffn_density=0.5``, (8, 128) blocks), float32: each of the 72 FFN
+   projections runs the block kernel against its plain version at B = 4
+   and 512, bit-equal on integer-valued bf16 inputs and within 2e-4 on the
+   layer's own values; the model's logits (prefill, three decode steps, a
+   teacher-forced pass) within 1e-3 of the same model with every block
+   weight materialized dense and applied by ``torch.matmul`` (an oracle the
+   port never calls), and its greedy tokens equal to the oracle's argmax
+   wherever the margin exceeds twice the measured error; one
+   ``generate(..., 32)`` launches the block kernel exactly 3 x 24 x 32 =
+   2,304 times (``launches_by_path["bcoo_spmv"]["lm_serving"]``).  (c)
+   bfloat16, dense and sparse: prefill ms and decode ms a token (CUDA
+   events), tokens/s of a generate, and a torch.profiler trace of five
+   decode steps (device busy ms, idle share, top kernels); w_gate and
+   w_down at B = 1, 4 and 512: the block kernel with its route (and the
+   tensor-core route below B = 8), its plain version, ``torch.matmul`` on
+   the dense weight and the bound.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -2556,6 +2582,387 @@ def phase_cluster(torch, rng, device, n: int, seed: int, times) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- phase 14: LM
+
+LM_ARCH = "qwen1.5-0.5b"
+LM_BATCH, LM_PROMPT, LM_GEN, LM_MAX_LEN = 4, 128, 32, 160
+LM_LONG = 4096  # a prefill that takes the query-chunked attention path
+BF16_OPS_S = 989e12  # H100 SXM data sheet, bf16 on the tensor cores
+LM_LOGIT_TOL = 1e-3  # f32 logits, sums in another order over 24 layers
+
+
+def lm_projections(params, cfg):
+    """(layer, name, d_in, d_out, layer params) of every sparse projection."""
+    mlp = params["blocks"]["b0"]["mlp"]
+    dims = {"w_gate": (cfg.d_model, cfg.d_ff), "w_up": (cfg.d_model, cfg.d_ff),
+            "w_down": (cfg.d_ff, cfg.d_model)}
+    return [(r, name, *dims[name], {k: v[r] for k, v in mlp[name].items()})
+            for r in range(cfg.n_repeats) for name in dims]
+
+
+def densified(torch, p, d_in: int, d_out: int):
+    """W (d_out, d_in) with every block of a sparse projection placed; the
+    oracle's weight, built without the kernel or its plain version."""
+    nb, r, c = p["bvalues"].shape[-3:]
+    lead = p["bvalues"].shape[:-3]
+    w = torch.zeros(lead + (d_out // r, d_in // c, r, c), dtype=p["bvalues"].dtype,
+                    device=p["bvalues"].device)
+    rows, cols = p["browind"].long(), p["bcolind"].long()
+    if lead:
+        layer = torch.arange(lead[0], device=w.device)[:, None]
+        w[layer, rows, cols] = p["bvalues"]
+    else:
+        w[rows, cols] = p["bvalues"]
+    return w.transpose(-3, -2).reshape(lead + (d_out, d_in))
+
+
+def densified_params(torch, params, cfg):
+    """The sparse model's params with each FFN projection a dense
+    ``{"w": W.T}`` (the dense SwiGLU's layout), for ``ffn_density=1``."""
+    out = dict(params, blocks={})
+    for key, blk in params["blocks"].items():
+        mlp = blk["mlp"]
+        dims = {"w_gate": (cfg.d_model, cfg.d_ff), "w_up": (cfg.d_model, cfg.d_ff),
+                "w_down": (cfg.d_ff, cfg.d_model)}
+        out["blocks"][key] = dict(blk, mlp={
+            name: {"w": densified(torch, mlp[name], *dims[name]).transpose(-1, -2)
+                   .contiguous()} for name in dims})
+    return out
+
+
+def teacher_forced(torch, lm, params, cfg, prompts, out):
+    """Logits at the generated positions of a forward pass over
+    [prompt, out[:, :-1]]: position S - 1 + i predicts out[:, i]."""
+    full = torch.cat([prompts, out[:, :-1]], dim=1)
+    logits, _ = lm.forward(params, full, cfg)
+    return logits[:, prompts.shape[1] - 1:].float()
+
+
+def greedy_agreement(torch, logits, out, margin: float) -> dict:
+    """argmax of teacher-forced logits against the generated tokens, at
+    every position whose top-2 margin exceeds ``margin``."""
+    top = torch.topk(logits, 2, dim=-1).values
+    ok = (top[..., 0] - top[..., 1]) > margin
+    same = logits.argmax(-1) == out
+    return {"positions": int(out.numel()), "checked": int(ok.sum()),
+            "agree": int((same & ok).sum()), "agree_all": int(same.sum()),
+            "margin": margin}
+
+
+def lm_bound(nb: int, r: int, c: int, n_brows: int, d_in: int, d_out: int,
+             batch: int) -> tuple:
+    """(ms, by) the least time of one bf16 block SpMM: values, indices, the
+    block-row pointer, x and the f32 y once over HBM, or its multiply-adds
+    over the bf16 tensor-core peak."""
+    nbytes = nb * (r * c * 2 + 4) + (n_brows + 1) * 4 + d_in * batch * 2 \
+        + d_out * batch * 4
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = 2 * nb * r * c * batch / BF16_OPS_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def lm_dense_checks(torch, lm, A, Server, cfg, rng, device) -> None:
+    """(a) Dense qwen1.5-0.5b in f32 (TF32 off)."""
+    srv = Server(cfg, LM_MAX_LEN, device=device, dtype=torch.float32)
+    prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    t0 = time.perf_counter()
+    out = srv.generate(prompts, LM_GEN)
+    gen_s = time.perf_counter() - t0
+    check(out.shape == (LM_BATCH, LM_GEN) and out.dtype == np.int32,
+          f"lm dense: generate gave {out.dtype}{out.shape}")
+    check(((0 <= out) & (out < cfg.vocab)).all(), "lm dense: token out of range")
+    p, toks = srv.params, torch.from_numpy(prompts).to(device)
+    gen = torch.from_numpy(out).to(device)
+    with torch.no_grad():
+        _, caches = lm.prefill(p, toks, cfg, LM_MAX_LEN)
+        got, _ = lm.decode_step(p, gen[:, :1], caches, cfg)
+        want, _ = lm.prefill(p, torch.cat([toks, gen[:, :1]], 1), cfg, LM_MAX_LEN)
+        step_err = max_err(torch, got, want)
+        check(torch.allclose(got, want, rtol=5e-3, atol=5e-3),
+              f"lm dense: decode(prefill(S)) vs prefill(S+1): {step_err}")
+        tf = teacher_forced(torch, lm, p, cfg, toks, gen)
+        agree = greedy_agreement(torch, tf, gen, 1e-3)
+        check(agree["agree"] == agree["checked"],
+              f"lm dense: teacher-forced argmax disagrees: {agree}")
+        # B=1, S=4096: the query-chunked path against the unchunked one
+        long = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_LONG))
+                                .astype(np.int32)).to(device)
+        calls, real = [], A._sdpa_qchunked
+        A._sdpa_qchunked = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+        try:
+            t0 = time.perf_counter()
+            chunked, _ = lm.prefill(p, long, cfg, LM_LONG)
+            torch.cuda.synchronize()
+            chunked_s = time.perf_counter() - t0
+        finally:
+            A._sdpa_qchunked = real
+        check(len(calls) == cfg.n_layers,
+              f"lm dense: {len(calls)} chunked attention calls, not {cfg.n_layers}")
+        threshold = A.CHUNKED_ATTN_THRESHOLD
+        A.CHUNKED_ATTN_THRESHOLD = LM_LONG + 1
+        try:
+            t0 = time.perf_counter()
+            unchunked, _ = lm.prefill(p, long, cfg, LM_LONG)
+            torch.cuda.synchronize()
+            unchunked_s = time.perf_counter() - t0
+        finally:
+            A.CHUNKED_ATTN_THRESHOLD = threshold
+        chunk_err = max_err(torch, chunked, unchunked)
+        check(torch.allclose(chunked, unchunked, rtol=LM_LOGIT_TOL, atol=LM_LOGIT_TOL),
+              f"lm dense: chunked vs unchunked prefill: {chunk_err}")
+    emit({"phase": "lm_dense", "arch": cfg.name, "dtype": "float32",
+          "n_params": cfg.n_params, "generate_shape": list(out.shape),
+          "generate_s": gen_s, "decode_vs_prefill_max_err": step_err,
+          "teacher_forced": agree, "chunked_prefill_S": LM_LONG,
+          "chunked_calls": len(calls), "chunked_vs_unchunked_max_err": chunk_err,
+          "chunked_s": chunked_s, "unchunked_s": unchunked_s, "ok": True})
+
+
+def lm_projection_kernels(torch, srv, cfg, rng, device) -> float:
+    """(b) Each of the 72 sparse projections: its kernel against
+    ``bcoo_spmv_plain`` on the card at B = 4 and 512; integer-valued bf16
+    (blocks in {±1, ±2}, x in {-2..2}: every f32 sum exact) bit-equal, the
+    layer's own values (as bf16) with random x within rtol = atol = 2e-4
+    (f32 sums in another order).  Returns the largest random-input error."""
+    from repro_torch.kernels.bcsr_spmv import bcoo_spmv, bcoo_spmv_plain, block_route
+
+    worst, n = 0.0, 0
+    projections = lm_projections(srv.params, cfg)
+    for r, name, d_in, d_out, p in projections:
+        ints = torch.from_numpy(rng.choice(PM12, tuple(p["bvalues"].shape))).to(
+            device, torch.bfloat16)
+        vals = {"integer": ints, "random": p["bvalues"].to(torch.bfloat16)}
+        for batch in (LM_BATCH, LM_BATCH * LM_PROMPT):
+            for kind, v in vals.items():
+                xv = (rng.integers(-2, 3, (d_in, batch)) if kind == "integer"
+                      else rng.standard_normal((d_in, batch)))
+                x = torch.from_numpy(xv).to(device, torch.bfloat16)
+                got = bcoo_spmv(p["browind"], p["bcolind"], v, x, d_out,
+                                browptr=p["browptr"])
+                want = bcoo_spmv_plain(p["browind"], p["bcolind"], v, x, d_out)
+                what = (f"lm kernel layer {r} {name} B={batch} {kind} "
+                        f"({block_route(torch.bfloat16, 8, 128, batch)} route)")
+                check(got.dtype == want.dtype and got.shape == want.shape,
+                      f"{what}: {got.dtype}{tuple(got.shape)}")
+                if kind == "integer":
+                    check(torch.equal(got, want),
+                          f"{what}: max |kernel - plain| = {max_err(torch, got, want)}")
+                else:
+                    err = max_err(torch, got, want)
+                    worst = max(worst, err)
+                    check(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
+                          f"{what}: max |kernel - plain| = {err}")
+                n += 1
+    emit({"phase": "lm_kernel_vs_plain", "projections": len(projections),
+          "cases": n, "batches": [LM_BATCH, LM_BATCH * LM_PROMPT],
+          "random_max_abs_err": worst, "ok": True})
+    return worst
+
+
+def lm_sparse_checks(torch, lm, instrument, Server, cfg, rng, device) -> tuple:
+    """(b) Block-sparse qwen1.5-0.5b in f32: the kernels per projection,
+    the model against its densified torch.matmul oracle, and the launch
+    count of one generate.  Returns (launches, random max err)."""
+    srv = Server(cfg, LM_MAX_LEN, device=device, dtype=torch.float32)
+    worst = lm_projection_kernels(torch, srv, cfg, rng, device)
+    prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    torch.cuda.synchronize()
+    instrument.reset()
+    out = srv.generate(prompts, LM_GEN)
+    launches = instrument.snapshot()
+    want_launches = 3 * cfg.n_layers * LM_GEN
+    check(launches.get("bcoo", 0) == want_launches,
+          f"lm sparse: {launches} block-kernel launches, not {want_launches}")
+    check(launches.get("bcoo.spmm", 0) == want_launches,
+          f"lm sparse: every projection is an SpMM (B >= 4): {launches}")
+    dense_cfg = dataclasses.replace(cfg, ffn_density=1.0)
+    oracle = densified_params(torch, srv.params, cfg)
+    toks, gen = (torch.from_numpy(a).to(device) for a in (prompts, out))
+    with torch.no_grad():
+        instrument.reset()
+        got, caches = lm.prefill(srv.params, toks, cfg, LM_MAX_LEN)
+        want, ocaches = lm.prefill(oracle, toks, dense_cfg, LM_MAX_LEN)
+        errs = {"prefill": max_err(torch, got, want)}
+        check(torch.allclose(got, want, rtol=LM_LOGIT_TOL, atol=LM_LOGIT_TOL),
+              f"lm sparse: prefill logits vs densified oracle: {errs}")
+        for step in range(3):
+            got, caches = lm.decode_step(srv.params, gen[:, step:step + 1], caches, cfg)
+            want, ocaches = lm.decode_step(oracle, gen[:, step:step + 1], ocaches,
+                                           dense_cfg)
+            errs[f"decode{step}"] = max_err(torch, got, want)
+            check(torch.allclose(got, want, rtol=LM_LOGIT_TOL, atol=LM_LOGIT_TOL),
+                  f"lm sparse: decode step {step} vs densified oracle: {errs}")
+        check(instrument.launches("bcoo") == 3 * cfg.n_layers * 4,
+              f"lm sparse: oracle comparison launches {instrument.snapshot()}")
+        tf_sparse = teacher_forced(torch, lm, srv.params, cfg, toks, gen)
+        tf_oracle = teacher_forced(torch, lm, oracle, dense_cfg, toks, gen)
+        errs["teacher_forced"] = max_err(torch, tf_sparse, tf_oracle)
+        check(torch.allclose(tf_sparse, tf_oracle, rtol=LM_LOGIT_TOL,
+                             atol=LM_LOGIT_TOL),
+              f"lm sparse: teacher-forced logits vs oracle: {errs}")
+        # the oracle's greedy choice wherever its top-2 margin exceeds twice
+        # the logit error just measured
+        agree = greedy_agreement(torch, tf_oracle, gen, 2 * errs["teacher_forced"])
+        check(agree["agree"] == agree["checked"],
+              f"lm sparse: tokens differ from the oracle's greedy ones: {agree}")
+    emit({"phase": "lm_sparse", "arch": cfg.name, "dtype": "float32",
+          "ffn_density": cfg.ffn_density, "block": list(cfg.sparse_block),
+          "n_params": cfg.n_params, "launches_per_generate": launches,
+          "want_launches": want_launches, "oracle_max_abs_err": errs,
+          "tolerance": LM_LOGIT_TOL, "greedy_vs_oracle": agree, "ok": True})
+    return launches.get("bcoo", 0), worst
+
+
+def decode_trace(torch, step, steps: int = 5) -> dict:
+    """torch.profiler over ``steps`` decode steps: host-clock ms a step, the
+    device's busy ms a step (the sum of its kernels), its idle share and the
+    kernels that take most; {"profiler": "not measured: ..."} when the
+    trace holds no device time."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        kernels = {}
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                us = getattr(ev, "self_device_time_total", None)
+                us = ev.self_cuda_time_total if us is None else us
+                kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3 / steps
+        busy = sum(kernels.values())
+        if not busy:
+            return {"profiler": "not measured: no device time in the trace"}
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+        return {"wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+                "idle_share": max(0.0, 1.0 - busy / wall),
+                "kernels_per_step": sum(ev.count for ev in prof.key_averages()
+                                        if ev.device_type == DeviceType.CUDA) / steps,
+                "top_kernels_ms": [[k[:80], v] for k, v in top]}
+    except Exception as e:  # a measurement only; the checks stand apart
+        return {"profiler": f"not measured: {type(e).__name__}: {e}"}
+
+
+def lm_serving_times(torch, lm, Server, cfg, rng, device) -> dict:
+    """(c) bf16: prefill ms, decode ms per token (CUDA events) and tokens/s
+    of a generate (host clock; it ends in a copy to the host)."""
+    srv = Server(cfg, LM_MAX_LEN, device=device)
+    prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    toks = torch.from_numpy(prompts).to(device)
+    with torch.no_grad():
+        _, caches = lm.prefill(srv.params, toks, cfg, LM_MAX_LEN)
+        tok = toks[:, -1:]
+        prefill_ms = time_ms(torch, lambda: lm.prefill(srv.params, toks, cfg,
+                                                       LM_MAX_LEN), 10)
+        # the same slot rewritten each call: the caches are not advanced
+        decode_ms = time_ms(torch, lambda: lm.decode_step(srv.params, tok, caches,
+                                                          cfg), 20)
+        trace = decode_trace(torch, lambda: lm.decode_step(srv.params, tok, caches,
+                                                           cfg))
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        srv.generate(prompts, LM_GEN)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    row = {"phase": "lm_times", "arch": cfg.name, "dtype": "bfloat16",
+           "ffn_density": cfg.ffn_density, "batch": LM_BATCH, "prompt": LM_PROMPT,
+           "gen": LM_GEN, "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+           "generate_s": wall, "generate_s_all": walls,
+           "tokens_per_s": LM_BATCH * LM_GEN / wall, "decode_trace": trace}
+    emit(row)
+    del srv, caches
+    return row
+
+
+def lm_projection_times(torch, cfg, rng, device) -> list:
+    """(c) w_gate (1024 -> 2816) and w_down (2816 -> 1024) of a bf16 layer
+    at B = 1, 4 and 512: the block kernel (its route), its plain version,
+    torch.matmul on the dense weight, and the bytes / operations bound;
+    below B = 8 also the tensor-core route (``mma_ms``), held against the
+    plain version first."""
+    from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_cuda,
+                                               bcoo_spmv_plain, block_route)
+    from repro_torch.sparse.layers import sparse_linear_init
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    rows = []
+    for name, d_in, d_out in (("w_gate", cfg.d_model, cfg.d_ff),
+                              ("w_down", cfg.d_ff, cfg.d_model)):
+        p = sparse_linear_init(gen, d_in, d_out, cfg.ffn_density, cfg.sparse_block)
+        w = densified(torch, p, d_in, d_out)
+        nb, r, c = p["bvalues"].shape
+        for batch in (1, LM_BATCH, LM_BATCH * LM_PROMPT):
+            x = torch.from_numpy(rng.standard_normal((d_in, batch))).to(
+                device, torch.bfloat16)
+            bound, by = lm_bound(nb, r, c, d_out // r, d_in, d_out, batch)
+            row = {"phase": "lm_projection", "name": name, "d_in": d_in,
+                   "d_out": d_out, "B": batch, "blocks": nb,
+                   "route": block_route(torch.bfloat16, r, c, batch),
+                   "ms": time_ms(torch, lambda: bcoo_spmv(
+                       p["browind"], p["bcolind"], p["bvalues"], x, d_out,
+                       browptr=p["browptr"]), 50),
+                   "plain_ms": time_ms(torch, lambda: bcoo_spmv_plain(
+                       p["browind"], p["bcolind"], p["bvalues"], x, d_out), 10,
+                       warmup=1),
+                   "library_ms": time_ms(torch, lambda: torch.matmul(w, x), 50),
+                   "bound_ms": bound, "bound_by": by}
+            row["roofline_share"] = bound / row["ms"]
+            if row["route"] != "mma":  # the tensor cores beside the route taken
+                run = lambda: bcoo_spmv_cuda(p["browptr"], p["bcolind"],
+                                             p["bvalues"], x, d_out, route="mma")
+                want = bcoo_spmv_plain(p["browind"], p["bcolind"], p["bvalues"], x,
+                                       d_out)
+                check(torch.allclose(run(), want, rtol=2e-4, atol=2e-4),
+                      f"lm {name} B={batch}: mma route vs plain: "
+                      f"{max_err(torch, run(), want)}")
+                row["mma_ms"] = time_ms(torch, run, 50)
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def phase_lm(torch, rng, device) -> dict:
+    """Phase 14: LM serving at qwen1.5-0.5b's full width (see the module
+    docstring).  Returns the block kernel's launches of one sparse
+    generate (the LM serving path's count) and the phase's rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import instrument
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_ARCH)
+    sparse = dataclasses.replace(cfg, ffn_density=0.5)
+    check(cfg.n_params == 463_863_808 and sparse.n_params == 360_054_784,
+          f"lm: parameter counts {cfg.n_params} / {sparse.n_params}")
+    lm_dense_checks(torch, lm, A, Server, cfg, rng, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, worst = lm_sparse_checks(torch, lm, instrument, Server, sparse, rng,
+                                       device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = [lm_serving_times(torch, lm, Server, c, rng, device)
+             for c in (cfg, sparse)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    proj = lm_projection_times(torch, sparse, rng, device)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "lm_done", "seconds": seconds, "launches": launches,
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
+    return {"launches": launches, "max_abs_err": worst, "times": times,
+            "projections": proj, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2643,6 +3050,9 @@ def main(argv=None) -> int:
     cluster_launches = phase_cluster(torch, np.random.default_rng([args.seed, 12]),
                                      device, 1 << 21, args.seed, times)
     cluster_s = time.perf_counter() - t12
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_run = phase_lm(torch, np.random.default_rng([args.seed, 14]), device)
 
     by_path = {
         kernel: {"single_device": launches[kind],
@@ -2655,6 +3065,7 @@ def main(argv=None) -> int:
                  "topology": topo_launches[kind]}
         for kernel, kind in (("coo_spmv", "coo"), ("bcoo_spmv", "bcoo"))
     }
+    by_path["bcoo_spmv"]["lm_serving"] = lm_run["launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
     main_shape = {"coo_spmv": ("regular", "coo", 1), "bcoo_spmv": ("block", "bcoo", 1)}
     times["ell_spmv"] = ell_times["regular"]
@@ -2665,13 +3076,16 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "also_replaces": ALSO_REPLACES.get(name, []),
             "launches": sum(by_path[name].values()),
-            "launches_by_path": by_path[name], "max_abs_err": errs[name],
+            "launches_by_path": by_path[name],
+            "max_abs_err": max(errs[name], lm_run["max_abs_err"]
+                               if name == "bcoo_spmv" else 0.0),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "solver_phase_s": solver_s, "tuning_phase_s": tuning_s,
           "cluster_phase_s": cluster_s, "topology_phase_s": topology_s,
+          "lm_phase_s": lm_run["seconds"],
           "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,10 @@ The JAX package's containers (``repro.core.formats``) and chunk plans
 (``repro.kernels.coo_spmv.ChunkPlan``) are frozen dataclasses whose fields
 are arrays or static metadata.  Given each field as ``np.asarray(field)``,
 the functions here build the port's counterparts, array for array, so that
-both packages can run on identical inputs.  bfloat16 arrays (ml_dtypes)
-are taken by bit view.  Nothing of the JAX package is imported.
+both packages can run on identical inputs.  The same holds for an LM's
+parameter tree (nested dicts of arrays, ``repro.models.lm.init_params``).
+bfloat16 arrays (ml_dtypes) are taken by bit view.  Nothing of the JAX
+package is imported.
 """
 from __future__ import annotations
 
@@ -13,8 +15,10 @@ import numpy as np
 
 from .core import formats as F
 from .kernels.coo_spmv import ChunkPlan
+from .models.common import map_params
+from .sparse.layers import with_row_pointer
 
-__all__ = ["container", "chunk_plan"]
+__all__ = ["container", "chunk_plan", "lm_params"]
 
 _KINDS = {"csr": F.CSR, "coo": F.COO, "bcsr": F.BCSR, "bcoo": F.BCOO}
 _STATIC = {"shape": tuple, "block": tuple, "nnz": int, "nblocks": int,
@@ -41,3 +45,18 @@ def chunk_plan(fields: dict) -> ChunkPlan:
     """The port's :class:`ChunkPlan` from the JAX one's fields as numpy
     arrays (``window_start`` is derived)."""
     return ChunkPlan(**{k: _field(k, v) for k, v in fields.items()})
+
+
+def lm_params(tree: dict, cfg) -> dict:
+    """The port's LM params (CPU tensors) from the JAX package's tree as
+    numpy arrays, key for key.  Block-sparse FFN layers keep ``browind`` /
+    ``bcolind`` / ``bvalues`` unchanged and gain the port's ``browptr``."""
+    params = map_params(F.to_tensor, tree)
+    if cfg.ffn_density < 1.0:
+        blocks = [v for k, v in params.items() if k.startswith("prefix")]
+        for blk in blocks + list(params["blocks"].values()):
+            mlp = blk["mlp"]
+            for name in ("w_gate", "w_up", "w_down"):
+                d_out = cfg.d_model if name == "w_down" else cfg.d_ff
+                mlp[name] = with_row_pointer(mlp[name], d_out)
+    return params

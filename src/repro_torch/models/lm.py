@@ -1,0 +1,210 @@
+"""LM assembly: embeddings -> (prefix blocks) -> repeated blocks -> head.
+
+Counterpart of ``repro/models/lm.py`` for the dense-family archs (qwen,
+llama3.2, smollm, gemma2, llava with ``prefix_embeds``), dense or with the
+block-sparse FFN.  Layer repeats keep the reference's layout, params
+stacked ``(NR, ...)`` per pattern entry under ``params["blocks"]
+["b{j}"]``; the reference's ``lax.scan`` over them is a Python loop over
+the repeat index.
+
+Entry points:
+  init_params(gen, cfg)                   -> params
+  forward(params, tokens, cfg)            -> (logits, h)
+  prefill(params, tokens, cfg, max_len)   -> (last_logits, caches)
+  decode_step(params, token, caches, cfg) -> (logits, caches)
+  init_caches(cfg, batch, max_len)        -> zero caches
+
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP.md item: block kinds other than the attention ones (see
+``blocks.UNPORTED``), ``encoder_layers`` / ``encode`` (§1 item 7.4),
+``mtp_depth`` and ``loss_fn`` (item 7.5); ``param_specs``,
+``abstract_params`` and ``cache_specs`` wait for multi-card (item 7.7).
+
+``decode_step`` steps the caches it is given in place (see
+``attention.gqa_decode``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from . import attention as A
+from .blocks import block_apply, block_decode, block_init, check_kind, init_cache
+from .common import embed_init, map_params, normal, rmsnorm, rmsnorm_init, softcap
+
+__all__ = [
+    "init_params",
+    "check_config",
+    "forward",
+    "prefill",
+    "decode_step",
+    "Caches",
+    "init_caches",
+]
+
+
+def check_config(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    for kind in cfg.prefix_pattern + cfg.block_pattern:
+        check_kind(kind)
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder (encoder_layers={cfg.encoder_layers}) is "
+            f"not ported yet (ROADMAP.md §1 item 7.4 (encoder-decoder))")
+    if cfg.mtp_depth:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-token prediction (mtp_depth={cfg.mtp_depth}) is "
+            f"not ported yet (ROADMAP.md §1 item 7.5 (training))")
+
+
+def _stack_init(gen, cfg, kind, n, dtype):
+    """Init n copies of a block, stacked on axis 0."""
+    blocks = [block_init(gen, cfg, kind, dtype) for _ in range(n)]
+    return map_params(lambda *xs: torch.stack(xs), *blocks)
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bfloat16):
+    """Random params from ``gen``, on ``gen``'s device."""
+    check_config(cfg)
+    p: dict[str, Any] = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype)}
+    p["final_norm"] = rmsnorm_init(cfg.d_model, dtype, gen.device)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"w": normal(gen, (cfg.d_model, cfg.vocab), dtype,
+                                    1.0 / math.sqrt(cfg.d_model))}
+    for i, kind in enumerate(cfg.prefix_pattern):
+        p[f"prefix{i}"] = block_init(gen, cfg, kind, dtype)
+    p["blocks"] = {
+        f"b{j}": _stack_init(gen, cfg, kind, cfg.n_repeats, dtype)
+        for j, kind in enumerate(cfg.block_pattern)
+    }
+    return p
+
+
+def _layer(tree, r: int):
+    """Repeat ``r``'s params (or caches' tensors) of a stacked tree."""
+    return map_params(lambda a: a[r], tree)
+
+
+def _embed(params, tokens, cfg):
+    h = params["embed"]["emb"][tokens.long()]
+    if cfg.gemma_norm:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
+    return h
+
+
+def _logits(params, h, cfg):
+    w = (params["embed"]["emb"].T if cfg.tie_embeddings
+         else params["lm_head"]["w"])
+    return softcap(torch.matmul(h, w), cfg.logit_softcap)
+
+
+def _with_prefix(params, tokens, cfg, prefix_embeds):
+    h = _embed(params, tokens, cfg)
+    if prefix_embeds is not None:
+        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+    return h
+
+
+def forward(params, tokens, cfg: ArchConfig, *, prefix_embeds=None):
+    """tokens: (B, S_text) int; prefix_embeds: (B, S_mod, d) modality stub.
+    Returns (logits (B, S, vocab), h (B, S, d))."""
+    check_config(cfg)
+    h = _with_prefix(params, tokens, cfg, prefix_embeds)
+    for i, kind in enumerate(cfg.prefix_pattern):
+        h, _ = block_apply(params[f"prefix{i}"], h, cfg, kind)
+    for r in range(cfg.n_repeats):
+        for j, kind in enumerate(cfg.block_pattern):
+            h, _ = block_apply(_layer(params["blocks"][f"b{j}"], r), h, cfg, kind)
+    h = rmsnorm(params["final_norm"], h, gemma_style=cfg.gemma_norm)
+    return _logits(params, h, cfg), h
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+class Caches(NamedTuple):
+    prefix: tuple  # per prefix block
+    blocks: dict  # {f"b{j}": KVCache of stacked (NR, ...) tensors}
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                device=None):
+    check_config(cfg)
+    prefix = tuple(init_cache(cfg, kind, batch, max_len, dtype, device)
+                   for kind in cfg.prefix_pattern)
+
+    def stack(kind):
+        k, v, length = init_cache(cfg, kind, batch, max_len, dtype, device)
+        NR = cfg.n_repeats
+        return A.KVCache(k.expand((NR,) + k.shape).clone(),
+                         v.expand((NR,) + v.shape).clone(), length)
+
+    blocks = {f"b{j}": stack(kind) for j, kind in enumerate(cfg.block_pattern)}
+    return Caches(prefix=prefix, blocks=blocks)
+
+
+def _grow_cache(c: A.KVCache, cfg, kind, max_len: int) -> A.KVCache:
+    """Embed a prefill cache (length S) into max_len-capacity buffers."""
+    S = c.k.shape[1]
+    window = None
+    if kind == "attn_local" or (kind == "attn" and cfg.sliding_window):
+        window = cfg.sliding_window
+    cap = min(max_len, window) if window else max_len
+    if S >= cap:
+        return A.KVCache(c.k[:, -cap:], c.v[:, -cap:], c.length)
+    pad = (0, 0, 0, 0, 0, cap - S)  # (dh, heads, sequence)
+    return A.KVCache(torch.nn.functional.pad(c.k, pad),
+                     torch.nn.functional.pad(c.v, pad), c.length)
+
+
+def _stack_caches(caches: list) -> A.KVCache:
+    return A.KVCache(torch.stack([c.k for c in caches]),
+                     torch.stack([c.v for c in caches]), caches[0].length)
+
+
+def prefill(params, tokens, cfg: ArchConfig, max_len: int, *, prefix_embeds=None):
+    """Run the full prompt, materializing decode caches at max_len capacity.
+
+    Returns (last_token_logits, Caches).  The prefill KV (prompt length S)
+    is written into the front of the max_len cache buffers.
+    """
+    check_config(cfg)
+    h = _with_prefix(params, tokens, cfg, prefix_embeds)
+    prefix_caches = []
+    for i, kind in enumerate(cfg.prefix_pattern):
+        h, c = block_apply(params[f"prefix{i}"], h, cfg, kind)
+        prefix_caches.append(_grow_cache(c, cfg, kind, max_len))
+    per_layer = {f"b{j}": [] for j in range(len(cfg.block_pattern))}
+    for r in range(cfg.n_repeats):
+        for j, kind in enumerate(cfg.block_pattern):
+            h, c = block_apply(_layer(params["blocks"][f"b{j}"], r), h, cfg, kind)
+            per_layer[f"b{j}"].append(_grow_cache(c, cfg, kind, max_len))
+    h = rmsnorm(params["final_norm"], h, gemma_style=cfg.gemma_norm)
+    logits = _logits(params, h[:, -1:], cfg)
+    blocks = {key: _stack_caches(cs) for key, cs in per_layer.items()}
+    return logits[:, 0], Caches(prefix=tuple(prefix_caches), blocks=blocks)
+
+
+def decode_step(params, token, caches: Caches, cfg: ArchConfig):
+    """token: (B, 1) int -> (logits (B, vocab), caches stepped in place)."""
+    check_config(cfg)
+    h = _embed(params, token, cfg)
+    new_prefix = []
+    for i, kind in enumerate(cfg.prefix_pattern):
+        h, c = block_decode(params[f"prefix{i}"], h, caches.prefix[i], cfg, kind)
+        new_prefix.append(c)
+    for r in range(cfg.n_repeats):
+        for j, kind in enumerate(cfg.block_pattern):
+            c = caches.blocks[f"b{j}"]
+            h, _ = block_decode(_layer(params["blocks"][f"b{j}"], r), h,
+                                A.KVCache(c.k[r], c.v[r], c.length), cfg, kind)
+    blocks = {key: A.KVCache(c.k, c.v, c.length + 1)
+              for key, c in caches.blocks.items()}
+    h = rmsnorm(params["final_norm"], h, gemma_style=cfg.gemma_norm)
+    logits = _logits(params, h, cfg)
+    return logits[:, 0], Caches(prefix=tuple(new_prefix), blocks=blocks)

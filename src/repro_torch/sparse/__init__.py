@@ -1,0 +1,9 @@
+"""SparseP as a first-class LM feature: block-sparse layers on the block
+kernel.  Counterpart of ``repro/sparse``."""
+from .layers import (  # noqa: F401
+    block_sparse_ffn_apply,
+    block_sparse_ffn_init,
+    sparse_linear_apply,
+    sparse_linear_init,
+    with_row_pointer,
+)

@@ -1210,3 +1210,79 @@ def test_tune_under_a_topology_on_card(cuda):
     gc.collect()
     torch.cuda.synchronize()
     assert instrument.launches() == n0 and torch.cuda.memory_allocated() == mem0
+
+
+# ------------------------------------------------------------------ LM side
+
+LM_SHAPES = [(1024, 2816), (2816, 1024)]  # qwen1.5-0.5b's w_gate / w_down
+
+
+def _lm_layer(rng, d_in, d_out, dtype, integer):
+    """The sparse FFN's layout: (8, 128) blocks, half of each block-row."""
+    from repro_torch.sparse.layers import _balanced_pattern
+
+    browind, bcolind = _balanced_pattern(d_out // 8, d_in // 128, 0.5)
+    shape = (len(browind), 8, 128)
+    vals = (rng.choice([-2, -1, 1, 2], shape) if integer
+            else rng.standard_normal(shape) / np.sqrt(d_in / 2))
+    return (torch.from_numpy(browind), torch.from_numpy(bcolind),
+            torch.from_numpy(vals).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("d_in,d_out", LM_SHAPES)
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "random"])
+def test_bcoo_lm_ffn_shapes_match_plain(cuda, dtype, d_in, d_out, integer):
+    """The sparse FFN's (8, 128) blocks at the decode and prefill widths
+    B = 1, 4, 8, 40 and 512 (rows, mma-register and mma-shared routes),
+    through the block-row pointer the layer keeps: integer-valued inputs
+    bit-equal to the plain version, random ones within rtol = atol = 2e-4
+    (f32 sums in another order; 3xTF32 for f32 on the tensor cores)."""
+    rng = np.random.default_rng(40)
+    browind, bcolind, bvalues = _lm_layer(rng, d_in, d_out, dtype, integer)
+    ptr = block_row_ptr(browind, len(browind), d_out // 8).to(cuda)
+    for batch in (1, 4, 8, 40, 512):
+        x = _x(rng, d_in, batch, dtype, integer)
+        want = bcoo_spmv_plain(browind, bcolind, bvalues, x, d_out)
+        instrument.reset()
+        got = bcoo_spmv(browind.to(cuda), bcolind.to(cuda), bvalues.to(cuda),
+                        x.to(cuda), d_out, browptr=ptr)
+        torch.cuda.synchronize()
+        assert instrument.launches("bcoo") == 1
+        assert got.dtype == want.dtype and got.shape == want.shape
+        route = block_route(dtype, 8, 128, batch)
+        assert route == ("rows" if batch < 8 else "mma")
+        if integer:
+            assert torch.equal(got.cpu(), want), (batch, route)
+        else:
+            torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_lm_sparse_model_on_card_matches_cpu(cuda):
+    """A reduced qwen with the block-sparse FFN, float32: prefill and two
+    decode steps on the card agree with the same params on the CPU within
+    rtol = atol = 2e-4, and every FFN projection launched the kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.common import map_params
+
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              ffn_density=0.5, sparse_block=(8, 16))
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
+    dparams = map_params(lambda a: a.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(41).integers(0, cfg.vocab, (3, 20)))
+    with torch.no_grad():
+        want, caches = lm.prefill(params, toks, cfg, 32)
+        instrument.reset()
+        got, dcaches = lm.prefill(dparams, toks.to(cuda), cfg, 32)
+        assert instrument.launches("bcoo") == 3 * cfg.n_layers
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+        tok = torch.argmax(want, -1)[:, None]
+        for _ in range(2):
+            want, caches = lm.decode_step(params, tok, caches, cfg)
+            got, dcaches = lm.decode_step(dparams, tok.to(cuda), dcaches, cfg)
+            torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+            tok = torch.argmax(want, -1)[:, None]
+        assert instrument.launches("bcoo") == 3 * 3 * cfg.n_layers

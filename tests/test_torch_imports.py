@@ -24,6 +24,8 @@ bad = sorted(m for m in sys.modules
              or m == "repro")
 print("MODULES", len(names))
 print("TOPO", sorted(n for n in names if n.startswith("repro_torch.topo")))
+print("LM", sorted(n for n in names if n.split(".")[1:2] in (
+    ["models"], ["sparse"], ["launch"])))
 print("BAD", bad)
 print("NEW_THREADS", sorted(t.name for t in threading.enumerate()
                             if t.ident not in threads))
@@ -44,11 +46,20 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
     n_modules = 1 + len(list(pkgutil.walk_packages(repro_torch.__path__,
                                                     "repro_torch.")))
-    assert int(lines["MODULES"]) == n_modules >= 56
+    assert int(lines["MODULES"]) == n_modules >= 78
     # the topology package and its modules are among them
     assert lines["TOPO"] == str(["repro_torch.topo", "repro_torch.topo.cost",
                                  "repro_torch.topo.mesh",
                                  "repro_torch.topo.topology"])
+    # the LM serving path's packages, and the ten configs and the paper's
+    assert lines["LM"] == str([
+        "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.models",
+        "repro_torch.models.attention", "repro_torch.models.blocks",
+        "repro_torch.models.common", "repro_torch.models.lm", "repro_torch.sparse",
+        "repro_torch.sparse.layers"])
+    configs = [m for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
+               if m.name.startswith("repro_torch.configs.")]
+    assert len(configs) == 12  # base, spmv_paper and the ten archs
 
 
 def test_port_sources_name_no_jax_import():
