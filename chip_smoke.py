@@ -173,7 +173,7 @@ Phases (every check raises, so any failure exits non-zero):
    to the byte.  Its launches are ``launches_by_path[...]["topology"]``.
 14. LM serving (``repro_torch.launch.serve.Server``, ``models/``,
    ``sparse/layers.py``) at qwen1.5-0.5b's full width (24 layers, d_model
-   1024, d_ff 2816, vocab 151,936; seeded random params), last, with
+   1024, d_ff 2816, vocab 151,936; seeded random params), after phase 12, with
    inputs from its own generator (``[seed, 14]``).  (a) Dense, float32,
    TF32 off: ``Server(cfg, 160).generate(prompts (4, 128), 32)`` in range;
    decode(prefill(S)) within 5e-3 of prefill(S+1) (tests/test_archs.py's
@@ -197,6 +197,36 @@ Phases (every check raises, so any failure exits non-zero):
    w_down at B = 1, 4 and 512: the block kernel with its route (and the
    tensor-core route below B = 8), its plain version, ``torch.matmul`` on
    the dense weight and the bound.
+15. LM training (``repro_torch.launch.train``, ``launch/steps.py``,
+   ``optim/``, ``runtime/``, the sparse FFN's backward), last, with inputs
+   from its own generator (``[seed, 15]``).  (a) The backward at full
+   width: qwen1.5-0.5b's w_gate (1024 -> 2816) and w_down (2816 -> 1024)
+   in (8, 128) blocks, T = 1,024.  The forward runs the block kernel on
+   W's stream and grad x on Wᵀ's stream of (128, 8) blocks (its route and
+   its block-rows' spread printed): each bit-equal to its plain version
+   on integer-valued bf16 and f32 inputs, within 2e-4 on random f32;
+   grad x and grad bvalues through autograd (f32, TF32 off) within 1e-4
+   of the largest value of autograd through the densified weight (a ``torch.matmul`` oracle the port never
+   calls); the forward kernel, the grad x kernel and its plain version,
+   the grad bvalues product, the value transpose, ``torch.matmul`` of the
+   dense Wᵀ by gy and the bounds, by CUDA events.  (b)
+   ``launch.train.main`` on smollm-360m at full width (32 layers, d_model
+   960, vocab 49,152), bf16, 30 steps of B=8, S=512: finite losses that
+   fall by at least 1.0 (tests/test_system.py's bound); step ms (median
+   of the last 20), tokens/s, peak memory and a torch.profiler trace of 3
+   steps.  (c) qwen1.5-0.5b dense and with ``ffn_density=0.5`` in (8, 128)
+   blocks, bf16, B=4, S=256, 10 steps each through ``TrainLoop``: finite
+   losses, the last below the first; every sparse step launches the block
+   kernel 3 x 24 x 3 = 216 times (forward, remat recompute, grad x), and
+   the last step's count, with the counters set to 0 just before it, is
+   ``launches_by_path["bcoo_spmv"]["lm_training"]``; step ms and tokens/s
+   of both.  (d) qwen1.5-0.5b at full width cut to 2 layers, sparse, f32:
+   one train step on the card against the same step on the CPU (plain
+   versions) from the same params: the loss within 1e-5 relative, every
+   grad leaf within 1e-4 of its max, updated params within 1e-5 wherever
+   |g| > 1e-3 max |g|.  (e) smollm-360m at full width cut to 4 layers:
+   train(10) against train(6) + a checkpoint + a fresh loop's
+   ``maybe_restore`` + train(4), losses within 1e-5 relative.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -2813,8 +2843,9 @@ def lm_sparse_checks(torch, lm, instrument, Server, cfg, rng, device) -> tuple:
     return launches.get("bcoo", 0), worst
 
 
-def decode_trace(torch, step, steps: int = 5) -> dict:
-    """torch.profiler over ``steps`` decode steps: host-clock ms a step, the
+def device_trace(torch, step, steps: int = 5) -> dict:
+    """torch.profiler over ``steps`` calls of ``step`` (a decode step, a
+    train step) after one unprofiled call: host-clock ms a step, the
     device's busy ms a step (the sum of its kernels), its idle share and the
     kernels that take most; {"profiler": "not measured: ..."} when the
     trace holds no device time."""
@@ -2863,7 +2894,7 @@ def lm_serving_times(torch, lm, Server, cfg, rng, device) -> dict:
         # the same slot rewritten each call: the caches are not advanced
         decode_ms = time_ms(torch, lambda: lm.decode_step(srv.params, tok, caches,
                                                           cfg), 20)
-        trace = decode_trace(torch, lambda: lm.decode_step(srv.params, tok, caches,
+        trace = device_trace(torch, lambda: lm.decode_step(srv.params, tok, caches,
                                                            cfg))
     walls = []
     for _ in range(3):
@@ -2963,6 +2994,360 @@ def phase_lm(torch, rng, device) -> dict:
             "projections": proj, "seconds": seconds}
 
 
+# ------------------------------------------------------------- phase 15
+
+
+TRAIN_ARCH = "smollm-360m"  # launch/train.py's default arch
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 512  # (b), through train.main
+SPARSE_B, SPARSE_S, SPARSE_STEPS = 4, 256, 10  # (a) and (c): T = 1,024
+GRAD_TOL = 1e-4  # f32 grads vs the densified oracle, relative to the max
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| over max |want|."""
+    return max_err(torch, got, want) / max(float(want.double().abs().max()), 1e-30)
+
+
+def timed_loop(torch, TrainLoop, instrument):
+    """A TrainLoop subclass that records each step's host-clock ms (the step
+    ends in a synchronize) and the block kernel's launches in it."""
+
+    class Timed(TrainLoop):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.step_ms, self.step_launches = [], []
+            inner = self.step_fn
+
+            def step(*a):
+                n0, t0 = instrument.launches("bcoo"), time.perf_counter()
+                out = inner(*a)
+                torch.cuda.synchronize()
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
+                self.step_launches.append(instrument.launches("bcoo") - n0)
+                return out
+
+            self.step_fn = step
+
+    return Timed
+
+
+def train_backward(torch, cfg, rng, device) -> tuple:
+    """(a) The sparse FFN's backward at full width: w_gate and w_down of
+    qwen1.5-0.5b in (8, 128) blocks, T = 1,024.  Returns (rows, the largest
+    random-input error of the forward and grad x against their plain
+    versions)."""
+    from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_plain,
+                                               block_route, transposed_values)
+    from repro_torch.sparse.layers import sparse_linear_apply, sparse_linear_init
+
+    T = SPARSE_B * SPARSE_S
+    gen = torch.Generator(device=device).manual_seed(15)
+    rows, worst = [], 0.0
+    for name, d_in, d_out in (("w_gate", cfg.d_model, cfg.d_ff),
+                              ("w_down", cfg.d_ff, cfg.d_model)):
+        p = sparse_linear_init(gen, d_in, d_out, cfg.ffn_density, cfg.sparse_block,
+                               torch.float32)
+        nb, r, c = p["bvalues"].shape
+        counts = torch.diff(p["t_browptr"]).cpu()
+        tkw = dict(browptr=p["t_browptr"])
+        fwd = (p["browind"], p["bcolind"])
+        # the forward y = W x and grad x = Wᵀ gy through the kernel against
+        # their plain versions, at the training path's T
+        for dt in (torch.bfloat16, torch.float32):
+            ints = torch.from_numpy(rng.choice(PM12, (nb, r, c))).to(device, dt)
+            xi = torch.from_numpy(rng.integers(-2, 3, (d_in, T))).to(device, dt)
+            got = bcoo_spmv(*fwd, ints, xi, d_out, browptr=p["browptr"])
+            want = bcoo_spmv_plain(*fwd, ints, xi, d_out)
+            check(torch.equal(got, want), f"train {name} forward {dt} integer: "
+                  f"max |kernel - plain| = {max_err(torch, got, want)}")
+            gy = torch.from_numpy(rng.integers(-2, 3, (d_out, T))).to(device, dt)
+            tv = transposed_values(ints, p["t_perm"])
+            got = bcoo_spmv(p["t_browind"], p["t_bcolind"], tv, gy, d_in, **tkw)
+            want = bcoo_spmv_plain(p["t_browind"], p["t_bcolind"], tv, gy, d_in)
+            check(torch.equal(got, want), f"train {name} grad x {dt} integer: "
+                  f"max |kernel - plain| = {max_err(torch, got, want)}")
+        xr = torch.from_numpy(rng.standard_normal((d_in, T))).to(device, torch.float32)
+        got = bcoo_spmv(*fwd, p["bvalues"], xr, d_out, browptr=p["browptr"])
+        want = bcoo_spmv_plain(*fwd, p["bvalues"], xr, d_out)
+        err_fwd = max_err(torch, got, want)
+        check(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
+              f"train {name} forward random f32: max |kernel - plain| = {err_fwd}")
+        gy = torch.from_numpy(rng.standard_normal((d_out, T))).to(device, torch.float32)
+        tv = transposed_values(p["bvalues"], p["t_perm"])
+        got = bcoo_spmv(p["t_browind"], p["t_bcolind"], tv, gy, d_in, **tkw)
+        want = bcoo_spmv_plain(p["t_browind"], p["t_bcolind"], tv, gy, d_in)
+        err = max_err(torch, got, want)
+        worst = max(worst, err, err_fwd)
+        check(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
+              f"train {name} grad x random f32: max |kernel - plain| = {err}")
+        # both grads through autograd against the densified torch.matmul oracle
+        x = torch.from_numpy(rng.standard_normal((T, d_in))).to(device, torch.float32)
+        gyt = gy.T.contiguous()
+        bv = p["bvalues"].clone().requires_grad_()
+        xx = x.clone().requires_grad_()
+        sparse_linear_apply(dict(p, bvalues=bv), xx, d_out).backward(gyt)
+        bo = p["bvalues"].clone().requires_grad_()
+        xo = x.clone().requires_grad_()
+        w = densified(torch, dict(p, bvalues=bo), d_in, d_out)
+        torch.matmul(xo, w.T).backward(gyt)
+        oracle = {"grad_x": rel_err(torch, xx.grad, xo.grad),
+                  "grad_bvalues": rel_err(torch, bv.grad, bo.grad)}
+        check(max(oracle.values()) <= GRAD_TOL,
+              f"train {name}: grads vs densified oracle {oracle}")
+        # times at the training dtype (bf16 values, f32 gy before its cast)
+        vb = p["bvalues"].to(torch.bfloat16)
+        tvb = transposed_values(vb, p["t_perm"])
+        xb = x.to(torch.bfloat16)
+        xtb = xb.T.contiguous()
+        gyb = gy.to(torch.bfloat16)
+        wb = densified(torch, dict(p, bvalues=vb), d_in, d_out)
+        gather = (p["browind"].long(), p["bcolind"].long())
+
+        def grad_values():  # as BlockSpMM.backward: f32 product, then a gather
+            g = torch.matmul(gy, xb.float()).view(d_out // r, r, d_in // c, c)
+            return g[gather[0], :, gather[1], :].to(torch.bfloat16)
+
+        bound_x, by_x = lm_bound(nb, c, r, d_in // c, d_out, d_in, T)
+        # grad bvalues: gy (f32) and x (bf16) read once, the blocks written
+        # once; the block-sampled multiply-adds over the bf16 tensor rate
+        gv_bytes = d_out * T * 4 + T * d_in * 2 + nb * r * c * 2
+        gv_ops = 2 * nb * r * c * T
+        bound_v = max(gv_bytes / HBM_BYTES_S, gv_ops / BF16_OPS_S) * 1e3
+        row = {
+            "phase": "train_backward", "name": name, "d_in": d_in, "d_out": d_out,
+            "T": T, "blocks": nb, "block": [r, c], "transposed_block": [c, r],
+            "transposed_block_rows": int(counts.numel()),
+            "transposed_blocks_per_row": {"min": int(counts.min()),
+                                          "max": int(counts.max()),
+                                          "mean": float(counts.float().mean())},
+            "forward_route": block_route(torch.bfloat16, r, c, T),
+            "grad_x_route": block_route(torch.bfloat16, c, r, T),
+            "forward_random_max_abs_err": err_fwd,
+            "grad_x_random_max_abs_err": err, "oracle_rel_err": oracle,
+            "forward_ms": time_ms(torch, lambda: bcoo_spmv(
+                p["browind"], p["bcolind"], vb, xtb, d_out,
+                browptr=p["browptr"]), 20),
+            "grad_x_ms": time_ms(torch, lambda: bcoo_spmv(
+                p["t_browind"], p["t_bcolind"], tvb, gyb, d_in, **tkw), 20),
+            "grad_x_plain_ms": time_ms(torch, lambda: bcoo_spmv_plain(
+                p["t_browind"], p["t_bcolind"], tvb, gyb, d_in), 5, warmup=1),
+            "transpose_values_ms": time_ms(torch, lambda: transposed_values(
+                vb, p["t_perm"]), 20),
+            "grad_bvalues_ms": time_ms(torch, grad_values, 20),
+            "library_ms": time_ms(torch, lambda: torch.matmul(wb.T, gyb), 20),
+            "grad_x_bound_ms": bound_x, "grad_x_bound_by": by_x,
+            "grad_bvalues_bound_ms": bound_v,
+            "grad_bvalues_bound_by": ("bytes" if gv_bytes / HBM_BYTES_S
+                                      >= gv_ops / BF16_OPS_S else "operations"),
+        }
+        emit(row)
+        rows.append(row)
+    return rows, worst
+
+
+def train_dense_main(torch, T_, instrument) -> dict:
+    """(b) smollm-360m at full width through ``launch.train.main``."""
+    loops = []
+    base = timed_loop(torch, T_.TrainLoop, instrument)
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            loops.append(self)
+
+    real = T_.TrainLoop
+    T_.TrainLoop = Recorded
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        losses = T_.main(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                          "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ)])
+        run_s = time.perf_counter() - t0
+    finally:
+        T_.TrainLoop = real
+    loop = loops[0]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train {TRAIN_ARCH}: losses {losses}")
+    check(losses[-1] < losses[0] - 1.0,
+          f"train {TRAIN_ARCH}: loss fell {losses[0]} -> {losses[-1]}, not by 1.0")
+    peak = torch.cuda.max_memory_allocated()
+    # the window is taken before the trace: its steps go through the same
+    # timed step_fn and would land in step_ms
+    step_ms = list(loop.step_ms)
+    med = statistics.median(step_ms[-20:])
+    batch = loop.stream.batch(loop.step, loop.device)
+    trace = device_trace(torch, lambda: loop.step_fn(loop.params, loop.opt, batch),
+                         steps=3)
+    row = {"phase": "train_dense", "arch": TRAIN_ARCH, "dtype": "bfloat16",
+           "n_params": loop.cfg.n_params, "steps": TRAIN_STEPS,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "loss_first": losses[0],
+           "loss_last": losses[-1], "losses": losses, "run_s": run_s,
+           "step_ms_median_last20": med, "step_ms": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med * 1e3,
+           "peak_allocated_bytes": peak, "trace_3_steps": trace}
+    emit(row)
+    return row
+
+
+def train_sparse_loops(torch, T_, cfg, AdamWConfig, instrument, device) -> dict:
+    """(c) qwen1.5-0.5b dense and block-sparse, bf16, 10 steps each through
+    TrainLoop.  The block kernel's count of one train step (the last, with
+    the counters set to 0 just before it) is the training path's."""
+    Timed = timed_loop(torch, T_.TrainLoop, instrument)
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=3, total_steps=SPARSE_STEPS)
+    out = {}
+    for label, c in (("dense", cfg), ("sparse", dataclasses.replace(cfg,
+                                                                   ffn_density=0.5))):
+        loop = Timed(c, opt_cfg, seq_len=SPARSE_S, global_batch=SPARSE_B,
+                     device=device)
+        loop.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses = loop.run(SPARSE_STEPS - 1, log_every=0)
+        instrument.reset()
+        losses += loop.run(SPARSE_STEPS, log_every=0)
+        launches = instrument.launches("bcoo")
+        check(len(losses) == SPARSE_STEPS and all(np.isfinite(losses))
+              and losses[-1] < losses[0], f"train {c.name} {label}: losses {losses}")
+        want = 3 * c.n_layers * 3 if label == "sparse" else 0
+        check(launches == want and all(n == want for n in loop.step_launches),
+              f"train {label}: {launches} block-kernel launches in a step "
+              f"({loop.step_launches}), not {want}")
+        med = statistics.median(loop.step_ms[1:])
+        out[label] = {"phase": "train_qwen", "arch": c.name, "variant": label,
+                      "dtype": "bfloat16", "ffn_density": c.ffn_density,
+                      "block": list(c.sparse_block), "n_params": c.n_params,
+                      "batch": SPARSE_B, "seq": SPARSE_S, "losses": losses,
+                      "step_ms": loop.step_ms, "step_ms_median": med,
+                      "tokens_per_s": SPARSE_B * SPARSE_S / med * 1e3,
+                      "launches_per_step": loop.step_launches,
+                      "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del loop
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["sparse"]["step_ms_ratio_sparse_to_dense"] = (
+        out["sparse"]["step_ms_median"] / out["dense"]["step_ms_median"])
+    for row in out.values():
+        emit(row)
+    return {"launches": out["sparse"]["launches_per_step"][-1], "rows": out}
+
+
+def train_card_vs_cpu(torch, cfg, rng, device) -> dict:
+    """(d) qwen1.5-0.5b at full width, 2 layers, block-sparse, f32 (TF32
+    off): one train step on the card (the kernels) against the same step
+    on the CPU (the plain versions), from the same params."""
+    from repro_torch.launch.steps import carry_derived, value_and_grad_trainable
+    from repro_torch.models import lm
+    from repro_torch.models.common import map_params
+    from repro_torch.optim import AdamWConfig, apply_updates, init_opt
+    from repro_torch.sparse.layers import strip_derived
+    from repro_torch.tree import leaves
+
+    c = dataclasses.replace(cfg, n_layers=2, ffn_density=0.5)
+    params = lm.init_params(torch.Generator().manual_seed(15), c, torch.float32)
+    toks = torch.from_numpy(rng.integers(0, c.vocab, (2, 64)).astype(np.int32))
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    res = {}
+    for dev in ("cpu", device):
+        p = map_params(lambda a: a.to(dev), params)
+        batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad_trainable(lm.loss_fn)(p, batch, c)
+        new, _, metrics = apply_updates(strip_derived(p), strip_derived(grads),
+                                        init_opt(strip_derived(p), opt_cfg), opt_cfg)
+        new = carry_derived(new, p)
+        res[str(dev)] = (float(loss), leaves(strip_derived(grads)),
+                         leaves(strip_derived(new)), time.perf_counter() - t0)
+    (lc, gc_, pc, sc), (lg, gg, pg, sg) = res["cpu"], res[str(device)]
+    loss_rel = abs(lg - lc) / abs(lc)
+    grad_rel, param_err = 0.0, 0.0
+    for a, b, pa, pb in zip(gg, gc_, pg, pc):
+        if not b.is_floating_point():
+            continue
+        grad_rel = max(grad_rel, rel_err(torch, a.cpu(), b))
+        big = b.abs() > 1e-3 * b.abs().max()
+        if big.any():
+            param_err = max(param_err, max_err(torch, pa.cpu()[big], pb[big]))
+    check(loss_rel <= 1e-5, f"train card vs cpu: loss {lg} vs {lc}")
+    check(grad_rel <= GRAD_TOL, f"train card vs cpu: grad rel err {grad_rel}")
+    check(param_err <= 1e-5, f"train card vs cpu: updated params {param_err}")
+    row = {"phase": "train_card_vs_cpu", "arch": c.name, "n_layers": c.n_layers,
+           "ffn_density": c.ffn_density, "dtype": "float32", "tokens": [2, 64],
+           "loss_card": lg, "loss_cpu": lc, "loss_rel_err": loss_rel,
+           "grad_max_rel_err": grad_rel, "param_max_abs_err": param_err,
+           "card_s": sg, "cpu_s": sc, "ok": True}
+    emit(row)
+    return row
+
+
+def train_restart(torch, T_, AdamWConfig, device) -> dict:
+    """(e) smollm-360m at full width, 4 layers: train(10) against train(6)
+    + save + a fresh loop's maybe_restore + train(4)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    c = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=4)
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=2, total_steps=10)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="train-", dir=os.path.join(ROOT, "build")) as d:
+        def fresh(ckpt):
+            return T_.TrainLoop(c, opt_cfg, seq_len=128, global_batch=4,
+                                ckpt_dir=ckpt, ckpt_every=6, device=device)
+
+        a = fresh(None)
+        a.init_state()
+        want = a.run(10, log_every=0)
+        b = fresh(d)
+        b.init_state()
+        first = b.run(6, log_every=0)
+        del a, b
+        t0 = time.perf_counter()
+        b2 = fresh(d)
+        check(b2.maybe_restore() and b2.step == 6, "train restart: no step-6 checkpoint")
+        restore_s = time.perf_counter() - t0
+        got = first + b2.run(10, log_every=0)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(d) for f in fs)
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    check(rel <= 1e-5, f"train restart: {got} vs {want}")
+    row = {"phase": "train_restart", "arch": c.name, "n_layers": c.n_layers,
+           "losses_uninterrupted": want, "losses_resumed": got, "max_rel_err": rel,
+           "restore_s": restore_s, "checkpoint_bytes": ckpt_bytes, "ok": True}
+    emit(row)
+    return row
+
+
+def phase_train(torch, rng, device) -> dict:
+    """Phase 15: LM training (see the module docstring).  Returns the block
+    kernel's launches in one sparse train step (the training path's count),
+    the largest grad-x error against the plain version and the rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import instrument
+    from repro_torch.launch import train as T_
+    from repro_torch.optim import AdamWConfig
+
+    t_phase = time.perf_counter()
+    qwen = dataclasses.replace(get_config(LM_ARCH), ffn_density=0.5)
+    backward, worst = train_backward(torch, qwen, rng, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = train_dense_main(torch, T_, instrument)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sparse = train_sparse_loops(torch, T_, get_config(LM_ARCH), AdamWConfig,
+                                instrument, device)
+    card_cpu = train_card_vs_cpu(torch, qwen, rng, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    restart = train_restart(torch, T_, AdamWConfig, device)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "train_done", "seconds": seconds, "launches": sparse["launches"]})
+    return {"launches": sparse["launches"], "max_abs_err": worst,
+            "backward": backward, "dense": dense, "sparse": sparse["rows"],
+            "card_vs_cpu": card_cpu, "restart": restart, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3053,6 +3438,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_run = phase_lm(torch, np.random.default_rng([args.seed, 14]), device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_run = phase_train(torch, np.random.default_rng([args.seed, 15]), device)
 
     by_path = {
         kernel: {"single_device": launches[kind],
@@ -3066,6 +3454,7 @@ def main(argv=None) -> int:
         for kernel, kind in (("coo_spmv", "coo"), ("bcoo_spmv", "bcoo"))
     }
     by_path["bcoo_spmv"]["lm_serving"] = lm_run["launches"]
+    by_path["bcoo_spmv"]["lm_training"] = train_run["launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
     main_shape = {"coo_spmv": ("regular", "coo", 1), "bcoo_spmv": ("block", "bcoo", 1)}
     times["ell_spmv"] = ell_times["regular"]
@@ -3078,6 +3467,8 @@ def main(argv=None) -> int:
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
             "max_abs_err": max(errs[name], lm_run["max_abs_err"]
+                               if name == "bcoo_spmv" else 0.0,
+                               train_run["max_abs_err"]
                                if name == "bcoo_spmv" else 0.0),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -3085,7 +3476,7 @@ def main(argv=None) -> int:
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "solver_phase_s": solver_s, "tuning_phase_s": tuning_s,
           "cluster_phase_s": cluster_s, "topology_phase_s": topology_s,
-          "lm_phase_s": lm_run["seconds"],
+          "lm_phase_s": lm_run["seconds"], "train_phase_s": train_run["seconds"],
           "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

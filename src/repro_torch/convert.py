@@ -16,7 +16,7 @@ import numpy as np
 from .core import formats as F
 from .kernels.coo_spmv import ChunkPlan
 from .models.common import map_params
-from .sparse.layers import with_row_pointer
+from .sparse.layers import with_derived
 
 __all__ = ["container", "chunk_plan", "lm_params"]
 
@@ -50,13 +50,6 @@ def chunk_plan(fields: dict) -> ChunkPlan:
 def lm_params(tree: dict, cfg) -> dict:
     """The port's LM params (CPU tensors) from the JAX package's tree as
     numpy arrays, key for key.  Block-sparse FFN layers keep ``browind`` /
-    ``bcolind`` / ``bvalues`` unchanged and gain the port's ``browptr``."""
-    params = map_params(F.to_tensor, tree)
-    if cfg.ffn_density < 1.0:
-        blocks = [v for k, v in params.items() if k.startswith("prefix")]
-        for blk in blocks + list(params["blocks"].values()):
-            mlp = blk["mlp"]
-            for name in ("w_gate", "w_up", "w_down"):
-                d_out = cfg.d_model if name == "w_down" else cfg.d_ff
-                mlp[name] = with_row_pointer(mlp[name], d_out)
-    return params
+    ``bcolind`` / ``bvalues`` unchanged and gain the port-only keys
+    (``sparse.layers.DERIVED``: ``browptr`` and Wᵀ's stream)."""
+    return with_derived(map_params(F.to_tensor, tree), cfg)

@@ -1,8 +1,5 @@
-"""Data substrate: synthetic matrices (paper Tables 3/4).
-
-Counterpart of ``repro/data``; the LM token streams (``tokens.py``) wait
-for the LM side of the port (ROADMAP.md).
-"""
+"""Data substrate: synthetic matrices (paper Tables 3/4) and the LM token
+stream.  Counterpart of ``repro/data``."""
 from .matrices import (  # noqa: F401
     MatrixSpec,
     block_matrix,
@@ -11,3 +8,4 @@ from .matrices import (  # noqa: F401
     regular_matrix,
     scale_free_matrix,
 )
+from .tokens import TokenStream, make_batch  # noqa: F401

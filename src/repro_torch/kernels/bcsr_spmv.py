@@ -29,7 +29,7 @@ from .instrument import record_launch
 from .ref import acc_dtype, block_products
 
 __all__ = ["bcoo_spmv", "bcoo_spmv_plain", "bcoo_spmv_cuda", "block_row_ptr",
-           "block_route", "route_takes", "ROUTES", "DEFAULT_BLOCK", "BATCH_TILE",
+           "transposed_stream", "transposed_values", "block_route", "route_takes", "ROUTES", "DEFAULT_BLOCK", "BATCH_TILE",
            "MMA_MIN_BATCH"]
 
 DEFAULT_BLOCK = (8, 128)
@@ -79,6 +79,38 @@ def block_row_ptr(browind: torch.Tensor, nblocks, n_brows: int) -> torch.Tensor:
     ptr = torch.zeros(n_brows + 1, dtype=torch.int64, device=browind.device)
     ptr[1:] = torch.bincount(browind[: int(nblocks)].long(), minlength=n_brows)
     return torch.cumsum(ptr, 0).to(torch.int32)
+
+
+def transposed_stream(browind: torch.Tensor, bcolind: torch.Tensor,
+                      n_bcols: int) -> tuple:
+    """The static block stream of Wᵀ, from W's block-row-sorted stream.
+
+    W's block k sits at (browind[k], bcolind[k]); in Wᵀ it is the
+    transposed block at (bcolind[k], browind[k]).  Returns (perm,
+    t_browind, t_bcolind, t_browptr), int32: Wᵀ's blocks are W's blocks
+    ``perm``, sorted by block-column of W (stably, so each block-row of Wᵀ
+    keeps W's block-row order); ``t_browptr`` (n_bcols + 1,) is Wᵀ's
+    block-row pointer.  Only the values change as W trains:
+    :func:`transposed_values` gathers them.  Stacked streams (L, nb) give
+    one row per layer.
+
+    The pattern balances W's block-rows, not its block-columns, so Wᵀ's
+    block-rows hold unequal counts.
+    """
+    if browind.ndim == 2:
+        rows = [transposed_stream(b, c, n_bcols) for b, c in zip(browind, bcolind)]
+        return tuple(torch.stack(col) for col in zip(*rows))
+    perm = torch.argsort(bcolind.long(), stable=True)
+    t_browind = bcolind[perm].contiguous()
+    t_bcolind = browind[perm].contiguous()
+    t_browptr = block_row_ptr(t_browind, t_browind.shape[0], n_bcols)
+    return perm.to(torch.int32), t_browind, t_bcolind, t_browptr
+
+
+def transposed_values(bvalues: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Wᵀ's (nb, c, r) block values from W's (nb, r, c) and the stream's
+    permutation: a gather and a transposing copy, no arithmetic."""
+    return bvalues[perm.long()].transpose(-1, -2).contiguous()
 
 
 def _pad_x(x: torch.Tensor, c: int) -> torch.Tensor:

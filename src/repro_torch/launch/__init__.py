@@ -1,3 +1,3 @@
-"""Launchers: the serving entry point.  Counterpart of ``repro/launch``;
-the training launcher and the dry-runs wait for their slices (ROADMAP.md
-§1 items 7.5 and 7.6)."""
+"""Launchers: the serving and training entry points and the train step.
+Counterpart of ``repro/launch``; the dry-runs wait for their slice
+(ROADMAP.md §1 item 6) and the mesh for multi-card meshes (item 7)."""

@@ -43,12 +43,14 @@ class Server:
             self.params = lm.init_params(gen, cfg, dtype)
 
     def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
-        """prompts: (B, S) int32. Greedy decode n_tokens. Returns (B, n).
+        """prompts: (B, S) int32. Greedy decode n_tokens. Returns
+        (B, max(n_tokens, 1)), as the reference: the prefill's token always,
+        then n_tokens - 1 decode steps.
 
         The tokens stay on the device until the end, then cross to the
         host in one copy."""
         toks = torch.from_numpy(np.asarray(prompts, np.int32)).to(self.device)
-        out = torch.empty((toks.shape[0], n_tokens), dtype=torch.int32,
+        out = torch.empty((toks.shape[0], max(n_tokens, 1)), dtype=torch.int32,
                           device=self.device)
         with torch.no_grad():
             logits, caches = lm.prefill(self.params, toks, self.cfg, self.max_len)

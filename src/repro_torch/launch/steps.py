@@ -1,0 +1,98 @@
+"""The train step: value-and-grad over the float leaves, optional gradient
+accumulation over microbatches, one AdamW update.
+
+Counterpart of ``repro/launch/steps.py``'s ``_value_and_grad_trainable``
+and ``make_train_step``.  The reference jits the step; the port runs it
+eagerly on the params' device.  Prefill / decode step builders are the
+serving path's (``launch/serve.py`` calls ``lm`` directly); ``input_specs``,
+``cache_specs``, ``state_specs`` and ``abstract_state`` wait for
+multi-card meshes (ROADMAP.md §1 item 7).
+
+A sparse LM's port-only keys (``sparse.layers.DERIVED``) ride along with
+the params: the loss reads them, the optimizer never sees them (its state
+holds the reference's tree), and the updated params carry them over.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lm
+from repro_torch.optim import AdamWConfig, OptState, apply_updates
+from repro_torch.sparse.layers import strip_derived
+from repro_torch.tree import flatten, tree_map
+
+__all__ = ["value_and_grad_trainable", "make_train_step", "carry_derived"]
+
+
+def value_and_grad_trainable(loss_fn):
+    """(loss, grads) of ``loss_fn(params, *args)`` over the float leaves only.
+
+    Integer leaves (the BCOO index arrays of sparse layers) are structural,
+    not trainable: they are held fixed and receive zero gradients so the
+    optimizer tree stays congruent.  A float leaf the loss does not reach
+    also gets zeros, as ``jax.grad`` gives.
+    """
+
+    def wrapped(params, *args):
+        flat, unflatten = flatten(params)
+        train = [x.detach().requires_grad_() if x.is_floating_point() else x
+                 for x in flat]
+        with torch.enable_grad():
+            loss = loss_fn(unflatten(train), *args)
+            wrt = [x for x in train if x.is_floating_point()]
+            grads = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+        g_flat = []
+        for x in train:
+            g = next(grads) if x.is_floating_point() else None
+            g_flat.append(torch.zeros_like(x) if g is None else g)
+        return loss.detach(), unflatten(g_flat)
+
+    return wrapped
+
+
+def carry_derived(new, old):
+    """``new`` (the reference's tree) with every key of ``old`` that it
+    lacks (the port-only keys of sparse layers) carried over unchanged."""
+    if not isinstance(new, dict):
+        return new
+    out = {k: carry_derived(v, old[k]) for k, v in new.items()}
+    out.update({k: v for k, v in old.items() if k not in new})
+    return out
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1):
+    """Train step with optional gradient-accumulation microbatching:
+    ``f(params, opt, batch) -> (params, opt, metrics)``.
+
+    Gradients accumulate in the param dtype over the microbatches, as the
+    reference's ``lax.scan`` does; the optimizer update runs once on the
+    mean.
+    """
+    vag = value_and_grad_trainable(lm.loss_fn)
+
+    def train_step(params, opt: OptState, batch):
+        if microbatches == 1:
+            loss, grads = vag(params, batch, cfg)
+        else:
+            def split(x):
+                return x.reshape((microbatches, x.shape[0] // microbatches)
+                                 + tuple(x.shape[1:]))
+
+            mb = {k: split(v) for k, v in batch.items()}
+            device = flatten(params)[0][0].device
+            loss = torch.zeros((), dtype=torch.float32, device=device)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype,
+                                                   device=p.device), params)
+            for i in range(microbatches):
+                loss_i, g_i = vag(params, {k: v[i] for k, v in mb.items()}, cfg)
+                grads = tree_map(lambda a, g: a + g.to(a.dtype), grads, g_i)
+                loss = loss + loss_i
+            loss = loss / microbatches
+            grads = tree_map(lambda g: g / microbatches, grads)
+        new, opt, metrics = apply_updates(strip_derived(params),
+                                          strip_derived(grads), opt, opt_cfg)
+        metrics["loss"] = loss
+        return carry_derived(new, params), opt, metrics
+
+    return train_step

@@ -7,7 +7,7 @@ torch ops that follow ``_sdpa`` step for step: scores in float32, masked
 to -1e30, softmax, cast back.  No fused attention (``scaled_dot_product_
 attention``) stands in: its numerics differ, and the JAX package has no
 attention kernel to port.  MLA and cross-attention wait for their slices
-(ROADMAP.md §1 items 7.2 and 7.4).
+(ROADMAP.md §1 items 3 and 5).
 
 Two departures, both invisible in the results:
 

@@ -27,14 +27,14 @@ __all__ = ["block_init", "block_apply", "block_decode", "init_cache",
 KINDS = ("attn", "attn_local", "attn_global")
 # block kind -> the ROADMAP.md item that ports it
 UNPORTED = {
-    "moe": "§1 item 7.1 (MoE)",
-    "mla_dense": "§1 item 7.2 (MLA)",
-    "mla_moe": "§1 item 7.2 (MLA)",
-    "mamba": "§1 item 7.3 (linear attention)",
-    "mlstm": "§1 item 7.3 (linear attention)",
-    "slstm": "§1 item 7.3 (linear attention)",
-    "shared_attn": "§1 item 7.3 (linear attention: zamba2's shared block)",
-    "cross_attn": "§1 item 7.4 (encoder-decoder)",
+    "moe": "§1 item 2 (MoE)",
+    "mla_dense": "§1 item 3 (MLA)",
+    "mla_moe": "§1 item 3 (MLA)",
+    "mamba": "§1 item 4 (linear attention)",
+    "mlstm": "§1 item 4 (linear attention)",
+    "slstm": "§1 item 4 (linear attention)",
+    "shared_attn": "§1 item 4 (linear attention: zamba2's shared block)",
+    "cross_attn": "§1 item 5 (encoder-decoder)",
 }
 
 

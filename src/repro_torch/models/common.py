@@ -7,8 +7,7 @@ params are to live on, and ``*_apply`` consumes it.  Each function does
 the reference's arithmetic in the reference's order and dtypes.
 
 The port has no mesh: the reference's ``shard`` / ``batch_shard`` and its
-``*_spec`` functions have no counterpart (ROADMAP.md §1 item 7.7), and
-``cross_entropy`` waits for the training slice (item 7.5).
+``*_spec`` functions wait for multi-card meshes (ROADMAP.md §1 item 7).
 """
 from __future__ import annotations
 
@@ -32,6 +31,7 @@ __all__ = [
     "gelu",
     "swiglu_init",
     "swiglu_apply",
+    "cross_entropy",
 ]
 
 
@@ -133,3 +133,21 @@ def swiglu_init(gen, d: int, d_ff: int, dtype=torch.bfloat16):
 def swiglu_apply(p, x, act=F.silu):
     h = act(dense_apply(p["w_gate"], x)) * dense_apply(p["w_up"], x)
     return dense_apply(p["w_down"], h)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None):
+    """Token cross-entropy in f32: logsumexp minus the gold logit, averaged
+    over the tokens (over the masked-in tokens where ``mask`` is given)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()

@@ -10,15 +10,22 @@ the repeat index.
 Entry points:
   init_params(gen, cfg)                   -> params
   forward(params, tokens, cfg)            -> (logits, h)
+  loss_fn(params, batch, cfg)             -> scalar f32 loss
   prefill(params, tokens, cfg, max_len)   -> (last_logits, caches)
   decode_step(params, token, caches, cfg) -> (logits, caches)
   init_caches(cfg, batch, max_len)        -> zero caches
 
+Under autograd, ``forward`` rematerializes each repeat as ``cfg.remat``
+says, as the reference's ``_scan_blocks`` does: ``"full"`` recomputes the
+repeat in the backward pass (``torch.utils.checkpoint``), ``"none"`` keeps
+its activations.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP.md item: block kinds other than the attention ones (see
-``blocks.UNPORTED``), ``encoder_layers`` / ``encode`` (§1 item 7.4),
-``mtp_depth`` and ``loss_fn`` (item 7.5); ``param_specs``,
-``abstract_params`` and ``cache_specs`` wait for multi-card (item 7.7).
+``blocks.UNPORTED``), ``encoder_layers`` / ``encode`` (§1 item 5),
+``mtp_depth`` (item 3, with MLA) and ``remat="dots"`` (item 8);
+``param_specs``, ``abstract_params`` and ``cache_specs`` wait for
+multi-card meshes (item 7).
 
 ``decode_step`` steps the caches it is given in place (see
 ``attention.gqa_decode``).
@@ -29,16 +36,19 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from . import attention as A
 from .blocks import block_apply, block_decode, block_init, check_kind, init_cache
-from .common import embed_init, map_params, normal, rmsnorm, rmsnorm_init, softcap
+from .common import (cross_entropy, embed_init, map_params, normal, rmsnorm,
+                     rmsnorm_init, softcap)
 
 __all__ = [
     "init_params",
     "check_config",
     "forward",
+    "loss_fn",
     "prefill",
     "decode_step",
     "Caches",
@@ -53,11 +63,11 @@ def check_config(cfg: ArchConfig) -> None:
     if cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: the encoder (encoder_layers={cfg.encoder_layers}) is "
-            f"not ported yet (ROADMAP.md §1 item 7.4 (encoder-decoder))")
+            f"not ported yet (ROADMAP.md §1 item 5 (encoder-decoder))")
     if cfg.mtp_depth:
         raise NotImplementedError(
             f"{cfg.name}: multi-token prediction (mtp_depth={cfg.mtp_depth}) is "
-            f"not ported yet (ROADMAP.md §1 item 7.5 (training))")
+            f"not ported yet (ROADMAP.md §1 item 3 (MLA and MTP))")
 
 
 def _stack_init(gen, cfg, kind, n, dtype):
@@ -108,18 +118,53 @@ def _with_prefix(params, tokens, cfg, prefix_embeds):
     return h
 
 
+def _repeats(params, cfg) -> list:
+    """Each repeat's params: one tree per repeat, each tensor a view of the
+    stacked one.  ``unbind`` makes one backward node per stacked tensor, so
+    the repeats' gradients are stacked once instead of each scattered into
+    a zero tensor of the whole stack."""
+    blocks = map_params(lambda a: a.unbind(0), params["blocks"])
+    return [map_params(lambda a: a[r], blocks) for r in range(cfg.n_repeats)]
+
+
+def _repeat(h, layer, cfg):
+    for j, kind in enumerate(cfg.block_pattern):
+        h, _ = block_apply(layer[f"b{j}"], h, cfg, kind)
+    return h
+
+
 def forward(params, tokens, cfg: ArchConfig, *, prefix_embeds=None):
     """tokens: (B, S_text) int; prefix_embeds: (B, S_mod, d) modality stub.
-    Returns (logits (B, S, vocab), h (B, S, d))."""
+    Returns (logits (B, S, vocab), h (B, S, d)).  While autograd records,
+    each repeat is rematerialized as ``cfg.remat`` says."""
     check_config(cfg)
     h = _with_prefix(params, tokens, cfg, prefix_embeds)
     for i, kind in enumerate(cfg.prefix_pattern):
         h, _ = block_apply(params[f"prefix{i}"], h, cfg, kind)
-    for r in range(cfg.n_repeats):
-        for j, kind in enumerate(cfg.block_pattern):
-            h, _ = block_apply(_layer(params["blocks"][f"b{j}"], r), h, cfg, kind)
+    remat = torch.is_grad_enabled()
+    if remat and cfg.remat not in ("full", "none"):
+        raise NotImplementedError(
+            f"{cfg.name}: remat={cfg.remat!r} is not ported yet (ROADMAP.md §1 "
+            f"item 8 (remat='dots'))")
+    full = remat and cfg.remat == "full"
+    for layer in _repeats(params, cfg):
+        if full:  # the blocks draw no random numbers: no RNG state to keep
+            h = checkpoint(_repeat, h, layer, cfg, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h = _repeat(h, layer, cfg)
     h = rmsnorm(params["final_norm"], h, gemma_style=cfg.gemma_norm)
     return _logits(params, h, cfg), h
+
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    """batch: dict(tokens, labels[, prefix_embeds]).  Next-token cross-entropy
+    over the text positions (the modality prefix dropped), in f32."""
+    logits, _ = forward(params, batch["tokens"], cfg,
+                        prefix_embeds=batch.get("prefix_embeds"))
+    S_text = batch["tokens"].shape[1]
+    logits_text = logits[:, -S_text:]  # drop modality prefix positions
+    return cross_entropy(logits_text[:, :-1], batch["labels"][:, 1:])
 
 
 # ---------------------------------------------------------------------------

@@ -1286,3 +1286,141 @@ def test_lm_sparse_model_on_card_matches_cpu(cuda):
             torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
             tok = torch.argmax(want, -1)[:, None]
         assert instrument.launches("bcoo") == 3 * 3 * cfg.n_layers
+
+
+def _transposed_case(rng, block, dtype, integer):
+    """Wᵀ's stream of a row-balanced (r, c) pattern at density 0.5: (c, r)
+    blocks sorted by W's block-column, block-rows of unequal length."""
+    from repro_torch.kernels.bcsr_spmv import transposed_stream, transposed_values
+    from repro_torch.sparse.layers import _balanced_pattern
+
+    r, c = block
+    d_out, d_in = 512, 1024
+    browind, bcolind = (torch.from_numpy(a) for a in
+                        _balanced_pattern(d_out // r, d_in // c, 0.5))
+    shape = (len(browind), r, c)
+    vals = (rng.choice([-2, -1, 1, 2], shape) if integer
+            else rng.standard_normal(shape))
+    perm, t_browind, t_bcolind, t_browptr = transposed_stream(browind, bcolind,
+                                                              d_in // c)
+    tvals = transposed_values(torch.from_numpy(vals).to(dtype), perm)
+    return t_browind, t_bcolind, t_browptr, tvals, d_in, d_out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("block", [(8, 128), (16, 128)])
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "random"])
+def test_bcoo_transposed_streams_match_plain(cuda, dtype, block, integer):
+    """The sparse FFN backward's grad x runs Wᵀ's (128, 8) / (128, 16)
+    blocks: every route that takes them at B = 1, 4, 64 and 1024,
+    integer-valued inputs bit-equal to the plain version, random ones
+    within rtol = atol = 2e-4."""
+    rng = np.random.default_rng(43)
+    t_browind, t_bcolind, t_browptr, tvals, d_in, d_out = _transposed_case(
+        rng, block, dtype, integer)
+    c, r = tvals.shape[1:]
+    for batch in (1, 4, 64, 1024):
+        x = _x(rng, d_out, batch, dtype, integer)
+        want = bcoo_spmv_plain(t_browind, t_bcolind, tvals, x, d_in)
+        routes = [rt for rt in ROUTES if route_takes(rt, dtype, c, r, batch)]
+        assert block_route(dtype, c, r, batch) == "rows" and routes == ["rows"]
+        for route in routes:
+            got = bcoo_spmv_cuda(t_browptr.to(cuda), t_bcolind.to(cuda),
+                                 tvals.to(cuda), x.to(cuda), d_in, route=route)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and got.shape == want.shape
+            if integer:
+                assert torch.equal(got.cpu(), want), (route, batch)
+            else:
+                torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("block,d_in,d_out", [((8, 128), 1024, 512), ((8, 128), 512, 1024),
+                                              ((8, 16), 256, 128)])
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "random"])
+def test_block_spmm_grads_on_card_match_cpu(cuda, block, d_in, d_out, integer):
+    """``sparse.layers.BlockSpMM`` on the card (the kernel forward and grad
+    x, the f32 product for grad bvalues) against the same Function on the
+    CPU (plain versions), float32, T = 96: integer-valued inputs bit-equal,
+    random ones within 1e-5 of each gradient's max; two block-kernel
+    launches (forward, grad x)."""
+    from repro_torch.sparse.layers import sparse_linear_apply, sparse_linear_init
+
+    rng = np.random.default_rng(44)
+    p = sparse_linear_init(torch.Generator().manual_seed(4), d_in, d_out, 0.5, block,
+                           torch.float32)
+    if integer:
+        p["bvalues"] = torch.from_numpy(rng.integers(-2, 3, p["bvalues"].shape)
+                                        .astype(np.float32))
+    make = (lambda s: rng.integers(-2, 3, s)) if integer else rng.standard_normal
+    x = torch.from_numpy(make((4, 24, d_in)).astype(np.float32))
+    gy = torch.from_numpy(make((4, 24, d_out)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        q = {k: v.to(dev) for k, v in p.items()}
+        bv = q["bvalues"].clone().requires_grad_()
+        xx = x.to(dev).clone().requires_grad_()  # a leaf on either device
+        instrument.reset()
+        y = sparse_linear_apply(dict(q, bvalues=bv), xx, d_out)
+        y.backward(gy.to(dev))
+        out[str(dev)] = (y.detach().cpu(), bv.grad.cpu(), xx.grad.cpu(),
+                         instrument.launches("bcoo"))
+    (yc, gbc, gxc, nc), (yg, gbg, gxg, ng) = out["cpu"], out[str(cuda)]
+    assert nc == 0 and ng == 2
+    for got, want in ((yg, yc), (gbg, gbc), (gxg, gxc)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        if integer:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("arch,sparse", [("smollm-360m", False), ("qwen1.5-0.5b", True)])
+def test_train_step_on_card_matches_cpu(cuda, arch, sparse):
+    """A reduced config's ``make_train_step`` (f32, TF32 off, remat full) on
+    the card against the CPU from the same params: the loss within 1e-5
+    relative, every grad leaf within 1e-4 of its max, and for the sparse
+    model 3 block-kernel launches per projection (forward, recompute,
+    grad x)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step, value_and_grad_trainable
+    from repro_torch.models import lm
+    from repro_torch.models.common import map_params
+    from repro_torch.optim import AdamWConfig, init_opt
+    from repro_torch.sparse.layers import strip_derived
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=3)
+    if sparse:
+        cfg = dataclasses.replace(cfg, ffn_density=0.5, sparse_block=(8, 16))
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(45).integers(0, cfg.vocab, (4, 32))
+                            .astype(np.int32))
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {}
+        for dev in ("cpu", cuda):
+            p = map_params(lambda a: a.to(dev), params)
+            batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+            instrument.reset()
+            loss, grads = value_and_grad_trainable(lm.loss_fn)(p, batch, cfg)
+            launches = instrument.launches("bcoo")
+            _, _, metrics = make_train_step(cfg, opt_cfg)(
+                p, init_opt(strip_derived(p), opt_cfg), batch)
+            res[str(dev)] = (float(loss), leaves(grads), launches, float(metrics["loss"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, gc_, nc, mc), (lg, gg, ng, mg) = res["cpu"], res[str(cuda)]
+    assert nc == 0 and ng == (3 * 3 * cfg.n_layers if sparse else 0)
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(mg - mc) <= 1e-5 * abs(mc)
+    for a, b in zip(gg, gc_):
+        if b.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=1e-4 * max(float(b.abs().max()), 1e-30))
+        else:
+            assert not a.any()

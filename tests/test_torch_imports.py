@@ -26,6 +26,8 @@ print("MODULES", len(names))
 print("TOPO", sorted(n for n in names if n.startswith("repro_torch.topo")))
 print("LM", sorted(n for n in names if n.split(".")[1:2] in (
     ["models"], ["sparse"], ["launch"])))
+print("TRAIN", sorted(n for n in names if n.split(".")[1:2] in (
+    ["data"], ["optim"], ["runtime"], ["tree"])))
 print("BAD", bad)
 print("NEW_THREADS", sorted(t.name for t in threading.enumerate()
                             if t.ident not in threads))
@@ -46,17 +48,25 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
     n_modules = 1 + len(list(pkgutil.walk_packages(repro_torch.__path__,
                                                     "repro_torch.")))
-    assert int(lines["MODULES"]) == n_modules >= 78
+    assert int(lines["MODULES"]) == n_modules >= 89
     # the topology package and its modules are among them
     assert lines["TOPO"] == str(["repro_torch.topo", "repro_torch.topo.cost",
                                  "repro_torch.topo.mesh",
                                  "repro_torch.topo.topology"])
-    # the LM serving path's packages, and the ten configs and the paper's
+    # the LM serving and training paths' packages, and the ten configs and
+    # the paper's
     assert lines["LM"] == str([
-        "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.models",
+        "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.launch.steps",
+        "repro_torch.launch.train", "repro_torch.models",
         "repro_torch.models.attention", "repro_torch.models.blocks",
         "repro_torch.models.common", "repro_torch.models.lm", "repro_torch.sparse",
         "repro_torch.sparse.layers"])
+    assert lines["TRAIN"] == str([
+        "repro_torch.data", "repro_torch.data.matrices", "repro_torch.data.tokens",
+        "repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.compress",
+        "repro_torch.runtime", "repro_torch.runtime.checkpoint",
+        "repro_torch.runtime.elastic", "repro_torch.runtime.fault",
+        "repro_torch.tree"])
     configs = [m for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
                if m.name.startswith("repro_torch.configs.")]
     assert len(configs) == 12  # base, spmv_paper and the ten archs

@@ -286,9 +286,9 @@ def test_init_cache_shapes(arch, kind):
         assert not c.k.any() and c.length == 0
 
 
-UNPORTED_ARCHS = {"deepseek-v3-671b": "7.2", "mixtral-8x22b": "7.1",
-                  "xlstm-1.3b": "7.3", "seamless-m4t-medium": "7.4",
-                  "zamba2-2.7b": "7.3"}
+UNPORTED_ARCHS = {"deepseek-v3-671b": "3", "mixtral-8x22b": "2",
+                  "xlstm-1.3b": "4", "seamless-m4t-medium": "5",
+                  "zamba2-2.7b": "4"}
 
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED_ARCHS))
@@ -296,9 +296,9 @@ def test_unported_archs_raise_naming_their_item(arch):
     _, tc = reduced(arch)
     item = UNPORTED_ARCHS[arch]
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item}"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item} "):
         TLM.init_params(gen, tc, torch.float32)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(NotImplementedError, match=f"item {item} "):
         TLM.init_caches(tc, 1, 8)
 
 
@@ -306,7 +306,7 @@ def test_unported_archs_raise_naming_their_item(arch):
 def test_unported_kinds_raise(kind):
     _, tc = reduced("qwen1.5-0.5b")
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item [2-5] "):
         TB.block_init(gen, tc, kind)
     with pytest.raises(NotImplementedError, match=kind):
         TB.init_cache(tc, kind, 1, 8)
@@ -316,7 +316,7 @@ def test_unported_kinds_raise(kind):
 
 def test_encoder_and_mtp_raise():
     _, tc = reduced("qwen1.5-0.5b")
-    for field, item in (("encoder_layers", "7.4"), ("mtp_depth", "7.5")):
+    for field, item in (("encoder_layers", "5 "), ("mtp_depth", "3 ")):
         cfg = dataclasses.replace(tc, **{field: 1})
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             TLM.check_config(cfg)

@@ -127,7 +127,7 @@ def test_block_sparse_ffn_apply(arch):
     tree = {"blocks": {"b0": {"mlp": jax.tree.map(np.asarray, p)}}}
     tp = convert.lm_params(tree, cfg)["blocks"]["b0"]["mlp"]
     for name in ("w_gate", "w_up", "w_down"):
-        assert set(tp[name]) == {"browind", "bcolind", "bvalues", "browptr"}
+        assert set(tp[name]) == {"browind", "bcolind", "bvalues", *TL.DERIVED}
         np.testing.assert_array_equal(tp[name]["bvalues"].numpy(),
                                       np.asarray(p[name]["bvalues"]))
     x = np.random.default_rng(6).standard_normal((2, 7, cfg.d_model)) \
