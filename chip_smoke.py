@@ -227,6 +227,37 @@ Phases (every check raises, so any failure exits non-zero):
    |g| > 1e-3 max |g|.  (e) smollm-360m at full width cut to 4 layers:
    train(10) against train(6) + a checkpoint + a fresh loop's
    ``maybe_restore`` + train(4), losses within 1e-5 relative.
+16. The MoE family (``models/moe.py``, MLA, MTP's tree) at full width,
+   last, with inputs from its own generator (``[seed, 16]``).  (a)
+   ``moe_apply`` alone, one layer of mixtral-8x22b (8 experts of 6144 x
+   16,384, top-2) and of deepseek-v3 (256 of 7168 x 2048, top-8, one
+   shared expert, a random router bias), at T = 512 and T = 4: the expert
+   ids equal to a plain ``torch.topk`` recomputation; with ample capacity
+   (factor 8) f32 within rtol = atol = 2e-3 of an f32 per-expert oracle
+   over the same routing (tests/test_moe_sparse.py's tolerance), bf16
+   within 1e-2 of it norm-wise (bf16 rounds the products, the expert
+   outputs and the combine's sums); at the configured factor 1.25 the
+   slots, dropped assignments and padding efficiency, two bf16 runs
+   bit-equal, and CUDA-event ms of the layer and its parts (routing,
+   dispatch, expert products, combine) beside the bound.  (b)
+   mixtral-8x22b cut to 8 of 56 layers, bf16: ``Server.generate`` B=4,
+   prompt 128, 32 tokens, timed as phase 14 (c) times it (prefill ms,
+   decode ms a token, tokens/s, a torch.profiler trace of decode), with
+   the peak card memory.  (c) mixtral cut to 2 layers, f32, capacity
+   factor 8: phase 14 (a)'s decode-vs-prefill and teacher-forced checks.
+   (d) deepseek-v3 cut to 4 of 61 layers (its 3 dense MLA layers and one
+   MLA + MoE repeat; the MTP block built, not run), bf16, as (b); cut to
+   2 layers (1 and 1), f32, as (c); one MLA layer at B=1, S=4,096,
+   query-chunked (4 chunks) against unchunked within 1e-3.  (e) deepseek
+   with ``ffn_density=0.5`` in (8, 128) blocks: at the 4-layer bf16 cut
+   the 9 prefix projections against their plain version at B = 4 and
+   512 (bit-equal on integer inputs, within 2e-4 on the layer's values)
+   and one generate launching the block kernel 9 x 32 = 288 times
+   (``launches_by_path["bcoo_spmv"]["lm_moe"]``); at the 2-layer f32 cut
+   (capacity factor 8) phase 14 (b)'s checks against the densified
+   ``torch.matmul`` oracle; w_gate (7168 -> 18,432) and w_down at B = 1,
+   4 and 512 beside ``torch.matmul`` and the bound.  Every model is freed
+   before the next is built.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -2621,13 +2652,26 @@ BF16_OPS_S = 989e12  # H100 SXM data sheet, bf16 on the tensor cores
 LM_LOGIT_TOL = 1e-3  # f32 logits, sums in another order over 24 layers
 
 
-def lm_projections(params, cfg):
-    """(layer, name, d_in, d_out, layer params) of every sparse projection."""
-    mlp = params["blocks"]["b0"]["mlp"]
-    dims = {"w_gate": (cfg.d_model, cfg.d_ff), "w_up": (cfg.d_model, cfg.d_ff),
+def ffn_dims(cfg) -> dict:
+    return {"w_gate": (cfg.d_model, cfg.d_ff), "w_up": (cfg.d_model, cfg.d_ff),
             "w_down": (cfg.d_ff, cfg.d_model)}
-    return [(r, name, *dims[name], {k: v[r] for k, v in mlp[name].items()})
-            for r in range(cfg.n_repeats) for name in dims]
+
+
+def lm_projections(params, cfg):
+    """(layer, name, d_in, d_out, layer params) of every sparse projection
+    the serving path runs: the prefix blocks' and the stacked repeats' (a
+    block with an MoE FFN has none; the MTP block runs only in the loss)."""
+    dims = ffn_dims(cfg)
+    out = []
+    for i in range(len(cfg.prefix_pattern)):
+        mlp = params[f"prefix{i}"].get("mlp")
+        if mlp is not None:
+            out += [(f"prefix{i}", name, *dims[name], mlp[name]) for name in dims]
+    for blk in params["blocks"].values():
+        if "mlp" in blk:
+            out += [(r, name, *dims[name], {k: v[r] for k, v in blk["mlp"][name].items()})
+                    for r in range(cfg.n_repeats) for name in dims]
+    return out
 
 
 def densified(torch, p, d_in: int, d_out: int):
@@ -2648,15 +2692,20 @@ def densified(torch, p, d_in: int, d_out: int):
 
 def densified_params(torch, params, cfg):
     """The sparse model's params with each FFN projection a dense
-    ``{"w": W.T}`` (the dense SwiGLU's layout), for ``ffn_density=1``."""
-    out = dict(params, blocks={})
-    for key, blk in params["blocks"].items():
-        mlp = blk["mlp"]
-        dims = {"w_gate": (cfg.d_model, cfg.d_ff), "w_up": (cfg.d_model, cfg.d_ff),
-                "w_down": (cfg.d_ff, cfg.d_model)}
-        out["blocks"][key] = dict(blk, mlp={
-            name: {"w": densified(torch, mlp[name], *dims[name]).transpose(-1, -2)
-                   .contiguous()} for name in dims})
+    ``{"w": W.T}`` (the dense SwiGLU's layout), for ``ffn_density=1``; the
+    MTP subtree, which serving never reads, left out."""
+    dims = ffn_dims(cfg)
+
+    def dense(blk):
+        if "mlp" not in blk:
+            return blk
+        return dict(blk, mlp={
+            name: {"w": densified(torch, blk["mlp"][name], *dims[name])
+                   .transpose(-1, -2).contiguous()} for name in dims})
+
+    out = {k: dense(v) if k.startswith("prefix") else v
+           for k, v in params.items() if k != "mtp"}
+    out["blocks"] = {key: dense(blk) for key, blk in params["blocks"].items()}
     return out
 
 
@@ -2691,16 +2740,18 @@ def lm_bound(nb: int, r: int, c: int, n_brows: int, d_in: int, d_out: int,
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def lm_dense_checks(torch, lm, A, Server, cfg, rng, device) -> None:
-    """(a) Dense qwen1.5-0.5b in f32 (TF32 off)."""
-    srv = Server(cfg, LM_MAX_LEN, device=device, dtype=torch.float32)
+def lm_generate_checks(torch, lm, srv, cfg, rng, device, what: str) -> dict:
+    """``srv.generate`` (B=4, prompt 128, 32 tokens) in range; decode(
+    prefill(S)) within 5e-3 of prefill(S+1) (tests/test_archs.py's bound);
+    a teacher-forced forward's argmax equal to the tokens wherever its
+    top-2 margin exceeds 1e-3."""
     prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
     t0 = time.perf_counter()
     out = srv.generate(prompts, LM_GEN)
     gen_s = time.perf_counter() - t0
     check(out.shape == (LM_BATCH, LM_GEN) and out.dtype == np.int32,
-          f"lm dense: generate gave {out.dtype}{out.shape}")
-    check(((0 <= out) & (out < cfg.vocab)).all(), "lm dense: token out of range")
+          f"{what}: generate gave {out.dtype}{out.shape}")
+    check(((0 <= out) & (out < cfg.vocab)).all(), f"{what}: token out of range")
     p, toks = srv.params, torch.from_numpy(prompts).to(device)
     gen = torch.from_numpy(out).to(device)
     with torch.no_grad():
@@ -2709,11 +2760,22 @@ def lm_dense_checks(torch, lm, A, Server, cfg, rng, device) -> None:
         want, _ = lm.prefill(p, torch.cat([toks, gen[:, :1]], 1), cfg, LM_MAX_LEN)
         step_err = max_err(torch, got, want)
         check(torch.allclose(got, want, rtol=5e-3, atol=5e-3),
-              f"lm dense: decode(prefill(S)) vs prefill(S+1): {step_err}")
+              f"{what}: decode(prefill(S)) vs prefill(S+1): {step_err}")
         tf = teacher_forced(torch, lm, p, cfg, toks, gen)
         agree = greedy_agreement(torch, tf, gen, 1e-3)
         check(agree["agree"] == agree["checked"],
-              f"lm dense: teacher-forced argmax disagrees: {agree}")
+              f"{what}: teacher-forced argmax disagrees: {agree}")
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": "float32",
+            "generate_shape": list(out.shape), "generate_s": gen_s,
+            "decode_vs_prefill_max_err": step_err, "teacher_forced": agree}
+
+
+def lm_dense_checks(torch, lm, A, Server, cfg, rng, device) -> None:
+    """(a) Dense qwen1.5-0.5b in f32 (TF32 off)."""
+    srv = Server(cfg, LM_MAX_LEN, device=device, dtype=torch.float32)
+    res = lm_generate_checks(torch, lm, srv, cfg, rng, device, "lm dense")
+    p = srv.params
+    with torch.no_grad():
         # B=1, S=4096: the query-chunked path against the unchunked one
         long = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_LONG))
                                 .astype(np.int32)).to(device)
@@ -2740,16 +2802,14 @@ def lm_dense_checks(torch, lm, A, Server, cfg, rng, device) -> None:
         chunk_err = max_err(torch, chunked, unchunked)
         check(torch.allclose(chunked, unchunked, rtol=LM_LOGIT_TOL, atol=LM_LOGIT_TOL),
               f"lm dense: chunked vs unchunked prefill: {chunk_err}")
-    emit({"phase": "lm_dense", "arch": cfg.name, "dtype": "float32",
-          "n_params": cfg.n_params, "generate_shape": list(out.shape),
-          "generate_s": gen_s, "decode_vs_prefill_max_err": step_err,
-          "teacher_forced": agree, "chunked_prefill_S": LM_LONG,
+    emit({"phase": "lm_dense", **res, "n_params": cfg.n_params,
+          "chunked_prefill_S": LM_LONG,
           "chunked_calls": len(calls), "chunked_vs_unchunked_max_err": chunk_err,
           "chunked_s": chunked_s, "unchunked_s": unchunked_s, "ok": True})
 
 
 def lm_projection_kernels(torch, srv, cfg, rng, device) -> float:
-    """(b) Each of the 72 sparse projections: its kernel against
+    """(b) Each sparse projection (72 in qwen1.5-0.5b): its kernel against
     ``bcoo_spmv_plain`` on the card at B = 4 and 512; integer-valued bf16
     (blocks in {±1, ±2}, x in {-2..2}: every f32 sum exact) bit-equal, the
     layer's own values (as bf16) with random x within rtol = atol = 2e-4
@@ -2789,18 +2849,23 @@ def lm_projection_kernels(torch, srv, cfg, rng, device) -> float:
     return worst
 
 
-def lm_sparse_checks(torch, lm, instrument, Server, cfg, rng, device) -> tuple:
-    """(b) Block-sparse qwen1.5-0.5b in f32: the kernels per projection,
-    the model against its densified torch.matmul oracle, and the launch
-    count of one generate.  Returns (launches, random max err)."""
+def lm_sparse_checks(torch, lm, instrument, Server, cfg, rng, device,
+                     kernels: bool = True) -> tuple:
+    """(b) Block-sparse qwen1.5-0.5b in f32: the kernels per projection
+    (unless ``kernels`` is False: phase 16 checks deepseek's at its bf16
+    cut, where the plain version's (blocks, 128, 512) gather fits beside
+    the model), the model against its densified torch.matmul oracle, and
+    the launch count of one generate.  Returns (launches, random max
+    err)."""
     srv = Server(cfg, LM_MAX_LEN, device=device, dtype=torch.float32)
-    worst = lm_projection_kernels(torch, srv, cfg, rng, device)
+    worst = lm_projection_kernels(torch, srv, cfg, rng, device) if kernels else 0.0
+    per_step = len(lm_projections(srv.params, cfg))  # one launch a projection
     prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
     torch.cuda.synchronize()
     instrument.reset()
     out = srv.generate(prompts, LM_GEN)
     launches = instrument.snapshot()
-    want_launches = 3 * cfg.n_layers * LM_GEN
+    want_launches = per_step * LM_GEN
     check(launches.get("bcoo", 0) == want_launches,
           f"lm sparse: {launches} block-kernel launches, not {want_launches}")
     check(launches.get("bcoo.spmm", 0) == want_launches,
@@ -2822,7 +2887,7 @@ def lm_sparse_checks(torch, lm, instrument, Server, cfg, rng, device) -> tuple:
             errs[f"decode{step}"] = max_err(torch, got, want)
             check(torch.allclose(got, want, rtol=LM_LOGIT_TOL, atol=LM_LOGIT_TOL),
                   f"lm sparse: decode step {step} vs densified oracle: {errs}")
-        check(instrument.launches("bcoo") == 3 * cfg.n_layers * 4,
+        check(instrument.launches("bcoo") == per_step * 4,
               f"lm sparse: oracle comparison launches {instrument.snapshot()}")
         tf_sparse = teacher_forced(torch, lm, srv.params, cfg, toks, gen)
         tf_oracle = teacher_forced(torch, lm, oracle, dense_cfg, toks, gen)
@@ -2913,8 +2978,9 @@ def lm_serving_times(torch, lm, Server, cfg, rng, device) -> dict:
 
 
 def lm_projection_times(torch, cfg, rng, device) -> list:
-    """(c) w_gate (1024 -> 2816) and w_down (2816 -> 1024) of a bf16 layer
-    at B = 1, 4 and 512: the block kernel (its route), its plain version,
+    """(c) w_gate (d_model -> d_ff) and w_down of a bf16 layer of ``cfg``
+    (qwen1.5-0.5b: 1024 -> 2816; deepseek's prefix: 7168 -> 18,432) at
+    B = 1, 4 and 512: the block kernel (its route), its plain version,
     torch.matmul on the dense weight, and the bytes / operations bound;
     below B = 8 also the tensor-core route (``mma_ms``), held against the
     plain version first."""
@@ -3348,6 +3414,314 @@ def phase_train(torch, rng, device) -> dict:
             "card_vs_cpu": card_cpu, "restart": restart, "seconds": seconds}
 
 
+# ------------------------------------------------------------- phase 16: MoE
+
+MOE_ARCHS = ("mixtral-8x22b", "deepseek-v3-671b")
+MOE_SERVE_LAYERS = {"mixtral-8x22b": 8, "deepseek-v3-671b": 4}  # bf16 serving cuts
+MOE_CHECK_LAYERS = 2  # the f32 cuts
+MOE_TOKENS = (LM_BATCH * LM_PROMPT, LM_BATCH)  # T at prefill and at decode
+MOE_ORACLE_TOL = 2e-3  # f32 moe_apply vs the f32 oracle (tests/test_moe_sparse.py)
+MOE_BF16_TOL = 1e-2  # bf16 moe_apply vs the f32 oracle, ||err|| / ||oracle||
+MLA_TOL = 1e-3  # f32 MLA chunked vs unchunked at S = 4,096
+
+
+def moe_cut(cfg, n_layers: int):
+    """``cfg`` cut to ``n_layers``: its first prefix layers, then the
+    repeats (deepseek at 4: the 3 dense MLA layers and 1 MLA + MoE repeat;
+    at 2: 1 and 1)."""
+    pre = min(len(cfg.prefix_pattern), n_layers - len(cfg.block_pattern))
+    return dataclasses.replace(cfg, n_layers=n_layers,
+                               prefix_pattern=cfg.prefix_pattern[:pre])
+
+
+def moe_oracle(torch, p, x2d, route, cfg):
+    """y (T, d) in f32: for each expert, the tokens the routing sent it
+    through its SwiGLU in f32 (weights upcast), weighted by their gates
+    and summed back (tests/test_moe_sparse.py's per-token loop, taken
+    expert by expert; no capacity), plus the shared experts.  Built from
+    plain products, without the port's dispatch or combine."""
+    xf = x2d.float()
+    y = torch.zeros_like(xf)
+    for e in range(cfg.n_experts):
+        t, j = torch.nonzero(route.expert == e, as_tuple=True)
+        if t.numel():
+            xe = xf[t]
+            h, u = xe @ p["w_gate"][e].float(), xe @ p["w_up"][e].float()
+            ye = (h * torch.sigmoid(h) * u) @ p["w_down"][e].float()
+            y.index_add_(0, t, ye * route.weight[t, j][:, None])
+    if cfg.n_shared_experts:
+        sh = {k: v["w"].float() for k, v in p["shared"].items()}
+        h = xf @ sh["w_gate"]
+        y += (h * torch.sigmoid(h) * (xf @ sh["w_up"])) @ sh["w_down"]
+    return y
+
+
+def moe_plain_experts(torch, p, x2d, cfg):
+    """The router recomputed plainly: ``torch.topk`` of f32 scores (logits,
+    or sigmoid affinities plus the bias), ids only."""
+    logits = x2d.float() @ p["router"]["w"].to(x2d.dtype).float()
+    if cfg.moe_router == "deepseek":
+        logits = torch.sigmoid(logits) + p["router_bias"]
+    return torch.topk(logits, cfg.moe_top_k, dim=-1).indices
+
+
+def moe_bound(cfg, T: int, cap: int) -> tuple:
+    """(ms, by) of a bf16 layer: the expert weights (the f32 router's
+    too), x and y once over HBM (every expert holds slots: cap >= 8), or
+    the padded slots' multiply-adds over the bf16 tensor-core peak."""
+    d, f, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    weights = 3 * E * d * f + 3 * d * f * cfg.n_shared_experts + d * E * 2
+    nbytes = weights * 2 + 2 * T * d * 2
+    ops = 2 * 3 * (E * cap + T * cfg.n_shared_experts) * d * f
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops / BF16_OPS_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def moe_layer_checks(torch, M, name, rng, device) -> list:
+    """(a) One MoE layer of ``name`` at full width: f32 and then bf16
+    against the f32 oracle over the same routing at ample capacity; the
+    routing against the plain router; drops, padding efficiency, bit
+    reproducibility and times at the configured capacity factor."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    ample = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+    gen = torch.Generator(device=device).manual_seed(16)
+    p = M.moe_init(gen, cfg, torch.float32)
+    if cfg.moe_router == "deepseek":  # zeros at init would leave it untested
+        p["router_bias"] = torch.randn(cfg.n_experts, generator=gen,
+                                       device=device) * 0.02
+    route_fn = M._route_deepseek if cfg.moe_router == "deepseek" else M._route_mixtral
+    xs = {T: torch.from_numpy(rng.standard_normal((LM_BATCH, T // LM_BATCH,
+                                                   cfg.d_model)).astype(np.float32))
+          .to(device) for T in MOE_TOKENS}
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.bfloat16:  # leaf by leaf: f32 and bf16 never both whole
+            for key in ("w_gate", "w_up", "w_down"):
+                p[key] = p[key].to(dtype)
+            if "shared" in p:
+                p["shared"] = {k: {"w": v["w"].to(dtype)} for k, v in p["shared"].items()}
+        for T, x in xs.items():
+            x = x.to(dtype)
+            x2d = x.reshape(T, cfg.d_model)
+            what = f"moe {name} {str(dtype)[6:]} T={T}"
+            with torch.no_grad():
+                route = route_fn(p, x2d, cfg.moe_top_k)
+                plain = moe_plain_experts(torch, p, x2d, cfg)
+                check(torch.equal(route.expert.long(), plain),
+                      f"{what}: routing differs from the plain router")
+                y = M.moe_apply(p, x, ample).reshape(T, cfg.d_model).float()
+                want = moe_oracle(torch, p, x2d, route, cfg)
+                err = max_err(torch, y, want)
+                rel = float((y - want).norm() / want.norm())
+                if dtype == torch.float32:
+                    check(torch.allclose(y, want, rtol=MOE_ORACLE_TOL,
+                                         atol=MOE_ORACLE_TOL),
+                          f"{what}: vs the f32 oracle: max |err| {err}")
+                else:
+                    check(rel <= MOE_BF16_TOL, f"{what}: vs the f32 oracle: "
+                          f"relative error {rel} > {MOE_BF16_TOL}")
+                row = {"phase": "moe_layer", "arch": name, "dtype": str(dtype)[6:],
+                       "T": T, "oracle_max_abs_err": err, "oracle_rel_err": rel,
+                       "oracle_scale": float(want.abs().max())}
+                if dtype == torch.bfloat16:
+                    row.update(moe_capacity_stats(torch, M, p, x, x2d, route, cfg))
+                    runs = [M.moe_apply(p, x, cfg) for _ in range(2)]
+                    check(torch.equal(runs[0], runs[1]),
+                          f"{what}: two runs differ: {max_err(torch, *runs)}")
+                    row["bit_equal_runs"] = True
+                    row.update(moe_times(torch, M, p, x, x2d, cfg, route_fn))
+            emit(row)
+            rows.append(row)
+    return rows
+
+
+def moe_capacity_stats(torch, M, p, x, x2d, route, cfg) -> dict:
+    """At the configured factor: slots, kept and dropped assignments, and
+    the padding efficiency (kept assignments / slots)."""
+    T = x2d.shape[0]
+    cap = cfg.moe_capacity(T)
+    _, meta = M._local_dispatch(x2d, route.expert.reshape(-1),
+                                route.weight.reshape(-1), cfg.n_experts, cap)
+    kept = int(meta[3].sum())
+    return {"capacity_factor": cfg.moe_capacity_factor, "capacity": cap,
+            "slots": cfg.n_experts * cap, "assignments": T * cfg.moe_top_k,
+            "kept": kept, "dropped": T * cfg.moe_top_k - kept,
+            "padding_efficiency": kept / (cfg.n_experts * cap)}
+
+
+def moe_times(torch, M, p, x, x2d, cfg, route_fn) -> dict:
+    """CUDA-event ms of bf16 ``moe_apply`` at the configured factor and of
+    its parts (routing, dispatch, the three expert products and SiLU, the
+    combine), beside the bound."""
+    import torch.nn.functional as F
+
+    T = x2d.shape[0]
+    k, E, cap = cfg.moe_top_k, cfg.n_experts, cfg.moe_capacity(T)
+    route = route_fn(p, x2d, k)
+    eid, gate = route.expert.reshape(-1), route.weight.reshape(-1)
+    xbuf, meta = M._local_dispatch(x2d, eid, gate, E, cap)
+
+    def experts():
+        h = F.silu(torch.bmm(xbuf, p["w_gate"])) * torch.bmm(xbuf, p["w_up"])
+        return torch.bmm(h, p["w_down"])
+
+    ybuf = experts()
+    iters = 20 if T > LM_BATCH else 50
+    bound, by = moe_bound(cfg, T, cap)
+    out = {"ms": time_ms(torch, lambda: M.moe_apply(p, x, cfg), iters),
+           "route_ms": time_ms(torch, lambda: route_fn(p, x2d, k), iters),
+           "dispatch_ms": time_ms(torch, lambda: M._local_dispatch(
+               x2d, eid, gate, E, cap), iters),
+           "experts_ms": time_ms(torch, experts, iters),
+           "combine_ms": time_ms(torch, lambda: M._local_combine(ybuf, meta, T), iters),
+           "bound_ms": bound, "bound_by": by}
+    out["roofline_share"] = bound / out["ms"]
+    return out
+
+
+def moe_serving(torch, lm, Server, cfg, rng, device) -> dict:
+    """(b) / (d) bf16 at the serving cut, as phase 14 times it, with the
+    peak card memory."""
+    torch.cuda.reset_peak_memory_stats()
+    row = lm_serving_times(torch, lm, Server, cfg, rng, device)
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "moe_serving", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "n_params": cfg.n_params, "peak_allocated_bytes": peak})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(row, n_layers=cfg.n_layers, peak_allocated_bytes=peak)
+
+
+def moe_f32_checks(torch, lm, Server, cfg, rng, device) -> dict:
+    """(c) / (d) f32 at the 2-layer cut, capacity factor 8 (exactness needs
+    no drops: tests/test_archs.py widens it too): phase 14 (a)'s checks."""
+    cfg = dataclasses.replace(moe_cut(cfg, MOE_CHECK_LAYERS), moe_capacity_factor=8.0)
+    srv = Server(cfg, LM_MAX_LEN, device=device, dtype=torch.float32)
+    res = lm_generate_checks(torch, lm, srv, cfg, rng, device, f"moe {cfg.name} f32")
+    emit({"phase": "moe_f32", **res, "n_params": cfg.n_params, "ok": True})
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mla_chunked_check(torch, A, cfg, rng, device) -> dict:
+    """(d) One MLA layer at full width, f32, B=1, S=4,096: the query-chunked
+    path (4 chunks of 1,024) against the unchunked one, within 1e-3."""
+    gen = torch.Generator(device=device).manual_seed(161)
+    p = A.mla_init(gen, cfg, torch.float32)
+    x = torch.from_numpy(rng.standard_normal((1, LM_LONG, cfg.d_model))
+                         .astype(np.float32)).to(device)
+    calls, real = [], A._mla_chunk
+    A._mla_chunk = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+    with torch.no_grad():
+        try:
+            t0 = time.perf_counter()
+            chunked, _ = A.mla_apply(p, x, cfg)
+            torch.cuda.synchronize()
+            chunked_s = time.perf_counter() - t0
+        finally:
+            A._mla_chunk = real
+        check(len(calls) == LM_LONG // A.Q_CHUNK,
+              f"mla: {len(calls)} chunks, not {LM_LONG // A.Q_CHUNK}")
+        threshold = A.CHUNKED_ATTN_THRESHOLD
+        A.CHUNKED_ATTN_THRESHOLD = LM_LONG + 1
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            unchunked, _ = A.mla_apply(p, x, cfg)
+            torch.cuda.synchronize()
+            unchunked_s = time.perf_counter() - t0
+        finally:
+            A.CHUNKED_ATTN_THRESHOLD = threshold
+    err = max_err(torch, chunked, unchunked)
+    check(torch.allclose(chunked, unchunked, rtol=MLA_TOL, atol=MLA_TOL),
+          f"mla: chunked vs unchunked at S={LM_LONG}: {err}")
+    row = {"phase": "mla_chunked", "S": LM_LONG, "chunks": len(calls),
+           "max_abs_err": err, "chunked_s": chunked_s, "unchunked_s": unchunked_s,
+           "unchunked_peak_bytes": torch.cuda.max_memory_allocated(), "ok": True}
+    emit(row)
+    return row
+
+
+def moe_sparse_checks(torch, lm, instrument, Server, cfg, rng, device) -> tuple:
+    """(e) deepseek-v3 with ``ffn_density=0.5`` in (8, 128) blocks: at the
+    4-layer bf16 cut the 9 prefix projections against their plain version
+    and the launches of one generate (9 a step); at the 2-layer f32 cut
+    phase 14 (b)'s oracle checks (the 9 held the kernel at its shapes).
+    Returns (launches, worst error, rows)."""
+    cfg4 = dataclasses.replace(moe_cut(cfg, MOE_SERVE_LAYERS[cfg.name]),
+                               ffn_density=0.5)
+    srv = Server(cfg4, LM_MAX_LEN, device=device)
+    worst = lm_projection_kernels(torch, srv, cfg4, rng, device)
+    per_step = len(lm_projections(srv.params, cfg4))
+    check(per_step == 3 * len(cfg4.prefix_pattern),
+          f"moe sparse: {per_step} sparse projections")
+    prompts = rng.integers(0, cfg4.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    torch.cuda.synchronize()
+    instrument.reset()
+    out = srv.generate(prompts, LM_GEN)
+    launches = instrument.snapshot()
+    check(launches.get("bcoo", 0) == per_step * LM_GEN
+          and launches.get("bcoo.spmm", 0) == per_step * LM_GEN,
+          f"moe sparse: {launches} block-kernel launches, not {per_step * LM_GEN}")
+    check(((0 <= out) & (out < cfg4.vocab)).all(), "moe sparse: token out of range")
+    emit({"phase": "moe_sparse_generate", "arch": cfg4.name, "n_layers": cfg4.n_layers,
+          "dtype": "bfloat16", "n_params": cfg4.n_params, "per_step": per_step,
+          "launches_per_generate": launches})
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    # capacity factor 8: the teacher-forced pass (T = 636) then drops no
+    # assignment that the decode steps (T = 4) kept
+    cfg2 = dataclasses.replace(moe_cut(cfg, MOE_CHECK_LAYERS), ffn_density=0.5,
+                               moe_capacity_factor=8.0)
+    lm_sparse_checks(torch, lm, instrument, Server, cfg2, rng, device, kernels=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    proj = lm_projection_times(torch, cfg4, rng, device)
+    return launches.get("bcoo", 0), worst, proj
+
+
+def phase_moe(torch, rng, device) -> dict:
+    """Phase 16: the MoE family at full width (see the module docstring).
+    Returns the block kernel's launches in one sparse deepseek generate
+    (the path's count), the largest random-input kernel error and the
+    rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import instrument
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+    from repro_torch.models import moe as M
+
+    t_phase = time.perf_counter()
+    layers = []
+    for name in MOE_ARCHS:
+        layers += moe_layer_checks(torch, M, name, rng, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    mixtral, deepseek = (get_config(name) for name in MOE_ARCHS)
+    serving = [moe_serving(torch, lm, Server, moe_cut(mixtral, MOE_SERVE_LAYERS[
+        mixtral.name]), rng, device)]
+    f32 = [moe_f32_checks(torch, lm, Server, mixtral, rng, device)]
+    serving.append(moe_serving(torch, lm, Server, moe_cut(deepseek, MOE_SERVE_LAYERS[
+        deepseek.name]), rng, device))
+    f32.append(moe_f32_checks(torch, lm, Server, deepseek, rng, device))
+    mla = mla_chunked_check(torch, A, deepseek, rng, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, worst, proj = moe_sparse_checks(torch, lm, instrument, Server, deepseek,
+                                              rng, device)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "moe_done", "seconds": seconds, "launches": launches})
+    return {"launches": launches, "max_abs_err": worst, "layers": layers,
+            "serving": serving, "f32": f32, "mla": mla, "projections": proj,
+            "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3441,6 +3815,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_run = phase_train(torch, np.random.default_rng([args.seed, 15]), device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_run = phase_moe(torch, np.random.default_rng([args.seed, 16]), device)
 
     by_path = {
         kernel: {"single_device": launches[kind],
@@ -3455,6 +3832,7 @@ def main(argv=None) -> int:
     }
     by_path["bcoo_spmv"]["lm_serving"] = lm_run["launches"]
     by_path["bcoo_spmv"]["lm_training"] = train_run["launches"]
+    by_path["bcoo_spmv"]["lm_moe"] = moe_run["launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
     main_shape = {"coo_spmv": ("regular", "coo", 1), "bcoo_spmv": ("block", "bcoo", 1)}
     times["ell_spmv"] = ell_times["regular"]
@@ -3466,10 +3844,10 @@ def main(argv=None) -> int:
             "also_replaces": ALSO_REPLACES.get(name, []),
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
-            "max_abs_err": max(errs[name], lm_run["max_abs_err"]
-                               if name == "bcoo_spmv" else 0.0,
-                               train_run["max_abs_err"]
-                               if name == "bcoo_spmv" else 0.0),
+            "max_abs_err": max([errs[name]] + ([lm_run["max_abs_err"],
+                                                train_run["max_abs_err"],
+                                                moe_run["max_abs_err"]]
+                                               if name == "bcoo_spmv" else [])),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
@@ -3477,6 +3855,7 @@ def main(argv=None) -> int:
           "solver_phase_s": solver_s, "tuning_phase_s": tuning_s,
           "cluster_phase_s": cluster_s, "topology_phase_s": topology_s,
           "lm_phase_s": lm_run["seconds"], "train_phase_s": train_run["seconds"],
+          "moe_phase_s": moe_run["seconds"],
           "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -49,7 +49,8 @@ def chunk_plan(fields: dict) -> ChunkPlan:
 
 def lm_params(tree: dict, cfg) -> dict:
     """The port's LM params (CPU tensors) from the JAX package's tree as
-    numpy arrays, key for key.  Block-sparse FFN layers keep ``browind`` /
-    ``bcolind`` / ``bvalues`` unchanged and gain the port-only keys
-    (``sparse.layers.DERIVED``: ``browptr`` and Wᵀ's stream)."""
+    numpy arrays, key for key (MoE, MLA and MTP subtrees included).
+    Block-sparse FFN layers keep ``browind`` / ``bcolind`` / ``bvalues``
+    unchanged and gain the port-only keys (``sparse.layers.DERIVED``:
+    ``browptr`` and Wᵀ's stream)."""
     return with_derived(map_params(F.to_tensor, tree), cfg)

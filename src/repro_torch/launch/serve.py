@@ -5,6 +5,10 @@ Counterpart of ``repro/launch/serve.py``:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --batch 4 --prompt-len 32 --gen 16 [--reduced] [--device cpu]
 
+``--arch`` takes the dense family and the MoE family (mixtral-8x22b,
+deepseek-v3-671b); an arch whose blocks are not ported raises
+``NotImplementedError`` naming its ROADMAP.md item.
+
 The reference jits ``lm.prefill`` and ``lm.decode_step`` over a mesh; the
 port has no mesh and runs them eagerly on one device (the card unless
 ``--device cpu``).  Params come from a seeded init (the generator seeded

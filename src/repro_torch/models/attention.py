@@ -1,23 +1,24 @@
-"""Attention: GQA (RoPE, optional bias / softcap / sliding window), with a
-full-sequence path (prefill) and a one-token decode path against a KV
-cache.
+"""Attention: GQA (RoPE, optional bias / softcap / sliding window) and
+MLA (DeepSeek-V3 latent attention), each with a full-sequence path
+(prefill) and a one-token decode path against a cache.
 
-Counterpart of the GQA part of ``repro/models/attention.py``, in plain
-torch ops that follow ``_sdpa`` step for step: scores in float32, masked
-to -1e30, softmax, cast back.  No fused attention (``scaled_dot_product_
-attention``) stands in: its numerics differ, and the JAX package has no
-attention kernel to port.  MLA and cross-attention wait for their slices
-(ROADMAP.md §1 items 3 and 5).
+Counterpart of the GQA and MLA parts of ``repro/models/attention.py``, in
+plain torch ops that follow ``_sdpa`` / ``_mla_attend`` step for step:
+scores in float32, masked to -1e30, softmax, cast back.  No fused
+attention (``scaled_dot_product_attention``) stands in: its numerics
+differ, and the JAX package has no attention kernel to port.
+Cross-attention waits for its slice (ROADMAP.md §1 item 5).
 
 Two departures, both invisible in the results:
 
-* ``KVCache.length`` is a Python int.  Every layer of a model holds the
-  same length, and a tensor would make each ``slot`` / mask computation
-  of :func:`gqa_decode` read the device once per layer per token.
-* :func:`gqa_decode` writes the new token's K/V **into the cache it is
-  given** (the reference copies functionally) and returns the same
-  tensors in a new ``KVCache``: a cache that has been stepped must not be
-  stepped again from its old length.
+* ``KVCache.length`` / ``MLACache.length`` is a Python int.  Every layer
+  of a model holds the same length, and a tensor would make each
+  ``slot`` / mask computation of a decode read the device once per layer
+  per token.
+* :func:`gqa_decode` and :func:`mla_decode` write the new token's entry
+  **into the cache they are given** (the reference copies functionally)
+  and return the same tensors in a new cache: a cache that has been
+  stepped must not be stepped again from its old length.
 """
 from __future__ import annotations
 
@@ -26,9 +27,12 @@ from typing import NamedTuple
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from .common import dense_apply, dense_bias_init, dense_init, rope, softcap
 
-__all__ = ["KVCache", "gqa_init", "gqa_apply", "gqa_decode", "causal_mask",
+__all__ = ["KVCache", "MLACache", "gqa_init", "gqa_apply", "gqa_decode",
+           "mla_init", "mla_apply", "mla_decode", "causal_mask",
            "CHUNKED_ATTN_THRESHOLD", "Q_CHUNK"]
 
 
@@ -162,3 +166,128 @@ def gqa_decode(p, x, cache: KVCache, cfg, *, window=None, attn_cap=None):
     out = _sdpa(q, cache.k, cache.v, mask, cap=attn_cap, scale=cfg.attn_scale)
     out = dense_apply(p["wo"], out.reshape(B, 1, H * dh))
     return out, KVCache(cache.k, cache.v, pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V3 Multi-head Latent Attention (arXiv:2412.19437 §2.1)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen, cfg, dtype=torch.bfloat16):
+    """Latent attention: KV compressed to d_kv_comp (=512), Q to d_q_comp
+    (=1536); decoupled RoPE keys of dim d_rope (=64)."""
+    d, H = cfg.d_model, cfg.n_heads
+    dc, dq, dr, dh = cfg.mla_kv_comp, cfg.mla_q_comp, cfg.mla_rope_dim, cfg.head_dim
+    return {
+        "w_dq": dense_init(gen, d, dq, dtype),  # q down
+        "w_uq": dense_init(gen, dq, H * dh, dtype),  # q up (nope part)
+        "w_qr": dense_init(gen, dq, H * dr, dtype),  # q rope part
+        "w_dkv": dense_init(gen, d, dc, dtype),  # kv joint down
+        "w_kr": dense_init(gen, d, dr, dtype),  # shared rope key
+        "w_uk": dense_init(gen, dc, H * dh, dtype),  # k up
+        "w_uv": dense_init(gen, dc, H * dh, dtype),  # v up
+        "wo": dense_init(gen, H * dh, d, dtype),
+    }
+
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor  # ([NR,] B, S, d_kv_comp) — compressed latent (the MLA win)
+    krope: torch.Tensor  # ([NR,] B, S, d_rope)
+    length: int  # tokens already in the cache (the same in every layer)
+
+
+def _mla_attend(p, q_nope, q_rope, ckv, krope, cfg, mask):
+    """Attention against compressed latents, in float32.
+
+    Absorbed form: score = q_nope^T (W_uk c) + q_rope^T k_rope; value = W_uv c.
+    The score tensor is built and normalized in place (the reference's
+    arithmetic in its order): at S = 4,096 with 128 heads each copy is
+    8.6 GB.
+    """
+    B, Sq, H, dh = q_nope.shape
+    dr = cfg.mla_rope_dim
+    k_nope = p["w_uk"]["w"].reshape(cfg.mla_kv_comp, H, dh)
+    v_up = p["w_uv"]["w"].reshape(cfg.mla_kv_comp, H, dh)
+    scale = 1.0 / math.sqrt(dh + dr)
+    # q_nope absorbed into latent space: (B,Sq,H,dc)
+    q_lat = torch.einsum("bqhd,chd->bqhc", q_nope.float(), k_nope.float())
+    logits = torch.einsum("bqhc,bsc->bhqs", q_lat, ckv.float())
+    logits += torch.einsum("bqhr,bsr->bhqs", q_rope.float(), krope.float())
+    logits *= scale
+    if mask is not None:
+        logits.masked_fill_(~mask, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    del logits
+    out_lat = torch.einsum("bhqs,bsc->bqhc", w, ckv.float())
+    out = torch.einsum("bqhc,chd->bqhd", out_lat, v_up.float())
+    return out.to(q_nope.dtype)
+
+
+def _mla_chunk(p, qn, qr, ckv, krope, cfg, off: int):
+    """One query chunk of :func:`mla_apply`'s chunked path: queries
+    ``off .. off + len`` against every key, causally masked."""
+    qpos = off + torch.arange(qn.shape[1], device=qn.device)[:, None]
+    m = (torch.arange(ckv.shape[1], device=qn.device)[None, :] <= qpos)[None, None]
+    return _mla_attend(p, qn, qr, ckv, krope, cfg, m)
+
+
+def mla_apply(p, x, cfg, *, positions=None):
+    """Full-sequence MLA (prefill). Returns (out, MLACache).
+
+    At ``S >= CHUNKED_ATTN_THRESHOLD`` with ``S % Q_CHUNK == 0`` (both read
+    at call time) the queries run in chunks of ``Q_CHUNK`` against every
+    key; under autograd each chunk is recomputed in the backward pass
+    (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+    """
+    B, S, _ = x.shape
+    H, dh, dr = cfg.n_heads, cfg.head_dim, cfg.mla_rope_dim
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    cq = dense_apply(p["w_dq"], x)
+    q_nope = dense_apply(p["w_uq"], cq).reshape(B, S, H, dh)
+    q_rope = dense_apply(p["w_qr"], cq).reshape(B, S, H, dr)
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    ckv = dense_apply(p["w_dkv"], x)  # (B, S, dc)
+    krope = rope(dense_apply(p["w_kr"], x)[:, :, None, :], positions,
+                 cfg.rope_theta)[:, :, 0, :]
+    if S >= CHUNKED_ATTN_THRESHOLD and S % Q_CHUNK == 0:
+        outs = []
+        for off in range(0, S, Q_CHUNK):
+            args = (p, q_nope[:, off:off + Q_CHUNK], q_rope[:, off:off + Q_CHUNK],
+                    ckv, krope, cfg, off)
+            if torch.is_grad_enabled():  # flash-style: recompute in backward
+                outs.append(checkpoint(_mla_chunk, *args, use_reentrant=False,
+                                       preserve_rng_state=False))
+            else:
+                outs.append(_mla_chunk(*args))
+        out = torch.cat(outs, dim=1)
+    else:
+        mask = causal_mask(S, S, device=x.device)[:, :, 0]  # logits are (B, H, q, s)
+        out = _mla_attend(p, q_nope, q_rope, ckv, krope, cfg, mask)
+    out = dense_apply(p["wo"], out.reshape(B, S, H * dh))
+    return out, MLACache(ckv, krope, S)
+
+
+def mla_decode(p, x, cache: MLACache, cfg):
+    """One-token decode: x (B, 1, d); the new latent and rope key are
+    written at ``min(length, max_len - 1)``, in place (past ``max_len`` the
+    last slot is overwritten, as the reference does)."""
+    B, _, _ = x.shape
+    H, dh, dr = cfg.n_heads, cfg.head_dim, cfg.mla_rope_dim
+    pos = cache.length
+    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    cq = dense_apply(p["w_dq"], x)
+    q_nope = dense_apply(p["w_uq"], cq).reshape(B, 1, H, dh)
+    q_rope = rope(dense_apply(p["w_qr"], cq).reshape(B, 1, H, dr), posb,
+                  cfg.rope_theta)
+    ckv_new = dense_apply(p["w_dkv"], x)
+    kr_new = rope(dense_apply(p["w_kr"], x)[:, :, None, :], posb,
+                  cfg.rope_theta)[:, :, 0, :]
+    Sk = cache.ckv.shape[1]
+    slot = min(pos, Sk - 1)
+    cache.ckv[:, slot] = ckv_new[:, 0].to(cache.ckv.dtype)
+    cache.krope[:, slot] = kr_new[:, 0].to(cache.krope.dtype)
+    mask = (torch.arange(Sk, device=x.device) <= slot)[None, None, None, :]
+    out = _mla_attend(p, q_nope, q_rope, cache.ckv, cache.krope, cfg, mask)
+    out = dense_apply(p["wo"], out.reshape(B, 1, H * dh))
+    return out, MLACache(cache.ckv, cache.krope, pos + 1)

@@ -1,17 +1,21 @@
 """Layer blocks: one (init, apply, decode, cache) bundle per block kind.
 
-Counterpart of ``repro/models/blocks.py`` for the attention kinds:
+Counterpart of ``repro/models/blocks.py`` for the attention and MoE kinds:
 
   attn          pre-LN GQA + SwiGLU MLP (llama / qwen / smollm / llava)
   attn_local    gemma2 sliding-window layer (+ post-norms, softcaps)
   attn_global   gemma2 full-attention layer
+  moe           GQA (optional SWA) + MoE FFN (mixtral)
+  mla_dense     DeepSeek MLA + dense SwiGLU (prefix layers)
+  mla_moe       DeepSeek MLA + 256-expert MoE
 
 Every other kind of the reference raises ``NotImplementedError`` naming
 the ROADMAP.md item that ports it (:data:`UNPORTED`).
 
-The SparseP integration point: when cfg.ffn_density < 1, the MLP is
-sparse/layers.py's BlockSparseFFN, whose three projections run on the
-block kernel.
+The SparseP integration point: when cfg.ffn_density < 1, the dense MLP
+(of the attention kinds and ``mla_dense``) is sparse/layers.py's
+BlockSparseFFN, whose three projections run on the block kernel.  The MoE
+kinds' experts stay dense, as in the reference.
 """
 from __future__ import annotations
 
@@ -19,17 +23,17 @@ import torch
 import torch.nn.functional as F
 
 from . import attention as A
+from . import moe as M
 from .common import gelu, rmsnorm, rmsnorm_init, swiglu_apply, swiglu_init
 
 __all__ = ["block_init", "block_apply", "block_decode", "init_cache",
            "check_kind", "KINDS", "UNPORTED"]
 
-KINDS = ("attn", "attn_local", "attn_global")
+_GQA_KINDS = ("attn", "attn_local", "attn_global", "moe")
+_MLA_KINDS = ("mla_dense", "mla_moe")
+KINDS = _GQA_KINDS + _MLA_KINDS
 # block kind -> the ROADMAP.md item that ports it
 UNPORTED = {
-    "moe": "§1 item 2 (MoE)",
-    "mla_dense": "§1 item 3 (MLA)",
-    "mla_moe": "§1 item 3 (MLA)",
     "mamba": "§1 item 4 (linear attention)",
     "mlstm": "§1 item 4 (linear attention)",
     "slstm": "§1 item 4 (linear attention)",
@@ -51,7 +55,7 @@ def check_kind(kind: str) -> None:
 def _window(cfg, kind):
     if kind == "attn_global":
         return None
-    return cfg.sliding_window  # attn_local / plain attn configs
+    return cfg.sliding_window  # attn_local / moe (mixtral SWA) / plain attn
 
 
 def _mlp_init(gen, cfg, dtype):
@@ -74,21 +78,29 @@ def _mlp_apply(p, x, cfg):
 def block_init(gen, cfg, kind, dtype=torch.bfloat16):
     check_kind(kind)
     dev = gen.device
-    p = {
-        "ln1": rmsnorm_init(cfg.d_model, dtype, dev),
-        "attn": A.gqa_init(gen, cfg, dtype),
-        "ln2": rmsnorm_init(cfg.d_model, dtype, dev),
-        "mlp": _mlp_init(gen, cfg, dtype),
-    }
-    if cfg.gemma_norm:
+    if kind in _MLA_KINDS:
+        p = {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
+             "mla": A.mla_init(gen, cfg, dtype),
+             "ln2": rmsnorm_init(cfg.d_model, dtype, dev)}
+    else:
+        p = {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
+             "attn": A.gqa_init(gen, cfg, dtype),
+             "ln2": rmsnorm_init(cfg.d_model, dtype, dev)}
+    if kind in ("moe", "mla_moe"):
+        p["moe"] = M.moe_init(gen, cfg, dtype)
+    else:
+        p["mlp"] = _mlp_init(gen, cfg, dtype)
+    if cfg.gemma_norm and kind in _GQA_KINDS:
         p["ln1b"] = rmsnorm_init(cfg.d_model, dtype, dev)
         p["ln2b"] = rmsnorm_init(cfg.d_model, dtype, dev)
     return p
 
 
-def _ffn(p, h, cfg):
-    gn = cfg.gemma_norm
-    f = _mlp_apply(p["mlp"], rmsnorm(p["ln2"], h, gemma_style=gn), cfg)
+def _ffn(p, h, cfg, kind):
+    gn = cfg.gemma_norm and kind in _GQA_KINDS
+    hin = rmsnorm(p["ln2"], h, gemma_style=gn)
+    f = (M.moe_apply(p["moe"], hin, cfg) if "moe" in p
+         else _mlp_apply(p["mlp"], hin, cfg))
     if gn:
         f = rmsnorm(p["ln2b"], f, gemma_style=True)
     return h + f
@@ -97,6 +109,9 @@ def _ffn(p, h, cfg):
 def block_apply(p, h, cfg, kind):
     """Full-sequence forward. Returns (h, cache) — cache for prefill reuse."""
     check_kind(kind)
+    if kind in _MLA_KINDS:
+        a, cache = A.mla_apply(p["mla"], rmsnorm(p["ln1"], h), cfg)
+        return _ffn(p, h + a, cfg, kind), cache
     gn = cfg.gemma_norm
     a, kv = A.gqa_apply(
         p["attn"],
@@ -107,13 +122,16 @@ def block_apply(p, h, cfg, kind):
     )
     if gn:
         a = rmsnorm(p["ln1b"], a, gemma_style=True)
-    return _ffn(p, h + a, cfg), kv
+    return _ffn(p, h + a, cfg, kind), kv
 
 
 def block_decode(p, h, cache, cfg, kind):
     """One-token decode against this block's cache (stepped in place).
     Returns (h, cache)."""
     check_kind(kind)
+    if kind in _MLA_KINDS:
+        a, cache = A.mla_decode(p["mla"], rmsnorm(p["ln1"], h), cache, cfg)
+        return _ffn(p, h + a, cfg, kind), cache
     gn = cfg.gemma_norm
     a, cache = A.gqa_decode(
         p["attn"],
@@ -125,14 +143,19 @@ def block_decode(p, h, cache, cfg, kind):
     )
     if gn:
         a = rmsnorm(p["ln1b"], a, gemma_style=True)
-    return _ffn(p, h + a, cfg), cache
+    return _ffn(p, h + a, cfg, kind), cache
 
 
 def init_cache(cfg, kind, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
     """Zero decode-cache for one block.  KV caches of sliding-window kinds
-    are allocated at window size."""
+    are allocated at window size; MLA's latent cache at max_len."""
     check_kind(kind)
+    if kind in _MLA_KINDS:
+        return A.MLACache(
+            torch.zeros((batch, max_len, cfg.mla_kv_comp), dtype=dtype, device=device),
+            torch.zeros((batch, max_len, cfg.mla_rope_dim), dtype=dtype, device=device),
+            0)
     window = _window(cfg, kind)
     S = min(max_len, window) if window else max_len
     kv_shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)

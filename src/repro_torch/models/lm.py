@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/models/lm.py`` for the dense-family archs (qwen,
 llama3.2, smollm, gemma2, llava with ``prefix_embeds``), dense or with the
-block-sparse FFN.  Layer repeats keep the reference's layout, params
+block-sparse FFN, and the MoE family (mixtral-8x22b; deepseek-v3 with MLA
+and multi-token prediction).  Layer repeats keep the reference's layout, params
 stacked ``(NR, ...)`` per pattern entry under ``params["blocks"]
 ["b{j}"]``; the reference's ``lax.scan`` over them is a Python loop over
 the repeat index.
@@ -21,14 +22,14 @@ repeat in the backward pass (``torch.utils.checkpoint``), ``"none"`` keeps
 its activations.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: block kinds other than the attention ones (see
-``blocks.UNPORTED``), ``encoder_layers`` / ``encode`` (§1 item 5),
-``mtp_depth`` (item 3, with MLA) and ``remat="dots"`` (item 8);
+ROADMAP.md item: the linear-attention and encoder-decoder block kinds
+(see ``blocks.UNPORTED``), ``encoder_layers`` / ``encode`` (§1 item 5)
+and ``remat="dots"`` (item 8);
 ``param_specs``, ``abstract_params`` and ``cache_specs`` wait for
 multi-card meshes (item 7).
 
 ``decode_step`` steps the caches it is given in place (see
-``attention.gqa_decode``).
+``attention.gqa_decode`` / ``mla_decode``).
 """
 from __future__ import annotations
 
@@ -64,16 +65,23 @@ def check_config(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the encoder (encoder_layers={cfg.encoder_layers}) is "
             f"not ported yet (ROADMAP.md §1 item 5 (encoder-decoder))")
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-token prediction (mtp_depth={cfg.mtp_depth}) is "
-            f"not ported yet (ROADMAP.md §1 item 3 (MLA and MTP))")
 
 
 def _stack_init(gen, cfg, kind, n, dtype):
-    """Init n copies of a block, stacked on axis 0."""
-    blocks = [block_init(gen, cfg, kind, dtype) for _ in range(n)]
-    return map_params(lambda *xs: torch.stack(xs), *blocks)
+    """Init n copies of a block, stacked on axis 0.  Each copy is written
+    into its slot before the next is drawn (one copy is a view), so the
+    stack is never held twice: a full-width MoE block is 4.8 GB (mixtral,
+    bf16) to 45 GB (deepseek, f32)."""
+    blk = block_init(gen, cfg, kind, dtype)
+    if n == 1:
+        return map_params(lambda a: a[None], blk)
+    stacked = map_params(lambda a: a.new_empty((n,) + a.shape), blk)
+    for r in range(n):
+        if r:
+            blk = block_init(gen, cfg, kind, dtype)
+        map_params(lambda dst, src: dst[r].copy_(src), stacked, blk)
+        blk = None
+    return stacked
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bfloat16):
@@ -90,7 +98,18 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bfloat16):
         f"b{j}": _stack_init(gen, cfg, kind, cfg.n_repeats, dtype)
         for j, kind in enumerate(cfg.block_pattern)
     }
+    if cfg.mtp_depth:
+        p["mtp"] = {
+            "proj": {"w": normal(gen, (2 * cfg.d_model, cfg.d_model), dtype,
+                                 1.0 / math.sqrt(2 * cfg.d_model))},
+            "norm": rmsnorm_init(cfg.d_model, dtype, gen.device),
+            "block": block_init(gen, cfg, _mtp_kind(cfg), dtype),
+        }
     return p
+
+
+def _mtp_kind(cfg) -> str:
+    return cfg.prefix_pattern[0] if cfg.prefix_pattern else cfg.block_pattern[0]
 
 
 def _layer(tree, r: int):
@@ -159,12 +178,39 @@ def forward(params, tokens, cfg: ArchConfig, *, prefix_embeds=None):
 
 def loss_fn(params, batch, cfg: ArchConfig):
     """batch: dict(tokens, labels[, prefix_embeds]).  Next-token cross-entropy
-    over the text positions (the modality prefix dropped), in f32."""
-    logits, _ = forward(params, batch["tokens"], cfg,
+    over the text positions (the modality prefix dropped), in f32; with
+    ``cfg.mtp_depth`` plus 0.3 times the multi-token prediction loss."""
+    logits, h = forward(params, batch["tokens"], cfg,
                         prefix_embeds=batch.get("prefix_embeds"))
     S_text = batch["tokens"].shape[1]
     logits_text = logits[:, -S_text:]  # drop modality prefix positions
-    return cross_entropy(logits_text[:, :-1], batch["labels"][:, 1:])
+    loss = cross_entropy(logits_text[:, :-1], batch["labels"][:, 1:])
+    if cfg.mtp_depth:
+        loss = loss + 0.3 * _mtp_loss(params, h[:, -S_text:], batch, cfg)
+    return loss
+
+
+def _mtp_loss(params, h, batch, cfg):
+    """DeepSeek-V3 multi-token prediction (depth 1): predict t+2 from the
+    main trunk state at t combined with the embedding of token t+1.
+
+    Runs at the full sequence length (the token t+1 stream padded with a
+    zero at the end) so the MTP block takes the same attention path as the
+    trunk; the ragged tail is masked out of the loss.
+    """
+    mtp = params["mtp"]
+    tokens = batch["tokens"]
+    next_tokens = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    emb_next = _embed(params, next_tokens, cfg)  # (B, S, d)
+    x = torch.cat([rmsnorm(mtp["norm"], h), emb_next], dim=-1)
+    x = torch.matmul(x, mtp["proj"]["w"])
+    x, _ = block_apply(mtp["block"], x, cfg, _mtp_kind(cfg))
+    logits = _logits(params, x, cfg)  # position t predicts token t+2
+    S = tokens.shape[1]
+    mask = (torch.arange(S, device=tokens.device) < S - 2).float()[None, :]
+    labels = batch["labels"]
+    labels_t2 = torch.cat([labels[:, 2:], torch.zeros_like(labels[:, :2])], dim=1)
+    return cross_entropy(logits, labels_t2, mask=mask.expand(labels_t2.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +220,16 @@ def loss_fn(params, batch, cfg: ArchConfig):
 
 class Caches(NamedTuple):
     prefix: tuple  # per prefix block
-    blocks: dict  # {f"b{j}": KVCache of stacked (NR, ...) tensors}
+    blocks: dict  # {f"b{j}": KVCache / MLACache of stacked (NR, ...) tensors}
+    mtp: Any = None
+
+
+def _map_cache(fn, *caches):
+    """A KVCache / MLACache whose tensors are ``fn`` of the caches'
+    tensors (the length kept from the first)."""
+    first = caches[0]
+    tensors = zip(*(c[:-1] for c in caches))
+    return type(first)(*(fn(*ts) for ts in tensors), first.length)
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -184,32 +239,35 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                    for kind in cfg.prefix_pattern)
 
     def stack(kind):
-        k, v, length = init_cache(cfg, kind, batch, max_len, dtype, device)
         NR = cfg.n_repeats
-        return A.KVCache(k.expand((NR,) + k.shape).clone(),
-                         v.expand((NR,) + v.shape).clone(), length)
+        return _map_cache(lambda a: a.expand((NR,) + a.shape).clone(),
+                          init_cache(cfg, kind, batch, max_len, dtype, device))
 
     blocks = {f"b{j}": stack(kind) for j, kind in enumerate(cfg.block_pattern)}
     return Caches(prefix=prefix, blocks=blocks)
 
 
-def _grow_cache(c: A.KVCache, cfg, kind, max_len: int) -> A.KVCache:
+def _grow_cache(c, cfg, kind, max_len: int):
     """Embed a prefill cache (length S) into max_len-capacity buffers."""
+    if isinstance(c, A.MLACache):
+        S = c.ckv.shape[1]
+        if S >= max_len:
+            return c
+        pad = (0, 0, 0, max_len - S)  # (feature, sequence)
+        return _map_cache(lambda a: torch.nn.functional.pad(a, pad), c)
     S = c.k.shape[1]
     window = None
-    if kind == "attn_local" or (kind == "attn" and cfg.sliding_window):
+    if kind == "attn_local" or (kind in ("attn", "moe") and cfg.sliding_window):
         window = cfg.sliding_window
     cap = min(max_len, window) if window else max_len
     if S >= cap:
         return A.KVCache(c.k[:, -cap:], c.v[:, -cap:], c.length)
     pad = (0, 0, 0, 0, 0, cap - S)  # (dh, heads, sequence)
-    return A.KVCache(torch.nn.functional.pad(c.k, pad),
-                     torch.nn.functional.pad(c.v, pad), c.length)
+    return _map_cache(lambda a: torch.nn.functional.pad(a, pad), c)
 
 
-def _stack_caches(caches: list) -> A.KVCache:
-    return A.KVCache(torch.stack([c.k for c in caches]),
-                     torch.stack([c.v for c in caches]), caches[0].length)
+def _stack_caches(caches: list):
+    return _map_cache(lambda *ts: torch.stack(ts), *caches)
 
 
 def prefill(params, tokens, cfg: ArchConfig, max_len: int, *, prefix_embeds=None):
@@ -247,8 +305,8 @@ def decode_step(params, token, caches: Caches, cfg: ArchConfig):
         for j, kind in enumerate(cfg.block_pattern):
             c = caches.blocks[f"b{j}"]
             h, _ = block_decode(_layer(params["blocks"][f"b{j}"], r), h,
-                                A.KVCache(c.k[r], c.v[r], c.length), cfg, kind)
-    blocks = {key: A.KVCache(c.k, c.v, c.length + 1)
+                                _map_cache(lambda a: a[r], c), cfg, kind)
+    blocks = {key: c._replace(length=c.length + 1)
               for key, c in caches.blocks.items()}
     h = rmsnorm(params["final_norm"], h, gemma_style=cfg.gemma_norm)
     logits = _logits(params, h, cfg)

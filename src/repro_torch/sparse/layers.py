@@ -114,17 +114,22 @@ def _ffn_dims(cfg) -> dict:
 
 def with_derived(params: dict, cfg) -> dict:
     """An LM's params with :data:`DERIVED` rebuilt in every block-sparse FFN
-    projection (prefix blocks and the stacked repeats alike)."""
+    projection (prefix blocks, the stacked repeats and the MTP block alike;
+    a block with an MoE FFN has none)."""
     if cfg.ffn_density >= 1.0:
         return params
 
     def block(blk):
+        if "mlp" not in blk:
+            return blk
         mlp = {name: with_transpose(with_row_pointer(blk["mlp"][name], d_out), d_in)
                for name, (d_in, d_out) in _ffn_dims(cfg).items()}
         return dict(blk, mlp=mlp)
 
     out = {k: block(v) if k.startswith("prefix") else v for k, v in params.items()}
     out["blocks"] = {k: block(v) for k, v in params["blocks"].items()}
+    if "mtp" in params:
+        out["mtp"] = dict(params["mtp"], block=block(params["mtp"]["block"]))
     return out
 
 

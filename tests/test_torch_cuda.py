@@ -1424,3 +1424,80 @@ def test_train_step_on_card_matches_cpu(cuda, arch, sparse):
                                        atol=1e-4 * max(float(b.abs().max()), 1e-30))
         else:
             assert not a.any()
+
+
+@pytest.mark.parametrize("arch,sparse", [("mixtral-8x22b", False),
+                                         ("deepseek-v3-671b", False),
+                                         ("deepseek-v3-671b", True)])
+def test_moe_archs_on_card_match_cpu(cuda, arch, sparse):
+    """The reduced MoE archs (mixtral's SWA + MoE; deepseek's MLA prefix,
+    MLA + MoE and, sparse, the block kernel in its dense prefix FFNs),
+    float32, TF32 off: prefill and two decode steps on the card within
+    rtol = atol = 2e-4 of the same params on the CPU, routing equal (at
+    the default capacity both drop the same assignments), and 3 block-kernel
+    launches per prefix layer per step where sparse."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.common import map_params
+
+    cfg = get_config(arch).reduced()
+    if sparse:
+        cfg = dataclasses.replace(cfg, ffn_density=0.5, sparse_block=(8, 16))
+    params = lm.init_params(torch.Generator().manual_seed(1), cfg, torch.float32)
+    dparams = map_params(lambda a: a.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(46).integers(0, cfg.vocab, (3, 20)))
+    per_step = 3 * len(cfg.prefix_pattern) if sparse else 0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want, caches = lm.prefill(params, toks, cfg, 32)
+            instrument.reset()
+            got, dcaches = lm.prefill(dparams, toks.to(cuda), cfg, 32)
+            torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+            tok = torch.argmax(want, -1)[:, None]
+            for _ in range(2):
+                want, caches = lm.decode_step(params, tok, caches, cfg)
+                got, dcaches = lm.decode_step(dparams, tok.to(cuda), dcaches, cfg)
+                torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+                tok = torch.argmax(want, -1)[:, None]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert instrument.launches("bcoo") == 3 * per_step
+
+
+@pytest.mark.parametrize("router", ["mixtral", "deepseek"])
+def test_moe_apply_on_card_is_bit_reproducible(cuda, router):
+    """bf16 ``moe_apply`` (16 experts, top-8, a shared expert for deepseek)
+    twice on the same card inputs: the same bits (the combine sums each
+    token's contributions in a fixed order, no atomics), and routing equal
+    to the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.common import map_params
+
+    cfg = dataclasses.replace(get_config("mixtral-8x22b").reduced(), d_model=256,
+                              n_experts=16, moe_top_k=8, moe_d_ff=512,
+                              moe_router=router,
+                              n_shared_experts=int(router == "deepseek"))
+    p = moe.moe_init(torch.Generator().manual_seed(2), cfg, torch.bfloat16)
+    if router == "deepseek":
+        p["router_bias"] = torch.linspace(-0.05, 0.05, cfg.n_experts)
+    dp = map_params(lambda a: a.to(cuda), p)
+    x = torch.from_numpy(np.random.default_rng(47).standard_normal((4, 128, 256))
+                         .astype(np.float32)).to(torch.bfloat16)
+    runs = [moe.moe_apply(dp, x.to(cuda), cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    fn = moe._route_deepseek if router == "deepseek" else moe._route_mixtral
+    want = fn(p, x.reshape(-1, 256), cfg.moe_top_k)
+    got = fn(dp, x.to(cuda).reshape(-1, 256), cfg.moe_top_k)
+    assert torch.equal(got.expert.cpu(), want.expert)
+    torch.testing.assert_close(got.weight.cpu(), want.weight, rtol=0, atol=1e-6)
+    torch.testing.assert_close(runs[0].float().cpu(),
+                               moe.moe_apply(p, x, cfg).float(), rtol=0,
+                               atol=4 * 2 ** -8 * float(runs[0].float().abs().max()))

@@ -6,7 +6,10 @@ The reference's params (float32, reduced configs) are carried across by
 from numpy seeds.  Logits agree within rtol = atol = 2e-4; greedy tokens
 must be equal.  Each arch runs dense and with the block-sparse FFN
 (``ffn_density=0.5``, (8, 16) blocks, as tests/test_moe_sparse.py uses at
-the reduced width).
+the reduced width), except mixtral-8x22b, whose every FFN is an MoE (its
+experts stay dense in both packages).  The MoE archs run at their default
+capacity factor, so both packages drop the same assignments; the
+consistency test alone widens it (tests/test_archs.py does the same).
 """
 import dataclasses
 
@@ -28,7 +31,9 @@ from repro_torch.sparse.layers import DERIVED
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 ARCHS = ["qwen1.5-0.5b", "llama3.2-1b", "smollm-360m", "gemma2-27b",
-         "llava-next-34b"]
+         "llava-next-34b", "mixtral-8x22b", "deepseek-v3-671b"]
+MODELS = [(a, s) for a in ARCHS for s in (False, True)
+          if not (s and a == "mixtral-8x22b")]
 B, S, MAX_LEN = 2, 16, 32
 
 
@@ -44,7 +49,7 @@ def f32_params(params):
                         if jnp.issubdtype(a.dtype, jnp.floating) else a, params)
 
 
-@pytest.fixture(scope="module", params=[(a, s) for a in ARCHS for s in (False, True)],
+@pytest.fixture(scope="module", params=MODELS,
                 ids=lambda p: f"{p[0]}-{'sparse' if p[1] else 'dense'}")
 def model(request):
     """(JAX cfg, port cfg, JAX params, port params, inputs) for one arch."""
@@ -75,8 +80,13 @@ def test_param_tree_keys_and_sparse_row_pointers(model):
     assert jkeys <= tkeys
     if jc.ffn_density < 1:
         assert extra and {k[k.rindex("['") + 2:-2] for k in extra} == set(DERIVED)
-        ptr = tparams["blocks"]["b0"]["mlp"]["w_down"]["browptr"]
-        assert ptr.shape == (jc.n_repeats, jc.d_model // 8 + 1)
+        if "mlp" in tparams["blocks"]["b0"]:
+            ptr = tparams["blocks"]["b0"]["mlp"]["w_down"]["browptr"]
+            assert ptr.shape == (jc.n_repeats, jc.d_model // 8 + 1)
+        else:  # deepseek: the dense prefix layers and the MTP block
+            for blk in [tparams[f"prefix{i}"] for i in range(len(jc.prefix_pattern))] \
+                    + [tparams["mtp"]["block"]]:
+                assert blk["mlp"]["w_down"]["browptr"].shape == (jc.d_model // 8 + 1,)
     else:
         assert not extra
 
@@ -89,10 +99,12 @@ def test_prefill_and_decode_logits_match_reference(model):
     tl, tcache = TLM.prefill(tparams, torch.from_numpy(prompt), tc, MAX_LEN,
                              prefix_embeds=_pe(pe, True))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    for key, c in tcache.blocks.items():
-        assert tuple(c.k.shape) == jcache.blocks[key].k.shape
-        np.testing.assert_allclose(c.k.numpy(), np.asarray(jcache.blocks[key].k),
-                                   **TOL)
+    pairs = list(zip(tcache.prefix, jcache.prefix)) + [
+        (c, jcache.blocks[key]) for key, c in tcache.blocks.items()]
+    for c, jc_ in pairs:  # KVCache (k, v) or MLACache (ckv, krope)
+        for a, b in zip(c[:-1], jc_[:-1]):
+            assert tuple(a.shape) == b.shape
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
         assert c.length == S + jc.modality_tokens
     for step in range(2):
         jl, jcache = JLM.decode_step(params, jnp.asarray(nxt), jcache, jc)
@@ -116,6 +128,8 @@ def test_prefill_decode_consistency(model):
     """decode(prefill(S)) last logits == prefill(S+1) last logits, at the
     tolerance of tests/test_archs.py:test_prefill_decode_consistency."""
     _, tc, _, tparams, toks, pe = model
+    if tc.n_experts:  # exactness needs ample capacity (no token drops)
+        tc = dataclasses.replace(tc, moe_capacity_factor=8.0)
     tokens = torch.from_numpy(toks)
     _, caches = TLM.prefill(tparams, tokens[:, :S], tc, MAX_LEN,
                             prefix_embeds=_pe(pe, True))
@@ -126,7 +140,10 @@ def test_prefill_decode_consistency(model):
 
 @pytest.mark.parametrize("arch,sparse", [("qwen1.5-0.5b", False),
                                          ("qwen1.5-0.5b", True),
-                                         ("gemma2-27b", False)])
+                                         ("gemma2-27b", False),
+                                         ("mixtral-8x22b", False),
+                                         ("deepseek-v3-671b", False),
+                                         ("deepseek-v3-671b", True)])
 def test_server_generate_equals_reference_server(arch, sparse):
     jc, tc = configs(arch, sparse)
     max_len = 24
@@ -178,8 +195,8 @@ def test_server_defaults_to_the_card(monkeypatch):
 
 
 def test_server_rejects_unported_archs():
-    _, tc = configs("mixtral-8x22b", False)
-    with pytest.raises(NotImplementedError, match="item 2 "):
+    _, tc = configs("zamba2-2.7b", False)
+    with pytest.raises(NotImplementedError, match="item 4 "):
         tserve.Server(tc, 16, device="cpu")
 
 
@@ -187,4 +204,13 @@ def test_main_on_the_cpu(capsys):
     out = tserve.main(["--arch", "llama3.2-1b", "--reduced", "--batch", "2",
                        "--prompt-len", "8", "--gen", "4", "--device", "cpu"])
     assert out.shape == (2, 4)
+    assert "generated (2, 4)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_main_serves_the_moe_archs_on_the_cpu(capsys, arch):
+    """``--arch`` takes both MoE archs with no new flag."""
+    out = tserve.main(["--arch", arch, "--reduced", "--batch", "2",
+                       "--prompt-len", "8", "--gen", "4", "--device", "cpu"])
+    assert out.shape == (2, 4) and out.dtype == np.int32
     assert "generated (2, 4)" in capsys.readouterr().out

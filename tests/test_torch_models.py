@@ -246,12 +246,21 @@ def test_causal_mask(window):
 # ------------------------------------------------------------------ blocks
 
 KIND_CASES = [("qwen1.5-0.5b", "attn"), ("gemma2-27b", "attn_local"),
-              ("gemma2-27b", "attn_global")]
+              ("gemma2-27b", "attn_global"), ("mixtral-8x22b", "moe"),
+              ("deepseek-v3-671b", "mla_dense"), ("deepseek-v3-671b", "mla_moe")]
+
+
+def cache_tensors(c):
+    """A KVCache's (k, v) or an MLACache's (ckv, krope)."""
+    return c[:-1]
 
 
 @pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
 @pytest.mark.parametrize("arch,kind", KIND_CASES)
 def test_block_apply_and_decode(arch, kind, sparse):
+    """Every ported kind at the default MoE capacity (both packages drop
+    the same assignments); sparse blocks run the block-sparse FFN where
+    the kind has a dense MLP (the MoE kinds' experts stay dense)."""
     jc, tc = reduced(arch, sparse)
     p = JB.block_init(jax.random.PRNGKey(8), jc, kind, jnp.float32)
     tp = convert.lm_params({"blocks": {"b0": jtree(p)}}, tc)["blocks"]["b0"]
@@ -261,15 +270,20 @@ def test_block_apply_and_decode(arch, kind, sparse):
     jh, jkv = JB.block_apply(p, jnp.asarray(h), jc, kind)
     th, tkv = TB.block_apply(tp, t(h), tc, kind)
     close(th, jh)
-    close(tkv.k, jkv.k)
-    # decode one token against a grown cache of the prefill's K/V
+    assert type(tkv).__name__ == type(jkv).__name__
+    for a, b in zip(cache_tensors(tkv), cache_tensors(jkv)):
+        close(a, b)
+    # decode one token against a grown cache of the prefill's K/V (latents)
     jcache = JLM._grow_cache(jkv, jc, kind, 32)
     tcache = TLM._grow_cache(tkv, tc, kind, 32)
-    assert tcache.k.shape == jcache.k.shape
+    for a, b in zip(cache_tensors(tcache), cache_tensors(jcache)):
+        assert a.shape == b.shape
     h1 = rng.standard_normal((2, 1, jc.d_model)).astype(np.float32)
-    jh1, _ = JB.block_decode(p, jnp.asarray(h1), jcache, jc, kind)
+    jh1, jnew = JB.block_decode(p, jnp.asarray(h1), jcache, jc, kind)
     th1, tnew = TB.block_decode(tp, t(h1), tcache, tc, kind)
     close(th1, jh1)
+    for a, b in zip(cache_tensors(tnew), cache_tensors(jnew)):
+        close(a, b)
     assert tnew.length == 21
 
 
@@ -278,16 +292,21 @@ def test_init_cache_shapes(arch, kind):
     jc, tc = reduced(arch)
     want = JB.init_cache(jc, kind, 3, 40, jnp.float32)
     got = TB.init_cache(tc, kind, 3, 40, torch.float32)
-    assert tuple(got.k.shape) == want.k.shape and got.length == 0
+    assert type(got).__name__ == type(want).__name__ and got.length == 0
+    for a, b in zip(cache_tensors(got), cache_tensors(want)):
+        assert tuple(a.shape) == b.shape
     caches = TLM.init_caches(tc, 3, 40, torch.float32)
     jcaches = JLM.init_caches(jc, 3, 40, jnp.float32)
-    for key, c in caches.blocks.items():
-        assert tuple(c.k.shape) == jcaches.blocks[key].k.shape
-        assert not c.k.any() and c.length == 0
+    assert len(caches.prefix) == len(jcaches.prefix) and caches.mtp is None
+    for c, jcache in list(zip(caches.prefix, jcaches.prefix)) + [
+            (c, jcaches.blocks[key]) for key, c in caches.blocks.items()]:
+        for a, b in zip(cache_tensors(c), cache_tensors(jcache)):
+            assert tuple(a.shape) == b.shape
+            assert not a.any()
+        assert c.length == 0
 
 
-UNPORTED_ARCHS = {"deepseek-v3-671b": "3", "mixtral-8x22b": "2",
-                  "xlstm-1.3b": "4", "seamless-m4t-medium": "5",
+UNPORTED_ARCHS = {"xlstm-1.3b": "4", "seamless-m4t-medium": "5",
                   "zamba2-2.7b": "4"}
 
 
@@ -315,8 +334,16 @@ def test_unported_kinds_raise(kind):
 
 
 def test_encoder_and_mtp_raise():
+    """The encoder still raises, naming item 5; multi-token prediction is
+    ported (ROADMAP.md §1 item 3) and builds the reference's ``mtp`` tree."""
     _, tc = reduced("qwen1.5-0.5b")
-    for field, item in (("encoder_layers", "5 "), ("mtp_depth", "3 ")):
-        cfg = dataclasses.replace(tc, **{field: 1})
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            TLM.check_config(cfg)
+    with pytest.raises(NotImplementedError, match="item 5 "):
+        TLM.check_config(dataclasses.replace(tc, encoder_layers=1))
+    jc, tc = reduced("deepseek-v3-671b")
+    assert tc.mtp_depth == 1
+    TLM.check_config(tc)
+    jp = JLM.init_params(jax.random.PRNGKey(0), jc, jnp.float32)
+    tp = TLM.init_params(torch.Generator().manual_seed(0), tc, torch.float32)
+    assert set(tp["mtp"]) == set(jp["mtp"]) == {"proj", "norm", "block"}
+    assert set(tp["mtp"]["block"]) == set(jp["mtp"]["block"])
+    assert tuple(tp["mtp"]["proj"]["w"].shape) == jp["mtp"]["proj"]["w"].shape

@@ -462,15 +462,89 @@ def test_remat_full_and_none_are_bit_equal(sparse):
 
 
 def test_loss_fn_raises_for_what_is_not_ported():
+    """The encoder (item 5) and remat="dots" under autograd (item 8) still
+    raise; multi-token prediction runs (a qwen with an ``mtp`` subtree)."""
     _, tc = _cfgs("qwen1.5-0.5b")
     _, tparams, _, _ = _state(*_cfgs("qwen1.5-0.5b"), jnp.float32, OPT)
     _, tb = _batch(tc.vocab)
-    with pytest.raises(NotImplementedError, match=r"item 3 \(MLA and MTP\)"):
-        TLM.loss_fn(tparams, tb, dataclasses.replace(tc, mtp_depth=1))
+    with pytest.raises(NotImplementedError, match=r"item 5 \(encoder-decoder\)"):
+        TLM.loss_fn(tparams, tb, dataclasses.replace(tc, encoder_layers=1))
+    mtp_cfg = dataclasses.replace(tc, mtp_depth=1)
+    mtp_params = TLM.init_params(torch.Generator().manual_seed(0), mtp_cfg,
+                                 torch.float32)
+    assert torch.isfinite(TLM.loss_fn(mtp_params, tb, mtp_cfg))
     with pytest.raises(NotImplementedError, match="item 8"):
         TLM.loss_fn(tparams, tb, dataclasses.replace(tc, remat="dots"))
     with torch.no_grad():  # no autograd: nothing to rematerialize
         TLM.loss_fn(tparams, tb, dataclasses.replace(tc, remat="dots"))
+
+
+def _moe_cfgs(arch, sparse=False):
+    """The reduced MoE archs: mixtral at 2 layers, deepseek at its reduced 4
+    (3 dense MLA prefix layers, 1 MLA + MoE repeat, the MTP block)."""
+    if arch == "mixtral-8x22b":
+        return _cfgs(arch, sparse)
+    jc = get_config(arch).reduced()
+    if sparse:
+        jc = dataclasses.replace(jc, ffn_density=0.5, sparse_block=(8, 16))
+    return jc, port_cfg(jc)
+
+
+@pytest.mark.parametrize("arch,sparse", [("deepseek-v3-671b", False),
+                                         ("deepseek-v3-671b", True),
+                                         ("mixtral-8x22b", False)])
+def test_loss_fn_with_mtp_matches_reference(arch, sparse):
+    """The MoE family's loss through ``jax.value_and_grad`` and autograd, f32:
+    deepseek's includes 0.3 times the MTP loss (its MLA block, the sparse
+    FFN where ``sparse``).  The loss within 1e-6 relative; every grad leaf
+    within 1e-5 of its max |g| (MLA's f32 sums over the latent and head
+    axes in another order reach 2.4e-6; zeros where JAX gives zeros: the
+    router bias only selects)."""
+    jc, tc = _moe_cfgs(arch, sparse)
+    params = JLM.init_params(jax.random.PRNGKey(3), jc, jnp.float32)
+    tparams = convert.lm_params(jax.tree.map(np.asarray, params), tc)
+    jb, tb = _batch(jc.vocab, B=2, S=20, seed=4)
+    jloss, jg = jax.jit(JS._value_and_grad_trainable(JLM.loss_fn),
+                        static_argnums=2)(params, jb, jc)
+    tloss, tg = TS.value_and_grad_trainable(TLM.loss_fn)(tparams, tb, tc)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-6)
+    if jc.mtp_depth:
+        plain = JLM.loss_fn(params, jb, dataclasses.replace(jc, mtp_depth=0))
+        assert abs(float(jloss) - float(plain)) > 1e-3  # the MTP term counts
+    jgl = jax.tree_util.tree_flatten_with_path(jg)[0]
+    tgl = tleaves(TL.strip_derived(tg))
+    assert len(jgl) == len(tgl)
+    for (path, b), a in zip(jgl, tgl):
+        b = np.asarray(b)
+        if b.dtype.kind != "f":
+            continue
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-5 * max(np.abs(b).max(), 1e-30),
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b"])
+def test_moe_train_step_matches_reference(arch):
+    """One jitted JAX train step against the port's (f32, AdamW): the loss
+    within 1e-5 relative, updated params within 1e-5 wherever |g| > 1e-3 ·
+    max |g| (test_train_step_matches_reference's bounds)."""
+    jc, tc = _moe_cfgs(arch)
+    params, tparams, jopt, topt = _state(jc, tc, jnp.float32, OPT)
+    jb, tb = _batch(jc.vocab, B=2, S=20, seed=5)
+    _, jg = jax.jit(JS._value_and_grad_trainable(JLM.loss_fn),
+                    static_argnums=2)(params, jb, jc)
+    jp, _, jm = jax.jit(JS.make_train_step(jc, JA.AdamWConfig(**OPT)))(params, jopt, jb)
+    tp, to, tm = TS.make_train_step(tc, TA.AdamWConfig(**OPT))(tparams, topt, tb)
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), rtol=1e-5)
+    assert int(to.step) == 1
+    for a, b, g in zip(tleaves(TL.strip_derived(tp)), jax.tree.leaves(jp),
+                       jax.tree.leaves(jg)):
+        a, b, g = a.numpy(), np.asarray(b), np.abs(np.asarray(g))
+        if a.dtype.kind != "f":
+            np.testing.assert_array_equal(a, b)
+            continue
+        big = g > 1e-3 * g.max() if g.max() > 0 else np.ones(g.shape, bool)
+        np.testing.assert_allclose(a[big], b[big], rtol=0, atol=1e-5)
 
 
 def test_loss_fn_drops_the_modality_prefix():
