@@ -258,6 +258,32 @@ Phases (every check raises, so any failure exits non-zero):
    ``torch.matmul`` oracle; w_gate (7168 -> 18,432) and w_down at B = 1,
    4 and 512 beside ``torch.matmul`` and the bound.  Every model is freed
    before the next is built.
+17. Linear attention (``models/linear_attn.py``: Mamba2, mLSTM, sLSTM; the
+   hybrid zamba2-2.7b with its weight-shared attention + MLP block and the
+   recurrent xlstm-1.3b) at full width and full depth, last, with inputs
+   from its own generator (``[seed, 17]``).  (a) One layer of each kind at
+   full width, float32: Mamba2 at zamba2's widths (80 heads of 64, state
+   64), mLSTM and sLSTM at xlstm's (4 heads of 512), B=2, S=1,024 (four
+   chunks of 256): ``*_apply`` against ``*_decode`` stepped S times from
+   the zero state, outputs and final states within rtol = atol = 1e-4 (the
+   card's check of the inter-chunk recurrence); whether sLSTM's two paths
+   are bit-equal is reported.  (b) zamba2-2.7b (54 layers, 3.15B params)
+   and (c) xlstm-1.3b (48 layers, 1.31B), bf16, through ``Server``: B=4,
+   prompt 128, 32 tokens, timed as phase 14 (c) times them, with the peak
+   card memory; for xlstm also the share of prefill its 6 sLSTM layers'
+   per-token loops take.  (d) Both in float32 at full depth: phase 14
+   (a)'s decode-vs-prefill (5e-3) and teacher-forced argmax checks.  (e)
+   zamba2 with ``ffn_density=0.5`` in (8, 128) blocks, float32: the shared
+   FFN's three projections against their plain version at B = 4 and 512
+   (integer inputs bit-equal; the layer's values within 2e-4, as bf16 and
+   as float32), one generate launching the block kernel 3 x 9 x 32 = 864
+   times (``launches_by_path["bcoo_spmv"]["lm_hybrid"]``), the model within
+   1e-3 of its densified ``torch.matmul`` oracle; w_gate (2560 -> 10,240)
+   and w_down at B = 1, 4 and 512 beside ``torch.matmul`` and the bound.
+   (f) One bf16 zamba2 prefill at B=1, S=4,096 (16 chunks a Mamba2 layer,
+   the shared block's attention query-chunked): ms and peak memory, the
+   recurrent states beside the 9 shared-block KV caches.  Every model is
+   freed before the next is built.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -2659,8 +2685,10 @@ def ffn_dims(cfg) -> dict:
 
 def lm_projections(params, cfg):
     """(layer, name, d_in, d_out, layer params) of every sparse projection
-    the serving path runs: the prefix blocks' and the stacked repeats' (a
-    block with an MoE FFN has none; the MTP block runs only in the loss)."""
+    the serving path runs: the prefix blocks', the stacked repeats' and
+    zamba2's shared block's (layer "shared", run once a repeat; a block
+    with an MoE FFN or a recurrent block has none; the MTP block runs only
+    in the loss)."""
     dims = ffn_dims(cfg)
     out = []
     for i in range(len(cfg.prefix_pattern)):
@@ -2671,7 +2699,18 @@ def lm_projections(params, cfg):
         if "mlp" in blk:
             out += [(r, name, *dims[name], {k: v[r] for k, v in blk["mlp"][name].items()})
                     for r in range(cfg.n_repeats) for name in dims]
+    if "shared" in params:
+        out += [("shared", name, *dims[name], params["shared"]["mlp"][name])
+                for name in dims]
     return out
+
+
+def lm_launches_per_step(params, cfg) -> int:
+    """Block-kernel launches of one sparse prefill or decode step: one per
+    projection per invocation (the shared block's once a repeat)."""
+    shared = cfg.n_repeats * cfg.block_pattern.count("shared_attn")
+    return sum(shared if layer == "shared" else 1
+               for layer, *_ in lm_projections(params, cfg))
 
 
 def densified(torch, p, d_in: int, d_out: int):
@@ -2703,7 +2742,7 @@ def densified_params(torch, params, cfg):
             name: {"w": densified(torch, blk["mlp"][name], *dims[name])
                    .transpose(-1, -2).contiguous()} for name in dims})
 
-    out = {k: dense(v) if k.startswith("prefix") else v
+    out = {k: dense(v) if k.startswith("prefix") or k == "shared" else v
            for k, v in params.items() if k != "mtp"}
     out["blocks"] = {key: dense(blk) for key, blk in params["blocks"].items()}
     return out
@@ -2808,12 +2847,14 @@ def lm_dense_checks(torch, lm, A, Server, cfg, rng, device) -> None:
           "chunked_s": chunked_s, "unchunked_s": unchunked_s, "ok": True})
 
 
-def lm_projection_kernels(torch, srv, cfg, rng, device) -> float:
+def lm_projection_kernels(torch, srv, cfg, rng, device, f32: bool = False) -> float:
     """(b) Each sparse projection (72 in qwen1.5-0.5b): its kernel against
     ``bcoo_spmv_plain`` on the card at B = 4 and 512; integer-valued bf16
     (blocks in {±1, ±2}, x in {-2..2}: every f32 sum exact) bit-equal, the
     layer's own values (as bf16) with random x within rtol = atol = 2e-4
-    (f32 sums in another order).  Returns the largest random-input error."""
+    (f32 sums in another order); with ``f32`` also the values and x in
+    float32 (3xTF32 on the tensor cores).  Returns the largest
+    random-input error."""
     from repro_torch.kernels.bcsr_spmv import bcoo_spmv, bcoo_spmv_plain, block_route
 
     worst, n = 0.0, 0
@@ -2822,16 +2863,18 @@ def lm_projection_kernels(torch, srv, cfg, rng, device) -> float:
         ints = torch.from_numpy(rng.choice(PM12, tuple(p["bvalues"].shape))).to(
             device, torch.bfloat16)
         vals = {"integer": ints, "random": p["bvalues"].to(torch.bfloat16)}
+        if f32:
+            vals["random_f32"] = p["bvalues"].float()
         for batch in (LM_BATCH, LM_BATCH * LM_PROMPT):
             for kind, v in vals.items():
                 xv = (rng.integers(-2, 3, (d_in, batch)) if kind == "integer"
                       else rng.standard_normal((d_in, batch)))
-                x = torch.from_numpy(xv).to(device, torch.bfloat16)
+                x = torch.from_numpy(xv).to(device, v.dtype)
                 got = bcoo_spmv(p["browind"], p["bcolind"], v, x, d_out,
                                 browptr=p["browptr"])
                 want = bcoo_spmv_plain(p["browind"], p["bcolind"], v, x, d_out)
                 what = (f"lm kernel layer {r} {name} B={batch} {kind} "
-                        f"({block_route(torch.bfloat16, 8, 128, batch)} route)")
+                        f"({block_route(v.dtype, 8, 128, batch)} route)")
                 check(got.dtype == want.dtype and got.shape == want.shape,
                       f"{what}: {got.dtype}{tuple(got.shape)}")
                 if kind == "integer":
@@ -2850,16 +2893,17 @@ def lm_projection_kernels(torch, srv, cfg, rng, device) -> float:
 
 
 def lm_sparse_checks(torch, lm, instrument, Server, cfg, rng, device,
-                     kernels: bool = True) -> tuple:
+                     kernels: bool = True, f32: bool = False) -> tuple:
     """(b) Block-sparse qwen1.5-0.5b in f32: the kernels per projection
     (unless ``kernels`` is False: phase 16 checks deepseek's at its bf16
     cut, where the plain version's (blocks, 128, 512) gather fits beside
-    the model), the model against its densified torch.matmul oracle, and
-    the launch count of one generate.  Returns (launches, random max
-    err)."""
+    the model; ``f32`` as ``lm_projection_kernels``), the model against its
+    densified torch.matmul oracle, and the launch count of one generate.
+    Returns (launches, random max err)."""
     srv = Server(cfg, LM_MAX_LEN, device=device, dtype=torch.float32)
-    worst = lm_projection_kernels(torch, srv, cfg, rng, device) if kernels else 0.0
-    per_step = len(lm_projections(srv.params, cfg))  # one launch a projection
+    worst = (lm_projection_kernels(torch, srv, cfg, rng, device, f32=f32)
+             if kernels else 0.0)
+    per_step = lm_launches_per_step(srv.params, cfg)
     prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
     torch.cuda.synchronize()
     instrument.reset()
@@ -3722,6 +3766,207 @@ def phase_moe(torch, rng, device) -> dict:
             "seconds": seconds}
 
 
+# ------------------------------------------------------------- phase 17
+
+LA_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
+# (a): kind, arch, linear_attn name, inputs.  sLSTM's two paths compute its
+# input GEMM at M = B*S and at M = B, which round differently, and its
+# recurrence carries the difference (2.3e-4 at S = 1,024 on an H100 80GB
+# HBM3): the cell is checked on integer-valued x and input weights (every
+# sum exact in f32, whatever the GEMM's order), the random case reported.
+LA_CASES = (("mamba", "zamba2-2.7b", "mamba2", "random"),
+            ("mlstm", "xlstm-1.3b", "mlstm", "random"),
+            ("slstm", "xlstm-1.3b", "slstm", "integer"),
+            ("slstm", "xlstm-1.3b", "slstm", "random"))
+LA_LAYER_SHAPE = (2, 1024)  # (a): B, S; four chunks of 256
+LA_STEP_TOL = 1e-4  # (a): f32 chunked vs stepped, outputs and final states
+LA_CHUNK = 256  # mamba2_apply / mlstm_apply's default chunk
+LA_LONG = 4096  # (f): one B=1 prefill, 16 chunks
+
+
+def free_card(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def la_layer_checks(torch, LA, rng, device) -> list:
+    """(a) One full-width layer of each kind in f32: ``*_apply`` (chunked;
+    sLSTM's per-token loop) against ``*_decode`` stepped S times from the
+    zero state, the outputs and every leaf of the final state (sLSTM on
+    random inputs reported, not checked: see ``LA_CASES``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import init_cache
+
+    B, S = LA_LAYER_SHAPE
+    rows = []
+    for kind, arch, name, data in LA_CASES:
+        cfg = get_config(arch)
+        gen = torch.Generator(device=device).manual_seed(17)
+        p = getattr(LA, f"{name}_init")(gen, cfg, torch.float32)
+        apply, decode = getattr(LA, f"{name}_apply"), getattr(LA, f"{name}_decode")
+        if data == "integer":  # x in {-2..2}, w_in in {±1, ±2} / 64
+            x = rng.integers(-2, 3, (B, S, cfg.d_model)).astype(np.float32)
+            w = rng.choice(PM12, tuple(p["w_in"]["w"].shape)) / 64
+            p["w_in"]["w"] = torch.from_numpy(w.astype(np.float32)).to(device)
+        else:
+            x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+        x = torch.from_numpy(x).to(device)
+        checked = not (kind == "slstm" and data == "random")
+        what = f"linear attn {kind} {data} B={B} S={S}"
+        with torch.no_grad():
+            y, state = apply(p, x, cfg)
+            st = init_cache(cfg, kind, B, S, device=device)
+            ys = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(S):
+                yi, st = decode(p, x[:, i:i + 1], st, cfg)
+                ys.append(yi)
+            torch.cuda.synchronize()
+            decode_ms = (time.perf_counter() - t0) * 1e3 / S
+            stepped = torch.cat(ys, dim=1)
+            apply_ms = time_ms(torch, lambda: apply(p, x, cfg), 3, warmup=1)
+        errs = {"y": max_err(torch, y, stepped)}
+        check(not checked or torch.allclose(y, stepped, rtol=LA_STEP_TOL,
+                                            atol=LA_STEP_TOL),
+              f"{what}: chunked vs stepped outputs: {errs}")
+        for field, a, b in zip(state._fields, state, st):
+            errs[field] = max_err(torch, a, b)
+            check(not checked or torch.allclose(a, b, rtol=LA_STEP_TOL,
+                                                atol=LA_STEP_TOL),
+                  f"{what}: chunked vs stepped final {field}: {errs}")
+        row = {"phase": "la_layer", "kind": kind, "arch": arch, "dtype": "float32",
+               "inputs": data, "checked": checked, "B": B, "S": S,
+               "chunks": None if kind == "slstm" else S // min(LA_CHUNK, S),
+               "max_abs_err": errs, "tolerance": LA_STEP_TOL,
+               "y_scale": float(stepped.abs().max()),
+               "bit_equal": bool(torch.equal(y, stepped) and all(
+                   torch.equal(a, b) for a, b in zip(state, st))),
+               "apply_ms": apply_ms, "decode_host_ms_per_token": decode_ms,
+               "ok": True}
+        emit(row)
+        rows.append(row)
+        del p, x, y, state, st, ys, stepped
+        free_card(torch)
+    return rows
+
+
+def la_serving(torch, lm, LA, Server, cfg, rng, device) -> dict:
+    """(b) / (c) bf16 at full depth, as phase 14 (c) times it, with the
+    peak card memory; for an arch with sLSTM blocks the share of prefill
+    their per-token loops take (one layer's ``slstm_apply`` at the prefill
+    shape, times the sLSTM layers, over the prefill ms)."""
+    torch.cuda.reset_peak_memory_stats()
+    row = lm_serving_times(torch, lm, Server, cfg, rng, device)
+    out = dict(row, n_layers=cfg.n_layers, n_params=cfg.n_params,
+               peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    free_card(torch)
+    n_slstm = cfg.n_repeats * cfg.block_pattern.count("slstm")
+    if n_slstm:
+        gen = torch.Generator(device=device).manual_seed(172)
+        p = LA.slstm_init(gen, cfg)
+        x = torch.from_numpy(rng.standard_normal((LM_BATCH, LM_PROMPT, cfg.d_model))
+                             .astype(np.float32)).to(device, torch.bfloat16)
+        with torch.no_grad():
+            one = time_ms(torch, lambda: LA.slstm_apply(p, x, cfg), 5, warmup=1)
+        out.update(slstm_layers=n_slstm, slstm_layer_prefill_ms=one,
+                   slstm_share_of_prefill=one * n_slstm / row["prefill_ms"])
+        del p, x
+    emit({"phase": "la_serving", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "n_params": cfg.n_params,
+          "peak_allocated_bytes": out["peak_allocated_bytes"],
+          **{k: v for k, v in out.items() if k.startswith("slstm")}})
+    free_card(torch)
+    return out
+
+
+def la_f32_checks(torch, lm, Server, cfg, rng, device) -> dict:
+    """(d) f32 at full depth: phase 14 (a)'s checks."""
+    srv = Server(cfg, LM_MAX_LEN, device=device, dtype=torch.float32)
+    res = lm_generate_checks(torch, lm, srv, cfg, rng, device, f"la {cfg.name} f32")
+    emit({"phase": "la_f32", **res, "n_params": cfg.n_params, "ok": True})
+    del srv
+    free_card(torch)
+    return res
+
+
+def state_bytes(caches, attention: bool) -> int:
+    """Bytes of the stacked attention caches (``attention``) or of the
+    recurrent states."""
+    total = 0
+    for c in caches.blocks.values():
+        if hasattr(c, "length") == attention:
+            tensors = c[:-1] if attention else c
+            total += sum(t.numel() * t.element_size() for t in tensors)
+    return total
+
+
+def la_long_prefill(torch, lm, Server, cfg, rng, device) -> dict:
+    """(f) One bf16 prefill at B=1, S=4,096: 16 chunks of 256 in every
+    Mamba2 layer, the shared block's attention query-chunked; ms, peak
+    memory, and the caches it leaves (O(1) states, 9 growing KV caches)."""
+    srv = Server(cfg, LA_LONG, device=device)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LA_LONG))
+                            .astype(np.int32)).to(device)
+    params_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, caches = lm.prefill(srv.params, toks, cfg, LA_LONG)
+        check(bool(torch.isfinite(logits).all()) and logits.shape == (1, cfg.vocab),
+              f"la long prefill: logits {tuple(logits.shape)} not finite")
+        peak = torch.cuda.max_memory_allocated()
+        kv, states = state_bytes(caches, True), state_bytes(caches, False)
+        del caches
+        ms = time_ms(torch, lambda: lm.prefill(srv.params, toks, cfg, LA_LONG), 3,
+                     warmup=1)
+    row = {"phase": "la_long_prefill", "arch": cfg.name, "dtype": "bfloat16",
+           "B": 1, "S": LA_LONG, "chunks": LA_LONG // LA_CHUNK, "ms": ms,
+           "tokens_per_s": LA_LONG / ms * 1e3, "params_bytes": params_bytes,
+           "peak_allocated_bytes": peak, "kv_cache_bytes": kv,
+           "recurrent_state_bytes": states, "ok": True}
+    emit(row)
+    del srv
+    free_card(torch)
+    return row
+
+
+def phase_linear_attn(torch, rng, device) -> dict:
+    """Phase 17: linear attention at full width and full depth (see the
+    module docstring).  Returns the block kernel's launches in one sparse
+    zamba2 generate (the path's count), the largest random-input kernel
+    error and the rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import instrument
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import linear_attn as LA
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    zamba2, xlstm = (get_config(name) for name in LA_ARCHS)
+    sparse = dataclasses.replace(zamba2, ffn_density=0.5)
+    check(zamba2.n_params == 3_145_113_600 and xlstm.n_params == 1_310_982_144
+          and sparse.n_params == 3_105_792_000,
+          f"la: parameter counts {zamba2.n_params} / {xlstm.n_params} / "
+          f"{sparse.n_params}")
+    layers = la_layer_checks(torch, LA, rng, device)
+    serving = [la_serving(torch, lm, LA, Server, cfg, rng, device)
+               for cfg in (zamba2, xlstm)]
+    f32 = [la_f32_checks(torch, lm, Server, cfg, rng, device) for cfg in (zamba2, xlstm)]
+    launches, worst = lm_sparse_checks(torch, lm, instrument, Server, sparse, rng,
+                                       device, f32=True)
+    want = 3 * zamba2.n_repeats * LM_GEN
+    check(launches == want, f"la sparse: {launches} block-kernel launches, not {want}")
+    free_card(torch)
+    proj = lm_projection_times(torch, sparse, rng, device)
+    free_card(torch)
+    long = la_long_prefill(torch, lm, Server, zamba2, rng, device)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "linear_attn_done", "seconds": seconds, "launches": launches})
+    return {"launches": launches, "max_abs_err": worst, "layers": layers,
+            "serving": serving, "f32": f32, "projections": proj, "long": long,
+            "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3818,6 +4063,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe_run = phase_moe(torch, np.random.default_rng([args.seed, 16]), device)
+    free_card(torch)
+    la_run = phase_linear_attn(torch, np.random.default_rng([args.seed, 17]), device)
 
     by_path = {
         kernel: {"single_device": launches[kind],
@@ -3833,6 +4080,7 @@ def main(argv=None) -> int:
     by_path["bcoo_spmv"]["lm_serving"] = lm_run["launches"]
     by_path["bcoo_spmv"]["lm_training"] = train_run["launches"]
     by_path["bcoo_spmv"]["lm_moe"] = moe_run["launches"]
+    by_path["bcoo_spmv"]["lm_hybrid"] = la_run["launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
     main_shape = {"coo_spmv": ("regular", "coo", 1), "bcoo_spmv": ("block", "bcoo", 1)}
     times["ell_spmv"] = ell_times["regular"]
@@ -3846,7 +4094,8 @@ def main(argv=None) -> int:
             "launches_by_path": by_path[name],
             "max_abs_err": max([errs[name]] + ([lm_run["max_abs_err"],
                                                 train_run["max_abs_err"],
-                                                moe_run["max_abs_err"]]
+                                                moe_run["max_abs_err"],
+                                                la_run["max_abs_err"]]
                                                if name == "bcoo_spmv" else [])),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -3856,6 +4105,7 @@ def main(argv=None) -> int:
           "cluster_phase_s": cluster_s, "topology_phase_s": topology_s,
           "lm_phase_s": lm_run["seconds"], "train_phase_s": train_run["seconds"],
           "moe_phase_s": moe_run["seconds"],
+          "linear_attn_phase_s": la_run["seconds"],
           "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -49,8 +49,11 @@ def chunk_plan(fields: dict) -> ChunkPlan:
 
 def lm_params(tree: dict, cfg) -> dict:
     """The port's LM params (CPU tensors) from the JAX package's tree as
-    numpy arrays, key for key (MoE, MLA and MTP subtrees included).
-    Block-sparse FFN layers keep ``browind`` / ``bcolind`` / ``bvalues``
-    unchanged and gain the port-only keys (``sparse.layers.DERIVED``:
-    ``browptr`` and Wᵀ's stream)."""
+    numpy arrays, key for key and dtype for dtype (MoE, MLA and MTP
+    subtrees, zamba2's unstacked ``shared`` block and the recurrent blocks'
+    float32 leaves — Mamba2's ``a_log`` / ``d_skip``, sLSTM's ``r`` — in bf16
+    trees included).  Block-sparse FFN layers keep ``browind`` /
+    ``bcolind`` / ``bvalues`` unchanged and gain the port-only keys
+    (``sparse.layers.DERIVED``: ``browptr`` and Wᵀ's stream), the shared
+    block's too."""
     return with_derived(map_params(F.to_tensor, tree), cfg)

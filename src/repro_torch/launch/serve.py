@@ -5,15 +5,19 @@ Counterpart of ``repro/launch/serve.py``:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
         --batch 4 --prompt-len 32 --gen 16 [--reduced] [--device cpu]
 
-``--arch`` takes the dense family and the MoE family (mixtral-8x22b,
-deepseek-v3-671b); an arch whose blocks are not ported raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``--arch`` takes the dense family, the MoE family (mixtral-8x22b,
+deepseek-v3-671b), the hybrid zamba2-2.7b (Mamba2 blocks and a shared
+attention + MLP block) and the recurrent xlstm-1.3b (mLSTM and sLSTM
+blocks, whose caches are O(1) states); an arch whose blocks are not ported
+(the encoder-decoder seamless-m4t-medium) raises ``NotImplementedError``
+naming its ROADMAP.md item.
 
 The reference jits ``lm.prefill`` and ``lm.decode_step`` over a mesh; the
 port has no mesh and runs them eagerly on one device (the card unless
 ``--device cpu``).  Params come from a seeded init (the generator seeded
 with 0, as the reference's ``PRNGKey(0)``); configs are shapes only.  With
-``cfg.ffn_density < 1`` every FFN projection runs on the block kernel.
+``cfg.ffn_density < 1`` every FFN projection runs on the block kernel
+(zamba2's: the shared block's three, once per invocation).
 """
 from __future__ import annotations
 

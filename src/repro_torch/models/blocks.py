@@ -1,6 +1,6 @@
 """Layer blocks: one (init, apply, decode, cache) bundle per block kind.
 
-Counterpart of ``repro/models/blocks.py`` for the attention and MoE kinds:
+Counterpart of ``repro/models/blocks.py``:
 
   attn          pre-LN GQA + SwiGLU MLP (llama / qwen / smollm / llava)
   attn_local    gemma2 sliding-window layer (+ post-norms, softcaps)
@@ -8,14 +8,21 @@ Counterpart of ``repro/models/blocks.py`` for the attention and MoE kinds:
   moe           GQA (optional SWA) + MoE FFN (mixtral)
   mla_dense     DeepSeek MLA + dense SwiGLU (prefix layers)
   mla_moe       DeepSeek MLA + 256-expert MoE
+  mamba         Mamba2 SSD block (zamba2)
+  shared_attn   zamba2's weight-shared attention+MLP block (the attn path)
+  mlstm/slstm   xLSTM blocks
 
-Every other kind of the reference raises ``NotImplementedError`` naming
-the ROADMAP.md item that ports it (:data:`UNPORTED`).
+``cross_attn`` raises ``NotImplementedError`` naming the ROADMAP.md item
+that ports it (:data:`UNPORTED`).
 
 The SparseP integration point: when cfg.ffn_density < 1, the dense MLP
-(of the attention kinds and ``mla_dense``) is sparse/layers.py's
-BlockSparseFFN, whose three projections run on the block kernel.  The MoE
-kinds' experts stay dense, as in the reference.
+(of the attention kinds, zamba2's shared block and ``mla_dense``) is
+sparse/layers.py's BlockSparseFFN, whose three projections run on the
+block kernel.  The MoE kinds' experts stay dense, as in the reference.
+
+The attention kinds' caches are stepped in place by ``block_decode``; the
+recurrent kinds (``mamba``, ``mlstm``, ``slstm``) return a new state, which
+``lm.decode_step`` copies into the stacked caches.
 """
 from __future__ import annotations
 
@@ -23,21 +30,24 @@ import torch
 import torch.nn.functional as F
 
 from . import attention as A
+from . import linear_attn as LA
 from . import moe as M
 from .common import gelu, rmsnorm, rmsnorm_init, swiglu_apply, swiglu_init
 
 __all__ = ["block_init", "block_apply", "block_decode", "init_cache",
            "check_kind", "KINDS", "UNPORTED"]
 
-_GQA_KINDS = ("attn", "attn_local", "attn_global", "moe")
+_GQA_KINDS = ("attn", "attn_local", "attn_global", "moe", "shared_attn")
 _MLA_KINDS = ("mla_dense", "mla_moe")
-KINDS = _GQA_KINDS + _MLA_KINDS
+# recurrent kind -> (its params' key, init, apply, decode)
+_RECURRENT = {
+    "mamba": ("mamba", LA.mamba2_init, LA.mamba2_apply, LA.mamba2_decode),
+    "mlstm": ("mlstm", LA.mlstm_init, LA.mlstm_apply, LA.mlstm_decode),
+    "slstm": ("slstm", LA.slstm_init, LA.slstm_apply, LA.slstm_decode),
+}
+KINDS = _GQA_KINDS + _MLA_KINDS + tuple(_RECURRENT)
 # block kind -> the ROADMAP.md item that ports it
 UNPORTED = {
-    "mamba": "§1 item 4 (linear attention)",
-    "mlstm": "§1 item 4 (linear attention)",
-    "slstm": "§1 item 4 (linear attention)",
-    "shared_attn": "§1 item 4 (linear attention: zamba2's shared block)",
     "cross_attn": "§1 item 5 (encoder-decoder)",
 }
 
@@ -55,7 +65,7 @@ def check_kind(kind: str) -> None:
 def _window(cfg, kind):
     if kind == "attn_global":
         return None
-    return cfg.sliding_window  # attn_local / moe (mixtral SWA) / plain attn
+    return cfg.sliding_window  # attn_local / moe (mixtral SWA) / plain and shared attn
 
 
 def _mlp_init(gen, cfg, dtype):
@@ -78,6 +88,10 @@ def _mlp_apply(p, x, cfg):
 def block_init(gen, cfg, kind, dtype=torch.bfloat16):
     check_kind(kind)
     dev = gen.device
+    if kind in _RECURRENT:
+        key, init, _, _ = _RECURRENT[kind]
+        return {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
+                key: init(gen, cfg, dtype)}
     if kind in _MLA_KINDS:
         p = {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
              "mla": A.mla_init(gen, cfg, dtype),
@@ -109,6 +123,10 @@ def _ffn(p, h, cfg, kind):
 def block_apply(p, h, cfg, kind):
     """Full-sequence forward. Returns (h, cache) — cache for prefill reuse."""
     check_kind(kind)
+    if kind in _RECURRENT:
+        key, _, apply, _ = _RECURRENT[kind]
+        y, state = apply(p[key], rmsnorm(p["ln1"], h), cfg)
+        return h + y, state
     if kind in _MLA_KINDS:
         a, cache = A.mla_apply(p["mla"], rmsnorm(p["ln1"], h), cfg)
         return _ffn(p, h + a, cfg, kind), cache
@@ -126,9 +144,14 @@ def block_apply(p, h, cfg, kind):
 
 
 def block_decode(p, h, cache, cfg, kind):
-    """One-token decode against this block's cache (stepped in place).
-    Returns (h, cache)."""
+    """One-token decode against this block's cache.  Returns (h, cache):
+    an attention cache stepped in place, or a recurrent kind's new state
+    (the one given is left as it was)."""
     check_kind(kind)
+    if kind in _RECURRENT:
+        key, _, _, decode = _RECURRENT[kind]
+        y, state = decode(p[key], rmsnorm(p["ln1"], h), cache, cfg)
+        return h + y, state
     if kind in _MLA_KINDS:
         a, cache = A.mla_decode(p["mla"], rmsnorm(p["ln1"], h), cache, cfg)
         return _ffn(p, h + a, cfg, kind), cache
@@ -149,8 +172,24 @@ def block_decode(p, h, cache, cfg, kind):
 def init_cache(cfg, kind, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
     """Zero decode-cache for one block.  KV caches of sliding-window kinds
-    are allocated at window size; MLA's latent cache at max_len."""
+    are allocated at window size; MLA's latent cache at max_len; the
+    recurrent kinds' float32 states are O(1) in the length."""
     check_kind(kind)
+    if kind == "mamba":
+        dh = cfg.ssm_d_inner // cfg.ssm_heads
+        return LA.RecurrentState(
+            torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state, dh),
+                        dtype=torch.float32, device=device),
+            torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state),
+                        dtype=torch.float32, device=device))
+    if kind == "mlstm":
+        dh = cfg.d_model // cfg.n_heads
+        return LA.RecurrentState(
+            torch.zeros((batch, cfg.n_heads, dh, dh), dtype=torch.float32,
+                        device=device),
+            torch.zeros((batch, cfg.n_heads, dh), dtype=torch.float32, device=device))
+    if kind == "slstm":
+        return LA.slstm_zero_state(batch, cfg, device)
     if kind in _MLA_KINDS:
         return A.MLACache(
             torch.zeros((batch, max_len, cfg.mla_kv_comp), dtype=dtype, device=device),

@@ -2,11 +2,15 @@
 
 Counterpart of ``repro/models/lm.py`` for the dense-family archs (qwen,
 llama3.2, smollm, gemma2, llava with ``prefix_embeds``), dense or with the
-block-sparse FFN, and the MoE family (mixtral-8x22b; deepseek-v3 with MLA
-and multi-token prediction).  Layer repeats keep the reference's layout, params
-stacked ``(NR, ...)`` per pattern entry under ``params["blocks"]
-["b{j}"]``; the reference's ``lax.scan`` over them is a Python loop over
-the repeat index.
+block-sparse FFN, the MoE family (mixtral-8x22b; deepseek-v3 with MLA
+and multi-token prediction), the hybrid zamba2-2.7b (Mamba2 blocks and one
+weight-shared attention + MLP block) and the recurrent xlstm-1.3b (mLSTM and
+sLSTM blocks).  Layer repeats keep the reference's layout, params stacked
+``(NR, ...)`` per pattern entry under ``params["blocks"]["b{j}"]``; the
+reference's ``lax.scan`` over them is a Python loop over the repeat index.
+zamba2's ``shared_attn`` entry has no stacked params: every invocation
+reads the one unstacked ``params["shared"]``, while its caches stay stacked
+(one KV cache per invocation), as in the reference.
 
 Entry points:
   init_params(gen, cfg)                   -> params
@@ -22,14 +26,15 @@ repeat in the backward pass (``torch.utils.checkpoint``), ``"none"`` keeps
 its activations.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the linear-attention and encoder-decoder block kinds
-(see ``blocks.UNPORTED``), ``encoder_layers`` / ``encode`` (§1 item 5)
-and ``remat="dots"`` (item 8);
+ROADMAP.md item: the encoder-decoder (the ``cross_attn`` kind, see
+``blocks.UNPORTED``, and ``encoder_layers`` / ``encode``, §1 item 5) and
+``remat="dots"`` (item 8);
 ``param_specs``, ``abstract_params`` and ``cache_specs`` wait for
 multi-card meshes (item 7).
 
-``decode_step`` steps the caches it is given in place (see
-``attention.gqa_decode`` / ``mla_decode``).
+``decode_step`` steps the caches it is given in place: the attention
+caches through ``attention.gqa_decode`` / ``mla_decode``, the recurrent
+states by a copy of each block's new state into its stacked slot.
 """
 from __future__ import annotations
 
@@ -58,7 +63,8 @@ __all__ = [
 
 
 def check_config(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    the ``cross_attn`` kind and the encoder."""
     for kind in cfg.prefix_pattern + cfg.block_pattern:
         check_kind(kind)
     if cfg.encoder_layers:
@@ -97,7 +103,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bfloat16):
     p["blocks"] = {
         f"b{j}": _stack_init(gen, cfg, kind, cfg.n_repeats, dtype)
         for j, kind in enumerate(cfg.block_pattern)
+        if kind != "shared_attn"
     }
+    if "shared_attn" in cfg.block_pattern:
+        p["shared"] = block_init(gen, cfg, "shared_attn", dtype)
     if cfg.mtp_depth:
         p["mtp"] = {
             "proj": {"w": normal(gen, (2 * cfg.d_model, cfg.d_model), dtype,
@@ -115,6 +124,14 @@ def _mtp_kind(cfg) -> str:
 def _layer(tree, r: int):
     """Repeat ``r``'s params (or caches' tensors) of a stacked tree."""
     return map_params(lambda a: a[r], tree)
+
+
+def _block_params(params, j: int, kind: str, r: int):
+    """Pattern entry ``j``'s params in repeat ``r``: the shared block for
+    ``shared_attn``, else repeat ``r`` of the stack."""
+    if kind == "shared_attn":
+        return params["shared"]
+    return _layer(params["blocks"][f"b{j}"], r)
 
 
 def _embed(params, tokens, cfg):
@@ -143,7 +160,10 @@ def _repeats(params, cfg) -> list:
     the repeats' gradients are stacked once instead of each scattered into
     a zero tensor of the whole stack."""
     blocks = map_params(lambda a: a.unbind(0), params["blocks"])
-    return [map_params(lambda a: a[r], blocks) for r in range(cfg.n_repeats)]
+    shared = {f"b{j}": params["shared"] for j, kind in enumerate(cfg.block_pattern)
+              if kind == "shared_attn"}
+    return [dict(map_params(lambda a: a[r], blocks), **shared)
+            for r in range(cfg.n_repeats)]
 
 
 def _repeat(h, layer, cfg):
@@ -220,14 +240,22 @@ def _mtp_loss(params, h, batch, cfg):
 
 class Caches(NamedTuple):
     prefix: tuple  # per prefix block
-    blocks: dict  # {f"b{j}": KVCache / MLACache of stacked (NR, ...) tensors}
+    blocks: dict  # {f"b{j}": a cache of stacked (NR, ...) tensors}
     mtp: Any = None
 
 
+def _has_length(cache) -> bool:
+    """A KVCache / MLACache (a length beside its tensors), not a recurrent
+    state (``RecurrentState`` / ``SLSTMState``: tensors only)."""
+    return "length" in cache._fields
+
+
 def _map_cache(fn, *caches):
-    """A KVCache / MLACache whose tensors are ``fn`` of the caches'
-    tensors (the length kept from the first)."""
+    """A cache whose tensors are ``fn`` of the caches' tensors (a KVCache's
+    or MLACache's length kept from the first)."""
     first = caches[0]
+    if not _has_length(first):
+        return type(first)(*(fn(*ts) for ts in zip(*caches)))
     tensors = zip(*(c[:-1] for c in caches))
     return type(first)(*(fn(*ts) for ts in tensors), first.length)
 
@@ -248,7 +276,10 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def _grow_cache(c, cfg, kind, max_len: int):
-    """Embed a prefill cache (length S) into max_len-capacity buffers."""
+    """Embed a prefill cache (length S) into max_len-capacity buffers; a
+    recurrent state is O(1) and returned as it is."""
+    if not _has_length(c):
+        return c
     if isinstance(c, A.MLACache):
         S = c.ckv.shape[1]
         if S >= max_len:
@@ -285,7 +316,7 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int, *, prefix_embeds=None
     per_layer = {f"b{j}": [] for j in range(len(cfg.block_pattern))}
     for r in range(cfg.n_repeats):
         for j, kind in enumerate(cfg.block_pattern):
-            h, c = block_apply(_layer(params["blocks"][f"b{j}"], r), h, cfg, kind)
+            h, c = block_apply(_block_params(params, j, kind, r), h, cfg, kind)
             per_layer[f"b{j}"].append(_grow_cache(c, cfg, kind, max_len))
     h = rmsnorm(params["final_norm"], h, gemma_style=cfg.gemma_norm)
     logits = _logits(params, h[:, -1:], cfg)
@@ -294,7 +325,11 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int, *, prefix_embeds=None
 
 
 def decode_step(params, token, caches: Caches, cfg: ArchConfig):
-    """token: (B, 1) int -> (logits (B, vocab), caches stepped in place)."""
+    """token: (B, 1) int -> (logits (B, vocab), caches stepped in place).
+
+    Attention caches are written in place by their decode and gain one in
+    ``length``; a recurrent block's new state is copied into its stacked
+    slot (a state has no length)."""
     check_config(cfg)
     h = _embed(params, token, cfg)
     new_prefix = []
@@ -304,9 +339,12 @@ def decode_step(params, token, caches: Caches, cfg: ArchConfig):
     for r in range(cfg.n_repeats):
         for j, kind in enumerate(cfg.block_pattern):
             c = caches.blocks[f"b{j}"]
-            h, _ = block_decode(_layer(params["blocks"][f"b{j}"], r), h,
-                                _map_cache(lambda a: a[r], c), cfg, kind)
-    blocks = {key: c._replace(length=c.length + 1)
+            h, new = block_decode(_block_params(params, j, kind, r), h,
+                                  _map_cache(lambda a: a[r], c), cfg, kind)
+            if not _has_length(c):
+                for dst, src in zip(c, new):
+                    dst[r].copy_(src)
+    blocks = {key: c._replace(length=c.length + 1) if _has_length(c) else c
               for key, c in caches.blocks.items()}
     h = rmsnorm(params["final_norm"], h, gemma_style=cfg.gemma_norm)
     logits = _logits(params, h, cfg)

@@ -114,8 +114,9 @@ def _ffn_dims(cfg) -> dict:
 
 def with_derived(params: dict, cfg) -> dict:
     """An LM's params with :data:`DERIVED` rebuilt in every block-sparse FFN
-    projection (prefix blocks, the stacked repeats and the MTP block alike;
-    a block with an MoE FFN has none)."""
+    projection (prefix blocks, the stacked repeats, zamba2's shared block
+    and the MTP block alike; a block with an MoE FFN or a recurrent block
+    has none)."""
     if cfg.ffn_density >= 1.0:
         return params
 
@@ -128,6 +129,8 @@ def with_derived(params: dict, cfg) -> dict:
 
     out = {k: block(v) if k.startswith("prefix") else v for k, v in params.items()}
     out["blocks"] = {k: block(v) for k, v in params["blocks"].items()}
+    if "shared" in params:
+        out["shared"] = block(params["shared"])
     if "mtp" in params:
         out["mtp"] = dict(params["mtp"], block=block(params["mtp"]["block"]))
     return out

@@ -12,6 +12,7 @@ equal; random float32 inputs are compared at rtol=atol=2e-4, the tolerance
 of tests/test_kernels.py (sums are taken in another order than the plain
 version's).
 """
+import contextlib
 import gc
 
 import numpy as np
@@ -192,6 +193,35 @@ def test_bcoo_random_f32_every_route(cuda, batch, block):
         got = bcoo_spmv_cuda(ptr, d.bcolind, d.bvalues, x.to(cuda), d.rows,
                              route=route)
         torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("batch", [8, 512])
+def test_bcoo_f32_tensor_cores_do_not_drift(cuda, batch):
+    """Random float32 over long block-rows (zamba2's w_down: 10,240 ->
+    2,560 in (8, 128) blocks at density 0.5, 40 blocks a block-row): the
+    tensor-core route (its register kernel at B = 8, its staged one at 512)
+    stays within 8x the CUDA-core route's distance from the float64
+    product, with no drift toward zero.  One f32 accumulator carried
+    through every k-step of the block-row drifted to 2.0e-4, 125x the
+    CUDA-core route's 1.6e-6."""
+    from repro_torch.sparse.layers import sparse_linear_init
+
+    gen = torch.Generator(device=cuda).manual_seed(50)
+    d_in, d_out = 10240, 2560
+    p = sparse_linear_init(gen, d_in, d_out, 0.5, (8, 128), torch.float32)
+    x = torch.randn(d_in, batch, device=cuda, generator=gen)
+    w = torch.zeros(d_out // 8, d_in // 128, 8, 128, device=cuda)
+    w[p["browind"].long(), p["bcolind"].long()] = p["bvalues"]
+    truth = w.transpose(1, 2).reshape(d_out, d_in).double() @ x.double()
+    err = {}
+    for route in ("mma", "rows"):
+        y = bcoo_spmv_cuda(p["browptr"], p["bcolind"], p["bvalues"], x, d_out,
+                           route=route)
+        err[route] = y.double() - truth
+    rows_max = float(err["rows"].abs().max())
+    assert float(err["mma"].abs().max()) <= 8 * rows_max, err
+    drift = float((err["mma"] * truth.sign()).mean())
+    assert abs(drift) <= rows_max / 8, drift
 
 
 def test_bcoo_spmm_columns_equal_spmv(cuda):
@@ -1501,3 +1531,95 @@ def test_moe_apply_on_card_is_bit_reproducible(cuda, router):
     torch.testing.assert_close(runs[0].float().cpu(),
                                moe.moe_apply(p, x, cfg).float(), rtol=0,
                                atol=4 * 2 ** -8 * float(runs[0].float().abs().max()))
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """Full-f32 matmuls on the card inside the block (restored after)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("kind,arch,name", [("mamba", "zamba2-2.7b", "mamba2"),
+                                            ("mlstm", "xlstm-1.3b", "mlstm"),
+                                            ("slstm", "xlstm-1.3b", "slstm")])
+def test_linear_attn_chunked_matches_stepped_on_card(cuda, kind, arch, name):
+    """One layer of each recurrent kind at a 256-wide cut of its arch,
+    float32, TF32 off, B=2, S=512: ``*_apply`` (four chunks of 128; sLSTM's
+    per-token loop) against ``*_decode`` stepped S times from the zero
+    state, outputs and final states within rtol = atol = 1e-4; and against
+    the same apply on the CPU within rtol = atol = 2e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import linear_attn as LA
+    from repro_torch.models.blocks import init_cache
+    from repro_torch.models.common import map_params
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), d_model=256, head_dim=64,
+                              ssm_heads=4 if kind == "mamba" else 0,
+                              ssm_d_inner=512 if kind == "mamba" else 0)
+    p = getattr(LA, f"{name}_init")(torch.Generator().manual_seed(3), cfg,
+                                    torch.float32)
+    dp = map_params(lambda a: a.to(cuda), p)
+    apply, decode = getattr(LA, f"{name}_apply"), getattr(LA, f"{name}_decode")
+    kw = {} if kind == "slstm" else {"chunk": 128}
+    x = torch.from_numpy(np.random.default_rng(48).standard_normal((2, 512, 256))
+                         .astype(np.float32))
+    with _no_tf32(), torch.no_grad():
+        y, state = apply(dp, x.to(cuda), cfg, **kw)
+        st = init_cache(cfg, kind, 2, 512, device=cuda)
+        ys = []
+        for i in range(512):
+            yi, st = decode(dp, x[:, i:i + 1].to(cuda), st, cfg)
+            ys.append(yi)
+        want, want_state = apply(p, x, cfg, **kw)
+    torch.testing.assert_close(y, torch.cat(ys, 1), rtol=1e-4, atol=1e-4)
+    for a, b in zip(state, st):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y.cpu(), want, rtol=2e-4, atol=2e-4)
+    for a, b in zip(state, want_state):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch,sparse", [("zamba2-2.7b", False), ("xlstm-1.3b", False),
+                                         ("zamba2-2.7b", True)])
+def test_linear_attn_archs_on_card_match_cpu(cuda, arch, sparse):
+    """zamba2 and xlstm at a 256-wide cut with two repeats, float32, TF32
+    off: prefill and two decode steps on the card within rtol = atol = 2e-4
+    of the same params on the CPU; sparse zamba2's shared FFN in (8, 128)
+    blocks launches the block kernel 3 times per invocation, 2 invocations
+    a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.common import map_params
+
+    base = get_config(arch)
+    cfg = dataclasses.replace(base.reduced(), n_layers=2 * len(base.block_pattern),
+                              d_model=256, head_dim=64, d_ff=512 if base.d_ff else 0,
+                              ssm_heads=4 if base.ssm_heads else 0,
+                              ssm_d_inner=512 if base.ssm_heads else 0)
+    if sparse:
+        cfg = dataclasses.replace(cfg, ffn_density=0.5)
+    params = lm.init_params(torch.Generator().manual_seed(4), cfg, torch.float32)
+    dparams = map_params(lambda a: a.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(49).integers(0, cfg.vocab, (3, 20)))
+    per_step = 3 * cfg.n_repeats if sparse else 0
+    with _no_tf32(), torch.no_grad():
+        want, caches = lm.prefill(params, toks, cfg, 32)
+        instrument.reset()
+        got, dcaches = lm.prefill(dparams, toks.to(cuda), cfg, 32)
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+        tok = torch.argmax(want, -1)[:, None]
+        for _ in range(2):
+            want, caches = lm.decode_step(params, tok, caches, cfg)
+            got, dcaches = lm.decode_step(dparams, tok.to(cuda), dcaches, cfg)
+            torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+            tok = torch.argmax(want, -1)[:, None]
+    assert instrument.launches("bcoo") == 3 * per_step

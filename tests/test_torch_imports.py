@@ -59,8 +59,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.launch.steps",
         "repro_torch.launch.train", "repro_torch.models",
         "repro_torch.models.attention", "repro_torch.models.blocks",
-        "repro_torch.models.common", "repro_torch.models.lm",
-        "repro_torch.models.moe", "repro_torch.sparse",
+        "repro_torch.models.common", "repro_torch.models.linear_attn",
+        "repro_torch.models.lm", "repro_torch.models.moe", "repro_torch.sparse",
         "repro_torch.sparse.layers"])
     assert lines["TRAIN"] == str([
         "repro_torch.data", "repro_torch.data.matrices", "repro_torch.data.tokens",

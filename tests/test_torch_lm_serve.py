@@ -195,8 +195,8 @@ def test_server_defaults_to_the_card(monkeypatch):
 
 
 def test_server_rejects_unported_archs():
-    _, tc = configs("zamba2-2.7b", False)
-    with pytest.raises(NotImplementedError, match="item 4 "):
+    _, tc = configs("seamless-m4t-medium", False)
+    with pytest.raises(NotImplementedError, match="item 5 "):
         tserve.Server(tc, 16, device="cpu")
 
 

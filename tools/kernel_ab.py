@@ -12,7 +12,12 @@ integer-valued inputs, and timed with CUDA events in turns (a, b, ..., b,
 a).  ``--cases`` keeps the cases whose label starts with one of the
 prefixes (for example ``--cases=bcoo``).  The block cases are the block
 matrix at B = 1, 8 and 64, B = 8 on each route that takes it, and the
-16-part (8, 2) launch.  It prints one JSON line per case.
+16-part (8, 2) launch.  It prints one JSON line per case.  With the block
+cases it also prints, per variant, the float32 tensor-core route's
+distance from the float64 product on random inputs at zamba2's w_down
+(10,240 -> 2,560 in (8, 128) blocks at density 0.5) at B = 8 and 512: the
+largest and the mean signed (toward zero when negative) error, beside the
+CUDA-core route's.
 """
 import ctypes
 import json
@@ -118,6 +123,31 @@ def block_cases(rng, dev):
     return cases
 
 
+def f32_precision(libs, variants, dev):
+    """Per variant, the f32 ``mma`` and ``rows`` routes' distance from the
+    float64 product at zamba2's w_down, random inputs, B = 8 and 512."""
+    from repro_torch.kernels.bcsr_spmv import bcoo_spmv_cuda
+    from repro_torch.sparse.layers import sparse_linear_init
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    d_in, d_out = 10240, 2560
+    p = sparse_linear_init(gen, d_in, d_out, 0.5, (8, 128), torch.float32)
+    w = cs.densified(torch, p, d_in, d_out).double()
+    for B in (8, 512):
+        x = torch.randn(d_in, B, device=dev, generator=gen)
+        truth = w @ x.double()
+        row = {"precision": f"bcoo f32 zamba2 w_down B={B}",
+               "scale": float(truth.abs().max())}
+        for v in variants:
+            _build._LIBS["bcoo_spmv"] = libs[(v, "bcoo_spmv")]
+            for route in ("mma", "rows"):
+                err = bcoo_spmv_cuda(p["browptr"], p["bcolind"], p["bvalues"], x,
+                                     d_out, route=route).double() - truth
+                row[f"{v} {route}"] = {"max_abs": float(err.abs().max()),
+                                       "mean_signed": float((err * truth.sign()).mean())}
+        emit(row)
+
+
 def scalar_cases(rng, dev):
     """(label, kernel, run, plain) of the COO and ELL kernels."""
     n = 1 << 21
@@ -191,6 +221,8 @@ def main():
                 raise RuntimeError(f"{label} {v}: != plain")
             times[v].append(cs.time_ms(torch, run, 30))
         emit({"case": label, **{v: times[v] for v in variants}})
+    if any(kernel == "bcoo_spmv" for _, kernel, _, _ in cases):
+        f32_precision(libs, variants, dev)
 
 
 if __name__ == "__main__":
