@@ -284,6 +284,33 @@ Phases (every check raises, so any failure exits non-zero):
    the shared block's attention query-chunked): ms and peak memory, the
    recurrent states beside the 9 shared-block KV caches.  Every model is
    freed before the next is built.
+18. The encoder-decoder: seamless-m4t-medium (12 encoder + 12 decoder
+   layers, d_model 1024, vocab 256,206) at full width and full depth,
+   last, with inputs from its own generator (``[seed, 18]``), through
+   ``lm.encode`` and ``launch.steps``' prefill / decode / train steps
+   (``Server`` takes no frames).  (a) float32, TF32 off: a 2 + 2-layer cut
+   with ``ffn_density=0.5`` trained one step on the card and on the CPU
+   from the same params and batch with frames (loss within 1e-5, each
+   grad leaf within 1e-4 of its max, as phase 15 (d)); at full depth,
+   dense, a generate (encode once, prefill, 31 decode steps with the same
+   memory), decode(prefill(S)) within 5e-3 of prefill(S+1) and the
+   teacher-forced argmax.  (b) bf16, B=4, bf16 frames of 1,024, prompt
+   128, 32 tokens: encode, prefill and decode ms, the cross-attention's
+   K/V projections of the memory timed apart, a decode step's device
+   trace, tokens/s and peak memory; at B=1 ``make_prefill_step(cfg,
+   "prefill_32k")`` bit-equal to ``lm.prefill(memory=lm.encode(frames))``.
+   (c) ``ffn_density=0.5`` in (8, 128) blocks, float32: the 72 projections
+   (36 encoder, 36 decoder) against their plain version at B = 4 and 512,
+   one generate launching the block kernel 36 + 36 x 32 = 1,188 times
+   (``launches_by_path["bcoo_spmv"]["lm_enc_dec"]``), the model within
+   1e-3 of its densified ``torch.matmul`` oracle.  (d) ``make_train_step``
+   on bf16 params, dense and sparse, 10 steps of B=4 x 256 with bf16
+   frames: the loss falls; a sparse step launches the block kernel 180
+   times (the encoder's 36 projections twice, the rematerialized
+   decoder's three times).  (e) A bf16 encode at B=1, S_enc=4,096 (every
+   encoder layer query-chunked, non-causal) and a 128-token prefill: ms
+   and peak memory.  Then w_gate (1024 -> 4096) and w_down at B = 1, 4
+   and 4,096 beside ``torch.matmul`` and the bound.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -2685,12 +2712,17 @@ def ffn_dims(cfg) -> dict:
 
 def lm_projections(params, cfg):
     """(layer, name, d_in, d_out, layer params) of every sparse projection
-    the serving path runs: the prefix blocks', the stacked repeats' and
-    zamba2's shared block's (layer "shared", run once a repeat; a block
-    with an MoE FFN or a recurrent block has none; the MTP block runs only
-    in the loss)."""
+    the serving path runs: the prefix blocks', the stacked repeats',
+    zamba2's shared block's (layer "shared", run once a repeat) and an
+    enc-dec encoder's (layers "enc0", "enc1", ...; run once a request, by
+    ``lm.encode``); a block with an MoE FFN or a recurrent block has none;
+    the MTP block runs only in the loss."""
     dims = ffn_dims(cfg)
     out = []
+    if "encoder" in params:
+        mlp = params["encoder"]["blocks"]["mlp"]
+        out += [(f"enc{r}", name, *dims[name], {k: v[r] for k, v in mlp[name].items()})
+                for r in range(cfg.encoder_layers) for name in dims]
     for i in range(len(cfg.prefix_pattern)):
         mlp = params[f"prefix{i}"].get("mlp")
         if mlp is not None:
@@ -2707,10 +2739,12 @@ def lm_projections(params, cfg):
 
 def lm_launches_per_step(params, cfg) -> int:
     """Block-kernel launches of one sparse prefill or decode step: one per
-    projection per invocation (the shared block's once a repeat)."""
+    decoder projection per invocation (the shared block's once a repeat;
+    the encoder's run before the prefill, not in it)."""
     shared = cfg.n_repeats * cfg.block_pattern.count("shared_attn")
     return sum(shared if layer == "shared" else 1
-               for layer, *_ in lm_projections(params, cfg))
+               for layer, *_ in lm_projections(params, cfg)
+               if not str(layer).startswith("enc"))
 
 
 def densified(torch, p, d_in: int, d_out: int):
@@ -2745,14 +2779,17 @@ def densified_params(torch, params, cfg):
     out = {k: dense(v) if k.startswith("prefix") or k == "shared" else v
            for k, v in params.items() if k != "mtp"}
     out["blocks"] = {key: dense(blk) for key, blk in params["blocks"].items()}
+    if "encoder" in params:
+        out["encoder"] = dict(params["encoder"],
+                              blocks=dense(params["encoder"]["blocks"]))
     return out
 
 
-def teacher_forced(torch, lm, params, cfg, prompts, out):
+def teacher_forced(torch, lm, params, cfg, prompts, out, memory=None):
     """Logits at the generated positions of a forward pass over
     [prompt, out[:, :-1]]: position S - 1 + i predicts out[:, i]."""
     full = torch.cat([prompts, out[:, :-1]], dim=1)
-    logits, _ = lm.forward(params, full, cfg)
+    logits, _ = lm.forward(params, full, cfg, memory=memory)
     return logits[:, prompts.shape[1] - 1:].float()
 
 
@@ -2847,7 +2884,7 @@ def lm_dense_checks(torch, lm, A, Server, cfg, rng, device) -> None:
           "chunked_s": chunked_s, "unchunked_s": unchunked_s, "ok": True})
 
 
-def lm_projection_kernels(torch, srv, cfg, rng, device, f32: bool = False) -> float:
+def lm_projection_kernels(torch, params, cfg, rng, device, f32: bool = False) -> float:
     """(b) Each sparse projection (72 in qwen1.5-0.5b): its kernel against
     ``bcoo_spmv_plain`` on the card at B = 4 and 512; integer-valued bf16
     (blocks in {±1, ±2}, x in {-2..2}: every f32 sum exact) bit-equal, the
@@ -2858,7 +2895,7 @@ def lm_projection_kernels(torch, srv, cfg, rng, device, f32: bool = False) -> fl
     from repro_torch.kernels.bcsr_spmv import bcoo_spmv, bcoo_spmv_plain, block_route
 
     worst, n = 0.0, 0
-    projections = lm_projections(srv.params, cfg)
+    projections = lm_projections(params, cfg)
     for r, name, d_in, d_out, p in projections:
         ints = torch.from_numpy(rng.choice(PM12, tuple(p["bvalues"].shape))).to(
             device, torch.bfloat16)
@@ -2901,7 +2938,7 @@ def lm_sparse_checks(torch, lm, instrument, Server, cfg, rng, device,
     densified torch.matmul oracle, and the launch count of one generate.
     Returns (launches, random max err)."""
     srv = Server(cfg, LM_MAX_LEN, device=device, dtype=torch.float32)
-    worst = (lm_projection_kernels(torch, srv, cfg, rng, device, f32=f32)
+    worst = (lm_projection_kernels(torch, srv.params, cfg, rng, device, f32=f32)
              if kernels else 0.0)
     per_step = lm_launches_per_step(srv.params, cfg)
     prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
@@ -3021,13 +3058,14 @@ def lm_serving_times(torch, lm, Server, cfg, rng, device) -> dict:
     return row
 
 
-def lm_projection_times(torch, cfg, rng, device) -> list:
+def lm_projection_times(torch, cfg, rng, device,
+                        batches=(1, LM_BATCH, LM_BATCH * LM_PROMPT)) -> list:
     """(c) w_gate (d_model -> d_ff) and w_down of a bf16 layer of ``cfg``
     (qwen1.5-0.5b: 1024 -> 2816; deepseek's prefix: 7168 -> 18,432) at
-    B = 1, 4 and 512: the block kernel (its route), its plain version,
-    torch.matmul on the dense weight, and the bytes / operations bound;
-    below B = 8 also the tensor-core route (``mma_ms``), held against the
-    plain version first."""
+    each of ``batches`` (B = 1, 4 and 512 unless given): the block kernel
+    (its route), its plain version, torch.matmul on the dense weight, and
+    the bytes / operations bound; below B = 8 also the tensor-core route
+    (``mma_ms``), held against the plain version first."""
     from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_cuda,
                                                bcoo_spmv_plain, block_route)
     from repro_torch.sparse.layers import sparse_linear_init
@@ -3039,7 +3077,7 @@ def lm_projection_times(torch, cfg, rng, device) -> list:
         p = sparse_linear_init(gen, d_in, d_out, cfg.ffn_density, cfg.sparse_block)
         w = densified(torch, p, d_in, d_out)
         nb, r, c = p["bvalues"].shape
-        for batch in (1, LM_BATCH, LM_BATCH * LM_PROMPT):
+        for batch in batches:
             x = torch.from_numpy(rng.standard_normal((d_in, batch))).to(
                 device, torch.bfloat16)
             bound, by = lm_bound(nb, r, c, d_out // r, d_in, d_out, batch)
@@ -3342,10 +3380,12 @@ def train_sparse_loops(torch, T_, cfg, AdamWConfig, instrument, device) -> dict:
     return {"launches": out["sparse"]["launches_per_step"][-1], "rows": out}
 
 
-def train_card_vs_cpu(torch, cfg, rng, device) -> dict:
-    """(d) qwen1.5-0.5b at full width, 2 layers, block-sparse, f32 (TF32
-    off): one train step on the card (the kernels) against the same step
-    on the CPU (the plain versions), from the same params."""
+def train_card_vs_cpu(torch, c, rng, device, phase: str = "train_card_vs_cpu") -> dict:
+    """(d) ``c`` (qwen1.5-0.5b at full width cut to 2 layers, block-sparse),
+    f32 (TF32 off): one train step on the card (the kernels) against the
+    same step on the CPU (the plain versions), from the same params and a
+    (2, 64) batch (with f32 frames of the same length for an enc-dec
+    ``c``)."""
     from repro_torch.launch.steps import carry_derived, value_and_grad_trainable
     from repro_torch.models import lm
     from repro_torch.models.common import map_params
@@ -3353,14 +3393,17 @@ def train_card_vs_cpu(torch, cfg, rng, device) -> dict:
     from repro_torch.sparse.layers import strip_derived
     from repro_torch.tree import leaves
 
-    c = dataclasses.replace(cfg, n_layers=2, ffn_density=0.5)
     params = lm.init_params(torch.Generator().manual_seed(15), c, torch.float32)
     toks = torch.from_numpy(rng.integers(0, c.vocab, (2, 64)).astype(np.int32))
+    cpu_batch = {"tokens": toks, "labels": toks}
+    if c.encoder_layers:
+        cpu_batch["frames"] = torch.from_numpy(
+            rng.standard_normal((2, 64, c.d_model)).astype(np.float32))
     opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
     res = {}
     for dev in ("cpu", device):
         p = map_params(lambda a: a.to(dev), params)
-        batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+        batch = {k: v.to(dev) for k, v in cpu_batch.items()}
         t0 = time.perf_counter()
         loss, grads = value_and_grad_trainable(lm.loss_fn)(p, batch, c)
         new, _, metrics = apply_updates(strip_derived(p), strip_derived(grads),
@@ -3378,10 +3421,11 @@ def train_card_vs_cpu(torch, cfg, rng, device) -> dict:
         big = b.abs() > 1e-3 * b.abs().max()
         if big.any():
             param_err = max(param_err, max_err(torch, pa.cpu()[big], pb[big]))
-    check(loss_rel <= 1e-5, f"train card vs cpu: loss {lg} vs {lc}")
-    check(grad_rel <= GRAD_TOL, f"train card vs cpu: grad rel err {grad_rel}")
-    check(param_err <= 1e-5, f"train card vs cpu: updated params {param_err}")
-    row = {"phase": "train_card_vs_cpu", "arch": c.name, "n_layers": c.n_layers,
+    check(loss_rel <= 1e-5, f"{phase}: loss {lg} vs {lc}")
+    check(grad_rel <= GRAD_TOL, f"{phase}: grad rel err {grad_rel}")
+    check(param_err <= 1e-5, f"{phase}: updated params {param_err}")
+    row = {"phase": phase, "arch": c.name, "n_layers": c.n_layers,
+           "encoder_layers": c.encoder_layers,
            "ffn_density": c.ffn_density, "dtype": "float32", "tokens": [2, 64],
            "loss_card": lg, "loss_cpu": lc, "loss_rel_err": loss_rel,
            "grad_max_rel_err": grad_rel, "param_max_abs_err": param_err,
@@ -3447,7 +3491,8 @@ def phase_train(torch, rng, device) -> dict:
     torch.cuda.empty_cache()
     sparse = train_sparse_loops(torch, T_, get_config(LM_ARCH), AdamWConfig,
                                 instrument, device)
-    card_cpu = train_card_vs_cpu(torch, qwen, rng, device)
+    card_cpu = train_card_vs_cpu(torch, dataclasses.replace(qwen, n_layers=2), rng,
+                                 device)
     gc.collect()
     torch.cuda.empty_cache()
     restart = train_restart(torch, T_, AdamWConfig, device)
@@ -3699,7 +3744,7 @@ def moe_sparse_checks(torch, lm, instrument, Server, cfg, rng, device) -> tuple:
     cfg4 = dataclasses.replace(moe_cut(cfg, MOE_SERVE_LAYERS[cfg.name]),
                                ffn_density=0.5)
     srv = Server(cfg4, LM_MAX_LEN, device=device)
-    worst = lm_projection_kernels(torch, srv, cfg4, rng, device)
+    worst = lm_projection_kernels(torch, srv.params, cfg4, rng, device)
     per_step = len(lm_projections(srv.params, cfg4))
     check(per_step == 3 * len(cfg4.prefix_pattern),
           f"moe sparse: {per_step} sparse projections")
@@ -3967,6 +4012,371 @@ def phase_linear_attn(torch, rng, device) -> dict:
             "seconds": seconds}
 
 
+# ------------------------------------------------------------- phase 18: enc-dec
+
+ED_ARCH = "seamless-m4t-medium"
+ED_PARAMS, ED_SPARSE_PARAMS = 715_339_776, 564_344_832  # its cfg.n_params
+ED_ENC = 1024  # (b), (c): S_enc, the frames of each request
+ED_LONG = 4096  # (e): a B=1 encode on the query-chunked non-causal path
+ED_MAX_LEN = 32768  # (b): prefill_32k's seq_len, the B=1 step's caches
+
+
+def ed_uncounted(cfg) -> int:
+    """Float params that ``cfg.n_params`` leaves out: the encoder's
+    ``in_proj`` and every norm (final, encoder, two an encoder layer, three
+    a decoder layer)."""
+    d = cfg.d_model
+    return d * d + d * (2 + 2 * cfg.encoder_layers + 3 * cfg.n_layers)
+
+
+def ed_inputs(torch, rng, cfg, batch: int, s_enc: int, device, dtype):
+    """(prompts (batch, LM_PROMPT) int32, frames (batch, s_enc, d) in
+    ``dtype``) on ``device``: the text prompt and its stub frame
+    embeddings."""
+    prompts = rng.integers(0, cfg.vocab, (batch, LM_PROMPT)).astype(np.int32)
+    frames = rng.standard_normal((batch, s_enc, cfg.d_model)).astype(np.float32)
+    return (torch.from_numpy(prompts).to(device),
+            torch.from_numpy(frames).to(device, dtype))
+
+
+def ed_generate(torch, lm, steps, params, cfg, prompts, frames):
+    """Greedy generation of LM_GEN tokens as an enc-dec server runs it:
+    ``lm.encode`` once, ``lm.prefill(memory=)`` into LM_MAX_LEN caches,
+    then LM_GEN - 1 calls of ``steps.make_decode_step``'s function.
+    Returns (tokens (B, LM_GEN) int32 on the device, memory)."""
+    decode = steps.make_decode_step(cfg, "decode_32k")
+    with torch.no_grad():
+        memory = lm.encode(params, frames, cfg)
+        logits, caches = lm.prefill(params, prompts, cfg, LM_MAX_LEN, memory=memory)
+        toks = [torch.argmax(logits, -1)[:, None].to(torch.int32)]
+        for _ in range(1, LM_GEN):
+            logits, caches = decode(params, {"token": toks[-1], "caches": caches,
+                                             "memory": memory})
+            toks.append(torch.argmax(logits, -1)[:, None].to(torch.int32))
+    return torch.cat(toks, dim=1), memory
+
+
+def ed_params(torch, lm, cfg, seed: int, device, dtype=None):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        return (lm.init_params(gen, cfg) if dtype is None
+                else lm.init_params(gen, cfg, dtype))
+
+
+def ed_f32_checks(torch, lm, steps, cfg, rng, device) -> dict:
+    """(a) Dense seamless at full width and depth in f32 (TF32 off): the
+    tree's size, a generate, decode(prefill(S)) within 5e-3 of
+    prefill(S+1) with the same memory (tests/test_archs.py's bound), and a
+    teacher-forced argmax equal to the tokens wherever its top-2 margin
+    exceeds 1e-3."""
+    from repro_torch.tree import leaves
+
+    params = ed_params(torch, lm, cfg, 18, device, torch.float32)
+    numel = sum(a.numel() for a in leaves(params) if a.is_floating_point())
+    check(numel == cfg.n_params + ed_uncounted(cfg),
+          f"ed f32: {numel} float params, not n_params + {ed_uncounted(cfg)}")
+    prompts, frames = ed_inputs(torch, rng, cfg, LM_BATCH, ED_ENC, device,
+                                torch.float32)
+    t0 = time.perf_counter()
+    out, memory = ed_generate(torch, lm, steps, params, cfg, prompts, frames)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check(tuple(out.shape) == (LM_BATCH, LM_GEN) and bool(
+        ((0 <= out) & (out < cfg.vocab)).all()), f"ed f32: generate gave {out.shape}")
+    check(memory.dtype == torch.float32
+          and tuple(memory.shape) == (LM_BATCH, ED_ENC, cfg.d_model),
+          f"ed f32: memory {memory.dtype}{tuple(memory.shape)}")
+    with torch.no_grad():
+        _, caches = lm.prefill(params, prompts, cfg, LM_MAX_LEN, memory=memory)
+        got, _ = lm.decode_step(params, out[:, :1], caches, cfg, memory=memory)
+        want, _ = lm.prefill(params, torch.cat([prompts, out[:, :1]], 1), cfg,
+                             LM_MAX_LEN, memory=memory)
+        step_err = max_err(torch, got, want)
+        check(torch.allclose(got, want, rtol=5e-3, atol=5e-3),
+              f"ed f32: decode(prefill(S)) vs prefill(S+1): {step_err}")
+        tf = teacher_forced(torch, lm, params, cfg, prompts, out, memory)
+        agree = greedy_agreement(torch, tf, out, 1e-3)
+        check(agree["agree"] == agree["checked"],
+              f"ed f32: teacher-forced argmax disagrees: {agree}")
+    row = {"phase": "ed_f32", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "encoder_layers": cfg.encoder_layers, "dtype": "float32",
+           "n_params": cfg.n_params, "float_params": numel, "s_enc": ED_ENC,
+           "generate_shape": list(out.shape), "generate_s": gen_s,
+           "decode_vs_prefill_max_err": step_err, "teacher_forced": agree,
+           "ok": True}
+    emit(row)
+    return row
+
+
+def ed_serving(torch, lm, steps, cfg, rng, device) -> tuple:
+    """(b) bf16 at full width and depth, B=4 with bf16 frames of 1,024:
+    encode, prefill and decode ms (CUDA events; the cross-attention's K/V
+    projections of the memory timed apart), a decode step's device trace,
+    tokens/s of a generate (host clock, ending in a copy to the host) and
+    the peak memory; at B=1 ``make_prefill_step(cfg, "prefill_32k")`` bit
+    for bit ``lm.prefill(memory=lm.encode(frames))`` at max_len 32,768.
+    Returns (row, the params, kept for (e))."""
+    from repro_torch.models.common import dense_apply, map_params
+
+    torch.cuda.reset_peak_memory_stats()
+    params = ed_params(torch, lm, cfg, 181, device)
+    prompts, frames = ed_inputs(torch, rng, cfg, LM_BATCH, ED_ENC, device,
+                                torch.bfloat16)
+    decode = steps.make_decode_step(cfg, "decode_32k")
+    with torch.no_grad():
+        memory = lm.encode(params, frames, cfg)
+        check(memory.dtype == torch.bfloat16, f"ed serving: memory {memory.dtype}")
+        _, caches = lm.prefill(params, prompts, cfg, LM_MAX_LEN, memory=memory)
+        batch = {"token": prompts[:, -1:], "caches": caches, "memory": memory}
+        encode_ms = time_ms(torch, lambda: lm.encode(params, frames, cfg), 10)
+        prefill_ms = time_ms(torch, lambda: lm.prefill(
+            params, prompts, cfg, LM_MAX_LEN, memory=memory), 10)
+        # the same slot rewritten each call: the caches are not advanced
+        decode_ms = time_ms(torch, lambda: decode(params, batch), 20)
+        x0 = map_params(lambda a: a[0], params["blocks"]["b0"]["xattn"])
+        cross_kv_ms = time_ms(torch, lambda: (dense_apply(x0["wk"], memory),
+                                              dense_apply(x0["wv"], memory)), 20)
+        trace = device_trace(torch, lambda: decode(params, batch))
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out, _ = ed_generate(torch, lm, steps, params, cfg, prompts, frames)
+        out.cpu()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    peak = torch.cuda.max_memory_allocated()
+    del caches, batch, memory
+    p1, f1 = ed_inputs(torch, rng, cfg, 1, ED_ENC, device, torch.bfloat16)
+    with torch.no_grad():
+        got, gcaches = steps.make_prefill_step(cfg, "prefill_32k")(
+            params, {"tokens": p1, "frames": f1})
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for c in gcaches.blocks.values() for t in c[:-1])
+        del gcaches
+        want, _ = lm.prefill(params, p1, cfg, ED_MAX_LEN,
+                             memory=lm.encode(params, f1, cfg))
+    check(torch.equal(got, want),
+          f"ed serving: make_prefill_step vs encode + prefill: {max_err(torch, got, want)}")
+    n_cross = cfg.n_repeats
+    row = {"phase": "ed_serving", "arch": cfg.name, "dtype": "bfloat16",
+           "n_layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+           "batch": LM_BATCH, "s_enc": ED_ENC, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "encode_ms": encode_ms, "prefill_ms": prefill_ms,
+           "decode_ms_per_token": decode_ms,
+           "cross_kv_ms_per_layer": cross_kv_ms,
+           "cross_kv_share_of_decode": cross_kv_ms * n_cross / decode_ms,
+           "generate_s": wall, "generate_s_all": walls,
+           "tokens_per_s": LM_BATCH * LM_GEN / wall, "decode_trace": trace,
+           "peak_allocated_bytes": peak, "prefill_step_bit_equal": True,
+           "prefill_step_max_len": ED_MAX_LEN, "prefill_step_cache_bytes": cache_bytes}
+    emit(row)
+    return row, params
+
+
+def ed_long_encode(torch, lm, A, params, cfg, rng, device) -> dict:
+    """(e) One bf16 encode at B=1, S_enc=4,096 (every encoder layer
+    query-chunked and non-causal) and a 128-token prefill over its
+    memory: ms and peak memory."""
+    prompts, frames = ed_inputs(torch, rng, cfg, 1, ED_LONG, device, torch.bfloat16)
+    calls, real = [], A._sdpa_qchunked
+    A._sdpa_qchunked = lambda *a, **kw: calls.append(kw["causal"]) or real(*a, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.no_grad():
+            memory = lm.encode(params, frames, cfg)
+            logits, _ = lm.prefill(params, prompts, cfg, LM_MAX_LEN, memory=memory)
+    finally:
+        A._sdpa_qchunked = real
+    peak = torch.cuda.max_memory_allocated()
+    check(calls == [False] * cfg.encoder_layers,
+          f"ed long: chunked attention calls {calls}, not {cfg.encoder_layers} "
+          f"non-causal")
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (1, cfg.vocab),
+          f"ed long: logits {tuple(logits.shape)} not finite")
+    with torch.no_grad():
+        encode_ms = time_ms(torch, lambda: lm.encode(params, frames, cfg), 3, warmup=1)
+        prefill_ms = time_ms(torch, lambda: lm.prefill(
+            params, prompts, cfg, LM_MAX_LEN, memory=memory), 5, warmup=1)
+    row = {"phase": "ed_long_encode", "arch": cfg.name, "dtype": "bfloat16",
+           "B": 1, "s_enc": ED_LONG, "chunked_calls": len(calls),
+           "encode_ms": encode_ms, "prefill_ms": prefill_ms, "prompt": LM_PROMPT,
+           "frames_per_s": ED_LONG / encode_ms * 1e3,
+           "peak_allocated_bytes": peak, "ok": True}
+    emit(row)
+    return row
+
+
+def ed_sparse_checks(torch, lm, steps, instrument, cfg, rng, device) -> tuple:
+    """(c) Block-sparse seamless at full width and depth in f32: each of
+    the 72 projections against its plain version (as phase 14 (b)), the
+    block kernel's launches of one generate (every encoder projection
+    once, every decoder projection at the prefill and at each decode
+    step), and the model (encode, prefill, 3 decode steps, a
+    teacher-forced forward) against its densified torch.matmul oracle.
+    Returns (launches, the largest random-input kernel error, row)."""
+    params = ed_params(torch, lm, cfg, 182, device, torch.float32)
+    projections = lm_projections(params, cfg)
+    check(len(projections) == 3 * (cfg.encoder_layers + cfg.n_layers),
+          f"ed sparse: {len(projections)} sparse projections")
+    worst = lm_projection_kernels(torch, params, cfg, rng, device, f32=True)
+    per_step = lm_launches_per_step(params, cfg)
+    want_launches = 3 * cfg.encoder_layers + per_step * LM_GEN
+    prompts, frames = ed_inputs(torch, rng, cfg, LM_BATCH, ED_ENC, device,
+                                torch.float32)
+    torch.cuda.synchronize()
+    instrument.reset()
+    out, memory = ed_generate(torch, lm, steps, params, cfg, prompts, frames)
+    torch.cuda.synchronize()
+    launches = instrument.snapshot()
+    check(launches.get("bcoo", 0) == want_launches,
+          f"ed sparse: {launches} block-kernel launches, not {want_launches}")
+    check(launches.get("bcoo.spmm", 0) == want_launches,
+          f"ed sparse: every projection is an SpMM (B >= 4): {launches}")
+    dense_cfg = dataclasses.replace(cfg, ffn_density=1.0)
+    oracle = densified_params(torch, params, cfg)
+    tol = dict(rtol=LM_LOGIT_TOL, atol=LM_LOGIT_TOL)
+    with torch.no_grad():
+        omem = lm.encode(oracle, frames, dense_cfg)
+        errs = {"encode": max_err(torch, memory, omem)}
+        check(torch.allclose(memory, omem, **tol),
+              f"ed sparse: memory vs densified oracle: {errs}")
+        instrument.reset()
+        got, caches = lm.prefill(params, prompts, cfg, LM_MAX_LEN, memory=memory)
+        want, ocaches = lm.prefill(oracle, prompts, dense_cfg, LM_MAX_LEN, memory=omem)
+        errs["prefill"] = max_err(torch, got, want)
+        check(torch.allclose(got, want, **tol),
+              f"ed sparse: prefill logits vs densified oracle: {errs}")
+        for step in range(3):
+            tok = out[:, step:step + 1]
+            got, caches = lm.decode_step(params, tok, caches, cfg, memory=memory)
+            want, ocaches = lm.decode_step(oracle, tok, ocaches, dense_cfg, memory=omem)
+            errs[f"decode{step}"] = max_err(torch, got, want)
+            check(torch.allclose(got, want, **tol),
+                  f"ed sparse: decode step {step} vs densified oracle: {errs}")
+        check(instrument.launches("bcoo") == per_step * 4,
+              f"ed sparse: oracle comparison launches {instrument.snapshot()}")
+        tf_sparse = teacher_forced(torch, lm, params, cfg, prompts, out, memory)
+        tf_oracle = teacher_forced(torch, lm, oracle, dense_cfg, prompts, out, omem)
+        errs["teacher_forced"] = max_err(torch, tf_sparse, tf_oracle)
+        check(torch.allclose(tf_sparse, tf_oracle, **tol),
+              f"ed sparse: teacher-forced logits vs oracle: {errs}")
+        # the oracle's greedy choice wherever its top-2 margin exceeds twice
+        # the logit error just measured
+        agree = greedy_agreement(torch, tf_oracle, out, 2 * errs["teacher_forced"])
+        check(agree["agree"] == agree["checked"],
+              f"ed sparse: tokens differ from the oracle's greedy ones: {agree}")
+    row = {"phase": "ed_sparse", "arch": cfg.name, "dtype": "float32",
+           "ffn_density": cfg.ffn_density, "block": list(cfg.sparse_block),
+           "blocks_per_projection": int(projections[0][4]["bvalues"].shape[0]),
+           "n_params": cfg.n_params, "projections": len(projections),
+           "launches_per_generate": launches, "want_launches": want_launches,
+           "oracle_max_abs_err": errs, "tolerance": LM_LOGIT_TOL,
+           "greedy_vs_oracle": agree, "ok": True}
+    emit(row)
+    return launches.get("bcoo", 0), worst, row
+
+
+def ed_training(torch, lm, steps, instrument, cfg, device) -> dict:
+    """(d) ``steps.make_train_step`` at full width and depth, bf16 params,
+    phase 15's AdamW (peak 1e-3, 3 warm-up steps) and shape (B=4, S=256):
+    dense and block-sparse, SPARSE_STEPS steps each on ``TokenStream``
+    batches with bf16 frames (4, 256, 1,024), as ``input_specs`` gives
+    them.  A sparse step launches the block kernel twice a projection in
+    the encoder (forward, grad x; the reference does not rematerialize
+    it) and three times in the decoder (forward, recompute, grad x)."""
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.optim import AdamWConfig, init_opt
+    from repro_torch.sparse.layers import strip_derived
+
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=3, total_steps=SPARSE_STEPS)
+    stream = TokenStream(cfg.vocab, SPARSE_S, SPARSE_B, seed=18)
+    out = {}
+    for label, c in (("dense", cfg), ("sparse", dataclasses.replace(cfg,
+                                                                   ffn_density=0.5))):
+        params = ed_params(torch, lm, c, 183, device)
+        opt = init_opt(strip_derived(params), opt_cfg)
+        step = steps.make_train_step(c, opt_cfg)
+        fgen = torch.Generator(device=device).manual_seed(184)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, step_launches = [], [], []
+        for i in range(SPARSE_STEPS):
+            batch = dict(stream.batch(i, device))
+            batch["frames"] = torch.randn((SPARSE_B, SPARSE_S, c.d_model), generator=fgen,
+                                          device=device).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            instrument.reset()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_launches.append(instrument.launches("bcoo"))
+        want = (2 * 3 * c.encoder_layers + 3 * 3 * c.n_layers
+                if label == "sparse" else 0)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"ed train {label}: losses {losses}")
+        check(all(n == want for n in step_launches),
+              f"ed train {label}: block-kernel launches a step {step_launches}, "
+              f"not {want}")
+        med = statistics.median(step_ms[1:])
+        out[label] = {"phase": "ed_train", "arch": c.name, "variant": label,
+                      "dtype": "bfloat16", "ffn_density": c.ffn_density,
+                      "n_params": c.n_params, "batch": SPARSE_B, "seq": SPARSE_S,
+                      "frames": [SPARSE_B, SPARSE_S, c.d_model], "losses": losses,
+                      "step_ms": step_ms, "step_ms_median": med,
+                      "tokens_per_s": SPARSE_B * SPARSE_S / med * 1e3,
+                      "launches_per_step": step_launches, "want_launches": want,
+                      "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        del params, opt, step
+        free_card(torch)
+    out["sparse"]["step_ms_ratio_sparse_to_dense"] = (
+        out["sparse"]["step_ms_median"] / out["dense"]["step_ms_median"])
+    for row in out.values():
+        emit(row)
+    return out
+
+
+def phase_enc_dec(torch, rng, device) -> dict:
+    """Phase 18: the encoder-decoder (see the module docstring).  Returns
+    the block kernel's launches in one sparse generate (the path's count),
+    the largest random-input kernel error and the rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import instrument
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ED_ARCH)
+    sparse = dataclasses.replace(cfg, ffn_density=0.5)
+    check(cfg.n_params == ED_PARAMS and sparse.n_params == ED_SPARSE_PARAMS,
+          f"ed: parameter counts {cfg.n_params} / {sparse.n_params}")
+    card_cpu = train_card_vs_cpu(
+        torch, dataclasses.replace(sparse, n_layers=2, encoder_layers=2), rng, device,
+        phase="ed_card_vs_cpu")
+    free_card(torch)
+    launches, worst, sparse_row = ed_sparse_checks(torch, lm, steps, instrument,
+                                                   sparse, rng, device)
+    free_card(torch)
+    f32 = ed_f32_checks(torch, lm, steps, cfg, rng, device)
+    free_card(torch)
+    serving, params = ed_serving(torch, lm, steps, cfg, rng, device)
+    long = ed_long_encode(torch, lm, A, params, cfg, rng, device)
+    del params
+    free_card(torch)
+    train = ed_training(torch, lm, steps, instrument, cfg, device)
+    proj = lm_projection_times(torch, sparse, rng, device,
+                               batches=(1, LM_BATCH, LM_BATCH * ED_ENC))
+    free_card(torch)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "enc_dec_done", "seconds": seconds, "launches": launches})
+    return {"launches": launches, "max_abs_err": worst, "card_vs_cpu": card_cpu,
+            "sparse": sparse_row, "f32": f32, "serving": serving, "long": long,
+            "train": train, "projections": proj, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4065,6 +4475,8 @@ def main(argv=None) -> int:
     moe_run = phase_moe(torch, np.random.default_rng([args.seed, 16]), device)
     free_card(torch)
     la_run = phase_linear_attn(torch, np.random.default_rng([args.seed, 17]), device)
+    free_card(torch)
+    ed_run = phase_enc_dec(torch, np.random.default_rng([args.seed, 18]), device)
 
     by_path = {
         kernel: {"single_device": launches[kind],
@@ -4081,6 +4493,7 @@ def main(argv=None) -> int:
     by_path["bcoo_spmv"]["lm_training"] = train_run["launches"]
     by_path["bcoo_spmv"]["lm_moe"] = moe_run["launches"]
     by_path["bcoo_spmv"]["lm_hybrid"] = la_run["launches"]
+    by_path["bcoo_spmv"]["lm_enc_dec"] = ed_run["launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
     main_shape = {"coo_spmv": ("regular", "coo", 1), "bcoo_spmv": ("block", "bcoo", 1)}
     times["ell_spmv"] = ell_times["regular"]
@@ -4095,7 +4508,8 @@ def main(argv=None) -> int:
             "max_abs_err": max([errs[name]] + ([lm_run["max_abs_err"],
                                                 train_run["max_abs_err"],
                                                 moe_run["max_abs_err"],
-                                                la_run["max_abs_err"]]
+                                                la_run["max_abs_err"],
+                                                ed_run["max_abs_err"]]
                                                if name == "bcoo_spmv" else [])),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -4106,6 +4520,7 @@ def main(argv=None) -> int:
           "lm_phase_s": lm_run["seconds"], "train_phase_s": train_run["seconds"],
           "moe_phase_s": moe_run["seconds"],
           "linear_attn_phase_s": la_run["seconds"],
+          "enc_dec_phase_s": ed_run["seconds"],
           "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

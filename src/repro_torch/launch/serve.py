@@ -8,9 +8,10 @@ Counterpart of ``repro/launch/serve.py``:
 ``--arch`` takes the dense family, the MoE family (mixtral-8x22b,
 deepseek-v3-671b), the hybrid zamba2-2.7b (Mamba2 blocks and a shared
 attention + MLP block) and the recurrent xlstm-1.3b (mLSTM and sLSTM
-blocks, whose caches are O(1) states); an arch whose blocks are not ported
-(the encoder-decoder seamless-m4t-medium) raises ``NotImplementedError``
-naming its ROADMAP.md item.
+blocks, whose caches are O(1) states).  The encoder-decoder
+seamless-m4t-medium needs encoder frames, which ``Server`` (like the
+reference's) does not take: it raises ``ValueError`` naming
+``launch.steps.make_prefill_step`` / ``make_decode_step``, which serve it.
 
 The reference jits ``lm.prefill`` and ``lm.decode_step`` over a mesh; the
 port has no mesh and runs them eagerly on one device (the card unless
@@ -41,6 +42,11 @@ class Server:
     """
 
     def __init__(self, cfg, max_len: int, *, device=None, dtype=torch.bfloat16):
+        if cfg.encoder_layers:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder: Server passes no encoder "
+                f"memory; serve it with launch.steps.make_prefill_step (which "
+                f"encodes batch['frames']) and make_decode_step (batch['memory'])")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Server needs a CUDA device; pass device='cpu' "

@@ -1,10 +1,16 @@
-"""The train step: value-and-grad over the float leaves, optional gradient
-accumulation over microbatches, one AdamW update.
+"""Step builders for train / prefill / decode:
+
+  * make_train_step(cfg, opt_cfg)  -> f(params, opt, batch)
+                                      -> (params, opt, metrics)
+  * make_prefill_step(cfg, shape)  -> f(params, batch) -> (logits, caches)
+  * make_decode_step(cfg, shape)   -> f(params, batch) -> (logits, caches)
 
 Counterpart of ``repro/launch/steps.py``'s ``_value_and_grad_trainable``
-and ``make_train_step``.  The reference jits the step; the port runs it
-eagerly on the params' device.  Prefill / decode step builders are the
-serving path's (``launch/serve.py`` calls ``lm`` directly); ``input_specs``,
+and step builders.  The reference jits each step; the port runs it
+eagerly on the params' device.  An enc-dec arch's prefill step encodes
+``batch["frames"]``; its decode step reads ``batch["memory"]`` (the
+encoder's output, kept by the caller), and its train batch carries
+``frames``, which ``lm.loss_fn`` encodes.  ``input_specs``,
 ``cache_specs``, ``state_specs`` and ``abstract_state`` wait for
 multi-card meshes (ROADMAP.md §1 item 7).
 
@@ -16,13 +22,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.models import lm
 from repro_torch.optim import AdamWConfig, OptState, apply_updates
 from repro_torch.sparse.layers import strip_derived
 from repro_torch.tree import flatten, tree_map
 
-__all__ = ["value_and_grad_trainable", "make_train_step", "carry_derived"]
+__all__ = ["value_and_grad_trainable", "make_train_step", "make_prefill_step",
+           "make_decode_step", "carry_derived"]
 
 
 def value_and_grad_trainable(loss_fn):
@@ -96,3 +103,32 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1
         return carry_derived(new, params), opt, metrics
 
     return train_step
+
+
+def make_prefill_step(cfg: ArchConfig, shape_name: str):
+    """``f(params, batch) -> (last logits, caches)``: ``lm.prefill`` of
+    ``batch["tokens"]`` (and ``prefix_embeds``) into caches of the shape's
+    ``seq_len``; an enc-dec arch first encodes ``batch["frames"]``."""
+    S = SHAPES[shape_name]["seq_len"]
+
+    def prefill_step(params, batch):
+        memory = None
+        if cfg.encoder_layers:
+            memory = lm.encode(params, batch["frames"], cfg)
+        return lm.prefill(params, batch["tokens"], cfg, max_len=S,
+                          prefix_embeds=batch.get("prefix_embeds"), memory=memory)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig, shape_name: str):
+    """``f(params, batch) -> (logits, caches)``: one ``lm.decode_step`` of
+    ``batch["token"]`` against ``batch["caches"]`` (stepped in place), with
+    ``batch["memory"]`` for an enc-dec arch.  ``shape_name`` is unused, as
+    in the reference: the caches carry their length."""
+
+    def decode_step(params, batch):
+        return lm.decode_step(params, batch["token"], batch["caches"], cfg,
+                              memory=batch.get("memory"))
+
+    return decode_step

@@ -1,14 +1,13 @@
 """Model architectures (plain torch, config-driven).
 
-Counterpart of ``repro/models`` for the dense and MoE families:
+Counterpart of ``repro/models`` for every registered arch:
 
   common.py       norms, embeddings, RoPE, MLPs
-  attention.py    GQA and MLA (+ their decode paths)
+  attention.py    GQA, MLA and cross-attention (+ the decode paths)
   moe.py          MoE layers: routers, SparseP-style dispatch / combine
-  blocks.py       per-kind block bundles (attention, MoE and MLA kinds)
-  lm.py           full assembly: init/forward/loss (+ MTP)/prefill/decode
-
-The linear-attention blocks and the encoder wait for their slices
-(ROADMAP.md §1 items 4-5).
+  linear_attn.py  Mamba2, mLSTM, sLSTM (chunked GLA and its step)
+  blocks.py       per-kind block bundles
+  lm.py           full assembly: init/forward/loss (+ MTP)/prefill/decode,
+                  and the enc-dec encoder (``encode``)
 """
 from . import lm  # noqa: F401

@@ -1,13 +1,13 @@
-"""Attention: GQA (RoPE, optional bias / softcap / sliding window) and
-MLA (DeepSeek-V3 latent attention), each with a full-sequence path
-(prefill) and a one-token decode path against a cache.
+"""Attention: GQA (RoPE, optional bias / softcap / sliding window), MLA
+(DeepSeek-V3 latent attention), each with a full-sequence path (prefill)
+and a one-token decode path against a cache, and the enc-dec decoder's
+cross-attention over encoder memory.
 
-Counterpart of the GQA and MLA parts of ``repro/models/attention.py``, in
-plain torch ops that follow ``_sdpa`` / ``_mla_attend`` step for step:
-scores in float32, masked to -1e30, softmax, cast back.  No fused
-attention (``scaled_dot_product_attention``) stands in: its numerics
-differ, and the JAX package has no attention kernel to port.
-Cross-attention waits for its slice (ROADMAP.md §1 item 5).
+Counterpart of ``repro/models/attention.py``, in plain torch ops that
+follow ``_sdpa`` / ``_mla_attend`` step for step: scores in float32,
+masked to -1e30, softmax, cast back.  No fused attention
+(``scaled_dot_product_attention``) stands in: its numerics differ, and the
+JAX package has no attention kernel to port.
 
 Two departures, both invisible in the results:
 
@@ -32,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from .common import dense_apply, dense_bias_init, dense_init, rope, softcap
 
 __all__ = ["KVCache", "MLACache", "gqa_init", "gqa_apply", "gqa_decode",
-           "mla_init", "mla_apply", "mla_decode", "causal_mask",
+           "mla_init", "mla_apply", "mla_decode", "cross_attn_apply", "causal_mask",
            "CHUNKED_ATTN_THRESHOLD", "Q_CHUNK"]
 
 
@@ -291,3 +291,23 @@ def mla_decode(p, x, cache: MLACache, cfg):
     out = _mla_attend(p, q_nope, q_rope, cache.ckv, cache.krope, cfg, mask)
     out = dense_apply(p["wo"], out.reshape(B, 1, H * dh))
     return out, MLACache(cache.ckv, cache.krope, pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# cross attention (enc-dec; seamless-m4t)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_apply(p, x, memory, cfg):
+    """Decoder cross-attention over encoder memory (B, Sm, d): no RoPE, no
+    mask, never query-chunked.  K and V are projected from ``memory`` on
+    every call, decode steps included, as in the reference (no cross-KV
+    cache).  f32 memory meets bf16 weights in f32; the output takes x's
+    dtype."""
+    B, S, _ = x.shape
+    dh, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = _split_heads(dense_apply(p["wq"], x), H, dh)
+    k = _split_heads(dense_apply(p["wk"], memory), KV, dh)
+    v = _split_heads(dense_apply(p["wv"], memory), KV, dh)
+    out = _sdpa(q, k, v, None, scale=cfg.attn_scale)
+    return dense_apply(p["wo"], out.reshape(B, S, H * dh))

@@ -11,12 +11,15 @@ Counterpart of ``repro/models/blocks.py``:
   mamba         Mamba2 SSD block (zamba2)
   shared_attn   zamba2's weight-shared attention+MLP block (the attn path)
   mlstm/slstm   xLSTM blocks
+  cross_attn    enc-dec decoder layer: self-attn + cross-attn + MLP (seamless)
 
-``cross_attn`` raises ``NotImplementedError`` naming the ROADMAP.md item
-that ports it (:data:`UNPORTED`).
+``cross_attn`` reads the encoder's output (``memory=``) in ``block_apply``
+and ``block_decode``; every other kind takes the keyword and ignores it,
+as in the reference.
 
 The SparseP integration point: when cfg.ffn_density < 1, the dense MLP
-(of the attention kinds, zamba2's shared block and ``mla_dense``) is
+(of the attention kinds, zamba2's shared block, ``mla_dense`` and the
+enc-dec decoder's and encoder's layers) is
 sparse/layers.py's BlockSparseFFN, whose three projections run on the
 block kernel.  The MoE kinds' experts stay dense, as in the reference.
 
@@ -35,9 +38,10 @@ from . import moe as M
 from .common import gelu, rmsnorm, rmsnorm_init, swiglu_apply, swiglu_init
 
 __all__ = ["block_init", "block_apply", "block_decode", "init_cache",
-           "check_kind", "KINDS", "UNPORTED"]
+           "check_kind", "KINDS"]
 
 _GQA_KINDS = ("attn", "attn_local", "attn_global", "moe", "shared_attn")
+_CROSS = "cross_attn"
 _MLA_KINDS = ("mla_dense", "mla_moe")
 # recurrent kind -> (its params' key, init, apply, decode)
 _RECURRENT = {
@@ -45,21 +49,13 @@ _RECURRENT = {
     "mlstm": ("mlstm", LA.mlstm_init, LA.mlstm_apply, LA.mlstm_decode),
     "slstm": ("slstm", LA.slstm_init, LA.slstm_apply, LA.slstm_decode),
 }
-KINDS = _GQA_KINDS + _MLA_KINDS + tuple(_RECURRENT)
-# block kind -> the ROADMAP.md item that ports it
-UNPORTED = {
-    "cross_attn": "§1 item 5 (encoder-decoder)",
-}
+KINDS = _GQA_KINDS + _MLA_KINDS + tuple(_RECURRENT) + (_CROSS,)
 
 
 def check_kind(kind: str) -> None:
-    """Raise for a block kind the port does not run."""
-    if kind in KINDS:
-        return
-    if kind in UNPORTED:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md {UNPORTED[kind]})")
-    raise ValueError(f"unknown block kind {kind!r}")
+    """Raise ``ValueError`` for a block kind the reference does not have."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def _window(cfg, kind):
@@ -98,8 +94,11 @@ def block_init(gen, cfg, kind, dtype=torch.bfloat16):
              "ln2": rmsnorm_init(cfg.d_model, dtype, dev)}
     else:
         p = {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
-             "attn": A.gqa_init(gen, cfg, dtype),
-             "ln2": rmsnorm_init(cfg.d_model, dtype, dev)}
+             "attn": A.gqa_init(gen, cfg, dtype)}
+        if kind == _CROSS:
+            p["ln_x"] = rmsnorm_init(cfg.d_model, dtype, dev)
+            p["xattn"] = A.gqa_init(gen, cfg, dtype)
+        p["ln2"] = rmsnorm_init(cfg.d_model, dtype, dev)
     if kind in ("moe", "mla_moe"):
         p["moe"] = M.moe_init(gen, cfg, dtype)
     else:
@@ -120,9 +119,19 @@ def _ffn(p, h, cfg, kind):
     return h + f
 
 
-def block_apply(p, h, cfg, kind):
-    """Full-sequence forward. Returns (h, cache) — cache for prefill reuse."""
+def _cross(p, h, memory, cfg):
+    """The cross_attn kind's second sublayer: pre-LN cross-attention over
+    the encoder's ``memory``, added to the residual."""
+    return h + A.cross_attn_apply(p["xattn"], rmsnorm(p["ln_x"], h), memory, cfg)
+
+
+def block_apply(p, h, cfg, kind, memory=None):
+    """Full-sequence forward. Returns (h, cache) — cache for prefill reuse.
+    ``memory`` (B, S_enc, d) is the encoder's output, read by cross_attn."""
     check_kind(kind)
+    if kind == _CROSS:  # no window, softcap or gemma norms, as the reference
+        a, kv = A.gqa_apply(p["attn"], rmsnorm(p["ln1"], h), cfg)
+        return _ffn(p, _cross(p, h + a, memory, cfg), cfg, kind), kv
     if kind in _RECURRENT:
         key, _, apply, _ = _RECURRENT[kind]
         y, state = apply(p[key], rmsnorm(p["ln1"], h), cfg)
@@ -143,11 +152,14 @@ def block_apply(p, h, cfg, kind):
     return _ffn(p, h + a, cfg, kind), kv
 
 
-def block_decode(p, h, cache, cfg, kind):
+def block_decode(p, h, cache, cfg, kind, memory=None):
     """One-token decode against this block's cache.  Returns (h, cache):
     an attention cache stepped in place, or a recurrent kind's new state
-    (the one given is left as it was)."""
+    (the one given is left as it was).  cross_attn reads ``memory``."""
     check_kind(kind)
+    if kind == _CROSS:
+        a, cache = A.gqa_decode(p["attn"], rmsnorm(p["ln1"], h), cache, cfg)
+        return _ffn(p, _cross(p, h + a, memory, cfg), cfg, kind), cache
     if kind in _RECURRENT:
         key, _, _, decode = _RECURRENT[kind]
         y, state = decode(p[key], rmsnorm(p["ln1"], h), cache, cfg)

@@ -22,6 +22,7 @@ __all__ = [
     "normal",
     "dense_init",
     "dense_bias_init",
+    "promoted",
     "dense_apply",
     "rmsnorm_init",
     "rmsnorm",
@@ -66,8 +67,18 @@ def dense_bias_init(gen, d_in: int, d_out: int, dtype=torch.bfloat16):
     return p
 
 
+def promoted(x: torch.Tensor, w: torch.Tensor) -> tuple:
+    """(x, w) in their common dtype, as ``jnp.einsum`` promotes its operands:
+    float32 activations meeting bfloat16 weights compute in float32 (the
+    encoder on f32 frames, cross-attention on f32 memory)."""
+    if x.dtype == w.dtype:
+        return x, w
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt), w.to(dt)
+
+
 def dense_apply(p, x):
-    y = torch.matmul(x, p["w"])
+    y = torch.matmul(*promoted(x, p["w"]))
     if "b" in p:
         y = y + p["b"]
     return y

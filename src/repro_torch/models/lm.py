@@ -1,11 +1,14 @@
 """LM assembly: embeddings -> (prefix blocks) -> repeated blocks -> head.
 
-Counterpart of ``repro/models/lm.py`` for the dense-family archs (qwen,
-llama3.2, smollm, gemma2, llava with ``prefix_embeds``), dense or with the
-block-sparse FFN, the MoE family (mixtral-8x22b; deepseek-v3 with MLA
-and multi-token prediction), the hybrid zamba2-2.7b (Mamba2 blocks and one
-weight-shared attention + MLP block) and the recurrent xlstm-1.3b (mLSTM and
-sLSTM blocks).  Layer repeats keep the reference's layout, params stacked
+Counterpart of ``repro/models/lm.py`` for every registered arch: the
+dense family (qwen, llama3.2, smollm, gemma2, llava with
+``prefix_embeds``), dense or with the block-sparse FFN, the MoE family
+(mixtral-8x22b; deepseek-v3 with MLA and multi-token prediction), the
+hybrid zamba2-2.7b (Mamba2 blocks and one weight-shared attention + MLP
+block), the recurrent xlstm-1.3b (mLSTM and sLSTM blocks) and the
+encoder-decoder seamless-m4t-medium (``encode`` over stub frame
+embeddings, then ``cross_attn`` decoder layers reading its output through
+``memory=``).  Layer repeats keep the reference's layout, params stacked
 ``(NR, ...)`` per pattern entry under ``params["blocks"]["b{j}"]``; the
 reference's ``lax.scan`` over them is a Python loop over the repeat index.
 zamba2's ``shared_attn`` entry has no stacked params: every invocation
@@ -18,19 +21,18 @@ Entry points:
   loss_fn(params, batch, cfg)             -> scalar f32 loss
   prefill(params, tokens, cfg, max_len)   -> (last_logits, caches)
   decode_step(params, token, caches, cfg) -> (logits, caches)
+  encode(params, frames, cfg)             -> encoder memory (enc-dec archs)
   init_caches(cfg, batch, max_len)        -> zero caches
 
 Under autograd, ``forward`` rematerializes each repeat as ``cfg.remat``
 says, as the reference's ``_scan_blocks`` does: ``"full"`` recomputes the
 repeat in the backward pass (``torch.utils.checkpoint``), ``"none"`` keeps
-its activations.
+its activations.  The encoder is not rematerialized (the reference scans
+it without ``jax.checkpoint``).
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: the encoder-decoder (the ``cross_attn`` kind, see
-``blocks.UNPORTED``, and ``encoder_layers`` / ``encode``, §1 item 5) and
-``remat="dots"`` (item 8);
-``param_specs``, ``abstract_params`` and ``cache_specs`` wait for
-multi-card meshes (item 7).
+Not ported yet: ``remat="dots"``, which raises ``NotImplementedError``
+naming ROADMAP.md §1 item 8; ``param_specs``, ``abstract_params`` and
+``cache_specs`` wait for multi-card meshes (item 7).
 
 ``decode_step`` steps the caches it is given in place: the attention
 caches through ``attention.gqa_decode`` / ``mla_decode``, the recurrent
@@ -46,9 +48,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from . import attention as A
-from .blocks import block_apply, block_decode, block_init, check_kind, init_cache
-from .common import (cross_entropy, embed_init, map_params, normal, rmsnorm,
-                     rmsnorm_init, softcap)
+from .blocks import (_mlp_apply, block_apply, block_decode, block_init, check_kind,
+                     init_cache)
+from .common import (cross_entropy, dense_apply, embed_init, map_params, normal,
+                     rmsnorm, rmsnorm_init, softcap)
 
 __all__ = [
     "init_params",
@@ -57,20 +60,16 @@ __all__ = [
     "loss_fn",
     "prefill",
     "decode_step",
+    "encode",
     "Caches",
     "init_caches",
 ]
 
 
 def check_config(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    the ``cross_attn`` kind and the encoder."""
+    """Raise ``ValueError`` for a block kind the reference does not have."""
     for kind in cfg.prefix_pattern + cfg.block_pattern:
         check_kind(kind)
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder (encoder_layers={cfg.encoder_layers}) is "
-            f"not ported yet (ROADMAP.md §1 item 5 (encoder-decoder))")
 
 
 def _stack_init(gen, cfg, kind, n, dtype):
@@ -107,6 +106,13 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bfloat16):
     }
     if "shared_attn" in cfg.block_pattern:
         p["shared"] = block_init(gen, cfg, "shared_attn", dtype)
+    if cfg.encoder_layers:
+        p["encoder"] = {
+            "blocks": _stack_init(gen, cfg, "attn", cfg.encoder_layers, dtype),
+            "norm": rmsnorm_init(cfg.d_model, dtype, gen.device),
+            "in_proj": {"w": normal(gen, (cfg.d_model, cfg.d_model), dtype,
+                                    1.0 / math.sqrt(cfg.d_model))},
+        }
     if cfg.mtp_depth:
         p["mtp"] = {
             "proj": {"w": normal(gen, (2 * cfg.d_model, cfg.d_model), dtype,
@@ -154,32 +160,38 @@ def _with_prefix(params, tokens, cfg, prefix_embeds):
     return h
 
 
-def _repeats(params, cfg) -> list:
-    """Each repeat's params: one tree per repeat, each tensor a view of the
+def _unstacked(stack, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each tensor a view of the
     stacked one.  ``unbind`` makes one backward node per stacked tensor, so
-    the repeats' gradients are stacked once instead of each scattered into
+    the layers' gradients are stacked once instead of each scattered into
     a zero tensor of the whole stack."""
-    blocks = map_params(lambda a: a.unbind(0), params["blocks"])
+    parts = map_params(lambda a: a.unbind(0), stack)
+    return [map_params(lambda a: a[r], parts) for r in range(n)]
+
+
+def _repeats(params, cfg) -> list:
+    """Each repeat's params (zamba2's shared block in every repeat)."""
     shared = {f"b{j}": params["shared"] for j, kind in enumerate(cfg.block_pattern)
               if kind == "shared_attn"}
-    return [dict(map_params(lambda a: a[r], blocks), **shared)
-            for r in range(cfg.n_repeats)]
+    return [dict(layer, **shared)
+            for layer in _unstacked(params["blocks"], cfg.n_repeats)]
 
 
-def _repeat(h, layer, cfg):
+def _repeat(h, layer, cfg, memory=None):
     for j, kind in enumerate(cfg.block_pattern):
-        h, _ = block_apply(layer[f"b{j}"], h, cfg, kind)
+        h, _ = block_apply(layer[f"b{j}"], h, cfg, kind, memory=memory)
     return h
 
 
-def forward(params, tokens, cfg: ArchConfig, *, prefix_embeds=None):
-    """tokens: (B, S_text) int; prefix_embeds: (B, S_mod, d) modality stub.
+def forward(params, tokens, cfg: ArchConfig, *, prefix_embeds=None, memory=None):
+    """tokens: (B, S_text) int; prefix_embeds: (B, S_mod, d) modality stub;
+    memory: (B, S_enc, d) encoder output (enc-dec archs).
     Returns (logits (B, S, vocab), h (B, S, d)).  While autograd records,
     each repeat is rematerialized as ``cfg.remat`` says."""
     check_config(cfg)
     h = _with_prefix(params, tokens, cfg, prefix_embeds)
     for i, kind in enumerate(cfg.prefix_pattern):
-        h, _ = block_apply(params[f"prefix{i}"], h, cfg, kind)
+        h, _ = block_apply(params[f"prefix{i}"], h, cfg, kind, memory=memory)
     remat = torch.is_grad_enabled()
     if remat and cfg.remat not in ("full", "none"):
         raise NotImplementedError(
@@ -188,20 +200,41 @@ def forward(params, tokens, cfg: ArchConfig, *, prefix_embeds=None):
     full = remat and cfg.remat == "full"
     for layer in _repeats(params, cfg):
         if full:  # the blocks draw no random numbers: no RNG state to keep
-            h = checkpoint(_repeat, h, layer, cfg, use_reentrant=False,
+            h = checkpoint(_repeat, h, layer, cfg, memory, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            h = _repeat(h, layer, cfg)
+            h = _repeat(h, layer, cfg, memory)
     h = rmsnorm(params["final_norm"], h, gemma_style=cfg.gemma_norm)
     return _logits(params, h, cfg), h
 
 
+def encode(params, frames, cfg: ArchConfig):
+    """Encoder for enc-dec archs. frames: (B, S_enc, d) stub embeddings.
+
+    ``in_proj``, then ``cfg.encoder_layers`` pre-LN blocks of non-causal
+    GQA (with RoPE) and the FFN (block-sparse when ``cfg.ffn_density < 1``),
+    then the final norm.  The dtype follows ``jnp``'s promotion: f32 frames
+    over bf16 params give an f32 encoder and f32 memory, bf16 frames a bf16
+    one."""
+    enc = params["encoder"]
+    h = dense_apply(enc["in_proj"], frames)
+    for bp in _unstacked(enc["blocks"], cfg.encoder_layers):
+        a, _ = A.gqa_apply(bp["attn"], rmsnorm(bp["ln1"], h), cfg, causal=False)
+        h = h + a
+        h = h + _mlp_apply(bp["mlp"], rmsnorm(bp["ln2"], h), cfg)
+    return rmsnorm(enc["norm"], h)
+
+
 def loss_fn(params, batch, cfg: ArchConfig):
-    """batch: dict(tokens, labels[, prefix_embeds]).  Next-token cross-entropy
-    over the text positions (the modality prefix dropped), in f32; with
-    ``cfg.mtp_depth`` plus 0.3 times the multi-token prediction loss."""
+    """batch: dict(tokens, labels[, prefix_embeds, frames]).  Next-token
+    cross-entropy over the text positions (the modality prefix dropped), in
+    f32; with ``cfg.mtp_depth`` plus 0.3 times the multi-token prediction
+    loss.  Enc-dec archs encode ``frames`` first."""
+    memory = None
+    if cfg.encoder_layers:
+        memory = encode(params, batch["frames"], cfg)
     logits, h = forward(params, batch["tokens"], cfg,
-                        prefix_embeds=batch.get("prefix_embeds"))
+                        prefix_embeds=batch.get("prefix_embeds"), memory=memory)
     S_text = batch["tokens"].shape[1]
     logits_text = logits[:, -S_text:]  # drop modality prefix positions
     loss = cross_entropy(logits_text[:, :-1], batch["labels"][:, 1:])
@@ -301,22 +334,25 @@ def _stack_caches(caches: list):
     return _map_cache(lambda *ts: torch.stack(ts), *caches)
 
 
-def prefill(params, tokens, cfg: ArchConfig, max_len: int, *, prefix_embeds=None):
+def prefill(params, tokens, cfg: ArchConfig, max_len: int, *, prefix_embeds=None,
+            memory=None):
     """Run the full prompt, materializing decode caches at max_len capacity.
 
     Returns (last_token_logits, Caches).  The prefill KV (prompt length S)
-    is written into the front of the max_len cache buffers.
+    is written into the front of the max_len cache buffers.  ``memory`` is
+    the encoder's output (enc-dec archs).
     """
     check_config(cfg)
     h = _with_prefix(params, tokens, cfg, prefix_embeds)
     prefix_caches = []
     for i, kind in enumerate(cfg.prefix_pattern):
-        h, c = block_apply(params[f"prefix{i}"], h, cfg, kind)
+        h, c = block_apply(params[f"prefix{i}"], h, cfg, kind, memory=memory)
         prefix_caches.append(_grow_cache(c, cfg, kind, max_len))
     per_layer = {f"b{j}": [] for j in range(len(cfg.block_pattern))}
     for r in range(cfg.n_repeats):
         for j, kind in enumerate(cfg.block_pattern):
-            h, c = block_apply(_block_params(params, j, kind, r), h, cfg, kind)
+            h, c = block_apply(_block_params(params, j, kind, r), h, cfg, kind,
+                               memory=memory)
             per_layer[f"b{j}"].append(_grow_cache(c, cfg, kind, max_len))
     h = rmsnorm(params["final_norm"], h, gemma_style=cfg.gemma_norm)
     logits = _logits(params, h[:, -1:], cfg)
@@ -324,23 +360,26 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int, *, prefix_embeds=None
     return logits[:, 0], Caches(prefix=tuple(prefix_caches), blocks=blocks)
 
 
-def decode_step(params, token, caches: Caches, cfg: ArchConfig):
+def decode_step(params, token, caches: Caches, cfg: ArchConfig, *, memory=None):
     """token: (B, 1) int -> (logits (B, vocab), caches stepped in place).
 
     Attention caches are written in place by their decode and gain one in
     ``length``; a recurrent block's new state is copied into its stacked
-    slot (a state has no length)."""
+    slot (a state has no length).  ``memory`` is the encoder's output
+    (enc-dec archs), read again by every cross_attn layer at every step."""
     check_config(cfg)
     h = _embed(params, token, cfg)
     new_prefix = []
     for i, kind in enumerate(cfg.prefix_pattern):
-        h, c = block_decode(params[f"prefix{i}"], h, caches.prefix[i], cfg, kind)
+        h, c = block_decode(params[f"prefix{i}"], h, caches.prefix[i], cfg, kind,
+                            memory=memory)
         new_prefix.append(c)
     for r in range(cfg.n_repeats):
         for j, kind in enumerate(cfg.block_pattern):
             c = caches.blocks[f"b{j}"]
             h, new = block_decode(_block_params(params, j, kind, r), h,
-                                  _map_cache(lambda a: a[r], c), cfg, kind)
+                                  _map_cache(lambda a: a[r], c), cfg, kind,
+                                  memory=memory)
             if not _has_length(c):
                 for dst, src in zip(c, new):
                     dst[r].copy_(src)

@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from ..kernels.bcsr_spmv import (bcoo_spmv, block_row_ptr, transposed_stream,
                                   transposed_values)
-from ..models.common import normal
+from ..models.common import normal, promoted
 
 __all__ = [
     "sparse_linear_init",
@@ -114,9 +114,9 @@ def _ffn_dims(cfg) -> dict:
 
 def with_derived(params: dict, cfg) -> dict:
     """An LM's params with :data:`DERIVED` rebuilt in every block-sparse FFN
-    projection (prefix blocks, the stacked repeats, zamba2's shared block
-    and the MTP block alike; a block with an MoE FFN or a recurrent block
-    has none)."""
+    projection (prefix blocks, the stacked repeats, zamba2's shared block,
+    the MTP block and the enc-dec encoder's stacked blocks alike; a block
+    with an MoE FFN or a recurrent block has none)."""
     if cfg.ffn_density >= 1.0:
         return params
 
@@ -133,6 +133,9 @@ def with_derived(params: dict, cfg) -> dict:
         out["shared"] = block(params["shared"])
     if "mtp" in params:
         out["mtp"] = dict(params["mtp"], block=block(params["mtp"]["block"]))
+    if "encoder" in params:
+        out["encoder"] = dict(params["encoder"],
+                              blocks=block(params["encoder"]["blocks"]))
     return out
 
 
@@ -216,10 +219,13 @@ def sparse_linear_apply(p, x, d_out: int):
     activations, T = every leading position; it returns y (d_out, T) in
     the accumulation dtype, cast to the values' dtype and then to x's, as
     the reference's ``bcoo_spmv_ref(...).astype(x.dtype)`` does.
-    Differentiable through :class:`BlockSpMM`.
+    Differentiable through :class:`BlockSpMM`.  Values and x of two float
+    dtypes meet in the wider one, as the reference's accumulation dtype
+    takes them (f32 activations are not rounded to bf16 blocks' dtype).
     """
     lead = x.shape[:-1]
-    y = BlockSpMM.apply(p["bvalues"], x.reshape(-1, x.shape[-1]), p, d_out)
+    x2d, values = promoted(x.reshape(-1, x.shape[-1]), p["bvalues"])
+    y = BlockSpMM.apply(values, x2d, p, d_out)
     return y.to(p["bvalues"].dtype).T.reshape(lead + (d_out,)).to(x.dtype)
 
 

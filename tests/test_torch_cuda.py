@@ -1623,3 +1623,120 @@ def test_linear_attn_archs_on_card_match_cpu(cuda, arch, sparse):
             torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
             tok = torch.argmax(want, -1)[:, None]
     assert instrument.launches("bcoo") == 3 * per_step
+
+
+def _enc_dec_cfg(sparse: bool):
+    """seamless-m4t-medium at a 256-wide cut: 2 encoder and 2 decoder
+    layers, 4 heads of 64; ``ffn_density=0.5`` in (8, 128) blocks."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium").reduced(),
+                              d_model=256, head_dim=64, d_ff=512, n_layers=2,
+                              encoder_layers=2)
+    return dataclasses.replace(cfg, ffn_density=0.5) if sparse else cfg
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_enc_dec_on_card_matches_cpu(cuda, sparse):
+    """seamless at a 256-wide cut, float32, TF32 off: ``encode`` (B=3, 24
+    frames), prefill and two decode steps over the same memory on the card
+    within rtol = atol = 2e-4 of the same params on the CPU; the sparse
+    model launches the block kernel once a projection: 6 in the encode,
+    6 in the prefill and in each decode step."""
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.common import map_params
+
+    cfg = _enc_dec_cfg(sparse)
+    params = lm.init_params(torch.Generator().manual_seed(6), cfg, torch.float32)
+    dparams = map_params(lambda a: a.to(cuda), params)
+    rng = np.random.default_rng(50)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 20)).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal((3, 24, 256)).astype(np.float32))
+    decode = steps.make_decode_step(cfg, "decode_32k")
+    with _no_tf32(), torch.no_grad():
+        mem = lm.encode(params, frames, cfg)
+        instrument.reset()
+        dmem = lm.encode(dparams, frames.to(cuda), cfg)
+        torch.testing.assert_close(dmem.cpu(), mem, rtol=2e-4, atol=2e-4)
+        want, caches = lm.prefill(params, toks, cfg, 32, memory=mem)
+        got, dcaches = lm.prefill(dparams, toks.to(cuda), cfg, 32, memory=dmem)
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+        tok = torch.argmax(want, -1)[:, None].to(torch.int32)
+        for _ in range(2):
+            want, caches = decode(params, {"token": tok, "caches": caches,
+                                           "memory": mem})
+            got, dcaches = decode(dparams, {"token": tok.to(cuda), "caches": dcaches,
+                                            "memory": dmem})
+            torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+            tok = torch.argmax(want, -1)[:, None].to(torch.int32)
+    assert instrument.launches("bcoo") == (3 * 2 * 4 if sparse else 0)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_enc_dec_train_step_on_card_matches_cpu(cuda, sparse):
+    """``make_train_step`` of seamless at a 256-wide cut on a batch with
+    f32 frames (f32 params, TF32 off) on the card against the CPU: the
+    loss within 1e-5 relative, every grad leaf within 1e-4 of its max;
+    the sparse model launches the block kernel twice a projection in the
+    encoder (forward, grad x) and three times in the rematerialized
+    decoder (forward, recompute, grad x)."""
+    from repro_torch.launch.steps import make_train_step, value_and_grad_trainable
+    from repro_torch.models import lm
+    from repro_torch.models.common import map_params
+    from repro_torch.optim import AdamWConfig, init_opt
+    from repro_torch.sparse.layers import strip_derived
+    from repro_torch.tree import leaves
+
+    cfg = _enc_dec_cfg(sparse)
+    params = lm.init_params(torch.Generator().manual_seed(7), cfg, torch.float32)
+    rng = np.random.default_rng(51)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal((4, 32, 256)).astype(np.float32))
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    res = {}
+    with _no_tf32():
+        for dev in ("cpu", cuda):
+            p = map_params(lambda a: a.to(dev), params)
+            batch = {"tokens": toks.to(dev), "labels": toks.to(dev),
+                     "frames": frames.to(dev)}
+            instrument.reset()
+            loss, grads = value_and_grad_trainable(lm.loss_fn)(p, batch, cfg)
+            launches = instrument.launches("bcoo")
+            _, _, metrics = make_train_step(cfg, opt_cfg)(
+                p, init_opt(strip_derived(p), opt_cfg), batch)
+            res[str(dev)] = (float(loss), leaves(grads), launches, float(metrics["loss"]))
+    (lc, gc_, nc, mc), (lg, gg, ng, mg) = res["cpu"], res[str(cuda)]
+    want = 3 * (2 * cfg.encoder_layers + 3 * cfg.n_layers) if sparse else 0
+    assert nc == 0 and ng == want
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(mg - mc) <= 1e-5 * abs(mc)
+    for a, b in zip(gg, gc_):
+        if b.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=1e-4 * max(float(b.abs().max()), 1e-30))
+        else:
+            assert not a.any()
+
+
+def test_sparse_linear_apply_promotes_on_card(cuda):
+    """bf16 (8, 128) blocks meeting f32 activations (the encoder on f32
+    frames): the values are promoted, so the f32 kernel runs, bit-equal to
+    the CPU's plain version on integer-valued inputs at the decode and
+    prefill widths."""
+    from repro_torch.sparse.layers import sparse_linear_apply, sparse_linear_init
+
+    p = sparse_linear_init(torch.Generator().manual_seed(8), 1024, 512, 0.5, (8, 128))
+    p["bvalues"] = torch.from_numpy(np.random.default_rng(52).choice(
+        [-2, -1, 1, 2], tuple(p["bvalues"].shape))).to(torch.bfloat16)
+    dp = {k: v.to(cuda) for k, v in p.items()}
+    for T in (4, 512):
+        x = torch.from_numpy(np.random.default_rng(T).integers(-2, 3, (T, 1024))
+                             .astype(np.float32))
+        want = sparse_linear_apply(p, x, 512)
+        instrument.reset()
+        got = sparse_linear_apply(dp, x.to(cuda), 512)
+        assert instrument.launches("bcoo") == 1
+        assert got.dtype == want.dtype == torch.float32
+        assert torch.equal(got.cpu(), want)

@@ -247,7 +247,8 @@ def test_causal_mask(window):
 
 KIND_CASES = [("qwen1.5-0.5b", "attn"), ("gemma2-27b", "attn_local"),
               ("gemma2-27b", "attn_global"), ("mixtral-8x22b", "moe"),
-              ("deepseek-v3-671b", "mla_dense"), ("deepseek-v3-671b", "mla_moe")]
+              ("deepseek-v3-671b", "mla_dense"), ("deepseek-v3-671b", "mla_moe"),
+              ("seamless-m4t-medium", "cross_attn")]
 
 
 def cache_tensors(c):
@@ -260,15 +261,21 @@ def cache_tensors(c):
 def test_block_apply_and_decode(arch, kind, sparse):
     """Every ported kind at the default MoE capacity (both packages drop
     the same assignments); sparse blocks run the block-sparse FFN where
-    the kind has a dense MLP (the MoE kinds' experts stay dense)."""
+    the kind has a dense MLP (the MoE kinds' experts stay dense);
+    cross_attn reads an encoder memory of another length (13) than the
+    block's sequence."""
     jc, tc = reduced(arch, sparse)
     p = JB.block_init(jax.random.PRNGKey(8), jc, kind, jnp.float32)
     tp = convert.lm_params({"blocks": {"b0": jtree(p)}}, tc)["blocks"]["b0"]
     assert set(tp) == set(p)
     rng = np.random.default_rng(9)
     h = rng.standard_normal((2, 20, jc.d_model)).astype(np.float32)
-    jh, jkv = JB.block_apply(p, jnp.asarray(h), jc, kind)
-    th, tkv = TB.block_apply(tp, t(h), tc, kind)
+    jmem = tmem = None
+    if kind == "cross_attn":
+        mem = rng.standard_normal((2, 13, jc.d_model)).astype(np.float32)
+        jmem, tmem = jnp.asarray(mem), t(mem)
+    jh, jkv = JB.block_apply(p, jnp.asarray(h), jc, kind, memory=jmem)
+    th, tkv = TB.block_apply(tp, t(h), tc, kind, memory=tmem)
     close(th, jh)
     assert type(tkv).__name__ == type(jkv).__name__
     for a, b in zip(cache_tensors(tkv), cache_tensors(jkv)):
@@ -279,8 +286,8 @@ def test_block_apply_and_decode(arch, kind, sparse):
     for a, b in zip(cache_tensors(tcache), cache_tensors(jcache)):
         assert a.shape == b.shape
     h1 = rng.standard_normal((2, 1, jc.d_model)).astype(np.float32)
-    jh1, jnew = JB.block_decode(p, jnp.asarray(h1), jcache, jc, kind)
-    th1, tnew = TB.block_decode(tp, t(h1), tcache, tc, kind)
+    jh1, jnew = JB.block_decode(p, jnp.asarray(h1), jcache, jc, kind, memory=jmem)
+    th1, tnew = TB.block_decode(tp, t(h1), tcache, tc, kind, memory=tmem)
     close(th1, jh1)
     for a, b in zip(cache_tensors(tnew), cache_tensors(jnew)):
         close(a, b)
@@ -306,38 +313,33 @@ def test_init_cache_shapes(arch, kind):
         assert c.length == 0
 
 
-UNPORTED_ARCHS = {"seamless-m4t-medium": "5"}
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED_ARCHS))
-def test_unported_archs_raise_naming_their_item(arch):
-    _, tc = reduced(arch)
-    item = UNPORTED_ARCHS[arch]
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 item {item} "):
-        TLM.init_params(gen, tc, torch.float32)
-    with pytest.raises(NotImplementedError, match=f"item {item} "):
-        TLM.init_caches(tc, 1, 8)
-
-
-@pytest.mark.parametrize("kind", sorted(TB.UNPORTED))
-def test_unported_kinds_raise(kind):
+def test_unknown_kind_raises():
     _, tc = reduced("qwen1.5-0.5b")
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5 "):
-        TB.block_init(gen, tc, kind)
-    with pytest.raises(NotImplementedError, match=kind):
-        TB.init_cache(tc, kind, 1, 8)
+    for call in (lambda: TB.block_init(gen, tc, "no-such-kind"),
+                 lambda: TB.init_cache(tc, "no-such-kind", 1, 8),
+                 lambda: TB.check_kind("no-such-kind")):
+        with pytest.raises(ValueError, match="unknown block kind"):
+            call()
     with pytest.raises(ValueError, match="unknown block kind"):
-        TB.check_kind("no-such-kind")
+        TLM.check_config(dataclasses.replace(tc, block_pattern=("no-such-kind",)))
 
 
 def test_encoder_and_mtp_raise():
-    """The encoder still raises, naming item 5; multi-token prediction is
-    ported (ROADMAP.md §1 item 3) and builds the reference's ``mtp`` tree."""
-    _, tc = reduced("qwen1.5-0.5b")
-    with pytest.raises(NotImplementedError, match="item 5 "):
-        TLM.check_config(dataclasses.replace(tc, encoder_layers=1))
+    """Neither raises any longer: the encoder (seamless-m4t-medium) and
+    multi-token prediction are ported and build the reference's
+    ``encoder`` and ``mtp`` trees."""
+    jc, tc = reduced("seamless-m4t-medium")
+    assert tc.encoder_layers == 2
+    TLM.check_config(tc)
+    jp = JLM.init_params(jax.random.PRNGKey(0), jc, jnp.float32)
+    tp = TLM.init_params(torch.Generator().manual_seed(0), tc, torch.float32)
+    assert set(tp["encoder"]) == set(jp["encoder"]) == {"blocks", "norm", "in_proj"}
+    assert set(tp["encoder"]["blocks"]) == set(jp["encoder"]["blocks"])
+    assert tuple(tp["encoder"]["in_proj"]["w"].shape) == \
+        jp["encoder"]["in_proj"]["w"].shape
+    assert tuple(tp["encoder"]["blocks"]["mlp"]["w_up"]["w"].shape) == \
+        jp["encoder"]["blocks"]["mlp"]["w_up"]["w"].shape
     jc, tc = reduced("deepseek-v3-671b")
     assert tc.mtp_depth == 1
     TLM.check_config(tc)

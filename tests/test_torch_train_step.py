@@ -462,13 +462,17 @@ def test_remat_full_and_none_are_bit_equal(sparse):
 
 
 def test_loss_fn_raises_for_what_is_not_ported():
-    """The encoder (item 5) and remat="dots" under autograd (item 8) still
-    raise; multi-token prediction runs (a qwen with an ``mtp`` subtree)."""
+    """remat="dots" under autograd (item 8) still raises; the encoder (a
+    qwen with an ``encoder`` subtree, fed ``frames``) and multi-token
+    prediction (an ``mtp`` subtree) run."""
     _, tc = _cfgs("qwen1.5-0.5b")
     _, tparams, _, _ = _state(*_cfgs("qwen1.5-0.5b"), jnp.float32, OPT)
     _, tb = _batch(tc.vocab)
-    with pytest.raises(NotImplementedError, match=r"item 5 \(encoder-decoder\)"):
-        TLM.loss_fn(tparams, tb, dataclasses.replace(tc, encoder_layers=1))
+    enc_cfg = dataclasses.replace(tc, encoder_layers=1)
+    enc_params = TLM.init_params(torch.Generator().manual_seed(0), enc_cfg,
+                                 torch.float32)
+    frames = torch.randn((4, 24, tc.d_model), generator=torch.Generator().manual_seed(1))
+    assert torch.isfinite(TLM.loss_fn(enc_params, dict(tb, frames=frames), enc_cfg))
     mtp_cfg = dataclasses.replace(tc, mtp_depth=1)
     mtp_params = TLM.init_params(torch.Generator().manual_seed(0), mtp_cfg,
                                  torch.float32)
