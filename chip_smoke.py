@@ -56,7 +56,7 @@ Phases (every check raises, so any failure exits non-zero):
    an ``AsyncSpmvService`` with an rt, a standard and a batch tenant.  Per
    matrix 64 concurrent single vectors (coalesced by the batcher into
    SpMMs of the bucket widths 1, 2, 4, 8) and explicit B=4 and B=8 batches,
-   every answer bit-equal to cuSPARSE; then a seeded bursty trace of 600
+   every answer bit-equal to cuSPARSE; then a seeded bursty trace of 300
    requests (Zipf 1.1 over the matrices, 300 requests/s, widths 1/4/8,
    5 % expired deadlines) replayed in real time: nothing lost, no error,
    every expired request shed.  Latency p50/p99 and throughput per matrix
@@ -94,7 +94,7 @@ Phases (every check raises, so any failure exits non-zero):
 11. Tuning on the card (``repro_torch.tune``), after phase 10 (d), with
    inputs from its own generator.  (a) ``plan(scheme="tune")`` with a real
    Measurer (warmup 2, iters 5, trim 1) and a cache file: the three
-   matrices at B=1, block and regular at B=8, single-device.  One line per
+   matrices at B=1, block at B=8, single-device.  One line per
    candidate: ``mean_s`` (exe(x) with both copies, what the tuner ranks),
    ``compile_s`` and the kernel's ms by CUDA events on the program it
    compiled, with its rank by each.  Every planned candidate must be
@@ -109,14 +109,14 @@ Phases (every check raises, so any failure exits non-zero):
    (a)-(c) equals that before.  (d) ``SpmvEngine(tune=True, tune_after=8)``
    over the three matrices, a client thread multiplying all through: 8
    width-1 multiplies per matrix give one ``traffic`` refinement each,
-   then width 8 a ``drift`` one; every event measured all the candidates
+   then width 8 on the scale-free matrix a ``drift`` one; every event measured all the candidates
    it planned, every answer bit-equal to cuSPARSE, and
    launches = multiplies + 4 per measured candidate (warmup 1, iters 3) +
    1 per swap (the winner's warm-up).  (f) The tuner over
    ``paper_large_suite()`` of ``repro_torch.data.matrices`` (22 matrices at
    2048^2), every winner within 2e-4 of the dense product; a correctness
    sweep whose times are host overhead.
-12. The multi-process cluster (``repro_torch.cluster``) at full width, last,
+12. The multi-process cluster (``repro_torch.cluster``) at 2^19 rows, last,
    after phase 9, with inputs from its own generator: the three recipes
    again (scipy CSR in float32 as the host oracles), a ``ClusterRouter``
    of two engine workers, each its own process with its own CUDA context
@@ -134,7 +134,7 @@ Phases (every check raises, so any failure exits non-zero):
    power session per matrix through ``router.solve`` within 1e-4 of a
    float64 host loop, its steps charged to its placement and launched by
    its worker.  (e) Generator mode: two spawned load processes (no CUDA)
-   replay 120 requests (Zipf 1.1 over the three, widths 1/4/8 at
+   replay 48 requests (Zipf 1.1 over the three, widths 1/4/8 at
    0.6/0.25/0.15) straight at the workers: 0 mismatched, 0 lost.  (f)
    Router mode on 4 threads over another 120 requests, worker w0 killed
    (SIGKILL) after 40 answers: 0 lost, 0 mismatched, every shed
@@ -312,6 +312,41 @@ Phases (every check raises, so any failure exits non-zero):
    and peak memory.  Then w_gate (1024 -> 4096) and w_down at B = 1, 4
    and 4,096 beside ``torch.matmul`` and the bound.
 
+19. Training the MoE and linear-attention families (``launch.train.
+   TrainLoop``, ``launch.steps``, ``optim`` with the update donated,
+   ``models/moe.py``, MLA, MTP, ``models/linear_attn.py``), last, with
+   inputs from its own generator (``[seed, 19]``).  (a) float32, TF32 off:
+   each arch at ``reduced()`` widths (deepseek at its 3 prefix layers,
+   MLA query-chunked with each chunk checkpointed; deepseek and zamba2
+   with the sparse FFN in (8, 16) blocks) one train step on the card
+   against the CPU (phase 15 (d)'s bounds); one full-width layer of each
+   kind (mixtral's MoE layer at T = 16, deepseek's MLA, Mamba2, mLSTM and
+   sLSTM at B=1, S = 256) forward and backward, card against CPU, each grad leaf within 1e-4
+   of its max, and whether two card backwards of the MoE layer are
+   bit-equal; deepseek's MoE layer alone at full width in bf16 (T = 512,
+   capacity factor 8) against an f32 oracle built one routed expert at a
+   time, forward and every grad (router, experts, shared expert, x).  (c)
+   The block kernel at deepseek's 7168 <-> 18,432 and zamba2's 2560 <->
+   10,240 in (8, 128) blocks, T = 1,024 (phase 15 (a)'s checks: forward
+   and grad x on Wᵀ's (128, 8) stream bit-equal to the plain version on
+   integer inputs, both grads within 1e-4 of the densified oracle, times
+   beside the bound and ``torch.matmul``).  (b) bf16 through ``TrainLoop``
+   at B=4, S=256 (one GLA chunk): mixtral-8x22b cut to 1 layer,
+   deepseek-v3 to its 3 dense MLA prefix layers with the MTP block,
+   zamba2-2.7b (54 layers) and xlstm-1.3b (48, on 16 x 64 batches), f32
+   moments, 10 steps each: the loss falls by at least 1.0; step ms,
+   tokens/s, peak memory, a trace (3 steps; 1 for zamba2 and xlstm), the
+   bytes the update adds, mixtral's dropped share; sparse deepseek (with
+   the reference's int8 moments) and zamba2 3 steps each, launching the
+   block kernel 24 and 81 times a step, their projections then bit-equal
+   to the plain version through the keys they carry (their last steps' sum is
+   ``launches_by_path["bcoo_spmv"]["lm_train_families"]``); mixtral with 2
+   microbatches, 3 steps; xlstm cut to 8 layers restarted from a step-1
+   checkpoint, its losses bit-equal to an uninterrupted run's.  (d) sparse
+   zamba2 at full width cut to 18 layers under remat ``full``, ``dots`` and
+   ``none``: loss and grads bit-equal, block-kernel launches 27 / 27 / 18,
+   ms, peak and a trace of each.
+
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
 the counts, so that the single-device answers it compares with are
@@ -359,6 +394,7 @@ PARTS = 16  # parts of the partitioned path, all on the one card
 # the serving path's tenants, one per SLO class
 TENANTS = {"tenant-rt": "rt", "tenant-std": "standard", "tenant-batch": "batch"}
 SERVE_WAIT_S = 600  # bound on any one await of the serving phases
+SERVE_REPLAY_REQUESTS = 300  # phase 8's replay (cut from 600 for the script's time)
 
 
 def check(cond, msg: str) -> None:
@@ -1261,8 +1297,8 @@ def phase_serving(torch, rng, device, records, seed: int) -> dict:
                    if eng.plan_for(n).plan.fmt in ("bcoo", "bcsr")}
     svc = make_service(eng)
     spec = WorkloadSpec(names=tuple(by_matrix), tenants=tuple(TENANTS),
-                        n_requests=600, seed=seed, zipf_alpha=1.1, rate_rps=300.0,
-                        arrivals="bursty", infeasible_frac=0.05,
+                        n_requests=SERVE_REPLAY_REQUESTS, seed=seed, zipf_alpha=1.1,
+                        rate_rps=300.0, arrivals="bursty", infeasible_frac=0.05,
                         integer_values=True, tenant_classes=TENANTS)
     trace = generate_trace(spec)
 
@@ -1798,12 +1834,12 @@ def tune_rows(what: dict, pln, timed) -> dict:
 
 def phase_tune_single(torch, rng, device, by_matrix, path) -> tuple:
     """Phase 11 (a) and (b): single-device tuning at full width, B=1 on all
-    three matrices and B=8 on block and regular, into one cache file; then
+    three matrices and B=8 on block, into one cache file; then
     the same tunes again from the file, measuring nothing."""
     from repro_torch.kernels import instrument
     from repro_torch.tune import CandidateGenerator, Tuner, TuningCache
 
-    runs = [(name, None) for name in by_matrix] + [("block", 8), ("regular", 8)]
+    runs = [(name, None) for name in by_matrix] + [("block", 8)]
     launches, rows = {"coo": 0, "bcoo": 0}, []
     for name, batch in runs:
         rec = by_matrix[name]
@@ -1896,11 +1932,15 @@ def phase_tune_parts(torch, rng, device, rec, path) -> tuple:
     return launches, row
 
 
+TUNE_DRIFT = ("scale-free",)  # (d)'s drift refinement (cut from all three for time)
+
+
 def phase_tune_engine(torch, rng, device, by_matrix) -> tuple:
     """Phase 11 (d): ``SpmvEngine(tune=True, tune_after=8)`` over the three
     matrices.  A client thread multiplies all through; the main thread
     serves 8 width-1 multiplies per matrix (one ``traffic`` refinement
-    each), then width 8 until each matrix has a ``drift`` refinement.
+    each), then width 8 to ``TUNE_DRIFT`` until it has a ``drift``
+    refinement (the others stay at width 1, with none).
     Every answer is bit-equal to cuSPARSE; launches equal the multiplies
     plus each refinement's measured calls and its winner's warm-up."""
     import threading
@@ -1923,8 +1963,9 @@ def phase_tune_engine(torch, rng, device, by_matrix) -> tuple:
     state = {"width": 1, "errors": [], "served": 0}
     stop = threading.Event()
 
-    def ask(name, i):
-        x, want = pools[(name, state["width"])][i % 3]
+    def ask(name, i):  # width 8 only to the matrix that drifts
+        width = state["width"] if name in TUNE_DRIFT else 1
+        x, want = pools[(name, width)][i % 3]
         y = eng.multiply(name, x)
         if not np.array_equal(y, want):
             state["errors"].append(f"{name} width {x.shape[1:] or 1}: != cuSPARSE")
@@ -1952,7 +1993,7 @@ def phase_tune_engine(torch, rng, device, by_matrix) -> tuple:
         state["width"] = 8
         for i in range(200):
             if all(any(e["name"] == n and e["trigger"] == "drift"
-                       for e in eng.tune_events) for n in by_matrix):
+                       for e in eng.tune_events) for n in TUNE_DRIFT):
                 break
             for name in by_matrix:
                 ask(name, i)
@@ -1981,7 +2022,7 @@ def phase_tune_engine(torch, rng, device, by_matrix) -> tuple:
         check(all(e["candidates"] == e["planned"] for e in mine),
               f"tune engine {name}: a candidate was planned but not measured: {mine}")
         check(sum(e["trigger"] == "traffic" for e in mine) == 1
-              and any(e["trigger"] == "drift" for e in mine),
+              and any(e["trigger"] == "drift" for e in mine) == (name in TUNE_DRIFT),
               f"tune engine {name}: triggers {[e['trigger'] for e in mine]}")
     check(got == expect, f"tune engine: launches {got} != multiplies + "
           f"measurements + warm-ups {expect}")
@@ -2357,6 +2398,11 @@ CLUSTER_NAMES = ("regular", "scale-free", "block")
 ORACLE_OF = {"block-tuned": "block", "regular-ir": "regular"}  # phase 12 (c)
 CLUSTER_MIX = {1: 0.6, 4: 0.25, 8: 0.15}  # the replays' widths and shares
 POWER_STEPS = 20  # steps of each phase-12 session
+# cut for the script's time: the matrices at 2^19 rows (2^21 before; the
+# registrations' frames 40-151 MB, not 158-604) and the generator replay
+# at 48 requests (120 before); the chaos replay keeps its 120
+CLUSTER_N = 1 << 19
+CLUSTER_GENERATOR_REQUESTS = 48
 
 
 def mem_free(torch) -> int:
@@ -2543,10 +2589,11 @@ def cluster_sessions(router, oracles, rng) -> None:
     emit({"phase": "cluster_session_launches", "workers": got})
 
 
-def cluster_spec(seed: int, *salt):
+def cluster_spec(seed: int, *salt, n_requests: int = 120):
     from repro_torch.serve import WorkloadSpec
 
-    return WorkloadSpec(names=CLUSTER_NAMES, n_requests=120, seed=[seed, 12, *salt],
+    return WorkloadSpec(names=CLUSTER_NAMES, n_requests=n_requests,
+                        seed=[seed, 12, *salt],
                         zipf_alpha=1.1, batch_mix=CLUSTER_MIX, integer_values=True)
 
 
@@ -2562,7 +2609,7 @@ def cluster_generators(router, oracles, seed: int) -> None:
     from repro_torch.cluster.replay import replay_generators
     from repro_torch.serve import generate_trace
 
-    trace = generate_trace(cluster_spec(seed))
+    trace = generate_trace(cluster_spec(seed, n_requests=CLUSTER_GENERATOR_REQUESTS))
     before = worker_stats(router)
     report = replay_generators(router, trace, oracles, generators=2, timeout=300.0)
     got = check_worker_launches(before, worker_stats(router), "generator replay")
@@ -3001,7 +3048,7 @@ def device_trace(torch, step, steps: int = 5) -> dict:
 
         step()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 step()
@@ -3415,7 +3462,7 @@ def train_card_vs_cpu(torch, c, rng, device, phase: str = "train_card_vs_cpu") -
     loss_rel = abs(lg - lc) / abs(lc)
     grad_rel, param_err = 0.0, 0.0
     for a, b, pa, pb in zip(gg, gc_, pg, pc):
-        if not b.is_floating_point():
+        if not b.is_floating_point() or not b.numel():  # an empty stack: no repeats
             continue
         grad_rel = max(grad_rel, rel_err(torch, a.cpu(), b))
         big = b.abs() > 1e-3 * b.abs().max()
@@ -4377,6 +4424,631 @@ def phase_enc_dec(torch, rng, device) -> dict:
             "train": train, "projections": proj, "seconds": seconds}
 
 
+# ------------------------------------------------ phase 19: training the families
+
+TF_ARCHS = ("mixtral-8x22b", "deepseek-v3-671b", "zamba2-2.7b", "xlstm-1.3b")
+TF_CUT = {"mixtral-8x22b": 1, "deepseek-v3-671b": 3}  # layers kept (the rest full)
+TF_SPARSE = ("deepseek-v3-671b", "zamba2-2.7b")  # their dense FFNs on the block kernel
+TF_STEPS, TF_BATCH, TF_SEQ = 10, 4, 256  # S = 256: one GLA chunk, 256 sLSTM steps
+# xlstm's steps are host-bound on sLSTM's per-token loop (6.75 s a step at
+# 4 x 256, 160k kernels, on an H100): its batches are 16 x 64, the same
+# 1,024 tokens in a quarter of the loop's steps
+TF_SHAPE = {"xlstm-1.3b": (16, 64)}
+# profiled steps a model: 3, or 1 where a step launches 15k-160k kernels
+# (the trace's post-processing outweighs the steps)
+TF_TRACED = {"zamba2-2.7b": 1, "xlstm-1.3b": 1}
+
+
+def tf_shape(cfg) -> tuple:
+    """(B, S) of ``cfg``'s training batches."""
+    return TF_SHAPE.get(cfg.name, (TF_BATCH, TF_SEQ))
+TF_SPARSE_STEPS = TF_MB_STEPS = 3  # the sparse runs; mixtral with 2 microbatches
+TF_ROUTER_T = 512  # (a): deepseek's MoE layer alone, bf16
+TF_BF16_GRAD_TOL = 2e-2  # bf16 MoE grads vs the f32 oracle, norm-wise
+TF_RESTART_LAYERS = 8  # (b): xlstm at full width, one repeat (7 mLSTM + 1 sLSTM)
+
+
+def tf_cfg(name, **changes):
+    """``name`` at full width, cut to ``TF_CUT`` layers where the card
+    forces it (deepseek at 3: its dense MLA prefix layers, no MoE repeat;
+    the MTP block built and trained)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    if name in TF_CUT:
+        cfg = dataclasses.replace(cfg, n_layers=TF_CUT[name])
+    return dataclasses.replace(cfg, **changes)
+
+
+# deepseek's MLA + MTP stack diverged at 1e-3 * 960 / d_model = 1.34e-4
+# (16.0 -> 20.6 in 10 steps; at 1e-3 16.0 -> 26.1 -> 146) and fell 16.0 ->
+# 12.0 at 2e-5 (on an H100 80GB HBM3, 700 W)
+TF_LR = {"deepseek-v3-671b": 2e-5}
+
+
+def tf_opt(cfg, steps: int, int8: bool = False):
+    """Phase 15's AdamW (3 warm-up steps) with its peak, 1e-3 at smollm's
+    d_model 960, scaled by 960 / d_model (Adam moves every weight by about
+    lr at once, so a d-wide product moves d times as far), or ``TF_LR``'s;
+    ``int8`` moments as the reference's dryrun configures them for
+    deepseek."""
+    from repro_torch.optim import AdamWConfig
+
+    lr = TF_LR.get(cfg.name, 1e-3 * 960 / cfg.d_model)
+    return AdamWConfig(lr_peak=lr, warmup_steps=3, total_steps=steps,
+                       quantized_m=int8, quantized_v=int8)
+
+
+def tf_launches_per_step(cfg) -> int:
+    """Block-kernel launches of one sparse train step: 3 projections a
+    dense FFN, each run forward and grad x, and once more in the backward's
+    recompute where the reference rematerializes (the scanned repeats, not
+    the prefix, not the MTP block); zamba2's shared FFN once a repeat."""
+    if cfg.ffn_density >= 1:
+        return 0
+    prefix = sum(k != "mla_moe" for k in cfg.prefix_pattern) + cfg.mtp_depth
+    shared = cfg.n_repeats * cfg.block_pattern.count("shared_attn")
+    return 3 * (2 * prefix + 3 * shared)
+
+
+def layer_value_and_grads(torch, apply, p, x, wy):
+    """<y, wy> + 1e-3 times the sum of the returned states, the sum of its
+    terms' magnitudes (its scale: the random weights cancel), and its grads
+    with respect to every float leaf of ``p`` and to x."""
+    from repro_torch.models.common import map_params
+    from repro_torch.tree import leaves
+
+    pl = map_params(lambda a: a.detach().requires_grad_()
+                    if a.is_floating_point() else a, p)
+    xl = x.detach().requires_grad_()
+    y, states = apply(pl, xl)
+    loss = (y.float() * wy).sum() + 1e-3 * sum(s.float().sum() for s in states)
+    scale = float((y.detach().float() * wy).abs().sum()
+                  + 1e-3 * sum(s.detach().float().abs().sum() for s in states))
+    wrt = [a for a in leaves(pl) if a.requires_grad] + [xl]
+    return loss.detach(), scale, torch.autograd.grad(loss, wrt, allow_unused=True)
+
+
+def tf_layer_grads(torch, rng, device) -> list:
+    """(a) One full-width layer of each kind, f32, forward and backward on
+    the card against the CPU from the same params and inputs: mixtral's MoE
+    layer (B=1, S=16, the router's top-2, dispatch and combine), deepseek's
+    MLA and a Mamba2, an mLSTM and an sLSTM layer (B=1, S=256); the loss within
+    1e-5 of its terms' magnitudes, each grad leaf within 1e-4 of its max.
+    The MoE layer's
+    backward runs twice on the card: whether the two are bit-equal is
+    reported (its dispatch's backward accumulates with atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import linear_attn as LA
+    from repro_torch.models import moe as M
+    from repro_torch.models.common import map_params
+
+    cases = (("moe", "mixtral-8x22b", 1, 16), ("mla", "deepseek-v3-671b", 1, 256),
+             ("mamba2", "zamba2-2.7b", 1, 256), ("mlstm", "xlstm-1.3b", 1, 256),
+             ("slstm", "xlstm-1.3b", 1, 256))
+    rows = []
+    for kind, arch, B, S in cases:
+        cfg = get_config(arch)
+        gen = torch.Generator(device=device).manual_seed(19)
+        if kind == "moe":
+            p = M.moe_init(gen, cfg, torch.float32)
+
+            def apply(p, x, cfg=cfg):
+                return M.moe_apply(p, x, cfg), ()
+        elif kind == "mla":
+            p = A.mla_init(gen, cfg, torch.float32)
+
+            def apply(p, x, cfg=cfg):
+                return A.mla_apply(p, x, cfg)[0], ()
+        else:
+            p = getattr(LA, f"{kind}_init")(gen, cfg, torch.float32)
+
+            def apply(p, x, fn=getattr(LA, f"{kind}_apply"), cfg=cfg):
+                y, state = fn(p, x, cfg)
+                return y, tuple(state)
+        x = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model))
+                             .astype(np.float32))
+        wy = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model))
+                              .astype(np.float32))
+        t0 = time.perf_counter()
+        lg, _, gg = layer_value_and_grads(torch, apply, p, x.to(device),
+                                          wy.to(device))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        bit_equal = None
+        if kind == "moe":
+            _, _, again = layer_value_and_grads(torch, apply, p, x.to(device),
+                                                wy.to(device))
+            bit_equal = all(torch.equal(a, b) for a, b in zip(gg, again))
+            del again
+        p = map_params(lambda a: a.cpu(), p)
+        t0 = time.perf_counter()
+        lc, scale, gc_ = layer_value_and_grads(torch, apply, p, x, wy)
+        cpu_s = time.perf_counter() - t0
+        loss_rel = abs(float(lg) - float(lc)) / scale
+        # leaf by leaf on the card, in f32 (a 2.4B-element MoE layer in f64
+        # on the host took most of (a)'s time)
+        grad_rel = max(float((a - b.to(device)).abs().max() / b.abs().max())
+                       for a, b in zip(gg, gc_))
+        what = f"train families {kind} layer ({arch})"
+        check(loss_rel <= 1e-5, f"{what}: loss {float(lg)} vs {float(lc)}")
+        check(grad_rel <= GRAD_TOL, f"{what}: grad rel err {grad_rel}")
+        row = {"phase": "tf_layer", "kind": kind, "arch": arch, "dtype": "float32",
+               "B": B, "S": S, "loss_err_over_scale": loss_rel, "grad_max_rel_err": grad_rel,
+               "card_s": card_s, "cpu_s": cpu_s, "ok": True}
+        if bit_equal is not None:
+            row["backward_bit_equal_runs"] = bit_equal
+        emit(row)
+        rows.append(row)
+        del p, gg, gc_
+        free_card(torch)
+    return rows
+
+
+def tf_router_check(torch, rng, device) -> dict:
+    """(a) deepseek's MoE layer alone at full width in bf16 (256 experts of
+    7168 x 2048, top-8, sigmoid affinities with a random bias, one shared
+    expert), T = 512 at ample capacity (factor 8: nothing dropped),
+    forward and backward against an f32 oracle built one routed expert at
+    a time: the plain router's ids, gates from f32 affinities normalized
+    over the selection, each expert's SwiGLU on its tokens and its
+    backward, then the gates' backward into the router.  y within
+    MOE_BF16_TOL and every grad within TF_BF16_GRAD_TOL of the oracle,
+    norm-wise (bf16 rounds the products and the sums); grad x and the
+    router's grad of a second backward bit-equal or not, reported."""
+    from repro_torch.models import moe as M
+    from repro_torch.models.common import map_params
+
+    cfg = tf_cfg("deepseek-v3-671b", moe_capacity_factor=8.0)
+    E, d, T, k = cfg.n_experts, cfg.d_model, TF_ROUTER_T, cfg.moe_top_k
+    gen = torch.Generator(device=device).manual_seed(191)
+    p = M.moe_init(gen, cfg, torch.bfloat16)
+    p["router_bias"] = torch.randn(E, generator=gen, device=device) * 0.02
+    x = torch.from_numpy(rng.standard_normal((LM_BATCH, T // LM_BATCH, d))
+                         .astype(np.float32)).to(device, torch.bfloat16)
+    wy = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32)).to(device)
+    keys = ["x", "router", "w_gate", "w_up", "w_down"] + [
+        f"shared.{n}" for n in ("w_gate", "w_up", "w_down")]
+
+    def port(names=keys):  # y and the grads of ``names``
+        pl = map_params(lambda a: a.detach().requires_grad_(), p)
+        xl = x.detach().requires_grad_()
+        y = M.moe_apply(pl, xl, cfg).reshape(T, d)
+        leaf = dict(zip(keys, [xl, pl["router"]["w"], pl["w_gate"], pl["w_up"],
+                               pl["w_down"]] + [pl["shared"][n]["w"] for n in
+                                                ("w_gate", "w_up", "w_down")]))
+        return y.detach(), dict(zip(names, torch.autograd.grad(
+            (y.float() * wy).sum(), [leaf[n] for n in names])))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, g = port()
+    torch.cuda.synchronize()
+    port_s = time.perf_counter() - t0
+    # the oracle, in f32
+    t0 = time.perf_counter()
+    x2d = x.reshape(T, d)
+    xr = x2d.float().requires_grad_()
+    wr = p["router"]["w"].detach().requires_grad_()
+    logits = xr @ wr.to(x.dtype).float()  # the router weight at x's dtype
+    ids = moe_plain_experts(torch, p, x2d, cfg)
+    cap = cfg.moe_capacity(T)
+    load = int(torch.bincount(ids.reshape(-1), minlength=E).max())
+    check(load <= cap, f"router check: an expert got {load} > {cap} slots")
+    aff = torch.sigmoid(logits)
+    sel = torch.gather(aff, -1, ids)
+    gates = sel / sel.sum(-1, keepdim=True)
+    xf, gate_c = x2d.float(), gates.detach()
+    ggate = torch.zeros_like(gate_c)
+    gx = torch.zeros_like(xf)
+    want_y = torch.zeros_like(xf)
+    sq = {key: [0.0, 0.0] for key in keys}  # sum of squared errors and of squares
+
+    def acc(key, got, want):
+        sq[key][0] += float((got.float() - want).double().pow(2).sum())
+        sq[key][1] += float(want.double().pow(2).sum())
+
+    def swiglu_grads(xe, ws, gy):
+        ws = [w.float().requires_grad_() for w in ws]
+        xe = xe.detach().requires_grad_()
+        h = xe @ ws[0]
+        ye = (h * torch.sigmoid(h) * (xe @ ws[1])) @ ws[2]
+        grads = torch.autograd.grad(ye, [xe] + ws, gy)
+        return ye.detach(), grads
+
+    for e in range(E):
+        t, j = torch.nonzero(ids == e, as_tuple=True)
+        if not t.numel():
+            for n in ("w_gate", "w_up", "w_down"):
+                check(not g[n][e].any(), f"router check: expert {e} has no tokens "
+                      f"but a {n} grad")
+            continue
+        gw = gate_c[t, j][:, None]
+        ye, (gxe, *gws) = swiglu_grads(
+            xf[t], [p[n][e] for n in ("w_gate", "w_up", "w_down")], wy[t] * gw)
+        want_y.index_add_(0, t, ye * gw)
+        gx.index_add_(0, t, gxe)
+        ggate[t, j] = (ye * wy[t]).sum(-1)
+        for n, gw_ in zip(("w_gate", "w_up", "w_down"), gws):
+            acc(n, g[n][e], gw_)
+    ys, (gxs, *gws) = swiglu_grads(
+        xf, [p["shared"][n]["w"] for n in ("w_gate", "w_up", "w_down")], wy)
+    want_y += ys
+    gx += gxs
+    for n, gw_ in zip(("w_gate", "w_up", "w_down"), gws):
+        acc(f"shared.{n}", g[f"shared.{n}"], gw_)
+    gxr, gwr = torch.autograd.grad(gates, [xr, wr], ggate)
+    acc("x", g["x"].reshape(T, d), gx + gxr)
+    acc("router", g["router"], gwr)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    y_rel = float((y.float() - want_y).norm() / want_y.norm())
+    grad_rel = {key: (e2 / max(w2, 1e-300)) ** 0.5 for key, (e2, w2) in sq.items()}
+    check(y_rel <= MOE_BF16_TOL, f"router check: y vs the f32 oracle {y_rel}")
+    check(max(grad_rel.values()) <= TF_BF16_GRAD_TOL,
+          f"router check: grads vs the f32 oracle {grad_rel}")
+    del y, want_y, gx, gxr
+    again = port(("x", "router"))[1]
+    bit_equal = {key: bool(torch.equal(again[key], g[key])) for key in again}
+    row = {"phase": "tf_router", "arch": cfg.name, "dtype": "bfloat16", "T": T,
+           "capacity_factor": cfg.moe_capacity_factor, "slots": cap,
+           "max_expert_load": load, "y_rel_err": y_rel, "grad_rel_err": grad_rel,
+           "backward_bit_equal_runs": bit_equal, "port_s": port_s,
+           "oracle_s": oracle_s, "ok": True}
+    emit(row)
+    del p, g, again
+    free_card(torch)
+    return row
+
+
+def tf_loop(torch, T_, instrument, microbatches: int = 1):
+    """The timed TrainLoop; with ``microbatches`` > 1 its step is
+    ``make_train_step(..., microbatches)`` (the reference's ``_microbatches``
+    for mixtral's train_4k cell), set through Python: ``main`` has no flag
+    for it, as the reference's has none."""
+    from repro_torch.launch.steps import make_train_step
+
+    base = T_.TrainLoop
+    if microbatches > 1:
+        class Microbatched(T_.TrainLoop):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.step_fn = make_train_step(self.cfg, self.opt_cfg, microbatches,
+                                               donate=True)
+        base = Microbatched
+    return timed_loop(torch, base, instrument)
+
+
+def tf_dropped(torch, lm, loop) -> dict:
+    """The MoE layers' assignments and the share the capacity dropped, in
+    one forward of the next batch (T = B x S tokens a call, factor 1.25):
+    ``_local_dispatch``'s ``keep`` counted through a wrapper."""
+    from repro_torch.models import moe as M
+
+    counts, real = [0, 0], M._local_dispatch
+
+    def counted(*a, **kw):
+        out = real(*a, **kw)
+        keep = out[1][3]
+        counts[0] += keep.numel()
+        counts[1] += int(keep.sum())
+        return out
+
+    M._local_dispatch = counted
+    try:
+        with torch.no_grad():
+            lm.loss_fn(loop.params, loop.stream.batch(loop.step, loop.device), loop.cfg)
+    finally:
+        M._local_dispatch = real
+    return {"assignments": counts[0], "kept": counts[1],
+            "dropped_share": 1 - counts[1] / max(counts[0], 1),
+            "capacity_factor": loop.cfg.moe_capacity_factor}
+
+
+def tf_update_bytes(torch, lm, loop) -> dict:
+    """Card bytes the AdamW update adds above the state and the grads (its
+    float32 temporaries, one leaf at a time with donation), and the peak
+    of the value-and-grad alone."""
+    from repro_torch.launch.steps import value_and_grad_trainable
+    from repro_torch.optim import apply_updates
+    from repro_torch.sparse.layers import strip_derived
+
+    batch = loop.stream.batch(loop.step, loop.device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, grads = value_and_grad_trainable(lm.loss_fn)(loop.params, batch, loop.cfg)
+    torch.cuda.synchronize()
+    vag_peak = torch.cuda.max_memory_allocated()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    apply_updates(strip_derived(loop.params), strip_derived(grads), loop.opt,
+                  loop.opt_cfg, donate=True)
+    torch.cuda.synchronize()
+    out = {"state_bytes": base, "value_and_grad_peak_bytes": vag_peak,
+           "grads_bytes": before - base,
+           "update_extra_bytes": torch.cuda.max_memory_allocated() - before}
+    del grads
+    return out
+
+
+def tf_derived_check(torch, params, cfg, rng, device) -> int:
+    """After the updates of a sparse run: every sparse projection (the MTP
+    block's too) through the kernel with the port-only keys its params
+    carry (``browptr``, Wᵀ's stream) against ``bcoo_spmv_plain`` on the
+    reference's index arrays, forward and transposed, integer-valued at B
+    = 4: bit-equal, so ``carry_derived`` kept every key in step.  Returns
+    the projections checked."""
+    from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_plain,
+                                               transposed_values)
+
+    dims = ffn_dims(cfg)
+    projections = [(name, p) for _, name, _, _, p in lm_projections(params, cfg)]
+    if "mtp" in params:
+        projections += [(name, params["mtp"]["block"]["mlp"][name]) for name in dims]
+    for name, p in projections:
+        d_in, d_out = dims[name]
+        ints = torch.from_numpy(rng.choice(PM12, tuple(p["bvalues"].shape))).to(
+            device, torch.bfloat16)
+        for (ri, ci, v, rows, ptr), n_in in (
+                ((p["browind"], p["bcolind"], ints, d_out, p["browptr"]), d_in),
+                ((p["t_browind"], p["t_bcolind"], transposed_values(ints, p["t_perm"]),
+                  d_in, p["t_browptr"]), d_out)):
+            x = torch.from_numpy(rng.integers(-2, 3, (n_in, LM_BATCH))).to(
+                device, torch.bfloat16)
+            got = bcoo_spmv(ri, ci, v, x, rows, browptr=ptr)
+            check(torch.equal(got, bcoo_spmv_plain(ri, ci, v, x, rows)),
+                  f"train families {cfg.name}: {name} after training differs "
+                  f"from the plain version")
+    return len(projections)
+
+
+def tf_train(torch, T_, lm, instrument, name, c, device, steps: int,
+             variant: str = "dense", microbatches: int = 1, trace: bool = True,
+             int8: bool = False) -> dict:
+    """(b) ``c`` in bf16 through TrainLoop from a seeded init on
+    ``TokenStream`` batches of ``tf_shape``: losses, step ms (median of
+    the untraced steps after the first), tokens/s, peak memory, the block
+    kernel's launches in every step (the last counted with the counters
+    set to 0 just before it); a sparse run's projections against the plain
+    version after its updates, an MoE run's dropped share; then
+    ``TF_TRACED`` steps under the profiler and the update's own bytes."""
+    free_card(torch)
+    leftover = torch.cuda.memory_allocated()  # what earlier work left on the card
+    Timed = tf_loop(torch, T_, instrument, microbatches)
+    B, S = tf_shape(c)
+    t_run = time.perf_counter()
+    loop = Timed(c, tf_opt(c, steps, int8), seq_len=S, global_batch=B, device=device)
+    t0 = time.perf_counter()
+    loop.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses = loop.run(steps - 1, log_every=0)
+    instrument.reset()
+    losses += loop.run(steps, log_every=0)
+    launches = instrument.launches("bcoo")
+    peak = torch.cuda.max_memory_allocated()
+    want = tf_launches_per_step(c)
+    what = f"train families {name} {variant}"
+    check(len(losses) == steps and all(np.isfinite(losses)), f"{what}: losses {losses}")
+    check(launches == want and all(n == want for n in loop.step_launches),
+          f"{what}: block-kernel launches a step {loop.step_launches}, not {want}")
+    med = statistics.median(loop.step_ms[1:])
+    checked = (tf_derived_check(torch, loop.params, c, np.random.default_rng(c.n_layers),
+                                device) if c.ffn_density < 1 else 0)
+    row = {"phase": "tf_train", "arch": name, "variant": variant,
+           "microbatches": microbatches, "n_layers": c.n_layers,
+           "n_params": c.n_params, "dtype": "bfloat16",
+           "quantized_moments": loop.opt_cfg.quantized_m,
+           "lr_peak": loop.opt_cfg.lr_peak, "batch": B,
+           "seq": S, "init_s": init_s, "losses": losses,
+           "loss_drop": losses[0] - losses[-1], "step_ms": loop.step_ms,
+           "step_ms_median": med, "tokens_per_s": B * S / med * 1e3,
+           "launches_per_step": loop.step_launches, "want_launches": want,
+           "allocated_before_bytes": leftover, "peak_allocated_bytes": peak,
+           "projections_checked_after_training": checked}
+    if "moe" in c.block_pattern:
+        row["moe_dispatch"] = tf_dropped(torch, lm, loop)
+    if trace:
+        batch = loop.stream.batch(loop.step, loop.device)
+        traced = TF_TRACED.get(name, 3)
+        row["trace"] = dict(device_trace(
+            torch, lambda: loop.step_fn(loop.params, loop.opt, batch), steps=traced),
+            steps=traced)
+        row.update(tf_update_bytes(torch, lm, loop))
+    row["seconds"] = time.perf_counter() - t_run
+    emit(row)
+    del loop
+    free_card(torch)
+    return row
+
+
+def tf_restart(torch, T_, device) -> dict:
+    """(b) xlstm-1.3b at full width, one repeat (8 layers): 3 steps
+    uninterrupted against 1 step + a checkpoint + a fresh loop's
+    ``maybe_restore`` + 2 steps; the losses bit-equal."""
+    import tempfile
+
+    c = tf_cfg("xlstm-1.3b", n_layers=TF_RESTART_LAYERS)
+    opt_cfg = tf_opt(c, 3)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="train-", dir=os.path.join(ROOT, "build")) as d:
+        def fresh(ckpt, every=1):
+            return T_.TrainLoop(c, opt_cfg, seq_len=tf_shape(c)[1],
+                                global_batch=tf_shape(c)[0],
+                                ckpt_dir=ckpt, ckpt_every=every, device=device)
+
+        a = fresh(None)
+        a.init_state()
+        want = a.run(3, log_every=0)
+        del a
+        b = fresh(d)
+        b.init_state()
+        first = b.run(1, log_every=0)
+        del b
+        t0 = time.perf_counter()
+        b2 = fresh(d, every=TF_STEPS)  # no second checkpoint
+        check(b2.maybe_restore() and b2.step == 1, "tf restart: no step-1 checkpoint")
+        restore_s = time.perf_counter() - t0
+        got = first + b2.run(3, log_every=0)
+        del b2
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(d) for f in fs)
+    check(got == want, f"tf restart: {got} vs {want}")
+    row = {"phase": "tf_restart", "arch": c.name, "n_layers": c.n_layers,
+           "losses_uninterrupted": want, "losses_resumed": got, "bit_equal": True,
+           "restore_s": restore_s, "checkpoint_bytes": ckpt_bytes, "ok": True}
+    emit(row)
+    free_card(torch)
+    return row
+
+
+TF_REMAT_LAYERS = 18  # (d): zamba2 at full width, 3 repeats
+
+
+def tf_remat(torch, lm, instrument, device) -> list:
+    """(d) zamba2-2.7b at full width cut to TF_REMAT_LAYERS (3 repeats of 5
+    Mamba2 layers and the shared block), sparse, bf16: the loss's value and
+    grads under remat ``full``, ``dots`` and ``none`` bit-equal; for each
+    the value-and-grad's ms (the second of 2 calls), peak memory, block-kernel
+    launches and kernels a call under the profiler."""
+    from repro_torch.launch.steps import value_and_grad_trainable
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.tree import leaves
+
+    base = tf_cfg("zamba2-2.7b", ffn_density=0.5, n_layers=TF_REMAT_LAYERS)
+    gen = torch.Generator(device=device).manual_seed(192)
+    with torch.no_grad():
+        params = lm.init_params(gen, base)
+    batch = TokenStream(base.vocab, TF_SEQ, TF_BATCH, 19).batch(0, device)
+    vag = value_and_grad_trainable(lm.loss_fn)
+    rows, first = [], None
+    for mode in ("full", "dots", "none"):
+        c = dataclasses.replace(base, remat=mode)
+        torch.cuda.synchronize()
+        free_card(torch)
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        instrument.reset()
+        loss, grads = vag(params, batch, c)
+        torch.cuda.synchronize()
+        launches = instrument.launches("bcoo")
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        g = leaves(grads)
+        del grads
+        if first is None:
+            first = (loss, g)
+            same = True
+        else:
+            same = bool(torch.equal(loss, first[0])
+                        and all(torch.equal(a, b) for a, b in zip(g, first[1])))
+            del g
+        check(same, f"tf remat {mode}: loss or grads differ from full's")
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vag(params, batch, c)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        want = (2 if mode == "none" else 3) * 3 * base.n_repeats
+        check(launches == want, f"tf remat {mode}: {launches} block-kernel "
+              f"launches, not {want}")
+        row = {"phase": "tf_remat", "arch": base.name, "remat": mode,
+               "dtype": "bfloat16", "batch": TF_BATCH, "seq": TF_SEQ,
+               "loss": float(loss), "bit_equal_to_full": same,
+               "value_and_grad_ms": statistics.median(ms[1:]),
+               "peak_above_params_bytes": peak, "block_launches": launches,
+               "trace": device_trace(torch, lambda: vag(params, batch, c), steps=1)}
+        emit(row)
+        rows.append(row)
+    del params, first
+    free_card(torch)
+    return rows
+
+
+def phase_train_families(torch, rng, device) -> dict:
+    """Phase 19: training the MoE and linear-attention families (see the
+    module docstring).  Returns the block kernel's launches in one sparse
+    deepseek step plus one sparse zamba2 step (the path's count), the
+    largest random-input kernel error and the rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import instrument
+    from repro_torch.launch import train as T_
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    parts_s = {}
+    card_cpu = []
+    for name in TF_ARCHS:  # (a) reduced widths: one f32 step, card vs CPU
+        c = get_config(name).reduced()
+        c = dataclasses.replace(c, n_layers=min(c.n_layers, TF_CUT.get(name, 99)))
+        if name in TF_SPARSE:
+            c = dataclasses.replace(c, ffn_density=0.5, sparse_block=(8, 16))
+        # deepseek's 64 tokens take MLA's query-chunked path, each chunk
+        # checkpointed, as the reference's jax.checkpoint
+        chunked = (A.CHUNKED_ATTN_THRESHOLD, A.Q_CHUNK)
+        if name == "deepseek-v3-671b":
+            A.CHUNKED_ATTN_THRESHOLD, A.Q_CHUNK = 64, 16
+        try:
+            card_cpu.append(train_card_vs_cpu(torch, c, rng, device,
+                                              phase="tf_card_vs_cpu"))
+        finally:
+            A.CHUNKED_ATTN_THRESHOLD, A.Q_CHUNK = chunked
+    free_card(torch)
+    parts_s["card_vs_cpu"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    layers = tf_layer_grads(torch, rng, device)
+    parts_s["layers"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    router = tf_router_check(torch, rng, device)
+    parts_s["router"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # (c) the block kernel at the new shapes: forward and grad x against the
+    # plain version, both grads against the densified oracle, times
+    backward, worst = [], 0.0
+    for name in TF_SPARSE:
+        rows_, err = train_backward(torch, tf_cfg(name, ffn_density=0.5), rng, device)
+        backward += rows_
+        worst = max(worst, err)
+        free_card(torch)
+    parts_s["kernels"] = time.perf_counter() - t0
+    # (b) training, 10 steps each; the sparse runs' last steps are the path's
+    train, launches = {}, 0
+    for name in TF_ARCHS:
+        row = tf_train(torch, T_, lm, instrument, name, tf_cfg(name), device, TF_STEPS)
+        check(row["loss_drop"] >= 1.0, f"train families {name}: loss fell "
+              f"{row['losses'][0]} -> {row['losses'][-1]}, not by 1.0")
+        train[name] = row
+        if name in TF_SPARSE:  # deepseek's with the reference's int8 moments
+            int8 = name == "deepseek-v3-671b"
+            sparse = tf_train(torch, T_, lm, instrument, name,
+                              tf_cfg(name, ffn_density=0.5), device, TF_SPARSE_STEPS,
+                              variant="sparse, int8 moments" if int8 else "sparse",
+                              trace=False, int8=int8)
+            train[name + ":sparse"] = sparse
+            launches += sparse["launches_per_step"][-1]
+    train["mixtral-8x22b:microbatches"] = tf_train(
+        torch, T_, lm, instrument, "mixtral-8x22b", tf_cfg("mixtral-8x22b"), device,
+        TF_MB_STEPS, variant="2 microbatches", microbatches=2, trace=False)
+    t0 = time.perf_counter()
+    restart = tf_restart(torch, T_, device)
+    parts_s["restart"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    remat = tf_remat(torch, lm, instrument, device)
+    parts_s["remat"] = time.perf_counter() - t0
+    parts_s["train"] = sum(row["seconds"] for row in train.values())
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "train_families_done", "seconds": seconds, "parts_s": parts_s,
+          "launches": launches})
+    return {"launches": launches, "max_abs_err": worst, "card_vs_cpu": card_cpu,
+            "layers": layers, "router": router, "backward": backward, "train": train,
+            "restart": restart, "remat": remat, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4462,7 +5134,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t12 = time.perf_counter()
     cluster_launches = phase_cluster(torch, np.random.default_rng([args.seed, 12]),
-                                     device, 1 << 21, args.seed, times)
+                                     device, CLUSTER_N, args.seed, times)
     cluster_s = time.perf_counter() - t12
     gc.collect()
     torch.cuda.empty_cache()
@@ -4477,6 +5149,8 @@ def main(argv=None) -> int:
     la_run = phase_linear_attn(torch, np.random.default_rng([args.seed, 17]), device)
     free_card(torch)
     ed_run = phase_enc_dec(torch, np.random.default_rng([args.seed, 18]), device)
+    free_card(torch)
+    tf_run = phase_train_families(torch, np.random.default_rng([args.seed, 19]), device)
 
     by_path = {
         kernel: {"single_device": launches[kind],
@@ -4494,6 +5168,7 @@ def main(argv=None) -> int:
     by_path["bcoo_spmv"]["lm_moe"] = moe_run["launches"]
     by_path["bcoo_spmv"]["lm_hybrid"] = la_run["launches"]
     by_path["bcoo_spmv"]["lm_enc_dec"] = ed_run["launches"]
+    by_path["bcoo_spmv"]["lm_train_families"] = tf_run["launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
     main_shape = {"coo_spmv": ("regular", "coo", 1), "bcoo_spmv": ("block", "bcoo", 1)}
     times["ell_spmv"] = ell_times["regular"]
@@ -4509,7 +5184,8 @@ def main(argv=None) -> int:
                                                 train_run["max_abs_err"],
                                                 moe_run["max_abs_err"],
                                                 la_run["max_abs_err"],
-                                                ed_run["max_abs_err"]]
+                                                ed_run["max_abs_err"],
+                                                tf_run["max_abs_err"]]
                                                if name == "bcoo_spmv" else [])),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -4521,6 +5197,7 @@ def main(argv=None) -> int:
           "moe_phase_s": moe_run["seconds"],
           "linear_attn_phase_s": la_run["seconds"],
           "enc_dec_phase_s": ed_run["seconds"],
+          "train_families_phase_s": tf_run["seconds"],
           "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -68,13 +68,15 @@ def carry_derived(new, old):
     return out
 
 
-def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1):
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1,
+                    *, donate: bool = False):
     """Train step with optional gradient-accumulation microbatching:
     ``f(params, opt, batch) -> (params, opt, metrics)``.
 
     Gradients accumulate in the param dtype over the microbatches, as the
     reference's ``lax.scan`` does; the optimizer update runs once on the
-    mean.
+    mean.  ``donate=True`` updates ``params`` and ``opt`` in place
+    (``apply_updates``), as the reference's TrainLoop donates them.
     """
     vag = value_and_grad_trainable(lm.loss_fn)
 
@@ -98,7 +100,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1
             loss = loss / microbatches
             grads = tree_map(lambda g: g / microbatches, grads)
         new, opt, metrics = apply_updates(strip_derived(params),
-                                          strip_derived(grads), opt, opt_cfg)
+                                          strip_derived(grads), opt, opt_cfg,
+                                          donate=donate)
         metrics["loss"] = loss
         return carry_derived(new, params), opt, metrics
 

@@ -41,7 +41,8 @@ class TrainLoop:
 
     ``device`` defaults to the card and raises without one.  ``params``
     hold the sparse layers' port-only keys; ``opt`` (and the checkpoints)
-    the reference's tree without them.
+    the reference's tree without them.  Each step updates ``params`` and
+    ``opt`` in place, as the reference's jitted step donates them.
     """
 
     def __init__(self, cfg, opt_cfg: AdamWConfig, *, seq_len: int,
@@ -58,7 +59,7 @@ class TrainLoop:
         self.compress = compress_pod_grads
         self.monitor = HealthMonitor(n_hosts=1)
         self.policy = RestartPolicy()
-        base_step = S.make_train_step(cfg, opt_cfg)
+        base_step = S.make_train_step(cfg, opt_cfg, donate=True)
         if compress_pod_grads:
             base_step = self._wrap_compressed(base_step)
         self.step_fn = base_step
@@ -75,7 +76,7 @@ class TrainLoop:
             loss, grads = vag(params, batch, cfg)
             grads, residual = compress_grads(strip_derived(grads), residual)
             new, opt, metrics = apply_updates(strip_derived(params), grads, opt,
-                                              opt_cfg)
+                                              opt_cfg, donate=True)
             metrics["loss"] = loss
             return S.carry_derived(new, params), opt, metrics, residual
 

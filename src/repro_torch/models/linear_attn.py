@@ -56,6 +56,16 @@ class RecurrentState(NamedTuple):
     n: torch.Tensor  # (B, H, dk) normalizer state (mLSTM) or unused (mamba2)
 
 
+def _scalar(like: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``like``'s dtype and device.  The
+    reference's ``jnp.maximum`` / ``jnp.minimum`` against a constant are
+    written as ``torch.maximum`` / ``torch.minimum`` against this: at a tie
+    both split the gradient in halves, where ``torch.clamp`` would pass all
+    of it (sLSTM's normalizer is exactly 1 on its first step wherever
+    z_i >= z_f)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
 # ---------------------------------------------------------------------------
 # chunked gated linear attention (shared primitive)
 # ---------------------------------------------------------------------------
@@ -89,7 +99,7 @@ def gla_chunked(q, k, v, log_a, chunk: int = 256, normalize: bool = False):
     cum_h = cum.transpose(2, 3)  # (B, NC, H, C)
     decay = cum_h[..., :, None] - cum_h[..., None, :]  # (B,NC,H,i,j) = cum_i - cum_j
     causal = torch.ones((C, C), dtype=torch.bool, device=q.device).tril()
-    w = torch.where(causal, torch.exp(torch.clamp(decay, max=0.0)), 0.0)
+    w = torch.where(causal, torch.exp(torch.minimum(decay, _scalar(decay, 0.0))), 0.0)
     sw = scores * w
     intra = torch.einsum("bnhij,bnjhd->bnihd", sw, vc)
 
@@ -112,7 +122,7 @@ def gla_chunked(q, k, v, log_a, chunk: int = 256, normalize: bool = False):
     if normalize:
         n_intra = sw.sum(dim=-1).transpose(2, 3)  # (B, NC, C, H)
         denom = torch.abs(torch.stack(n_inter, dim=1) + n_intra)
-        y = y / torch.clamp(denom[..., None], min=1.0)
+        y = y / torch.maximum(denom[..., None], _scalar(denom, 1.0))
     return y.reshape(B, S, H, dv), RecurrentState(s, n)
 
 
@@ -127,7 +137,7 @@ def gla_step(state: RecurrentState, q, k, v, log_a, normalize: bool = False):
     y = torch.einsum("bhk,bhkv->bhv", qf, s)
     if normalize:
         denom = torch.abs(torch.einsum("bhk,bhk->bh", qf, n))
-        y = y / torch.clamp(denom[..., None], min=1.0)
+        y = y / torch.maximum(denom[..., None], _scalar(denom, 1.0))
     return y[:, None].to(q.dtype), RecurrentState(s, n)
 
 
@@ -222,7 +232,7 @@ def _mlstm_qkv(p, x, cfg):
     log_f = F.logsigmoid(dense_apply(p["w_fg"], x).float())
     ig = dense_apply(p["w_ig"], x).float()
     # fold the (stabilized) exponential input gate into k
-    k = k * torch.exp(torch.clamp(ig, max=0.0))[..., None].to(k.dtype)
+    k = k * torch.exp(torch.minimum(ig, _scalar(ig, 0.0)))[..., None].to(k.dtype)
     return q, k, v, log_f
 
 
@@ -286,7 +296,7 @@ def _slstm_cell(p, state: SLSTMState, pre):
     f = torch.exp(z_f + state.m - m_new)
     c = f * state.c + i * torch.tanh(z_z)
     n = f * state.n + i
-    h = torch.sigmoid(z_o) * c / torch.clamp(n, min=1.0)
+    h = torch.sigmoid(z_o) * c / torch.maximum(n, _scalar(n, 1.0))
     return SLSTMState(c, n, h, m_new)
 
 

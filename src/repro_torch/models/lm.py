@@ -26,13 +26,14 @@ Entry points:
 
 Under autograd, ``forward`` rematerializes each repeat as ``cfg.remat``
 says, as the reference's ``_scan_blocks`` does: ``"full"`` recomputes the
-repeat in the backward pass (``torch.utils.checkpoint``), ``"none"`` keeps
-its activations.  The encoder is not rematerialized (the reference scans
-it without ``jax.checkpoint``).
+repeat in the backward pass (``torch.utils.checkpoint``), ``"dots"`` keeps
+the outputs of its 2-D matrix products and recomputes the rest (the
+counterpart of ``dots_with_no_batch_dims_saveable``), ``"none"`` keeps its
+activations.  The encoder is not rematerialized (the reference scans it
+without ``jax.checkpoint``).
 
-Not ported yet: ``remat="dots"``, which raises ``NotImplementedError``
-naming ROADMAP.md §1 item 8; ``param_specs``, ``abstract_params`` and
-``cache_specs`` wait for multi-card meshes (item 7).
+Not ported: ``param_specs``, ``abstract_params`` and ``cache_specs`` wait
+for multi-card meshes (ROADMAP.md §1 item 7).
 
 ``decode_step`` steps the caches it is given in place: the attention
 caches through ``attention.gqa_decode`` / ``mla_decode``, the recurrent
@@ -44,7 +45,9 @@ import math
 from typing import Any, NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig
 from . import attention as A
@@ -177,6 +180,25 @@ def _repeats(params, cfg) -> list:
             for layer in _unstacked(params["blocks"], cfg.n_repeats)]
 
 
+# the outputs remat="dots" keeps: 2-D matrix products (``torch.matmul`` of
+# (B, S, d) by (d, e) folds into one ``mm``), as JAX's
+# ``dots_with_no_batch_dims_saveable`` keeps dot_generals without batch
+# dimensions; batched products (``bmm``: attention scores, the GLA chunks'
+# einsums, the MoE experts) and everything else are recomputed.  The block
+# kernel runs through ctypes inside an autograd.Function, out of the
+# dispatcher's sight: its forward is recomputed too.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _repeat(h, layer, cfg, memory=None):
     for j, kind in enumerate(cfg.block_pattern):
         h, _ = block_apply(layer[f"b{j}"], h, cfg, kind, memory=memory)
@@ -192,16 +214,13 @@ def forward(params, tokens, cfg: ArchConfig, *, prefix_embeds=None, memory=None)
     h = _with_prefix(params, tokens, cfg, prefix_embeds)
     for i, kind in enumerate(cfg.prefix_pattern):
         h, _ = block_apply(params[f"prefix{i}"], h, cfg, kind, memory=memory)
-    remat = torch.is_grad_enabled()
-    if remat and cfg.remat not in ("full", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: remat={cfg.remat!r} is not ported yet (ROADMAP.md §1 "
-            f"item 8 (remat='dots'))")
-    full = remat and cfg.remat == "full"
+    remat = torch.is_grad_enabled() and cfg.remat != "none"
+    # any other policy than "none" / "dots" is "full", as in the reference
+    context_fn = _dots_context if cfg.remat == "dots" else noop_context_fn
     for layer in _repeats(params, cfg):
-        if full:  # the blocks draw no random numbers: no RNG state to keep
+        if remat:  # the blocks draw no random numbers: no RNG state to keep
             h = checkpoint(_repeat, h, layer, cfg, memory, use_reentrant=False,
-                           preserve_rng_state=False)
+                           preserve_rng_state=False, context_fn=context_fn)
         else:
             h = _repeat(h, layer, cfg, memory)
     h = rmsnorm(params["final_norm"], h, gemma_style=cfg.gemma_norm)

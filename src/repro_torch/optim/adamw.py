@@ -9,7 +9,9 @@ int8 with a per-tensor scale (``quantized_m`` / ``quantized_v``), a
 
 The step's scalar arithmetic (the schedule, the bias corrections) runs in
 float32 tensors on the step counter's device, as JAX computes it without
-x64: Python floats are float64 and would not match.
+x64: Python floats are float64 and would not match.  ``apply_updates(...,
+donate=True)`` updates the state in place, as the reference's TrainLoop
+donates it to its jitted step.
 """
 from __future__ import annotations
 
@@ -83,13 +85,33 @@ def warmup_cosine(cfg: AdamWConfig, step):
             * (_f32(1.0, dev) + torch.cos(_f32(math.pi, dev) * prog)))
 
 
-def global_norm_clip(grads, max_norm: float):
+def global_norm_clip(grads, max_norm: float, *, inplace: bool = False):
     """Scale ``grads`` to a global L2 norm of at most ``max_norm``.  Returns
-    (clipped grads, norm before clipping)."""
+    (clipped grads, norm before clipping); ``inplace`` scales the given
+    tensors a block at a time (the same values)."""
     flat, unflatten = flatten(grads)
     gn = torch.sqrt(sum(torch.sum(torch.square(g.to(F32))) for g in flat))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return unflatten((g.to(F32) * scale).to(g.dtype) for g in flat), gn
+    if not inplace:
+        return unflatten((g.to(F32) * scale).to(g.dtype) for g in flat), gn
+    for g in flat:
+        for flat_g, sl in _blocks(g):
+            flat_g[sl] = (flat_g[sl].to(F32) * scale).to(g.dtype)
+    return grads, gn
+
+
+_BLOCK = 1 << 26  # elements of one block of an in-place update
+
+
+def _blocks(t: torch.Tensor) -> list:
+    """(flat view, slice) pairs covering a contiguous ``t`` in blocks of
+    ``_BLOCK`` elements (the whole tensor where it is not contiguous): an
+    elementwise update taken a block at a time gives the same values with
+    one block's temporaries."""
+    if not t.is_contiguous():
+        return [(t, ...)]
+    flat = t.view(-1)
+    return [(flat, slice(i, i + _BLOCK)) for i in range(0, flat.numel(), _BLOCK)]
 
 
 def _vq_decode(vq):
@@ -97,7 +119,11 @@ def _vq_decode(vq):
 
 
 def _vq_encode(v):
-    scale = torch.clamp(torch.max(torch.abs(v)) / 127.0, min=1e-12)
+    # an empty leaf (the stack of a pattern with no repeats: deepseek cut
+    # to its 3 prefix layers) takes the floor scale, where the reference's
+    # ``jnp.max`` raises
+    amax = torch.max(torch.abs(v)) if v.numel() else v.new_zeros(())
+    scale = torch.clamp(amax / 127.0, min=1e-12)
     return {"q": torch.round(v / scale).to(torch.int8), "scale": scale}
 
 
@@ -105,28 +131,55 @@ def _is_vq(x) -> bool:
     return isinstance(x, dict) and set(x) == {"q", "scale"}
 
 
-def apply_updates(params, grads, opt: OptState, cfg: AdamWConfig):
-    """One AdamW step. Returns (new_params, new_opt, metrics)."""
-    grads, gnorm = global_norm_clip(grads, cfg.clip_norm)
+def apply_updates(params, grads, opt: OptState, cfg: AdamWConfig, *,
+                  donate: bool = False):
+    """One AdamW step. Returns (new_params, new_opt, metrics).
+
+    ``donate=True`` writes the clipped grads into ``grads`` and each leaf's
+    new param and moments into the tensors of ``params`` and ``opt``, and
+    returns trees of those tensors: the counterpart of the reference's
+    TrainLoop donating both to its jitted step (XLA reuses their buffers).
+    The state is then never held twice (a full-width mixtral layer's is 29
+    GB), and with float32 moments a leaf is updated a block at a time,
+    so its float32 temporaries stay small (a mixtral expert stack is 805M
+    elements: 3.2 GB each)."""
+    grads, gnorm = global_norm_clip(grads, cfg.clip_norm, inplace=donate)
     step = opt.step + 1
     lr = warmup_cosine(cfg, step)
     s = step.to(F32)
     b1c = 1.0 - torch.pow(_f32(cfg.b1, s.device), s)
     b2c = 1.0 - torch.pow(_f32(cfg.b2, s.device), s)
 
-    def upd(p, g, m, v):
-        if not p.is_floating_point():
-            return p, m, v  # structural (index) params: never updated
+    def new_values(p, g, m_f, v_f):
         g = g.to(F32)
-        m_f = _vq_decode(m) if cfg.quantized_m else m
         m_f = cfg.b1 * m_f + (1 - cfg.b1) * g
-        v_f = _vq_decode(v) if cfg.quantized_v else v
         v_f = cfg.b2 * v_f + (1 - cfg.b2) * g * g
         update = (m_f / b1c) / (torch.sqrt(v_f / b2c) + cfg.eps)
         update = update + cfg.weight_decay * p.to(F32)
-        p_new = (p.to(F32) - lr * update).to(p.dtype)
+        return (p.to(F32) - lr * update).to(p.dtype), m_f, v_f
+
+    def upd(p, g, m, v):
+        if not p.is_floating_point():
+            return p, m, v  # structural (index) params: never updated
+        if donate and not (cfg.quantized_m or cfg.quantized_v) and all(
+                t.is_contiguous() for t in (p, m, v)):
+            fp, fm, fv = (t.view(-1) for t in (p, m, v))
+            fg = g.reshape(-1)
+            for _, sl in _blocks(p):
+                for dst, src in zip((fp, fm, fv), new_values(fp[sl], fg[sl], fm[sl],
+                                                             fv[sl])):
+                    dst[sl] = src
+            return p, m, v
+        p_new, m_f, v_f = new_values(p, g, _vq_decode(m) if cfg.quantized_m else m,
+                                     _vq_decode(v) if cfg.quantized_v else v)
         m_new = _vq_encode(m_f) if cfg.quantized_m else m_f
         v_new = _vq_encode(v_f) if cfg.quantized_v else v_f
+        if donate:  # int8 moments: their scales need the whole leaf
+            for dst, src in ((p, p_new), (m, m_new), (v, v_new)):
+                for d, s_ in (zip(dst.values(), src.values()) if isinstance(dst, dict)
+                              else [(dst, src)]):
+                    d.copy_(s_)
+            return p, m, v
         return p_new, m_new, v_new
 
     flat_p, unflatten = flatten(params)

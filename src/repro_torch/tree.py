@@ -14,30 +14,40 @@ from typing import Callable
 __all__ = ["flatten", "leaves", "tree_map"]
 
 
+def _none(it):
+    return None
+
+
+def _walk(t, out: list, is_leaf):
+    """Append ``t``'s leaves to ``out`` and return the function that builds
+    ``t``'s structure from an iterator of leaves.  A module-level function:
+    a nested one that called itself would sit in a reference cycle with
+    ``out``, keeping every leaf alive until the garbage collector ran (a
+    train step's grads, 8.6 GB for deepseek's 3-layer cut, piled up)."""
+    if is_leaf is not None and is_leaf(t):
+        out.append(t)
+        return next
+    if t is None:
+        return _none
+    if isinstance(t, dict):
+        keys = sorted(t)
+        subs = [_walk(t[k], out, is_leaf) for k in keys]
+        return lambda it: {k: s(it) for k, s in zip(keys, subs)}
+    if isinstance(t, (tuple, list)):
+        subs = [_walk(x, out, is_leaf) for x in t]
+        typ = type(t)
+        if hasattr(t, "_fields"):  # NamedTuple
+            return lambda it: typ(*(s(it) for s in subs))
+        return lambda it: typ(s(it) for s in subs)
+    out.append(t)
+    return next
+
+
 def flatten(tree, is_leaf: Callable | None = None) -> tuple:
     """(leaves, unflatten): the leaves in ``jax.tree.flatten``'s order and a
     function that builds a tree of the same structure from new leaves."""
     out: list = []
-
-    def walk(t):
-        if is_leaf is not None and is_leaf(t):
-            out.append(t)
-            return lambda it: next(it)
-        if t is None:
-            return lambda it: None
-        if isinstance(t, dict):
-            keys = sorted(t)
-            subs = [walk(t[k]) for k in keys]
-            return lambda it: {k: s(it) for k, s in zip(keys, subs)}
-        if isinstance(t, (tuple, list)):
-            subs = [walk(x) for x in t]
-            if hasattr(t, "_fields"):  # NamedTuple
-                return lambda it: type(t)(*(s(it) for s in subs))
-            return lambda it: type(t)(s(it) for s in subs)
-        out.append(t)
-        return lambda it: next(it)
-
-    build = walk(tree)
+    build = _walk(tree, out, is_leaf)
 
     def unflatten(new_leaves):
         new_leaves = list(new_leaves)

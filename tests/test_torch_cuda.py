@@ -1740,3 +1740,119 @@ def test_sparse_linear_apply_promotes_on_card(cuda):
         assert instrument.launches("bcoo") == 1
         assert got.dtype == want.dtype == torch.float32
         assert torch.equal(got.cpu(), want)
+
+
+def _family_cfg(arch, sparse=False, **changes):
+    """A reduced config of the MoE / linear-attention families (deepseek
+    cut to its 3 dense MLA prefix layers, as the card's training cell)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced()
+    if arch == "deepseek-v3-671b":
+        cfg = dataclasses.replace(cfg, n_layers=3)
+    if sparse:
+        cfg = dataclasses.replace(cfg, ffn_density=0.5, sparse_block=(8, 16))
+    return dataclasses.replace(cfg, **changes)
+
+
+@pytest.mark.parametrize("arch,sparse", [("mixtral-8x22b", False),
+                                         ("deepseek-v3-671b", True),
+                                         ("zamba2-2.7b", True), ("xlstm-1.3b", False)])
+def test_train_families_on_card_match_cpu(cuda, arch, sparse):
+    """The loss's value and grads (f32, TF32 off, remat full) on the card
+    against the CPU from the same params: the loss within 1e-5 relative,
+    every grad leaf within 1e-4 of its max (the MoE dispatch's backward, a
+    scatter-add, sums in another order; MLA, Mamba2's and mLSTM's chunks,
+    sLSTM's per-token loop).  Block-kernel launches of the sparse models:
+    deepseek's 3 prefix FFNs and its MTP block's, forward and grad x (not
+    rematerialized, as in the reference); zamba2's shared FFN once a repeat,
+    forward, recompute and grad x."""
+    from repro_torch.launch.steps import value_and_grad_trainable
+    from repro_torch.models import lm
+    from repro_torch.models.common import map_params
+    from repro_torch.tree import leaves
+
+    cfg = _family_cfg(arch, sparse)
+    params = lm.init_params(torch.Generator().manual_seed(9), cfg, torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(53).integers(0, cfg.vocab, (2, 32))
+                            .astype(np.int32))
+    res = {}
+    with _no_tf32():
+        for dev in ("cpu", cuda):
+            p = map_params(lambda a: a.to(dev), params)
+            instrument.reset()
+            loss, grads = value_and_grad_trainable(lm.loss_fn)(
+                p, {"tokens": toks.to(dev), "labels": toks.to(dev)}, cfg)
+            res[str(dev)] = (float(loss), leaves(grads), instrument.launches("bcoo"))
+    (lc, gc_, nc), (lg, gg, ng) = res["cpu"], res[str(cuda)]
+    want = 0
+    if sparse and arch == "deepseek-v3-671b":
+        want = 3 * 2 * (len(cfg.prefix_pattern) + cfg.mtp_depth)
+    elif sparse:
+        want = 3 * 3 * cfg.n_repeats
+    assert nc == 0 and ng == want
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc_):
+        if b.is_floating_point() and b.numel():  # deepseek's MoE stack is empty
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=1e-4 * max(float(b.abs().max()), 1e-30))
+        else:
+            assert not a.any()
+
+
+def test_remat_policies_on_card_are_bit_equal(cuda):
+    """Sparse zamba2 at two repeats (bf16, as trained): ``full``, ``dots``
+    and ``none`` give the same loss and grads to the bit; the shared FFN's
+    three projections launch the block kernel 3 times an invocation under
+    ``full`` and ``dots`` (the kernel is out of the dispatcher's sight, so
+    ``dots`` recomputes it) and twice under ``none``."""
+    import dataclasses
+
+    from repro_torch.launch.steps import value_and_grad_trainable
+    from repro_torch.models import lm
+    from repro_torch.models.common import map_params
+    from repro_torch.tree import leaves
+
+    cfg = _family_cfg("zamba2-2.7b", True, n_layers=12)
+    params = map_params(lambda a: a.to(cuda), lm.init_params(
+        torch.Generator().manual_seed(10), cfg, torch.bfloat16))
+    toks = torch.from_numpy(np.random.default_rng(54).integers(0, cfg.vocab, (2, 32))
+                            .astype(np.int32)).to(cuda)
+    out = {}
+    for mode in ("full", "dots", "none"):
+        instrument.reset()
+        loss, grads = value_and_grad_trainable(lm.loss_fn)(
+            params, {"tokens": toks, "labels": toks}, dataclasses.replace(cfg, remat=mode))
+        out[mode] = (loss, leaves(grads), instrument.launches("bcoo"))
+    assert [out[m][2] for m in ("full", "dots", "none")] == [18, 18, 12]
+    for mode in ("dots", "none"):
+        assert torch.equal(out[mode][0], out["full"][0])
+        for a, b in zip(out[mode][1], out["full"][1]):
+            assert torch.equal(a, b)
+
+
+def test_donated_update_on_card_equals_the_functional_one(cuda):
+    """``apply_updates(donate=True)`` with int8 moments on the card: the
+    values of the functional update to the bit, written into the given
+    tensors."""
+    from repro_torch.models.common import map_params
+    from repro_torch.optim import AdamWConfig, apply_updates, init_opt
+    from repro_torch.tree import leaves
+
+    rng = np.random.default_rng(55)
+    params = {"w": torch.from_numpy(rng.standard_normal((64, 48)).astype(np.float32))
+              .to(cuda, torch.bfloat16),
+              "b": torch.from_numpy(rng.standard_normal(48).astype(np.float32)).to(cuda)}
+    grads = map_params(lambda a: torch.from_numpy(rng.standard_normal(tuple(a.shape))
+                                                  .astype(np.float32)).to(cuda, a.dtype),
+                       params)
+    cfg = AdamWConfig(quantized_m=True, quantized_v=True)
+    opt = init_opt(params, cfg)
+    want_p, want_o, _ = apply_updates(params, grads, opt, cfg)
+    ptrs = [a.data_ptr() for a in leaves((params, opt.m, opt.v))]
+    got_p, got_o, _ = apply_updates(params, grads, opt, cfg, donate=True)
+    assert [a.data_ptr() for a in leaves((got_p, got_o.m, got_o.v))] == ptrs
+    for a, b in zip(leaves((got_p, got_o)), leaves((want_p, want_o))):
+        assert torch.equal(a, b)

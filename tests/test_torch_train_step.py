@@ -455,16 +455,18 @@ def test_remat_full_and_none_are_bit_equal(sparse):
     _, tb = _batch(jc.vocab, seed=2)
     vag = TS.value_and_grad_trainable(TLM.loss_fn)
     out = {mode: vag(tparams, tb, dataclasses.replace(tc, remat=mode))
-           for mode in ("full", "none")}
-    assert torch.equal(out["full"][0], out["none"][0])
-    for a, b in zip(tleaves(out["full"][1]), tleaves(out["none"][1])):
-        assert torch.equal(a, b)
+           for mode in ("full", "dots", "none")}
+    for mode in ("dots", "none"):
+        assert torch.equal(out["full"][0], out[mode][0])
+        for a, b in zip(tleaves(out["full"][1]), tleaves(out[mode][1])):
+            assert torch.equal(a, b)
 
 
 def test_loss_fn_raises_for_what_is_not_ported():
-    """remat="dots" under autograd (item 8) still raises; the encoder (a
-    qwen with an ``encoder`` subtree, fed ``frames``) and multi-token
-    prediction (an ``mtp`` subtree) run."""
+    """Nothing on the loss's path raises any more: remat="dots" runs under
+    autograd (item 8, ported) and without it, as do the encoder (a qwen
+    with an ``encoder`` subtree, fed ``frames``) and multi-token prediction
+    (an ``mtp`` subtree)."""
     _, tc = _cfgs("qwen1.5-0.5b")
     _, tparams, _, _ = _state(*_cfgs("qwen1.5-0.5b"), jnp.float32, OPT)
     _, tb = _batch(tc.vocab)
@@ -477,10 +479,11 @@ def test_loss_fn_raises_for_what_is_not_ported():
     mtp_params = TLM.init_params(torch.Generator().manual_seed(0), mtp_cfg,
                                  torch.float32)
     assert torch.isfinite(TLM.loss_fn(mtp_params, tb, mtp_cfg))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TLM.loss_fn(tparams, tb, dataclasses.replace(tc, remat="dots"))
+    dots = dataclasses.replace(tc, remat="dots")
+    loss, grads = TS.value_and_grad_trainable(TLM.loss_fn)(tparams, tb, dots)
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in tleaves(grads))
     with torch.no_grad():  # no autograd: nothing to rematerialize
-        TLM.loss_fn(tparams, tb, dataclasses.replace(tc, remat="dots"))
+        assert torch.equal(TLM.loss_fn(tparams, tb, dots), loss)
 
 
 def _moe_cfgs(arch, sparse=False):
