@@ -346,6 +346,31 @@ Phases (every check raises, so any failure exits non-zero):
    zamba2 at full width cut to 18 layers under remat ``full``, ``dots`` and
    ``none``: loss and grads bit-equal, block-kernel launches 27 / 27 / 18,
    ms, peak and a trace of each.
+20. The dry run (``repro_torch.analysis``, ``launch/dryrun.py``,
+   ``launch/dryrun_spmv.py``), last, with inputs from its own generator
+   (``[seed, 20]``).  (a) ``dryrun_spmv``'s matrix, 2^20 rows of 16
+   standard-normal nonzeros over Zipf columns (16,777,216 nnz), as its 1D
+   program with impl="cuda" on 256 and on 512 parts of the card: 4
+   ``exe(x)`` each, one part-axis launch of the COO kernel apiece (the
+   path's count), within 2e-4 of a float64 scipy oracle; the part-axis
+   launch within 2e-4 of its plain version; kernel, plain and cuSPARSE
+   ms beside the bytes bound; the card's temp bytes (peak over the placed
+   matrix) beside the fake count's FLOPs, bytes and temp bytes of the same
+   program.  The ring, bucketed first, at 2^14 rows on 256 parts (at 2^20
+   its equal-capacity buckets would hold 42.4 GiB): within 2e-4 of the
+   oracle and the 1D program, no kernel launched, beside its count.  (b)
+   The sparse qwen1.5-0.5b train step cut to 2 layers at full width (f32,
+   a (2, 64) batch) counted on the card (the aten ops' FLOPs plus the block
+   kernel's reported work; 18 launches, the path's count) and on fake CPU
+   tensors: FLOPs within 1 %, any op whose count differs named; the fake
+   argument + temp bytes over ``max_memory_allocated`` reported (outside
+   0.7-1.3 is a finding, not a failure).  (c) Every LM step timed above
+   (phase 14's bf16 qwen prefill and decode, 15's smollm step, 18's
+   seamless step, 19's four families) with its ``_model_flops`` at its
+   shape, the count's useful ratio (model FLOPs over the step's count on
+   fake tensors, taken in a worker process started with the script) and
+   its MFU against 989 TFLOP/s; xlstm's also from its tree's 959,547,392
+   params.  No step runs again to be timed.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -365,6 +390,7 @@ import collections
 import dataclasses
 import gc
 import json
+import multiprocessing
 import os
 import re
 import statistics
@@ -3865,7 +3891,10 @@ LA_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
 # input GEMM at M = B*S and at M = B, which round differently, and its
 # recurrence carries the difference (2.3e-4 at S = 1,024 on an H100 80GB
 # HBM3): the cell is checked on integer-valued x and input weights (every
-# sum exact in f32, whatever the GEMM's order), the random case reported.
+# sum exact in f32, whatever the GEMM's order), the random case reported
+# with the GEMM's own row difference.  The reference's two paths are
+# bit-equal on the CPU, where XLA's dot rounds a row alike at any M
+# (tests/test_torch_linear_attn.py).
 LA_CASES = (("mamba", "zamba2-2.7b", "mamba2", "random"),
             ("mlstm", "xlstm-1.3b", "mlstm", "random"),
             ("slstm", "xlstm-1.3b", "slstm", "integer"),
@@ -3927,6 +3956,12 @@ def la_layer_checks(torch, LA, rng, device) -> list:
             check(not checked or torch.allclose(a, b, rtol=LA_STEP_TOL,
                                                 atol=LA_STEP_TOL),
                   f"{what}: chunked vs stepped final {field}: {errs}")
+        if not checked:  # the input GEMM at M = B*S against M = B, row by row
+            with torch.no_grad():
+                rows_ = torch.cat([LA.dense_apply(p["w_in"], x[:, t:t + 1])
+                                   for t in range(S)], 1)
+                errs["pre_gemm"] = max_err(torch, rows_, LA.dense_apply(p["w_in"], x))
+            del rows_
         row = {"phase": "la_layer", "kind": kind, "arch": arch, "dtype": "float32",
                "inputs": data, "checked": checked, "B": B, "S": S,
                "chunks": None if kind == "slstm" else S // min(LA_CHUNK, S),
@@ -5049,6 +5084,342 @@ def phase_train_families(torch, rng, device) -> dict:
             "restart": restart, "remat": remat, "seconds": seconds}
 
 
+# ------------------------------------------------------- phase 20: the dry run
+# (a) the SpMV dry run's matrix (launch/dryrun_spmv.py): 2^20 rows of 16
+# standard-normal nonzeros over Zipf columns, on 256 and 512 parts of the
+# card.  The ring's equal-capacity buckets would hold 42.4 GiB at 2^20
+# rows on 256 parts (shard 0 takes about 88 % of a part's nonzeros; its
+# count, dryrun_spmv), so the ring runs at 2^14 rows: its 256^2 steps, not
+# its rows, set its time
+DR_ROWS, DR_NNZ_ROW, DR_PARTS = 1 << 20, 16, (256, 512)
+DR_RING_ROWS, DR_RING_PARTS = 1 << 14, 256
+DR_TOL = 2e-4  # random f32: the reference's tolerance (tests/test_kernels.py)
+DR_FLOP_TOL = 0.01  # (b): the card's count of a step against the fake count
+DR_MEM_RANGE = (0.7, 1.3)  # (b): fake / card peak outside it is a finding
+# (c): every timed LM step, as its phase ran it: key -> (arch, kind, B,
+# S).  The counts run on fake tensors in a worker process started with the
+# script, so they overlap the card's phases
+DR_LM_ROWS = {
+    "qwen_prefill": (LM_ARCH, "prefill", LM_BATCH, LM_PROMPT),
+    # the decode step reads caches of LM_MAX_LEN slots
+    "qwen_decode": (LM_ARCH, "decode", LM_BATCH, LM_MAX_LEN),
+    "smollm_train": (TRAIN_ARCH, "train", TRAIN_BATCH, TRAIN_SEQ),
+    "seamless_train": (ED_ARCH, "train", SPARSE_B, SPARSE_S),
+    **{f"{name}_train": (name, "train", *TF_SHAPE.get(name, (TF_BATCH, TF_SEQ)))
+       for name in TF_ARCHS},
+}
+
+
+def dr_lm_counts() -> dict:
+    """(c)'s counts, in the worker process: each row's step counted on fake
+    CPU tensors (``launch/dryrun.py``'s ``count_cell``, sLSTM's loop stepped
+    once plus ``slstm_scan_correction``), with its ``_model_flops``.  A
+    row's shape is entered in this process's ``SHAPES`` under its key."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""  # host counts only
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.analysis import roofline as R
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun as DR
+
+    out = {}
+    for key, (arch, kind, B, S) in DR_LM_ROWS.items():
+        cfg = tf_cfg(arch)  # phase 19's cuts; the others run uncut
+        SHAPES[key] = dict(seq_len=S, global_batch=B, kind=kind)
+        c = DR.count_cell(cfg, key)
+        corr = R.slstm_scan_correction(cfg, key)
+        out[key] = {"counted_flops": c.flops + corr, "slstm_correction": corr,
+                    "counted_bytes": c.bytes, "argument_bytes": c.argument_bytes,
+                    "temp_bytes": c.temp_bytes, "count_s": c.seconds,
+                    "model_flops": R._model_flops(cfg, S, B, kind),
+                    "n_params": cfg.n_params, "n_layers": cfg.n_layers}
+    return out
+
+
+def dr_f64_oracle(mat):
+    """The matrix as scipy CSR in float64 (global rows), the host oracle."""
+    import scipy.sparse as sp
+
+    P = mat.n_parts
+    nnz = mat.nnz.cpu().numpy()
+    rows = np.concatenate([mat.rowind[p, :nnz[p]].cpu().numpy().astype(np.int64)
+                           + int(mat.row_start[p]) for p in range(P)])
+    cols = np.concatenate([mat.colind[p, :nnz[p]].cpu().numpy() for p in range(P)])
+    vals = np.concatenate([mat.values[p, :nnz[p]].cpu().numpy() for p in range(P)])
+    return sp.csr_matrix((vals.astype(np.float64), (rows, cols)), shape=mat.shape)
+
+
+def dr_spmv_parts(torch, rng, device, parts: int) -> dict:
+    """(a) One part count: the 1D program with impl="cuda" (one part-axis
+    launch of the COO kernel a request) on the card, against its plain
+    version and a float64 oracle; kernel, plain and cuSPARSE ms beside the
+    bound; the card's temp bytes beside the fake count's."""
+    from repro_torch.api import plan_from_partitioned
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels import instrument
+    from repro_torch.launch import dryrun_spmv as DS
+
+    t0 = time.perf_counter()
+    mat = DS.synth_partition_1d(DR_ROWS, DR_ROWS, DR_NNZ_ROW, parts, device="cpu")
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fake = DS.count_1d(mat, make_mesh((parts,), ("data",), ["cpu"] * parts))
+    count_s = time.perf_counter() - t0
+    a64 = dr_f64_oracle(mat)
+    free_card(torch)
+    before = torch.cuda.memory_allocated()
+    exe = plan_from_partitioned(mat, make_mesh((parts,), ("data",), [device] * parts),
+                                impl="cuda").compile()
+    placed = torch.cuda.memory_allocated() - before
+    prog, local, arrs = exe.program, exe.program.local, exe.arrays
+    nnz = DR_ROWS * DR_NNZ_ROW
+    xs = [rng.standard_normal(DR_ROWS).astype(np.float32) for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    instrument.reset()
+    ys = [exe(x) for x in xs]  # the path: one part-axis launch each
+    launches = instrument.launches("coo")
+    check(launches == len(xs), f"dryrun spmv {parts}: {launches} COO launches for "
+          f"{len(xs)} requests")
+    temp = torch.cuda.max_memory_allocated() - resident
+    err64 = 0.0
+    for x, y in zip(xs, ys):
+        want = a64 @ x.astype(np.float64)
+        check(y.shape == (DR_ROWS,) and np.isfinite(y).all(),
+              f"dryrun spmv {parts}: answer shape {y.shape}")
+        check(np.allclose(y, want, rtol=DR_TOL, atol=DR_TOL),
+              f"dryrun spmv {parts}: != float64 oracle, max err "
+              f"{np.abs(y - want).max()}")
+        err64 = max(err64, float(np.abs(y - want).max()))
+    xb = prog.x_buffer(exe.place(xs[0]))
+    got, plain = local.raw(arrs, xb), local.plain(arrs, xb)
+    torch.cuda.synchronize()
+    err = max_err(torch, got, plain)
+    check(torch.allclose(got, plain, rtol=DR_TOL, atol=DR_TOL),
+          f"dryrun spmv {parts}: part-axis launch != its plain version ({err})")
+    rows = torch.from_numpy(a64.indptr.astype(np.int32)).to(device)
+    lib = torch.sparse_csr_tensor(rows, torch.from_numpy(a64.indices.astype(np.int32))
+                                  .to(device),
+                                  torch.from_numpy(a64.data.astype(np.float32))
+                                  .to(device), size=mat.shape)
+    xd = xb[:DR_ROWS].contiguous()
+    nbytes = nnz * 12 + DR_ROWS * 4 + parts * mat.h_pad * 4
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, 2 * nnz / F32_OPS_S * 1e3
+    row = {"phase": "dryrun_spmv", "program": "1d", "impl": "cuda", "parts": parts,
+           "rows": DR_ROWS, "nnz": nnz, "requests": len(xs), "launches": launches,
+           "ms": time_ms(torch, lambda: local.raw(arrs, xb), 30),
+           "plain_ms": time_ms(torch, lambda: local.plain(arrs, xb), 3, warmup=1),
+           "library_ms": time_ms(torch, lambda: lib @ xd, 30),
+           "bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "max_abs_err": err, "max_abs_err_f64": err64,
+           "placed_bytes": placed, "card_temp_bytes": temp,
+           "fake": {"flops": fake.flops, "bytes": fake.bytes,
+                    "argument_bytes": fake.argument_bytes,
+                    "temp_bytes": fake.temp_bytes, "count_s": count_s},
+           # scipy sums the duplicate (row, column) entries Zipf columns
+           # give: cuSPARSE multiplies fewer nonzeros
+           "library_nnz": int(a64.nnz),
+           "card_flops": 2 * nnz, "card_bytes": nbytes, "synth_s": synth_s,
+           "compile_s": exe.build_seconds}
+    row["roofline_share"] = row["bound_ms"] / row["ms"]
+    check(fake.flops == 2 * nnz, f"dryrun spmv {parts}: fake count {fake.flops} "
+          f"FLOPs, not 2 nnz = {2 * nnz}")
+    emit(row)
+    del exe, arrs, lib, got, plain
+    free_card(torch)
+    return row
+
+
+def dr_spmv_ring(torch, rng, device) -> dict:
+    """(a) The ring at 2^14 rows on 256 parts, bucketed first
+    (``bucket_by_source_shard``), against the 1D program and a float64
+    oracle; its count from its steps on fake tensors beside the card."""
+    from repro_torch.api import plan_from_partitioned
+    from repro_torch.core import distributed as D
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels import instrument
+    from repro_torch.launch import dryrun_spmv as DS
+
+    P = DR_RING_PARTS
+    mat = DS.synth_partition_1d(DR_RING_ROWS, DR_RING_ROWS, DR_NNZ_ROW, P,
+                                device="cpu")
+    fake = DS.count_1d(mat, make_mesh((P,), ("data",), ["cpu"] * P), ring=True)
+    a64 = dr_f64_oracle(mat)
+    t0 = time.perf_counter()
+    part_r, counts = D.bucket_by_source_shard(mat, P)
+    bucket_s = time.perf_counter() - t0
+    free_card(torch)
+    mesh = make_mesh((P,), ("data",), [device] * P)
+    ring = plan_from_partitioned(part_r, mesh, ring=True, ring_counts=counts).compile()
+    one = plan_from_partitioned(mat, mesh, impl="cuda").compile()
+    x = rng.standard_normal(DR_RING_ROWS).astype(np.float32)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    instrument.reset()
+    t0 = time.perf_counter()
+    y = ring(x)
+    ring_s = time.perf_counter() - t0
+    check(instrument.launches() == 0, "dryrun ring: the ring launched a kernel")
+    temp = torch.cuda.max_memory_allocated() - resident
+    want, y1 = a64 @ x.astype(np.float64), one(x)
+    check(np.allclose(y, want, rtol=DR_TOL, atol=DR_TOL),
+          f"dryrun ring: != float64 oracle ({np.abs(y - want).max()})")
+    check(np.allclose(y, y1, rtol=DR_TOL, atol=DR_TOL),
+          f"dryrun ring: != the 1D program ({np.abs(y - y1).max()})")
+    row = {"phase": "dryrun_ring", "parts": P, "rows": DR_RING_ROWS,
+           "nnz": DR_RING_ROWS * DR_NNZ_ROW, "bucket_capacity": part_r.capacity,
+           "shard0_share": float(counts[:, 0].sum() / counts.sum()),
+           "bucket_s": bucket_s, "exe_s": ring_s,
+           "max_abs_err_f64": float(np.abs(y - want).max()),
+           "max_abs_err_1d": float(np.abs(y - y1).max()),
+           "card_temp_bytes": temp, "placed_bytes": resident,
+           "fake": {"bytes": fake.bytes, "argument_bytes": fake.argument_bytes,
+                    "temp_bytes": fake.temp_bytes, "ops": fake.ops}}
+    emit(row)
+    del ring, one
+    free_card(torch)
+    return row
+
+
+def dr_step_count(torch, device) -> tuple:
+    """(b) The sparse qwen1.5-0.5b train step cut to 2 layers at full width
+    (f32, phase 15 (d)'s batch) counted on the card (the aten ops'
+    FLOPs plus the block kernel's reported work) and on fake CPU tensors
+    (the plain versions): FLOPs within 1 %, op by op; the fake argument +
+    temp bytes beside ``max_memory_allocated``.  Returns the row and the
+    block kernel's launches in the card's step."""
+    from repro_torch.analysis.count import counting, fake_mode, fake_tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import instrument
+    from repro_torch.launch import steps as S
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, init_opt
+    from repro_torch.sparse.layers import strip_derived
+
+    c = dataclasses.replace(get_config(LM_ARCH), ffn_density=0.5, n_layers=2)
+    free_card(torch)
+    leftover = torch.cuda.memory_allocated()
+    params = lm.init_params(torch.Generator(device=device).manual_seed(20), c,
+                            torch.float32)
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    opt = init_opt(strip_derived(params), opt_cfg)
+    g = torch.Generator(device=device).manual_seed(21)
+    toks = torch.randint(0, c.vocab, (2, 64), generator=g, device=device,
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    step = S.make_train_step(c, opt_cfg)
+    mode = fake_mode()
+    fargs = fake_tree((params, opt, batch), mode)
+    with mode, counting(*fargs) as fake:
+        step(*fargs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    instrument.reset()
+    with counting(params, opt, batch) as card:
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    launches = instrument.launches("bcoo")
+    peak = torch.cuda.max_memory_allocated() - leftover
+    want_launches = 3 * 3 * c.n_layers  # forward, recompute, grad x
+    check(launches == want_launches, f"dryrun step: {launches} block-kernel "
+          f"launches, not {want_launches}")
+    ops = sorted(set(card.flops_by_op) | set(fake.flops_by_op))
+    differ = {k: [card.flops_by_op[k], fake.flops_by_op[k]] for k in ops
+              if card.flops_by_op[k] != fake.flops_by_op[k]}
+    rel = abs(card.flops - fake.flops) / fake.flops
+    # the issue's form: FlopCounterMode over the plain version on the host
+    plain_total = fake.flops - fake.kernel_flops + fake.plain_flops
+    rel_plain = abs(card.flops - plain_total) / plain_total
+    ratio = (fake.argument_bytes + fake.temp_bytes) / peak
+    row = {"phase": "dryrun_step", "arch": LM_ARCH, "n_layers": c.n_layers,
+           "ffn_density": c.ffn_density, "dtype": "float32", "tokens": [2, 64],
+           "card_flops": card.flops, "card_kernel_flops": card.kernel_flops,
+           "card_aten_flops": card.flops - card.kernel_flops,
+           "fake_flops": fake.flops, "fake_kernel_flops": fake.kernel_flops,
+           "fake_plain_flops": fake.plain_flops, "flops_rel_diff": rel,
+           "plain_total_flops": plain_total, "plain_rel_diff": rel_plain,
+           "flops_by_op_differ": differ, "card_bytes": card.bytes,
+           "fake_bytes": fake.bytes, "fake_argument_bytes": fake.argument_bytes,
+           "fake_temp_bytes": fake.temp_bytes, "card_count_temp_bytes":
+           card.temp_bytes, "card_peak_bytes": peak,
+           "fake_over_card_memory": ratio,
+           "memory_in_range": DR_MEM_RANGE[0] <= ratio <= DR_MEM_RANGE[1],
+           "launches": launches, "fake_count_s": fake.seconds,
+           "card_count_s": card.seconds}
+    emit(row)
+    check(rel <= DR_FLOP_TOL, f"dryrun step: card FLOPs {card.flops} vs fake "
+          f"{fake.flops} ({rel:.3%}); by op {differ}")
+    check(rel_plain <= DR_FLOP_TOL, f"dryrun step: card FLOPs {card.flops} vs "
+          f"FlopCounterMode over the plain version {plain_total} ({rel_plain:.3%})")
+    del params, opt, batch, fargs
+    free_card(torch)
+    return row, launches
+
+
+def dr_mfu(times: dict, counts: dict) -> list:
+    """(c) Each timed LM row's model FLOPs, the count's useful ratio and
+    its MFU against the bf16 peak; xlstm's also from its params' tree."""
+    rows = []
+    for key, seconds in times.items():
+        k = counts[key]
+        mf = k["model_flops"]
+        row = {"phase": "dryrun_mfu", "row": key, "measured_ms": seconds * 1e3,
+               "model_flops": mf, "counted_flops": k["counted_flops"],
+               "useful_ratio": mf / k["counted_flops"],
+               "compute_bound_ms": mf / BF16_OPS_S * 1e3,
+               "mfu": mf / (seconds * BF16_OPS_S), **k}
+        if key.startswith("xlstm"):
+            arch, kind, B, S = DR_LM_ROWS[key]
+            tokens = B * S if kind != "decode" else B
+            mult = 6.0 if kind == "train" else 2.0
+            mf_tree = mf - mult * (k["n_params"] - XLSTM_TREE_PARAMS) * tokens
+            row.update(model_flops_tree=mf_tree, mfu_tree=mf_tree /
+                       (seconds * BF16_OPS_S), tree_params=XLSTM_TREE_PARAMS)
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+# xlstm-1.3b's params in the init_params tree (ArchConfig.n_params counts
+# 1,310,982,144: 1.37 times as many, in the reference too)
+XLSTM_TREE_PARAMS = 959_547_392
+
+
+def dr_times(lm_run, train_run, ed_run, tf_run) -> dict:
+    """(c) The seconds each timed LM step took in its phase of this run."""
+    dense = lm_run["times"][0]  # phase 14 (c): bf16, dense
+    out = {"qwen_prefill": dense["prefill_ms"] / 1e3,
+           "qwen_decode": dense["decode_ms_per_token"] / 1e3,
+           "smollm_train": train_run["dense"]["step_ms_median_last20"] / 1e3,
+           "seamless_train": ed_run["train"]["dense"]["step_ms_median"] / 1e3}
+    for name in TF_ARCHS:
+        out[f"{name}_train"] = tf_run["train"][name]["step_ms_median"] / 1e3
+    return out
+
+
+def phase_dryrun(torch, rng, device, counts_future, times: dict) -> dict:
+    """Phase 20: the dry run (see the module docstring).  Returns the COO
+    kernel's launches in (a), the block kernel's in (b), the COO kernel's
+    row for the kernels line and the rows."""
+    t_phase = time.perf_counter()
+    parts = [dr_spmv_parts(torch, rng, device, P) for P in DR_PARTS]
+    ring = dr_spmv_ring(torch, rng, device)
+    step, bcoo_launches = dr_step_count(torch, device)
+    t0 = time.perf_counter()
+    counts = counts_future.get(timeout=600)
+    wait_s = time.perf_counter() - t0
+    mfu = dr_mfu(times, counts)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "dryrun_done", "seconds": seconds, "counts_wait_s": wait_s})
+    return {"coo_launches": sum(r["launches"] for r in parts),
+            "bcoo_launches": bcoo_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in parts),
+            "parts": parts, "ring": ring, "step": step, "mfu": mfu,
+            "seconds": seconds}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5066,6 +5437,19 @@ def main(argv=None) -> int:
         print(f"chip_smoke: repro_torch not found beside this script: {e}",
               file=sys.stderr)
         return 2
+    # (c)'s counts run on the host in a worker while the card's phases run
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        return run(args, torch, pool.apply_async(dr_lm_counts))
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run(args, torch, counts_future) -> int:
+    """Every phase, in order (see the module docstring)."""
+    from repro_torch.kernels import _build, instrument  # noqa: F401
+
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 in the oracles
     torch.backends.cudnn.allow_tf32 = False
@@ -5151,6 +5535,9 @@ def main(argv=None) -> int:
     ed_run = phase_enc_dec(torch, np.random.default_rng([args.seed, 18]), device)
     free_card(torch)
     tf_run = phase_train_families(torch, np.random.default_rng([args.seed, 19]), device)
+    free_card(torch)
+    dr_run = phase_dryrun(torch, np.random.default_rng([args.seed, 20]), device,
+                          counts_future, dr_times(lm_run, train_run, ed_run, tf_run))
 
     by_path = {
         kernel: {"single_device": launches[kind],
@@ -5169,6 +5556,8 @@ def main(argv=None) -> int:
     by_path["bcoo_spmv"]["lm_hybrid"] = la_run["launches"]
     by_path["bcoo_spmv"]["lm_enc_dec"] = ed_run["launches"]
     by_path["bcoo_spmv"]["lm_train_families"] = tf_run["launches"]
+    by_path["coo_spmv"]["dryrun"] = dr_run["coo_launches"]
+    by_path["bcoo_spmv"]["dryrun"] = dr_run["bcoo_launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
     main_shape = {"coo_spmv": ("regular", "coo", 1), "bcoo_spmv": ("block", "bcoo", 1)}
     times["ell_spmv"] = ell_times["regular"]
@@ -5180,7 +5569,9 @@ def main(argv=None) -> int:
             "also_replaces": ALSO_REPLACES.get(name, []),
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
-            "max_abs_err": max([errs[name]] + ([lm_run["max_abs_err"],
+            "max_abs_err": max([errs[name]] + ([dr_run["max_abs_err"]]
+                                               if name == "coo_spmv" else [])
+                               + ([lm_run["max_abs_err"],
                                                 train_run["max_abs_err"],
                                                 moe_run["max_abs_err"],
                                                 la_run["max_abs_err"],
@@ -5198,6 +5589,7 @@ def main(argv=None) -> int:
           "linear_attn_phase_s": la_run["seconds"],
           "enc_dec_phase_s": ed_run["seconds"],
           "train_families_phase_s": tf_run["seconds"],
+          "dryrun_phase_s": dr_run["seconds"],
           "card": card})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

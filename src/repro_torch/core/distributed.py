@@ -396,33 +396,43 @@ class _ProgramRing(PartitionedProgram):
         self.shard_w = -(-mat.shape[1] // Pn)
         self.cap_b = mat.capacity // Pn  # bucket_by_source_shard layout
 
-    def __call__(self, arrs, x):
+    def shards(self, x):
+        """x as the P shards the ring passes on (views)."""
+        return x.reshape((self.mat.n_parts, self.shard_w) + _tail(x))
+
+    def part_y(self, arrs, shards, me: int, steps=None):
+        """Part ``me``'s y over the ring's first ``steps`` steps (all P by
+        default; a count steps fewer, ``launch/dryrun_spmv.py``)."""
         mat, Pn, cap_b, shard_w = self.mat, self.mat.n_parts, self.cap_b, \
             self.shard_w
         acc = kref.acc_dtype(mat.dtype)
-        shards = x.reshape((Pn, shard_w) + _tail(x))
-        tail = (1,) * (x.ndim - 1)
-        ys = []
-        for me in range(Pn):
-            y = torch.zeros((mat.h_pad,) + _tail(x), dtype=acc, device=x.device)
-            for s in range(Pn):  # ring step s: shard (me + s) % P is held
-                holder = (me + s) % Pn
-                lo = holder * cap_b
-                br = arrs["rowind"][me, lo: lo + cap_b].long()
-                bc = arrs["colind"][me, lo: lo + cap_b].long()
-                bv = arrs["values"][me, lo: lo + cap_b].to(acc)
-                valid = torch.arange(cap_b, device=x.device) < \
-                    int(self.counts[me, holder])
-                local_col = (bc - holder * shard_w).clamp(0, shard_w - 1)
-                prod = bv.reshape((cap_b,) + tail) * shards[holder][local_col].to(acc)
-                prod = torch.where(valid.reshape((cap_b,) + tail), prod,
-                                   torch.zeros((), dtype=acc, device=x.device))
-                y.index_add_(0, br, prod)
-            ys.append(y.to(mat.dtype) if acc != mat.dtype else y)
+        tail = (1,) * (shards.ndim - 2)
+        y = torch.zeros((mat.h_pad,) + tuple(shards.shape[2:]), dtype=acc,
+                        device=shards.device)
+        for s in range(Pn if steps is None else steps):
+            holder = (me + s) % Pn  # ring step s: shard (me + s) % P is held
+            lo = holder * cap_b
+            br = arrs["rowind"][me, lo: lo + cap_b].long()
+            bc = arrs["colind"][me, lo: lo + cap_b].long()
+            bv = arrs["values"][me, lo: lo + cap_b].to(acc)
+            valid = torch.arange(cap_b, device=shards.device) < \
+                int(self.counts[me, holder])
+            local_col = (bc - holder * shard_w).clamp(0, shard_w - 1)
+            prod = bv.reshape((cap_b,) + tail) * shards[holder][local_col].to(acc)
+            prod = torch.where(valid.reshape((cap_b,) + tail), prod,
+                               torch.zeros((), dtype=acc, device=shards.device))
+            y.index_add_(0, br, prod)
+        return y.to(mat.dtype) if acc != mat.dtype else y
+
+    def stack_parts(self, ys):
+        """The parts' ys stacked, split rows moved home."""
         y = torch.stack(ys)
-        if self.fix is not None:
-            y = self.fix(y)
-        return SpmvOutput(y, **self.meta)
+        return y if self.fix is None else self.fix(y)
+
+    def __call__(self, arrs, x):
+        shards = self.shards(x)
+        ys = [self.part_y(arrs, shards, me) for me in range(self.mat.n_parts)]
+        return SpmvOutput(self.stack_parts(ys), **self.meta)
 
 
 def spmv_1d_ring(mat: PartitionedMatrix, bucket_counts: np.ndarray,

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 __all__ = ["SOURCES", "DTYPE_CODES", "BUILD_DIR", "build_all", "library",
            "build_log", "check", "check_index", "check_x", "stream_of",
@@ -138,6 +139,21 @@ def check_index(t: torch.Tensor, device, name: str) -> None:
     if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous int32 tensor on {device}; "
                          f"got {t.dtype} on {t.device}")
+
+
+def check_real(name: str, *tensors) -> None:
+    """Raise on a fake tensor (``FakeTensorMode``): it has no memory, so a
+    kernel handed its pointer would read nothing.  A count of a step runs
+    its fake tensors on the CPU, where the wrappers take the plain version."""
+    if any(is_fake(t) for t in tensors):
+        raise TypeError(f"{name} got a fake tensor: count on fake CPU tensors, "
+                        f"which run the plain version")
+
+
+def nonzeros(count: torch.Tensor, slots: int) -> int:
+    """``count.sum()``: what this run's data needs; ``slots``, the padded
+    upper bound, when ``count`` is fake and holds no data."""
+    return slots if is_fake(count) else int(count.sum())
 
 
 def check_x(x: torch.Tensor, dtype: torch.dtype, name: str) -> tuple:

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .instrument import record_launch
+from .instrument import kernel_scope, record_launch, record_work
 from .ref import acc_dtype, block_products
 
 __all__ = ["bcoo_spmv", "bcoo_spmv_plain", "bcoo_spmv_cuda", "block_row_ptr",
@@ -174,6 +174,7 @@ def bcoo_spmv_cuda(browptr, bcolind, bvalues, x, out_rows: int,
     """
     if x.device.type != "cuda":
         raise ValueError(f"bcoo_spmv_cuda needs a CUDA tensor; x is on {x.device}")
+    _build.check_real("bcoo_spmv_cuda", x, bvalues)
     B, squeeze = _build.check_x(x, bvalues.dtype, "bcoo_spmv_cuda")
     _build.check_index(browptr, x.device, "browptr")
     _build.check_index(bcolind, x.device, "bcolind")
@@ -211,7 +212,9 @@ def bcoo_spmv_cuda(browptr, bcolind, bvalues, x, out_rows: int,
                      bt, n_parts, cap, ROUTES[route],
                      _build.DTYPE_CODES[bvalues.dtype], _build.stream_of(x))
         _build.check(err, f"bcoo_spmv ({route} route)")
-        record_launch("bcoo", B)
+        record_launch("bcoo", B, bcoo_work(
+            bvalues, x, out_rows,
+            lambda: _build.nonzeros(browptr[..., -1], n_parts * cap)))
     y = y if stacked else y[0]
     return y[..., 0] if squeeze else y
 
@@ -228,14 +231,45 @@ def bcoo_spmv(browind, bcolind, bvalues, x, out_rows: int, nblocks=None,
     (a leading part axis) run every part, part p on its window of x
     (``windows``).
     """
-    if x.device.type == "cpu":
-        return bcoo_spmv_plain(browind, bcolind, bvalues, x, out_rows, nblocks,
-                               windows)
-    if browptr is None:
-        nb = nblocks
-        if nb is None:
-            nb = (bvalues.shape[0] if bvalues.ndim == 3
-                  else [bvalues.shape[1]] * bvalues.shape[0])
-        browptr = block_row_ptr(browind, nb, out_rows // bvalues.shape[-2])
-    return bcoo_spmv_cuda(browptr, bcolind, bvalues, x, out_rows, batch_tile,
-                          windows)
+    with kernel_scope():
+        if x.device.type == "cpu":
+            record_work("bcoo", bcoo_work(bvalues, x, out_rows,
+                                          lambda: _blocks(bvalues, nblocks)))
+            return bcoo_spmv_plain(browind, bcolind, bvalues, x, out_rows, nblocks,
+                                   windows)
+        if browptr is None:
+            nb = nblocks
+            if nb is None:
+                nb = (bvalues.shape[0] if bvalues.ndim == 3
+                      else [bvalues.shape[1]] * bvalues.shape[0])
+            browptr = block_row_ptr(browind, nb, out_rows // bvalues.shape[-2])
+        return bcoo_spmv_cuda(browptr, bcolind, bvalues, x, out_rows, batch_tile,
+                              windows)
+
+
+def _blocks(bvalues: torch.Tensor, nblocks) -> int:
+    """The blocks a product runs: ``nblocks`` (an int, a list or tensor of
+    per-part counts) or, without it, every stored block."""
+    slots = bvalues.shape[:-2].numel()
+    if nblocks is None:
+        return slots
+    if isinstance(nblocks, torch.Tensor):
+        return _build.nonzeros(nblocks, slots)
+    return int(sum(nblocks)) if bvalues.ndim == 4 else int(nblocks)
+
+
+def bcoo_work(bvalues: torch.Tensor, x: torch.Tensor, out_rows: int, nb):
+    """``() -> (flops, bytes)`` of a block product over ``nb()`` blocks:
+    2 FLOPs a block element and column; each block's values and column,
+    the block-row pointer, x and y once (:mod:`.instrument`)."""
+    def work():
+        r, c = bvalues.shape[-2:]
+        n = nb()
+        B = x.shape[1] if x.ndim == 2 else 1
+        parts = bvalues.shape[0] if bvalues.ndim == 4 else 1
+        y = parts * out_rows * B * acc_dtype(bvalues.dtype).itemsize
+        ptr = parts * (out_rows // r + 1) * 4
+        return (2 * n * r * c * B,
+                n * (r * c * bvalues.element_size() + 4) + ptr
+                + x.numel() * x.element_size() + y)
+    return work

@@ -29,10 +29,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from ..core.formats import to_tensor
 from . import _build
-from .instrument import record_launch
+from .instrument import kernel_scope, record_launch, record_work
 from .ref import acc_dtype
 
 __all__ = ["ChunkPlan", "plan_chunks", "plan_pieces", "stack_chunk_plans",
@@ -310,6 +311,7 @@ def coo_spmv_cuda(plan: ChunkPlan, x: torch.Tensor,
     """
     if x.device.type != "cuda":
         raise ValueError(f"coo_spmv_cuda needs a CUDA tensor; x is on {x.device}")
+    _build.check_real("coo_spmv_cuda", x, plan.values)
     B, squeeze = _build.check_x(x, plan.values.dtype, "coo_spmv_cuda")
     for f in ("rowind", "colind", "count", "pieces", "splits"):
         _build.check_index(getattr(plan, f), x.device, f"plan.{f}")
@@ -353,9 +355,22 @@ def coo_spmv_cuda(plan: ChunkPlan, x: torch.Tensor,
                      plan.n_chunks, _build.DTYPE_CODES[plan.values.dtype],
                      _build.stream_of(x))
         _build.check(err, "coo_spmv")
-        record_launch("coo", B)
+        record_launch("coo", B, coo_work(plan, x))
     y = y if plan.n_parts is not None else y[0]
     return y[..., 0] if squeeze else y
+
+
+def coo_work(plan: ChunkPlan, x: torch.Tensor):
+    """``() -> (flops, bytes)`` of ``plan @ x``: 2 FLOPs a nonzero and
+    column; each nonzero's row, column and value, x and y once
+    (:mod:`.instrument`)."""
+    def work():
+        B = x.shape[1] if x.ndim == 2 else 1
+        nnz = _build.nonzeros(plan.count, plan.values.numel())
+        y = (plan.n_parts or 1) * plan.out_rows * B * acc_dtype(plan.values.dtype).itemsize
+        return (2 * nnz * B,
+                nnz * (8 + plan.values.element_size()) + x.numel() * x.element_size() + y)
+    return work
 
 
 def coo_spmv(plan: ChunkPlan, x: torch.Tensor, batch_tile: int | None = None,
@@ -363,7 +378,14 @@ def coo_spmv(plan: ChunkPlan, x: torch.Tensor, batch_tile: int | None = None,
     """y = plan @ x: the plain version on a CPU tensor, the CUDA kernel on a
     CUDA tensor.  ``batch_tile`` (CUDA only) sets the SpMM columns per CTA;
     the result does not depend on it.  ``windows`` gives each part of a
-    stacked plan its window of x."""
-    if x.device.type == "cpu":
-        return coo_spmv_plain(plan, x, windows)
-    return coo_spmv_cuda(plan, x, batch_tile, windows)
+    stacked plan its window of x.  A fake CPU x (a count,
+    ``analysis/count.py``) gets a fake y of the result's shape."""
+    with kernel_scope():
+        if x.device.type == "cpu":
+            record_work("coo", coo_work(plan, x))
+            if is_fake(x):  # the plain version's masks need data: y's shape only
+                lead = () if plan.n_parts is None else (plan.n_parts,)
+                return x.new_zeros(lead + (plan.out_rows,) + tuple(x.shape[1:]),
+                                   dtype=acc_dtype(plan.values.dtype))
+            return coo_spmv_plain(plan, x, windows)
+        return coo_spmv_cuda(plan, x, batch_tile, windows)

@@ -21,7 +21,7 @@ import torch
 
 from ..core import formats as F
 from . import _build
-from .instrument import record_launch
+from .instrument import kernel_scope, record_launch, record_work
 from .ref import acc_dtype
 
 __all__ = ["dense_to_ell", "ell_spmv", "ell_spmv_plain", "ell_spmv_cuda",
@@ -91,6 +91,7 @@ def ell_spmv_cuda(colind, values, row_nnz, x,
     """
     if x.device.type != "cuda":
         raise ValueError(f"ell_spmv_cuda needs a CUDA tensor; x is on {x.device}")
+    _build.check_real("ell_spmv_cuda", x, values)
     B, squeeze = _build.check_x(x, values.dtype, "ell_spmv_cuda")
     _build.check_index(colind, x.device, "colind")
     _build.check_index(row_nnz, x.device, "row_nnz")
@@ -113,7 +114,7 @@ def ell_spmv_cuda(colind, values, row_nnz, x,
                      x.data_ptr(), y.data_ptr(), rows, K, x.shape[0], B, bt,
                      _build.DTYPE_CODES[values.dtype], _build.stream_of(x))
         _build.check(err, "ell_spmv")
-        record_launch("ell", B)
+        record_launch("ell", B, ell_work(values, row_nnz, x))
     return y[:, 0] if squeeze else y
 
 
@@ -125,6 +126,23 @@ def ell_spmv(colind, values, row_nnz, x,
     ``row_tile``: the plain version on a CPU tensor, the CUDA kernel on a
     CUDA tensor.  ``batch_tile`` (CUDA only) does not change the result.
     """
-    if x.device.type == "cpu":
-        return ell_spmv_plain(colind, values, row_nnz, x)
-    return ell_spmv_cuda(colind, values, row_nnz, x, batch_tile)
+    with kernel_scope():
+        if x.device.type == "cpu":
+            record_work("ell", ell_work(values, row_nnz, x))
+            return ell_spmv_plain(colind, values, row_nnz, x)
+        return ell_spmv_cuda(colind, values, row_nnz, x, batch_tile)
+
+
+def ell_work(values: torch.Tensor, row_nnz: torch.Tensor, x: torch.Tensor):
+    """``() -> (flops, bytes)`` of an ELL product: 2 FLOPs a stored nonzero
+    and column; each nonzero's column and value, the row counts, x and y
+    once (:mod:`.instrument`)."""
+    def work():
+        B = x.shape[1] if x.ndim == 2 else 1
+        nnz = _build.nonzeros(row_nnz, values.numel())
+        rows = values.shape[0]
+        return (2 * nnz * B,
+                nnz * (4 + values.element_size()) + rows * 4
+                + x.numel() * x.element_size()
+                + rows * B * acc_dtype(values.dtype).itemsize)
+    return work

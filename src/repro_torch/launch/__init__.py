@@ -1,3 +1,4 @@
-"""Launchers: the serving and training entry points and the train step.
-Counterpart of ``repro/launch``; the dry-runs wait for their slice
-(ROADMAP.md §1 item 6) and the mesh for multi-card meshes (item 7)."""
+"""Launchers: the serving and training entry points, the train step, the
+dry runs (``dryrun``, ``dryrun_spmv``) and the mesh.  Counterpart of
+``repro/launch``; meshes over distinct cards wait for ROADMAP.md §1
+item 7."""

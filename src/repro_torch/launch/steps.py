@@ -10,9 +10,13 @@ and step builders.  The reference jits each step; the port runs it
 eagerly on the params' device.  An enc-dec arch's prefill step encodes
 ``batch["frames"]``; its decode step reads ``batch["memory"]`` (the
 encoder's output, kept by the caller), and its train batch carries
-``frames``, which ``lm.loss_fn`` encodes.  ``input_specs``,
-``cache_specs``, ``state_specs`` and ``abstract_state`` wait for
-multi-card meshes (ROADMAP.md §1 item 7).
+``frames``, which ``lm.loss_fn`` encodes.
+
+``input_specs`` and ``abstract_state`` are the reference's on fake tensors
+(``FakeTensorMode``, CPU): the dry run's inputs and train state, with
+nothing allocated.  ``param_specs``, ``cache_specs``,
+``input_spec_shardings`` and ``state_specs`` are sharding specs and wait
+for multi-card meshes (ROADMAP.md §1 item 7).
 
 A sparse LM's port-only keys (``sparse.layers.DERIVED``) ride along with
 the params: the loss reads them, the optimizer never sees them (its state
@@ -24,12 +28,12 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.models import lm
-from repro_torch.optim import AdamWConfig, OptState, apply_updates
+from repro_torch.optim import AdamWConfig, OptState, apply_updates, init_opt
 from repro_torch.sparse.layers import strip_derived
 from repro_torch.tree import flatten, tree_map
 
 __all__ = ["value_and_grad_trainable", "make_train_step", "make_prefill_step",
-           "make_decode_step", "carry_derived"]
+           "make_decode_step", "carry_derived", "input_specs", "abstract_state"]
 
 
 def value_and_grad_trainable(loss_fn):
@@ -135,3 +139,48 @@ def make_decode_step(cfg: ArchConfig, shape_name: str):
                               memory=batch.get("memory"))
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# fake inputs and train state (the dry run; nothing allocated)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape_name: str, mode=None) -> dict:
+    """Model inputs for one (arch x shape) cell, as fake CPU tensors of
+    ``mode`` with the reference's shapes and dtypes.
+
+    train:    {tokens, labels[, prefix_embeds][, frames]}
+    prefill:  same minus labels
+    decode:   {token, caches[, memory]}  — one new token against seq_len
+              caches (``lm.init_caches``; the enc-dec memory is
+              min(S, 4096) frames)
+    """
+    sh = SHAPES[shape_name]
+    S, B, kind = sh["seq_len"], sh["global_batch"], sh["kind"]
+    d = cfg.d_model
+    with lm.fake_mode(mode):
+        if kind in ("train", "prefill"):
+            S_text = S - cfg.modality_tokens
+            out = {"tokens": torch.empty((B, S_text), dtype=torch.int32)}
+            if kind == "train":
+                out["labels"] = torch.empty((B, S_text), dtype=torch.int32)
+            if cfg.modality_tokens:
+                out["prefix_embeds"] = torch.empty((B, cfg.modality_tokens, d),
+                                                   dtype=torch.bfloat16)
+            if cfg.encoder_layers:
+                out["frames"] = torch.empty((B, S, d), dtype=torch.bfloat16)
+            return out
+        out = {"token": torch.empty((B, 1), dtype=torch.int32),
+               "caches": lm.init_caches(cfg, B, S)}
+        if cfg.encoder_layers:
+            out["memory"] = torch.empty((B, min(S, 4096), d), dtype=torch.bfloat16)
+        return out
+
+
+def abstract_state(cfg: ArchConfig, opt_cfg: AdamWConfig, mode=None):
+    """(params, optimizer state) of a train cell on fake CPU tensors."""
+    mode = lm.fake_mode(mode)
+    params = lm.abstract_params(cfg, mode=mode)
+    with mode:
+        return params, init_opt(params, opt_cfg)

@@ -32,8 +32,10 @@ counterpart of ``dots_with_no_batch_dims_saveable``), ``"none"`` keeps its
 activations.  The encoder is not rematerialized (the reference scans it
 without ``jax.checkpoint``).
 
-Not ported: ``param_specs``, ``abstract_params`` and ``cache_specs`` wait
-for multi-card meshes (ROADMAP.md §1 item 7).
+``abstract_params(cfg)`` builds the ``init_params`` tree on fake tensors
+(``FakeTensorMode``): shapes and dtypes, nothing allocated, for the dry
+run (``launch/dryrun.py``).  Not ported: ``param_specs`` and
+``cache_specs``, which wait for multi-card meshes (ROADMAP.md §1 item 7).
 
 ``decode_step`` steps the caches it is given in place: the attention
 caches through ``attention.gqa_decode`` / ``mla_decode``, the recurrent
@@ -45,6 +47,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
@@ -58,6 +61,8 @@ from .common import (cross_entropy, dense_apply, embed_init, map_params, normal,
 
 __all__ = [
     "init_params",
+    "abstract_params",
+    "fake_mode",
     "check_config",
     "forward",
     "loss_fn",
@@ -124,6 +129,20 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.bfloat16):
             "block": block_init(gen, cfg, _mtp_kind(cfg), dtype),
         }
     return p
+
+
+def fake_mode(mode=None) -> FakeTensorMode:
+    """``mode``, or a new ``FakeTensorMode`` in which real constants (a
+    sparse layer's numpy pattern) become fake on first use."""
+    return FakeTensorMode(allow_non_fake_inputs=True) if mode is None else mode
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16, mode=None):
+    """The ``init_params`` tree on fake CPU tensors of ``mode`` (a new
+    ``FakeTensorMode`` by default; each leaf's ``fake_mode`` names it).
+    Nothing is allocated: any arch at full width."""
+    with fake_mode(mode) as mode:
+        return init_params(torch.Generator().manual_seed(0), cfg, dtype)
 
 
 def _mtp_kind(cfg) -> str:

@@ -139,3 +139,19 @@ def solver_inputs(combine: str, seed: int = 5):
           "richardson": dict(b=b, omega=0.25),
           "jacobi": dict(b=b, diag=np.diag(a).copy())}[combine]
     return a, x0, dict(steps=SOLVER_STEPS, combine=combine, **kw)
+
+
+# The SpMV dry run (tests/test_torch_dryrun.py, case "dryrun" of the
+# runner): synth_partition_1d's arrays at 2^12 rows on 8 parts, and its 1D
+# and bucketed-ring programs at 2^10 rows on PARTS parts against x of
+# dryrun_x.
+DRYRUN_SYNTH = dict(rows=1 << 12, cols=1 << 12, nnz_per_row=16, parts=8)
+DRYRUN_SPMV = dict(rows=1 << 10, cols=1 << 10, nnz_per_row=16, parts=PARTS)
+
+
+def dryrun_x(seed: int = 6):
+    """x (cols,) and X (cols, BATCH), random float32."""
+    rng = np.random.default_rng(seed)
+    n = DRYRUN_SPMV["cols"]
+    return (rng.standard_normal(n).astype(np.float32),
+            rng.standard_normal((n, BATCH)).astype(np.float32))

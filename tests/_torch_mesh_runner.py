@@ -29,8 +29,9 @@ from repro.api import SparseMatrix, plan_from_ir, plan_from_partitioned  # noqa:
 from repro.core import distributed as D  # noqa: E402
 from repro.core.partition import partition_1d  # noqa: E402
 
-from _torch_mesh_cases import (BLOCK, IR_PLANS, PARTS, SOLVER_CASES,  # noqa: E402
-                               cases, matrix, solver_inputs, vectors)
+from _torch_mesh_cases import (BLOCK, DRYRUN_SPMV, DRYRUN_SYNTH,  # noqa: E402
+                               IR_PLANS, PARTS, SOLVER_CASES, cases, dryrun_x,
+                               matrix, solver_inputs, vectors)
 
 BF16 = np.dtype(jnp.bfloat16)
 
@@ -92,6 +93,8 @@ def main(out_path: str, only=()) -> None:
         res[f"{case_id}|x"] = np.asarray(out.x)
         res[f"{case_id}|steps"] = np.array(out.steps)
         res[f"{case_id}|converged"] = np.array(out.converged)
+    if not only or "dryrun" in only:
+        dryrun(res, devices)
     if only:
         np.savez(out_path, **res)
         print("MESH DONE")
@@ -118,6 +121,40 @@ def main(out_path: str, only=()) -> None:
         res[f"{name}|port_ir_y"] = host(jp.compile()(x))
     np.savez(out_path, **res)
     print("MESH DONE")
+
+
+def dryrun(res: dict, devices) -> None:
+    """Case "dryrun": the dry run's optimizer settings and microbatches of
+    every arch and shape, synth_partition_1d's arrays, and the SpMV dry
+    run's 1D and ring programs (the ring bucketed first) on PARTS parts."""
+    import dataclasses
+
+    from repro.configs import get_config, list_configs
+    from repro.configs.base import SHAPES
+    from repro.launch import dryrun as DR  # jax is up: its XLA_FLAGS is moot
+    from repro.launch import dryrun_spmv as DS
+
+    res["dryrun|settings"] = np.array(json.dumps({
+        a: {"opt": dataclasses.asdict(DR._opt_cfg(get_config(a))),
+            "microbatches": {s: DR._microbatches(get_config(a), s)
+                             for s in SHAPES}}
+        for a in list_configs()}))
+    syn = DS.synth_partition_1d(DRYRUN_SYNTH["rows"], DRYRUN_SYNTH["cols"],
+                                DRYRUN_SYNTH["nnz_per_row"], DRYRUN_SYNTH["parts"])
+    for f in ("rowind", "colind", "values", "nnz", "row_start", "col_start",
+              "row_extent", "col_extent"):
+        res[f"dryrun|synth|{f}"] = np.asarray(getattr(syn, f))
+    mat = DS.synth_partition_1d(DRYRUN_SPMV["rows"], DRYRUN_SPMV["cols"],
+                                DRYRUN_SPMV["nnz_per_row"], PARTS)
+    mesh = compat.make_mesh((PARTS,), ("parts",), devices=devices)
+    part_r, counts = D.bucket_by_source_shard(mat, PARTS)
+    x, X = dryrun_x()
+    for name, pln in (("1d", plan_from_partitioned(mat, mesh)),
+                      ("ring", plan_from_partitioned(part_r, mesh, ring=True,
+                                                     ring_counts=counts))):
+        exe = pln.compile()
+        res[f"dryrun|{name}|y"] = np.asarray(exe(x))
+        res[f"dryrun|{name}|Y"] = np.asarray(exe.batch(X))
 
 
 if __name__ == "__main__":

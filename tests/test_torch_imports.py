@@ -28,6 +28,7 @@ print("LM", sorted(n for n in names if n.split(".")[1:2] in (
     ["models"], ["sparse"], ["launch"])))
 print("TRAIN", sorted(n for n in names if n.split(".")[1:2] in (
     ["data"], ["optim"], ["runtime"], ["tree"])))
+print("ANALYSIS", sorted(n for n in names if n.split(".")[1:2] == ["analysis"]))
 print("BAD", bad)
 print("NEW_THREADS", sorted(t.name for t in threading.enumerate()
                             if t.ident not in threads))
@@ -56,7 +57,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     # the LM serving and training paths' packages, and the ten configs and
     # the paper's
     assert lines["LM"] == str([
-        "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.launch.steps",
+        "repro_torch.launch", "repro_torch.launch.dryrun",
+        "repro_torch.launch.dryrun_spmv", "repro_torch.launch.mesh",
+        "repro_torch.launch.serve", "repro_torch.launch.steps",
         "repro_torch.launch.train", "repro_torch.models",
         "repro_torch.models.attention", "repro_torch.models.blocks",
         "repro_torch.models.common", "repro_torch.models.linear_attn",
@@ -68,6 +71,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "repro_torch.runtime", "repro_torch.runtime.checkpoint",
         "repro_torch.runtime.elastic", "repro_torch.runtime.fault",
         "repro_torch.tree"])
+    # the dry run's analysis: the roofline arithmetic, the report, the count
+    assert lines["ANALYSIS"] == str([
+        "repro_torch.analysis", "repro_torch.analysis.count",
+        "repro_torch.analysis.report", "repro_torch.analysis.roofline"])
     configs = [m for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
                if m.name.startswith("repro_torch.configs.")]
     assert len(configs) == 12  # base, spmv_paper and the ten archs

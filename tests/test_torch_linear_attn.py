@@ -492,3 +492,47 @@ def test_main_serves_the_linear_attention_archs_on_the_cpu(capsys, arch):
                        "--prompt-len", "8", "--gen", "4", "--device", "cpu"])
     assert out.shape == (2, 4) and out.dtype == np.int32
     assert "generated (2, 4)" in capsys.readouterr().out
+
+
+def test_slstm_stepped_drifts_from_chunked_only_through_the_input_gemm():
+    """One full-width xlstm sLSTM layer, f32, random x (phase 17 (a)'s
+    random case, at S = 64).  The reference's ``slstm_apply`` and its
+    stepped ``slstm_decode`` agree bit for bit on the CPU: XLA's CPU dot
+    gives a row the same sum whatever the row count.  The port's two paths
+    share the cell (``_slstm_cell``); they differ only in the input GEMM,
+    run at M = B*S and at M = B, which torch's GEMMs (oneDNN here, cuBLAS
+    on the card) round differently.  Fed the same pre-activations the
+    port's cell loop is ``slstm_apply`` bit for bit, and the GEMM's rows
+    differ by rounding alone."""
+    jc, tc = get_config("xlstm-1.3b"), tconfigs.get_config("xlstm-1.3b")
+    B, S, d, H = 2, 64, jc.d_model, jc.n_heads
+    p = TL.slstm_init(torch.Generator().manual_seed(17), tc, torch.float32)
+    x = np.random.default_rng([0, 17]).standard_normal((B, S, d)).astype(np.float32)
+    pj = map_params(lambda t: jnp.asarray(t.numpy()), p)
+    y, st = jax.jit(lambda p, x: JL.slstm_apply(p, x, jc))(pj, jnp.asarray(x))
+    dec = jax.jit(lambda p, x, s: JL.slstm_decode(p, x, s, jc))
+    s, ys = JL.slstm_zero_state(B, jc), []
+    for t in range(S):
+        yt, s = dec(pj, jnp.asarray(x[:, t:t + 1]), s)
+        ys.append(yt)
+    np.testing.assert_array_equal(np.asarray(jnp.concatenate(ys, 1)), np.asarray(y))
+    for a, b in zip(st, s):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        ty, tst = TL.slstm_apply(p, xt, tc)
+        pre = TL.dense_apply(p["w_in"], xt).reshape(B, S, H, 4 * (d // H))
+        rows = torch.cat([TL.dense_apply(p["w_in"], xt[:, t:t + 1])
+                          for t in range(S)], 1).reshape(pre.shape)
+        state, hs = TL.slstm_zero_state(B, tc), []
+        for t in range(S):
+            state = TL._slstm_cell(p, state, pre[:, t])
+            hs.append(state.h)
+        fed = TL._xlstm_out(p, torch.stack(hs, 1), xt)
+    assert torch.equal(fed, ty) and all(torch.equal(a, b) for a, b in zip(state, tst))
+    # f32 sums of 2,048 products in another order: a few ulps of the row's
+    # largest pre-activation (measured 6.4e-6 of 5.2)
+    np.testing.assert_allclose(rows.numpy(), pre.numpy(), rtol=0,
+                               atol=1e-5 * float(pre.abs().max()))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(y), rtol=1e-4, atol=1e-4)
