@@ -370,7 +370,54 @@ Phases (every check raises, so any failure exits non-zero):
    shape, the count's useful ratio (model FLOPs over the step's count on
    fake tensors, taken in a worker process started with the script) and
    its MFU against 989 TFLOP/s; xlstm's also from its tree's 959,547,392
-   params.  No step runs again to be timed.
+   params; phase 21's gemma2 prefill and decode, llama train step and
+   llava prefix prefill too.  No step runs again to be timed.
+21. The dense family's last three archs at full width, after phase 19 and
+   before phase 20 (which prices its timed steps), with inputs from their
+   own generator (``[seed, 21]``); every model freed before the next.  (a)
+   llama3.2-1b (16 layers, 1,235,746,816 params) at full depth: phase 14
+   (a)'s f32 checks (``Server.generate`` B=4, prompt 128, 32 tokens;
+   decode vs prefill 5e-3; teacher-forced argmax), bf16 times as phase 14
+   (c), ``ffn_density=0.5`` in (8, 128) blocks as phase 14 (b) (48
+   projections against the plain version, 1,536 launches a generate, the
+   densified oracle within 1e-3), 10 TrainLoop steps of 4 x 256 whose loss
+   falls by at least 1.0.  (b) gemma2-27b (46 layers alternating
+   attn_local with a 4,096 window and attn_global, softcaps 50 / 30, a
+   tied 256,000-word vocabulary) in bf16 at full depth through ``Server``
+   (times, peak) and one B=1, S=8,192 prefill (query-chunked, timed, its
+   peak); cut to 2 layers in f32: phase 14 (a)'s checks, then across the
+   window at B=1 decode(prefill(8,192)) within 5e-3 of prefill(8,193) (the
+   ring keeps positions 4,096..8,191 and the decode writes slot 0, the
+   oldest) and the chunked 8,192-token prefill within 1e-3 of the
+   unchunked one; sparse (SiLU FFN, as the reference's) at the f32 cut
+   against its plain version and its densified oracle (whose dense FFN is
+   given SiLU), and at full depth one bf16 generate of 8 tokens launching
+   the block kernel 138 times a step, its prefill and decode timed.  (c)
+   gemma2 at full width cut to 6 layers (3 repeats; 8 would not fit beside
+   the training state), 10 bf16 TrainLoop steps dense (the loss falls by
+   at least 1.0; step ms, peak, a trace) and sparse (54 launches a step;
+   its first repeat's projections after training bit-equal to the plain
+   version); card vs CPU at reduced widths, dense and sparse (phase 15
+   (d)'s bounds).  (d) llava-next-34b (60 layers of 7168, the widths of
+   llava-v1.6-34b's Yi-34B) at full depth in bf16, B=1: a 2,880-token stub
+   prefix (random patch embeddings) and a 128-token prompt, 32 greedy
+   tokens through ``lm.prefill`` (max_len 3,040) and ``make_decode_step``:
+   prefill and decode ms, a decode trace, the peak; cut to 2 layers in
+   f32: ``make_prefill_step`` / ``make_decode_step`` bit-equal to
+   ``lm.prefill`` / ``lm.decode_step`` over the prefix, decode vs prefill
+   5e-3, sparse within 1e-3 of its densified oracle and its projections
+   against the plain version at B = 4 and 3,008; sparse at full depth, one
+   prefill (180 launches, T = 3,008 on the tensor cores) timed.  (e) llava
+   cut to 6 layers: ``make_train_step`` for 10 bf16 steps of B=1, a fresh
+   stub prefix and 256 text tokens each, the loss over the text falling by
+   at least 1.0; step ms, peak, a trace; card vs CPU at reduced widths
+   with a prefix.  (f) The block kernel at gemma2's w_gate (4608 ->
+   36,864) and w_down at B = 1, 4 and 512 and its backward at T = 1,024,
+   llava's w_gate and w_down at T = 3,008 (the plain version there in
+   column chunks), beside ``torch.matmul`` and the bound.  The path's
+   count (``launches_by_path["bcoo_spmv"]["lm_dense_archs"]``) sums
+   llama's sparse generate, gemma2's full-depth sparse generate, llava's
+   full-depth sparse prefill and one sparse gemma2 train step.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -387,6 +434,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1959,11 +2007,17 @@ def phase_tune_parts(torch, rng, device, rec, path) -> tuple:
 
 
 TUNE_DRIFT = ("scale-free",)  # (d)'s drift refinement (cut from all three for time)
+# (d)'s engine: the matrices it serves and tunes, and its tuner's candidate
+# cap (cut for the script's time from all three matrices and 8 candidates)
+TUNE_ENGINE_MATRICES = ("scale-free", "block")
+TUNE_ENGINE_CANDIDATES = 4
 
 
 def phase_tune_engine(torch, rng, device, by_matrix) -> tuple:
-    """Phase 11 (d): ``SpmvEngine(tune=True, tune_after=8)`` over the three
-    matrices.  A client thread multiplies all through; the main thread
+    """Phase 11 (d): ``SpmvEngine(tune=True, tune_after=8)`` over
+    ``TUNE_ENGINE_MATRICES``, its tuner the engine's default (cuda
+    candidates, warmup 1, iters 3) capped at ``TUNE_ENGINE_CANDIDATES``.
+    A client thread multiplies all through; the main thread
     serves 8 width-1 multiplies per matrix (one ``traffic`` refinement
     each), then width 8 to ``TUNE_DRIFT`` until it has a ``drift``
     refinement (the others stay at width 1, with none).
@@ -1973,8 +2027,13 @@ def phase_tune_engine(torch, rng, device, by_matrix) -> tuple:
 
     from repro_torch.engine import SpmvEngine
     from repro_torch.kernels import instrument
+    from repro_torch.tune import CandidateGenerator, Measurer, Tuner
 
-    eng = SpmvEngine(tune=True, tune_after=8)
+    by_matrix = {name: by_matrix[name] for name in TUNE_ENGINE_MATRICES}
+    tuner = Tuner(generator=CandidateGenerator(impls=("cuda",),
+                                               max_candidates=TUNE_ENGINE_CANDIDATES),
+                  measurer=Measurer(warmup=1, iters=3))
+    eng = SpmvEngine(tune=True, tune_after=8, tuner=tuner)
     for name, rec in by_matrix.items():
         eng.register(name, rec["sm"])
     pools = {}  # (matrix, width) -> [(x, cuSPARSE answer)]
@@ -1987,6 +2046,7 @@ def phase_tune_engine(torch, rng, device, by_matrix) -> tuple:
                 (x, (rec["A"] @ torch.from_numpy(x).to(device)).cpu().numpy())
                 for x in xs]
     state = {"width": 1, "errors": [], "served": 0}
+    names = list(by_matrix)
     stop = threading.Event()
 
     def ask(name, i):  # width 8 only to the matrix that drifts
@@ -2000,7 +2060,7 @@ def phase_tune_engine(torch, rng, device, by_matrix) -> tuple:
         i = 0
         try:
             while not stop.is_set():
-                ask(list(by_matrix)[i % 3], i)
+                ask(names[i % len(names)], i)
                 i += 1
         except Exception as e:  # reported by the check below
             state["errors"].append(f"client: {type(e).__name__}: {e}")
@@ -2135,6 +2195,10 @@ def phase_tuning(torch, rng, device, records) -> dict:
 # ------------------------------------------------------------- topology
 
 TOPO_SHAPES = ((2, 2), (4, 4))  # the pim_like presets of phase 13 (b)
+# the matrices (b) places under each preset: (4, 4) on the scale-free one
+# alone, the cheapest to partition (cut for the script's time from all
+# three)
+TOPO_MATRICES = {(2, 2): ("regular", "scale-free", "block"), (4, 4): ("scale-free",)}
 MODELLED = "modelled on the preset's declared links, not a time on any device"
 
 
@@ -2248,7 +2312,8 @@ def phase_topology(torch, rng, device, records, autos) -> dict:
     for shape2d in TOPO_SHAPES:
         n = shape2d[0] * shape2d[1]
         topo = FakeTopology.pim_like(shape2d, devices=[device.type] * n)
-        for name, rec in by_matrix.items():
+        for name in TOPO_MATRICES[shape2d]:
+            rec = by_matrix[name]
             built = {}
             for scheme in ("2d", "auto"):
                 fmt = rec["fmt"] if scheme == "2d" else None
@@ -2424,10 +2489,11 @@ CLUSTER_NAMES = ("regular", "scale-free", "block")
 ORACLE_OF = {"block-tuned": "block", "regular-ir": "regular"}  # phase 12 (c)
 CLUSTER_MIX = {1: 0.6, 4: 0.25, 8: 0.15}  # the replays' widths and shares
 POWER_STEPS = 20  # steps of each phase-12 session
-# cut for the script's time: the matrices at 2^19 rows (2^21 before; the
-# registrations' frames 40-151 MB, not 158-604) and the generator replay
-# at 48 requests (120 before); the chaos replay keeps its 120
-CLUSTER_N = 1 << 19
+# cut for the script's time: the matrices at 2^18 rows (2^21, then 2^19,
+# before; the registrations' frames 20-76 MB, not 158-604) and the
+# generator replay at 48 requests (120 before); the chaos replay keeps its
+# 120
+CLUSTER_N = 1 << 18
 CLUSTER_GENERATOR_REQUESTS = 48
 
 
@@ -2776,6 +2842,10 @@ LM_BATCH, LM_PROMPT, LM_GEN, LM_MAX_LEN = 4, 128, 32, 160
 LM_LONG = 4096  # a prefill that takes the query-chunked attention path
 BF16_OPS_S = 989e12  # H100 SXM data sheet, bf16 on the tensor cores
 LM_LOGIT_TOL = 1e-3  # f32 logits, sums in another order over 24 layers
+# the plain block SpMM gathers x as (blocks, c, B) and widens it to f32;
+# above this it runs in column chunks (block_plain): gemma2's 82,944 blocks
+# at T = 1,024 would gather 43.5 GB, llava's 71,680 at T = 3,008 110 GB
+PLAIN_GATHER_BYTES = 40e9
 
 
 def ffn_dims(cfg) -> dict:
@@ -2957,32 +3027,67 @@ def lm_dense_checks(torch, lm, A, Server, cfg, rng, device) -> None:
           "chunked_s": chunked_s, "unchunked_s": unchunked_s, "ok": True})
 
 
-def lm_projection_kernels(torch, params, cfg, rng, device, f32: bool = False) -> float:
+def pm12(torch, rng, shape, device, gen=None):
+    """Values in {±1, ±2} (f32): from ``rng`` on the host, or drawn on the
+    card from ``gen`` (a host draw of one full-width gemma2 projection's
+    85M values takes over a second)."""
+    if gen is None:
+        return torch.from_numpy(rng.choice(PM12, tuple(shape))).to(device)
+    idx = torch.randint(0, 4, tuple(shape), generator=gen, device=gen.device)
+    return torch.from_numpy(PM12).to(gen.device)[idx]
+
+
+def block_plain(torch, browind, bcolind, bvalues, x, d_out: int):
+    """``bcoo_spmv_plain``, in column chunks where its gather of x (blocks
+    x c x B, in f32) would pass ``PLAIN_GATHER_BYTES``: a column's result
+    does not depend on the others' (integer inputs stay exact; random
+    float sums may round otherwise, within the checks' tolerance)."""
+    from repro_torch.kernels.bcsr_spmv import bcoo_spmv_plain
+
+    nb, _, c = bvalues.shape
+    col_bytes = nb * c * 4
+    B = x.shape[1] if x.ndim == 2 else 1
+    if col_bytes * B <= PLAIN_GATHER_BYTES:
+        return bcoo_spmv_plain(browind, bcolind, bvalues, x, d_out)
+    step = max(1, int(PLAIN_GATHER_BYTES // (2 * col_bytes)))
+    return torch.cat([bcoo_spmv_plain(browind, bcolind, bvalues, x[:, i:i + step],
+                                      d_out) for i in range(0, B, step)], dim=1)
+
+
+def lm_projection_kernels(torch, params, cfg, rng, device, f32: bool = False,
+                          batches=(LM_BATCH, LM_BATCH * LM_PROMPT),
+                          gen=None) -> float:
     """(b) Each sparse projection (72 in qwen1.5-0.5b): its kernel against
-    ``bcoo_spmv_plain`` on the card at B = 4 and 512; integer-valued bf16
+    ``bcoo_spmv_plain`` on the card at each of ``batches`` (B = 4 and 512
+    unless given); integer-valued bf16
     (blocks in {±1, ±2}, x in {-2..2}: every f32 sum exact) bit-equal, the
     layer's own values (as bf16) with random x within rtol = atol = 2e-4
     (f32 sums in another order); with ``f32`` also the values and x in
-    float32 (3xTF32 on the tensor cores).  Returns the largest
-    random-input error."""
-    from repro_torch.kernels.bcsr_spmv import bcoo_spmv, bcoo_spmv_plain, block_route
+    float32 (3xTF32 on the tensor cores).  With ``gen`` the inputs are
+    drawn on the card.  Returns the largest random-input error."""
+    from repro_torch.kernels.bcsr_spmv import bcoo_spmv, block_route
 
     worst, n = 0.0, 0
     projections = lm_projections(params, cfg)
     for r, name, d_in, d_out, p in projections:
-        ints = torch.from_numpy(rng.choice(PM12, tuple(p["bvalues"].shape))).to(
-            device, torch.bfloat16)
+        ints = pm12(torch, rng, p["bvalues"].shape, device, gen).to(torch.bfloat16)
         vals = {"integer": ints, "random": p["bvalues"].to(torch.bfloat16)}
         if f32:
             vals["random_f32"] = p["bvalues"].float()
-        for batch in (LM_BATCH, LM_BATCH * LM_PROMPT):
+        for batch in batches:
             for kind, v in vals.items():
-                xv = (rng.integers(-2, 3, (d_in, batch)) if kind == "integer"
-                      else rng.standard_normal((d_in, batch)))
-                x = torch.from_numpy(xv).to(device, v.dtype)
+                if gen is not None:
+                    x = (torch.randint(-2, 3, (d_in, batch), generator=gen,
+                                       device=device) if kind == "integer" else
+                         torch.randn((d_in, batch), generator=gen, device=device))
+                    x = x.to(v.dtype)
+                else:
+                    xv = (rng.integers(-2, 3, (d_in, batch)) if kind == "integer"
+                          else rng.standard_normal((d_in, batch)))
+                    x = torch.from_numpy(xv).to(device, v.dtype)
                 got = bcoo_spmv(p["browind"], p["bcolind"], v, x, d_out,
                                 browptr=p["browptr"])
-                want = bcoo_spmv_plain(p["browind"], p["bcolind"], v, x, d_out)
+                want = block_plain(torch, p["browind"], p["bcolind"], v, x, d_out)
                 what = (f"lm kernel layer {r} {name} B={batch} {kind} "
                         f"({block_route(v.dtype, 8, 128, batch)} route)")
                 check(got.dtype == want.dtype and got.shape == want.shape,
@@ -2996,23 +3101,40 @@ def lm_projection_kernels(torch, params, cfg, rng, device, f32: bool = False) ->
                     check(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
                           f"{what}: max |kernel - plain| = {err}")
                 n += 1
-    emit({"phase": "lm_kernel_vs_plain", "projections": len(projections),
-          "cases": n, "batches": [LM_BATCH, LM_BATCH * LM_PROMPT],
+    emit({"phase": "lm_kernel_vs_plain", "arch": cfg.name,
+          "projections": len(projections), "cases": n, "batches": list(batches),
           "random_max_abs_err": worst, "ok": True})
     return worst
 
 
+@contextlib.contextmanager
+def dense_ffn_takes_silu(cfg):
+    """The densified oracle runs the dense FFN, which takes tanh-GELU in a
+    gemma config; the block-sparse FFN takes SiLU there in both packages
+    (``src/repro/sparse/layers.py:105-108``), so for a gemma config the
+    oracle's dense FFN is given SiLU while it runs."""
+    from repro_torch.models import blocks
+
+    real = blocks.gelu
+    if cfg.gemma_norm:
+        blocks.gelu = blocks.F.silu
+    try:
+        yield
+    finally:
+        blocks.gelu = real
+
+
 def lm_sparse_checks(torch, lm, instrument, Server, cfg, rng, device,
-                     kernels: bool = True, f32: bool = False) -> tuple:
+                     kernels: bool = True, f32: bool = False, gen=None) -> tuple:
     """(b) Block-sparse qwen1.5-0.5b in f32: the kernels per projection
     (unless ``kernels`` is False: phase 16 checks deepseek's at its bf16
     cut, where the plain version's (blocks, 128, 512) gather fits beside
-    the model; ``f32`` as ``lm_projection_kernels``), the model against its
-    densified torch.matmul oracle, and the launch count of one generate.
-    Returns (launches, random max err)."""
+    the model; ``f32`` and ``gen`` as ``lm_projection_kernels``), the model
+    against its densified torch.matmul oracle, and the launch count of one
+    generate.  Returns (launches, random max err)."""
     srv = Server(cfg, LM_MAX_LEN, device=device, dtype=torch.float32)
-    worst = (lm_projection_kernels(torch, srv.params, cfg, rng, device, f32=f32)
-             if kernels else 0.0)
+    worst = (lm_projection_kernels(torch, srv.params, cfg, rng, device, f32=f32,
+                                   gen=gen) if kernels else 0.0)
     per_step = lm_launches_per_step(srv.params, cfg)
     prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
     torch.cuda.synchronize()
@@ -3027,7 +3149,7 @@ def lm_sparse_checks(torch, lm, instrument, Server, cfg, rng, device,
     dense_cfg = dataclasses.replace(cfg, ffn_density=1.0)
     oracle = densified_params(torch, srv.params, cfg)
     toks, gen = (torch.from_numpy(a).to(device) for a in (prompts, out))
-    with torch.no_grad():
+    with torch.no_grad(), dense_ffn_takes_silu(cfg):
         instrument.reset()
         got, caches = lm.prefill(srv.params, toks, cfg, LM_MAX_LEN)
         want, ocaches = lm.prefill(oracle, toks, dense_cfg, LM_MAX_LEN)
@@ -3099,10 +3221,12 @@ def device_trace(torch, step, steps: int = 5) -> dict:
         return {"profiler": f"not measured: {type(e).__name__}: {e}"}
 
 
-def lm_serving_times(torch, lm, Server, cfg, rng, device) -> dict:
+def lm_serving_times(torch, lm, Server, cfg, rng, device, srv=None) -> dict:
     """(c) bf16: prefill ms, decode ms per token (CUDA events) and tokens/s
-    of a generate (host clock; it ends in a copy to the host)."""
-    srv = Server(cfg, LM_MAX_LEN, device=device)
+    of a generate (host clock; it ends in a copy to the host), on ``srv``
+    or a new bf16 ``Server``."""
+    if srv is None:
+        srv = Server(cfg, LM_MAX_LEN, device=device)
     prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
     toks = torch.from_numpy(prompts).to(device)
     with torch.no_grad():
@@ -3139,8 +3263,7 @@ def lm_projection_times(torch, cfg, rng, device,
     (its route), its plain version, torch.matmul on the dense weight, and
     the bytes / operations bound; below B = 8 also the tensor-core route
     (``mma_ms``), held against the plain version first."""
-    from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_cuda,
-                                               bcoo_spmv_plain, block_route)
+    from repro_torch.kernels.bcsr_spmv import bcoo_spmv, bcoo_spmv_cuda, block_route
     from repro_torch.sparse.layers import sparse_linear_init
 
     gen = torch.Generator(device=device).manual_seed(14)
@@ -3160,8 +3283,9 @@ def lm_projection_times(torch, cfg, rng, device,
                    "ms": time_ms(torch, lambda: bcoo_spmv(
                        p["browind"], p["bcolind"], p["bvalues"], x, d_out,
                        browptr=p["browptr"]), 50),
-                   "plain_ms": time_ms(torch, lambda: bcoo_spmv_plain(
-                       p["browind"], p["bcolind"], p["bvalues"], x, d_out), 10,
+                   "plain_ms": time_ms(torch, lambda: block_plain(
+                       torch, p["browind"], p["bcolind"], p["bvalues"], x, d_out),
+                       10 if nb * c * 4 * batch <= PLAIN_GATHER_BYTES else 2,
                        warmup=1),
                    "library_ms": time_ms(torch, lambda: torch.matmul(w, x), 50),
                    "bound_ms": bound, "bound_by": by}
@@ -3169,8 +3293,8 @@ def lm_projection_times(torch, cfg, rng, device,
             if row["route"] != "mma":  # the tensor cores beside the route taken
                 run = lambda: bcoo_spmv_cuda(p["browptr"], p["bcolind"],
                                              p["bvalues"], x, d_out, route="mma")
-                want = bcoo_spmv_plain(p["browind"], p["bcolind"], p["bvalues"], x,
-                                       d_out)
+                want = block_plain(torch, p["browind"], p["bcolind"], p["bvalues"],
+                                   x, d_out)
                 check(torch.allclose(run(), want, rtol=2e-4, atol=2e-4),
                       f"lm {name} B={batch}: mma route vs plain: "
                       f"{max_err(torch, run(), want)}")
@@ -3252,11 +3376,12 @@ def timed_loop(torch, TrainLoop, instrument):
     return Timed
 
 
-def train_backward(torch, cfg, rng, device) -> tuple:
+def train_backward(torch, cfg, rng, device, draws=None) -> tuple:
     """(a) The sparse FFN's backward at full width: w_gate and w_down of
-    qwen1.5-0.5b in (8, 128) blocks, T = 1,024.  Returns (rows, the largest
-    random-input error of the forward and grad x against their plain
-    versions)."""
+    qwen1.5-0.5b in (8, 128) blocks, T = 1,024 (the integer-valued blocks
+    drawn on the card from ``draws`` where given, as ``pm12``).  Returns
+    (rows, the largest random-input error of the forward and grad x against
+    their plain versions)."""
     from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_plain,
                                                block_route, transposed_values)
     from repro_torch.sparse.layers import sparse_linear_apply, sparse_linear_init
@@ -3275,10 +3400,10 @@ def train_backward(torch, cfg, rng, device) -> tuple:
         # the forward y = W x and grad x = Wᵀ gy through the kernel against
         # their plain versions, at the training path's T
         for dt in (torch.bfloat16, torch.float32):
-            ints = torch.from_numpy(rng.choice(PM12, (nb, r, c))).to(device, dt)
+            ints = pm12(torch, rng, (nb, r, c), device, draws).to(dt)
             xi = torch.from_numpy(rng.integers(-2, 3, (d_in, T))).to(device, dt)
             got = bcoo_spmv(*fwd, ints, xi, d_out, browptr=p["browptr"])
-            want = bcoo_spmv_plain(*fwd, ints, xi, d_out)
+            want = block_plain(torch, *fwd, ints, xi, d_out)
             check(torch.equal(got, want), f"train {name} forward {dt} integer: "
                   f"max |kernel - plain| = {max_err(torch, got, want)}")
             gy = torch.from_numpy(rng.integers(-2, 3, (d_out, T))).to(device, dt)
@@ -3289,7 +3414,7 @@ def train_backward(torch, cfg, rng, device) -> tuple:
                   f"max |kernel - plain| = {max_err(torch, got, want)}")
         xr = torch.from_numpy(rng.standard_normal((d_in, T))).to(device, torch.float32)
         got = bcoo_spmv(*fwd, p["bvalues"], xr, d_out, browptr=p["browptr"])
-        want = bcoo_spmv_plain(*fwd, p["bvalues"], xr, d_out)
+        want = block_plain(torch, *fwd, p["bvalues"], xr, d_out)
         err_fwd = max_err(torch, got, want)
         check(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
               f"train {name} forward random f32: max |kernel - plain| = {err_fwd}")
@@ -3458,7 +3583,7 @@ def train_card_vs_cpu(torch, c, rng, device, phase: str = "train_card_vs_cpu") -
     f32 (TF32 off): one train step on the card (the kernels) against the
     same step on the CPU (the plain versions), from the same params and a
     (2, 64) batch (with f32 frames of the same length for an enc-dec
-    ``c``)."""
+    ``c``, and a stub f32 prefix of ``c.modality_tokens`` for llava)."""
     from repro_torch.launch.steps import carry_derived, value_and_grad_trainable
     from repro_torch.models import lm
     from repro_torch.models.common import map_params
@@ -3472,6 +3597,9 @@ def train_card_vs_cpu(torch, c, rng, device, phase: str = "train_card_vs_cpu") -
     if c.encoder_layers:
         cpu_batch["frames"] = torch.from_numpy(
             rng.standard_normal((2, 64, c.d_model)).astype(np.float32))
+    if c.modality_tokens:  # llava: a stub prefix the loss does not score
+        cpu_batch["prefix_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, c.modality_tokens, c.d_model)).astype(np.float32))
     opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
     res = {}
     for dev in ("cpu", device):
@@ -3743,14 +3871,16 @@ def moe_times(torch, M, p, x, x2d, cfg, route_fn) -> dict:
     return out
 
 
-def moe_serving(torch, lm, Server, cfg, rng, device) -> dict:
-    """(b) / (d) bf16 at the serving cut, as phase 14 times it, with the
-    peak card memory."""
+def serving_with_peak(torch, lm, Server, cfg, rng, device, phase: str,
+                      srv=None, **extra) -> dict:
+    """bf16 ``Server.generate`` as phase 14 (c) times it (on ``srv`` where
+    given), with the peak card memory, emitted as ``phase`` (phase 16 (b) /
+    (d) at the serving cut, phase 21 at full depth)."""
     torch.cuda.reset_peak_memory_stats()
-    row = lm_serving_times(torch, lm, Server, cfg, rng, device)
+    row = lm_serving_times(torch, lm, Server, cfg, rng, device, srv=srv)
     peak = torch.cuda.max_memory_allocated()
-    emit({"phase": "moe_serving", "arch": cfg.name, "n_layers": cfg.n_layers,
-          "n_params": cfg.n_params, "peak_allocated_bytes": peak})
+    emit({"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+          "n_params": cfg.n_params, "peak_allocated_bytes": peak, **extra})
     gc.collect()
     torch.cuda.empty_cache()
     return dict(row, n_layers=cfg.n_layers, peak_allocated_bytes=peak)
@@ -3866,11 +3996,11 @@ def phase_moe(torch, rng, device) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     mixtral, deepseek = (get_config(name) for name in MOE_ARCHS)
-    serving = [moe_serving(torch, lm, Server, moe_cut(mixtral, MOE_SERVE_LAYERS[
-        mixtral.name]), rng, device)]
+    serving = [serving_with_peak(torch, lm, Server, moe_cut(mixtral, MOE_SERVE_LAYERS[
+        mixtral.name]), rng, device, "moe_serving")]
     f32 = [moe_f32_checks(torch, lm, Server, mixtral, rng, device)]
-    serving.append(moe_serving(torch, lm, Server, moe_cut(deepseek, MOE_SERVE_LAYERS[
-        deepseek.name]), rng, device))
+    serving.append(serving_with_peak(torch, lm, Server, moe_cut(
+        deepseek, MOE_SERVE_LAYERS[deepseek.name]), rng, device, "moe_serving"))
     f32.append(moe_f32_checks(torch, lm, Server, deepseek, rng, device))
     mla = mla_chunked_check(torch, A, deepseek, rng, device)
     gc.collect()
@@ -4521,9 +4651,10 @@ def tf_launches_per_step(cfg) -> int:
     the prefix, not the MTP block); zamba2's shared FFN once a repeat."""
     if cfg.ffn_density >= 1:
         return 0
-    prefix = sum(k != "mla_moe" for k in cfg.prefix_pattern) + cfg.mtp_depth
-    shared = cfg.n_repeats * cfg.block_pattern.count("shared_attn")
-    return 3 * (2 * prefix + 3 * shared)
+    no_ffn = ("moe", "mla_moe", "mamba", "mlstm", "slstm")
+    prefix = sum(k not in no_ffn for k in cfg.prefix_pattern) + cfg.mtp_depth
+    repeated = cfg.n_repeats * sum(k not in no_ffn for k in cfg.block_pattern)
+    return 3 * (2 * prefix + 3 * repeated)
 
 
 def layer_value_and_grads(torch, apply, p, x, wy):
@@ -4808,24 +4939,26 @@ def tf_update_bytes(torch, lm, loop) -> dict:
     return out
 
 
-def tf_derived_check(torch, params, cfg, rng, device) -> int:
+def tf_derived_check(torch, params, cfg, rng, device, repeats=None, gen=None) -> int:
     """After the updates of a sparse run: every sparse projection (the MTP
-    block's too) through the kernel with the port-only keys its params
+    block's too; of the first ``repeats`` repeats where given) through the
+    kernel with the port-only keys its params
     carry (``browptr``, Wᵀ's stream) against ``bcoo_spmv_plain`` on the
     reference's index arrays, forward and transposed, integer-valued at B
-    = 4: bit-equal, so ``carry_derived`` kept every key in step.  Returns
-    the projections checked."""
+    = 4 (the blocks drawn on the card from ``gen`` where given): bit-equal,
+    so ``carry_derived`` kept every key in step.  Returns the projections
+    checked."""
     from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_plain,
                                                transposed_values)
 
     dims = ffn_dims(cfg)
-    projections = [(name, p) for _, name, _, _, p in lm_projections(params, cfg)]
+    projections = [(name, p) for r, name, _, _, p in lm_projections(params, cfg)
+                   if repeats is None or r in range(repeats)]
     if "mtp" in params:
         projections += [(name, params["mtp"]["block"]["mlp"][name]) for name in dims]
     for name, p in projections:
         d_in, d_out = dims[name]
-        ints = torch.from_numpy(rng.choice(PM12, tuple(p["bvalues"].shape))).to(
-            device, torch.bfloat16)
+        ints = pm12(torch, rng, p["bvalues"].shape, device, gen).to(torch.bfloat16)
         for (ri, ci, v, rows, ptr), n_in in (
                 ((p["browind"], p["bcolind"], ints, d_out, p["browptr"]), d_in),
                 ((p["t_browind"], p["t_bcolind"], transposed_values(ints, p["t_perm"]),
@@ -4841,14 +4974,17 @@ def tf_derived_check(torch, params, cfg, rng, device) -> int:
 
 def tf_train(torch, T_, lm, instrument, name, c, device, steps: int,
              variant: str = "dense", microbatches: int = 1, trace: bool = True,
-             int8: bool = False) -> dict:
+             int8: bool = False, phase: str = "tf_train",
+             derived_repeats=None) -> dict:
     """(b) ``c`` in bf16 through TrainLoop from a seeded init on
     ``TokenStream`` batches of ``tf_shape``: losses, step ms (median of
     the untraced steps after the first), tokens/s, peak memory, the block
     kernel's launches in every step (the last counted with the counters
     set to 0 just before it); a sparse run's projections against the plain
-    version after its updates, an MoE run's dropped share; then
-    ``TF_TRACED`` steps under the profiler and the update's own bytes."""
+    version after its updates (of its first ``derived_repeats`` repeats
+    where given, drawn on the card), an MoE run's dropped share; then
+    ``TF_TRACED`` steps under the profiler and the update's own bytes; the
+    row is emitted as ``phase``."""
     free_card(torch)
     leftover = torch.cuda.memory_allocated()  # what earlier work left on the card
     Timed = tf_loop(torch, T_, instrument, microbatches)
@@ -4871,9 +5007,14 @@ def tf_train(torch, T_, lm, instrument, name, c, device, steps: int,
     check(launches == want and all(n == want for n in loop.step_launches),
           f"{what}: block-kernel launches a step {loop.step_launches}, not {want}")
     med = statistics.median(loop.step_ms[1:])
-    checked = (tf_derived_check(torch, loop.params, c, np.random.default_rng(c.n_layers),
-                                device) if c.ffn_density < 1 else 0)
-    row = {"phase": "tf_train", "arch": name, "variant": variant,
+    checked = 0
+    if c.ffn_density < 1:
+        card = (None if derived_repeats is None
+                else torch.Generator(device=device).manual_seed(c.n_layers))
+        checked = tf_derived_check(torch, loop.params, c,
+                                   np.random.default_rng(c.n_layers), device,
+                                   derived_repeats, card)
+    row = {"phase": phase, "arch": name, "variant": variant,
            "microbatches": microbatches, "n_layers": c.n_layers,
            "n_params": c.n_params, "dtype": "bfloat16",
            "quantized_moments": loop.opt_cfg.quantized_m,
@@ -5084,6 +5225,540 @@ def phase_train_families(torch, rng, device) -> dict:
             "restart": restart, "remat": remat, "seconds": seconds}
 
 
+# ------------------------------------ phase 21: the dense family's last archs
+
+DA_ARCHS = ("llama3.2-1b", "gemma2-27b", "llava-next-34b")
+# ArchConfig.n_params, dense and at ffn_density=0.5
+DA_PARAMS = {"llama3.2-1b": (1_235_746_816, 833_093_632),
+             "gemma2-27b": (27_226_275_840, 15_505_293_312),
+             "llava-next-34b": (34_388_049_920, 21_175_992_320)}
+# the published model whose widths each config has: llava-next-34b's
+# registry string names llava-v1.6-mistral-7b (32 layers of 4096); its
+# widths are llava-v1.6-34b's Yi-34B language model (ROADMAP.md §3)
+DA_SOURCE = {"llama3.2-1b": "hf:meta-llama/Llama-3.2-1B",
+             "gemma2-27b": "arXiv:2408.00118 (hf:google/gemma-2-27b)",
+             "llava-next-34b": "hf:llava-hf/llava-v1.6-34b-hf (Yi-34B language model)"}
+DA_CHECK_LAYERS = 2  # the f32 cuts: gemma2's one attn_local and one attn_global
+DA_WINDOW_S = 8192  # (b): a B=1 prefill of two of gemma2's 4,096-token windows
+DA_SPARSE_GEN = 8  # (b): tokens of the full-depth sparse gemma2 generate
+# (c), (e): layers kept to train at full width.  12 bytes a param (bf16
+# params and grads, f32 moments) give gemma2 at 6 layers (3 repeats)
+# 54.9 GB, at 8 68.5 GB before the clip's f32 copy of the 4.7 GB tied
+# embedding and about 5 GB of (4, 256, 256,000) logits: at 8 it ran out of
+# memory on an NVIDIA H100 80GB HBM3 (700 W) in that copy; llava at 6 51.2
+# GB, at 8 64.6 GB before its (1, 56, 3,136, 3,136) f32 scores (2.2 GB a
+# copy, several live in the backward)
+DA_TRAIN_LAYERS = 6
+DA_LLAVA_B, DA_LLAVA_TEXT = 1, 256  # (e): llava's batch, text tokens after the prefix
+
+
+def da_counts(cfg, sparse) -> None:
+    want = DA_PARAMS[cfg.name]
+    check((int(cfg.n_params), int(sparse.n_params)) == want,
+          f"dense archs {cfg.name}: parameter counts {cfg.n_params} / "
+          f"{sparse.n_params}, not {want}")
+
+
+def da_f32(torch, lm, Server, cfg, rng, device) -> tuple:
+    """f32 (TF32 off): phase 14 (a)'s generate, decode-vs-prefill and
+    teacher-forced checks.  Returns (row, server)."""
+    srv = Server(cfg, LM_MAX_LEN, device=device, dtype=torch.float32)
+    res = lm_generate_checks(torch, lm, srv, cfg, rng, device,
+                             f"dense archs {cfg.name} f32")
+    emit({"phase": "da_f32", **res, "n_params": cfg.n_params, "ok": True})
+    return res, srv
+
+
+def da_llama(torch, lm, T_, Server, instrument, rng, device) -> dict:
+    """(a) llama3.2-1b at full depth: f32 checks, bf16 times, the sparse
+    model's kernels, oracle and launches, 10 TrainLoop steps."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama3.2-1b")
+    sparse = dataclasses.replace(cfg, ffn_density=0.5)
+    da_counts(cfg, sparse)
+    f32, srv = da_f32(torch, lm, Server, cfg, rng, device)
+    del srv
+    free_card(torch)
+    times = serving_with_peak(torch, lm, Server, cfg, rng, device, "da_serving",
+                              source=DA_SOURCE[cfg.name])
+    free_card(torch)
+    gen = torch.Generator(device=device).manual_seed(211)
+    launches, worst = lm_sparse_checks(torch, lm, instrument, Server, sparse, rng,
+                                       device, gen=gen)
+    free_card(torch)
+    train = tf_train(torch, T_, lm, instrument, cfg.name, cfg, device, TF_STEPS,
+                     phase="da_train")
+    check(train["loss_drop"] >= 1.0, f"dense archs {cfg.name}: loss fell "
+          f"{train['losses'][0]} -> {train['losses'][-1]}, not by 1.0")
+    return {"launches": launches, "max_abs_err": worst, "f32": f32,
+            "times": times, "train": train}
+
+
+def da_window_checks(torch, lm, A, params, cfg, rng, device) -> dict:
+    """(b) gemma2 across its window, f32, B=1: decode(prefill(8,192)) within
+    5e-3 of prefill(8,193): the local layers' ring keeps positions
+    4,096..8,191 and the decode writes slot 8,192 % 4,096 = 0, the oldest,
+    so the ring lines up with the positions; the query-chunked 8,192-token
+    prefill (8 chunks a layer) within 1e-3 of the unchunked one."""
+    S = DA_WINDOW_S
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S + 1))
+                            .astype(np.int32)).to(device)
+    what = f"dense archs {cfg.name} window"
+    calls, real = [], A._sdpa_qchunked
+    with torch.no_grad():
+        A._sdpa_qchunked = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+        try:
+            t0 = time.perf_counter()
+            chunked, caches = lm.prefill(params, toks[:, :S], cfg, S + 1)
+            torch.cuda.synchronize()
+            chunked_s = time.perf_counter() - t0
+        finally:
+            A._sdpa_qchunked = real
+        check(len(calls) == cfg.n_layers,
+              f"{what}: {len(calls)} chunked attention calls, not {cfg.n_layers}")
+        rings = [c.k.shape[2] for c in caches.blocks.values()]
+        check(rings == [cfg.sliding_window, S + 1],
+              f"{what}: cache capacities {rings}")
+        got, _ = lm.decode_step(params, toks[:, S:], caches, cfg)
+        del caches
+        # 8,193 positions are no multiple of Q_CHUNK: the unchunked path
+        want, _ = lm.prefill(params, toks, cfg, S + 1)
+        step_err = max_err(torch, got, want)
+        check(torch.allclose(got, want, rtol=5e-3, atol=5e-3),
+              f"{what}: decode(prefill({S})) vs prefill({S + 1}): {step_err}")
+        threshold = A.CHUNKED_ATTN_THRESHOLD
+        A.CHUNKED_ATTN_THRESHOLD = S + 1
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            unchunked, _ = lm.prefill(params, toks[:, :S], cfg, S + 1)
+            torch.cuda.synchronize()
+            unchunked_s = time.perf_counter() - t0
+            unchunked_peak = torch.cuda.max_memory_allocated()
+        finally:
+            A.CHUNKED_ATTN_THRESHOLD = threshold
+        chunk_err = max_err(torch, chunked, unchunked)
+        check(torch.allclose(chunked, unchunked, rtol=LM_LOGIT_TOL, atol=LM_LOGIT_TOL),
+              f"{what}: chunked vs unchunked prefill: {chunk_err}")
+    row = {"phase": "da_window", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": "float32", "S": S, "window": cfg.sliding_window,
+           "ring_slot_of_decode": S % cfg.sliding_window,
+           "decode_vs_prefill_max_err": step_err, "chunked_calls": len(calls),
+           "chunked_vs_unchunked_max_err": chunk_err, "tolerance": LM_LOGIT_TOL,
+           "chunked_s": chunked_s, "unchunked_s": unchunked_s,
+           "unchunked_peak_bytes": unchunked_peak, "ok": True}
+    emit(row)
+    return row
+
+
+def da_sparse_generate(torch, lm, Server, instrument, cfg, rng, device) -> dict:
+    """(b) Sparse gemma2 at full depth, bf16: one ``generate`` of
+    ``DA_SPARSE_GEN`` tokens launching the block kernel once per
+    projection per step (the path's count), then the prefill and a decode
+    step timed."""
+    srv = Server(cfg, LM_MAX_LEN, device=device)
+    per_step = lm_launches_per_step(srv.params, cfg)
+    check(per_step == 3 * cfg.n_layers, f"dense archs sparse: {per_step} projections")
+    prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    torch.cuda.synchronize()
+    instrument.reset()
+    t0 = time.perf_counter()
+    out = srv.generate(prompts, DA_SPARSE_GEN)
+    gen_s = time.perf_counter() - t0
+    launches = instrument.snapshot()
+    want = per_step * DA_SPARSE_GEN
+    check(launches.get("bcoo", 0) == want and launches.get("bcoo.spmm", 0) == want,
+          f"dense archs {cfg.name} sparse: {launches} block-kernel launches, "
+          f"not {want}")
+    check(((0 <= out) & (out < cfg.vocab)).all(), "dense archs sparse: token range")
+    toks = torch.from_numpy(prompts).to(device)
+    with torch.no_grad():
+        _, caches = lm.prefill(srv.params, toks, cfg, LM_MAX_LEN)
+        tok = toks[:, -1:]
+        prefill_ms = time_ms(torch, lambda: lm.prefill(srv.params, toks, cfg,
+                                                       LM_MAX_LEN), 2, warmup=0)
+        # the same slot rewritten each call: the caches are not advanced
+        decode_ms = time_ms(torch, lambda: lm.decode_step(srv.params, tok, caches,
+                                                          cfg), 3, warmup=1)
+    row = {"phase": "da_sparse_generate", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "dtype": "bfloat16", "n_params": cfg.n_params, "per_step": per_step,
+           "gen": DA_SPARSE_GEN, "launches_per_generate": launches,
+           "generate_s": gen_s, "prefill_ms": prefill_ms,
+           "decode_ms_per_token": decode_ms,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(row)
+    del srv, caches
+    free_card(torch)
+    return row
+
+
+def da_gemma2_serving(torch, lm, A, Server, instrument, rng, device) -> dict:
+    """(b) gemma2-27b: bf16 at full depth (times, a B=1 S=8,192 prefill),
+    the f32 2-layer checks and the window's, sparse at the f32 cut (kernels,
+    oracle) and at full depth (launches, times)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma2-27b")
+    sparse = dataclasses.replace(cfg, ffn_density=0.5)
+    da_counts(cfg, sparse)
+    free_card(torch)
+    srv = Server(cfg, LM_MAX_LEN, device=device)
+    times = serving_with_peak(torch, lm, Server, cfg, rng, device, "da_serving",
+                              srv=srv, source=DA_SOURCE[cfg.name])
+    # B=1, S=8,192 at full depth: the query-chunked path in every layer
+    long = torch.from_numpy(rng.integers(0, cfg.vocab, (1, DA_WINDOW_S))
+                            .astype(np.int32)).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():  # one call: 46 layers of 8 query chunks take seconds
+        long_ms = time_ms(torch, lambda: lm.prefill(srv.params, long, cfg,
+                                                    DA_WINDOW_S), 1, warmup=0)
+    long_row = {"phase": "da_long_prefill", "arch": cfg.name, "dtype": "bfloat16",
+                "n_layers": cfg.n_layers, "B": 1, "S": DA_WINDOW_S, "ms": long_ms,
+                "tokens_per_s": DA_WINDOW_S / long_ms * 1e3,
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(long_row)
+    del srv
+    free_card(torch)
+    cut = dataclasses.replace(cfg, n_layers=DA_CHECK_LAYERS)
+    f32, srv = da_f32(torch, lm, Server, cut, rng, device)
+    window = da_window_checks(torch, lm, A, srv.params, cut, rng, device)
+    del srv
+    free_card(torch)
+    gen = torch.Generator(device=device).manual_seed(212)
+    _, worst = lm_sparse_checks(torch, lm, instrument, Server,
+                                dataclasses.replace(sparse, n_layers=DA_CHECK_LAYERS),
+                                rng, device, gen=gen)
+    free_card(torch)
+    sparse_row = da_sparse_generate(torch, lm, Server, instrument, sparse, rng, device)
+    return {"times": times, "long_prefill": long_row, "f32": f32, "window": window,
+            "sparse": sparse_row, "max_abs_err": worst,
+            "launches": sparse_row["launches_per_generate"].get("bcoo", 0)}
+
+
+def da_gemma2_training(torch, lm, T_, instrument, rng, device) -> dict:
+    """(c) gemma2-27b at full width cut to 3 (local, global) repeats: 10
+    bf16 TrainLoop steps dense and at ``ffn_density=0.5``; card vs CPU at
+    reduced widths (dense, and sparse in (8, 16) blocks), f32."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma2-27b")
+    cut = dataclasses.replace(cfg, n_layers=DA_TRAIN_LAYERS)
+    dense = tf_train(torch, T_, lm, instrument, cfg.name, cut, device, TF_STEPS,
+                     phase="da_train")
+    check(dense["loss_drop"] >= 1.0, f"dense archs {cfg.name} training: loss "
+          f"fell {dense['losses'][0]} -> {dense['losses'][-1]}, not by 1.0")
+    sparse = tf_train(torch, T_, lm, instrument, cfg.name,
+                      dataclasses.replace(cut, ffn_density=0.5), device, TF_STEPS,
+                      variant="sparse", trace=False, phase="da_train",
+                      derived_repeats=1)
+    red = cfg.reduced()
+    card_cpu = [train_card_vs_cpu(torch, c, rng, device, phase="da_card_vs_cpu")
+                for c in (red, dataclasses.replace(red, ffn_density=0.5,
+                                                   sparse_block=(8, 16)))]
+    return {"dense": dense, "sparse": sparse, "card_vs_cpu": card_cpu,
+            "launches": sparse["launches_per_step"][-1]}
+
+
+def da_prefix(torch, cfg, batch: int, device, dtype, seed: int):
+    """llava's stub image prefix (the registry's: no vision tower): (B,
+    2,880, d) standard-normal patch embeddings drawn on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((batch, cfg.modality_tokens, cfg.d_model), generator=gen,
+                       device=device).to(dtype)
+
+
+def da_generate(torch, lm, steps, params, cfg, toks, prefix, max_len: int,
+                n_tokens: int):
+    """Greedy tokens after a prefix: ``lm.prefill`` (``make_prefill_step``
+    would size its caches at prefill_32k's 32,768), then ``make_decode_step``."""
+    decode = steps.make_decode_step(cfg, "decode_32k")
+    logits, caches = lm.prefill(params, toks, cfg, max_len, prefix_embeds=prefix)
+    out = [torch.argmax(logits, -1)[:, None].to(torch.int32)]
+    for _ in range(1, n_tokens):
+        logits, caches = decode(params, {"token": out[-1], "caches": caches})
+        out.append(torch.argmax(logits, -1)[:, None].to(torch.int32))
+    return torch.cat(out, dim=1)
+
+
+def da_llava_checks(torch, lm, steps, instrument, cfg, rng, device) -> tuple:
+    """(d) llava at the f32 2-layer cut with a stub prefix, B=1: the step
+    builders bit-equal to ``lm.prefill`` / ``lm.decode_step``, decode vs
+    prefill within 5e-3; sparse within 1e-3 of its densified oracle over
+    the prefill and 3 decode steps, its projections against the plain
+    version at B = 4 and 3,008.  Returns (rows, random max err)."""
+    from repro_torch.configs.base import SHAPES
+
+    P = cfg.modality_tokens
+    cut = dataclasses.replace(cfg, n_layers=DA_CHECK_LAYERS)
+    pe = da_prefix(torch, cut, 1, device, torch.float32, 215)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_PROMPT + 1))
+                            .astype(np.int32)).to(device)
+    prompt, nxt = toks[:, :-1], toks[:, -1:]
+    max_len = P + LM_PROMPT + LM_GEN
+    what = f"dense archs {cfg.name}"
+    params = lm.init_params(torch.Generator(device=device).manual_seed(0), cut,
+                            torch.float32)
+    with torch.no_grad():
+        sl, sc = steps.make_prefill_step(cut, "prefill_32k")(
+            params, {"tokens": prompt, "prefix_embeds": pe})
+        dl, dc = lm.prefill(params, prompt, cut, SHAPES["prefill_32k"]["seq_len"],
+                            prefix_embeds=pe)
+        check(torch.equal(sl, dl), f"{what}: make_prefill_step != lm.prefill")
+        sg, _ = steps.make_decode_step(cut, "decode_32k")(
+            params, {"token": nxt, "caches": sc})
+        dg, _ = lm.decode_step(params, nxt, dc, cut)
+        check(torch.equal(sg, dg), f"{what}: make_decode_step != lm.decode_step")
+        del sc, dc
+        want, _ = lm.prefill(params, toks, cut, max_len, prefix_embeds=pe)
+        step_err = max_err(torch, dg, want)
+        check(torch.allclose(dg, want, rtol=5e-3, atol=5e-3),
+              f"{what}: decode(prefill) vs prefill, after the prefix: {step_err}")
+    dense_row = {"phase": "da_prefix_f32", "arch": cfg.name, "n_layers": cut.n_layers,
+                 "dtype": "float32", "prefix": P, "prompt": LM_PROMPT,
+                 "step_builders_bit_equal": True,
+                 "prefill_step_max_len": SHAPES["prefill_32k"]["seq_len"],
+                 "decode_vs_prefill_max_err": step_err, "ok": True}
+    emit(dense_row)
+    del params
+    free_card(torch)
+    # sparse at the cut against its densified torch.matmul oracle
+    sc_cfg = dataclasses.replace(cut, ffn_density=0.5)
+    params = lm.init_params(torch.Generator(device=device).manual_seed(0), sc_cfg,
+                            torch.float32)
+    oracle = densified_params(torch, params, sc_cfg)
+    dense_cfg = dataclasses.replace(sc_cfg, ffn_density=1.0)
+    per_step = lm_launches_per_step(params, sc_cfg)
+    errs = {}
+    with torch.no_grad():
+        instrument.reset()
+        got, caches = lm.prefill(params, prompt, sc_cfg, max_len, prefix_embeds=pe)
+        want, ocaches = lm.prefill(oracle, prompt, dense_cfg, max_len,
+                                   prefix_embeds=pe)
+        errs["prefill"] = max_err(torch, got, want)
+        tok = nxt
+        for step in range(3):
+            got, caches = lm.decode_step(params, tok, caches, sc_cfg)
+            want, ocaches = lm.decode_step(oracle, tok, ocaches, dense_cfg)
+            errs[f"decode{step}"] = max_err(torch, got, want)
+            tok = torch.argmax(want, -1)[:, None].to(torch.int32)
+        launches = instrument.launches("bcoo")
+    check(max(errs.values()) <= LM_LOGIT_TOL,
+          f"{what} sparse: vs the densified oracle {errs}")
+    check(launches == per_step * 4, f"{what} sparse: {launches} launches, "
+          f"not {per_step * 4}")
+    del oracle, caches, ocaches
+    gen = torch.Generator(device=device).manual_seed(213)
+    worst = lm_projection_kernels(torch, params, sc_cfg, rng, device,
+                                  batches=(LM_BATCH, P + LM_PROMPT), gen=gen)
+    sparse_row = {"phase": "da_prefix_sparse", "arch": cfg.name,
+                  "n_layers": sc_cfg.n_layers, "dtype": "float32",
+                  "ffn_density": sc_cfg.ffn_density, "oracle_max_abs_err": errs,
+                  "tolerance": LM_LOGIT_TOL, "launches": launches, "ok": True}
+    emit(sparse_row)
+    del params
+    free_card(torch)
+    return [dense_row, sparse_row], worst
+
+
+def da_llava_serving(torch, lm, steps, instrument, rng, device) -> dict:
+    """(d) llava-next-34b at full depth, bf16, B=1: the 2,880-token stub
+    prefix and a 128-token prompt (3,008 positions, under
+    CHUNKED_ATTN_THRESHOLD: full scores in every layer), 32 greedy tokens
+    through ``lm.prefill`` and ``make_decode_step``; times, a decode trace
+    and the peak; the f32 cut's checks; sparse at full depth, one
+    prefill's launches (T = 3,008 on the tensor cores) and time."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llava-next-34b")
+    sparse = dataclasses.replace(cfg, ffn_density=0.5)
+    da_counts(cfg, sparse)
+    P = cfg.modality_tokens
+    max_len = P + LM_PROMPT + LM_GEN
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(torch.Generator(device=device).manual_seed(0), cfg)
+    pe = da_prefix(torch, cfg, 1, device, torch.bfloat16, 214)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, LM_PROMPT))
+                            .astype(np.int32)).to(device)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out = da_generate(torch, lm, steps, params, cfg, toks, pe, max_len, LM_GEN)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        check(out.shape == (1, LM_GEN) and bool(((0 <= out) & (out < cfg.vocab)).all()),
+              f"dense archs {cfg.name}: generate gave {tuple(out.shape)}")
+        decode = steps.make_decode_step(cfg, "decode_32k")
+        _, caches = lm.prefill(params, toks, cfg, max_len, prefix_embeds=pe)
+        batch = {"token": toks[:, -1:], "caches": caches}
+        # warm: the generate's prefill ran the same shapes
+        prefill_ms = time_ms(torch, lambda: lm.prefill(params, toks, cfg, max_len,
+                                                       prefix_embeds=pe), 2, warmup=0)
+        # the same slot rewritten each call: the caches are not advanced
+        decode_ms = time_ms(torch, lambda: decode(params, batch), 10)
+        trace = device_trace(torch, lambda: decode(params, batch))
+    row = {"phase": "da_prefix_serving", "arch": cfg.name, "source": DA_SOURCE[cfg.name],
+           "n_layers": cfg.n_layers, "n_params": cfg.n_params, "dtype": "bfloat16",
+           "batch": 1, "prefix": P, "prompt": LM_PROMPT, "gen": LM_GEN,
+           "max_len": max_len, "prefill_ms": prefill_ms,
+           "decode_ms_per_token": decode_ms, "generate_s": gen_s,
+           "tokens_per_s": LM_GEN / gen_s, "decode_trace": trace,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    emit(row)
+    del params, caches, batch
+    free_card(torch)
+    checks, worst = da_llava_checks(torch, lm, steps, instrument, cfg, rng, device)
+    # sparse at full depth: one prefill over the prefix, T = 3,008
+    params = lm.init_params(torch.Generator(device=device).manual_seed(0), sparse)
+    per_step = lm_launches_per_step(params, sparse)
+    with torch.no_grad():  # the counted call, timed by CUDA events (seconds long)
+        instrument.reset()
+        sparse_ms = time_ms(torch, lambda: lm.prefill(params, toks, sparse, max_len,
+                                                      prefix_embeds=pe), 1, warmup=0)
+        launches = instrument.snapshot()
+        check(launches.get("bcoo", 0) == per_step == 3 * cfg.n_layers
+              and launches.get("bcoo.spmm", 0) == per_step,
+              f"dense archs {cfg.name} sparse prefill: {launches}, not {per_step}")
+    sparse_row = {"phase": "da_prefix_sparse_prefill", "arch": cfg.name,
+                  "n_layers": cfg.n_layers, "n_params": sparse.n_params,
+                  "dtype": "bfloat16", "T": P + LM_PROMPT, "launches": launches,
+                  "prefill_ms": sparse_ms, "dense_prefill_ms": prefill_ms}
+    emit(sparse_row)
+    del params
+    free_card(torch)
+    return {"serving": row, "checks": checks, "sparse": sparse_row,
+            "max_abs_err": worst, "launches": launches.get("bcoo", 0)}
+
+
+def da_llava_training(torch, lm, steps, rng, device) -> dict:
+    """(e) llava-next-34b at full width cut to ``DA_TRAIN_LAYERS``:
+    ``make_train_step`` (the update donated, as TrainLoop's) for 10 bf16
+    steps of B=1, a fresh 2,880-token stub prefix and 256 TokenStream text
+    tokens each; the loss over the text falls by at least 1.0; step ms,
+    peak, a one-step trace; card vs CPU at reduced widths with a prefix."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.optim import init_opt
+    from repro_torch.sparse.layers import strip_derived
+
+    cfg = get_config("llava-next-34b")
+    cut = dataclasses.replace(cfg, n_layers=DA_TRAIN_LAYERS)
+    free_card(torch)
+    leftover = torch.cuda.memory_allocated()
+    params = lm.init_params(torch.Generator(device=device).manual_seed(0), cut)
+    opt_cfg = tf_opt(cut, TF_STEPS)
+    opt = init_opt(strip_derived(params), opt_cfg)
+    step = steps.make_train_step(cut, opt_cfg, donate=True)
+    stream = TokenStream(cut.vocab, DA_LLAVA_TEXT, DA_LLAVA_B, 0)
+    gen = torch.Generator(device=device).manual_seed(217)
+
+    def batch(i):
+        return dict(stream.batch(i, device),
+                    prefix_embeds=torch.randn((DA_LLAVA_B, cut.modality_tokens,
+                                               cut.d_model), generator=gen,
+                                              device=device).to(torch.bfloat16))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(TF_STEPS):
+        b = batch(i)
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, b)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    what = f"dense archs {cfg.name} training"
+    check(all(np.isfinite(losses)), f"{what}: losses {losses}")
+    check(losses[0] - losses[-1] >= 1.0,
+          f"{what}: loss fell {losses[0]} -> {losses[-1]}, not by 1.0")
+    b = batch(TF_STEPS)
+    trace = dict(device_trace(torch, lambda: step(params, opt, b), steps=1), steps=1)
+    med = statistics.median(step_ms[1:])
+    T = DA_LLAVA_B * (cut.modality_tokens + DA_LLAVA_TEXT)
+    row = {"phase": "da_prefix_train", "arch": cfg.name, "n_layers": cut.n_layers,
+           "n_params": cut.n_params, "dtype": "bfloat16", "batch": DA_LLAVA_B,
+           "prefix": cut.modality_tokens, "text": DA_LLAVA_TEXT,
+           "lr_peak": opt_cfg.lr_peak, "losses": losses,
+           "loss_drop": losses[0] - losses[-1], "step_ms": step_ms,
+           "step_ms_median": med, "positions_per_s": T / med * 1e3,
+           "text_tokens_per_s": DA_LLAVA_B * DA_LLAVA_TEXT / med * 1e3,
+           "allocated_before_bytes": leftover, "peak_allocated_bytes": peak,
+           "trace": trace}
+    emit(row)
+    del params, opt, b
+    free_card(torch)
+    red = dataclasses.replace(cfg.reduced(), n_layers=DA_CHECK_LAYERS)
+    card_cpu = train_card_vs_cpu(torch, red, rng, device, phase="da_card_vs_cpu")
+    return {"train": row, "card_vs_cpu": card_cpu}
+
+
+def da_kernel_times(torch, rng, device) -> tuple:
+    """(f) The block kernel at the new shapes: gemma2's w_gate (4608 ->
+    36,864) and w_down at B = 1, 4 and 512, its backward at T = 1,024
+    (grad x on Wᵀ's (128, 8) blocks), llava's w_gate (7168 -> 20,480) and
+    w_down at T = 3,008; each beside its plain version, ``torch.matmul``
+    and the bound.  Returns (rows, backward rows, random max err)."""
+    from repro_torch.configs import get_config
+
+    gemma = dataclasses.replace(get_config("gemma2-27b"), ffn_density=0.5)
+    rows = lm_projection_times(torch, gemma, rng, device)
+    free_card(torch)
+    backward, worst = train_backward(torch, gemma, rng, device,
+                                     torch.Generator(device=device).manual_seed(216))
+    free_card(torch)
+    llava = dataclasses.replace(get_config("llava-next-34b"), ffn_density=0.5)
+    rows += lm_projection_times(torch, llava, rng, device,
+                                batches=(llava.modality_tokens + LM_PROMPT,))
+    free_card(torch)
+    return rows, backward, worst
+
+
+def phase_dense_archs(torch, rng, device) -> dict:
+    """Phase 21: the dense family's last three archs (see the module
+    docstring).  Returns the block kernel's launches in the path's counted
+    runs (llama's sparse generate, gemma2's full-depth sparse generate,
+    llava's full-depth sparse prefill, one sparse gemma2 train step), the
+    largest random-input kernel error and the rows."""
+    from repro_torch.kernels import instrument
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as T_
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import attention as A
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    parts_s, out = {}, {}
+    for key, run in (
+            ("llama", lambda: da_llama(torch, lm, T_, Server, instrument, rng, device)),
+            ("gemma2_serving", lambda: da_gemma2_serving(torch, lm, A, Server,
+                                                         instrument, rng, device)),
+            ("gemma2_training", lambda: da_gemma2_training(torch, lm, T_, instrument,
+                                                           rng, device)),
+            ("llava_serving", lambda: da_llava_serving(torch, lm, steps, instrument,
+                                                       rng, device)),
+            ("llava_training", lambda: da_llava_training(torch, lm, steps, rng,
+                                                         device)),
+            ("kernels", lambda: da_kernel_times(torch, rng, device))):
+        t0 = time.perf_counter()
+        out[key] = run()
+        parts_s[key] = time.perf_counter() - t0
+        free_card(torch)
+    projections, backward, kernel_err = out["kernels"]
+    launches = {"llama_generate": out["llama"]["launches"],
+                "gemma2_generate": out["gemma2_serving"]["launches"],
+                "llava_prefill": out["llava_serving"]["launches"],
+                "gemma2_train_step": out["gemma2_training"]["launches"]}
+    worst = max(out["llama"]["max_abs_err"], out["gemma2_serving"]["max_abs_err"],
+                out["llava_serving"]["max_abs_err"], kernel_err)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "dense_archs_done", "seconds": seconds, "parts_s": parts_s,
+          "launches": launches})
+    return {"launches": sum(launches.values()), "launches_by_run": launches,
+            "max_abs_err": worst, "projections": projections, "backward": backward,
+            "seconds": seconds, **{k: v for k, v in out.items() if k != "kernels"}}
+
+
 # ------------------------------------------------------- phase 20: the dry run
 # (a) the SpMV dry run's matrix (launch/dryrun_spmv.py): 2^20 rows of 16
 # standard-normal nonzeros over Zipf columns, on 256 and 512 parts of the
@@ -5107,6 +5782,12 @@ DR_LM_ROWS = {
     "seamless_train": (ED_ARCH, "train", SPARSE_B, SPARSE_S),
     **{f"{name}_train": (name, "train", *TF_SHAPE.get(name, (TF_BATCH, TF_SEQ)))
        for name in TF_ARCHS},
+    # phase 21's, each at full depth as it ran: llava's prefill over the
+    # 2,880-token prefix and the prompt (seq_len counts both)
+    "gemma2_prefill": ("gemma2-27b", "prefill", LM_BATCH, LM_PROMPT),
+    "gemma2_decode": ("gemma2-27b", "decode", LM_BATCH, LM_MAX_LEN),
+    "llama_train": ("llama3.2-1b", "train", TF_BATCH, TF_SEQ),
+    "llava_prefill": ("llava-next-34b", "prefill", 1, 2880 + LM_PROMPT),
 }
 
 
@@ -5123,7 +5804,7 @@ def dr_lm_counts() -> dict:
 
     out = {}
     for key, (arch, kind, B, S) in DR_LM_ROWS.items():
-        cfg = tf_cfg(arch)  # phase 19's cuts; the others run uncut
+        cfg = tf_cfg(arch)  # phase 19's cuts; the others ran uncut
         SHAPES[key] = dict(seq_len=S, global_batch=B, kind=kind)
         c = DR.count_cell(cfg, key)
         corr = R.slstm_scan_correction(cfg, key)
@@ -5387,13 +6068,18 @@ def dr_mfu(times: dict, counts: dict) -> list:
 XLSTM_TREE_PARAMS = 959_547_392
 
 
-def dr_times(lm_run, train_run, ed_run, tf_run) -> dict:
+def dr_times(lm_run, train_run, ed_run, tf_run, da_run) -> dict:
     """(c) The seconds each timed LM step took in its phase of this run."""
     dense = lm_run["times"][0]  # phase 14 (c): bf16, dense
+    gemma = da_run["gemma2_serving"]["times"]  # phase 21 (b): bf16, full depth
     out = {"qwen_prefill": dense["prefill_ms"] / 1e3,
            "qwen_decode": dense["decode_ms_per_token"] / 1e3,
            "smollm_train": train_run["dense"]["step_ms_median_last20"] / 1e3,
-           "seamless_train": ed_run["train"]["dense"]["step_ms_median"] / 1e3}
+           "seamless_train": ed_run["train"]["dense"]["step_ms_median"] / 1e3,
+           "gemma2_prefill": gemma["prefill_ms"] / 1e3,
+           "gemma2_decode": gemma["decode_ms_per_token"] / 1e3,
+           "llama_train": da_run["llama"]["train"]["step_ms_median"] / 1e3,
+           "llava_prefill": da_run["llava_serving"]["serving"]["prefill_ms"] / 1e3}
     for name in TF_ARCHS:
         out[f"{name}_train"] = tf_run["train"][name]["step_ms_median"] / 1e3
     return out
@@ -5536,8 +6222,11 @@ def run(args, torch, counts_future) -> int:
     free_card(torch)
     tf_run = phase_train_families(torch, np.random.default_rng([args.seed, 19]), device)
     free_card(torch)
+    da_run = phase_dense_archs(torch, np.random.default_rng([args.seed, 21]), device)
+    free_card(torch)
     dr_run = phase_dryrun(torch, np.random.default_rng([args.seed, 20]), device,
-                          counts_future, dr_times(lm_run, train_run, ed_run, tf_run))
+                          counts_future,
+                          dr_times(lm_run, train_run, ed_run, tf_run, da_run))
 
     by_path = {
         kernel: {"single_device": launches[kind],
@@ -5556,6 +6245,7 @@ def run(args, torch, counts_future) -> int:
     by_path["bcoo_spmv"]["lm_hybrid"] = la_run["launches"]
     by_path["bcoo_spmv"]["lm_enc_dec"] = ed_run["launches"]
     by_path["bcoo_spmv"]["lm_train_families"] = tf_run["launches"]
+    by_path["bcoo_spmv"]["lm_dense_archs"] = da_run["launches"]
     by_path["coo_spmv"]["dryrun"] = dr_run["coo_launches"]
     by_path["bcoo_spmv"]["dryrun"] = dr_run["bcoo_launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
@@ -5576,7 +6266,8 @@ def run(args, torch, counts_future) -> int:
                                                 moe_run["max_abs_err"],
                                                 la_run["max_abs_err"],
                                                 ed_run["max_abs_err"],
-                                                tf_run["max_abs_err"]]
+                                                tf_run["max_abs_err"],
+                                                da_run["max_abs_err"]]
                                                if name == "bcoo_spmv" else [])),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -5589,6 +6280,7 @@ def run(args, torch, counts_future) -> int:
           "linear_attn_phase_s": la_run["seconds"],
           "enc_dec_phase_s": ed_run["seconds"],
           "train_families_phase_s": tf_run["seconds"],
+          "dense_archs_phase_s": da_run["seconds"],
           "dryrun_phase_s": dr_run["seconds"],
           "card": card})
     emit({"kernels": kernels})

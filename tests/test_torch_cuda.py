@@ -1498,6 +1498,71 @@ def test_moe_archs_on_card_match_cpu(cuda, arch, sparse):
     assert instrument.launches("bcoo") == 3 * per_step
 
 
+@pytest.mark.parametrize("arch,sparse", [("llama3.2-1b", False),
+                                         ("llama3.2-1b", True),
+                                         ("gemma2-27b", False),
+                                         ("gemma2-27b", True),
+                                         ("llava-next-34b", False)])
+def test_dense_archs_on_card_match_cpu(cuda, arch, sparse):
+    """The dense family's last three archs, reduced, float32, TF32 off:
+    prefill and three decode steps on the card within rtol = atol = 2e-4
+    of the same params on the CPU (gemma2 past its reduced window of 16:
+    S = 32, softcaps and the ring; llava after its stub prefix), and 3
+    block-kernel launches per layer per step where sparse; then the loss's
+    value within 1e-5 relative and every grad leaf within 1e-4 of its max
+    (test_train_step_on_card_matches_cpu's bounds)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import value_and_grad_trainable
+    from repro_torch.models import lm
+    from repro_torch.models.common import map_params
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch).reduced()
+    if sparse:
+        cfg = dataclasses.replace(cfg, ffn_density=0.5, sparse_block=(8, 16))
+    params = lm.init_params(torch.Generator().manual_seed(3), cfg, torch.float32)
+    dparams = map_params(lambda a: a.to(cuda), params)
+    rng = np.random.default_rng(48)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)).astype(np.int32))
+    pe = (torch.from_numpy(rng.standard_normal((2, cfg.modality_tokens, cfg.d_model))
+                           .astype(np.float32)) if cfg.modality_tokens else None)
+    dpe = None if pe is None else pe.to(cuda)
+    per_step = 3 * cfg.n_layers if sparse else 0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want, caches = lm.prefill(params, toks, cfg, 48, prefix_embeds=pe)
+            instrument.reset()
+            got, dcaches = lm.prefill(dparams, toks.to(cuda), cfg, 48,
+                                      prefix_embeds=dpe)
+            torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+            tok = torch.argmax(want, -1)[:, None].to(torch.int32)
+            for _ in range(3):
+                want, caches = lm.decode_step(params, tok, caches, cfg)
+                got, dcaches = lm.decode_step(dparams, tok.to(cuda), dcaches, cfg)
+                torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+                tok = torch.argmax(want, -1)[:, None].to(torch.int32)
+            assert instrument.launches("bcoo") == 4 * per_step
+        res = {}
+        for key, dev, p in (("cpu", "cpu", params), ("card", cuda, dparams)):
+            batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+            if pe is not None:
+                batch["prefix_embeds"] = pe.to(dev)
+            loss, grads = value_and_grad_trainable(lm.loss_fn)(p, batch, cfg)
+            res[key] = (float(loss), leaves(grads))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lc, gc_), (lg, gg) = res["cpu"], res["card"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc_):
+        if b.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=1e-4 * max(float(b.abs().max()), 1e-30))
+
+
 @pytest.mark.parametrize("router", ["mixtral", "deepseek"])
 def test_moe_apply_on_card_is_bit_reproducible(cuda, router):
     """bf16 ``moe_apply`` (16 experts, top-8, a shared expert for deepseek)
