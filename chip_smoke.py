@@ -56,7 +56,7 @@ Phases (every check raises, so any failure exits non-zero):
    an ``AsyncSpmvService`` with an rt, a standard and a batch tenant.  Per
    matrix 64 concurrent single vectors (coalesced by the batcher into
    SpMMs of the bucket widths 1, 2, 4, 8) and explicit B=4 and B=8 batches,
-   every answer bit-equal to cuSPARSE; then a seeded bursty trace of 300
+   every answer bit-equal to cuSPARSE; then a seeded bursty trace of 200
    requests (Zipf 1.1 over the matrices, 300 requests/s, widths 1/4/8,
    5 % expired deadlines) replayed in real time: nothing lost, no error,
    every expired request shed.  Latency p50/p99 and throughput per matrix
@@ -93,8 +93,8 @@ Phases (every check raises, so any failure exits non-zero):
    requires its launches to equal the multiplies plus the sessions' steps.
 11. Tuning on the card (``repro_torch.tune``), after phase 10 (d), with
    inputs from its own generator.  (a) ``plan(scheme="tune")`` with a real
-   Measurer (warmup 2, iters 5, trim 1) and a cache file: the three
-   matrices at B=1, block at B=8, single-device.  One line per
+   Measurer (warmup 2, iters 5, trim 1) and a cache file: scale-free at
+   B=1, block at B=8, single-device.  One line per
    candidate: ``mean_s`` (exe(x) with both copies, what the tuner ranks),
    ``compile_s`` and the kernel's ms by CUDA events on the program it
    compiled, with its rank by each.  Every planned candidate must be
@@ -134,7 +134,7 @@ Phases (every check raises, so any failure exits non-zero):
    power session per matrix through ``router.solve`` within 1e-4 of a
    float64 host loop, its steps charged to its placement and launched by
    its worker.  (e) Generator mode: two spawned load processes (no CUDA)
-   replay 48 requests (Zipf 1.1 over the three, widths 1/4/8 at
+   replay 24 requests (Zipf 1.1 over the three, widths 1/4/8 at
    0.6/0.25/0.15) straight at the workers: 0 mismatched, 0 lost.  (f)
    Router mode on 4 threads over another 120 requests, worker w0 killed
    (SIGKILL) after 40 answers: 0 lost, 0 mismatched, every shed
@@ -333,7 +333,7 @@ Phases (every check raises, so any failure exits non-zero):
    beside the bound and ``torch.matmul``).  (b) bf16 through ``TrainLoop``
    at B=4, S=256 (one GLA chunk): mixtral-8x22b cut to 1 layer,
    deepseek-v3 to its 3 dense MLA prefix layers with the MTP block,
-   zamba2-2.7b (54 layers) and xlstm-1.3b (48, on 16 x 64 batches), f32
+   zamba2-2.7b (54 layers) and xlstm-1.3b (48, on 32 x 32 batches), f32
    moments, 10 steps each: the loss falls by at least 1.0; step ms,
    tokens/s, peak memory, a trace (3 steps; 1 for zamba2 and xlstm), the
    bytes the update adds, mixtral's dropped share; sparse deepseek (with
@@ -418,6 +418,17 @@ Phases (every check raises, so any failure exits non-zero):
    count (``launches_by_path["bcoo_spmv"]["lm_dense_archs"]``) sums
    llama's sparse generate, gemma2's full-depth sparse generate, llava's
    full-depth sparse prefill and one sparse gemma2 train step.
+22. Examples and tools, after phase 21 and before phase 20: every
+   ``examples/torch_*.py`` (``torch_train_lm`` once dense and once with
+   ``--sparse-ffn``), then ``tools/trace_dump_torch.py`` in replay mode
+   (its trace under ``build/phase22/``) and ``tools/check_topo_torch.py``,
+   each imported and its ``main`` called in process on the card at its
+   defaults, its output under ``build/phase22/<script>.log``.  Each must
+   complete with its own assertions held; every SpMV one must launch the
+   COO or the block kernel (the cluster example in its workers, by the
+   router's per-worker stats), the sparse ``torch_train_lm`` the block
+   kernel; every request row of the trace must hold a ``kernel`` span.
+   Its launches are ``launches_by_path[...]["examples"]``.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -449,6 +460,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_S = 67e12  # H100 SXM data sheet, float32 without tensor cores
 PM12 = np.array([-2, -1, 1, 2], np.float32)
@@ -468,7 +480,7 @@ PARTS = 16  # parts of the partitioned path, all on the one card
 # the serving path's tenants, one per SLO class
 TENANTS = {"tenant-rt": "rt", "tenant-std": "standard", "tenant-batch": "batch"}
 SERVE_WAIT_S = 600  # bound on any one await of the serving phases
-SERVE_REPLAY_REQUESTS = 300  # phase 8's replay (cut from 600 for the script's time)
+SERVE_REPLAY_REQUESTS = 200  # phase 8's replay (cut from 600, then 300, for the script's time)
 
 
 def check(cond, msg: str) -> None:
@@ -477,6 +489,10 @@ def check(cond, msg: str) -> None:
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's row also gets ``t_s``, the seconds since the
+    script started (where the time goes between the phases' own timers)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1906,14 +1922,21 @@ def tune_rows(what: dict, pln, timed) -> dict:
     return row
 
 
+# (a)'s matrices at B=1 (cut for the script's time from all three: the
+# regular and block matrices' plans and answers are checked in phases 3, 7,
+# 11 (d) and 13 still, the block matrix tuned at B=8 here and at B=1 under
+# pim2x2 in phase 13 (e))
+TUNE_SINGLE = ("scale-free",)
+
+
 def phase_tune_single(torch, rng, device, by_matrix, path) -> tuple:
-    """Phase 11 (a) and (b): single-device tuning at full width, B=1 on all
-    three matrices and B=8 on block, into one cache file; then
+    """Phase 11 (a) and (b): single-device tuning at full width, B=1 on
+    ``TUNE_SINGLE`` and B=8 on block, into one cache file; then
     the same tunes again from the file, measuring nothing."""
     from repro_torch.kernels import instrument
     from repro_torch.tune import CandidateGenerator, Tuner, TuningCache
 
-    runs = [(name, None) for name in by_matrix] + [("block", 8)]
+    runs = [(name, None) for name in TUNE_SINGLE] + [("block", 8)]
     launches, rows = {"coo": 0, "bcoo": 0}, []
     for name, batch in runs:
         rec = by_matrix[name]
@@ -2008,9 +2031,10 @@ def phase_tune_parts(torch, rng, device, rec, path) -> tuple:
 
 TUNE_DRIFT = ("scale-free",)  # (d)'s drift refinement (cut from all three for time)
 # (d)'s engine: the matrices it serves and tunes, and its tuner's candidate
-# cap (cut for the script's time from all three matrices and 8 candidates)
+# cap (cut for the script's time from all three matrices and 8 candidates,
+# then 4)
 TUNE_ENGINE_MATRICES = ("scale-free", "block")
-TUNE_ENGINE_CANDIDATES = 4
+TUNE_ENGINE_CANDIDATES = 3
 
 
 def phase_tune_engine(torch, rng, device, by_matrix) -> tuple:
@@ -2491,10 +2515,10 @@ CLUSTER_MIX = {1: 0.6, 4: 0.25, 8: 0.15}  # the replays' widths and shares
 POWER_STEPS = 20  # steps of each phase-12 session
 # cut for the script's time: the matrices at 2^18 rows (2^21, then 2^19,
 # before; the registrations' frames 20-76 MB, not 158-604) and the
-# generator replay at 48 requests (120 before); the chaos replay keeps its
+# generator replay at 24 requests (48, 120 before); the chaos replay keeps its
 # 120
 CLUSTER_N = 1 << 18
-CLUSTER_GENERATOR_REQUESTS = 48
+CLUSTER_GENERATOR_REQUESTS = 24
 
 
 def mem_free(torch) -> int:
@@ -4596,9 +4620,10 @@ TF_CUT = {"mixtral-8x22b": 1, "deepseek-v3-671b": 3}  # layers kept (the rest fu
 TF_SPARSE = ("deepseek-v3-671b", "zamba2-2.7b")  # their dense FFNs on the block kernel
 TF_STEPS, TF_BATCH, TF_SEQ = 10, 4, 256  # S = 256: one GLA chunk, 256 sLSTM steps
 # xlstm's steps are host-bound on sLSTM's per-token loop (6.75 s a step at
-# 4 x 256, 160k kernels, on an H100): its batches are 16 x 64, the same
-# 1,024 tokens in a quarter of the loop's steps
-TF_SHAPE = {"xlstm-1.3b": (16, 64)}
+# 4 x 256, 160k kernels, on an H100): its batches are 32 x 32, the same
+# 1,024 tokens in an eighth of the loop's steps (16 x 64 before, cut for
+# the script's time)
+TF_SHAPE = {"xlstm-1.3b": (32, 32)}
 # profiled steps a model: 3, or 1 where a step launches 15k-160k kernels
 # (the trace's post-processing outweighs the steps)
 TF_TRACED = {"zamba2-2.7b": 1, "xlstm-1.3b": 1}
@@ -5759,6 +5784,118 @@ def phase_dense_archs(torch, rng, device) -> dict:
             "seconds": seconds, **{k: v for k, v in out.items() if k != "kernels"}}
 
 
+# ---------------------------------------------- phase 22: examples and tools
+# (script, argv, kernel kinds of which one at least must launch); each runs
+# in process at its defaults, on the card
+EX_RUNS = (
+    ("examples/torch_quickstart.py", [], ("coo", "bcoo")),
+    ("examples/torch_spmv_end_to_end.py", [], ("coo", "bcoo")),
+    ("examples/torch_engine_quickstart.py", [], ("coo", "bcoo")),
+    ("examples/torch_solver_quickstart.py", [], ("coo", "bcoo")),
+    ("examples/torch_serve_quickstart.py", [], ("coo", "bcoo")),
+    ("examples/torch_slo_quickstart.py", [], ("coo", "bcoo")),
+    ("examples/torch_topo_quickstart.py", [], ("coo", "bcoo")),
+    ("examples/torch_cluster_quickstart.py", [], ("coo", "bcoo")),
+    ("examples/torch_serve_lm.py", [], ()),
+    ("examples/torch_train_lm.py", [], ()),
+    ("examples/torch_train_lm.py", ["--sparse-ffn"], ("bcoo",)),
+    ("tools/trace_dump_torch.py", None, ("coo", "bcoo")),  # argv: its --out
+    ("tools/check_topo_torch.py", [], ("coo", "bcoo")),
+)
+
+
+def load_script(rel: str):
+    """Import a script of the checkout by its path (its main not run)."""
+    import importlib.util
+
+    name = "_phase22_" + os.path.splitext(os.path.basename(rel))[0]
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def trace_kernel_rows(path: str) -> tuple:
+    """(request rows, rows without a ``kernel`` span) of a Chrome trace."""
+    with open(path, encoding="utf-8") as fh:
+        events = json.load(fh)["traceEvents"]
+    rows = {}
+    for ev in events:
+        if ev.get("ph") == "X":
+            rows.setdefault(ev["tid"], set()).add(ev["name"])
+    return len(rows), sum("kernel" not in names for names in rows.values())
+
+
+def phase_examples(torch, device) -> dict:
+    """Phase 22: every ``examples/torch_*.py`` and the tools
+    ``trace_dump_torch`` (replay mode) and ``check_topo_torch``, in process
+    on the card at their defaults.  Each must complete with its assertions
+    held, and each SpMV one launch a kernel (the cluster's in its workers,
+    read from the router's stats before it closed); the sparse
+    ``torch_train_lm`` the block kernel.  Each script's output goes to
+    ``build/phase22/<script>.log``; its row holds the last line.  Returns
+    the path's launches per kind, the rows and the seconds."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import instrument
+
+    out_dir = os.path.join(ROOT, "build", "phase22")
+    os.makedirs(out_dir, exist_ok=True)
+    t_phase = time.perf_counter()
+    launches, rows = {"coo": 0, "bcoo": 0}, []
+    for rel, argv, need in EX_RUNS:
+        name = os.path.splitext(os.path.basename(rel))[0]
+        tag = name + "".join(a.replace("--", ".") for a in argv or [])
+        trace_path = os.path.join(out_dir, "serve_trace.json")
+        if argv is None:
+            argv = ["--out", trace_path]
+        if device.type != "cuda":  # a rehearsal on the host
+            argv = argv + ["--device", device.type]
+        mod = load_script(rel)
+        log = io.StringIO()
+        instrument.reset()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                result = mod.main(argv)
+        finally:  # the output of a script that raised is kept too
+            with open(os.path.join(out_dir, tag + ".log"), "w",
+                      encoding="utf-8") as fh:
+                fh.write(log.getvalue())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {k: instrument.launches(k) for k in launches}
+        row = {"phase": "example", "script": rel, "argv": argv, "seconds": seconds}
+        if name.startswith("check_") or name.startswith("trace_"):
+            check(result == 0, f"{rel} {argv} exited {result}: {log.getvalue()[-2000:]}")
+        if name == "torch_cluster_quickstart":  # launched in the worker processes
+            got = {k: sum(st["launches"].get(k, 0) for st in result["workers"].values()
+                          if not st.get("lost")) for k in launches}
+            row["served"] = result["served"]
+        if name == "trace_dump_torch":
+            n_rows, no_kernel = trace_kernel_rows(trace_path)
+            row.update(trace_rows=n_rows, rows_without_kernel=no_kernel)
+            check(n_rows > 0 and no_kernel == 0,
+                  f"trace dump: {no_kernel} of {n_rows} request rows hold no kernel span")
+        if name == "torch_train_lm":
+            row["losses"] = [result["losses"][0], result["losses"][-1]]
+            check(all(np.isfinite(result["losses"])), f"{tag}: losses {result['losses']}")
+        row.update(launches=got, last_line=log.getvalue().strip().splitlines()[-1])
+        emit(row)
+        rows.append(row)
+        if need:
+            check(sum(got[k] for k in need) > 0,
+                  f"{tag}: no launch of {' or '.join(need)} ({got})")
+        for k in launches:
+            launches[k] += got[k]
+        del mod, result
+        free_card(torch)
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "examples_done", "seconds": seconds, "launches": launches})
+    return {"launches": launches, "rows": rows, "seconds": seconds}
+
+
 # ------------------------------------------------------- phase 20: the dry run
 # (a) the SpMV dry run's matrix (launch/dryrun_spmv.py): 2^20 rows of 16
 # standard-normal nonzeros over Zipf columns, on 256 and 512 parts of the
@@ -6224,6 +6361,8 @@ def run(args, torch, counts_future) -> int:
     free_card(torch)
     da_run = phase_dense_archs(torch, np.random.default_rng([args.seed, 21]), device)
     free_card(torch)
+    ex_run = phase_examples(torch, device)
+    free_card(torch)
     dr_run = phase_dryrun(torch, np.random.default_rng([args.seed, 20]), device,
                           counts_future,
                           dr_times(lm_run, train_run, ed_run, tf_run, da_run))
@@ -6246,6 +6385,8 @@ def run(args, torch, counts_future) -> int:
     by_path["bcoo_spmv"]["lm_enc_dec"] = ed_run["launches"]
     by_path["bcoo_spmv"]["lm_train_families"] = tf_run["launches"]
     by_path["bcoo_spmv"]["lm_dense_archs"] = da_run["launches"]
+    by_path["coo_spmv"]["examples"] = ex_run["launches"]["coo"]
+    by_path["bcoo_spmv"]["examples"] = ex_run["launches"]["bcoo"]
     by_path["coo_spmv"]["dryrun"] = dr_run["coo_launches"]
     by_path["bcoo_spmv"]["dryrun"] = dr_run["bcoo_launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
@@ -6281,6 +6422,7 @@ def run(args, torch, counts_future) -> int:
           "enc_dec_phase_s": ed_run["seconds"],
           "train_families_phase_s": tf_run["seconds"],
           "dense_archs_phase_s": da_run["seconds"],
+          "examples_phase_s": ex_run["seconds"],
           "dryrun_phase_s": dr_run["seconds"],
           "card": card})
     emit({"kernels": kernels})

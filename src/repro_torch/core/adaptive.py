@@ -39,6 +39,12 @@ class HardwareModel:
     hbm_bw: float = 3.35e12  # HBM3 bytes/s
     link_bw: float = 450e9  # NVLink bytes/s, each way
 
+    @classmethod
+    def single_pod(cls) -> "HardwareModel":
+        """A DGX H100 SuperPOD: 256 cards in one NVLink domain (the pod the
+        JAX package's preset of the same name models, at 256 chips)."""
+        return cls(chips=256)
+
 
 @dataclass(frozen=True)
 class Plan:

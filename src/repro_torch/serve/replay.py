@@ -370,7 +370,11 @@ async def replay(
       oracles: {matrix name: dense array} — verify every completion
         against ``a @ x`` (max |err| + bit-equality count).  A torch tensor
         stays where it lies (``a @ x`` runs there); anything else becomes
-        a host ndarray.
+        a host ndarray.  The checks run after the last request resolves,
+        outside ``wall_s`` and every latency: run on the event loop between
+        completions, each oracle product would delay the delivery of every
+        request still in flight (on a fast device, by more than it waits
+        to be served).
       time_scale: arrival-time multiplier; 1.0 replays in real time, 0.0
         fires as fast as the loop allows (keeps order, drops gaps).
       integer_values: the workload's payload mode (must match the spec the
@@ -391,6 +395,7 @@ async def replay(
     solve_latencies: list = []  # time-to-solution per completed session
     solve_iters: list = []
     solve_per_iter: list = []
+    checks: list = []  # (name, x, answer, power steps or None), verified last
 
     def tstate(tenant: str) -> dict:
         return per_tenant.setdefault(tenant, {
@@ -442,22 +447,12 @@ async def replay(
             report.solves_converged += int(result.converged)
             if oracles is not None and req.name in oracles \
                     and req.solve_combine == "power":
-                expect = _np_power(oracles[req.name], x, result.steps)
-                report.verified += 1
-                err = float(np.max(np.abs(result.x - expect)))
-                report.max_abs_err = max(report.max_abs_err, err)
-                if np.array_equal(result.x, expect):
-                    report.bitexact += 1
+                checks.append((req.name, x, np.asarray(result.x), result.steps))
             return
         latencies.append(latency)
         ts["latencies"].append(latency)
         if oracles is not None and req.name in oracles:
-            expect = _apply(oracles[req.name], x)
-            report.verified += 1
-            err = float(np.max(np.abs(np.asarray(y) - expect))) if y.size else 0.0
-            report.max_abs_err = max(report.max_abs_err, err)
-            if np.array_equal(np.asarray(y), expect):
-                report.bitexact += 1
+            checks.append((req.name, x, np.asarray(y), None))
 
     start = loop.time()
     start_mark = obs_clock()  # only spans recorded after this mark are ours
@@ -476,6 +471,14 @@ async def replay(
     await asyncio.gather(*tasks)
     await service.drain()
     report.wall_s = loop.time() - start
+    for name, x, got, steps in checks:
+        expect = (_apply(oracles[name], x) if steps is None
+                  else _np_power(oracles[name], x, steps))
+        report.verified += 1
+        err = float(np.max(np.abs(got - expect))) if got.size else 0.0
+        report.max_abs_err = max(report.max_abs_err, err)
+        if np.array_equal(got, expect):
+            report.bitexact += 1
 
     report.completed = sum(1 for v in resolved.values() if v == "completed")
     report.rejected = sum(1 for v in resolved.values() if v == "rejected")

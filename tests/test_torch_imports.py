@@ -1,6 +1,9 @@
-"""repro_torch and chip_smoke.py stand alone: importing every module of the
-port pulls in no jax and nothing of the JAX package ``repro``, and starts
-no thread (the serving path's threads start with a service or batcher)."""
+"""repro_torch, chip_smoke.py, the port's examples (``examples/torch_*.py``)
+and tools (``tools/*_torch.py``) stand alone: importing every module of the
+port and every one of those scripts pulls in no jax and nothing of the JAX
+package ``repro``, and starts no thread (the serving path's threads start
+with a service or batcher)."""
+import glob
 import os
 import pkgutil
 import subprocess
@@ -19,6 +22,14 @@ for name in names:
     importlib.import_module(name)
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: F401  (its work runs under __main__ only)
+import glob, importlib.util, os
+scripts = sorted(glob.glob(os.path.join(ROOT, "examples", "torch_*.py"))
+                 + glob.glob(os.path.join(ROOT, "tools", "*_torch.py")))
+for path in scripts:  # imported, main not run
+    name = "_script_" + os.path.basename(path)[:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print("SCRIPTS", sorted(os.path.relpath(p, ROOT) for p in scripts))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.", "ml_dtypes"))
              or m == "repro")
@@ -78,12 +89,22 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     configs = [m for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
                if m.name.startswith("repro_torch.configs.")]
     assert len(configs) == 12  # base, spmv_paper and the ten archs
+    # the ten examples and the three tools of the port
+    assert lines["SCRIPTS"] == str(sorted(
+        [f"examples/torch_{n}.py" for n in (
+            "quickstart", "spmv_end_to_end", "engine_quickstart",
+            "solver_quickstart", "serve_quickstart", "slo_quickstart",
+            "topo_quickstart", "cluster_quickstart", "serve_lm", "train_lm")]
+        + [f"tools/{n}_torch.py" for n in ("trace_dump", "check_topo",
+                                           "check_docs")]))
 
 
 def test_port_sources_name_no_jax_import():
     src = os.path.join(ROOT, "src", "repro_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(src) for f in fs
              if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")]
+    files += glob.glob(os.path.join(ROOT, "examples", "torch_*.py"))
+    files += glob.glob(os.path.join(ROOT, "tools", "*_torch.py"))
     for path in files:
         with open(path) as fh:
             for line in fh:

@@ -14,6 +14,7 @@ hang fails one test instead of the whole run.
 """
 import asyncio
 import dataclasses
+import time
 
 import jax
 import numpy as np
@@ -425,6 +426,36 @@ def test_replay_with_tensor_oracles():
     trace, report = _replay(tserve, _service(), mats)
     assert report.lost == 0 and report.errors == 0
     assert report.bitexact == report.verified == report.completed > 0
+
+
+def test_replay_checks_the_oracles_outside_the_timed_window(monkeypatch):
+    """The oracle checks run after the last request resolves: a slow oracle
+    product delays no delivery (neither the latencies nor ``wall_s`` hold
+    it), and every completion is still verified bit for bit.  Run inline on
+    the event loop, 16 checks of 0.1 s would put up to 1.5 s into the
+    latencies of the requests resolved after them."""
+    import importlib
+
+    # the package exports the function ``replay`` under the module's name
+    treplay = importlib.import_module("repro_torch.serve.replay")
+    slow, n = 0.1, 16
+    apply = treplay._apply
+
+    def slow_apply(a, x):
+        time.sleep(slow)
+        return apply(a, x)
+
+    monkeypatch.setattr(treplay, "_apply", slow_apply)
+    mats = {name: matrices()[name] for name in NAMES}
+    trace = generate_trace(WorkloadSpec(names=NAMES, n_requests=n, seed=3,
+                                        integer_values=True))
+    t0 = time.perf_counter()
+    report = _serve(_service(), lambda s: replay(
+        s, trace, oracles=mats, time_scale=0.0, integer_values=True))
+    assert time.perf_counter() - t0 >= n * slow  # the checks ran ...
+    assert report.bitexact == report.verified == report.completed == n
+    assert report.wall_s < n * slow / 2  # ... after the timed window
+    assert report.latency["p99_ms"] < n * slow / 2 * 1e3
 
 
 def test_replay_with_explicit_loop_and_disabled_tracer():
