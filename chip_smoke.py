@@ -333,18 +333,19 @@ Phases (every check raises, so any failure exits non-zero):
    beside the bound and ``torch.matmul``).  (b) bf16 through ``TrainLoop``
    at B=4, S=256 (one GLA chunk): mixtral-8x22b cut to 1 layer,
    deepseek-v3 to its 3 dense MLA prefix layers with the MTP block,
-   zamba2-2.7b (54 layers) and xlstm-1.3b (48, on 32 x 32 batches), f32
+   zamba2-2.7b cut to 12 of 54 layers (2 repeats) and xlstm-1.3b to 24 of
+   48 (3 repeats, on 32 x 32 batches), f32
    moments, 10 steps each: the loss falls by at least 1.0; step ms,
    tokens/s, peak memory, a trace (3 steps; 1 for zamba2 and xlstm), the
    bytes the update adds, mixtral's dropped share; sparse deepseek (with
    the reference's int8 moments) and zamba2 3 steps each, launching the
-   block kernel 24 and 81 times a step, their projections then bit-equal
+   block kernel 24 and 18 times a step, their projections then bit-equal
    to the plain version through the keys they carry (their last steps' sum is
    ``launches_by_path["bcoo_spmv"]["lm_train_families"]``); mixtral with 2
    microbatches, 3 steps; xlstm cut to 8 layers restarted from a step-1
    checkpoint, its losses bit-equal to an uninterrupted run's.  (d) sparse
-   zamba2 at full width cut to 18 layers under remat ``full``, ``dots`` and
-   ``none``: loss and grads bit-equal, block-kernel launches 27 / 27 / 18,
+   zamba2 at full width cut to 12 layers under remat ``full``, ``dots`` and
+   ``none``: loss and grads bit-equal, block-kernel launches 18 / 18 / 12,
    ms, peak and a trace of each.
 20. The dry run (``repro_torch.analysis``, ``launch/dryrun.py``,
    ``launch/dryrun_spmv.py``), last, with inputs from its own generator
@@ -369,8 +370,8 @@ Phases (every check raises, so any failure exits non-zero):
    seamless step, 19's four families) with its ``_model_flops`` at its
    shape, the count's useful ratio (model FLOPs over the step's count on
    fake tensors, taken in a worker process started with the script) and
-   its MFU against 989 TFLOP/s; xlstm's also from its tree's 959,547,392
-   params; phase 21's gemma2 prefill and decode, llama train step and
+   its MFU against 989 TFLOP/s; xlstm's also from its params' tree (its
+   ``init_params`` leaves, counted on fake tensors); phase 21's gemma2 prefill and decode, llama train step and
    llava prefix prefill too.  No step runs again to be timed.
 21. The dense family's last three archs at full width, after phase 19 and
    before phase 20 (which prices its timed steps), with inputs from their
@@ -393,9 +394,9 @@ Phases (every check raises, so any failure exits non-zero):
    against its plain version and its densified oracle (whose dense FFN is
    given SiLU), and at full depth one bf16 generate of 8 tokens launching
    the block kernel 138 times a step, its prefill and decode timed.  (c)
-   gemma2 at full width cut to 6 layers (3 repeats; 8 would not fit beside
-   the training state), 10 bf16 TrainLoop steps dense (the loss falls by
-   at least 1.0; step ms, peak, a trace) and sparse (54 launches a step;
+   gemma2 at full width cut to 2 layers (one repeat, a local and a global
+   layer), 10 bf16 TrainLoop steps dense (the loss falls by
+   at least 1.0; step ms, peak, a trace) and sparse (18 launches a step;
    its first repeat's projections after training bit-equal to the plain
    version); card vs CPU at reduced widths, dense and sparse (phase 15
    (d)'s bounds).  (d) llava-next-34b (60 layers of 7168, the widths of
@@ -408,7 +409,7 @@ Phases (every check raises, so any failure exits non-zero):
    5e-3, sparse within 1e-3 of its densified oracle and its projections
    against the plain version at B = 4 and 3,008; sparse at full depth, one
    prefill (180 launches, T = 3,008 on the tensor cores) timed.  (e) llava
-   cut to 6 layers: ``make_train_step`` for 10 bf16 steps of B=1, a fresh
+   cut to 2 layers: ``make_train_step`` for 10 bf16 steps of B=1, a fresh
    stub prefix and 256 text tokens each, the loss over the text falling by
    at least 1.0; step ms, peak, a trace; card vs CPU at reduced widths
    with a prefix.  (f) The block kernel at gemma2's w_gate (4608 ->
@@ -429,6 +430,31 @@ Phases (every check raises, so any failure exits non-zero):
    router's per-worker stats), the sparse ``torch_train_lm`` the block
    kernel; every request row of the trace must hold a ``kernel`` span.
    Its launches are ``launches_by_path[...]["examples"]``.
+
+23. The partitioned schemes with one rank per part (``repro_torch.core.
+   world`` / ``core.collectives``, a ``ProcessMesh``), after phase 22 and
+   before phase 20, with inputs from their own generators (``[seed, 23,
+   ...]``).  (a) 4 ranks of one gloo world share the card (transport
+   ``gloo-host-staged``), each building the same matrices and placing only
+   its own part: 1D ``rows``, ``nnz-rgrn``, ``nnz`` and the ring on a
+   scale-free matrix of 2,097,152 rows (about 2^24 nonzeros); 2D
+   equally-sized with ``psum``, ``psum_scatter`` and ``global``,
+   equally-wide and variable-sized on a regular matrix of 1,048,576 rows at
+   16 a row; 2D equally-sized BCOO on a block matrix of 1,048,576 rows;
+   each through ``SparseMatrix.plan(mesh=<process mesh>, impl="cuda")``
+   (the ring: ``plan_from_partitioned``, torch local kernel), one B=1 and
+   one B=8 request checked and 5 B=1 requests timed.  Every rank's y and Y
+   must be bit-equal (by digest) to the one-process 4-part plan of the
+   same scheme on the card, which this process builds meanwhile, and to
+   cuSPARSE; each rank's kernel launches must equal its requests.  Per
+   scheme: each rank's tile kernel ms (ranks in turn), its plain version,
+   cuSPARSE on its tile and its bytes bound; the collectives' ms and bytes
+   by kind at B=1 and B=8 (ms over the timed requests, each of which
+   waits for the slowest rank); exe(x) p50 beside the card's name and
+   power limit.  (b) This process joins a world of one over NCCL and runs the
+   same programs at grids (1,) and (1, 1), bit-equal; NCCL's version.  A
+   rank that fails or hangs fails the script.  Its launches are
+   ``launches_by_path[...]["process_mesh"]``.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -452,6 +478,7 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4616,7 +4643,11 @@ def phase_enc_dec(torch, rng, device) -> dict:
 # ------------------------------------------------ phase 19: training the families
 
 TF_ARCHS = ("mixtral-8x22b", "deepseek-v3-671b", "zamba2-2.7b", "xlstm-1.3b")
-TF_CUT = {"mixtral-8x22b": 1, "deepseek-v3-671b": 3}  # layers kept (the rest full)
+# layers kept (the rest full); zamba2 at 12 of 54 (2 of its 9 repeats) and
+# xlstm at 24 of 48 (3 of 6) pay for phase 23 (at full depth their 10 + 3
+# and 10 steps took 21.3 s and 22.2 s on an H100 80GB HBM3, 700 W)
+TF_CUT = {"mixtral-8x22b": 1, "deepseek-v3-671b": 3, "zamba2-2.7b": 12,
+          "xlstm-1.3b": 24}
 TF_SPARSE = ("deepseek-v3-671b", "zamba2-2.7b")  # their dense FFNs on the block kernel
 TF_STEPS, TF_BATCH, TF_SEQ = 10, 4, 256  # S = 256: one GLA chunk, 256 sLSTM steps
 # xlstm's steps are host-bound on sLSTM's per-token loop (6.75 s a step at
@@ -4641,7 +4672,7 @@ TF_RESTART_LAYERS = 8  # (b): xlstm at full width, one repeat (7 mLSTM + 1 sLSTM
 def tf_cfg(name, **changes):
     """``name`` at full width, cut to ``TF_CUT`` layers where the card
     forces it (deepseek at 3: its dense MLA prefix layers, no MoE repeat;
-    the MTP block built and trained)."""
+    the MTP block built and trained) or the script's time does (zamba2)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(name)
@@ -5106,11 +5137,11 @@ def tf_restart(torch, T_, device) -> dict:
     return row
 
 
-TF_REMAT_LAYERS = 18  # (d): zamba2 at full width, 3 repeats
+TF_REMAT_LAYERS = 12  # (d): zamba2 at full width, 2 repeats
 
 
 def tf_remat(torch, lm, instrument, device) -> list:
-    """(d) zamba2-2.7b at full width cut to TF_REMAT_LAYERS (3 repeats of 5
+    """(d) zamba2-2.7b at full width cut to TF_REMAT_LAYERS (2 repeats of 5
     Mamba2 layers and the shared block), sparse, bf16: the loss's value and
     grads under remat ``full``, ``dots`` and ``none`` bit-equal; for each
     the value-and-grad's ms (the second of 2 calls), peak memory, block-kernel
@@ -5272,8 +5303,10 @@ DA_SPARSE_GEN = 8  # (b): tokens of the full-depth sparse gemma2 generate
 # embedding and about 5 GB of (4, 256, 256,000) logits: at 8 it ran out of
 # memory on an NVIDIA H100 80GB HBM3 (700 W) in that copy; llava at 6 51.2
 # GB, at 8 64.6 GB before its (1, 56, 3,136, 3,136) f32 scores (2.2 GB a
-# copy, several live in the backward)
-DA_TRAIN_LAYERS = 6
+# copy, several live in the backward).  Both train at 2 (gemma2's one
+# repeat) to pay for phase 23: at 6 the three runs took 37.7 s on an
+# H100 80GB HBM3, 700 W
+DA_TRAIN_LAYERS = 2
 DA_LLAVA_B, DA_LLAVA_TEXT = 1, 256  # (e): llava's batch, text tokens after the prefix
 
 
@@ -5462,9 +5495,10 @@ def da_gemma2_serving(torch, lm, A, Server, instrument, rng, device) -> dict:
 
 
 def da_gemma2_training(torch, lm, T_, instrument, rng, device) -> dict:
-    """(c) gemma2-27b at full width cut to 3 (local, global) repeats: 10
-    bf16 TrainLoop steps dense and at ``ffn_density=0.5``; card vs CPU at
-    reduced widths (dense, and sparse in (8, 16) blocks), f32."""
+    """(c) gemma2-27b at full width cut to ``DA_TRAIN_LAYERS`` (one local,
+    global repeat): 10 bf16 TrainLoop steps dense and at
+    ``ffn_density=0.5``; card vs CPU at reduced widths (dense, and sparse
+    in (8, 16) blocks), f32."""
     from repro_torch.configs import get_config
 
     cfg = get_config("gemma2-27b")
@@ -5905,6 +5939,394 @@ def phase_examples(torch, device) -> dict:
 # its rows, set its time
 DR_ROWS, DR_NNZ_ROW, DR_PARTS = 1 << 20, 16, (256, 512)
 DR_RING_ROWS, DR_RING_PARTS = 1 << 14, 256
+# ------------------------------------------------------------- process mesh
+
+PW_RANKS = 4  # phase 23: ranks of one gloo world, all on the one card
+PW_TIMED = 5  # exe(x) calls timed a scheme, after its two checked requests
+PW_BATCH = 8
+PW_MATRICES = ("scale-free", "regular", "block")
+# (name, matrix, scheme, fmt, merge, ring)
+PW_SCHEMES = (
+    ("1d-rows", "scale-free", "1d.rows", "coo", None, False),
+    ("1d-nnz-rgrn", "scale-free", "1d.nnz-rgrn", "coo", None, False),
+    ("1d-nnz", "scale-free", "1d.nnz", "coo", None, False),
+    ("ring", "scale-free", "1d.nnz", "coo", None, True),
+    ("2d-es-psum", "regular", "2d.equally-sized", "coo", "psum", False),
+    ("2d-es-psum_scatter", "regular", "2d.equally-sized", "coo", "psum_scatter",
+     False),
+    ("2d-es-global", "regular", "2d.equally-sized", "coo", "global", False),
+    ("2d-ew", "regular", "2d.equally-wide", "coo", None, False),
+    ("2d-vs", "regular", "2d.variable-sized", "coo", None, False),
+    ("2d-es-bcoo", "block", "2d.equally-sized", "bcoo", None, False),
+)
+PW_ROWS = {"scale-free": 1 << 21, "regular": 1 << 20, "block": 1 << 20}
+PW_TURN_TIMEOUT_S = 480  # a rank's wait for the parent's turn file
+
+
+def pw_triplets(name: str, seed: int):
+    """Phase 23's matrices (phase 3's recipes at phase 23's sizes), from
+    their own generators: every rank and the parent draw the same."""
+    rng = np.random.default_rng([seed, 23, PW_MATRICES.index(name)])
+    n = PW_ROWS[name]
+    if name == "scale-free":
+        return scale_free_triplets(rng, n, 8 * n)
+    if name == "regular":
+        return regular_triplets(rng, n)
+    return block_triplets(rng, n)
+
+
+def pw_inputs(seed: int, k: int, cols: int):
+    """Scheme k's x (cols,) and X (cols, PW_BATCH), integer-valued f32."""
+    rng = np.random.default_rng([seed, 23, 100 + k])
+    return (rng.integers(-2, 3, cols).astype(np.float32),
+            rng.integers(-2, 3, (cols, PW_BATCH)).astype(np.float32))
+
+
+def pw_digest(y) -> str:
+    import hashlib
+
+    y = np.ascontiguousarray(y)
+    return f"{y.dtype}{y.shape}:" + hashlib.sha256(y.tobytes()).hexdigest()
+
+
+def pw_plans(sms: dict, meshes: dict, impl: str):
+    """(name, matrix name, ExecutionPlan) of every phase-23 scheme, each
+    through ``SparseMatrix.plan`` on ``meshes["1d"]`` or ``meshes["2d"]``
+    (the ring through ``plan_from_partitioned`` over its bucketed
+    partition).  The three merges of one equally-sized partition share
+    it."""
+    from repro_torch.api import plan_from_partitioned
+    from repro_torch.core import distributed as D
+    from repro_torch.core.partition import partition_1d_coalesced
+
+    parts, out = {}, []
+    mesh_of = meshes.__getitem__
+    for name, mat, scheme, fmt, merge, ring in PW_SCHEMES:
+        sm = sms[mat]
+        key = (mat, scheme, fmt)
+        if ring:  # bucketed from the 1D plan's partition of the same scheme
+            mesh = mesh_of("1d")
+            P = mesh.devices.size
+            if key not in parts:
+                parts[key] = partition_1d_coalesced(
+                    *sm.triplets(), sm.shape, P, fmt, scheme.split(".", 1)[1])
+            part_r, counts = D.bucket_by_source_shard(parts[key], P)
+            out.append((name, mat, plan_from_partitioned(
+                part_r, mesh, impl="torch", ring=True, ring_counts=counts,
+                matrix=sm)))
+            continue
+        pln = sm.plan(scheme=scheme, fmt=fmt, merge=merge,
+                      mesh=mesh_of(scheme[:2]), impl=impl)
+        if key in parts:
+            pln.part = parts[key]
+        else:
+            parts[key] = pln.part = pln._partition()
+        out.append((name, mat, pln))
+    return out
+
+
+def pw_tile(torch, exe, x_full):
+    """This rank's tile as a cuSPARSE CSR matrix and the x it reads (its
+    kernel's input), for the rank's kernel, plain and library times."""
+    from repro_torch.core import distributed as D
+
+    prog, part = exe.program, exe.part
+    view = exe.arrays
+    if exe.plan.partitioning == "1d":
+        xin = x_full
+    else:  # variable-sized slices the whole x, the others their shard
+        xin = prog.tile_x(x_full if part.scheme == "2d.variable-sized"
+                          else exe._shard(x_full))
+    flat = D._flat(view) if exe.plan.partitioning == "2d" else view
+    n = int(flat["nnz"][0])
+    ri, ci = flat["rowind"][0, :n].long(), flat["colind"][0, :n].long()
+    vals = flat["values"][0, :n]
+    if part.fmt in ("bcoo", "bcsr"):
+        r, c = part.block
+        ri = (ri[:, None, None] * r + torch.arange(r, device=ri.device)[:, None]
+              ).expand(n, r, c).reshape(-1)
+        ci = (ci[:, None, None] * c + torch.arange(c, device=ci.device)
+              ).expand(n, r, c).reshape(-1)
+        vals = vals.reshape(-1)
+    A = torch.sparse_coo_tensor(torch.stack([ri, ci]), vals.float(),
+                                (part.h_pad, xin.shape[0])).coalesce().to_sparse_csr()
+    return flat, xin, A, n
+
+
+def pw_rank_bound(part, n: int, x_len: int, batch: int) -> tuple:
+    """(bound ms, bound_by) of one rank's tile: its n nonzeros (or blocks)
+    with their indices, the x it reads and its y slice, each moved once, or
+    its 2 flops a nonzero at 67 TFLOP/s."""
+    if part.fmt in ("coo", "csr"):
+        nbytes, nnz = n * (8 + 4), n
+    else:
+        r, c = part.block
+        nbytes, nnz = n * (r * c * 4 + 8), n * r * c
+    nbytes += (x_len + part.h_pad) * batch * 4
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = 2 * nnz * batch / F32_OPS_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def pw_matrices(seed: int) -> dict:
+    from repro_torch.api import SparseMatrix
+
+    sms = {}
+    for mat in PW_MATRICES:
+        ri, ci, vals, shape = pw_triplets(mat, seed)
+        sms[mat] = SparseMatrix.from_parts(ri, ci, vals, shape)
+    return sms
+
+
+def pw_wait_turn(go: str, timeout: float) -> float:
+    """Block until the parent posts ``go`` (its file holds "go", or
+    "abort" where the parent failed); returns the seconds waited."""
+    t0 = time.perf_counter()
+    while True:
+        if os.path.exists(go):
+            with open(go) as f:
+                word = f.read()
+            if word == "abort":
+                raise RuntimeError("the parent process failed before the "
+                                   "ranks' turn on the card")
+            if word == "go":
+                return time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"no turn on the card within {timeout:.0f} s")
+        time.sleep(0.05)
+
+
+def pw_post_turn(go: str, word: str) -> None:
+    with open(go + ".tmp", "w") as f:
+        f.write(word)
+    os.replace(go + ".tmp", go)
+
+
+def pw_rank(world, seed: int, timed: int, sms=None, go=None) -> dict:
+    """One rank of phase 23: every scheme through ``SparseMatrix.plan`` on
+    a process mesh of the world, this rank's part on its device (the
+    matrices built from ``seed``, or ``sms``).  The matrices and plans are
+    built on the host; where ``go`` is a path, the ranks then wait for the
+    parent's turn file before they touch the card, so nothing else runs
+    there while they are counted and timed.  Returns the digests of its
+    answers, its launches, its collectives' bytes and seconds by kind, its
+    exe(x) latencies and, in a world of more than one, its tile's kernel,
+    plain and cuSPARSE ms."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.mesh import AXES_2D, AXIS_1D, make_process_mesh
+    from repro_torch.kernels import instrument
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    P = world.size
+    if P > 1:  # the ranks and the parent share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // P))
+    R = int(np.sqrt(P))
+    meshes = {"1d": make_process_mesh(world, (P,), (AXIS_1D,)),
+              "2d": make_process_mesh(world, (R, P // R), AXES_2D)}
+    sms = pw_matrices(seed) if sms is None else sms
+    plans = pw_plans(sms, meshes, "cuda")  # every rank partitions the whole
+    out = {"rank": world.rank, "transport": world.transport,
+           "device": str(world.device), "setup_s": time.perf_counter() - t0,
+           "wait_s": 0.0, "schemes": {}}
+    if go is not None:
+        out["wait_s"] = pw_wait_turn(go, PW_TURN_TIMEOUT_S)
+        dist.barrier()
+    t_card = time.perf_counter()
+    for k, (name, mat, pln) in enumerate(plans):
+        t1 = time.perf_counter()
+        exe = pln.compile()
+        compile_s = time.perf_counter() - t1
+        kind = "coo" if pln.fmt in ("coo", "csr") else "bcoo"
+        x, X = pw_inputs(seed, k, sms[mat].shape[1])
+        coll = exe.collectives
+        instrument.reset()
+        dist.barrier()  # the ranks' compiles end apart: start together
+        coll.reset()
+        y = exe(x)
+        b1 = coll.snapshot()
+        coll.reset()
+        Y = exe.batch(X)
+        b8 = coll.snapshot()
+        coll.reset()
+        lat = []
+        for _ in range(timed):
+            dist.barrier()
+            t1 = time.perf_counter()
+            exe(x)
+            lat.append(time.perf_counter() - t1)
+        warm = coll.snapshot()  # the timed calls': a rank waits for the others too
+        launches = instrument.launches(kind)
+        row = {"scheme_id": pln.scheme_id, "grid": list(pln.grid),
+               "coords": list(exe.mesh.coords), "compile_s": compile_s,
+               "y": pw_digest(y), "Y": pw_digest(Y), "requests": 2 + timed,
+               "launches": launches, "kernel": None if pln.ring else kind,
+               "coll_b1": b1, "coll_b8": b8,
+               "coll_ms": {k: 1e3 * v / timed for k, v in warm["seconds"].items()},
+               "exe_ms": [1e3 * t for t in lat]}
+        if not pln.ring and P > 1:
+            # the rank's tile alone, one rank at a time on the shared card
+            xd = torch.zeros(exe.x_pad, device=exe.device)
+            xd[: len(x)] = torch.from_numpy(x).to(exe.device)
+            flat, xin, A, n = pw_tile(torch, exe, xd)
+            local = exe.program.local
+            for r in range(P):
+                if r == world.rank:
+                    got = local.raw(flat, xin)
+                    want = local.plain(flat, xin)
+                    torch.cuda.synchronize()
+                    row["kernel_equals_plain"] = bool(torch.equal(got, want))
+                    row["kernel_ms"] = time_ms(torch, lambda: local.raw(flat, xin), 20)
+                    row["plain_ms"] = time_ms(torch, lambda: local.plain(flat, xin),
+                                              3, warmup=1)
+                    row["library_ms"] = time_ms(torch, lambda: A @ xin, 10)
+                    row["bound_ms"], row["bound_by"] = pw_rank_bound(
+                        exe.part, n, xin.shape[0], 1)
+                    row["tile_nnz"] = n
+                dist.barrier()
+        out["schemes"][name] = row
+        del exe
+        torch.cuda.empty_cache()
+    if world.backend == "nccl":
+        out["nccl_version"] = ".".join(map(str, torch.cuda.nccl.version()))
+    out["card_s"] = time.perf_counter() - t_card
+    out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_process_mesh(torch, seed: int, device) -> dict:
+    """Phase 23: the partitioned schemes with one rank per part.
+
+    The card is used by one path at a time: while the 4 gloo ranks build
+    their matrices and plans on the host, this process builds the
+    one-process plans they answer to and then runs (b), its own world of
+    one over NCCL; only then does it post the ranks' turn, and it touches
+    the card no more until they are done.  Each path's launch counts and
+    times are its own."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import tempfile
+
+    from repro_torch.core.mesh import AXES_2D, AXIS_1D, make_mesh
+    from repro_torch.core.world import close_world, init_world, spawn
+
+    t_start = time.perf_counter()
+    pool = ThreadPoolExecutor(1)
+    tmp = tempfile.mkdtemp(prefix="phase23_")
+    go = os.path.join(tmp, "turn")
+    turn = "abort"
+    try:
+        card = f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu"
+        gloo = pool.submit(spawn, pw_rank, PW_RANKS, "gloo", card,
+                           (seed, PW_TIMED, None, go), 600)
+        sms, refs = pw_matrices(seed), {}
+        meshes = {"1d": make_mesh((PW_RANKS,), (AXIS_1D,), [device] * PW_RANKS),
+                  "2d": make_mesh((2, 2), AXES_2D, [device] * PW_RANKS)}
+        libs = {mat: library_csr(torch, sm, device) for mat, sm in sms.items()}
+        for k, (name, mat, pln) in enumerate(pw_plans(sms, meshes, "cuda")):
+            exe = pln.compile()
+            x, X = pw_inputs(seed, k, sms[mat].shape[1])
+            y, Y = exe(x), exe.batch(X)
+            lib_y = (libs[mat] @ torch.from_numpy(x).to(device)).cpu().numpy()
+            lib_Y = (libs[mat] @ torch.from_numpy(X).to(device)).cpu().numpy()
+            check(np.array_equal(y, lib_y) and np.array_equal(Y, lib_Y),
+                  f"process mesh {name}: the one-process 4-part plan != cuSPARSE")
+            refs[name] = {"scheme_id": pln.scheme_id, "y": pw_digest(y),
+                          "Y": pw_digest(Y), "nnz": sms[mat].nnz,
+                          "shape": list(sms[mat].shape)}
+            del exe
+        del libs
+        free_card(torch)
+        ref_s = time.perf_counter() - t_start
+        # (b) this process as the one rank of an NCCL world, after the
+        # references and before the gloo ranks' turn
+        t0 = time.perf_counter()
+        world = init_world("nccl", 0, 1, os.path.join(tmp, "store"), device=card)
+        try:
+            solo = pw_rank(world, seed, 1, sms)
+        finally:
+            close_world()
+        nccl_s = time.perf_counter() - t0
+        del sms
+        free_card(torch)
+        turn = "go"
+        t_turn = time.perf_counter()
+    finally:
+        pw_post_turn(go, turn)  # "abort": the ranks fail at their turn
+        if turn != "go":
+            pool.shutdown(wait=True)
+            shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        ranks = gloo.result()
+        ranks_s = time.perf_counter() - t_turn
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    launches = {"coo": 0, "bcoo": 0}
+    rows = []
+    for name, *_ in PW_SCHEMES:
+        ref = refs[name]
+        per = [r["schemes"][name] for r in ranks]
+        for r, row in zip(ranks, per):
+            check(row["y"] == ref["y"] and row["Y"] == ref["Y"],
+                  f"process mesh {name}: rank {r['rank']}'s y != the one-process "
+                  "4-part plan and cuSPARSE")
+            check(row["scheme_id"] == ref["scheme_id"],
+                  f"process mesh {name}: rank {r['rank']} planned "
+                  f"{row['scheme_id']}, the one-process plan {ref['scheme_id']}")
+            want = 0 if row["kernel"] is None else row["requests"]
+            check(row["launches"] == want,
+                  f"process mesh {name}: rank {r['rank']} launched "
+                  f"{row['launches']} kernels for {row['requests']} requests")
+            if row["kernel"] is not None:
+                launches[row["kernel"]] += row["launches"]
+                check(row["kernel_equals_plain"],
+                      f"process mesh {name}: rank {r['rank']}'s kernel != its "
+                      "plain version")
+        one = solo["schemes"][name]
+        check(one["y"] == ref["y"] and one["Y"] == ref["Y"],
+              f"process mesh {name}: NCCL at world size 1 != cuSPARSE")
+        want = 0 if one["kernel"] is None else one["requests"]
+        check(one["launches"] == want,
+              f"process mesh {name}: NCCL's rank launched {one['launches']} "
+              f"kernels for {one['requests']} requests")
+        exe_ms = [t for row in per for t in row["exe_ms"]]
+        rec = {"phase": "process_mesh", "scheme": name,
+               "scheme_id": ref["scheme_id"], "matrix_shape": ref["shape"],
+               "nnz": ref["nnz"], "transport": ranks[0]["transport"],
+               "ranks": PW_RANKS, "exe_ms_p50": statistics.median(exe_ms),
+               "card": card,
+               "rank_rows": [{k: row.get(k) for k in (
+                   "coords", "tile_nnz", "kernel_ms", "plain_ms", "library_ms",
+                   "bound_ms", "bound_by", "launches", "requests", "compile_s")}
+                   | {"coll_ms": row["coll_ms"],
+                      "coll_bytes_b1": row["coll_b1"]["bytes"],
+                      "coll_bytes_b8": row["coll_b8"]["bytes"]}
+                   for row in per],
+               "nccl_world_1": {"grid": one["grid"], "launches": one["launches"],
+                                "exe_ms": one["exe_ms"]},
+               "answers": "every rank bit-equal to the one-process plan and "
+                          "cuSPARSE, B=1 and B=8; NCCL at world size 1 too"}
+        emit(rec)
+        rows.append(rec)
+    seconds = time.perf_counter() - t_start
+    emit({"phase": "process_mesh_done", "seconds": seconds,
+          "reference_s": ref_s, "nccl_world_1_s": nccl_s,
+          "gloo_turn_s": ranks_s,
+          "rank_setup_s": [r["setup_s"] for r in ranks],
+          "rank_wait_s": [r["wait_s"] for r in ranks],
+          "rank_card_s": [r["card_s"] for r in ranks],
+          "rank_total_s": [r["total_s"] for r in ranks],
+          "nccl_version": solo.get("nccl_version"), "launches": launches,
+          "card": card})
+    return {"seconds": seconds, "launches": launches, "rows": rows}
+
+
 DR_TOL = 2e-4  # random f32: the reference's tolerance (tests/test_kernels.py)
 DR_FLOP_TOL = 0.01  # (b): the card's count of a step against the fake count
 DR_MEM_RANGE = (0.7, 1.3)  # (b): fake / card peak outside it is a finding
@@ -5938,6 +6360,8 @@ def dr_lm_counts() -> dict:
     from repro_torch.analysis import roofline as R
     from repro_torch.configs.base import SHAPES
     from repro_torch.launch import dryrun as DR
+    from repro_torch.models import lm
+    from repro_torch.tree import leaves
 
     out = {}
     for key, (arch, kind, B, S) in DR_LM_ROWS.items():
@@ -5949,7 +6373,11 @@ def dr_lm_counts() -> dict:
                     "counted_bytes": c.bytes, "argument_bytes": c.argument_bytes,
                     "temp_bytes": c.temp_bytes, "count_s": c.seconds,
                     "model_flops": R._model_flops(cfg, S, B, kind),
-                    "n_params": cfg.n_params, "n_layers": cfg.n_layers}
+                    "n_params": cfg.n_params, "n_layers": cfg.n_layers,
+                    # the init_params tree's size (xlstm's is 0.73 of its
+                    # n_params, in the reference too)
+                    "tree_params": sum(a.numel() for a in
+                                       leaves(lm.abstract_params(cfg)))}
     return out
 
 
@@ -6192,17 +6620,13 @@ def dr_mfu(times: dict, counts: dict) -> list:
             arch, kind, B, S = DR_LM_ROWS[key]
             tokens = B * S if kind != "decode" else B
             mult = 6.0 if kind == "train" else 2.0
-            mf_tree = mf - mult * (k["n_params"] - XLSTM_TREE_PARAMS) * tokens
+            mf_tree = mf - mult * (k["n_params"] - k["tree_params"]) * tokens
             row.update(model_flops_tree=mf_tree, mfu_tree=mf_tree /
-                       (seconds * BF16_OPS_S), tree_params=XLSTM_TREE_PARAMS)
+                       (seconds * BF16_OPS_S))
         emit(row)
         rows.append(row)
     return rows
 
-
-# xlstm-1.3b's params in the init_params tree (ArchConfig.n_params counts
-# 1,310,982,144: 1.37 times as many, in the reference too)
-XLSTM_TREE_PARAMS = 959_547_392
 
 
 def dr_times(lm_run, train_run, ed_run, tf_run, da_run) -> dict:
@@ -6363,6 +6787,8 @@ def run(args, torch, counts_future) -> int:
     free_card(torch)
     ex_run = phase_examples(torch, device)
     free_card(torch)
+    pw_run = phase_process_mesh(torch, args.seed, device)
+    free_card(torch)
     dr_run = phase_dryrun(torch, np.random.default_rng([args.seed, 20]), device,
                           counts_future,
                           dr_times(lm_run, train_run, ed_run, tf_run, da_run))
@@ -6387,6 +6813,8 @@ def run(args, torch, counts_future) -> int:
     by_path["bcoo_spmv"]["lm_dense_archs"] = da_run["launches"]
     by_path["coo_spmv"]["examples"] = ex_run["launches"]["coo"]
     by_path["bcoo_spmv"]["examples"] = ex_run["launches"]["bcoo"]
+    by_path["coo_spmv"]["process_mesh"] = pw_run["launches"]["coo"]
+    by_path["bcoo_spmv"]["process_mesh"] = pw_run["launches"]["bcoo"]
     by_path["coo_spmv"]["dryrun"] = dr_run["coo_launches"]
     by_path["bcoo_spmv"]["dryrun"] = dr_run["bcoo_launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
@@ -6423,6 +6851,7 @@ def run(args, torch, counts_future) -> int:
           "train_families_phase_s": tf_run["seconds"],
           "dense_archs_phase_s": da_run["seconds"],
           "examples_phase_s": ex_run["seconds"],
+          "process_mesh_phase_s": pw_run["seconds"],
           "dryrun_phase_s": dr_run["seconds"],
           "card": card})
     emit({"kernels": kernels})

@@ -12,9 +12,11 @@ compiled step and its collective bytes from the compiled HLO.  The port
 compiles nothing: :mod:`repro_torch.analysis.count` counts a step run
 eagerly on fake tensors, and :meth:`CostTerms.from_counted` reads that
 count.  ``collective_bytes`` (an HLO parser) is not ported: the port has
-no HLO, and on one card no collective runs, so ``coll_bytes`` stays 0.
-Collectives over ``torch.distributed`` will count their own bytes when
-multi-card meshes land (ROADMAP.md §1 item 7).
+no HLO.  Its successor is the count each collective of a process mesh
+keeps (``repro_torch.core.collectives``: bytes of each result by kind,
+the names HLO gives them); :meth:`CostTerms.from_counted` takes it as
+``collectives=`` and prices it at ``LINK_BW``.  On one card no collective
+runs and ``coll_bytes`` stays 0.
 
 Scan corrections.  XLA counts a ``while`` body once, so the reference
 adds the sLSTM time scan's and the GLA inter-chunk scan's missing
@@ -51,7 +53,7 @@ __all__ = [
 # 50e9 B/s per ICI link.
 PEAK_FLOPS = 989e12  # bf16 dense, tensor cores
 HBM_BW = 3.35e12  # bytes/s, HBM3
-LINK_BW = 450e9  # bytes/s, NVLink 4 each way; no link is used on one card
+LINK_BW = 450e9  # bytes/s, NVLink 4 each way (data sheet); no link is used on one card
 
 _DTYPE_BYTES = {
     "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2, "f16": 2,
@@ -67,10 +69,14 @@ class CostTerms:
     notes: list = field(default_factory=list)
 
     @classmethod
-    def from_counted(cls, counter) -> "CostTerms":
+    def from_counted(cls, counter, collectives=None) -> "CostTerms":
         """The terms of a finished :class:`~repro_torch.analysis.count.Count`
-        (its FLOPs and bytes; one card moves no collective bytes)."""
-        return cls(flops=float(counter.flops), bytes_hbm=float(counter.bytes))
+        (its FLOPs and bytes) and, on a process mesh, its rank's
+        collectives (``Collectives.snapshot()``: ``total_bytes``); one
+        card moves no collective bytes."""
+        coll = 0.0 if collectives is None else float(collectives["total_bytes"])
+        return cls(flops=float(counter.flops), bytes_hbm=float(counter.bytes),
+                   coll_bytes=coll)
 
     def scaled(self, k: float) -> "CostTerms":
         return CostTerms(self.flops * k, self.bytes_hbm * k, self.coll_bytes * k)

@@ -254,11 +254,20 @@ class MeshExecutor(Executor):
     """Partitioned executor: the matrix partitioned, placed and its program
     built once.
 
-    Every part lies on the mesh's one device; the program
+    On a :class:`~repro_torch.core.mesh.Mesh` every part lies on the mesh's
+    one device; the program
     (:class:`~repro_torch.core.distributed.PartitionedProgram`) runs the
     per-part tile kernel for all parts at once — for ``impl="cuda"`` one
     part-axis launch per request — and the merge as tensor operations on
     the part axis.
+
+    On a :class:`~repro_torch.core.mesh.ProcessMesh` this executor is one
+    rank's: it holds this rank's part, every rank calls it collectively
+    with the same x, and every rank returns the whole y.  :meth:`place`
+    keeps this rank's shard of x (the reference's ``x_spec``), the program
+    runs the part's tile kernel (for ``impl="cuda"`` one launch per rank
+    and request) and the collectives, whose calls, bytes and seconds
+    ``collectives`` counts.
     """
 
     def __init__(self, plan, part, mesh, axes: tuple, program, x_spec,
@@ -289,6 +298,23 @@ class MeshExecutor(Executor):
         self.arrays = placed_arrays
         return self
 
+    @property
+    def collectives(self):
+        """The process mesh's :class:`~repro_torch.core.collectives.
+        Collectives` of this executor (None on a one-device mesh)."""
+        return getattr(self.program, "coll", None)
+
+    def _shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the padded x along ``x_spec``'s axis (the
+        whole x on a one-device mesh)."""
+        if not self.mesh.is_process:
+            return x
+        axis = self.mesh.axis_names.index(self.x_spec[0])
+        n = self.mesh.devices.shape[axis]
+        w = x.shape[0] // n
+        i = self.mesh.coords[axis]
+        return x[i * w: (i + 1) * w]
+
     # -- the paper's three phases (Fig. 4), individually timeable ---------
 
     def place(self, x) -> torch.Tensor:
@@ -298,7 +324,8 @@ class MeshExecutor(Executor):
           x: (cols,) vector or (cols, B) batch (host array or tensor).
 
         Returns:
-          The placed x, zero-padded to the plan's x width.
+          The placed x, zero-padded to the plan's x width; on a process
+          mesh this rank's shard of it.
 
         Raises:
           TypeError/ValueError: on dtype or length mismatches.
@@ -309,7 +336,7 @@ class MeshExecutor(Executor):
                               dtype=x.dtype)
             x = torch.cat([x, pad])
         with on_thread_stream(self.device):
-            xs = x.to(self.device).contiguous()
+            xs = self._shard(x).to(self.device).contiguous()
             wait(self.device)
         return xs
 
@@ -397,7 +424,7 @@ class MeshExecutor(Executor):
         def apply(v):
             if x_pad != n:
                 v = torch.cat([v, v.new_zeros(x_pad - n)])
-            y = D.assemble_rows(program(arrays, v))
+            y = D.assemble_rows(program(arrays, self._shard(v)))
             return y.to(dtype) if y.dtype != dtype else y
 
         return apply

@@ -447,7 +447,9 @@ class ExecutionPlan:
         is built and placed here).  Mesh plans partition the matrix, build
         the program with the selected per-part kernel, place the matrix —
         plus, for impl="cuda", the kernels' chunk plans or block-row
-        pointers — and return a :class:`MeshExecutor`.  Ends in one wait on
+        pointers — and return a :class:`MeshExecutor`.  On a process mesh
+        every rank partitions the whole matrix the same way (host work)
+        and places only its own part; every rank calls ``compile``.  Ends in one wait on
         the placing stream, so every thread's stream may read the placed
         arrays from the first request on.
         """
@@ -461,11 +463,14 @@ class ExecutionPlan:
         part = self._partition()
         axes = self.axes
         program = self._program(part)
-        extra = self._kernel_extra(part)
+        # a rank of a process mesh places its own part only
+        mine = D.part_view(part, self.mesh.rank) if self.mesh.is_process \
+            else part
+        extra = self._kernel_extra(mine)
         if self.partitioning == "1d":
-            placed = D.place_1d(part, self.mesh, extra=extra)
+            placed = D.place_1d(mine, self.mesh, extra=extra)
         else:
-            placed = D.place_2d(part, self.mesh, extra=extra)
+            placed = D.place_2d(mine, self.mesh, extra=extra)
         exe = MeshExecutor(
             self, part, self.mesh, axes, program, x_spec=self._x_spec(),
             x_pad=self._x_pad(part), merge=self.merge,

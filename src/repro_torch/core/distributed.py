@@ -23,12 +23,28 @@ tensor operation on the part axis:
 
 As in the reference, each part's y is cast to the values dtype *before* the
 merge, so bfloat16 partials are summed in bfloat16 and int8 in int8.
+
+On a :class:`~repro_torch.core.mesh.ProcessMesh` the same builders return
+the reference's ``shard_map`` programs run by one rank per part: each rank
+holds only its own part (:func:`part_view`), x enters sharded as the
+reference's ``x_spec`` says, and the collectives are real ones
+(:mod:`repro_torch.core.collectives`):
+
+  load: all_gather(x) over the part axis (1D); x sharded over the columns,
+        all-gathered and re-sliced for variable-sized (2D)
+  kernel: the part's tile kernel, one launch per rank and request
+  merge: ppermute of the split row (1D nnz); psum / psum_scatter over the
+        column axis, or psum of a global row buffer over the whole mesh
+  ring: x's shards rotated by ppermute, each transfer overlapping the
+        product of the bucket of the shard in hand
+  assemble: the parts all-gathered over the mesh, so every rank returns
+        the whole y
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +54,7 @@ from ..kernels import ref as kref
 from ..kernels.bcsr_spmv import bcoo_spmv, bcoo_spmv_plain, block_row_ptr
 from ..kernels.coo_spmv import (CHUNK_E, ROW_SPAN, ChunkPlan, coo_spmv,
                                 coo_spmv_plain, plan_chunks, stack_chunk_plans)
+from .collectives import collectives_for
 from .partition import PartitionedMatrix
 
 __all__ = [
@@ -53,6 +70,7 @@ __all__ = [
     "PartitionedProgram",
     "kernel_chunk_arrays",
     "kernel_block_arrays",
+    "part_view",
 ]
 
 
@@ -66,6 +84,9 @@ class SpmvOutput:
     rows: int
     merge: str = "none"  # none | psum | psum_scatter | global
     replicated_global: Optional[torch.Tensor] = None  # 2D merge="global"
+    # process mesh: y_parts holds this rank's part only; gather() returns
+    # every rank's (the all-gather of the retrieve step)
+    gather: Optional[Callable] = None
 
 
 def _tail(x: torch.Tensor) -> tuple:
@@ -207,11 +228,19 @@ def _arrays(mat: PartitionedMatrix) -> dict:
                 nnz=mat.nnz, row_start=mat.row_start, col_start=mat.col_start)
 
 
+def part_view(mat: PartitionedMatrix, p: int) -> PartitionedMatrix:
+    """Part ``p`` alone, as a one-part partition (grid (1, 1); views of
+    ``mat``'s tensors): what a rank of a process mesh places and runs."""
+    return dataclasses.replace(
+        mat, grid=(1, 1), **{f: getattr(mat, f)[p: p + 1] for f in mat._tensors})
+
+
 def place_1d(mat: PartitionedMatrix, mesh,
              extra: Optional[dict] = None) -> dict:
     """Place a 1D partition's arrays (part axis leading) on the mesh's
     device.  ``extra`` merges more part-leading host arrays (the kernel's
-    ``chunk_*`` plans or ``browptr``)."""
+    ``chunk_*`` plans or ``browptr``).  On a process mesh ``mat`` is this
+    rank's :func:`part_view`."""
     arrs = _arrays(mat)
     if extra:
         arrs.update(extra)
@@ -334,6 +363,8 @@ def spmv_1d(mat: PartitionedMatrix, mesh,
     block formats the ``browptr`` ones (``kernel_block_arrays``).
     """
     needs_merge = mat.scheme == "1d.nnz" and mat.n_parts > 1
+    if mesh.is_process:
+        return _RankProgram1D(mat, mesh, impl, needs_merge)
     fix = _BoundaryFix(mat, mesh.device) if needs_merge else None
     return _Program1D(mat, LocalKernel(mat, impl), fix)
 
@@ -400,29 +431,42 @@ class _ProgramRing(PartitionedProgram):
         """x as the P shards the ring passes on (views)."""
         return x.reshape((self.mat.n_parts, self.shard_w) + _tail(x))
 
+    def y0(self, x_shard: torch.Tensor) -> torch.Tensor:
+        """A part's zero y in the accumulation dtype."""
+        return torch.zeros((self.mat.h_pad,) + _tail(x_shard),
+                           dtype=kref.acc_dtype(self.mat.dtype),
+                           device=x_shard.device)
+
+    def bucket(self, y, arrs, row: int, me: int, holder: int, xshard) -> None:
+        """Add part ``me``'s bucket of shard ``holder`` times ``xshard`` (the
+        shard's values) into y; ``row`` indexes ``me``'s arrays in
+        ``arrs``."""
+        cap_b, shard_w, acc = self.cap_b, self.shard_w, y.dtype
+        tail = (1,) * (xshard.ndim - 1)
+        lo = holder * cap_b
+        br = arrs["rowind"][row, lo: lo + cap_b].long()
+        bc = arrs["colind"][row, lo: lo + cap_b].long()
+        bv = arrs["values"][row, lo: lo + cap_b].to(acc)
+        valid = torch.arange(cap_b, device=y.device) < \
+            int(self.counts[me, holder])
+        local_col = (bc - holder * shard_w).clamp(0, shard_w - 1)
+        prod = bv.reshape((cap_b,) + tail) * xshard[local_col].to(acc)
+        prod = torch.where(valid.reshape((cap_b,) + tail), prod,
+                           torch.zeros((), dtype=acc, device=y.device))
+        y.index_add_(0, br, prod)
+
+    def cast(self, y: torch.Tensor) -> torch.Tensor:
+        return y.to(self.mat.dtype) if y.dtype != self.mat.dtype else y
+
     def part_y(self, arrs, shards, me: int, steps=None):
         """Part ``me``'s y over the ring's first ``steps`` steps (all P by
         default; a count steps fewer, ``launch/dryrun_spmv.py``)."""
-        mat, Pn, cap_b, shard_w = self.mat, self.mat.n_parts, self.cap_b, \
-            self.shard_w
-        acc = kref.acc_dtype(mat.dtype)
-        tail = (1,) * (shards.ndim - 2)
-        y = torch.zeros((mat.h_pad,) + tuple(shards.shape[2:]), dtype=acc,
-                        device=shards.device)
+        Pn = self.mat.n_parts
+        y = self.y0(shards[0])
         for s in range(Pn if steps is None else steps):
             holder = (me + s) % Pn  # ring step s: shard (me + s) % P is held
-            lo = holder * cap_b
-            br = arrs["rowind"][me, lo: lo + cap_b].long()
-            bc = arrs["colind"][me, lo: lo + cap_b].long()
-            bv = arrs["values"][me, lo: lo + cap_b].to(acc)
-            valid = torch.arange(cap_b, device=shards.device) < \
-                int(self.counts[me, holder])
-            local_col = (bc - holder * shard_w).clamp(0, shard_w - 1)
-            prod = bv.reshape((cap_b,) + tail) * shards[holder][local_col].to(acc)
-            prod = torch.where(valid.reshape((cap_b,) + tail), prod,
-                               torch.zeros((), dtype=acc, device=shards.device))
-            y.index_add_(0, br, prod)
-        return y.to(mat.dtype) if acc != mat.dtype else y
+            self.bucket(y, arrs, me, me, holder, shards[holder])
+        return self.cast(y)
 
     def stack_parts(self, ys):
         """The parts' ys stacked, split rows moved home."""
@@ -445,6 +489,9 @@ def spmv_1d_ring(mat: PartitionedMatrix, bucket_counts: np.ndarray,
     reference runs only ``impl="xla"``.
     """
     needs_merge = mat.scheme.startswith("1d.nnz") and mat.n_parts > 1
+    if mesh.is_process:
+        return _RankProgramRing(mat, np.asarray(bucket_counts), mesh,
+                                needs_merge)
     fix = _BoundaryFix(mat, mesh.device) if needs_merge else None
     return _ProgramRing(mat, np.asarray(bucket_counts), fix)
 
@@ -556,9 +603,155 @@ def spmv_2d(mat: PartitionedMatrix, mesh, merge: Optional[str] = None,
         shard_w = cols // C
         width = mat.w_pad if shard_w != mat.w_pad else shard_w
         offsets = [(p % C) * width for p in range(R * C)]
+    if mesh.is_process:
+        return _RankProgram2D(mat, mesh, impl, merge, shard_w, rows_pad)
     windows = _build.XWindows.build(offsets, mat.w_pad, mesh.device)
     return _Program2D(mat, LocalKernel(mat, impl, windows), merge, shard_w,
                       rows_pad)
+
+
+# ---------------------------------------------------------------------------
+# one rank per part (a ProcessMesh): the reference's shard_map programs
+# ---------------------------------------------------------------------------
+
+
+class _RankProgram(PartitionedProgram):
+    """The program of one rank of a process mesh.  ``arrs`` are this rank's
+    placed :func:`part_view` arrays and x its shard (the reference's
+    ``x_spec``); ``coll`` counts the collectives (bytes, seconds, by
+    kind); ``local`` is the one-part tile kernel (None for the ring)."""
+
+    def __init__(self, mat, mesh, merge: str, local=None):
+        super().__init__(mat, local, merge)
+        self.mesh = mesh
+        self.coll = collectives_for(mesh)
+        self.rank = mesh.rank
+        self.axes = tuple(mesh.axis_names)
+
+    def gather_parts(self, y: torch.Tensor) -> torch.Tensor:
+        """Every rank's y_parts, stacked as the one-device program's (the
+        retrieve step's all-gather over the whole mesh)."""
+        lead = self.mesh.devices.shape
+        flat = y.reshape((1,) + tuple(y.shape[len(lead):]))
+        return self.coll.all_gather(flat, self.axes).reshape(
+            tuple(lead) + tuple(flat.shape[1:]))
+
+    def output(self, y: torch.Tensor, **kw) -> SpmvOutput:
+        return SpmvOutput(y, gather=self.gather_parts, **self.meta, **kw)
+
+
+class _RankBoundaryFix:
+    """The 1D element-granular merge on one rank: the reference's
+    ``ppermute`` of a split first row to the rank upstream."""
+
+    def __init__(self, mat: PartitionedMatrix, prog: _RankProgram):
+        hs, ns, rp = _boundary_meta(mat)
+        p = prog.rank
+        self.hs, self.ns, self.rp = bool(hs[p]), bool(ns[p]), int(rp[p])
+        self.perm = [(i, i - 1) for i in range(1, mat.n_parts)]
+        self.coll, self.axis = prog.coll, prog.axes[0]
+
+    def __call__(self, y: torch.Tensor) -> torch.Tensor:
+        """Fix this rank's y (1, h_pad[, B]) in place; returns it."""
+        row0 = y[0, 0]
+        zero = torch.zeros_like(row0)
+        recv = self.coll.ppermute(row0 if self.hs else zero, self.axis,
+                                  self.perm)
+        if self.hs:
+            y[0, 0] = zero
+        y[0, self.rp] = y[0, self.rp] + (recv if self.ns else zero)
+        return y
+
+
+class _RankProgram1D(_RankProgram):
+    def __init__(self, mat, mesh, impl, needs_merge):
+        super().__init__(mat, mesh, "none",
+                         LocalKernel(part_view(mat, mesh.rank), impl))
+        self.fix = _RankBoundaryFix(mat, self) if needs_merge else None
+
+    def __call__(self, arrs, x):
+        x_full = self.coll.all_gather(x, self.axes[0])  # the load step
+        y = self.local(arrs, x_full)  # (1, h_pad[, B])
+        if self.fix is not None:
+            y = self.fix(y)
+        return self.output(y)
+
+
+class _RankProgramRing(_RankProgram):
+    """The ring on one rank: at step s it multiplies its bucket of the
+    shard it holds, ``(rank + s) % P``, while that shard travels on to
+    rank - 1 (``isend`` / ``irecv``, started before the product and
+    awaited after it).  The last step sends nothing: its shard would not
+    be read."""
+
+    def __init__(self, mat, counts, mesh, needs_merge):
+        super().__init__(mat, mesh, "none")
+        self.ring = _ProgramRing(mat, counts, None)
+        self.fix = _RankBoundaryFix(mat, self) if needs_merge else None
+
+    def __call__(self, arrs, x):
+        Pn, me, ring = self.mat.n_parts, self.rank, self.ring
+        perm = [(i, (i - 1) % Pn) for i in range(Pn)]
+        y = ring.y0(x)
+        for s in range(Pn):
+            nxt = (self.coll.start_ppermute(x, self.axes[0], perm)
+                   if s < Pn - 1 else None)
+            ring.bucket(y, arrs, 0, me, (me + s) % Pn, x)
+            if nxt is not None:
+                x = nxt.wait()
+        y = ring.cast(y)[None]
+        if self.fix is not None:
+            y = self.fix(y)
+        return self.output(y)
+
+
+class _RankProgram2D(_RankProgram):
+    def __init__(self, mat, mesh, impl, merge, shard_w, rows_pad):
+        super().__init__(mat, mesh, merge,
+                         LocalKernel(part_view(mat, mesh.rank), impl))
+        self.shard_w, self.rows_pad = shard_w, rows_pad
+        self.row_start = int(mat.row_start[self.rank])
+        self.col_start = int(mat.col_start[self.rank])
+
+    def x_local(self, x: torch.Tensor) -> torch.Tensor:
+        """This tile's x from this rank's column shard of x (variable-sized
+        all-gathers the shards over the column axis first)."""
+        if self.mat.scheme == "2d.variable-sized":
+            x = self.coll.all_gather(x, self.axes[1])
+        return self.tile_x(x)
+
+    def tile_x(self, x: torch.Tensor) -> torch.Tensor:
+        """This tile's x out of ``x``: variable-sized, its column range of
+        the whole x; otherwise the column shard ``x`` zero-padded to the
+        tile width."""
+        mat = self.mat
+        if mat.scheme == "2d.variable-sized":
+            pad = torch.zeros((mat.w_pad,) + _tail(x), dtype=x.dtype,
+                              device=x.device)
+            return torch.cat([x, pad])[
+                self.col_start: self.col_start + mat.w_pad]
+        if x.shape[0] == mat.w_pad:
+            return x
+        pad = torch.zeros((mat.w_pad - x.shape[0],) + _tail(x), dtype=x.dtype,
+                          device=x.device)
+        return torch.cat([x, pad])
+
+    def __call__(self, arrs, x):
+        mat = self.mat
+        y = self.local(_flat(arrs), self.x_local(x))[0]  # (h_pad[, B])
+        if self.merge == "psum":
+            return self.output(self.coll.psum(y, self.axes[1])[None, None],
+                               merge="psum")
+        if self.merge == "psum_scatter":
+            return self.output(
+                self.coll.psum_scatter(y, self.axes[1])[None, None],
+                merge="psum_scatter")
+        buf = torch.zeros((self.rows_pad + mat.h_pad,) + tuple(y.shape[1:]),
+                          dtype=y.dtype, device=y.device)
+        buf[self.row_start: self.row_start + mat.h_pad] = y
+        buf = self.coll.psum(buf, self.axes)  # over the whole mesh
+        return SpmvOutput(buf[None, None], merge="global",
+                          replicated_global=buf[: mat.shape[0]], **self.meta)
 
 
 # ---------------------------------------------------------------------------
@@ -574,11 +767,12 @@ def assemble_rows(out: SpmvOutput) -> torch.Tensor:
     part (shared boundary rows were moved to their owner, so the
     duplicates are zero).  2D psum: take column 0 of each grid row.  2D
     psum_scatter: part (r, c) holds segment c of grid row r.  2D global:
-    already replicated.
+    already replicated.  On a process mesh every rank's part is gathered
+    first (``out.gather``), so every rank assembles the whole y.
     """
     if out.replicated_global is not None:
         return out.replicated_global
-    yp = out.y_parts
+    yp = out.y_parts if out.gather is None else out.gather(out.y_parts)
     if out.merge in ("psum", "psum_scatter"):
         R, C = yp.shape[:2]
         y = torch.zeros((out.rows,) + tuple(yp.shape[3:]), dtype=yp.dtype,

@@ -5,11 +5,22 @@ Counterpart of ``repro.compat.make_mesh`` (a ``jax.sharding.Mesh``): an
 and ``AXES_2D`` for 2D ones.  A part of a partitioned matrix runs on the
 device at its place in the grid.
 
-Every place of a grid must hold the same device: all parts then lie on one
-card (or on the CPU) and each collective is a tensor operation on the part
-axis (:mod:`repro_torch.core.distributed`).  A grid that names distinct
-devices raises: multi-card meshes over ``torch.distributed`` / NCCL are a
-later item of ROADMAP.md, and no grid falls back to one device silently.
+Two kinds of mesh:
+
+* :class:`Mesh` (:func:`make_mesh`): every place of the grid holds the same
+  device.  All parts lie on one card (or on the CPU) and each collective is
+  a tensor operation on the part axis (:mod:`repro_torch.core.distributed`).
+  A grid that names distinct devices raises (:func:`same_device`): one
+  process cannot drive them; use a process mesh.
+* :class:`ProcessMesh` (:func:`make_process_mesh`): the places of the grid
+  are the ranks of a ``torch.distributed`` world
+  (:mod:`repro_torch.core.world`), place ``p`` (row-major) rank ``p``.
+  Every rank holds only its own part, on its own device, and the
+  collectives are real ones over each axis's process group
+  (:mod:`repro_torch.core.collectives`), as the JAX package's
+  ``shard_map`` runs one part per device.  It is built on
+  ``torch.distributed.device_mesh.init_device_mesh``, which gives each
+  axis its own group.
 
 Since every place holds the same device, the order a topology gives the
 devices (:func:`repro_torch.topo.build_mesh`) would be invisible in
@@ -26,7 +37,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "AXIS_1D", "AXES_2D", "same_device"]
+__all__ = ["Mesh", "ProcessMesh", "make_mesh", "make_process_mesh",
+           "dry_process_mesh", "AXIS_1D", "AXES_2D", "same_device"]
 
 # Canonical mesh axis names (the JAX package's api-built meshes)
 AXIS_1D = "parts"
@@ -55,9 +67,11 @@ def same_device(devices) -> torch.device:
     devs = {_normal(d) for d in devices}
     if len(devs) != 1:
         raise NotImplementedError(
-            f"a mesh over distinct devices {sorted(map(str, devs))} is not "
-            "ported yet: every part must lie on one device (see ROADMAP.md, "
-            "'Multi-card meshes')")
+            f"one process cannot lay a mesh over distinct devices "
+            f"{sorted(map(str, devs))}: run one rank per part on a process "
+            "mesh (repro_torch.core.mesh.make_process_mesh over a "
+            "repro_torch.core.world world); the engine and the cluster over "
+            "one are later steps of ROADMAP.md's 'Multi-card meshes'")
     dev = devs.pop()
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but no CUDA device is available; "
@@ -84,10 +98,46 @@ class Mesh:
                              f"permutation of range({n})")
         object.__setattr__(self, "slots", slots.reshape(self.devices.shape))
 
+    is_process = False  # see ProcessMesh
+
     @property
     def device(self) -> torch.device:
         """The device every part of this mesh runs on."""
         return self.devices.flat[0]
+
+
+@dataclass(frozen=True)
+class ProcessMesh(Mesh):
+    """A grid of the ranks of a ``torch.distributed`` world: place ``p``
+    (row-major) is rank ``p``, whose part lies on its own device.
+
+    ``devices`` holds every rank's device (as each rank names it), ``world``
+    this process's :class:`~repro_torch.core.world.World`, ``groups`` one
+    process group per axis (this rank's: the ranks that share its other
+    coordinates, in axis order) and ``world_group`` the whole mesh's.
+    """
+
+    world: object = None  # repro_torch.core.world.World
+    groups: Tuple = ()  # per axis, this rank's torch ProcessGroup
+    world_group: object = None
+
+    is_process = True
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device."""
+        return self.world.device
+
+    @property
+    def rank(self) -> int:
+        """This rank, which is also the flat place of its part."""
+        return self.world.rank
+
+    @property
+    def coords(self) -> Tuple[int, ...]:
+        """This rank's place in the grid."""
+        return tuple(int(i) for i in np.unravel_index(self.rank,
+                                                      self.devices.shape))
 
 
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
@@ -116,3 +166,61 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
     for i in range(n):
         grid[i] = dev
     return Mesh(grid.reshape(shape), names, slots)
+
+
+def make_process_mesh(world, axis_shapes: Sequence[int],
+                      axis_names: Sequence[str],
+                      slots: Optional[Sequence[int]] = None) -> ProcessMesh:
+    """Lay the ranks of ``world`` (:func:`repro_torch.core.world.init_world`)
+    out as a grid of ``axis_shapes`` named ``axis_names``, rank ``p`` at
+    flat place ``p``.  Collective: every rank calls it with the same
+    arguments.  ``slots`` is metadata, as on :class:`Mesh`.
+
+    Raises:
+      ValueError: the shape and names differ in length, or the grid's size
+        is not the world's.
+    """
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = tuple(int(n) for n in axis_shapes)
+    names = tuple(str(a) for a in axis_names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} and axis names {names} differ "
+                         f"in length")
+    n = int(np.prod(shape))
+    if n != world.size:
+        raise ValueError(f"a {shape} process mesh needs {n} ranks; the world "
+                         f"has {world.size}")
+    # the device mesh only makes the groups: NCCL's run on the card, gloo's
+    # on host buffers (core/collectives.py stages CUDA tensors)
+    dmesh = init_device_mesh("cuda" if world.backend == "nccl" else "cpu",
+                             shape, mesh_dim_names=names)
+    names_of = [None] * n
+    dist.all_gather_object(names_of, str(world.device))
+    grid = np.empty(n, dtype=object)
+    for i, d in enumerate(names_of):
+        grid[i] = torch.device(d)
+    return ProcessMesh(grid.reshape(shape), names, slots, world=world,
+                       groups=tuple(dmesh.get_group(a) for a in names),
+                       world_group=dist.group.WORLD)
+
+
+def dry_process_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
+                     rank: int = 0) -> ProcessMesh:
+    """A process mesh of ``prod(axis_shapes)`` ranks that is never joined,
+    seen from ``rank`` (on the CPU): its programs run one rank's part and
+    their collectives only count (``core/collectives.py``'s
+    ``CountingCollectives``).  For counting a rank of a mesh larger than
+    any world at hand (the SpMV dry run's 256 and 512)."""
+    from .world import World
+
+    shape = tuple(int(n) for n in axis_shapes)
+    names = tuple(str(a) for a in axis_names)
+    n = int(np.prod(shape))
+    grid = np.empty(n, dtype=object)
+    for i in range(n):
+        grid[i] = torch.device("cpu")
+    return ProcessMesh(grid.reshape(shape), names,
+                       world=World("dry", int(rank), n, torch.device("cpu")),
+                       groups=(None,) * len(shape))

@@ -10,6 +10,13 @@ with ``impl="cuda"`` (the COO kernel's part axis, which reports its work)
 and the ring (its torch loop).  Collective bytes are 0: on one card no
 collective runs.
 
+Beside each, the reference's own layout, one part per chip: rank 0 of a
+process mesh of P ranks (:func:`count_rank`) on a dry-run mesh
+(``core.mesh.dry_process_mesh``), whose collectives count their bytes by
+kind as ``core/collectives.py`` counts them on a real world, and move
+nothing.  Those records carry the counts under ``collectives`` and price
+them at the link rate (``analysis.roofline.LINK_BW``).
+
 The reference lowers its ring on made-up equal bucket counts over a
 matrix it never bucketed; running that would give wrong answers.  The
 port buckets first: :func:`count_1d` takes the real per-source-shard
@@ -33,12 +40,14 @@ import torch
 
 from repro_torch.analysis.count import (Count, counting, fake_mode, fake_tree,
                                         tree_bytes)
+from repro_torch.analysis.roofline import LINK_BW, CostTerms
 from repro_torch.api import plan_from_partitioned
 from repro_torch.core import distributed as D
-from repro_torch.core.mesh import make_mesh
+from repro_torch.core.mesh import dry_process_mesh, make_mesh
 from repro_torch.core.partition import PartitionedMatrix
 
-__all__ = ["synth_partition_1d", "ring_layout", "count_1d", "main"]
+__all__ = ["synth_partition_1d", "ring_layout", "count_1d", "count_rank",
+           "main"]
 
 
 def synth_partition_1d(rows, cols, nnz_per_row, parts, seed=0, device="cuda"):
@@ -156,6 +165,36 @@ def count_1d(mat: PartitionedMatrix, mesh, ring: bool = False) -> Count:
     return count
 
 
+def count_rank(mat: PartitionedMatrix, ring: bool = False,
+               rank: int = 0) -> tuple:
+    """Count one SpMV of ``rank`` of a process mesh with one rank per part
+    of ``mat`` (the 1D program at ``impl="cuda"``, or the ring) on fake
+    tensors: its part's arrays, its shard of x.  Returns the
+    :class:`~repro_torch.analysis.count.Count` and its collectives'
+    counts (``Collectives.snapshot()``: calls, bytes and, meaningless
+    here, seconds by kind)."""
+    P = mat.n_parts
+    mesh = dry_process_mesh((P,), ("data",), rank)
+    mode = fake_mode()
+    if ring:
+        part, counts = ring_layout(mat, mode)
+        plan = plan_from_partitioned(part, mesh, ring=True, ring_counts=counts)
+        view = D.part_view(part, rank)
+        arrs = dict(D._arrays(view))
+    else:
+        plan = plan_from_partitioned(mat, mesh, impl="cuda")
+        part = mat
+        view = D.part_view(part, rank)
+        arrs = dict(D._arrays(view), **plan._kernel_extra(view))
+    program = plan.program(part)
+    arrs = fake_tree(arrs, mode)
+    x = fake_tree(torch.empty(plan._x_pad(part) // P, dtype=torch.float32),
+                  mode)
+    with mode, counting(arrs, x) as count:
+        program(arrs, x)
+    return count, program.coll.snapshot()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1 << 20)
@@ -190,6 +229,28 @@ def main(argv=None):
             print(f"[ok] {label}: args={c.argument_bytes/2**30:.2f}GiB "
                   f"temp={c.temp_bytes/2**30:.2f}GiB flops={rec['flops']:.4g} "
                   f"bytes={rec['bytes']:.4g} ({c.seconds:.1f}s)", flush=True)
+            # the reference's layout: one part per chip, rank 0's count
+            c, coll = count_rank(mat, ring=ring)
+            terms = CostTerms.from_counted(c, collectives=coll)
+            rec = {
+                "name": f"spmv.1d{'.ring' if ring else ''}.rank0of{parts}",
+                "parts": parts,
+                "chips": parts,
+                "counted_on": "fake tensors (FakeTensorMode, CPU), rank 0 "
+                              "of a dry-run process mesh",
+                "count_s": c.seconds,
+                "argument_bytes": c.argument_bytes,
+                "temp_bytes": c.temp_bytes,
+                "flops": float(c.flops),
+                "bytes": float(c.bytes),
+                "kernel_flops": float(c.kernel_flops),
+                "collectives": dict(coll["bytes"], total=coll["total_bytes"]),
+                "collective_s": terms.coll_bytes / LINK_BW,
+            }
+            recs.append(rec)
+            print(f"[ok] {rec['name']}: flops={rec['flops']:.4g} "
+                  f"bytes={rec['bytes']:.4g} coll={coll['total_bytes']:,}B "
+                  f"({rec['collective_s']:.3e}s at the link rate)", flush=True)
     if os.path.dirname(args.out):
         os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -200,6 +200,27 @@ def test_the_rings_layout_and_its_count_from_steps():
     assert one.kernel_flops == one.flops == 2 * nnz
 
 
+def test_a_rank_of_the_reference_layout_counts_its_collectives():
+    """count_rank: rank 0 of one rank per part, on fake tensors; its
+    collectives counted by kind (x all-gathered, one split row permuted;
+    the ring's P - 1 shards) and priced at the link rate."""
+    from repro_torch.analysis.roofline import LINK_BW, CostTerms
+
+    rows = 1 << 11
+    mat = DS.synth_partition_1d(rows, rows, 16, PARTS, device="cpu")
+    c, coll = DS.count_rank(mat)
+    assert c.kernel_flops == c.flops == 2 * rows // PARTS * 16  # its part
+    assert coll["bytes"] == {"all-gather": rows * 4, "all-reduce": 0,
+                             "reduce-scatter": 0, "collective-permute": 4}
+    terms = CostTerms.from_counted(c, collectives=coll)
+    assert terms.coll_bytes == rows * 4 + 4
+    assert CostTerms.from_counted(c).coll_bytes == 0  # one card
+    _, ring = DS.count_rank(mat, ring=True)
+    assert ring["bytes"]["collective-permute"] == (PARTS - 1) * rows // PARTS * 4 + 4
+    assert ring["calls"]["collective-permute"] == PARTS  # P - 1 shards, 1 row
+    assert terms.coll_bytes / LINK_BW > 0
+
+
 def test_the_meshes():
     assert MODEL_PARALLEL == 16
     mesh = make_local_mesh(4, device="cpu")

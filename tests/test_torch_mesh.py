@@ -14,6 +14,14 @@ sums run in another order).  Solver sessions (``exe.iterate``) on 4 parts:
 plain, Richardson and Jacobi bit for bit with the JAX session and with the
 port's host loop of ``exe(x)`` calls, power to tolerance in the same
 number of steps and within 1e-5.
+
+The same cases run once more on a process mesh: one gloo world of 4 CPU
+ranks per module (``repro_torch.core.world.spawn``, bodies in
+tests/_torch_world_runner.py), one part per rank.  Each rank's placed x
+shard and ``run_raw`` part must equal the JAX runner's shard and part at
+that rank's place, and every rank's ``assemble``, ``batch`` and solver
+session must equal JAX's, under the same tolerances; the plan IR written
+on the process mesh is the one the JAX runner read and ran.
 """
 import json
 import os
@@ -28,6 +36,7 @@ from repro_torch.api import SparseMatrix, plan_from_ir, plan_from_partitioned
 from repro_torch.core import distributed as D
 from repro_torch.core.mesh import make_mesh
 from repro_torch.core.partition import partition_1d
+from repro_torch.core.world import spawn
 from repro_torch.kernels import instrument
 
 import _solver_runner as sr
@@ -53,6 +62,15 @@ def jax_side(tmp_path_factory):
         pytest.skip("forcing 4 fake JAX devices failed")
     with np.load(out) as z:
         return dict(z)
+
+
+@pytest.fixture(scope="module")
+def world_side():
+    """Every rank's results of ``_torch_world_runner.mesh_cases`` (one
+    4-rank gloo world on the CPU)."""
+    import _torch_world_runner as wr
+
+    return spawn(wr.mesh_cases, PARTS, "gloo", device="cpu", timeout=300)
 
 
 def _inputs(dtype):
@@ -250,3 +268,81 @@ def test_mesh_solver_session_matches_jax(jax_side, case):
         res.x, sr.host_loop(exe, x0, kw["steps"], combine,
                             b=kw.get("b"), diag=kw.get("diag"),
                             omega=kw.get("omega", 1.0)))
+
+
+def _at_place(want: np.ndarray, mesh_shape, coords) -> np.ndarray:
+    """The JAX runner's per-part output at one rank's place (a replicated
+    output, the 2D global buffer, is every rank's)."""
+    if want.shape[:len(mesh_shape)] != tuple(mesh_shape):
+        return want
+    return want[tuple(slice(c, c + 1) for c in coords)]
+
+
+def _x_shard(want: np.ndarray, mesh_shape, coords) -> np.ndarray:
+    """A rank's shard of the JAX runner's placed x: over the parts (1D),
+    over the columns (2D)."""
+    axis = 0 if len(mesh_shape) == 1 else 1
+    w = want.shape[0] // mesh_shape[axis]
+    return want[coords[axis] * w: (coords[axis] + 1) * w]
+
+
+@pytest.mark.parametrize("case", cases(), ids=lambda c: c[0])
+def test_process_mesh_matches_jax(jax_side, world_side, case):
+    """One part per rank of a 4-rank gloo world, against the JAX package's
+    4 devices: each rank's x shard and part, and every rank's y."""
+    case_id, _, dtype, _ = case
+    want = {k.split("|", 1)[1]: v for k, v in jax_side.items()
+            if k.startswith(case_id + "|")}
+    exact = dtype != "rand"
+    for rank, res in enumerate(world_side):
+        got = {k.split("|", 1)[1]: v for k, v in res.items()
+               if k.startswith(case_id + "|")}
+        shape, coords = got["mesh"]
+        what = f"rank {rank} at {coords} of {shape}"
+        assert int(np.prod(shape)) == PARTS and got["device"] == "cpu"
+        assert got["scheme_id"] == str(want["scheme_id"])
+        _same(got["place"], _x_shard(want["place"], shape, coords), True,
+              f"place, {what}")
+        _same(got["raw"], _at_place(want["raw"], shape, coords), exact,
+              f"run_raw, {what}")
+        _same(got["y"], want["y"], exact, f"assemble, {what}")
+        _same(got["Y"], want["Y"], exact, f"batch, {what}")
+        assert got["dtypes"] == (str(want["y_dtype"]), str(want["Y_dtype"]))
+        assert got["call_is_phases"]  # exe(x) == the three phases
+        assert got["launches"] == 0  # CPU tensors: the plain versions
+
+
+@pytest.mark.parametrize("case", SOLVER_CASES, ids=lambda c: c[0])
+def test_process_mesh_solver_session_matches_jax(jax_side, world_side, case):
+    """``exe.iterate`` on a process mesh: every rank's session equals the
+    JAX session (and its own host loop of ``exe(x)`` calls)."""
+    case_id, _, _, combine, _ = case
+    want = {k.split("|", 1)[1]: v for k, v in jax_side.items()
+            if k.startswith(case_id + "|")}
+    for res in world_side:
+        got = {k.split("|", 1)[1]: v for k, v in res.items()
+               if k.startswith(case_id + "|")}
+        assert got["scheme_id"] == str(want["scheme_id"])
+        assert got["steps"] == int(want["steps"])
+        assert got["converged"] == bool(want["converged"])
+        if combine == "power-tol":
+            np.testing.assert_allclose(got["x"], want["x"], rtol=1e-5,
+                                       atol=1e-5)
+            continue
+        np.testing.assert_array_equal(got["x"], want["x"])
+        np.testing.assert_array_equal(got["host_loop"], want["x"])
+
+
+@pytest.mark.parametrize("ir_plan", IR_PLANS, ids=lambda p: p[0])
+def test_process_mesh_plan_ir_is_the_one_jax_read(jax_side, world_side,
+                                                  ir_plan):
+    """The IR a process mesh writes is field for field the one the JAX
+    runner read and ran; read back on the process mesh, it answers as the
+    JAX plan did."""
+    name = ir_plan[0]
+    for res in world_side:
+        assert res[f"{name}|ir"] == json.loads(str(jax_side[f"{name}|port_ir"]))
+        assert res[f"{name}|scheme_id"] == str(
+            jax_side[f"{name}|port_ir_scheme_id"])
+        np.testing.assert_array_equal(res[f"{name}|y"],
+                                      jax_side[f"{name}|port_ir_y"])
