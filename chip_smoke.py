@@ -333,13 +333,13 @@ Phases (every check raises, so any failure exits non-zero):
    beside the bound and ``torch.matmul``).  (b) bf16 through ``TrainLoop``
    at B=4, S=256 (one GLA chunk): mixtral-8x22b cut to 1 layer,
    deepseek-v3 to its 3 dense MLA prefix layers with the MTP block,
-   zamba2-2.7b cut to 12 of 54 layers (2 repeats) and xlstm-1.3b to 24 of
-   48 (3 repeats, on 32 x 32 batches), f32
+   zamba2-2.7b cut to 6 of 54 layers (1 repeat) and xlstm-1.3b to 8 of
+   48 (1 repeat, on 32 x 32 batches), f32
    moments, 10 steps each: the loss falls by at least 1.0; step ms,
    tokens/s, peak memory, a trace (3 steps; 1 for zamba2 and xlstm), the
    bytes the update adds, mixtral's dropped share; sparse deepseek (with
    the reference's int8 moments) and zamba2 3 steps each, launching the
-   block kernel 24 and 18 times a step, their projections then bit-equal
+   block kernel 24 and 9 times a step, their projections then bit-equal
    to the plain version through the keys they carry (their last steps' sum is
    ``launches_by_path["bcoo_spmv"]["lm_train_families"]``); mixtral with 2
    microbatches, 3 steps; xlstm cut to 8 layers restarted from a step-1
@@ -384,7 +384,7 @@ Phases (every check raises, so any failure exits non-zero):
    densified oracle within 1e-3), 10 TrainLoop steps of 4 x 256 whose loss
    falls by at least 1.0.  (b) gemma2-27b (46 layers alternating
    attn_local with a 4,096 window and attn_global, softcaps 50 / 30, a
-   tied 256,000-word vocabulary) in bf16 at full depth through ``Server``
+   tied 256,000-word vocabulary) in bf16 at 24 of its 46 layers through ``Server``
    (times, peak) and one B=1, S=8,192 prefill (query-chunked, timed, its
    peak); cut to 2 layers in f32: phase 14 (a)'s checks, then across the
    window at B=1 decode(prefill(8,192)) within 5e-3 of prefill(8,193) (the
@@ -392,23 +392,23 @@ Phases (every check raises, so any failure exits non-zero):
    oldest) and the chunked 8,192-token prefill within 1e-3 of the
    unchunked one; sparse (SiLU FFN, as the reference's) at the f32 cut
    against its plain version and its densified oracle (whose dense FFN is
-   given SiLU), and at full depth one bf16 generate of 8 tokens launching
-   the block kernel 138 times a step, its prefill and decode timed.  (c)
+   given SiLU), and at 24 layers one bf16 generate of 8 tokens launching
+   the block kernel 72 times a step, its prefill and decode timed.  (c)
    gemma2 at full width cut to 2 layers (one repeat, a local and a global
    layer), 10 bf16 TrainLoop steps dense (the loss falls by
    at least 1.0; step ms, peak, a trace) and sparse (18 launches a step;
    its first repeat's projections after training bit-equal to the plain
    version); card vs CPU at reduced widths, dense and sparse (phase 15
    (d)'s bounds).  (d) llava-next-34b (60 layers of 7168, the widths of
-   llava-v1.6-34b's Yi-34B) at full depth in bf16, B=1: a 2,880-token stub
+   llava-v1.6-34b's Yi-34B) at 30 of its 60 layers in bf16, B=1: a 2,880-token stub
    prefix (random patch embeddings) and a 128-token prompt, 32 greedy
    tokens through ``lm.prefill`` (max_len 3,040) and ``make_decode_step``:
    prefill and decode ms, a decode trace, the peak; cut to 2 layers in
    f32: ``make_prefill_step`` / ``make_decode_step`` bit-equal to
    ``lm.prefill`` / ``lm.decode_step`` over the prefix, decode vs prefill
    5e-3, sparse within 1e-3 of its densified oracle and its projections
-   against the plain version at B = 4 and 3,008; sparse at full depth, one
-   prefill (180 launches, T = 3,008 on the tensor cores) timed.  (e) llava
+   against the plain version at B = 4 and 3,008; sparse at 30 layers, one
+   prefill (90 launches, T = 3,008 on the tensor cores) timed.  (e) llava
    cut to 2 layers: ``make_train_step`` for 10 bf16 steps of B=1, a fresh
    stub prefix and 256 text tokens each, the loss over the text falling by
    at least 1.0; step ms, peak, a trace; card vs CPU at reduced widths
@@ -417,8 +417,8 @@ Phases (every check raises, so any failure exits non-zero):
    llava's w_gate and w_down at T = 3,008 (the plain version there in
    column chunks), beside ``torch.matmul`` and the bound.  The path's
    count (``launches_by_path["bcoo_spmv"]["lm_dense_archs"]``) sums
-   llama's sparse generate, gemma2's full-depth sparse generate, llava's
-   full-depth sparse prefill and one sparse gemma2 train step.
+   llama's sparse generate, gemma2's sparse generate and llava's sparse
+   prefill at their served depths, and one sparse gemma2 train step.
 22. Examples and tools, after phase 21 and before phase 20: every
    ``examples/torch_*.py`` (``torch_train_lm`` once dense and once with
    ``--sparse-ffn``), then ``tools/trace_dump_torch.py`` in replay mode
@@ -435,7 +435,10 @@ Phases (every check raises, so any failure exits non-zero):
    world`` / ``core.collectives``, a ``ProcessMesh``), after phase 22 and
    before phase 20, with inputs from their own generators (``[seed, 23,
    ...]``).  (a) 4 ranks of one gloo world share the card (transport
-   ``gloo-host-staged``), each building the same matrices and placing only
+   ``shm-host-staged``: CUDA tensors staged through pinned host buffers,
+   the collectives' data through shared memory, as for any mesh whose ranks
+   share one host; ``ppermute`` over gloo), each building the same matrices
+   and placing only
    its own part: 1D ``rows``, ``nnz-rgrn``, ``nnz`` and the ring on a
    scale-free matrix of 2,097,152 rows (about 2^24 nonzeros); 2D
    equally-sized with ``psum``, ``psum_scatter`` and ``global``,
@@ -4643,11 +4646,12 @@ def phase_enc_dec(torch, rng, device) -> dict:
 # ------------------------------------------------ phase 19: training the families
 
 TF_ARCHS = ("mixtral-8x22b", "deepseek-v3-671b", "zamba2-2.7b", "xlstm-1.3b")
-# layers kept (the rest full); zamba2 at 12 of 54 (2 of its 9 repeats) and
-# xlstm at 24 of 48 (3 of 6) pay for phase 23 (at full depth their 10 + 3
-# and 10 steps took 21.3 s and 22.2 s on an H100 80GB HBM3, 700 W)
-TF_CUT = {"mixtral-8x22b": 1, "deepseek-v3-671b": 3, "zamba2-2.7b": 12,
-          "xlstm-1.3b": 24}
+# layers kept (the rest full); zamba2 at 6 of 54 (1 of its 9 repeats) and
+# xlstm at 8 of 48 (1 of 6) pay for phases 23 and 24 (at full depth their
+# 10 + 3 and 10 steps took 21.3 s and 22.2 s on an H100 80GB HBM3, 700 W;
+# 12 and 24 layers in PR 29)
+TF_CUT = {"mixtral-8x22b": 1, "deepseek-v3-671b": 3, "zamba2-2.7b": 6,
+          "xlstm-1.3b": 8}
 TF_SPARSE = ("deepseek-v3-671b", "zamba2-2.7b")  # their dense FFNs on the block kernel
 TF_STEPS, TF_BATCH, TF_SEQ = 10, 4, 256  # S = 256: one GLA chunk, 256 sLSTM steps
 # xlstm's steps are host-bound on sLSTM's per-token loop (6.75 s a step at
@@ -5308,6 +5312,9 @@ DA_SPARSE_GEN = 8  # (b): tokens of the full-depth sparse gemma2 generate
 # H100 80GB HBM3, 700 W
 DA_TRAIN_LAYERS = 2
 DA_LLAVA_B, DA_LLAVA_TEXT = 1, 256  # (e): llava's batch, text tokens after the prefix
+# (b), (d): layers served, at full width (46 and 60 in PRs 27-29; cut to
+# pay for phase 24: gemma2's 12 of its 23 local / global repeats)
+DA_SERVE_LAYERS = {"gemma2-27b": 24, "llava-next-34b": 30}
 
 
 def da_counts(cfg, sparse) -> None:
@@ -5411,7 +5418,7 @@ def da_window_checks(torch, lm, A, params, cfg, rng, device) -> dict:
 
 
 def da_sparse_generate(torch, lm, Server, instrument, cfg, rng, device) -> dict:
-    """(b) Sparse gemma2 at full depth, bf16: one ``generate`` of
+    """(b) Sparse gemma2 at the served depth, bf16: one ``generate`` of
     ``DA_SPARSE_GEN`` tokens launching the block kernel once per
     projection per step (the path's count), then the prefill and a decode
     step timed."""
@@ -5452,27 +5459,28 @@ def da_sparse_generate(torch, lm, Server, instrument, cfg, rng, device) -> dict:
 
 
 def da_gemma2_serving(torch, lm, A, Server, instrument, rng, device) -> dict:
-    """(b) gemma2-27b: bf16 at full depth (times, a B=1 S=8,192 prefill),
-    the f32 2-layer checks and the window's, sparse at the f32 cut (kernels,
-    oracle) and at full depth (launches, times)."""
+    """(b) gemma2-27b: bf16 at ``DA_SERVE_LAYERS`` (times, a B=1 S=8,192
+    prefill), the f32 2-layer checks and the window's, sparse at the f32
+    cut (kernels, oracle) and at the served depth (launches, times)."""
     from repro_torch.configs import get_config
 
     cfg = get_config("gemma2-27b")
     sparse = dataclasses.replace(cfg, ffn_density=0.5)
     da_counts(cfg, sparse)
+    served = dataclasses.replace(cfg, n_layers=DA_SERVE_LAYERS[cfg.name])
     free_card(torch)
-    srv = Server(cfg, LM_MAX_LEN, device=device)
-    times = serving_with_peak(torch, lm, Server, cfg, rng, device, "da_serving",
+    srv = Server(served, LM_MAX_LEN, device=device)
+    times = serving_with_peak(torch, lm, Server, served, rng, device, "da_serving",
                               srv=srv, source=DA_SOURCE[cfg.name])
-    # B=1, S=8,192 at full depth: the query-chunked path in every layer
+    # B=1, S=8,192 at the served depth: the query-chunked path in every layer
     long = torch.from_numpy(rng.integers(0, cfg.vocab, (1, DA_WINDOW_S))
                             .astype(np.int32)).to(device)
     torch.cuda.reset_peak_memory_stats()
-    with torch.no_grad():  # one call: 46 layers of 8 query chunks take seconds
-        long_ms = time_ms(torch, lambda: lm.prefill(srv.params, long, cfg,
+    with torch.no_grad():  # one call: each layer's 8 query chunks take seconds
+        long_ms = time_ms(torch, lambda: lm.prefill(srv.params, long, served,
                                                     DA_WINDOW_S), 1, warmup=0)
     long_row = {"phase": "da_long_prefill", "arch": cfg.name, "dtype": "bfloat16",
-                "n_layers": cfg.n_layers, "B": 1, "S": DA_WINDOW_S, "ms": long_ms,
+                "n_layers": served.n_layers, "B": 1, "S": DA_WINDOW_S, "ms": long_ms,
                 "tokens_per_s": DA_WINDOW_S / long_ms * 1e3,
                 "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
     emit(long_row)
@@ -5488,7 +5496,9 @@ def da_gemma2_serving(torch, lm, A, Server, instrument, rng, device) -> dict:
                                 dataclasses.replace(sparse, n_layers=DA_CHECK_LAYERS),
                                 rng, device, gen=gen)
     free_card(torch)
-    sparse_row = da_sparse_generate(torch, lm, Server, instrument, sparse, rng, device)
+    sparse_row = da_sparse_generate(
+        torch, lm, Server, instrument,
+        dataclasses.replace(sparse, n_layers=DA_SERVE_LAYERS[cfg.name]), rng, device)
     return {"times": times, "long_prefill": long_row, "f32": f32, "window": window,
             "sparse": sparse_row, "max_abs_err": worst,
             "launches": sparse_row["launches_per_generate"].get("bcoo", 0)}
@@ -5621,17 +5631,18 @@ def da_llava_checks(torch, lm, steps, instrument, cfg, rng, device) -> tuple:
 
 
 def da_llava_serving(torch, lm, steps, instrument, rng, device) -> dict:
-    """(d) llava-next-34b at full depth, bf16, B=1: the 2,880-token stub
+    """(d) llava-next-34b at ``DA_SERVE_LAYERS``, bf16, B=1: the 2,880-token stub
     prefix and a 128-token prompt (3,008 positions, under
     CHUNKED_ATTN_THRESHOLD: full scores in every layer), 32 greedy tokens
     through ``lm.prefill`` and ``make_decode_step``; times, a decode trace
-    and the peak; the f32 cut's checks; sparse at full depth, one
+    and the peak; the f32 cut's checks; sparse at the served depth, one
     prefill's launches (T = 3,008 on the tensor cores) and time."""
     from repro_torch.configs import get_config
 
-    cfg = get_config("llava-next-34b")
+    full = get_config("llava-next-34b")
+    da_counts(full, dataclasses.replace(full, ffn_density=0.5))
+    cfg = dataclasses.replace(full, n_layers=DA_SERVE_LAYERS[full.name])
     sparse = dataclasses.replace(cfg, ffn_density=0.5)
-    da_counts(cfg, sparse)
     P = cfg.modality_tokens
     max_len = P + LM_PROMPT + LM_GEN
     free_card(torch)
@@ -5666,8 +5677,8 @@ def da_llava_serving(torch, lm, steps, instrument, rng, device) -> dict:
     emit(row)
     del params, caches, batch
     free_card(torch)
-    checks, worst = da_llava_checks(torch, lm, steps, instrument, cfg, rng, device)
-    # sparse at full depth: one prefill over the prefix, T = 3,008
+    checks, worst = da_llava_checks(torch, lm, steps, instrument, full, rng, device)
+    # sparse at the served depth: one prefill over the prefix, T = 3,008
     params = lm.init_params(torch.Generator(device=device).manual_seed(0), sparse)
     per_step = lm_launches_per_step(params, sparse)
     with torch.no_grad():  # the counted call, timed by CUDA events (seconds long)
@@ -5959,7 +5970,9 @@ PW_SCHEMES = (
     ("2d-vs", "regular", "2d.variable-sized", "coo", None, False),
     ("2d-es-bcoo", "block", "2d.equally-sized", "bcoo", None, False),
 )
-PW_ROWS = {"scale-free": 1 << 21, "regular": 1 << 20, "block": 1 << 20}
+# halved from PR 29's 2^21 / 2^20 / 2^20 to pay for phase 24 (the ranks'
+# host setup and the parent's references scale with the rows)
+PW_ROWS = {"scale-free": 1 << 20, "regular": 1 << 19, "block": 1 << 19}
 PW_TURN_TIMEOUT_S = 480  # a rank's wait for the parent's turn file
 
 
@@ -6128,7 +6141,7 @@ def pw_rank(world, seed: int, timed: int, sms=None, go=None) -> dict:
               "2d": make_process_mesh(world, (R, P // R), AXES_2D)}
     sms = pw_matrices(seed) if sms is None else sms
     plans = pw_plans(sms, meshes, "cuda")  # every rank partitions the whole
-    out = {"rank": world.rank, "transport": world.transport,
+    out = {"rank": world.rank, "transport": meshes["1d"].collectives.transport,
            "device": str(world.device), "setup_s": time.perf_counter() - t0,
            "wait_s": 0.0, "schemes": {}}
     if go is not None:
@@ -6327,6 +6340,656 @@ def phase_process_mesh(torch, seed: int, device) -> dict:
     return {"seconds": seconds, "launches": launches, "rows": rows}
 
 
+# ------------------------------------------------------------------------
+# phase 24: the LMs over a process mesh (4 gloo ranks on the card)
+# ------------------------------------------------------------------------
+
+PM_RANKS = 4
+PM_QWEN_MESH, PM_DS_MESH = (1, 4), (2, 2)
+PM_DS_ARCH = "deepseek-v3-671b"
+PM_GEN = {"qwen": LM_GEN, "deepseek": 8}
+PM_F32_LAYERS = 2  # the f32 cut of qwen held against the one-process port
+PM_LOGIT_TOL = 1e-5  # of max |logit|: f32, 2 layers, sums in another order
+PM_MARGIN = 1e-3  # f32 greedy tokens compared where the top-2 margin exceeds it
+PM_BF16_MARGIN = 0.02  # bf16: where it exceeds this share of the max |logit|
+# a token check compares at least this share of its positions (past the
+# margin), so that it cannot pass comparing nothing
+PM_MIN_CHECKED = 0.25
+PM_MOE_TOL = 1e-5  # of max |y|: the f32 MoE layer against its per-group reference
+PM_TURN_TIMEOUT_S = 300
+PM_TIMED = 10  # launches of a rank's slice timed, one rank at a time
+
+
+def pm_configs() -> dict:
+    """The configs phase 24 runs: qwen1.5-0.5b at full width and depth, dense
+    and sparse; its f32 cuts; deepseek-v3 at full width cut to 2 layers (1
+    dense MLA prefix layer with its sparse FFN, 1 MLA + MoE repeat; MTP
+    built), ffn_density 0.5."""
+    from repro_torch.configs import get_config
+
+    qwen = get_config(LM_ARCH)
+    sparse = dataclasses.replace(qwen, ffn_density=0.5)
+    ds = dataclasses.replace(moe_cut(get_config(PM_DS_ARCH), 2), ffn_density=0.5)
+    return {"qwen_dense": qwen, "qwen_sparse": sparse,
+            "qwen_dense_f32": dataclasses.replace(qwen, n_layers=PM_F32_LAYERS),
+            "qwen_sparse_f32": dataclasses.replace(sparse, n_layers=PM_F32_LAYERS),
+            "deepseek": ds}
+
+
+def pm_inputs(seed: int, cfg, gen: int):
+    """(prompts (B, S) int32, teacher tokens (gen, B, 1) int32) of a path."""
+    rng = np.random.default_rng([seed, 24, cfg.n_layers, cfg.vocab])
+    prompts = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    steps = rng.integers(0, cfg.vocab, (gen, LM_BATCH, 1)).astype(np.int32)
+    return prompts, steps
+
+
+def pm_greedy(torch, lm, params, cfg, prompts, n: int, max_len: int) -> tuple:
+    """Greedy tokens (B, n) of the one-process port and each position's
+    top-2 logit margin (f32 params: absolute; bf16: as a share of the
+    position's max |logit|), its prefill and decode steps run as Server
+    runs them."""
+    toks = torch.from_numpy(prompts).to(params["embed"]["emb"].device)
+    out, margins = [], []
+    with torch.no_grad():
+        logits, caches = lm.prefill(params, toks, cfg, max_len)
+        for i in range(n):
+            lf = logits.float()
+            top = torch.topk(lf, 2, dim=-1).values
+            margin = top[:, 0] - top[:, 1]
+            if logits.dtype != torch.float32:
+                margin = margin / lf.abs().amax(-1)
+            margins.append(margin.cpu().numpy())
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            out.append(tok.cpu().numpy())
+            if i + 1 < n:
+                logits, caches = lm.decode_step(params, tok, caches, cfg)
+    return np.concatenate(out, 1), np.stack(margins, 1)
+
+
+def pm_teacher(torch, lm, params, cfg, prompts, steps, max_len: int) -> list:
+    """Logits (f32 numpy) of a prefill and of decode steps fed ``steps``."""
+    toks = torch.from_numpy(prompts).to(params["embed"]["emb"].device)
+    with torch.no_grad():
+        logits, caches = lm.prefill(params, toks, cfg, max_len)
+        out = [logits.float().cpu().numpy()]
+        for s in steps:
+            logits, caches = lm.decode_step(
+                params, torch.from_numpy(s).to(toks.device), caches, cfg)
+            out.append(logits.float().cpu().numpy())
+    return out
+
+
+def pm_token_agreement(got, want, margins, margin: float) -> dict:
+    """Tokens of a mesh run against the one-process port's, position by
+    position while every earlier position agreed, where the one-process
+    top-2 margin exceeds ``margin`` (a row stops at its first position
+    below it: past it the two runs may feed different tokens)."""
+    checked = agree = 0
+    for b in range(want.shape[0]):
+        for i in range(want.shape[1]):
+            if margins[b, i] <= margin:
+                break
+            checked += 1
+            if got[b, i] != want[b, i]:
+                break
+            agree += 1
+    return {"checked": checked, "agree": agree, "positions": int(want.size),
+            "margin": margin}
+
+
+def pm_moe_leaf(torch, cfg, name: str, seed: int, device):
+    """One leaf of the full-width f32 MoE layer, drawn from its own seed
+    (so every rank draws the same leaf alone and keeps its block)."""
+    from repro_torch.models.common import normal
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    fs = f * cfg.n_shared_experts
+    shapes = {"router": ((d, E), 0.02), "router_bias": ((E,), 0.01),
+              "w_gate": ((E, d, f), d ** -0.5), "w_up": ((E, d, f), d ** -0.5),
+              "w_down": ((E, f, d), f ** -0.5),
+              "shared/w_gate": ((d, fs), d ** -0.5), "shared/w_up": ((d, fs), d ** -0.5),
+              "shared/w_down": ((fs, d), fs ** -0.5)}
+    shape, scale = shapes[name]
+    return normal(gen, shape, torch.float32, scale)
+
+
+PM_MOE_LEAVES = ("router", "router_bias", "w_gate", "w_up", "w_down",
+                 "shared/w_gate", "shared/w_up", "shared/w_down")
+
+
+def pm_moe_tree(leaves: dict) -> dict:
+    p = {"router": {"w": leaves["router"]}, "router_bias": leaves["router_bias"]}
+    for k in ("w_gate", "w_up", "w_down"):
+        p[k] = leaves[k]
+    p["shared"] = {k: {"w": leaves[f"shared/{k}"]} for k in ("w_gate", "w_up", "w_down")}
+    return p
+
+
+def pm_moe_x(torch, cfg, seed: int, device):
+    gen = torch.Generator(device=device).manual_seed(seed + 2400)
+    return torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), generator=gen,
+                       device=device)
+
+
+def pm_references(torch, seed: int, device, path: str) -> dict:
+    """The one-process port's answers, before the ranks take the card:
+    each path's greedy tokens and margins, the f32 cuts' logits, and the
+    f32 MoE layer group by group; saved to ``path`` (npz)."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import lm
+    from repro_torch.models import moe as M
+
+    cfgs, ref, info = pm_configs(), {}, {}
+    for key in ("qwen_dense", "qwen_sparse", "deepseek"):
+        cfg = cfgs[key]
+        gen = PM_GEN["deepseek" if key == "deepseek" else "qwen"]
+        prompts, _ = pm_inputs(seed, cfg, gen)
+        with M.dispatch_log() as log:
+            srv = Server(cfg, LM_PROMPT + gen, device=device)
+            toks, margins = pm_greedy(torch, lm, srv.params, cfg, prompts, gen,
+                                      LM_PROMPT + gen)
+        ref[f"{key}|tokens"], ref[f"{key}|margins"] = toks, margins
+        info[key] = {"dropped": sum(r["dropped"] for r in log)}
+        del srv
+        free_card(torch)
+    for key in ("qwen_dense_f32", "qwen_sparse_f32"):
+        cfg = cfgs[key]
+        prompts, steps = pm_inputs(seed, cfg, 3)
+        srv = Server(cfg, LM_PROMPT + 4, device=device, dtype=torch.float32)
+        for i, lg in enumerate(pm_teacher(torch, lm, srv.params, cfg, prompts, steps,
+                                          LM_PROMPT + 4)):
+            ref[f"{key}|logits{i}"] = lg
+        toks, margins = pm_greedy(torch, lm, srv.params, cfg, prompts, 4,
+                                  LM_PROMPT + 4)
+        ref[f"{key}|tokens"], ref[f"{key}|margins"] = toks, margins
+        del srv
+        free_card(torch)
+    # the f32 MoE layer alone: per group (the reference's per-group capacity)
+    cfg = cfgs["deepseek"]
+    p = pm_moe_tree({n: pm_moe_leaf(torch, cfg, n, seed * 100 + i, device)
+                     for i, n in enumerate(PM_MOE_LEAVES)})
+    x = pm_moe_x(torch, cfg, seed, device)
+    G = PM_DS_MESH[0]
+    with torch.no_grad():
+        with M.dispatch_log() as groups:
+            ys = [M.moe_apply(p, x[g * LM_BATCH // G:(g + 1) * LM_BATCH // G], cfg)
+                  for g in range(G)]
+        with M.dispatch_log() as one:
+            M.moe_apply(p, x, cfg)
+    ref["moe|y"] = torch.cat(ys).cpu().numpy()
+    info["moe"] = {"groups": [{k: r[k] for k in ("capacity", "assigned", "kept", "dropped")}
+                              for r in groups],
+                   "one_group": {k: one[0][k] for k in ("capacity", "assigned", "kept",
+                                                        "dropped")}}
+    del p, x, ys
+    free_card(torch)
+    np.savez(path, **ref)
+    return info
+
+
+def pm_time_generate(torch, srv, prompts, gen: int, coll, instrument) -> dict:
+    """Server.generate once short (warm-up, its MoE drops logged: the
+    prefill is the counted run's), then the counted run: ``gen`` tokens,
+    counts reset before it, its prefill and decode steps timed by
+    ``generate(timings=)``."""
+    import torch.distributed as dist
+
+    from repro_torch.models import moe as M
+
+    with M.dispatch_log() as log:
+        srv.generate(prompts, 2)
+    dist.barrier()
+    instrument.reset()
+    coll.reset()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    out = srv.generate(prompts, gen, timings=timings)
+    snap = coll.snapshot()
+    total_s = timings["prefill_s"] + timings["decode_s"]
+    return {"tokens": out, "dropped": sum(r["dropped"] for r in log),
+            "prefill_ms": 1e3 * timings["prefill_s"],
+            "decode_ms_per_token": 1e3 * timings["decode_s"] / max(gen - 1, 1),
+            "tokens_per_s": LM_BATCH * gen / total_s, "generate_s": total_s,
+            "launches": instrument.launches("bcoo"),
+            "coll_calls": snap["calls"], "coll_bytes": snap["bytes"],
+            "coll_ms": {k: 1e3 * v for k, v in snap["seconds"].items()},
+            "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+
+
+def pm_decode_agreement(torch, srv, prompts, ref_tokens, ref_margins) -> dict:
+    """The mesh's decode steps fed the one-process port's tokens (teacher
+    forcing, so every position sees the one-process run's inputs, whatever
+    an earlier position's argmax was), their argmax against the
+    one-process tokens where its margin exceeds PM_BF16_MARGIN of the max
+    |logit|, and the assignments the decode steps dropped.  deepseek's MoE
+    is its last layer, so no cache depends on the prefill's drops (which
+    differ by design, G = 2 against 1): the decode steps see the same
+    inputs in both runs."""
+    from repro_torch.core import sharding as SH
+    from repro_torch.models import lm
+    from repro_torch.models import moe as M
+
+    toks = torch.from_numpy(prompts).to(srv.device)
+    B, n = ref_tokens.shape
+    checked = agree = 0
+    with torch.no_grad(), SH.set_mesh(srv.mesh):
+        _, caches = lm.prefill(srv.params, toks, srv.cfg, srv.max_len)
+        with M.dispatch_log() as log:
+            for i in range(1, n):
+                tok = torch.from_numpy(ref_tokens[:, i - 1:i].copy()).to(srv.device)
+                logits, caches = lm.decode_step(srv.params, tok, caches, srv.cfg)
+                with SH.batch_scope(B):
+                    pred = SH.batch_unshard(torch.argmax(logits, -1)).cpu().numpy()
+                ok = ref_margins[:, i] > PM_BF16_MARGIN
+                checked += int(ok.sum())
+                agree += int((ok & (pred == ref_tokens[:, i])).sum())
+    return {"checked": checked, "agree": agree, "positions": B * (n - 1),
+            "margin": PM_BF16_MARGIN, "decode_dropped": sum(r["dropped"] for r in log),
+            "teacher_forced": True}
+
+
+def pm_param_bytes(params) -> int:
+    from repro_torch.sparse.layers import strip_derived
+    from repro_torch.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(strip_derived(params)))
+
+
+def pm_serve(torch, world, key: str, seed: int, ref) -> dict:
+    """One serving path on this rank: Server(mesh=) of the path's config,
+    its generate timed and counted, its tokens against the one-process
+    port's."""
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding as SH
+    from repro_torch.kernels import instrument
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import Server
+
+    cfg = pm_configs()[key]
+    arch = "deepseek" if key == "deepseek" else "qwen"
+    shape = PM_DS_MESH if arch == "deepseek" else PM_QWEN_MESH
+    gen = PM_GEN[arch]
+    mesh = make_local_mesh(shape[1], world=world)
+    t0 = time.perf_counter()
+    srv = Server(cfg, LM_PROMPT + gen, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts, _ = pm_inputs(seed, cfg, gen)
+    row = pm_time_generate(torch, srv, prompts, gen, SH.collectives(mesh), instrument)
+    row.update(key=key, arch=cfg.name, mesh=list(shape), coords=list(mesh.coords),
+               transport=SH.collectives(mesh).transport,
+               n_layers=cfg.n_layers, init_s=init_s,
+               param_bytes=pm_param_bytes(srv.params))
+    row["tokens_vs_one_process"] = pm_decode_agreement(
+        torch, srv, prompts, ref[f"{key}|tokens"], ref[f"{key}|margins"])
+    del srv
+    free_card(torch)
+    dist.barrier()
+    return row
+
+
+def pm_f32(torch, world, key: str, seed: int, ref) -> dict:
+    """The f32 2-layer cut on (1, 4): each rank's prefill and decode logits
+    against the one-process port's, and its greedy tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding as SH
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import lm
+
+    cfg = pm_configs()[key]
+    mesh = make_local_mesh(PM_QWEN_MESH[1], world=world)
+    srv = Server(cfg, LM_PROMPT + 4, mesh=mesh, dtype=torch.float32)
+    prompts, steps = pm_inputs(seed, cfg, 3)
+    with SH.set_mesh(mesh):
+        got = pm_teacher(torch, lm, srv.params, cfg, prompts, steps, LM_PROMPT + 4)
+    err = max(float(np.abs(g - ref[f"{key}|logits{i}"]).max()
+                    / np.abs(ref[f"{key}|logits{i}"]).max())
+              for i, g in enumerate(got))
+    toks = srv.generate(prompts, 4)
+    del srv
+    free_card(torch)
+    dist.barrier()
+    return {"key": key, "rel_err": err,
+            "tokens": pm_token_agreement(toks, ref[f"{key}|tokens"],
+                                         ref[f"{key}|margins"], PM_MARGIN)}
+
+
+def pm_slices(torch, world, seed: int) -> dict:
+    """This rank's runs of qwen's three sparse projections (layer 0 of the
+    sparse model), on integer-valued values and x at T = 4 and 512, bf16:
+    the rank's kernel through ``sparse_linear_apply`` on the mesh (its run,
+    then the all-gather) bit-equal to the plain version of the whole
+    stream; then, one rank at a time, its run's kernel, plain version and
+    ``torch.matmul`` on its dense rows timed."""
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding as SH
+    from repro_torch.kernels import instrument
+    from repro_torch.kernels.bcsr_spmv import bcoo_spmv, bcoo_spmv_plain
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sparse.layers import (_balanced_pattern, sparse_linear_apply,
+                                           stream_layout, with_run)
+
+    cfg = pm_configs()["qwen_sparse"]
+    mesh = make_local_mesh(PM_QWEN_MESH[1], world=world)
+    device = mesh.device
+    r, c = cfg.sparse_block
+    rng = np.random.default_rng([seed, 24, world.rank])
+    gen = np.random.default_rng([seed, 24, 99])  # the same on every rank
+    out = {"equal": True, "rows": []}
+    for name, (d_in, d_out) in ffn_dims(cfg).items():
+        browind, bcolind = _balanced_pattern(d_out // r, d_in // c, cfg.ffn_density)
+        nb = len(browind)
+        full = {"browind": torch.from_numpy(browind).to(device),
+                "bcolind": torch.from_numpy(bcolind).to(device),
+                "bvalues": torch.from_numpy(gen.integers(-3, 4, (nb, r, c))
+                                            .astype(np.float32)).to(device, torch.bfloat16)}
+        nb_l = nb // mesh.devices.shape[1]
+        m = mesh.coords[1]
+        run = {k: v[m * nb_l:(m + 1) * nb_l] for k, v in full.items()}
+        rows, lo, merge = stream_layout(nb_l, d_in, d_out, (r, c), cfg.ffn_density, mesh)
+        local = with_run(run, d_in, d_out, cfg.ffn_density, mesh)
+        for T in MOE_TOKENS[::-1]:
+            x = torch.from_numpy(gen.integers(-3, 4, (T, d_in)).astype(np.float32)
+                                 ).to(device, torch.bfloat16)
+            with SH.set_mesh(mesh):
+                y = sparse_linear_apply(local, x, d_out)
+            want = bcoo_spmv_plain(full["browind"], full["bcolind"], full["bvalues"],
+                                   x.T.contiguous(), d_out).to(torch.bfloat16).T
+            out["equal"] &= bool(torch.equal(y, want))
+            xt = x.T.contiguous()
+            lb = (local["browind"] - lo).contiguous()
+            dense = densified(torch, {"browind": lb, "bcolind": local["bcolind"],
+                                      "bvalues": local["bvalues"]}, d_in, rows * r)
+            row = {"name": name, "T": T, "nb": nb_l, "block_rows": rows,
+                   "merge": merge}
+            for rank in range(world.size):
+                if rank == world.rank:
+                    kern = lambda: bcoo_spmv(lb, local["bcolind"], local["bvalues"], xt,
+                                             rows * r, browptr=local["browptr"])
+                    torch.cuda.synchronize()
+                    got, plain = kern(), bcoo_spmv_plain(lb, local["bcolind"],
+                                                          local["bvalues"], xt, rows * r)
+                    torch.cuda.synchronize()
+                    row["kernel_equals_plain"] = bool(torch.equal(got, plain))
+                    row["max_abs_err"] = max_err(torch, got, plain)
+                    instrument.reset()
+                    row["ms"] = time_ms(torch, kern, PM_TIMED)
+                    row["timed_launches"] = instrument.launches("bcoo")
+                    row["plain_ms"] = time_ms(torch, lambda: bcoo_spmv_plain(
+                        lb, local["bcolind"], local["bvalues"], xt, rows * r), 2,
+                        warmup=1)
+                    row["library_ms"] = time_ms(torch, lambda: dense @ xt, PM_TIMED)
+                    row["bound_ms"], row["bound_by"] = lm_bound(
+                        nb_l, r, c, rows, d_in, rows * r, T)
+                dist.barrier()
+            out["rows"].append(row)
+            del dense
+        free_card(torch)
+    return out
+
+
+def pm_moe(torch, world, seed: int, ref) -> dict:
+    """The f32 MoE layer alone at full width on (2, 2): every rank draws the
+    full leaves one at a time in turn and keeps its blocks, then
+    ``moe_apply`` on its batch block, against the one-process per-group
+    reference; its dispatch group's drops."""
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding as SH
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.runtime.elastic import make_shardings, sanitize_shardings
+
+    cfg = pm_configs()["deepseek"]
+    mesh = make_local_mesh(PM_DS_MESH[1], world=world)
+    device = mesh.device
+    specs = M.moe_spec(cfg)
+    flat = {"router": specs["router"]["w"], "router_bias": specs["router_bias"],
+            "w_gate": specs["w_gate"], "w_up": specs["w_up"], "w_down": specs["w_down"],
+            **{f"shared/{k}": specs["shared"][k]["w"] for k in ("w_gate", "w_up",
+                                                              "w_down")}}
+    mine = {}
+    for turn in range(world.size):
+        if turn == world.rank:
+            for i, n in enumerate(PM_MOE_LEAVES):
+                leaf = pm_moe_leaf(torch, cfg, n, seed * 100 + i, device)
+                sh = sanitize_shardings(make_shardings(mesh, flat[n]), leaf)
+                mine[n] = sh.local(leaf).clone(memory_format=torch.contiguous_format)
+                del leaf
+                free_card(torch)
+        dist.barrier()
+    p = pm_moe_tree(mine)
+    x = pm_moe_x(torch, cfg, seed, device)
+    coll = SH.collectives(mesh)
+    coll.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), SH.set_mesh(mesh), SH.batch_scope(x.shape[0]), \
+            M.dispatch_log() as log:
+        y = M.moe_apply(p, SH.batch_shard(x), cfg)
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    snap = coll.snapshot()
+    g = mesh.coords[0]
+    rows = slice(g * LM_BATCH // PM_DS_MESH[0], (g + 1) * LM_BATCH // PM_DS_MESH[0])
+    want = ref["moe|y"][rows]
+    err = float(np.abs(y.cpu().numpy() - want).max() / np.abs(want).max())
+    del p, x, y, mine
+    free_card(torch)
+    dist.barrier()
+    return {"rel_err": err, "log": log, "ms": ms, "coll_calls": snap["calls"],
+            "coll_bytes": snap["bytes"],
+            "coll_ms": {k: 1e3 * v for k, v in snap["seconds"].items()},
+            "coords": list(mesh.coords)}
+
+
+def pm_rank(world, seed: int, go: str, ref_path: str) -> dict:
+    """One rank of phase 24: waits for the parent's turn, then runs every
+    path on its device, one path at a time for all ranks."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    if world.size > 1:  # the ranks and the parent share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world.size))
+    from repro_torch.kernels import _build  # noqa: F401  (the built sources)
+    out = {"rank": world.rank, "setup_s": time.perf_counter() - t0}
+    out["wait_s"] = pw_wait_turn(go, PM_TURN_TIMEOUT_S)
+    dist.barrier()
+    with np.load(ref_path) as z:
+        ref = dict(z)
+    t_card = time.perf_counter()
+
+    def step(name, fn, *args):
+        """Run one path; rank 0 prints its seconds and this process's card
+        memory before it (a failed path still leaves the earlier lines)."""
+        reserved = torch.cuda.memory_reserved() if torch.cuda.is_available() else 0
+        t1 = time.perf_counter()
+        res = fn(torch, world, *args)
+        if world.rank == 0:
+            emit({"phase": "lm_mesh_progress", "path": name,
+                  "seconds": time.perf_counter() - t1, "reserved_before": reserved})
+        return res
+
+    out["serve"] = [step(key, pm_serve, key, seed, ref)
+                    for key in ("qwen_dense", "qwen_sparse", "deepseek")]
+    out["f32"] = [step(key, pm_f32, key, seed, ref)
+                  for key in ("qwen_dense_f32", "qwen_sparse_f32")]
+    out["slices"] = step("slices", pm_slices, seed)
+    out["moe"] = step("moe", pm_moe, seed, ref)
+    out["card_s"] = time.perf_counter() - t_card
+    out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+def pm_closed_forms(key: str) -> dict:
+    """A path's closed forms: param bytes, block-kernel launches and the
+    collectives of its counted generate (lm's, plus Server's per-token
+    all-gather of the (B, 1) int32 tokens where the batch is split)."""
+    from repro_torch.analysis import sharded as SHD
+
+    cfg = pm_configs()[key]
+    arch = "deepseek" if key == "deepseek" else "qwen"
+    shape = PM_DS_MESH if arch == "deepseek" else PM_QWEN_MESH
+    gen = PM_GEN[arch]
+    coll = SHD.serve_collectives(cfg, shape, LM_BATCH, LM_PROMPT, gen - 1, 2)
+    if shape[0] > 1 and LM_BATCH % shape[0] == 0:
+        coll["calls"]["all-gather"] += gen
+        coll["bytes"]["all-gather"] += gen * LM_BATCH * 4
+    return {"param_bytes": SHD.param_bytes(cfg, shape),
+            "launches": SHD.block_kernel_launches(cfg, gen), "coll": coll,
+            "moe": SHD.moe_collectives(cfg, PM_DS_MESH, LM_BATCH, LM_PROMPT, 4)
+            if arch == "deepseek" else None}
+
+
+def phase_lm_mesh(torch, seed: int, device) -> dict:
+    """Phase 24: qwen1.5-0.5b on a (1, 4) process mesh and deepseek-v3 (2
+    layers) on a (2, 2) one, 4 ranks of a gloo world on the one card, the
+    collectives' data staged through pinned host buffers and moved through
+    shared memory, as a mesh whose ranks share one host does (transport
+    ``shm-host-staged``; over gloo's sockets each collective takes
+    milliseconds, PERF.md section 5).  The ranks start on the host while
+    this process runs the one-process references; it frees the card, posts
+    their turn, and touches the card no more until they are done."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import tempfile
+
+    from repro_torch.core.world import spawn
+
+    t_start = time.perf_counter()
+    pool = ThreadPoolExecutor(1)
+    tmp = tempfile.mkdtemp(prefix="phase24_")
+    go, ref_path = os.path.join(tmp, "turn"), os.path.join(tmp, "ref.npz")
+    turn = "abort"
+    try:
+        card = f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu"
+        ranks_f = pool.submit(spawn, pm_rank, PM_RANKS, "gloo", card,
+                              (seed, go, ref_path), 900)
+        info = pm_references(torch, seed, device, ref_path)
+        free_card(torch)
+        ref_s = time.perf_counter() - t_start
+        emit({"phase": "lm_mesh_references", "seconds": ref_s,
+              "allocated": torch.cuda.memory_allocated(),
+              "reserved": torch.cuda.memory_reserved()})
+        turn = "go"
+        t_turn = time.perf_counter()
+    finally:
+        pw_post_turn(go, turn)  # "abort": the ranks fail at their turn
+        if turn != "go":
+            pool.shutdown(wait=True)
+            shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        ranks = ranks_f.result()
+        ranks_s = time.perf_counter() - t_turn
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    launches = 0
+    for i, key in enumerate(("qwen_dense", "qwen_sparse", "deepseek")):
+        want = pm_closed_forms(key)
+        per = [r["serve"][i] for r in ranks]
+        for row in per:
+            who = f"lm mesh {key}: rank at {row['coords']}"
+            check(row["param_bytes"] == want["param_bytes"],
+                  f"{who} holds {row['param_bytes']} param bytes, the specs "
+                  f"{want['param_bytes']}")
+            check(row["launches"] == want["launches"],
+                  f"{who} launched {row['launches']} block kernels, closed form "
+                  f"{want['launches']}")
+            check(row["coll_calls"] == want["coll"]["calls"]
+                  and row["coll_bytes"] == want["coll"]["bytes"],
+                  f"{who} collectives {row['coll_calls']} / {row['coll_bytes']} != "
+                  f"closed form {want['coll']}")
+            check(np.array_equal(row["tokens"], per[0]["tokens"]),
+                  f"{who}'s tokens differ from rank 0's")
+            check(row["peak_allocated_bytes"] >= row["param_bytes"],
+                  f"{who}: peak below its params")
+            agree = row["tokens_vs_one_process"]
+            check(agree["agree"] == agree["checked"]
+                  and agree["decode_dropped"] == 0,
+                  f"{who}: tokens differ from the one-process port where its "
+                  f"margin exceeds {PM_BF16_MARGIN} of the max |logit|: {agree}")
+            check(agree["checked"] >= PM_MIN_CHECKED * agree["positions"],
+                  f"{who}: {agree['checked']} of {agree['positions']} positions "
+                  f"past the margin, under {PM_MIN_CHECKED:.0%}")
+            launches += row["launches"]
+        emit({"phase": "lm_mesh", "path": key, "arch": per[0]["arch"],
+              "mesh": per[0]["mesh"], "n_layers": per[0]["n_layers"],
+              "transport": per[0]["transport"], "card": card,
+              "closed_form": {"param_bytes": want["param_bytes"],
+                              "launches": want["launches"], **want["coll"]},
+              "one_process_dropped": info.get(key, {}).get("dropped"),
+              "ranks": [{k: v for k, v in row.items() if k != "tokens"}
+                        for row in per]})
+    for i, key in enumerate(("qwen_dense_f32", "qwen_sparse_f32")):
+        per = [r["f32"][i] for r in ranks]
+        worst = max(row["rel_err"] for row in per)
+        check(worst <= PM_LOGIT_TOL,
+              f"lm mesh {key}: logits {worst:.3g} of max |logit| from the "
+              f"one-process port (bound {PM_LOGIT_TOL})")
+        for row in per:
+            t = row["tokens"]
+            check(t["agree"] == t["checked"],
+                  f"lm mesh {key}: greedy tokens differ where the margin exceeds "
+                  f"{PM_MARGIN}: {t}")
+            check(t["checked"] >= PM_MIN_CHECKED * t["positions"],
+                  f"lm mesh {key}: {t['checked']} of {t['positions']} greedy "
+                  f"tokens past the margin, under {PM_MIN_CHECKED:.0%}")
+        emit({"phase": "lm_mesh_f32", "path": key, "rel_err": worst,
+              "bound": PM_LOGIT_TOL, "tokens": [row["tokens"] for row in per],
+              "card": card})
+    slices = [r["slices"] for r in ranks]
+    for r, s in zip(ranks, slices):
+        check(s["equal"], f"lm mesh: rank {r['rank']}'s sharded projections != the "
+              "plain version of the whole stream")
+        for row in s["rows"]:
+            check(row["kernel_equals_plain"],
+                  f"lm mesh: rank {r['rank']}'s run kernel != its plain version")
+            check(row["timed_launches"] == PM_TIMED + 3,
+                  f"lm mesh: rank {r['rank']} timed {row['timed_launches']} launches")
+    emit({"phase": "lm_mesh_slices", "arch": LM_ARCH, "card": card,
+          "rows": [dict(row, rank=r["rank"]) for r, s in zip(ranks, slices)
+                   for row in s["rows"]]})
+    want = pm_closed_forms("deepseek")["moe"]
+    moe = [r["moe"] for r in ranks]
+    worst = max(m["rel_err"] for m in moe)
+    check(worst <= PM_MOE_TOL, f"lm mesh moe: {worst:.3g} of max |y| from the "
+          f"per-group reference (bound {PM_MOE_TOL})")
+    for m in moe:
+        (rec,) = m["log"]
+        g = m["coords"][0]
+        ref_g = info["moe"]["groups"][g]
+        check(rec["kept"] == ref_g["kept"] and rec["capacity"] == ref_g["capacity"],
+              f"lm mesh moe: group {g} kept {rec['kept']} of {rec['assigned']}, the "
+              f"per-group reference {ref_g}")
+        check(m["coll_calls"] == want["calls"] and m["coll_bytes"] == want["bytes"],
+              f"lm mesh moe: collectives {m['coll_calls']} / {m['coll_bytes']} != "
+              f"closed form {want}")
+    emit({"phase": "lm_mesh_moe", "arch": PM_DS_ARCH, "rel_err": worst,
+          "bound": PM_MOE_TOL, "groups": info["moe"]["groups"],
+          "one_group": info["moe"]["one_group"], "closed_form": want,
+          "ranks": [{k: v for k, v in m.items()} for m in moe], "card": card})
+    err = max(row["max_abs_err"] for s in slices for row in s["rows"])
+    seconds = time.perf_counter() - t_start
+    emit({"phase": "lm_mesh_done", "seconds": seconds, "reference_s": ref_s,
+          "ranks_s": ranks_s, "rank_setup_s": [r["setup_s"] for r in ranks],
+          "rank_wait_s": [r["wait_s"] for r in ranks],
+          "rank_card_s": [r["card_s"] for r in ranks], "launches": launches,
+          "transport": ranks[0]["serve"][0]["transport"], "card": card})
+    return {"seconds": seconds, "launches": launches, "max_abs_err": err}
+
+
 DR_TOL = 2e-4  # random f32: the reference's tolerance (tests/test_kernels.py)
 DR_FLOP_TOL = 0.01  # (b): the card's count of a step against the fake count
 DR_MEM_RANGE = (0.7, 1.3)  # (b): fake / card peak outside it is a finding
@@ -6341,8 +7004,9 @@ DR_LM_ROWS = {
     "seamless_train": (ED_ARCH, "train", SPARSE_B, SPARSE_S),
     **{f"{name}_train": (name, "train", *TF_SHAPE.get(name, (TF_BATCH, TF_SEQ)))
        for name in TF_ARCHS},
-    # phase 21's, each at full depth as it ran: llava's prefill over the
-    # 2,880-token prefix and the prompt (seq_len counts both)
+    # phase 21's, each at the depth it ran (DA_SERVE_LAYERS): llava's
+    # prefill over the 2,880-token prefix and the prompt (seq_len counts
+    # both)
     "gemma2_prefill": ("gemma2-27b", "prefill", LM_BATCH, LM_PROMPT),
     "gemma2_decode": ("gemma2-27b", "decode", LM_BATCH, LM_MAX_LEN),
     "llama_train": ("llama3.2-1b", "train", TF_BATCH, TF_SEQ),
@@ -6365,7 +7029,9 @@ def dr_lm_counts() -> dict:
 
     out = {}
     for key, (arch, kind, B, S) in DR_LM_ROWS.items():
-        cfg = tf_cfg(arch)  # phase 19's cuts; the others ran uncut
+        cfg = tf_cfg(arch)  # phase 19's cuts
+        if kind != "train" and arch in DA_SERVE_LAYERS:  # phase 21 serves them cut
+            cfg = dataclasses.replace(cfg, n_layers=DA_SERVE_LAYERS[arch])
         SHAPES[key] = dict(seq_len=S, global_batch=B, kind=kind)
         c = DR.count_cell(cfg, key)
         corr = R.slstm_scan_correction(cfg, key)
@@ -6789,6 +7455,8 @@ def run(args, torch, counts_future) -> int:
     free_card(torch)
     pw_run = phase_process_mesh(torch, args.seed, device)
     free_card(torch)
+    pm_run = phase_lm_mesh(torch, args.seed, device)
+    free_card(torch)
     dr_run = phase_dryrun(torch, np.random.default_rng([args.seed, 20]), device,
                           counts_future,
                           dr_times(lm_run, train_run, ed_run, tf_run, da_run))
@@ -6815,6 +7483,7 @@ def run(args, torch, counts_future) -> int:
     by_path["bcoo_spmv"]["examples"] = ex_run["launches"]["bcoo"]
     by_path["coo_spmv"]["process_mesh"] = pw_run["launches"]["coo"]
     by_path["bcoo_spmv"]["process_mesh"] = pw_run["launches"]["bcoo"]
+    by_path["bcoo_spmv"]["lm_mesh"] = pm_run["launches"]
     by_path["coo_spmv"]["dryrun"] = dr_run["coo_launches"]
     by_path["bcoo_spmv"]["dryrun"] = dr_run["bcoo_launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
@@ -6836,7 +7505,8 @@ def run(args, torch, counts_future) -> int:
                                                 la_run["max_abs_err"],
                                                 ed_run["max_abs_err"],
                                                 tf_run["max_abs_err"],
-                                                da_run["max_abs_err"]]
+                                                da_run["max_abs_err"],
+                                                pm_run["max_abs_err"]]
                                                if name == "bcoo_spmv" else [])),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -6852,6 +7522,7 @@ def run(args, torch, counts_future) -> int:
           "dense_archs_phase_s": da_run["seconds"],
           "examples_phase_s": ex_run["seconds"],
           "process_mesh_phase_s": pw_run["seconds"],
+          "lm_mesh_phase_s": pm_run["seconds"],
           "dryrun_phase_s": dr_run["seconds"],
           "card": card})
     emit({"kernels": kernels})

@@ -47,7 +47,7 @@ def chunk_plan(fields: dict) -> ChunkPlan:
     return ChunkPlan(**{k: _field(k, v) for k, v in fields.items()})
 
 
-def lm_params(tree: dict, cfg) -> dict:
+def lm_params(tree: dict, cfg, mesh=None) -> dict:
     """The port's LM params (CPU tensors) from the JAX package's tree as
     numpy arrays, key for key and dtype for dtype (MoE, MLA and MTP
     subtrees, zamba2's unstacked ``shared`` block and the recurrent blocks'
@@ -55,5 +55,30 @@ def lm_params(tree: dict, cfg) -> dict:
     trees included).  Block-sparse FFN layers keep ``browind`` /
     ``bcolind`` / ``bvalues`` unchanged and gain the port-only keys
     (``sparse.layers.DERIVED``: ``browptr`` and Wᵀ's stream), the shared
-    block's too."""
-    return with_derived(map_params(F.to_tensor, tree), cfg)
+    block's too.
+
+    With a process ``mesh``, the full leaves are cut to this rank's blocks
+    as ``lm.param_specs`` places them on it (``runtime.elastic.
+    make_shardings`` then ``sanitize_shardings``), and the port-only keys
+    are built for the rank's runs of the block streams."""
+    full = map_params(F.to_tensor, tree)
+    if mesh is None:
+        return with_derived(full, cfg)
+    return with_derived(shard_params(full, cfg, mesh), cfg, mesh)
+
+
+def param_shardings(cfg, mesh, like):
+    """The sanitized NamedSharding tree of ``lm.param_specs(cfg)`` on
+    ``mesh`` for the leaves of ``like`` (the reference's tree: full
+    tensors, fake or real)."""
+    from .models import lm
+    from .runtime.elastic import make_shardings, sanitize_shardings
+
+    return sanitize_shardings(make_shardings(mesh, lm.param_specs(cfg)), like)
+
+
+def shard_params(full: dict, cfg, mesh, device=None) -> dict:
+    """This rank's blocks of a full param tree (the reference's keys)."""
+    from .runtime.elastic import shard_tree
+
+    return shard_tree(full, param_shardings(cfg, mesh, full), device)

@@ -11,6 +11,8 @@ runs under ``shard_map``, with their semantics, on a
                                      | that is no destination gets zeros)
   psum(x, axis) / psum(x, all axes)  | :meth:`Collectives.psum`
   psum_scatter(x, axis, tiled=True)  | :meth:`Collectives.psum_scatter`
+  all_to_all(x, axis, split_axis,    | :meth:`Collectives.all_to_all`
+             concat_axis, tiled=True)|
 
 Every sum is taken over tensors of the values dtype and comes back in it:
 the callers cast each part to the values dtype first
@@ -26,6 +28,13 @@ order (rank ``p`` sits at flat place ``p`` of the grid).
 Over gloo, CUDA tensors are staged through pinned host buffers here and
 nowhere else (gloo on the GPU lacks most collectives): the transport the
 records call ``gloo-host-staged``.  Over NCCL the tensors stay on the card.
+Where every rank of a gloo world runs on one x86 host, the staged data
+skips gloo's sockets and moves through a shared file mapping of each
+process group (:class:`SharedMemoryCollectives`, ``shm-host-staged``;
+``shm`` for CPU tensors): a gloo collective over loopback sockets has
+taken milliseconds whatever its size (PERF.md), a round through shared
+memory costs a copy and a spin.  :func:`collectives_for` makes that
+choice from what the mesh records; nobody sets it.
 
 Each call adds to this object's counts, by kind (the names of the
 reference's ``collective_bytes``, ``repro/analysis/roofline.py:78``): its
@@ -36,10 +45,16 @@ A collective over one rank is the identity: it still runs through the
 backend (so a world of one exercises it) but counts nothing, as XLA
 removes it.  Seconds are host seconds from the call to its
 result being on this rank's device (each call waits on the current stream
-at its end); the ring's overlapped permutes count only the wait.
+at its end; over ``gloo-host-staged``, until the copy back to the card is
+enqueued on the current stream, ahead of every later use of the result);
+the ring's overlapped permutes count only the wait.
 """
 from __future__ import annotations
 
+import mmap
+import os
+import platform
+import tempfile
 import time
 from typing import Sequence, Tuple, Union
 
@@ -49,10 +64,22 @@ import torch.distributed as dist
 
 from .streams import wait
 
-__all__ = ["Collectives", "CountingCollectives", "collectives_for", "KINDS"]
+__all__ = ["Collectives", "CountingCollectives", "SharedMemoryCollectives",
+           "collectives_for", "KINDS"]
 
-KINDS = ("all-gather", "all-reduce", "reduce-scatter", "collective-permute")
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
 Axes = Union[str, Tuple[str, ...]]
+
+
+def _host_wait(device: torch.device) -> None:
+    """Block until the current stream of ``device`` has done its work so
+    far, yielding the CPU while it waits (a blocking-sync event): ranks
+    that share one card also share its host, and spinning waits starve the
+    gloo threads that carry the staged data."""
+    event = torch.cuda.Event(blocking=True)
+    event.record(torch.cuda.current_stream(device))
+    event.synchronize()
 
 
 class _Pending:
@@ -80,6 +107,12 @@ class Collectives:
         self.mesh = mesh
         self.staged = mesh.world.transport == "gloo-host-staged"
         self.reset()
+
+    @property
+    def transport(self) -> str:
+        """How the data moves: the world's transport (``"nccl"``,
+        ``"gloo"``, ``"gloo-host-staged"``)."""
+        return self.mesh.world.transport
 
     # -- counts ------------------------------------------------------------
 
@@ -128,7 +161,7 @@ class Collectives:
             return x
         h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         h.copy_(x, non_blocking=True)
-        wait(x.device)
+        _host_wait(x.device)
         return h
 
     def _buffer(self, shape, like: torch.Tensor) -> torch.Tensor:
@@ -137,8 +170,9 @@ class Collectives:
         return torch.zeros(shape, dtype=like.dtype, device=like.device)
 
     def _unstage(self, out: torch.Tensor, device: torch.device) -> torch.Tensor:
-        if out.device != device:
-            out = out.to(device, non_blocking=True)
+        if out.device != device:  # host-staged: the copy back is enqueued on
+            # the current stream, ahead of every later use of the result
+            return out.to(device, non_blocking=True)
         wait(device)
         return out
 
@@ -152,6 +186,9 @@ class Collectives:
 
     def _reduce_scatter(self, out, src, group) -> None:
         dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+
+    def _all_to_all(self, out, src, group) -> None:
+        dist.all_to_all_single(out, src, group=group)
 
     def _p2p(self, ops) -> list:
         return dist.batch_isend_irecv([dist.P2POp(*op) for op in ops])
@@ -198,6 +235,34 @@ class Collectives:
         out = self._unstage(out, x.device)
         self._done("reduce-scatter", t0)
         return out
+
+    def all_to_all(self, x: torch.Tensor, axis: str, split_dim: int = 0,
+                   concat_dim: int = 0) -> torch.Tensor:
+        """``all_to_all(x, axis, split_dim, concat_dim, tiled=True)``: x
+        split along ``split_dim`` into one block per rank of the axis, block
+        ``k`` sent to position ``k``; the blocks received concatenated along
+        ``concat_dim`` in position order."""
+        group, n = self._group(axis)
+        if x.shape[split_dim] % n:
+            raise ValueError(f"all_to_all of {x.shape[split_dim]} rows of dim "
+                             f"{split_dim} over {n} ranks")
+        t0 = time.perf_counter()
+        blocks = x.movedim(split_dim, 0)
+        rest = tuple(blocks.shape[1:])
+        blocks = blocks.reshape((n, blocks.shape[0] // n) + rest)
+        src = self._stage(blocks)
+        out = self._buffer(tuple(src.shape), blocks)
+        self._all_to_all(out, src, group)
+        self._count("all-to-all", out, n)
+        out = self._unstage(out, x.device)
+        self._done("all-to-all", t0)
+        # out[k] is position k's block: put the split dim back, then lay
+        # the n blocks side by side along the concat dim
+        out = out.movedim(1, split_dim + 1).movedim(0, concat_dim)
+        shape = list(x.shape)
+        shape[split_dim] //= n
+        shape[concat_dim] *= n
+        return out.reshape(shape)
 
     def _peer(self, axis: str, pos: int) -> int:
         """The global rank at ``pos`` along ``axis``, this rank's other
@@ -259,12 +324,164 @@ class CountingCollectives(Collectives):
     def _reduce_scatter(self, out, src, group) -> None:
         pass
 
+    def _all_to_all(self, out, src, group) -> None:
+        pass
+
     def _p2p(self, ops) -> list:
         return []
 
 
+# A rank publishes a round by storing its data and then its counter, and a
+# reader that sees the counter reads the data after it, with no fence: sound
+# where the processor keeps stores in order and loads in order (x86's TSO).
+STORES_IN_ORDER = platform.machine().lower() in ("x86_64", "amd64")
+
+
+class _HostMapping:
+    """A shared file mapping of one process group's ranks on one host: a
+    sequence counter per rank (one cache line each) and, for each of two
+    parities, one slot of ``slot`` bytes per rank.  Made collectively:
+    the group's first rank creates the file in the temporary directory,
+    the others map it, and it is unlinked once every rank has it (the
+    mapping lives on, nothing is left on disk)."""
+
+    def __init__(self, group, slot: int, timeout: float):
+        assert STORES_IN_ORDER, (
+            f"shared-memory rounds publish without a fence, which needs "
+            f"x86's store order; this is {platform.machine()}")
+        ranks = dist.get_process_group_ranks(group)
+        self.n, self.pos = len(ranks), ranks.index(dist.get_rank())
+        self.slot, self.timeout, self.k = slot, timeout, 0
+        head = -(-64 * self.n // 4096) * 4096
+        size = head + 2 * self.n * slot
+        path = [None]
+        if self.pos == 0:
+            fd, path[0] = tempfile.mkstemp(prefix="repro_torch_shm_")
+            os.ftruncate(fd, size)
+            os.close(fd)
+        dist.broadcast_object_list(path, src=ranks[0], group=group)
+        with open(path[0], "r+b") as f:
+            self.map = mmap.mmap(f.fileno(), size)
+        dist.barrier(group=group)
+        if self.pos == 0:
+            os.unlink(path[0])
+        self.seq = np.frombuffer(self.map, dtype=np.int64, count=8 * self.n)[::8]
+        self.data = torch.frombuffer(self.map, dtype=torch.uint8, offset=head,
+                                     count=2 * self.n * slot)
+
+    def _slot(self, parity: int, pos: int) -> torch.Tensor:
+        start = (parity * self.n + pos) * self.slot
+        return self.data[start:start + self.slot]
+
+    def round(self, mine: torch.Tensor) -> list:
+        """Post ``mine`` (uint8, at most ``slot`` bytes, the same length on
+        every rank) and return every rank's, in group order: views of the
+        mapping, valid until this rank's next round but one.  Each rank
+        writes its slot, then its counter; x86 keeps stores in order, so a
+        rank that sees a counter sees the data before it."""
+        self.k += 1
+        parity, n_bytes = self.k & 1, mine.numel()
+        self._slot(parity, self.pos)[:n_bytes].copy_(mine)
+        self.seq[self.pos] = self.k
+        deadline, spins = time.monotonic() + self.timeout, 0
+        while not (self.seq >= self.k).all():
+            spins += 1
+            if spins % 1024 == 0:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"shared-memory round {self.k}: a rank of "
+                                       f"{self.n} did not post within "
+                                       f"{self.timeout:.0f} s")
+                os.sched_yield()
+        return [self._slot(parity, p)[:n_bytes] for p in range(self.n)]
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1).view(torch.uint8)
+
+
+class SharedMemoryCollectives(Collectives):
+    """The collectives of a process mesh whose ranks share one host, with
+    the data moving through a shared file mapping of each group
+    (:class:`_HostMapping`) instead of the backend's sockets: every rank
+    posts its bytes and reads the others', round by round (messages longer
+    than a slot take several).  Sums are taken in group order, the same on
+    every rank.  CUDA tensors are staged through pinned host buffers, as
+    over gloo; the backend's groups still carry the setup and
+    ``ppermute``.  Over gloo on a host whose thread wake-ups are slow, each
+    gloo collective costs milliseconds; a round here costs a copy and a
+    spin on the counters."""
+
+    SLOT = 1 << 24  # bytes a rank posts in one round
+
+    def __init__(self, mesh, slot: int | None = None,
+                 timeout: float = 300.0):
+        super().__init__(mesh)
+        self.staged = mesh.world.device.type == "cuda"  # whatever the backend
+        self.slot = self.SLOT if slot is None else int(slot)
+        self.timeout = timeout
+
+    @property
+    def transport(self) -> str:
+        return "shm-host-staged" if self.staged else "shm"
+
+    def _map(self, group) -> _HostMapping:
+        maps = self.mesh.host_mappings  # shared by the mesh's collectives
+        if (group, self.slot) not in maps:
+            maps[group, self.slot] = _HostMapping(group, self.slot, self.timeout)
+        return maps[group, self.slot]
+
+    def _rounds(self, src: torch.Tensor, group):
+        """(offset, every rank's bytes) for each slot-sized piece of src's
+        bytes."""
+        m, data = self._map(group), _bytes(src)
+        for off in range(0, data.numel(), self.slot):
+            yield off, m.round(data[off:off + self.slot])
+
+    def _all_gather(self, out, src, group) -> None:
+        dst, size = _bytes(out), src.numel() * src.element_size()
+        for off, views in self._rounds(src, group):
+            for p, v in enumerate(views):
+                dst[p * size + off:p * size + off + v.numel()].copy_(v)
+
+    def _sum_into(self, dst: torch.Tensor, views, dtype) -> None:
+        acc = views[0].view(dtype).clone()
+        for v in views[1:]:
+            acc += v.view(dtype)
+        dst.copy_(acc.view(torch.uint8))
+
+    def _all_reduce(self, buf, group) -> None:
+        dst = _bytes(buf)
+        for off, views in self._rounds(buf, group):
+            self._sum_into(dst[off:off + views[0].numel()], views, buf.dtype)
+
+    def _reduce_scatter(self, out, src, group) -> None:
+        dst, size = _bytes(out), out.numel() * out.element_size()
+        pos = self._map(group).pos
+        for off, views in self._rounds(src, group):
+            lo = max(off, pos * size)
+            hi = min(off + views[0].numel(), (pos + 1) * size)
+            if lo < hi:
+                self._sum_into(dst[lo - pos * size:hi - pos * size],
+                               [v[lo - off:hi - off] for v in views], out.dtype)
+
+    def _all_to_all(self, out, src, group) -> None:
+        dst, block = _bytes(out), src[0].numel() * src.element_size()
+        pos = self._map(group).pos
+        for off, views in self._rounds(src, group):
+            lo = max(off, pos * block)
+            hi = min(off + views[0].numel(), (pos + 1) * block)
+            if lo < hi:
+                for q, v in enumerate(views):
+                    start = q * block + lo - pos * block
+                    dst[start:start + hi - lo].copy_(v[lo - off:hi - off])
+
+
 def collectives_for(mesh) -> Collectives:
-    """The collectives of a process mesh: real ones over its world, or
-    counting ones on a dry-run mesh."""
-    cls = CountingCollectives if mesh.world.backend == "dry" else Collectives
-    return cls(mesh)
+    """The collectives of a process mesh: counting ones on a dry-run mesh;
+    shared-memory ones for a gloo world whose ranks all run on one x86 host
+    (``mesh.one_host``); else the backend's."""
+    if mesh.world.backend == "dry":
+        return CountingCollectives(mesh)
+    if mesh.world.backend == "gloo" and mesh.one_host and STORES_IN_ORDER:
+        return SharedMemoryCollectives(mesh)
+    return Collectives(mesh)

@@ -31,7 +31,9 @@ metadata: the parts run in logical order in the one part-axis launch.
 """
 from __future__ import annotations
 
+import socket
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -120,8 +122,26 @@ class ProcessMesh(Mesh):
     world: object = None  # repro_torch.core.world.World
     groups: Tuple = ()  # per axis, this rank's torch ProcessGroup
     world_group: object = None
+    one_host: bool = False  # every rank runs on this rank's host
 
     is_process = True
+
+    @cached_property
+    def collectives(self):
+        """This mesh's :class:`~repro_torch.core.collectives.Collectives`
+        (``collectives_for``), one object for the mesh's life, so its
+        counts add up over every call of a program; dropped with it."""
+        from .collectives import collectives_for
+
+        return collectives_for(self)
+
+    @cached_property
+    def host_mappings(self) -> dict:
+        """The shared file mappings of this mesh's process groups, by
+        (group, slot size), made on first use by every collectives object
+        of the mesh that moves data through shared memory, and dropped
+        with the mesh."""
+        return {}
 
     @property
     def device(self) -> torch.device:
@@ -174,7 +194,10 @@ def make_process_mesh(world, axis_shapes: Sequence[int],
     """Lay the ranks of ``world`` (:func:`repro_torch.core.world.init_world`)
     out as a grid of ``axis_shapes`` named ``axis_names``, rank ``p`` at
     flat place ``p``.  Collective: every rank calls it with the same
-    arguments.  ``slots`` is metadata, as on :class:`Mesh`.
+    arguments.  ``slots`` is metadata, as on :class:`Mesh`.  The mesh
+    records whether every rank runs on one host (``one_host``), which
+    decides how a gloo world's collectives move their data
+    (``core/collectives.py``: ``collectives_for``).
 
     Raises:
       ValueError: the shape and names differ in length, or the grid's size
@@ -201,9 +224,12 @@ def make_process_mesh(world, axis_shapes: Sequence[int],
     grid = np.empty(n, dtype=object)
     for i, d in enumerate(names_of):
         grid[i] = torch.device(d)
+    hosts = [None] * n
+    dist.all_gather_object(hosts, socket.gethostname())
     return ProcessMesh(grid.reshape(shape), names, slots, world=world,
                        groups=tuple(dmesh.get_group(a) for a in names),
-                       world_group=dist.group.WORLD)
+                       world_group=dist.group.WORLD,
+                       one_host=len(set(hosts)) == 1)
 
 
 def dry_process_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],

@@ -177,7 +177,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, probe: bool,
         print(f"[skip] {arch} x {shape_name}: inapplicable")
         return {"arch": arch, "shape": shape_name, "skipped": True}
     if multi_pod:
-        make_production_mesh(multi_pod=True)  # raises: one card only
+        make_production_mesh(multi_pod=True)  # raises: no world of 512 ranks
     label = f"{arch} x {shape_name} x {MESH}"
     count = count_cell(cfg, shape_name)
     corr = R.slstm_scan_correction(cfg, shape_name)

@@ -1,39 +1,75 @@
 """Mesh definitions for the launchers.
 
 Counterpart of ``repro/launch/mesh.py``.  The reference lays 256 or 512
-TPU chips out as (data, model) or (pod, data, model).  The port runs on
-one card: :func:`make_local_mesh` is a (1, 1) ``Mesh`` over it, and
-:func:`make_production_mesh` raises until multi-card meshes land (a grid
-of distinct devices, ROADMAP.md "Multi-card meshes"); it never falls back
-to one device.
+TPU chips out as (data, model) = (16, 16) or (pod, data, model) =
+(2, 16, 16).  Here the places of a mesh are the ranks of a
+``torch.distributed`` world (``core/world.py``), one per device:
+
+* :func:`make_production_mesh` lays the reference's layout over a world of
+  256 or 512 ranks as a :class:`~repro_torch.core.mesh.ProcessMesh` (a
+  world of the "dry" backend gives a dry-run mesh that only counts).  It
+  never falls back to one device: without such a world it raises, naming
+  the ranks it needs.
+* :func:`make_local_mesh` is a (world / mp, mp) process mesh over a world
+  (the reference's over its host's devices), or, without one, the (1, 1)
+  ``Mesh`` of one device.
 """
 from __future__ import annotations
 
-from repro_torch.core.mesh import Mesh, make_mesh
+from repro_torch.core.mesh import (Mesh, ProcessMesh, dry_process_mesh, make_mesh,
+                                   make_process_mesh)
 
-__all__ = ["make_production_mesh", "make_local_mesh", "MODEL_PARALLEL"]
+__all__ = ["make_production_mesh", "make_local_mesh", "production_layout",
+           "MODEL_PARALLEL"]
 
-# the reference's model-parallel width on its pod (kept for parity)
+# the reference's model-parallel width on its pod (fixed by per-chip HBM)
 MODEL_PARALLEL = 16
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's (16, 16) or (2, 16, 16) mesh: not ported.
+def production_layout(multi_pod: bool = False) -> tuple:
+    """(shape, axis names) of the reference's production mesh."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return shape, axes
+
+
+def make_production_mesh(world=None, *, multi_pod: bool = False) -> ProcessMesh:
+    """The reference's (16, 16) or (2, 16, 16) mesh over ``world``'s ranks.
 
     Raises:
-      NotImplementedError: always (see ROADMAP.md, "Multi-card meshes").
+      NotImplementedError: no world is given (one process cannot lay it
+        out over distinct devices; see ROADMAP.md, "Multi-card meshes").
+      ValueError: the world's size is not the layout's.
     """
-    chips = 512 if multi_pod else 256
-    raise NotImplementedError(
-        f"a {chips}-device production mesh needs distinct devices, which are "
-        "not ported yet (see ROADMAP.md, 'Multi-card meshes'); the port runs "
-        "on one card (make_local_mesh)")
+    shape, axes = production_layout(multi_pod)
+    ranks = 1
+    for n in shape:
+        ranks *= n
+    if world is None:
+        raise NotImplementedError(
+            f"the {shape} production mesh needs a world of {ranks} ranks, one "
+            f"per device (core.world.init_world); none was given (see "
+            f"ROADMAP.md, 'Multi-card meshes')")
+    if world.size != ranks:
+        raise ValueError(f"the {shape} production mesh needs a world of {ranks} "
+                         f"ranks; this one has {world.size}")
+    if world.backend == "dry":
+        return dry_process_mesh(shape, axes, rank=world.rank)
+    return make_process_mesh(world, shape, axes)
 
 
-def make_local_mesh(model_parallel: int = 1, device="cuda") -> Mesh:
-    """A (data, model) = (1, 1) mesh over ``device`` (the card unless the
-    caller passes "cpu").  One device holds one place, whatever
-    ``model_parallel`` asks, as the reference clips it to the devices it
-    has."""
-    del model_parallel  # one device: the model axis has width 1
-    return make_mesh((1, 1), ("data", "model"), devices=[device])
+def make_local_mesh(model_parallel: int = 1, device="cuda",
+                    world=None) -> Mesh:
+    """A (data, model) mesh: over ``world``'s ranks, (size / mp, mp) with mp
+    = ``model_parallel`` clipped to the world's size (a
+    :class:`~repro_torch.core.mesh.ProcessMesh`; collective); without a
+    world, the (1, 1) mesh of ``device`` (the card unless the caller passes
+    "cpu"), whatever ``model_parallel`` asks, as the reference clips it to
+    the devices it has."""
+    if world is None:
+        return make_mesh((1, 1), ("data", "model"), devices=[device])
+    mp = max(1, min(model_parallel, world.size))
+    if world.size % mp:
+        raise ValueError(f"model_parallel={mp} does not divide a world of "
+                         f"{world.size} ranks")
+    return make_process_mesh(world, (world.size // mp, mp), ("data", "model"))

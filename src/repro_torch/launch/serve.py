@@ -13,12 +13,22 @@ seamless-m4t-medium needs encoder frames, which ``Server`` (like the
 reference's) does not take: it raises ``ValueError`` naming
 ``launch.steps.make_prefill_step`` / ``make_decode_step``, which serve it.
 
-The reference jits ``lm.prefill`` and ``lm.decode_step`` over a mesh; the
-port has no mesh and runs them eagerly on one device (the card unless
-``--device cpu``).  Params come from a seeded init (the generator seeded
-with 0, as the reference's ``PRNGKey(0)``); configs are shapes only.  With
-``cfg.ffn_density < 1`` every FFN projection runs on the block kernel
-(zamba2's: the shared block's three, once per invocation).
+The reference jits ``lm.prefill`` and ``lm.decode_step`` over a mesh
+with its params placed by ``lm.param_specs``.  The port runs them eagerly:
+on one device (the card unless ``--device cpu``), or, given ``mesh=`` (a
+``core.mesh.ProcessMesh`` over a world of ranks, e.g.
+``launch.mesh.make_local_mesh(mp, world=world)``), on every rank of it,
+each holding only its blocks of the params (``convert.shard_params``) and
+running the sharded program (``models/lm.py``); every rank's ``generate``
+returns the same (B, n) tokens.  A linear-attention or encoder-decoder
+arch raises ``NotImplementedError`` on a mesh (ROADMAP.md §1 item 7): it is
+never silently replicated.  Params come from a seeded init (the generator
+seeded with 0, as the reference's ``PRNGKey(0)``) or from the caller
+(``params=``, the reference's tree of full leaves).  Ranks that share one
+card build their blocks in turn, so one full tree at a time lies on it.
+With ``cfg.ffn_density < 1`` every FFN projection runs on the block kernel
+(zamba2's: the shared block's three, once per invocation; on a mesh each
+rank's run of the stream).
 """
 from __future__ import annotations
 
@@ -29,19 +39,34 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import sharding as SH
 from repro_torch.models import lm
+from repro_torch.models.blocks import check_mesh_kind
+from repro_torch.sparse.layers import strip_derived, with_derived
+from repro_torch.tree import tree_map
 
 __all__ = ["Server", "main"]
 
 
 class Server:
-    """Greedy generation for one config on one device.
+    """Greedy generation for one config on one device or a process mesh.
 
-    ``device`` defaults to the card and raises without one; ``dtype`` is
-    the params' (bfloat16, as the reference's ``init_params``).
+    ``device`` defaults to the card and raises without one (on a mesh the
+    rank's device); ``dtype`` is the params' (bfloat16, as the reference's
+    ``init_params``); ``params`` the reference's tree of full leaves
+    (default: the seeded init).
     """
 
-    def __init__(self, cfg, max_len: int, *, device=None, dtype=torch.bfloat16):
+    def __init__(self, cfg, max_len: int, *, mesh=None, device=None,
+                 dtype=torch.bfloat16, params=None):
+        self.mesh = mesh
+        if mesh is not None:
+            for kind in cfg.prefix_pattern + cfg.block_pattern:
+                check_mesh_kind(kind)
+            self.cfg, self.max_len, self.device = cfg, max_len, mesh.device
+            with torch.no_grad():
+                self.params = self._rank_params(cfg, dtype, params)
+            return
         if cfg.encoder_layers:
             raise ValueError(
                 f"{cfg.name} is an encoder-decoder: Server passes no encoder "
@@ -52,29 +77,93 @@ class Server:
             raise RuntimeError("Server needs a CUDA device; pass device='cpu' "
                                "to run on the host")
         self.cfg, self.max_len = cfg, max_len
-        gen = torch.Generator(device=self.device).manual_seed(0)
         with torch.no_grad():
-            self.params = lm.init_params(gen, cfg, dtype)
+            if params is None:
+                gen = torch.Generator(device=self.device).manual_seed(0)
+                self.params = lm.init_params(gen, cfg, dtype)
+            else:
+                self.params = with_derived(tree_map(lambda t: t.to(self.device),
+                                                    strip_derived(params)), cfg)
 
-    def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
+    def _rank_params(self, cfg, dtype, params):
+        """This rank's blocks of the params, with the port-only keys of its
+        runs of the block streams."""
+        import gc
+
+        import torch.distributed as dist
+
+        from repro_torch.analysis.sharded import abstract_params as reference_tree
+        from repro_torch.convert import param_shardings
+        from repro_torch.runtime.elastic import empty_blocks, shard_tree
+
+        mesh = self.mesh
+        if params is not None:
+            params = strip_derived(params)
+            local = shard_tree(params, param_shardings(cfg, mesh, params),
+                               self.device)
+            return with_derived(local, cfg, mesh)
+        like = reference_tree(cfg, dtype)
+        specs = param_shardings(cfg, mesh, like)
+        shared = len({str(d) for d in mesh.devices.flat}) == 1 and mesh.devices.size > 1
+        local = None
+        for turn in range(mesh.devices.size if shared else 1):
+            if not shared or turn == mesh.rank:
+                # the blocks first, so no block lands in a segment of the
+                # full tree's, and freeing the tree gives its memory back
+                local = empty_blocks(like, specs, self.device)
+                gen = torch.Generator(device=self.device).manual_seed(0)
+                full = strip_derived(lm.init_params(gen, cfg, dtype))
+                shard_tree(full, specs, out=local)
+                del full
+                gc.collect()
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+            if shared:
+                dist.barrier(group=mesh.world_group)
+        return with_derived(local, cfg, mesh)
+
+    def generate(self, prompts: np.ndarray, n_tokens: int,
+                 timings: dict | None = None) -> np.ndarray:
         """prompts: (B, S) int32. Greedy decode n_tokens. Returns
         (B, max(n_tokens, 1)), as the reference: the prefill's token always,
-        then n_tokens - 1 decode steps.
+        then n_tokens - 1 decode steps.  On a mesh every rank gets the whole
+        (B, n): each step's tokens are gathered over the batch axes.
 
         The tokens stay on the device until the end, then cross to the
-        host in one copy."""
+        host in one copy.  ``timings``, where given, gets the host seconds
+        of the prefill (``prefill_s``, to its token on the device) and of
+        the decode steps after it (``decode_s``)."""
         toks = torch.from_numpy(np.asarray(prompts, np.int32)).to(self.device)
-        out = torch.empty((toks.shape[0], max(n_tokens, 1)), dtype=torch.int32,
+        B = toks.shape[0]
+        out = torch.empty((B, max(n_tokens, 1)), dtype=torch.int32,
                           device=self.device)
-        with torch.no_grad():
-            logits, caches = lm.prefill(self.params, toks, self.cfg, self.max_len)
+
+        def pick(logits):
             tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            if self.mesh is None:
+                return tok
+            with SH.batch_scope(B):
+                return SH.batch_unshard(tok)
+
+        def clock():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return time.perf_counter()
+
+        with torch.no_grad(), SH.set_mesh(self.mesh):
+            t0 = clock() if timings is not None else 0.0
+            logits, caches = lm.prefill(self.params, toks, self.cfg, self.max_len)
+            tok = pick(logits)
             out[:, :1] = tok
+            t1 = clock() if timings is not None else 0.0
             for i in range(1, n_tokens):
                 logits, caches = lm.decode_step(self.params, tok, caches, self.cfg)
-                tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+                tok = pick(logits)
                 out[:, i:i + 1] = tok
+            if timings is not None:
+                timings.update(prefill_s=t1 - t0, decode_s=clock() - t1)
         return out.cpu().numpy()
+
 
 
 def main(argv=None):

@@ -14,9 +14,10 @@ encoder's output, kept by the caller), and its train batch carries
 
 ``input_specs`` and ``abstract_state`` are the reference's on fake tensors
 (``FakeTensorMode``, CPU): the dry run's inputs and train state, with
-nothing allocated.  ``param_specs``, ``cache_specs``,
-``input_spec_shardings`` and ``state_specs`` are sharding specs and wait
-for multi-card meshes (ROADMAP.md §1 item 7).
+nothing allocated.  ``batch_spec``, ``cache_specs``,
+``input_spec_shardings`` and ``state_specs`` are the reference's
+PartitionSpec trees (``core.sharding.P``), entry for entry; ``state_specs``
+is data only until training runs on a mesh (ROADMAP.md §1 item 7).
 
 A sparse LM's port-only keys (``sparse.layers.DERIVED``) ride along with
 the params: the loss reads them, the optimizer never sees them (its state
@@ -27,13 +28,25 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig
+from repro_torch.core.sharding import P
+from repro_torch.models import attention as A
+from repro_torch.models import linear_attn as LA
 from repro_torch.models import lm
-from repro_torch.optim import AdamWConfig, OptState, apply_updates, init_opt
+from repro_torch.optim import (AdamWConfig, OptState, apply_updates, init_opt,
+                               opt_specs)
 from repro_torch.sparse.layers import strip_derived
 from repro_torch.tree import flatten, tree_map
 
 __all__ = ["value_and_grad_trainable", "make_train_step", "make_prefill_step",
-           "make_decode_step", "carry_derived", "input_specs", "abstract_state"]
+           "make_decode_step", "carry_derived", "input_specs", "abstract_state",
+           "BATCH_AXES", "batch_spec", "input_spec_shardings", "cache_specs",
+           "state_specs"]
+
+BATCH_AXES = ("pod", "data")
+
+
+def batch_spec(*trailing):
+    return P(BATCH_AXES, *trailing)
 
 
 def value_and_grad_trainable(loss_fn):
@@ -184,3 +197,59 @@ def abstract_state(cfg: ArchConfig, opt_cfg: AdamWConfig, mode=None):
     params = lm.abstract_params(cfg, mode=mode)
     with mode:
         return params, init_opt(params, opt_cfg)
+
+
+def input_spec_shardings(cfg: ArchConfig, shape_name: str) -> dict:
+    """PartitionSpec tree matching input_specs."""
+    kind = SHAPES[shape_name]["kind"]
+    if kind in ("train", "prefill"):
+        out = {"tokens": batch_spec(None)}
+        if kind == "train":
+            out["labels"] = batch_spec(None)
+        if cfg.modality_tokens:
+            out["prefix_embeds"] = batch_spec(None, None)
+        if cfg.encoder_layers:
+            out["frames"] = batch_spec(None, None)
+        return out
+    out = {"token": batch_spec(None), "caches": cache_specs(cfg)}
+    if cfg.encoder_layers:
+        out["memory"] = batch_spec(None, None)
+    return out
+
+
+# cache sharding specs (decode): KV sequence-sharded over "model",
+# recurrent-state key dim over "model"
+
+
+def _cache_spec_one(cfg, kind, stacked: bool):
+    lead = (None,) if stacked else ()
+    if kind in ("attn", "attn_local", "attn_global", "moe", "shared_attn",
+                "cross_attn"):
+        kv = P(*lead, BATCH_AXES, "model", None, None)  # (B, S, H, dh)
+        return A.KVCache(kv, kv, P(*lead))
+    if kind in ("mla_dense", "mla_moe"):
+        lat = P(*lead, BATCH_AXES, "model", None)  # (B, S, dc)
+        return A.MLACache(lat, lat, P(*lead))
+    if kind in ("mamba", "mlstm"):
+        return LA.RecurrentState(
+            P(*lead, BATCH_AXES, None, "model", None),  # (B, H, dk, dv)
+            P(*lead, BATCH_AXES, None, "model"),
+        )
+    if kind == "slstm":
+        s = P(*lead, BATCH_AXES, None, "model")  # (B, H, dh)
+        return LA.SLSTMState(s, s, s, s)
+    raise ValueError(kind)
+
+
+def cache_specs(cfg: ArchConfig):
+    prefix = tuple(_cache_spec_one(cfg, k, False) for k in cfg.prefix_pattern)
+    blocks = {f"b{j}": _cache_spec_one(cfg, k, True)
+              for j, k in enumerate(cfg.block_pattern)}
+    return lm.Caches(prefix=prefix, blocks=blocks)
+
+
+def state_specs(cfg: ArchConfig, opt_cfg: AdamWConfig):
+    """(param specs, optimizer-state specs) of a train state: data only
+    until training runs on a mesh."""
+    ps = lm.param_specs(cfg)
+    return ps, opt_specs(ps, opt_cfg)

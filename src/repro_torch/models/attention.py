@@ -9,6 +9,19 @@ masked to -1e30, softmax, cast back.  No fused attention
 (``scaled_dot_product_attention``) stands in: its numerics differ, and the
 JAX package has no attention kernel to port.
 
+On a process mesh (``core.sharding.set_mesh``) the heads are local to
+their "model" rank, as ``gqa_spec`` / ``mla_spec`` place the projections:
+q, k and v are column-parallel products (this rank's heads), the output
+projection a row-parallel one (partial sums, then a psum over "model"),
+and the KV cache holds this rank's heads (``lm.cache_specs``: heads over
+"model").  Where the heads do not divide over "model" (or the weights
+were left whole), q, k and v are gathered whole and every rank computes
+every head.  MLA's latents ``ckv`` (B, S, d_c) and ``krope`` are whole on
+every rank (``cq`` and ``ckv`` are all-gathered over "model" after their
+column-parallel products): every local head attends over all of d_c, so
+the cache a rank holds is its batch block of the whole latent, not the
+d_c block over "model" that ``lm.cache_specs`` names.
+
 Two departures, both invisible in the results:
 
 * ``KVCache.length`` / ``MLACache.length`` is a Python int.  Every layer
@@ -29,11 +42,14 @@ import torch
 
 from torch.utils.checkpoint import checkpoint
 
-from .common import dense_apply, dense_bias_init, dense_init, rope, softcap
+from ..core import sharding as SH
+from ..core.sharding import P
+from .common import (col_apply, dense_apply, dense_bias_init, dense_init,
+                     dense_spec, fsdp, model_full, rope, row_apply, softcap)
 
-__all__ = ["KVCache", "MLACache", "gqa_init", "gqa_apply", "gqa_decode",
-           "mla_init", "mla_apply", "mla_decode", "cross_attn_apply", "causal_mask",
-           "CHUNKED_ATTN_THRESHOLD", "Q_CHUNK"]
+__all__ = ["KVCache", "MLACache", "gqa_init", "gqa_spec", "gqa_apply",
+           "gqa_decode", "mla_init", "mla_spec", "mla_apply", "mla_decode",
+           "cross_attn_apply", "causal_mask", "CHUNKED_ATTN_THRESHOLD", "Q_CHUNK"]
 
 
 class KVCache(NamedTuple):
@@ -59,8 +75,40 @@ def gqa_init(gen, cfg, dtype=torch.bfloat16):
     }
 
 
+def gqa_spec(cfg) -> dict:
+    sp = {
+        "wq": dense_spec("col"),
+        "wk": dense_spec("col"),
+        "wv": dense_spec("col"),
+        "wo": dense_spec("row"),
+    }
+    if cfg.qkv_bias:
+        for k in ("wq", "wk", "wv"):
+            sp[k] = dict(sp[k], b=P("model"))
+    return sp
+
+
 def _split_heads(x, n, dh):
     return x.reshape(x.shape[:-1] + (n, dh))
+
+
+def _heads_local(n_heads: int, *projected) -> bool:
+    """Whether this rank computes its own heads: every head count divides
+    over "model" and every projection came out as this rank's block."""
+    n = SH.axis_size("model")
+    return n > 1 and all(h % n == 0 for h in n_heads) \
+        and all(y.shape[-1] < full for y, full in projected)
+
+
+def _qkv(p, x, cfg):
+    """q, k, v split into heads: this rank's heads where they divide over
+    "model", every head otherwise."""
+    dh, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q, k, v = (col_apply(p[n], x) for n in ("wq", "wk", "wv"))
+    if not _heads_local((H, KV), (q, H * dh), (k, KV * dh), (v, KV * dh)):
+        q, k, v = model_full(q, H * dh), model_full(k, KV * dh), model_full(v, KV * dh)
+    return (_split_heads(q, q.shape[-1] // dh, dh), _split_heads(k, k.shape[-1] // dh, dh),
+            _split_heads(v, v.shape[-1] // dh, dh))
 
 
 def _sdpa(q, k, v, mask, cap=None, scale=None):
@@ -120,13 +168,11 @@ def causal_mask(Sq: int, Sk: int, window: int | None = None, device=None):
 def gqa_apply(p, x, cfg, *, window=None, positions=None, attn_cap=None,
               causal=True):
     """Full-sequence attention (prefill). Returns (out, KVCache)."""
-    B, S, _ = x.shape
-    dh, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    B, S, d = x.shape
+    dh, H = cfg.head_dim, cfg.n_heads
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    q = _split_heads(dense_apply(p["wq"], x), H, dh)
-    k = _split_heads(dense_apply(p["wk"], x), KV, dh)
-    v = _split_heads(dense_apply(p["wv"], x), KV, dh)
+    q, k, v = _qkv(p, x, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if S >= CHUNKED_ATTN_THRESHOLD and S % Q_CHUNK == 0:
@@ -135,7 +181,7 @@ def gqa_apply(p, x, cfg, *, window=None, positions=None, attn_cap=None,
     else:
         mask = causal_mask(S, S, window, x.device) if causal else None
         out = _sdpa(q, k, v, mask, cap=attn_cap, scale=cfg.attn_scale)
-    out = dense_apply(p["wo"], out.reshape(B, S, H * dh))
+    out = row_apply(p["wo"], out.reshape(B, S, -1), H * dh, d)
     return out, KVCache(k, v, S)
 
 
@@ -146,13 +192,11 @@ def gqa_decode(p, x, cache: KVCache, cfg, *, window=None, attn_cap=None):
     written at position ``length``, in place.  For sliding-window archs the
     cache is allocated at window size and written round-robin.
     """
-    B, _, _ = x.shape
-    dh, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    B, _, d = x.shape
+    dh, H = cfg.head_dim, cfg.n_heads
     Sk = cache.k.shape[1]
     pos = cache.length
-    q = _split_heads(dense_apply(p["wq"], x), H, dh)
-    k = _split_heads(dense_apply(p["wk"], x), KV, dh)
-    v = _split_heads(dense_apply(p["wv"], x), KV, dh)
+    q, k, v = _qkv(p, x, cfg)
     posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = rope(q, posb, cfg.rope_theta)
     k = rope(k, posb, cfg.rope_theta)
@@ -164,7 +208,7 @@ def gqa_decode(p, x, cache: KVCache, cfg, *, window=None, attn_cap=None):
     last = Sk - 1 if pos >= Sk else slot
     mask = (torch.arange(Sk, device=x.device) <= last)[None, None, None, None, :]
     out = _sdpa(q, cache.k, cache.v, mask, cap=attn_cap, scale=cfg.attn_scale)
-    out = dense_apply(p["wo"], out.reshape(B, 1, H * dh))
+    out = row_apply(p["wo"], out.reshape(B, 1, -1), H * dh, d)
     return out, KVCache(cache.k, cache.v, pos + 1)
 
 
@@ -190,6 +234,19 @@ def mla_init(gen, cfg, dtype=torch.bfloat16):
     }
 
 
+def mla_spec(cfg) -> dict:
+    return {
+        "w_dq": dense_spec("col"),
+        "w_uq": dense_spec("col"),
+        "w_qr": dense_spec("col"),
+        "w_dkv": dense_spec("col"),
+        "w_kr": dense_spec("replicated"),
+        "w_uk": dense_spec("col"),
+        "w_uv": dense_spec("col"),
+        "wo": dense_spec("row"),
+    }
+
+
 class MLACache(NamedTuple):
     ckv: torch.Tensor  # ([NR,] B, S, d_kv_comp) — compressed latent (the MLA win)
     krope: torch.Tensor  # ([NR,] B, S, d_rope)
@@ -206,8 +263,8 @@ def _mla_attend(p, q_nope, q_rope, ckv, krope, cfg, mask):
     """
     B, Sq, H, dh = q_nope.shape
     dr = cfg.mla_rope_dim
-    k_nope = p["w_uk"]["w"].reshape(cfg.mla_kv_comp, H, dh)
-    v_up = p["w_uv"]["w"].reshape(cfg.mla_kv_comp, H, dh)
+    k_nope = _mla_up(p["w_uk"]["w"], H, cfg)
+    v_up = _mla_up(p["w_uv"]["w"], H, cfg)
     scale = 1.0 / math.sqrt(dh + dr)
     # q_nope absorbed into latent space: (B,Sq,H,dc)
     q_lat = torch.einsum("bqhd,chd->bqhc", q_nope.float(), k_nope.float())
@@ -221,6 +278,35 @@ def _mla_attend(p, q_nope, q_rope, ckv, krope, cfg, mask):
     out_lat = torch.einsum("bhqs,bsc->bqhc", w, ckv.float())
     out = torch.einsum("bqhc,chd->bqhd", out_lat, v_up.float())
     return out.to(q_nope.dtype)
+
+
+def _mla_up(w, H: int, cfg):
+    """An up-projection (d_c, heads * dh) as (d_c, H, dh) for the ``H``
+    heads this rank computes: d_c whole (FSDP-gathered), and the heads
+    gathered over "model" where this rank holds a block of them but
+    computes every head."""
+    w = fsdp(w, 0, cfg.mla_kv_comp)
+    if w.shape[1] < H * cfg.head_dim:
+        w = model_full(w, cfg.n_heads * cfg.head_dim)
+    return w.reshape(cfg.mla_kv_comp, H, cfg.head_dim)
+
+
+def _mla_q(p, x, cfg):
+    """(q_nope, q_rope) split into this rank's heads (every head where
+    they do not divide over "model"), the latents ckv whole and the rope
+    key, for ``x`` (B, S, d)."""
+    B, S, _ = x.shape
+    H, dh, dr = cfg.n_heads, cfg.head_dim, cfg.mla_rope_dim
+    cq = model_full(col_apply(p["w_dq"], x), cfg.mla_q_comp)
+    q_nope = col_apply(p["w_uq"], cq)
+    q_rope = col_apply(p["w_qr"], cq)
+    uk, uv = p["w_uk"]["w"], p["w_uv"]["w"]
+    if not _heads_local((H,), (q_nope, H * dh), (q_rope, H * dr),
+                        (uk, H * dh), (uv, H * dh)):
+        q_nope, q_rope = model_full(q_nope, H * dh), model_full(q_rope, H * dr)
+    ckv = model_full(col_apply(p["w_dkv"], x), cfg.mla_kv_comp)
+    kr = col_apply(p["w_kr"], x)
+    return (q_nope.reshape(B, S, -1, dh), q_rope.reshape(B, S, -1, dr), ckv, kr)
 
 
 def _mla_chunk(p, qn, qr, ckv, krope, cfg, off: int):
@@ -239,17 +325,13 @@ def mla_apply(p, x, cfg, *, positions=None):
     key; under autograd each chunk is recomputed in the backward pass
     (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
     """
-    B, S, _ = x.shape
-    H, dh, dr = cfg.n_heads, cfg.head_dim, cfg.mla_rope_dim
+    B, S, d = x.shape
+    H, dh = cfg.n_heads, cfg.head_dim
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    cq = dense_apply(p["w_dq"], x)
-    q_nope = dense_apply(p["w_uq"], cq).reshape(B, S, H, dh)
-    q_rope = dense_apply(p["w_qr"], cq).reshape(B, S, H, dr)
+    q_nope, q_rope, ckv, kr = _mla_q(p, x, cfg)  # ckv: (B, S, dc)
     q_rope = rope(q_rope, positions, cfg.rope_theta)
-    ckv = dense_apply(p["w_dkv"], x)  # (B, S, dc)
-    krope = rope(dense_apply(p["w_kr"], x)[:, :, None, :], positions,
-                 cfg.rope_theta)[:, :, 0, :]
+    krope = rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
     if S >= CHUNKED_ATTN_THRESHOLD and S % Q_CHUNK == 0:
         outs = []
         for off in range(0, S, Q_CHUNK):
@@ -264,7 +346,7 @@ def mla_apply(p, x, cfg, *, positions=None):
     else:
         mask = causal_mask(S, S, device=x.device)[:, :, 0]  # logits are (B, H, q, s)
         out = _mla_attend(p, q_nope, q_rope, ckv, krope, cfg, mask)
-    out = dense_apply(p["wo"], out.reshape(B, S, H * dh))
+    out = row_apply(p["wo"], out.reshape(B, S, -1), H * dh, d)
     return out, MLACache(ckv, krope, S)
 
 
@@ -272,24 +354,20 @@ def mla_decode(p, x, cache: MLACache, cfg):
     """One-token decode: x (B, 1, d); the new latent and rope key are
     written at ``min(length, max_len - 1)``, in place (past ``max_len`` the
     last slot is overwritten, as the reference does)."""
-    B, _, _ = x.shape
-    H, dh, dr = cfg.n_heads, cfg.head_dim, cfg.mla_rope_dim
+    B, _, d = x.shape
+    H, dh = cfg.n_heads, cfg.head_dim
     pos = cache.length
     posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    cq = dense_apply(p["w_dq"], x)
-    q_nope = dense_apply(p["w_uq"], cq).reshape(B, 1, H, dh)
-    q_rope = rope(dense_apply(p["w_qr"], cq).reshape(B, 1, H, dr), posb,
-                  cfg.rope_theta)
-    ckv_new = dense_apply(p["w_dkv"], x)
-    kr_new = rope(dense_apply(p["w_kr"], x)[:, :, None, :], posb,
-                  cfg.rope_theta)[:, :, 0, :]
+    q_nope, q_rope, ckv_new, kr = _mla_q(p, x, cfg)
+    q_rope = rope(q_rope, posb, cfg.rope_theta)
+    kr_new = rope(kr[:, :, None, :], posb, cfg.rope_theta)[:, :, 0, :]
     Sk = cache.ckv.shape[1]
     slot = min(pos, Sk - 1)
     cache.ckv[:, slot] = ckv_new[:, 0].to(cache.ckv.dtype)
     cache.krope[:, slot] = kr_new[:, 0].to(cache.krope.dtype)
     mask = (torch.arange(Sk, device=x.device) <= slot)[None, None, None, :]
     out = _mla_attend(p, q_nope, q_rope, cache.ckv, cache.krope, cfg, mask)
-    out = dense_apply(p["wo"], out.reshape(B, 1, H * dh))
+    out = row_apply(p["wo"], out.reshape(B, 1, -1), H * dh, d)
     return out, MLACache(cache.ckv, cache.krope, pos + 1)
 
 

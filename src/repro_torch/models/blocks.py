@@ -23,6 +23,12 @@ enc-dec decoder's and encoder's layers) is
 sparse/layers.py's BlockSparseFFN, whose three projections run on the
 block kernel.  The MoE kinds' experts stay dense, as in the reference.
 
+``block_spec`` is the reference's PartitionSpec tree per kind.  On a
+process mesh (``core.sharding.set_mesh``) the attention kinds, the dense
+and block-sparse FFNs and the MoE FFNs run their sharded programs; the
+recurrent kinds and ``cross_attn`` raise ``NotImplementedError`` there
+(their sharded apply is a later step of ROADMAP.md §1 item 7).
+
 The attention kinds' caches are stepped in place by ``block_decode``; the
 recurrent kinds (``mamba``, ``mlstm``, ``slstm``) return a new state, which
 ``lm.decode_step`` copies into the stacked caches.
@@ -32,13 +38,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..core import sharding as SH
+from ..core.sharding import P
 from . import attention as A
 from . import linear_attn as LA
 from . import moe as M
-from .common import gelu, rmsnorm, rmsnorm_init, swiglu_apply, swiglu_init
+from .common import (gelu, rmsnorm, rmsnorm_init, swiglu_apply, swiglu_init,
+                     swiglu_spec)
 
-__all__ = ["block_init", "block_apply", "block_decode", "init_cache",
-           "check_kind", "KINDS"]
+__all__ = ["block_init", "block_spec", "block_apply", "block_decode",
+           "init_cache", "check_kind", "check_mesh_kind", "KINDS", "MESH_KINDS"]
 
 _GQA_KINDS = ("attn", "attn_local", "attn_global", "moe", "shared_attn")
 _CROSS = "cross_attn"
@@ -50,12 +59,28 @@ _RECURRENT = {
     "slstm": ("slstm", LA.slstm_init, LA.slstm_apply, LA.slstm_decode),
 }
 KINDS = _GQA_KINDS + _MLA_KINDS + tuple(_RECURRENT) + (_CROSS,)
+# the kinds with a sharded program on a process mesh
+MESH_KINDS = _GQA_KINDS + _MLA_KINDS
 
 
 def check_kind(kind: str) -> None:
-    """Raise ``ValueError`` for a block kind the reference does not have."""
+    """Raise ``ValueError`` for a block kind the reference does not have,
+    and ``NotImplementedError`` for one without a sharded program while a
+    mesh is set."""
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
+    if SH.get_abstract_mesh() is not None:
+        check_mesh_kind(kind)
+
+
+def check_mesh_kind(kind: str) -> None:
+    """Raise ``NotImplementedError`` for a kind whose sharded apply is not
+    ported (the recurrent kinds, ``cross_attn``)."""
+    if kind not in MESH_KINDS:
+        raise NotImplementedError(
+            f"block kind {kind!r} has no sharded program on a process mesh "
+            "yet: the recurrent kinds' and the encoder-decoder's sharded "
+            "apply are a later step of ROADMAP.md §1 item 7")
 
 
 def _window(cfg, kind):
@@ -72,13 +97,21 @@ def _mlp_init(gen, cfg, dtype):
     return swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype)
 
 
+def _mlp_spec(cfg):
+    if cfg.ffn_density < 1.0:
+        from ..sparse.layers import block_sparse_ffn_spec
+
+        return block_sparse_ffn_spec(cfg)
+    return swiglu_spec()
+
+
 def _mlp_apply(p, x, cfg):
     if cfg.ffn_density < 1.0:
         from ..sparse.layers import block_sparse_ffn_apply
 
         return block_sparse_ffn_apply(p, x, cfg)
     act = gelu if cfg.gemma_norm else F.silu
-    return swiglu_apply(p, x, act=act)
+    return swiglu_apply(p, x, act=act, d_ff=cfg.d_ff)
 
 
 def block_init(gen, cfg, kind, dtype=torch.bfloat16):
@@ -107,6 +140,32 @@ def block_init(gen, cfg, kind, dtype=torch.bfloat16):
         p["ln1b"] = rmsnorm_init(cfg.d_model, dtype, dev)
         p["ln2b"] = rmsnorm_init(cfg.d_model, dtype, dev)
     return p
+
+
+def block_spec(cfg, kind):
+    ln = {"scale": P(None)}
+    if kind in ("attn", "attn_local", "attn_global", "shared_attn"):
+        sp = {"ln1": ln, "attn": A.gqa_spec(cfg), "ln2": ln, "mlp": _mlp_spec(cfg)}
+        if cfg.gemma_norm:
+            sp["ln1b"] = ln
+            sp["ln2b"] = ln
+        return sp
+    if kind == "cross_attn":
+        return {"ln1": ln, "attn": A.gqa_spec(cfg), "ln_x": ln,
+                "xattn": A.gqa_spec(cfg), "ln2": ln, "mlp": _mlp_spec(cfg)}
+    if kind == "moe":
+        return {"ln1": ln, "attn": A.gqa_spec(cfg), "ln2": ln, "moe": M.moe_spec(cfg)}
+    if kind == "mla_dense":
+        return {"ln1": ln, "mla": A.mla_spec(cfg), "ln2": ln, "mlp": _mlp_spec(cfg)}
+    if kind == "mla_moe":
+        return {"ln1": ln, "mla": A.mla_spec(cfg), "ln2": ln, "moe": M.moe_spec(cfg)}
+    if kind == "mamba":
+        return {"ln1": ln, "mamba": LA.mamba2_spec(cfg)}
+    if kind == "mlstm":
+        return {"ln1": ln, "mlstm": LA.mlstm_spec(cfg)}
+    if kind == "slstm":
+        return {"ln1": ln, "slstm": LA.slstm_spec(cfg)}
+    raise ValueError(kind)
 
 
 def _ffn(p, h, cfg, kind):

@@ -6,8 +6,19 @@ tree's keys) from an explicit ``torch.Generator`` on the device the
 params are to live on, and ``*_apply`` consumes it.  Each function does
 the reference's arithmetic in the reference's order and dtypes.
 
-The port has no mesh: the reference's ``shard`` / ``batch_shard`` and its
-``*_spec`` functions wait for multi-card meshes (ROADMAP.md §1 item 7).
+Sharding, on a process mesh (``core/mesh.py: ProcessMesh``) installed with
+``core.sharding.set_mesh``: the ``*_spec`` functions are the reference's
+PartitionSpec trees (``core.sharding.P``), entry for entry, and every rank
+holds its block of each param as they place it.  Where the reference's
+``shard`` lets GSPMD insert a collective, the sharded program here calls
+it: a column-parallel weight (out dim on "model") is a local product
+(:func:`col_apply`); a row-parallel one (in dim on "model") a local
+product and a ``psum("model")`` (:func:`row_apply`); a weight dim stored
+over "data" (FSDP) is all-gathered over "data" before use (:func:`fsdp`).
+Without a mesh every function is the one-device program it was, with no
+collective.  Activations between blocks are (batch block, S, d) on every
+rank: a block of the batch over the batch axes where they divide it, and
+every feature.
 """
 from __future__ import annotations
 
@@ -17,7 +28,21 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from ..core import sharding as SH
+from ..core.sharding import P
+
 __all__ = [
+    "batch_axes",
+    "shard",
+    "batch_shard",
+    "dense_spec",
+    "embed_spec",
+    "swiglu_spec",
+    "fsdp",
+    "model_block",
+    "model_full",
+    "col_apply",
+    "row_apply",
     "map_params",
     "normal",
     "dense_init",
@@ -34,6 +59,128 @@ __all__ = [
     "swiglu_apply",
     "cross_entropy",
 ]
+
+
+# Merged batch axes: filtered to the ambient mesh's axes at call time.
+_BATCH_AXES = ("pod", "data")
+
+
+def batch_axes(mesh=None) -> tuple:
+    """The mesh axes the batch dimension shards over."""
+    mesh = SH.get_abstract_mesh() if mesh is None else mesh
+    names = mesh.axis_names if mesh is not None else ()
+    return tuple(a for a in _BATCH_AXES if a in names)
+
+
+def shard_spec(shape, *spec) -> P:
+    """The reference's ``shard`` rules on the ambient mesh: entries naming
+    axes the mesh lacks are dropped, and so are entries whose extent does
+    not divide the dimension."""
+    mesh = SH.get_abstract_mesh()
+    names = mesh.axis_names if mesh is not None else ()
+
+    def _filter(entry, dim):
+        axes = tuple(a for a in SH.entry_axes(entry) if a in names)
+        if not axes:
+            return None
+        extent = SH.axis_size(axes, mesh)
+        if extent == 0 or dim % extent:
+            return None
+        return axes if isinstance(entry, (tuple, list)) else axes[0]
+
+    return P(*(_filter(e, d) for e, d in zip(spec, shape)))
+
+
+def shard(x: torch.Tensor, *spec, src=()) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec`` (cleaned as
+    :func:`shard_spec` does) from its block under ``src`` (default:
+    replicated); ``x`` itself without a mesh."""
+    if SH.get_abstract_mesh() is None:
+        return x
+    return SH.reshard(x, src, shard_spec(x.shape, *spec))
+
+
+def batch_shard(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a global-batch tensor (the leading dim over
+    pod+data where they divide it)."""
+    return SH.batch_shard(x)
+
+
+def dense_spec(kind: str = "col") -> dict:
+    """Megatron-style TP specs: col-parallel (out dim on model), row-parallel
+    (in dim on model); the other dim carries FSDP over data."""
+    if kind == "col":
+        return {"w": P("data", "model")}
+    if kind == "row":
+        return {"w": P("model", "data")}
+    if kind == "replicated":
+        return {"w": P(None, None)}
+    raise ValueError(kind)
+
+
+def embed_spec() -> dict:
+    # vocab-parallel only (the reference's: a masked local gather and a
+    # psum over model)
+    return {"emb": P("model", None)}
+
+
+def swiglu_spec() -> dict:
+    return {
+        "w_gate": dense_spec("col"),
+        "w_up": dense_spec("col"),
+        "w_down": dense_spec("row"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# the sharded program's pieces (identities without a mesh)
+# ---------------------------------------------------------------------------
+
+
+def fsdp(w: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+    """``w`` with its ``dim`` whole: all-gathered over the batch axes where
+    this rank stores a block of it (FSDP)."""
+    if w.shape[dim] == full:
+        return w
+    return SH.gather_dim(w, batch_axes(), dim)
+
+
+def model_block(x: torch.Tensor, full: int) -> torch.Tensor:
+    """This rank's "model" block of x's last dim (of ``full``), from x
+    whole or already a block."""
+    if SH.get_abstract_mesh() is None or x.shape[-1] < full:
+        return x
+    return SH.slice_dim(x, "model", x.ndim - 1)
+
+
+def model_full(x: torch.Tensor, full: int) -> torch.Tensor:
+    """x's last dim whole: all-gathered over "model" where x holds this
+    rank's block of it."""
+    if x.shape[-1] == full:
+        return x
+    return SH.gather_dim(x, "model", x.ndim - 1)
+
+
+def col_apply(p, x):
+    """A column-parallel dense on x with every feature: the weight's in
+    dim whole (FSDP-gathered), its out dim this rank's block where it is
+    split over "model" (so is the output's last dim, bias included)."""
+    w = fsdp(p["w"], 0, x.shape[-1])
+    y = torch.matmul(*promoted(x, w))
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def row_apply(p, x, d_in: int, d_out: int):
+    """A row-parallel dense: the weight's out dim whole (FSDP-gathered);
+    where its in dim is split over "model", the product of x's block of
+    ``d_in`` with it, summed over "model" (psum); else x whole times it."""
+    w = fsdp(p["w"], 1, d_out)
+    if w.shape[0] < d_in:
+        y = torch.matmul(*promoted(model_block(x, d_in), w))
+        return SH.collectives().psum(y, "model")
+    return torch.matmul(*promoted(model_full(x, d_in), w))
 
 
 def map_params(fn: Callable, *trees):
@@ -142,9 +289,14 @@ def swiglu_init(gen, d: int, d_ff: int, dtype=torch.bfloat16):
     }
 
 
-def swiglu_apply(p, x, act=F.silu):
-    h = act(dense_apply(p["w_gate"], x)) * dense_apply(p["w_up"], x)
-    return dense_apply(p["w_down"], h)
+def swiglu_apply(p, x, act=F.silu, d_ff=None):
+    """SwiGLU.  On a mesh ``d_ff`` (the hidden width) is required: the
+    hidden activations are this rank's "model" block of it where the
+    weights split it, and the down-projection's partial sums meet in a
+    psum("model")."""
+    h = act(col_apply(p["w_gate"], x)) * col_apply(p["w_up"], x)
+    return row_apply(p["w_down"], h, h.shape[-1] if d_ff is None else d_ff,
+                     x.shape[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,10 @@ computes any of this.
 The reference's simplifications are kept for parity (ROADMAP.md §3): the
 Mamba2 block has no causal convolution and its B / C projections are per
 head; mLSTM's normalizer is max(|q . n|, 1), not a stabilized maximum.
-The ``*_spec`` functions wait for multi-card meshes (ROADMAP.md §1 item 7).
+The ``*_spec`` functions are the reference's PartitionSpec trees, data
+only: ``lm.param_specs`` needs them for every arch.  The recurrent kinds'
+sharded apply is a later step of ROADMAP.md §1 item 7 (``blocks.
+check_mesh_kind`` raises for them on a mesh).
 """
 from __future__ import annotations
 
@@ -30,12 +33,16 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import dense_apply, dense_init, rmsnorm, rmsnorm_init
+from ..core.sharding import P
+from .common import dense_apply, dense_init, dense_spec, rmsnorm, rmsnorm_init
 
 __all__ = [
     "gla_chunked",
     "gla_step",
     "mamba2_init",
+    "mamba2_spec",
+    "mlstm_spec",
+    "slstm_spec",
     "mamba2_apply",
     "mamba2_decode",
     "mlstm_init",
@@ -169,6 +176,18 @@ def mamba2_init(gen, cfg, dtype=torch.bfloat16):
     }
 
 
+def mamba2_spec(cfg) -> dict:
+    return {
+        "in_proj": dense_spec("col"),
+        "bc_proj": dense_spec("col"),
+        "dt_proj": dense_spec("col"),
+        "a_log": P(None),
+        "d_skip": P(None),
+        "out_proj": dense_spec("row"),
+        "norm": {"scale": P(None)},
+    }
+
+
 def _mamba2_qkv(p, x, cfg):
     B, S, _ = x.shape
     H, N = cfg.ssm_heads, cfg.ssm_state
@@ -219,6 +238,18 @@ def mlstm_init(gen, cfg, dtype=torch.bfloat16):
         "w_fg": dense_init(gen, d, H, dtype),  # forget gate (sigmoid)
         "out_proj": dense_init(gen, d, d, dtype),
         "norm": rmsnorm_init(d, dtype, gen.device),
+    }
+
+
+def mlstm_spec(cfg) -> dict:
+    return {
+        "wq": dense_spec("col"),
+        "wk": dense_spec("col"),
+        "wv": dense_spec("col"),
+        "w_ig": dense_spec("col"),
+        "w_fg": dense_spec("col"),
+        "out_proj": dense_spec("row"),
+        "norm": {"scale": P(None)},
     }
 
 
@@ -278,6 +309,15 @@ class SLSTMState(NamedTuple):
     n: torch.Tensor
     h: torch.Tensor
     m: torch.Tensor  # stabilizer
+
+
+def slstm_spec(cfg) -> dict:
+    return {
+        "w_in": dense_spec("col"),
+        "r": P("model", None, None),  # heads over model axis
+        "out_proj": dense_spec("row"),
+        "norm": {"scale": P(None)},
+    }
 
 
 def slstm_zero_state(B, cfg, device=None):

@@ -34,8 +34,21 @@ without ``jax.checkpoint``).
 
 ``abstract_params(cfg)`` builds the ``init_params`` tree on fake tensors
 (``FakeTensorMode``): shapes and dtypes, nothing allocated, for the dry
-run (``launch/dryrun.py``).  Not ported: ``param_specs`` and
-``cache_specs``, which wait for multi-card meshes (ROADMAP.md §1 item 7).
+run (``launch/dryrun.py``).  ``param_specs`` and ``cache_specs`` are the
+reference's PartitionSpec trees (``core.sharding.P``), entry for entry.
+
+On a process mesh (``core.sharding.set_mesh``; ``launch.serve.Server(...,
+mesh=)``) ``prefill`` / ``decode_step`` / ``forward`` take the global
+tokens, identical on every rank, and each rank runs the sharded program on
+its params' blocks (``runtime.elastic.make_shardings`` of
+``param_specs``): the embedding is vocab-parallel (a masked gather of the
+rank's rows, then a psum over "model"), the activations are the rank's
+batch block (over the batch axes where they divide the batch), every
+block runs its sharded program (``models/blocks.py``), and the logits are
+the rank's batch block with the vocab whole (an all-gather over "model").
+Caches are the rank's: its batch block, its heads (KV) or the whole latent
+(MLA; ``attention``'s docstring says why).  Training on a mesh
+(``loss_fn``) is the next step of ROADMAP.md §1 item 7 and raises there.
 
 ``decode_step`` steps the caches it is given in place: the attention
 caches through ``attention.gqa_decode`` / ``mla_decode``, the recurrent
@@ -53,15 +66,21 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig
+from ..core import sharding as SH
+from ..core.sharding import P
 from . import attention as A
-from .blocks import (_mlp_apply, block_apply, block_decode, block_init, check_kind,
-                     init_cache)
-from .common import (cross_entropy, dense_apply, embed_init, map_params, normal,
-                     rmsnorm, rmsnorm_init, softcap)
+from .blocks import (_mlp_apply, block_apply, block_decode, block_init, block_spec,
+                     check_kind, init_cache)
+from .common import (batch_shard, cross_entropy, dense_apply, embed_init, embed_spec,
+                     fsdp, map_params, model_full, normal, rmsnorm, rmsnorm_init,
+                     softcap)
 
 __all__ = [
     "init_params",
     "abstract_params",
+    "param_specs",
+    "cache_specs",
+    "batch_axes_static",
     "fake_mode",
     "check_config",
     "forward",
@@ -145,6 +164,71 @@ def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16, mode=None):
         return init_params(torch.Generator().manual_seed(0), cfg, dtype)
 
 
+def _add_leading(spec_tree):
+    """Prepend a None axis to every PartitionSpec (stacked layer dim)."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda s: P(*((None,) + tuple(s))), spec_tree,
+                    is_leaf=lambda x: isinstance(x, P))
+
+
+def param_specs(cfg: ArchConfig):
+    """The PartitionSpec tree of ``init_params``' tree (the reference's)."""
+    sp: dict[str, Any] = {"embed": embed_spec()}
+    sp["final_norm"] = {"scale": P(None)}
+    if not cfg.tie_embeddings:
+        sp["lm_head"] = {"w": P("data", "model")}
+    for i, kind in enumerate(cfg.prefix_pattern):
+        sp[f"prefix{i}"] = block_spec(cfg, kind)
+    sp["blocks"] = {
+        f"b{j}": _add_leading(block_spec(cfg, kind))
+        for j, kind in enumerate(cfg.block_pattern)
+        if kind != "shared_attn"
+    }
+    if "shared_attn" in cfg.block_pattern:
+        sp["shared"] = block_spec(cfg, "shared_attn")
+    if cfg.encoder_layers:
+        sp["encoder"] = {
+            "blocks": _add_leading(block_spec(cfg, "attn")),
+            "norm": {"scale": P(None)},
+            "in_proj": {"w": P("data", "model")},
+        }
+    if cfg.mtp_depth:
+        sp["mtp"] = {
+            "proj": {"w": P("data", "model")},
+            "norm": {"scale": P(None)},
+            "block": block_spec(cfg, _mtp_kind(cfg)),
+        }
+    return sp
+
+
+def batch_axes_static():
+    return ("pod", "data")
+
+
+def cache_specs(cfg: ArchConfig):
+    """PartitionSpecs for caches, as the reference gives them: a function
+    ``spec_for(kind, stacked)`` returning ``kv(a_ndim)``, the spec of a
+    cache leaf of that rank (batch over the data axes, heads over model)."""
+
+    def spec_for(kind, stacked: bool):
+        lead = (None,) if stacked else ()
+
+        def kv(a_ndim):
+            # (B, S, H, dh) or recurrent (B, H, dk, dv) / (B, H, dk)
+            if a_ndim == 4:
+                return P(*lead, batch_axes_static(), None, "model", None)
+            if a_ndim == 3:
+                return P(*lead, batch_axes_static(), None, "model")
+            if a_ndim == 2:
+                return P(*lead, batch_axes_static(), None)
+            return P(*lead)
+
+        return kv
+
+    return spec_for
+
+
 def _mtp_kind(cfg) -> str:
     return cfg.prefix_pattern[0] if cfg.prefix_pattern else cfg.block_pattern[0]
 
@@ -163,23 +247,76 @@ def _block_params(params, j: int, kind: str, r: int):
 
 
 def _embed(params, tokens, cfg):
-    h = params["embed"]["emb"][tokens.long()]
+    """Token embeddings; on a mesh, of this rank's batch block, gathered
+    from this rank's vocab rows (masked) and summed over "model"."""
+    emb = params["embed"]["emb"]
+    tokens = batch_shard(tokens)
+    if emb.shape[0] < cfg.vocab:  # vocab-parallel: a masked local gather
+        t = tokens.long() - SH.axis_index("model") * emb.shape[0]
+        inside = (t >= 0) & (t < emb.shape[0])
+        h = emb[torch.clamp(t, 0, emb.shape[0] - 1)]
+        h = torch.where(inside[..., None], h, torch.zeros((), dtype=h.dtype,
+                                                          device=h.device))
+        h = SH.collectives().psum(h, "model")
+    else:
+        h = emb[tokens.long()]
     if cfg.gemma_norm:
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
     return h
 
 
+def head_stationary(rows: int, batch: int, S: int, d: int, d_l: int, v_l: int) -> bool:
+    """Whether an untied head whose d is split over "data" keeps its weight
+    in place: all-gather the activations over "data" (``batch`` rows of
+    ``S`` x d), multiply by the rank's (d_l, v_l) block, psum-scatter the
+    partial logits back to the rank's ``rows``; rather than all-gather the
+    weight (d x v_l, FSDP).  The one that moves fewer elements; a decode
+    step's head (deepseek's 7,168 x 64,640 block) is weight-bound."""
+    return d * v_l > batch * S * d + rows * S * v_l and d_l < d
+
+
 def _logits(params, h, cfg):
-    w = (params["embed"]["emb"].T if cfg.tie_embeddings
-         else params["lm_head"]["w"])
-    return softcap(torch.matmul(h, w), cfg.logit_softcap)
+    """Logits over the whole vocab; on a mesh, this rank's vocab block of
+    them all-gathered over "model"."""
+    if cfg.tie_embeddings:
+        logits = torch.matmul(h, params["embed"]["emb"].T)
+    else:
+        w = params["lm_head"]["w"]
+        batch = h.shape[0] * (SH.axis_size("data") if SH.get_abstract_mesh()
+                              is not None and SH.batch_split() else 1)
+        if head_stationary(h.shape[0], batch, h.shape[1], cfg.d_model, w.shape[0],
+                           w.shape[1]):
+            split = batch > h.shape[0]
+            hs = SH.gather_dim(h, "data", 0) if split else h
+            part = torch.matmul(SH.slice_dim(hs, "data", hs.ndim - 1), w)
+            coll = SH.collectives()
+            logits = coll.psum_scatter(part, "data") if split \
+                else coll.psum(part, "data")
+        else:
+            logits = torch.matmul(h, fsdp(w, 0, cfg.d_model))
+    return model_full(softcap(logits, cfg.logit_softcap), cfg.vocab)
 
 
 def _with_prefix(params, tokens, cfg, prefix_embeds):
     h = _embed(params, tokens, cfg)
     if prefix_embeds is not None:
-        h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
+        h = torch.cat([batch_shard(prefix_embeds).to(h.dtype), h], dim=1)
     return h
+
+
+def _scoped(fn):
+    """Run a model entry point inside ``core.sharding.batch_scope`` of its
+    tokens' global batch where a mesh is set (the blocks read it)."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapped(params, tokens, *args, **kwargs):
+        if SH.get_abstract_mesh() is None:
+            return fn(params, tokens, *args, **kwargs)
+        with SH.batch_scope(tokens.shape[0]):
+            return fn(params, tokens, *args, **kwargs)
+
+    return wrapped
 
 
 def _unstacked(stack, n: int) -> list:
@@ -224,6 +361,7 @@ def _repeat(h, layer, cfg, memory=None):
     return h
 
 
+@_scoped
 def forward(params, tokens, cfg: ArchConfig, *, prefix_embeds=None, memory=None):
     """tokens: (B, S_text) int; prefix_embeds: (B, S_mod, d) modality stub;
     memory: (B, S_enc, d) encoder output (enc-dec archs).
@@ -268,6 +406,10 @@ def loss_fn(params, batch, cfg: ArchConfig):
     cross-entropy over the text positions (the modality prefix dropped), in
     f32; with ``cfg.mtp_depth`` plus 0.3 times the multi-token prediction
     loss.  Enc-dec archs encode ``frames`` first."""
+    if SH.get_abstract_mesh() is not None:
+        raise NotImplementedError(
+            "training on a process mesh is the next step of ROADMAP.md §1 "
+            "item 7 (7b's training half)")
     memory = None
     if cfg.encoder_layers:
         memory = encode(params, batch["frames"], cfg)
@@ -372,6 +514,7 @@ def _stack_caches(caches: list):
     return _map_cache(lambda *ts: torch.stack(ts), *caches)
 
 
+@_scoped
 def prefill(params, tokens, cfg: ArchConfig, max_len: int, *, prefix_embeds=None,
             memory=None):
     """Run the full prompt, materializing decode caches at max_len capacity.
@@ -398,6 +541,7 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int, *, prefix_embeds=None
     return logits[:, 0], Caches(prefix=tuple(prefix_caches), blocks=blocks)
 
 
+@_scoped
 def decode_step(params, token, caches: Caches, cfg: ArchConfig, *, memory=None):
     """token: (B, 1) int -> (logits (B, vocab), caches stepped in place).
 

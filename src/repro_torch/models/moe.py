@@ -20,10 +20,30 @@ arXiv:2401.04088) and DeepSeek-V3 (sigmoid affinities plus a per-expert
 bias for the selection, gates normalized over the selected set —
 arXiv:2412.19437).
 
-One device holds one dispatch group: the reference's ``_n_batch_shards``
-is 1 without a mesh, and both of its branches (``n_experts >= 64`` or
-not) then compute the same contraction, ported once here.  ``moe_spec``
-and expert parallelism wait for multi-card meshes (ROADMAP.md §1 item 7).
+Dispatch groups: the reference groups the tokens by the batch shards of
+the ambient mesh (``_n_batch_shards``: G = the extent of the batch axes,
+1 without a mesh, and 1 where ``T % G`` or ``T // G < 8``), and slots each
+group into its own buffers at ``moe_capacity(T / G)``: the same tokens
+drop differently on a (2, 2) mesh than on one device, and so they do here.
+Without a mesh there is one group and both of the reference's branches
+compute the same contraction, ported once.  On a process mesh
+(``core.sharding.set_mesh``) each rank slots one group (its batch block
+when G is the batch axes' extent, every token when G = 1) and runs the
+reference's branch for the arch, with ``moe_spec``'s placement:
+
+* ``n_experts >= 64`` (deepseek): experts over the batch axes (expert
+  parallelism), d over "model".  The group's tokens are sliced to this
+  rank's d block before dispatch; an all-to-all over "data" takes the
+  G-sharded slot buffers to E-sharded ones (with G = 1 every rank holds
+  all the slots and keeps its experts'); the up-projections' f-space
+  partial sums meet in a psum("model"); the down-projection lands d-sharded;
+  an all-to-all takes the buffers back to G-sharded (an all-gather of the
+  experts with G = 1); the combine runs on the d block and an all-gather
+  over "model" makes d whole.
+* otherwise (mixtral): tokens never move.  Each rank runs every expert on
+  its group's slots; the experts' d storage dims are all-gathered over
+  "data" and the f-space partials of the down-projection meet in a
+  psum("model").
 
 Two choices keep the port equal to the reference and deterministic:
 
@@ -37,14 +57,19 @@ Two choices keep the port equal to the reference and deterministic:
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, normal, swiglu_apply, swiglu_init
+from ..core import sharding as SH
+from ..core.sharding import P
+from .common import (batch_axes, dense_init, fsdp, normal, swiglu_apply,
+                     swiglu_init, swiglu_spec)
 
-__all__ = ["moe_init", "moe_apply", "Routing"]
+__all__ = ["moe_init", "moe_spec", "moe_apply", "Routing", "EP_AXES",
+           "dispatch_log"]
 
 
 def moe_init(gen, cfg, dtype=torch.bfloat16):
@@ -60,6 +85,34 @@ def moe_init(gen, cfg, dtype=torch.bfloat16):
     if cfg.n_shared_experts:
         p["shared"] = swiglu_init(gen, d, cfg.moe_d_ff * cfg.n_shared_experts, dtype)
     return p
+
+
+EP_AXES = ("pod", "data")  # expert-parallel axes == the batch-shard axes
+
+
+def moe_spec(cfg) -> dict:
+    if cfg.n_experts >= 64:
+        # many small experts (deepseek): EP over the batch axes; d over
+        # model on the up-projections' input and the down-projection's output
+        expert_specs = {
+            "w_gate": P(EP_AXES, "model", None),
+            "w_up": P(EP_AXES, "model", None),
+            "w_down": P(EP_AXES, None, "model"),
+        }
+    else:
+        # few large experts (mixtral): experts replicated in compute; d over
+        # the batch axes for storage, f over model
+        expert_specs = {
+            "w_gate": P(None, EP_AXES, "model"),
+            "w_up": P(None, EP_AXES, "model"),
+            "w_down": P(None, "model", EP_AXES),
+        }
+    sp = {"router": {"w": P(None, None)}, **expert_specs}
+    if cfg.moe_router == "deepseek":
+        sp["router_bias"] = P(None)
+    if cfg.n_shared_experts:
+        sp["shared"] = swiglu_spec()
+    return sp
 
 
 class Routing(NamedTuple):
@@ -96,6 +149,45 @@ def _route_deepseek(p, x, k):
     g = torch.gather(aff, -1, idx)
     w = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
     return Routing(idx.to(torch.int32), w)
+
+
+def _group_axes(cfg) -> tuple:
+    """Dispatch-group mesh axes == the batch-shard axes."""
+    return EP_AXES
+
+
+def _n_batch_shards(axes) -> int:
+    """Shard-group count over ``axes`` from the ambient mesh (1 without)."""
+    return SH.axis_size(axes)
+
+
+_LOG = []  # the open dispatch logs (dispatch_log), innermost last
+
+
+@contextlib.contextmanager
+def dispatch_log():
+    """Record every group this process slots while the context is open: a
+    list of dicts ``{"group", "groups", "capacity", "assigned", "kept",
+    "dropped"}``, one per group and MoE layer call, in call order.
+    Reading the counts waits for the device: for checks, not for timing."""
+    log: list = []
+    _LOG.append(log)
+    try:
+        yield log
+    finally:
+        _LOG.remove(log)
+
+
+def _record(meta, group: int, groups: int, cap: int) -> None:
+    if not _LOG:
+        return
+    keep = meta[3]
+    kept = int(keep.sum())
+    rec = {"group": group, "groups": groups, "capacity": cap,
+           "assigned": int(keep.shape[0]), "kept": kept,
+           "dropped": int(keep.shape[0]) - kept}
+    for log in _LOG:
+        log.append(rec)
 
 
 def _local_dispatch(xg, eid, gate, E: int, cap: int):
@@ -153,20 +245,104 @@ def _local_combine(ybuf, meta, T: int):
     return y
 
 
-def moe_apply(p, x, cfg):
-    """x: (B, S, d) -> (B, S, d)."""
-    B, S, d = x.shape
-    T, k, E = B * S, cfg.moe_top_k, cfg.n_experts
-    cap = cfg.moe_capacity(T)
-    xg = x.reshape(T, d)
+def _route(p, xg, cfg):
+    """(eid, gate) of tokens xg (T, d), (T * k,) each in assignment order."""
+    k = cfg.moe_top_k
     route = (_route_deepseek(p, xg, k) if cfg.moe_router == "deepseek"
              else _route_mixtral(p, xg, k))
-    eid = route.expert.reshape(T * k)
-    gate = route.weight.reshape(T * k)
+    return route.expert.reshape(-1), route.weight.reshape(-1)
+
+
+def moe_apply(p, x, cfg):
+    """x: (B, S, d) -> (B, S, d); on a process mesh, this rank's batch
+    block of it (see the module docstring)."""
+    if SH.get_abstract_mesh() is not None:
+        return _moe_apply_sharded(p, x, cfg)
+    B, S, d = x.shape
+    T, E = B * S, cfg.n_experts
+    cap = cfg.moe_capacity(T)
+    xg = x.reshape(T, d)
+    eid, gate = _route(p, xg, cfg)
     xbuf, meta = _local_dispatch(xg, eid, gate, E, cap)  # (E, cap, d)
+    _record(meta, 0, 1, cap)
     h = F.silu(torch.bmm(xbuf, p["w_gate"])) * torch.bmm(xbuf, p["w_up"])
     ybuf = torch.bmm(h, p["w_down"]).to(x.dtype)
     y = _local_combine(ybuf, meta, T)
     if cfg.n_shared_experts:
         y = y + swiglu_apply(p["shared"], xg)
     return y.reshape(B, S, d).to(x.dtype)
+
+
+def _moe_apply_sharded(p, x, cfg):
+    """moe_apply on a process mesh: this rank's batch block x (B_loc, S, d)
+    -> its block of the output."""
+    B_loc, S, d = x.shape
+    E = cfg.n_experts
+    bax = batch_axes()
+    split = SH.batch_split()
+    B = SH.global_batch()
+    T = B * S
+    G = _n_batch_shards(_group_axes(cfg))
+    if T % G or T // G < 8:  # tiny runs: a single group
+        G = 1
+    T_loc = T // G
+    cap = cfg.moe_capacity(T_loc)
+    g = SH.axis_index(bax) if G > 1 else 0
+    # the tokens of this rank's group (T_loc, d)
+    if G > 1:
+        xg = x.reshape(T_loc, d) if split else x.reshape(G, T_loc, d)[g]
+    else:
+        xg = (SH.batch_unshard(x) if split else x).reshape(T, d)
+    eid, gate = _route(p, xg, cfg)
+    if E >= 64:
+        y = _experts_ep(p, xg, eid, gate, cfg, G, g, cap, d, x.dtype)
+    else:
+        y = _experts_local(p, xg, eid, gate, cfg, G, g, cap, d, x.dtype)
+    if cfg.n_shared_experts:
+        y = y + swiglu_apply(p["shared"], xg,
+                             d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
+    # back to this rank's batch block
+    if G > 1 and not split:
+        y = SH.gather_dim(y, bax, 0)  # every group: the whole batch
+    elif G == 1 and split:
+        y = SH.slice_dim(y.reshape(B, S, d), bax, 0)
+    return y.reshape(B_loc, S, d).to(x.dtype)
+
+
+def _experts_ep(p, xg, eid, gate, cfg, G, g, cap, d, dtype):
+    """deepseek's branch: experts over the batch axes, d over "model"."""
+    E, bax = cfg.n_experts, batch_axes()
+    E_l, d_l = p["w_gate"].shape[0], p["w_gate"].shape[1]
+    x_dispatch = SH.slice_dim(xg, "model", 1) if d_l < d else xg
+    xbuf, meta = _local_dispatch(x_dispatch, eid, gate, E, cap)  # (E, cap, d_l)
+    _record(meta, g, G, cap)
+    buf = xbuf[None]  # (1, E, cap, d_l): this rank's group
+    g_spec = bax if G > 1 else None  # the group dim: sharded or one group
+    if E_l < E:  # G-sharded -> E-sharded: an all-to-all (a slice with G = 1)
+        buf = SH.reshard(buf, P(g_spec), P(None, bax))
+    Gx = buf.shape[0]
+    xe = buf.transpose(0, 1).reshape(E_l, Gx * cap, d_l)
+    h = torch.bmm(xe, p["w_gate"])
+    u = torch.bmm(xe, p["w_up"])
+    if d_l < d:  # f-space partials over the d blocks
+        h, u = (SH.collectives().psum(t, "model") for t in (h, u))
+    h = F.silu(h) * u
+    ybuf = torch.bmm(h, p["w_down"]).to(dtype)  # (E_l, Gx * cap, d_l)
+    ybuf = ybuf.reshape(E_l, Gx, cap, -1).transpose(0, 1)
+    if E_l < E:  # E-sharded -> G-sharded (an all-gather of E with G = 1)
+        ybuf = SH.reshard(ybuf.contiguous(), P(None, bax), P(g_spec))
+    y = _local_combine(ybuf[0], meta, xg.shape[0])  # (T_loc, d_l)
+    return SH.gather_dim(y, "model", 1) if d_l < d else y
+
+
+def _experts_local(p, xg, eid, gate, cfg, G, g, cap, d, dtype):
+    """mixtral's branch: every expert on this rank's group; d gathered over
+    the batch axes, the down-projection's f partials summed over "model"."""
+    xbuf, meta = _local_dispatch(xg, eid, gate, cfg.n_experts, cap)  # (E, cap, d)
+    _record(meta, g, G, cap)
+    w_gate, w_up = fsdp(p["w_gate"], 1, d), fsdp(p["w_up"], 1, d)
+    h = F.silu(torch.bmm(xbuf, w_gate)) * torch.bmm(xbuf, w_up)
+    ybuf = torch.bmm(h, fsdp(p["w_down"], 2, d)).to(dtype)
+    if p["w_down"].shape[1] < cfg.moe_d_ff:
+        ybuf = SH.collectives().psum(ybuf, "model")
+    return _local_combine(ybuf, meta, xg.shape[0])

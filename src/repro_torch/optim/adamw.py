@@ -23,7 +23,7 @@ import torch
 
 from ..tree import flatten, leaves, tree_map
 
-__all__ = ["AdamWConfig", "OptState", "init_opt", "apply_updates",
+__all__ = ["AdamWConfig", "OptState", "init_opt", "opt_specs", "apply_updates",
            "warmup_cosine", "global_norm_clip"]
 
 F32 = torch.float32
@@ -65,6 +65,20 @@ def init_opt(params, cfg: AdamWConfig) -> OptState:
     v = tree_map(_q_zeros if cfg.quantized_v else _zeros, params)
     device = leaves(params)[0].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device), m=m, v=v)
+
+
+def opt_specs(param_specs, cfg: AdamWConfig):
+    """Optimizer-state PartitionSpecs mirror the parameter specs (an int8
+    moment's ``{"q", "scale"}`` pair: the param's spec and a scalar's)."""
+    from ..core.sharding import P
+
+    def q(tree):
+        return tree_map(lambda s: {"q": s, "scale": P()}, tree,
+                        is_leaf=lambda x: isinstance(x, P))
+
+    m = q(param_specs) if cfg.quantized_m else param_specs
+    v = q(param_specs) if cfg.quantized_v else param_specs
+    return OptState(step=P(), m=m, v=v)
 
 
 def _f32(value, device) -> torch.Tensor:

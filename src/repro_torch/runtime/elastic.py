@@ -1,15 +1,27 @@
-"""Elastic rescaling: continue a run on a different device count.
+"""Elastic rescaling and the shardings of spec trees.
 
-Counterpart of ``repro/runtime/elastic.py``'s mesh arithmetic.  Checkpoints
-store full (unsharded) leaves, so a restore may target another mesh shape;
-picking that shape is :func:`rescale_mesh_shape`.  ``make_shardings`` and
-``sanitize_shardings`` wait for multi-card meshes (ROADMAP.md §1 item 7).
+Counterpart of ``repro/runtime/elastic.py``.  Checkpoints store full
+(unsharded) leaves, so a restore may target another mesh shape; picking
+that shape is :func:`rescale_mesh_shape`.  :func:`make_shardings` and
+:func:`sanitize_shardings` turn a PartitionSpec tree into the
+:class:`~repro_torch.core.sharding.NamedSharding` tree of a mesh, as the
+reference's do; :func:`shard_tree` takes this rank's block of every full
+leaf (``convert.lm_params`` output, a checkpoint's leaves, a seeded init)
+and :func:`unshard_tree` gathers the full leaves back from the ranks'
+blocks.  Restoring a training run onto a smaller mesh is the next step of
+ROADMAP.md §1 item 7.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["rescale_mesh_shape", "RescalePlan"]
+import torch
+
+from ..core.sharding import NamedSharding, P, entry_axes
+from ..tree import tree_map
+
+__all__ = ["rescale_mesh_shape", "make_shardings", "sanitize_shardings",
+           "shard_tree", "unshard_tree", "empty_blocks", "RescalePlan"]
 
 
 @dataclass(frozen=True)
@@ -31,3 +43,85 @@ def rescale_mesh_shape(n_devices: int, axis_names=("data", "model"),
     if len(axis_names) == 3:  # (pod, data, model): collapse pods on rescale
         return (1, data, model_parallel)
     return (data, model_parallel)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, P)
+
+
+def make_shardings(mesh, spec_tree):
+    """PartitionSpec tree -> NamedSharding tree on ``mesh``, dropping the
+    axis names the mesh does not have (e.g. "pod" on a single-pod mesh)."""
+
+    def conv(s):
+        cleaned = []
+        for entry in tuple(s):
+            if isinstance(entry, (tuple, list)):
+                kept = tuple(a for a in entry if a in mesh.axis_names)
+                cleaned.append(kept if kept else None)
+            else:
+                cleaned.append(entry if entry in mesh.axis_names else None)
+        return NamedSharding(mesh, P(*cleaned))
+
+    return tree_map(conv, spec_tree, is_leaf=_is_spec)
+
+
+def sanitize_shardings(sh_tree, aval_tree):
+    """Drop spec entries whose mesh extent does not divide the dimension
+    (replicated on that dim instead), as the reference's: e.g. xlstm's
+    4-head gate projections on a 16-way model axis, or a batch of 1 over
+    data.  ``aval_tree`` holds anything with a ``.shape`` (tensors, fake
+    tensors), leaf for leaf."""
+
+    def fix(sh, aval):
+        if sh is None or not hasattr(sh, "spec"):
+            return sh
+        sizes = dict(zip(sh.mesh.axis_names, sh.mesh.devices.shape))
+        shape = tuple(aval.shape)
+        out = []
+        for i, entry in enumerate(tuple(sh.spec)):
+            if entry is None or i >= len(shape):
+                out.append(None if i >= len(shape) else entry)
+                continue
+            extent = 1
+            for a in entry_axes(entry):
+                extent *= sizes.get(a, 1)
+            out.append(entry if extent and shape[i] % extent == 0 else None)
+        return NamedSharding(sh.mesh, P(*out[: len(shape)]))
+
+    return tree_map(fix, sh_tree, aval_tree,
+                    is_leaf=lambda x: isinstance(x, NamedSharding) or x is None)
+
+
+def shard_tree(tree, sh_tree, device=None, out=None):
+    """This rank's block of every full leaf of ``tree`` (a contiguous copy,
+    on ``device`` if given, or written into the tensors of ``out``): the
+    leaves the sharded program holds."""
+    if out is not None:
+        tree_map(lambda dst, t, sh: dst.copy_(sh.local(t)), out, tree, sh_tree,
+                 is_leaf=lambda x: isinstance(x, NamedSharding))
+        return out
+
+    def one(t, sh):
+        block = sh.local(t)
+        if device is not None:
+            block = block.to(device)
+        return block.clone(memory_format=torch.contiguous_format)
+
+    return tree_map(one, tree, sh_tree,
+                    is_leaf=lambda x: isinstance(x, NamedSharding))
+
+
+def empty_blocks(like, sh_tree, device):
+    """Uninitialized tensors of this rank's block shapes of ``like``'s
+    leaves (anything with ``.shape`` and ``.dtype``) on ``device``."""
+    return tree_map(lambda t, sh: torch.empty(sh.shard_shape(t.shape), dtype=t.dtype,
+                                              device=device),
+                    like, sh_tree, is_leaf=lambda x: isinstance(x, NamedSharding))
+
+
+def unshard_tree(tree, sh_tree):
+    """The full leaves from every rank's blocks (collective: every rank of
+    the mesh calls it with its own blocks)."""
+    return tree_map(lambda t, sh: sh.gather(t), tree, sh_tree,
+                    is_leaf=lambda x: isinstance(x, NamedSharding))

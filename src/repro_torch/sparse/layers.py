@@ -23,13 +23,29 @@ gather of the nonzero blocks (the JAX package differentiates
 ``kref.bcoo_spmv_ref``, plain ``jnp``, so no TPU kernel computes either).
 The index arrays get no gradient.
 
+On a process mesh (``core.sharding.set_mesh``) the block stream is
+sharded over "model" as ``sparse_linear_spec`` places it: each rank holds
+a contiguous run of ``nblocks / n`` blocks and runs the block kernel on its
+run alone, with its own row pointer.  The pattern is row-balanced, so
+where a run holds whole block-rows (the block-row count divides over
+"model") the rank computes those rows and an all-gather over "model"
+assembles y, bit for bit the whole stream's rows (in the FFN, the gate's
+and up's rows meet in their product first: one all-gather of the hidden
+activations, then one of the down-projection's output); where a run ends inside a
+block-row, its row pointer spans every block-row, its rows elsewhere stay
+zero, and a psum over "model" (in the accumulation dtype) merges the runs.
+A stream whose block count does not divide is left whole on every rank
+(``sanitize_shardings``), as in the reference.
+
 Port-only keys (:data:`DERIVED`), beside the reference's three: the
 block-row pointer the kernel walks (``browptr``, :func:`with_row_pointer`)
 and Wᵀ's static stream (``t_perm``, ``t_browind``, ``t_bcolind``,
 ``t_browptr``, :func:`with_transpose`), built once when the layer is made
-so that no pass rebuilds them.  :func:`strip_derived` removes them (the
-optimizer state and checkpoints hold the reference's tree) and
-:func:`with_derived` rebuilds them.
+so that no pass rebuilds them.  On a mesh each projection also records
+its run (:data:`RUN`, :func:`with_run`: the block-rows it computes, the
+first of them and the merge), which the apply reads.  :func:`strip_derived`
+removes them all (the optimizer state and checkpoints hold the reference's
+tree) and :func:`with_derived` rebuilds them.
 """
 from __future__ import annotations
 
@@ -39,22 +55,36 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import sharding as SH
+from ..core.sharding import P
 from ..kernels.bcsr_spmv import (bcoo_spmv, block_row_ptr, transposed_stream,
                                   transposed_values)
 from ..models.common import normal, promoted
 
 __all__ = [
     "sparse_linear_init",
+    "sparse_linear_spec",
     "sparse_linear_apply",
+    "blocks_per_row",
+    "stream_layout",
+    "with_run",
     "with_row_pointer",
     "with_transpose",
     "strip_derived",
     "with_derived",
     "DERIVED",
+    "RUN",
     "BlockSpMM",
     "block_sparse_ffn_init",
+    "block_sparse_ffn_spec",
     "block_sparse_ffn_apply",
 ]
+
+
+def blocks_per_row(bcols: int, density: float) -> int:
+    """The blocks in each block-row of the balanced pattern over ``bcols``
+    block-columns at ``density``."""
+    return max(1, int(round(bcols * density)))
 
 
 def _balanced_pattern(brows: int, bcols: int, density: float, seed: int = 17):
@@ -62,7 +92,7 @@ def _balanced_pattern(brows: int, bcols: int, density: float, seed: int = 17):
     balance across partitions — paper Rec. #2).  Static (numpy, fixed seed):
     the sparsity PATTERN is an architecture decision shared by all layers;
     only the block values are random per layer."""
-    per_row = max(1, int(round(bcols * density)))
+    per_row = blocks_per_row(bcols, density)
     rng = np.random.default_rng(seed)
     rows = [np.sort(rng.choice(bcols, per_row, replace=False)) for _ in range(brows)]
     browind = np.repeat(np.arange(brows, dtype=np.int32), per_row)
@@ -70,11 +100,66 @@ def _balanced_pattern(brows: int, bcols: int, density: float, seed: int = 17):
     return browind, bcolind
 
 
-def with_row_pointer(p: dict, d_out: int) -> dict:
+def sparse_linear_spec():
+    # block stream sharded over the model axis (equal blocks per rank: the
+    # pattern is row-balanced)
+    return {"browind": P("model"), "bcolind": P("model"),
+            "bvalues": P("model", None, None)}
+
+
+def block_sparse_ffn_spec(cfg):
+    return {
+        "w_gate": sparse_linear_spec(),
+        "w_up": sparse_linear_spec(),
+        "w_down": sparse_linear_spec(),
+    }
+
+
+def stream_layout(nb: int, d_in: int, d_out: int, block, density: float,
+                  mesh=None) -> tuple:
+    """(rows, lo, merge) of a rank's run of ``nb`` blocks of the balanced
+    (d_out x d_in) pattern: the block-rows it computes (``rows`` of them
+    from block-row ``lo``) and how the ranks' outputs merge: None (the
+    whole stream), ``"gather"`` (whole block-rows: an all-gather over
+    "model") or ``"psum"`` (a run ends inside a block-row: every block-row,
+    summed over "model")."""
+    r, c = block
+    brows = d_out // r
+    per_row = blocks_per_row(d_in // c, density)
+    if nb == brows * per_row:
+        return brows, 0, None
+    if nb % per_row == 0:
+        rows = nb // per_row
+        return rows, SH.axis_index("model", mesh) * rows, "gather"
+    return brows, 0, "psum"
+
+
+# the merges of stream_layout, by the code RUN's third entry holds
+MERGES = (None, "gather", "psum")
+RUN = "brun"  # a rank's run on a mesh: (rows, lo, merge code), on the host
+
+
+def with_run(p: dict, d_in: int, d_out: int, density: float, mesh=None) -> dict:
+    """``p`` (the whole stream, or on ``mesh`` this rank's run of it) with
+    the row pointer over the block-rows it computes and, on a mesh,
+    :data:`RUN`: its :func:`stream_layout` as a host int64 tensor (one row
+    per layer where the stream is stacked), which the apply reads."""
+    r, c = p["bvalues"].shape[-2:]
+    rows, lo, merge = stream_layout(p["bvalues"].shape[-3], d_in, d_out, (r, c),
+                                    density, mesh)
+    p = with_row_pointer(p, d_out, lo, rows)
+    if mesh is not None:
+        run = torch.tensor([rows, lo, MERGES.index(merge)], dtype=torch.int64)
+        p[RUN] = run.expand(tuple(p["browind"].shape[:-1]) + (3,)).clone()
+    return p
+
+
+def with_row_pointer(p: dict, d_out: int, lo: int = 0, rows=None) -> dict:
     """``p`` with ``browptr``: the block-row pointer of its block stream,
-    one row per layer where ``browind`` is stacked (NR, nb)."""
-    browind = p["browind"]
-    n_brows = d_out // p["bvalues"].shape[-2]
+    one row per layer where ``browind`` is stacked (NR, nb); over block-rows
+    ``lo .. lo + rows`` (default: all of them) for a rank's run."""
+    browind = p["browind"] - lo if lo else p["browind"]
+    n_brows = d_out // p["bvalues"].shape[-2] if rows is None else rows
     if browind.ndim == 2:
         ptr = torch.stack([block_row_ptr(b, b.shape[0], n_brows) for b in browind])
     else:
@@ -98,13 +183,14 @@ DERIVED = ("browptr", "t_perm", "t_browind", "t_bcolind", "t_browptr")
 
 
 def strip_derived(tree):
-    """``tree`` (nested dicts) with :data:`DERIVED` removed from every sparse
-    layer: the reference's tree, as optimizer state and checkpoints hold it."""
+    """``tree`` (nested dicts) with :data:`DERIVED` and :data:`RUN` removed
+    from every sparse layer: the reference's tree, as optimizer state and
+    checkpoints hold it."""
     if not isinstance(tree, dict):
         return tree
     sparse = "bvalues" in tree
     return {k: strip_derived(v) for k, v in tree.items()
-            if not (sparse and k in DERIVED)}
+            if not (sparse and (k in DERIVED or k == RUN))}
 
 
 def _ffn_dims(cfg) -> dict:
@@ -112,18 +198,25 @@ def _ffn_dims(cfg) -> dict:
             "w_down": (cfg.d_ff, cfg.d_model)}
 
 
-def with_derived(params: dict, cfg) -> dict:
+def with_derived(params: dict, cfg, mesh=None) -> dict:
     """An LM's params with :data:`DERIVED` rebuilt in every block-sparse FFN
     projection (prefix blocks, the stacked repeats, zamba2's shared block,
     the MTP block and the enc-dec encoder's stacked blocks alike; a block
-    with an MoE FFN or a recurrent block has none)."""
+    with an MoE FFN or a recurrent block has none).  With ``mesh``, each
+    projection holds this rank's run of the stream, its row pointer covers
+    the rows it computes, and :data:`RUN` records the run (see
+    :func:`with_run`)."""
     if cfg.ffn_density >= 1.0:
         return params
+
+    def one(q, d_in, d_out):
+        return with_transpose(with_run(q, d_in, d_out, cfg.ffn_density, mesh),
+                              d_in)
 
     def block(blk):
         if "mlp" not in blk:
             return blk
-        mlp = {name: with_transpose(with_row_pointer(blk["mlp"][name], d_out), d_in)
+        mlp = {name: one(blk["mlp"][name], d_in, d_out)
                for name, (d_in, d_out) in _ffn_dims(cfg).items()}
         return dict(blk, mlp=mlp)
 
@@ -215,6 +308,10 @@ class BlockSpMM(torch.autograd.Function):
 def sparse_linear_apply(p, x, d_out: int):
     """y = W @ x for activations x (..., d_in) -> (..., d_out).
 
+    On a process mesh the rank runs the block kernel on what it holds, the
+    whole stream or its run of it, as ``p[RUN]`` (:func:`with_run`) says,
+    and merges the ranks' outputs (see the module docstring).
+
     The block kernel's x is the contiguous (d_in, T) transpose of the
     activations, T = every leading position; it returns y (d_out, T) in
     the accumulation dtype, cast to the values' dtype and then to x's, as
@@ -223,10 +320,31 @@ def sparse_linear_apply(p, x, d_out: int):
     dtypes meet in the wider one, as the reference's accumulation dtype
     takes them (f32 activations are not rounded to bf16 blocks' dtype).
     """
+    y, merge = _run_rows(p, x, d_out)
+    if merge == "gather":
+        y = SH.gather_dim(y, "model", y.ndim - 1)
+    return y
+
+
+def _run_rows(p, x, d_out: int) -> tuple:
+    """(y, merge): the rows of W @ x this rank computes, (..., rows) in x's
+    dtype, and how they still have to merge (None, or "gather" over
+    "model"); a "psum" layout is summed here, in the accumulation dtype."""
     lead = x.shape[:-1]
     x2d, values = promoted(x.reshape(-1, x.shape[-1]), p["bvalues"])
-    y = BlockSpMM.apply(values, x2d, p, d_out)
-    return y.to(p["bvalues"].dtype).T.reshape(lead + (d_out,)).to(x.dtype)
+    rows, merge = d_out, None
+    if SH.get_abstract_mesh() is not None:
+        if RUN not in p:
+            raise ValueError("a sparse projection on a mesh needs its run's "
+                             "layout: build it with with_derived(..., mesh)")
+        n, lo, code = p[RUN].tolist()
+        merge = MERGES[code]
+        if merge == "gather":
+            p, rows = dict(p, browind=p["browind"] - lo), n * p["bvalues"].shape[-2]
+    y = BlockSpMM.apply(values, x2d, p, rows)
+    if merge == "psum":
+        y, merge = SH.collectives().psum(y, "model"), None
+    return y.to(p["bvalues"].dtype).T.reshape(lead + (rows,)).to(x.dtype), merge
 
 
 def block_sparse_ffn_init(gen, cfg, dtype=torch.bfloat16):
@@ -236,6 +354,13 @@ def block_sparse_ffn_init(gen, cfg, dtype=torch.bfloat16):
 
 
 def block_sparse_ffn_apply(p, x, cfg):
-    h = F.silu(sparse_linear_apply(p["w_gate"], x, cfg.d_ff))
-    h = h * sparse_linear_apply(p["w_up"], x, cfg.d_ff)
+    """The sparse SwiGLU.  On a mesh where the gate's and up's runs hold
+    whole block-rows (the same rows: one pattern), the product of the
+    rank's rows is taken before the one all-gather over "model" that makes
+    the hidden activations whole; then the down-projection's rows."""
+    g, merge = _run_rows(p["w_gate"], x, cfg.d_ff)
+    u, _ = _run_rows(p["w_up"], x, cfg.d_ff)
+    h = F.silu(g) * u
+    if merge == "gather":
+        h = SH.gather_dim(h, "model", h.ndim - 1)
     return sparse_linear_apply(p["w_down"], h, cfg.d_model)

@@ -16,7 +16,9 @@ import torch
 
 from repro_torch.api import SparseMatrix, plan_from_ir, plan_from_partitioned
 from repro_torch.core import distributed as D
+from repro_torch.core import sharding as SH
 from repro_torch.core.collectives import Collectives
+from repro_torch.core.sharding import P
 from repro_torch.core.mesh import AXES_2D, AXIS_1D, make_process_mesh
 from repro_torch.core.partition import partition_1d
 from repro_torch.kernels import instrument
@@ -163,6 +165,56 @@ def collective_cases(world) -> dict:
     res["psum_bf16"] = c2.psum(torch.tensor([1.0, 2.0], dtype=torch.bfloat16)
                                + r, AXES_2D)
     res["counts_2d"] = c2.snapshot()
+    # the mesh's own collectives: its ranks share this host, so the data
+    # moves through shared memory
+    res["mesh_transport"] = (m2.one_host, SH.collectives(m2).transport)
+    # the same calls with the data through shared memory, in 24-byte
+    # rounds (every message but the scalars takes several)
+    from repro_torch.core.collectives import SharedMemoryCollectives
+
+    shm = SharedMemoryCollectives(m2, slot=24)
+    res["shm"] = {
+        "gather_rows": shm.all_gather(v[:2], AXES_2D[0]),
+        "gather_all": shm.all_gather(v[:1], AXES_2D),
+        "scatter_cols": shm.psum_scatter(v.float(), AXES_2D[1]),
+        "psum_all": shm.psum(v.float(), AXES_2D),
+        "psum_i8": shm.psum(torch.full((2,), 100, dtype=torch.int8), AXES_2D),
+        "psum_bf16": shm.psum(torch.tensor([1.0, 2.0], dtype=torch.bfloat16) + r,
+                              AXES_2D),
+        "big": shm.psum(torch.arange(50.0) * (r + 1), AXES_2D[1]),
+        "a2a": shm.all_to_all((10 * r + torch.arange(4.0))[:, None].expand(4, 2)
+                              .contiguous(), AXES_2D[1], split_dim=0, concat_dim=1),
+        "transport": shm.transport, "counts": shm.snapshot()}
+    # all-to-all over "cols": x (4, 2), value 10 * rank + row
+    c2.reset()
+    xa = (10 * r + torch.arange(4.0))[:, None].expand(4, 2).contiguous()
+    res["a2a_cols"] = c2.all_to_all(xa, AXES_2D[1], split_dim=0, concat_dim=1)
+    res["a2a_rows_first"] = c2.all_to_all(xa, AXES_2D[1], split_dim=0,
+                                          concat_dim=0)
+    res["counts_a2a"] = c2.snapshot()
+    # reshard between specs of a (4, 4) tensor, value 4 * row + col
+    full = torch.arange(16.0).reshape(4, 4)
+    coll = SH.collectives(m2)
+    coll.reset()
+    with SH.set_mesh(m2):
+        rows = SH.reshard(full, P(), P(AXES_2D[0]))
+        res["rs_slice"] = rows
+        cols = SH.reshard(rows, P(AXES_2D[0]), P(None, AXES_2D[0]))
+        res["rs_a2a"] = cols
+        res["rs_gather"] = SH.reshard(cols, P(None, AXES_2D[0]), P())
+        # partial over "rows": every rank holds the full tensor's
+        # "cols" block; the psum over the 2 ranks of "rows" doubles it
+        part = SH.reshard(full, P(), P(None, AXES_2D[1]))
+        res["rs_psum"] = SH.reshard(part, P(None, AXES_2D[1]),
+                                    P(None, AXES_2D[1]), partial=AXES_2D[0])
+        counts = coll.snapshot()
+        # common.shard: the reference's constraint rules (an entry whose
+        # extent does not divide the dim is dropped), from replicated
+        from repro_torch.models.common import shard
+
+        res["shard_rows"] = shard(full, AXES_2D[0], None)
+        res["shard_odd"] = shard(torch.arange(12.0).reshape(3, 4), AXES_2D[0], "nope")
+    res["counts_rs"] = counts
     # one SpMV of each merge on the 4-rank meshes, with its counts
     a, x, X = inputs("f32")
     sm = SparseMatrix.from_dense(a)

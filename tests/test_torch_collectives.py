@@ -3,7 +3,9 @@ collectives``, ``repro_torch.core.world``) on a 4-rank gloo world on the
 CPU (one world for the module; rank bodies in tests/_torch_world_runner.py).
 
 ``ppermute`` follows ``jax.lax.ppermute``: a rank that is no destination
-receives zeros.  ``all_gather`` and ``psum_scatter`` are tiled in axis
+receives zeros.  ``all_to_all`` follows ``jax.lax.all_to_all(tiled=True)``
+and ``core.sharding.reshard`` moves a tensor between two specs (slice,
+all-gather, all-to-all, psum of partials).  ``all_gather`` and ``psum_scatter`` are tiled in axis
 order; sums come back in the input's dtype (int8 wraps, as in the
 reference).
 Each call's bytes are the bytes of its result on the rank (the reference's
@@ -79,7 +81,7 @@ def test_collective_counts_are_result_bytes(ranks):
         # reduce-scatter to 2 f32; all-reduces of 4 + 4 f32, 2 int8, 2 bf16
         assert c2["bytes"] == {"all-gather": 3 * 4 * 8, "reduce-scatter": 2 * F32,
                                "all-reduce": 8 * F32 + 2 + 2 * 2,
-                               "collective-permute": 0}
+                               "all-to-all": 0, "collective-permute": 0}
         assert c2["total_bytes"] == sum(c2["bytes"].values())
 
 
@@ -95,7 +97,7 @@ def test_spmv_collective_bytes_match_their_closed_forms(ranks, name):
         R, C = part.grid
         h, w = part.h_pad, part.w_pad
         zero = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
-                "collective-permute": 0}
+                "all-to-all": 0, "collective-permute": 0}
         if name == "1d-nnz":
             x_pad = -(-cols // PARTS) * PARTS
             run = dict(zero, **{"all-gather": x_pad * F32,
@@ -215,3 +217,73 @@ def test_counting_transport_counts_what_the_world_moved(ranks, name):
         exe.run_raw(exe.place(x))
         assert exe.collectives.snapshot()["bytes"] == \
             res[f"spmv|{name}"]["run_raw"]["bytes"], (name, r)
+
+
+def test_all_to_all_is_tiled_in_axis_order(ranks):
+    """x (4, 2) per rank, value 10 * rank + row: over the "cols" axis of
+    the 2 x 2 grid, rows split in 2 blocks, block k to position k, blocks
+    received concatenated along dim 1 (and along dim 0)."""
+    for r, res in enumerate(ranks):
+        i, j = res["coords"]
+        peers = [2 * i, 2 * i + 1]  # the ranks of this rank's "cols" group
+        want = np.concatenate([10 * p + np.arange(4)[2 * j: 2 * j + 2, None]
+                               + np.zeros((1, 2)) for p in peers], axis=1)
+        np.testing.assert_array_equal(res["a2a_cols"].numpy(), want)
+        want0 = np.concatenate([10 * p + np.arange(4)[2 * j: 2 * j + 2, None]
+                                + np.zeros((1, 2)) for p in peers], axis=0)
+        np.testing.assert_array_equal(res["a2a_rows_first"].numpy(), want0)
+        # bytes: the result, 4 x 2 f32 twice; calls by kind
+        assert res["counts_a2a"]["bytes"]["all-to-all"] == 2 * 8 * F32
+        assert res["counts_a2a"]["calls"]["all-to-all"] == 2
+
+
+def test_reshard_moves_between_specs(ranks):
+    """A (4, 4) tensor (value 4 * row + col) under four specs of the 2 x 2
+    grid: a rank's block after each move equals the block of the full
+    tensor under the target spec; bytes as the moves' closed forms."""
+    full = np.arange(16, dtype=np.float32).reshape(4, 4)
+    for res in ranks:
+        i, j = res["coords"]
+        np.testing.assert_array_equal(res["rs_slice"].numpy(),
+                                      full[2 * i: 2 * i + 2])  # P() -> P(rows)
+        np.testing.assert_array_equal(res["rs_a2a"].numpy(),
+                                      full[:, 2 * i: 2 * i + 2])  # P(rows) -> P(None, rows)
+        np.testing.assert_array_equal(res["rs_gather"].numpy(), full)  # -> P()
+        np.testing.assert_array_equal(res["rs_psum"].numpy(), 2 * full[:, 2 * j: 2 * j + 2])
+        np.testing.assert_array_equal(res["shard_rows"].numpy(), full[2 * i: 2 * i + 2])
+        # 3 rows do not split over 2 ranks; "nope" is no axis of the mesh
+        np.testing.assert_array_equal(res["shard_odd"].numpy(),
+                                      np.arange(12.0).reshape(3, 4))
+        b = res["counts_rs"]["bytes"]
+        # all-to-all: a (4, 2) block; all-gather: (4, 4); psum: (4, 2)
+        assert b == {"all-gather": 16 * F32, "all-reduce": 8 * F32,
+                     "reduce-scatter": 0, "all-to-all": 8 * F32,
+                     "collective-permute": 0}
+
+
+def test_a_one_host_gloo_mesh_moves_its_data_through_shared_memory(ranks):
+    """make_process_mesh records that the 4 ranks share one host, and the
+    mesh's collectives (``core.sharding.collectives``) then move the data
+    through shared memory: nobody asks for it."""
+    for res in ranks:
+        assert res["mesh_transport"] == (True, "shm")
+
+
+def test_shared_memory_transport_equals_gloo(ranks):
+    """SharedMemoryCollectives: the data through a shared file mapping, in
+    rounds of a slot (24 bytes here, so most messages take several), gives
+    what gloo's own collectives give, sums in group order (int8 wraps),
+    with the same counts."""
+    for r, res in enumerate(ranks):
+        got = res["shm"]
+        assert got["transport"] == "shm"
+        for key in ("gather_rows", "gather_all", "scatter_cols", "psum_all",
+                    "psum_i8", "psum_bf16"):
+            assert torch.equal(got[key], res[key]), key
+        i, j = res["coords"]
+        peers = [2 * i, 2 * i + 1]
+        assert got["big"].tolist() == (np.arange(50.0) * sum(p + 1 for p in peers)).tolist()
+        assert torch.equal(got["a2a"], res["a2a_cols"])
+        c = got["counts"]
+        assert c["calls"]["all-gather"] == 2 and c["calls"]["all-reduce"] == 4
+        assert c["bytes"]["all-to-all"] == 8 * F32

@@ -211,7 +211,8 @@ def test_a_rank_of_the_reference_layout_counts_its_collectives():
     c, coll = DS.count_rank(mat)
     assert c.kernel_flops == c.flops == 2 * rows // PARTS * 16  # its part
     assert coll["bytes"] == {"all-gather": rows * 4, "all-reduce": 0,
-                             "reduce-scatter": 0, "collective-permute": 4}
+                             "reduce-scatter": 0, "all-to-all": 0,
+                             "collective-permute": 4}
     terms = CostTerms.from_counted(c, collectives=coll)
     assert terms.coll_bytes == rows * 4 + 4
     assert CostTerms.from_counted(c).coll_bytes == 0  # one card
@@ -222,13 +223,33 @@ def test_a_rank_of_the_reference_layout_counts_its_collectives():
 
 
 def test_the_meshes():
-    assert MODEL_PARALLEL == 16
+    """make_local_mesh without a world is the one-device (1, 1) mesh;
+    make_production_mesh lays the reference's layout over a world of 256
+    (512) ranks and raises without one, or with one of another size,
+    naming the ranks it needs; it never falls back to one device."""
+    from repro.launch import mesh as JM
+
+    from repro_torch.core.world import World
+    from repro_torch.launch.mesh import production_layout
+
+    assert MODEL_PARALLEL == JM.MODEL_PARALLEL == 16
     mesh = make_local_mesh(4, device="cpu")
     assert mesh.devices.shape == (1, 1) and mesh.axis_names == ("data", "model")
     assert mesh.device == torch.device("cpu")
-    for multi_pod in (False, True):
-        with pytest.raises(NotImplementedError, match="Multi-card meshes"):
+    for multi_pod, ranks in ((False, 256), (True, 512)):
+        with pytest.raises(NotImplementedError, match=f"{ranks} ranks"):
             make_production_mesh(multi_pod=multi_pod)
+        with pytest.raises(ValueError, match=f"{ranks} ranks"):
+            make_production_mesh(World("dry", 0, 4, torch.device("cpu")),
+                                 multi_pod=multi_pod)
+        # the reference's layout (src/repro/launch/mesh.py), shape and names
+        shape, axes = production_layout(multi_pod)
+        assert shape == ((2, 16, 16) if multi_pod else (16, 16))
+        assert axes == (("pod", "data", "model") if multi_pod else ("data", "model"))
+        dry = make_production_mesh(World("dry", 3, ranks, torch.device("cpu")),
+                                   multi_pod=multi_pod)
+        assert dry.devices.shape == shape and dry.axis_names == axes
+        assert dry.rank == 3
     with pytest.raises(NotImplementedError, match="Multi-card meshes"):
         DR.run_cell("llama3.2-1b", "train_4k", True, False, None)
 

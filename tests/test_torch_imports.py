@@ -82,10 +82,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "repro_torch.runtime", "repro_torch.runtime.checkpoint",
         "repro_torch.runtime.elastic", "repro_torch.runtime.fault",
         "repro_torch.tree"])
-    # the dry run's analysis: the roofline arithmetic, the report, the count
+    # the dry run's analysis: the roofline arithmetic, the report, the
+    # count; and the sharded program's closed forms
     assert lines["ANALYSIS"] == str([
         "repro_torch.analysis", "repro_torch.analysis.count",
-        "repro_torch.analysis.report", "repro_torch.analysis.roofline"])
+        "repro_torch.analysis.report", "repro_torch.analysis.roofline",
+        "repro_torch.analysis.sharded"])
     configs = [m for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
                if m.name.startswith("repro_torch.configs.")]
     assert len(configs) == 12  # base, spmv_paper and the ten archs
