@@ -107,16 +107,16 @@ Phases (every check raises, so any failure exits non-zero):
    every candidate's load / kernel / retrieve > 0 and its kernel phase no
    shorter than its part-axis launch.  (e) The card memory allocated after
    (a)-(c) equals that before.  (d) ``SpmvEngine(tune=True, tune_after=8)``
-   over the three matrices, a client thread multiplying all through: 8
-   width-1 multiplies per matrix give one ``traffic`` refinement each,
-   then width 8 on the scale-free matrix a ``drift`` one; every event measured all the candidates
+   over the scale-free matrix (``TUNE_ENGINE_MATRICES``), a client thread
+   multiplying all through: 8 width-1 multiplies give one ``traffic``
+   refinement, then width 8 a ``drift`` one; every event measured all the candidates
    it planned, every answer bit-equal to cuSPARSE, and
    launches = multiplies + 4 per measured candidate (warmup 1, iters 3) +
    1 per swap (the winner's warm-up).  (f) The tuner over
    ``paper_large_suite()`` of ``repro_torch.data.matrices`` (22 matrices at
    2048^2), every winner within 2e-4 of the dense product; a correctness
    sweep whose times are host overhead.
-12. The multi-process cluster (``repro_torch.cluster``) at 2^19 rows, last,
+12. The multi-process cluster (``repro_torch.cluster``) at 2^17 rows, last,
    after phase 9, with inputs from its own generator: the three recipes
    again (scipy CSR in float32 as the host oracles), a ``ClusterRouter``
    of two engine workers, each its own process with its own CUDA context
@@ -136,12 +136,13 @@ Phases (every check raises, so any failure exits non-zero):
    its worker.  (e) Generator mode: two spawned load processes (no CUDA)
    replay 24 requests (Zipf 1.1 over the three, widths 1/4/8 at
    0.6/0.25/0.15) straight at the workers: 0 mismatched, 0 lost.  (f)
-   Router mode on 4 threads over another 120 requests, worker w0 killed
+   Router mode on 4 threads over another 120 requests, a worker that
+   alone holds a matrix (from the router's placements) killed
    (SIGKILL) after 40 answers: 0 lost, 0 mismatched, every shed
-   ``worker_lost``, w0's own matrices re-homed on w1, which then answers
+   ``worker_lost``, its own matrices re-homed on the other, which then answers
    every matrix bit-exactly, and within 10 s of the kill the card's free
    bytes (``mem_get_info``, sampled every 20 ms) rise by at least half of
-   what w0 took.  The workers' launch counters start at 0 with them; their
+   what the victim took.  The workers' launch counters start at 0 with them; their
    sum before the kill is the cluster path's count.
 13. Topology-aware placement (``repro_torch.topo``) at full width, right
    after phase 10 (a)-(c), on phase 3's matrices, with inputs from its own
@@ -189,8 +190,8 @@ Phases (every check raises, so any failure exits non-zero):
    weight materialized dense and applied by ``torch.matmul`` (an oracle the
    port never calls), and its greedy tokens equal to the oracle's argmax
    wherever the margin exceeds twice the measured error; one
-   ``generate(..., 32)`` launches the block kernel exactly 3 x 24 x 32 =
-   2,304 times (``launches_by_path["bcoo_spmv"]["lm_serving"]``).  (c)
+   ``generate(..., 16)`` launches the block kernel exactly 3 x 24 x 16 =
+   1,152 times (``launches_by_path["bcoo_spmv"]["lm_serving"]``).  (c)
    bfloat16, dense and sparse: prefill ms and decode ms a token (CUDA
    events), tokens/s of a generate, and a torch.profiler trace of five
    decode steps (device busy ms, idle share, top kernels); w_gate and
@@ -241,7 +242,7 @@ Phases (every check raises, so any failure exits non-zero):
    bit-equal, and CUDA-event ms of the layer and its parts (routing,
    dispatch, expert products, combine) beside the bound.  (b)
    mixtral-8x22b cut to 8 of 56 layers, bf16: ``Server.generate`` B=4,
-   prompt 128, 32 tokens, timed as phase 14 (c) times it (prefill ms,
+   prompt 128, 16 tokens, timed as phase 14 (c) times it (prefill ms,
    decode ms a token, tokens/s, a torch.profiler trace of decode), with
    the peak card memory.  (c) mixtral cut to 2 layers, f32, capacity
    factor 8: phase 14 (a)'s decode-vs-prefill and teacher-forced checks.
@@ -269,7 +270,7 @@ Phases (every check raises, so any failure exits non-zero):
    card's check of the inter-chunk recurrence); whether sLSTM's two paths
    are bit-equal is reported.  (b) zamba2-2.7b (54 layers, 3.15B params)
    and (c) xlstm-1.3b (48 layers, 1.31B), bf16, through ``Server``: B=4,
-   prompt 128, 32 tokens, timed as phase 14 (c) times them, with the peak
+   prompt 128, 16 tokens, timed as phase 14 (c) times them, with the peak
    card memory; for xlstm also the share of prefill its 6 sLSTM layers'
    per-token loops take.  (d) Both in float32 at full depth: phase 14
    (a)'s decode-vs-prefill (5e-3) and teacher-forced argmax checks.  (e)
@@ -295,13 +296,13 @@ Phases (every check raises, so any failure exits non-zero):
    dense, a generate (encode once, prefill, 31 decode steps with the same
    memory), decode(prefill(S)) within 5e-3 of prefill(S+1) and the
    teacher-forced argmax.  (b) bf16, B=4, bf16 frames of 1,024, prompt
-   128, 32 tokens: encode, prefill and decode ms, the cross-attention's
+   128, 16 tokens: encode, prefill and decode ms, the cross-attention's
    K/V projections of the memory timed apart, a decode step's device
    trace, tokens/s and peak memory; at B=1 ``make_prefill_step(cfg,
    "prefill_32k")`` bit-equal to ``lm.prefill(memory=lm.encode(frames))``.
    (c) ``ffn_density=0.5`` in (8, 128) blocks, float32: the 72 projections
    (36 encoder, 36 decoder) against their plain version at B = 4 and 512,
-   one generate launching the block kernel 36 + 36 x 32 = 1,188 times
+   one generate launching the block kernel 36 + 36 x 16 = 612 times
    (``launches_by_path["bcoo_spmv"]["lm_enc_dec"]``), the model within
    1e-3 of its densified ``torch.matmul`` oracle.  (d) ``make_train_step``
    on bf16 params, dense and sparse, 10 steps of B=4 x 256 with bf16
@@ -377,14 +378,14 @@ Phases (every check raises, so any failure exits non-zero):
    before phase 20 (which prices its timed steps), with inputs from their
    own generator (``[seed, 21]``); every model freed before the next.  (a)
    llama3.2-1b (16 layers, 1,235,746,816 params) at full depth: phase 14
-   (a)'s f32 checks (``Server.generate`` B=4, prompt 128, 32 tokens;
+   (a)'s f32 checks (``Server.generate`` B=4, prompt 128, 16 tokens;
    decode vs prefill 5e-3; teacher-forced argmax), bf16 times as phase 14
    (c), ``ffn_density=0.5`` in (8, 128) blocks as phase 14 (b) (48
    projections against the plain version, 1,536 launches a generate, the
    densified oracle within 1e-3), 10 TrainLoop steps of 4 x 256 whose loss
    falls by at least 1.0.  (b) gemma2-27b (46 layers alternating
    attn_local with a 4,096 window and attn_global, softcaps 50 / 30, a
-   tied 256,000-word vocabulary) in bf16 at 24 of its 46 layers through ``Server``
+   tied 256,000-word vocabulary) in bf16 at 12 of its 46 layers through ``Server``
    (times, peak) and one B=1, S=8,192 prefill (query-chunked, timed, its
    peak); cut to 2 layers in f32: phase 14 (a)'s checks, then across the
    window at B=1 decode(prefill(8,192)) within 5e-3 of prefill(8,193) (the
@@ -392,23 +393,23 @@ Phases (every check raises, so any failure exits non-zero):
    oldest) and the chunked 8,192-token prefill within 1e-3 of the
    unchunked one; sparse (SiLU FFN, as the reference's) at the f32 cut
    against its plain version and its densified oracle (whose dense FFN is
-   given SiLU), and at 24 layers one bf16 generate of 8 tokens launching
-   the block kernel 72 times a step, its prefill and decode timed.  (c)
+   given SiLU), and at 12 layers one bf16 generate of 8 tokens launching
+   the block kernel 36 times a step, its prefill and decode timed.  (c)
    gemma2 at full width cut to 2 layers (one repeat, a local and a global
    layer), 10 bf16 TrainLoop steps dense (the loss falls by
    at least 1.0; step ms, peak, a trace) and sparse (18 launches a step;
    its first repeat's projections after training bit-equal to the plain
    version); card vs CPU at reduced widths, dense and sparse (phase 15
    (d)'s bounds).  (d) llava-next-34b (60 layers of 7168, the widths of
-   llava-v1.6-34b's Yi-34B) at 30 of its 60 layers in bf16, B=1: a 2,880-token stub
-   prefix (random patch embeddings) and a 128-token prompt, 32 greedy
-   tokens through ``lm.prefill`` (max_len 3,040) and ``make_decode_step``:
+   llava-v1.6-34b's Yi-34B) at 15 of its 60 layers in bf16, B=1: a 2,880-token stub
+   prefix (random patch embeddings) and a 128-token prompt, 16 greedy
+   tokens through ``lm.prefill`` (max_len 3,024) and ``make_decode_step``:
    prefill and decode ms, a decode trace, the peak; cut to 2 layers in
    f32: ``make_prefill_step`` / ``make_decode_step`` bit-equal to
    ``lm.prefill`` / ``lm.decode_step`` over the prefix, decode vs prefill
    5e-3, sparse within 1e-3 of its densified oracle and its projections
-   against the plain version at B = 4 and 3,008; sparse at 30 layers, one
-   prefill (90 launches, T = 3,008 on the tensor cores) timed.  (e) llava
+   against the plain version at B = 4 and 3,008; sparse at 15 layers, one
+   prefill (45 launches, T = 3,008 on the tensor cores) timed.  (e) llava
    cut to 2 layers: ``make_train_step`` for 10 bf16 steps of B=1, a fresh
    stub prefix and 256 text tokens each, the loss over the text falling by
    at least 1.0; step ms, peak, a trace; card vs CPU at reduced widths
@@ -435,15 +436,16 @@ Phases (every check raises, so any failure exits non-zero):
    world`` / ``core.collectives``, a ``ProcessMesh``), after phase 22 and
    before phase 20, with inputs from their own generators (``[seed, 23,
    ...]``).  (a) 4 ranks of one gloo world share the card (transport
-   ``shm-host-staged``: CUDA tensors staged through pinned host buffers,
-   the collectives' data through shared memory, as for any mesh whose ranks
-   share one host; ``ppermute`` over gloo), each building the same matrices
+   ``shm-host-staged``: the collectives' data copied between the card and
+   a shared memory mapping, sums on the card, as for any mesh whose ranks
+   share one host; ``ppermute`` over gloo, staged through pinned host
+   buffers), each building the same matrices
    and placing only
    its own part: 1D ``rows``, ``nnz-rgrn``, ``nnz`` and the ring on a
-   scale-free matrix of 2,097,152 rows (about 2^24 nonzeros); 2D
+   scale-free matrix of 524,288 rows (``PW_ROWS``: about 2^22 nonzeros); 2D
    equally-sized with ``psum``, ``psum_scatter`` and ``global``,
-   equally-wide and variable-sized on a regular matrix of 1,048,576 rows at
-   16 a row; 2D equally-sized BCOO on a block matrix of 1,048,576 rows;
+   equally-wide and variable-sized on a regular matrix of 262,144 rows at
+   16 a row; 2D equally-sized BCOO on a block matrix of 262,144 rows;
    each through ``SparseMatrix.plan(mesh=<process mesh>, impl="cuda")``
    (the ring: ``plan_from_partitioned``, torch local kernel), one B=1 and
    one B=8 request checked and 5 B=1 requests timed.  Every rank's y and Y
@@ -458,6 +460,27 @@ Phases (every check raises, so any failure exits non-zero):
    same programs at grids (1,) and (1, 1), bit-equal; NCCL's version.  A
    rank that fails or hangs fails the script.  Its launches are
    ``launches_by_path[...]["process_mesh"]``.
+24. The LMs on a process mesh (``phase_lm_mesh``): qwen1.5-0.5b on (1, 4)
+   and deepseek-v3 (2 layers) on (2, 2) through ``Server(mesh=)``, 4 gloo
+   ranks sharing the card, against the one-process port.
+25. Training on the process mesh, in phase 24's ranks and turn after its
+   serving paths (``pt_*``), qwen1.5-0.5b at full width: (a) one f32
+   ``make_train_step`` step of a 2-layer cut on (1, 4) and (2, 2), dense
+   and at ``ffn_density=0.5``, B=4 x 256, against the one-process port on
+   the card (loss within 1e-5 relative, each grad block within 1e-4 of
+   its leaf's max |g|, each updated param block within 1e-5 of its
+   leaf's max |p| where |g| > 1e-3 of the tree's max |g|); (b) 10 bf16 steps at 24
+   layers through ``TrainLoop(mesh=)`` on both meshes, dense and sparse,
+   on phase 15's batches: the first loss within 1e-2 and the last within
+   5 % of phase 15's one-process losses, each rank's collectives a step
+   equal to ``analysis.sharded.train_collectives`` and its block-kernel
+   launches to 216; (c) the (2, 2) dense run's checkpoint at step 5 read
+   back onto every rank's blocks bit for bit, then restored on (1, 4) for
+   steps 6-10 within 1e-2 of the (2, 2) run; (d) the block kernel on rank
+   0's run of w_gate and w_down, forward and grad x on the run's Wᵀ, T =
+   1,024, bit-equal to the plain version on integer-valued bf16, timed
+   beside it, its bound and ``torch.matmul``.  Its launches are
+   ``launches_by_path["bcoo_spmv"]["lm_mesh_train"]``.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after; the partitioned path does so around each plan's requests and sums
@@ -507,6 +530,8 @@ KERNELS = {  # kernel -> (source, TPU kernel it replaces)
 ALSO_REPLACES = {"coo_spmv": ["src/repro/kernels/csr_spmv.py:52"]}
 KIND = {"coo_spmv": "coo", "bcoo_spmv": "bcoo", "ell_spmv": "ell"}
 PARTS = 16  # parts of the partitioned path, all on the one card
+MAIN_REQUESTS = 20  # a path's requests: 16 at B=1, then B=8 and 64 twice
+PART_REQUESTS = 10  # a partitioned plan's: 8 at B=1, then B=8 and 64 (cut from 20)
 # the serving path's tenants, one per SLO class
 TENANTS = {"tenant-rt": "rt", "tenant-std": "standard", "tenant-batch": "batch"}
 SERVE_WAIT_S = 600  # bound on any one await of the serving phases
@@ -808,8 +833,8 @@ def phase_main_path(torch, rng, device, sizes, errs, records) -> None:
             prog = exe.program
             kernel = "coo_spmv" if prog.kind == "coo" else "bcoo_spmv"
             lat = {1: [], 8: [], 64: []}
-            for i in range(20):
-                batch = None if i < 16 else (8, 64)[i % 2]
+            for i in range(MAIN_REQUESTS):
+                batch = None if i < MAIN_REQUESTS - 4 else (8, 64)[i % 2]
                 xshape = (shape[1],) if batch is None else (shape[1], batch)
                 x = rng.integers(-2, 3, xshape).astype(np.float32)
                 t0 = time.perf_counter()
@@ -1107,9 +1132,9 @@ def phase_partitioned(torch, rng, device, records, n_ring: int) -> tuple:
     for name, pln, exe, rec in built:
         kind = "coo" if pln.fmt in ("coo", "csr") else "bcoo"
         shape = rec["shape"]
-        xs = [rng.integers(-2, 3, (shape[1],) if i < 16 else
+        xs = [rng.integers(-2, 3, (shape[1],) if i < PART_REQUESTS - 2 else
                            (shape[1], (8, 64)[i % 2])).astype(np.float32)
-              for i in range(20)]
+              for i in range(PART_REQUESTS)]
         # the single-device kernel's answers, launched before this plan's
         # counted requests
         singles = [rec["prog"](torch.from_numpy(x).to(device)) for x in xs]
@@ -2062,8 +2087,8 @@ def phase_tune_parts(torch, rng, device, rec, path) -> tuple:
 TUNE_DRIFT = ("scale-free",)  # (d)'s drift refinement (cut from all three for time)
 # (d)'s engine: the matrices it serves and tunes, and its tuner's candidate
 # cap (cut for the script's time from all three matrices and 8 candidates,
-# then 4)
-TUNE_ENGINE_MATRICES = ("scale-free", "block")
+# then 4, then to the scale-free matrix alone)
+TUNE_ENGINE_MATRICES = ("scale-free",)
 TUNE_ENGINE_CANDIDATES = 3
 
 
@@ -2543,11 +2568,10 @@ CLUSTER_NAMES = ("regular", "scale-free", "block")
 ORACLE_OF = {"block-tuned": "block", "regular-ir": "regular"}  # phase 12 (c)
 CLUSTER_MIX = {1: 0.6, 4: 0.25, 8: 0.15}  # the replays' widths and shares
 POWER_STEPS = 20  # steps of each phase-12 session
-# cut for the script's time: the matrices at 2^18 rows (2^21, then 2^19,
-# before; the registrations' frames 20-76 MB, not 158-604) and the
-# generator replay at 24 requests (48, 120 before); the chaos replay keeps its
-# 120
-CLUSTER_N = 1 << 18
+# cut for the script's time: the matrices at 2^17 rows (2^21, 2^19, then
+# 2^18 before; the block matrix is n/2 square) and the generator replay at
+# 24 requests (48, 120 before); the chaos replay keeps its 120
+CLUSTER_N = 1 << 17
 CLUSTER_GENERATOR_REQUESTS = 24
 
 
@@ -2766,13 +2790,22 @@ def cluster_generators(router, oracles, seed: int) -> None:
 
 
 def cluster_chaos(torch, router, oracles, rng, seed: int, drops) -> None:
-    """(f) A router-mode replay on 4 threads; w0 is killed after 40 answers."""
+    """(f) A router-mode replay on 4 threads; the victim, a worker that
+    alone holds at least one matrix (the ring decides which), is killed
+    after 40 answers."""
     import threading
 
     from repro_torch.cluster.replay import replay_cluster
     from repro_torch.serve import generate_trace
 
-    victim, survivor = "w0", "w1"
+    with router._lock:
+        alone = sorted({e.placements[0] for e in router.entries.values()
+                        if len(e.placements) == 1})
+    check(bool(alone), "chaos replay: no worker holds a matrix alone: "
+          f"{ {n: e.placements for n, e in router.entries.items()} }")
+    victim = alone[0]
+    survivor = next((w for w in sorted(router.workers) if w != victim), None)
+    check(survivor is not None, f"chaos replay: no worker besides {victim}")
     trace = generate_trace(cluster_spec(seed, 1))
     samples, stop, kill = [], threading.Event(), {}
 
@@ -2800,9 +2833,12 @@ def cluster_chaos(torch, router, oracles, rng, seed: int, drops) -> None:
         del router.kill_worker
     window = [f for t, f in samples if kill["t"] <= t <= kill["t"] + 10]
     rise = max(window, default=kill["free"]) - kill["free"]
-    event = next(f for f in router.failovers if f["worker_id"] == victim)
+    event = next((f for f in router.failovers if f["worker_id"] == victim), None)
+    check(event is not None, f"chaos replay: no failover of {victim}: "
+          f"{router.failovers}")
     emit({**cluster_report_row("cluster_chaos", report),
-          "exclusive": kill["exclusive"], "rehomed": event["rehomed"],
+          "victim": victim, "exclusive": kill["exclusive"],
+          "rehomed": event["rehomed"],
           "failover_stall_ms": 1e3 * max(report.latencies_s),
           "victim_card_bytes": drops[victim], "freed_within_10s_bytes": rise})
     check(report.lost == 0 and report.mismatched == 0
@@ -2892,7 +2928,8 @@ def phase_cluster(torch, rng, device, n: int, seed: int, times) -> dict:
 # ------------------------------------------------------------- phase 14: LM
 
 LM_ARCH = "qwen1.5-0.5b"
-LM_BATCH, LM_PROMPT, LM_GEN, LM_MAX_LEN = 4, 128, 32, 160
+# 16 tokens a generate (cut from 32 for the script's time)
+LM_BATCH, LM_PROMPT, LM_GEN, LM_MAX_LEN = 4, 128, 16, 160
 LM_LONG = 4096  # a prefill that takes the query-chunked attention path
 BF16_OPS_S = 989e12  # H100 SXM data sheet, bf16 on the tensor cores
 LM_LOGIT_TOL = 1e-3  # f32 logits, sums in another order over 24 layers
@@ -3014,7 +3051,7 @@ def lm_bound(nb: int, r: int, c: int, n_brows: int, d_in: int, d_out: int,
 
 
 def lm_generate_checks(torch, lm, srv, cfg, rng, device, what: str) -> dict:
-    """``srv.generate`` (B=4, prompt 128, 32 tokens) in range; decode(
+    """``srv.generate`` (B=4, prompt 128, 16 tokens) in range; decode(
     prefill(S)) within 5e-3 of prefill(S+1) (tests/test_archs.py's bound);
     a teacher-forced forward's argmax equal to the tokens wherever its
     top-2 margin exceeds 1e-3."""
@@ -5312,9 +5349,10 @@ DA_SPARSE_GEN = 8  # (b): tokens of the full-depth sparse gemma2 generate
 # H100 80GB HBM3, 700 W
 DA_TRAIN_LAYERS = 2
 DA_LLAVA_B, DA_LLAVA_TEXT = 1, 256  # (e): llava's batch, text tokens after the prefix
-# (b), (d): layers served, at full width (46 and 60 in PRs 27-29; cut to
-# pay for phase 24: gemma2's 12 of its 23 local / global repeats)
-DA_SERVE_LAYERS = {"gemma2-27b": 24, "llava-next-34b": 30}
+# (b), (d): layers served, at full width (46 and 60 at first, then 24 and
+# 30; cut to pay for phases 24 and 25: gemma2's 6 of its 23 local / global
+# repeats)
+DA_SERVE_LAYERS = {"gemma2-27b": 12, "llava-next-34b": 15}
 
 
 def da_counts(cfg, sparse) -> None:
@@ -5970,9 +6008,10 @@ PW_SCHEMES = (
     ("2d-vs", "regular", "2d.variable-sized", "coo", None, False),
     ("2d-es-bcoo", "block", "2d.equally-sized", "bcoo", None, False),
 )
-# halved from PR 29's 2^21 / 2^20 / 2^20 to pay for phase 24 (the ranks'
-# host setup and the parent's references scale with the rows)
-PW_ROWS = {"scale-free": 1 << 20, "regular": 1 << 19, "block": 1 << 19}
+# halved from 2^21 / 2^20 / 2^20 to pay for phase 24, and again to
+# pay for phase 25 (the ranks' host setup and the parent's references
+# scale with the rows)
+PW_ROWS = {"scale-free": 1 << 19, "regular": 1 << 18, "block": 1 << 18}
 PW_TURN_TIMEOUT_S = 480  # a rank's wait for the parent's turn file
 
 
@@ -6347,7 +6386,7 @@ def phase_process_mesh(torch, seed: int, device) -> dict:
 PM_RANKS = 4
 PM_QWEN_MESH, PM_DS_MESH = (1, 4), (2, 2)
 PM_DS_ARCH = "deepseek-v3-671b"
-PM_GEN = {"qwen": LM_GEN, "deepseek": 8}
+PM_GEN = {"qwen": 32, "deepseek": 8}  # tokens a generate
 PM_F32_LAYERS = 2  # the f32 cut of qwen held against the one-process port
 PM_LOGIT_TOL = 1e-5  # of max |logit|: f32, 2 layers, sums in another order
 PM_MARGIN = 1e-3  # f32 greedy tokens compared where the top-2 margin exceeds it
@@ -6621,6 +6660,7 @@ def pm_serve(torch, world, key: str, seed: int, ref) -> dict:
     row = pm_time_generate(torch, srv, prompts, gen, SH.collectives(mesh), instrument)
     row.update(key=key, arch=cfg.name, mesh=list(shape), coords=list(mesh.coords),
                transport=SH.collectives(mesh).transport,
+               pinned=getattr(SH.collectives(mesh), "pinned", None),
                n_layers=cfg.n_layers, init_s=init_s,
                param_bytes=pm_param_bytes(srv.params))
     row["tokens_vs_one_process"] = pm_decode_agreement(
@@ -6824,6 +6864,9 @@ def pm_rank(world, seed: int, go: str, ref_path: str) -> dict:
                   for key in ("qwen_dense_f32", "qwen_sparse_f32")]
     out["slices"] = step("slices", pm_slices, seed)
     out["moe"] = step("moe", pm_moe, seed, ref)
+    t_train = time.perf_counter()
+    out["train"] = step("train", pt_train, seed, os.path.dirname(go))
+    out["train_s"] = time.perf_counter() - t_train
     out["card_s"] = time.perf_counter() - t_card
     out["total_s"] = time.perf_counter() - t0
     return out
@@ -6849,15 +6892,20 @@ def pm_closed_forms(key: str) -> dict:
             if arch == "deepseek" else None}
 
 
-def phase_lm_mesh(torch, seed: int, device) -> dict:
+def phase_lm_mesh(torch, seed: int, device, train_ref: dict | None = None) -> dict:
     """Phase 24: qwen1.5-0.5b on a (1, 4) process mesh and deepseek-v3 (2
     layers) on a (2, 2) one, 4 ranks of a gloo world on the one card, the
-    collectives' data staged through pinned host buffers and moved through
-    shared memory, as a mesh whose ranks share one host does (transport
+    collectives' data copied between the card and a shared memory mapping,
+    as a mesh whose ranks share one host does (transport
     ``shm-host-staged``; over gloo's sockets each collective takes
     milliseconds, PERF.md section 5).  The ranks start on the host while
     this process runs the one-process references; it frees the card, posts
-    their turn, and touches the card no more until they are done."""
+    their turn, and touches the card no more until they are done.
+
+    Phase 25 (training on the mesh, ``pt_*``) runs in the same ranks and
+    the same turn, after the serving paths; ``train_ref`` holds phase 15's
+    one-process qwen losses (dense and sparse), which this process computes
+    in its reference time where it is None."""
     from concurrent.futures import ThreadPoolExecutor
 
     import tempfile
@@ -6875,6 +6923,8 @@ def phase_lm_mesh(torch, seed: int, device) -> dict:
                               (seed, go, ref_path), 900)
         info = pm_references(torch, seed, device, ref_path)
         free_card(torch)
+        if train_ref is None:
+            train_ref = pt_references(torch, device)
         ref_s = time.perf_counter() - t_start
         emit({"phase": "lm_mesh_references", "seconds": ref_s,
               "allocated": torch.cuda.memory_allocated(),
@@ -6980,14 +7030,20 @@ def phase_lm_mesh(torch, seed: int, device) -> dict:
           "bound": PM_MOE_TOL, "groups": info["moe"]["groups"],
           "one_group": info["moe"]["one_group"], "closed_form": want,
           "ranks": [{k: v for k, v in m.items()} for m in moe], "card": card})
-    err = max(row["max_abs_err"] for s in slices for row in s["rows"])
+    train = pt_checks(torch, ranks, train_ref, card)
+    err = max([row["max_abs_err"] for s in slices for row in s["rows"]]
+              + [train["max_abs_err"]])
     seconds = time.perf_counter() - t_start
+    emit({"phase": "train_mesh_done", "seconds": max(r["train_s"] for r in ranks),
+          "launches": train["launches"], "card": card})
     emit({"phase": "lm_mesh_done", "seconds": seconds, "reference_s": ref_s,
           "ranks_s": ranks_s, "rank_setup_s": [r["setup_s"] for r in ranks],
           "rank_wait_s": [r["wait_s"] for r in ranks],
           "rank_card_s": [r["card_s"] for r in ranks], "launches": launches,
           "transport": ranks[0]["serve"][0]["transport"], "card": card})
-    return {"seconds": seconds, "launches": launches, "max_abs_err": err}
+    return {"seconds": seconds, "launches": launches, "max_abs_err": err,
+            "train_launches": train["launches"],
+            "train_seconds": max(r["train_s"] for r in ranks)}
 
 
 DR_TOL = 2e-4  # random f32: the reference's tolerance (tests/test_kernels.py)
@@ -7333,6 +7389,446 @@ def phase_dryrun(torch, rng, device, counts_future, times: dict) -> dict:
             "seconds": seconds}
 
 
+# ------------------------------------------- phase 25: training on the mesh
+
+PT_MESHES = ((1, 4), (2, 2))
+PT_F32_LAYERS = 2  # the f32 cut held against the one-process port on the card
+PT_LOSS_TOL = 1e-5  # relative: f32, 2 layers, sums in another order
+PT_GRAD_TOL = 1e-4  # of a leaf's max |g|
+PT_PARAM_TOL = 1e-5  # of a leaf's max |p|, where |g| > PT_GRAD_FLOOR · the tree's max |g|
+PT_GRAD_FLOOR = 1e-3  # AdamW's first step moves a param by about ±lr·sign(g)
+PT_FIRST_TOL, PT_LAST_TOL = 1e-2, 0.05  # bf16, 24 layers: relative to one process
+PT_RESUME_TOL = 1e-2  # (1, 4) resumed from (2, 2)'s checkpoint, relative
+PT_CKPT_AT = 5
+
+
+def pt_configs() -> dict:
+    """qwen1.5-0.5b at full width: bf16 at full depth and its f32 2-layer
+    cut, dense and with ``ffn_density=0.5`` in (8, 128) blocks."""
+    from repro_torch.configs import get_config
+
+    qwen = get_config(LM_ARCH)
+    sparse = dataclasses.replace(qwen, ffn_density=0.5)
+    return {"dense": qwen, "sparse": sparse,
+            "dense_f32": dataclasses.replace(qwen, n_layers=PT_F32_LAYERS),
+            "sparse_f32": dataclasses.replace(sparse, n_layers=PT_F32_LAYERS)}
+
+
+def pt_opt_cfg():
+    """Phase 15's optimizer for qwen (its losses are (b)'s reference)."""
+    from repro_torch.optim import AdamWConfig
+
+    return AdamWConfig(lr_peak=1e-3, warmup_steps=3, total_steps=SPARSE_STEPS)
+
+
+def pt_blocks(torch, tree, shs, how):
+    """``how(leaf)`` of every leaf of ``tree``, cut to this rank's block."""
+    from repro_torch.tree import leaves
+
+    return [sh.local(how(t)).clone() for t, sh in zip(leaves(tree), shs)]
+
+
+def pt_f32(torch, world, key: str, shape, seed: int) -> dict:
+    """(a) One ``make_train_step`` step of the f32 2-layer cut on ``shape``
+    against the one-process port on the card from the same params and
+    batch, which every rank computes first and cuts to its blocks: the
+    loss, each grad block (the batch-axis sums taken) and each updated
+    param block."""
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding as SH
+    from repro_torch.core.mesh import make_process_mesh
+    from repro_torch.launch import steps as S
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, apply_updates, init_opt
+    from repro_torch.runtime.elastic import shard_tree
+    from repro_torch.sparse.layers import strip_derived, with_derived
+    from repro_torch.tree import leaves
+
+    cfg = pt_configs()[key]
+    mesh = make_process_mesh(world, shape, ("data", "model"))
+    device = mesh.device
+    opt_cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    rng = np.random.default_rng([seed, 25])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (SPARSE_B, SPARSE_S))
+                            .astype(np.int32)).to(device)
+    batch = {"tokens": toks, "labels": toks}
+    vag = S.value_and_grad_trainable(lm.loss_fn)
+    sh = S.mesh_param_shardings(cfg, mesh)
+    shs = leaves(sh, is_leaf=lambda x: hasattr(x, "spec"))
+    full = lm.init_params(torch.Generator(device=device).manual_seed(25), cfg,
+                          torch.float32)
+    params = with_derived(shard_tree(strip_derived(full), sh), cfg, mesh)
+    loss1, g1 = vag(full, batch, cfg)
+    g1 = strip_derived(g1)
+    new1, _, _ = apply_updates(strip_derived(full), g1,
+                               init_opt(strip_derived(full), opt_cfg), opt_cfg)
+    g_max = [float(g.abs().max()) if g.is_floating_point() and g.numel() else 0.0
+             for g in leaves(g1)]
+    p_max = [float(p.abs().max()) if p.is_floating_point() and p.numel() else 0.0
+             for p in leaves(new1)]
+    # AdamW's first step moves a param by about ±lr·sign(g): where g is at
+    # rounding level against the tree's largest (a key bias's, zero but for
+    # rounding: softmax ignores a shift shared by a row's scores), its sign
+    # and so the param say nothing
+    floor = PT_GRAD_FLOOR * max(g_max)
+    g_ref = pt_blocks(torch, g1, shs, lambda t: t)
+    big = pt_blocks(torch, g1, shs, lambda t: t.abs() > floor
+                    if t.is_floating_point() and t.numel() else t != t)
+    p_ref = pt_blocks(torch, new1, shs, lambda t: t)
+    del full, g1, new1
+    free_card(torch)
+    with SH.set_mesh(mesh):
+        loss, grads = S.loss_and_grads(params, batch, cfg)
+        new, _, metrics = S.make_train_step(cfg, opt_cfg)(
+            params, init_opt(strip_derived(params), opt_cfg), batch)
+    g_err = p_err = 0.0
+    worst = None
+    for g, want, m in zip(leaves(grads), g_ref, g_max):
+        if g.is_floating_point() and m:
+            g_err = max(g_err, float((g - want).abs().max()) / m)
+    for i, (p, want, keep) in enumerate(zip(leaves(strip_derived(new)), p_ref, big)):
+        if not p.is_floating_point():
+            p_err = max(p_err, float(not torch.equal(p, want)))
+        elif keep.any():
+            diff = torch.where(keep, (p - want).abs(), torch.zeros_like(p))
+            e = float(diff.max()) / p_max[i]
+            if e > p_err:
+                j = int(diff.argmax())
+                g = leaves(grads)[i]
+                p_err, worst = e, {
+                    "leaf": i, "shape": list(p.shape), "max_abs_p": p_max[i],
+                    "p": float(p.reshape(-1)[j]), "p_one_process": float(
+                        want.reshape(-1)[j]), "g": float(g.reshape(-1)[j]),
+                    "g_one_process": float(g_ref[i].reshape(-1)[j]),
+                    "max_abs_g": g_max[i]}
+    out = {"key": key, "mesh": list(shape), "coords": list(mesh.coords),
+           "loss": float(loss), "step_loss": float(metrics["loss"]),
+           "one_process_loss": float(loss1),
+           "loss_rel_err": abs(float(loss) - float(loss1)) / abs(float(loss1)),
+           "grad_rel_err": g_err, "param_rel_err": p_err, "param_worst": worst}
+    del params, grads, new, g_ref, p_ref, big
+    free_card(torch)
+    dist.barrier()
+    return out
+
+
+def pt_timed_loop(torch, TrainLoop, instrument, coll):
+    """A TrainLoop that records each step's host ms (ending in a
+    synchronize), block-kernel launches and collectives."""
+
+    class Timed(TrainLoop):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.step_ms, self.step_launches, self.step_coll = [], [], []
+            inner = self.step_fn
+
+            def step(*a):
+                n0, t0 = instrument.launches("bcoo"), time.perf_counter()
+                coll.reset()
+                out = inner(*a)
+                torch.cuda.synchronize()
+                self.step_ms.append((time.perf_counter() - t0) * 1e3)
+                self.step_launches.append(instrument.launches("bcoo") - n0)
+                self.step_coll.append(coll.snapshot())
+                return out
+
+            self.step_fn = step
+            self.save_s = []
+
+        def save(self):
+            t0 = time.perf_counter()
+            super().save()
+            self.save_s.append(time.perf_counter() - t0)
+
+    return Timed
+
+
+def pt_ckpt_equal(torch, loop) -> bool:
+    """The checkpoint just written, read back onto this rank's blocks, is
+    its state bit for bit: over the ranks, the gathered state."""
+    from repro_torch.runtime import restore_checkpoint
+    from repro_torch.sparse.layers import strip_derived
+    from repro_torch.tree import leaves
+
+    live = (strip_derived(loop.params), loop.opt)
+    back, step = restore_checkpoint(loop.ckpt_dir, live, device=loop.device,
+                                    shardings=(loop.p_sh, loop.o_sh))
+    return step == loop.step and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(leaves(back), leaves(live)))
+
+
+def pt_loop(torch, world, key: str, shape, ckpt: str | None = None,
+            resume: bool = False) -> dict:
+    """(b) ``TrainLoop(mesh=)`` of the bf16 model for SPARSE_STEPS steps of
+    phase 15's batches; the last step counted (its collectives and block
+    kernel launches).  With ``ckpt``: (c) write a checkpoint at
+    PT_CKPT_AT and read it back onto the rank's blocks, or (``resume``)
+    restore it and run the steps after it."""
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding as SH
+    from repro_torch.core.mesh import make_process_mesh
+    from repro_torch.kernels import instrument
+    from repro_torch.launch.train import TrainLoop
+
+    cfg = pt_configs()[key]
+    mesh = make_process_mesh(world, shape, ("data", "model"))
+    coll = SH.collectives(mesh)
+    Loop = pt_timed_loop(torch, TrainLoop, instrument, coll)
+    loop = Loop(cfg, pt_opt_cfg(), mesh=mesh, seq_len=SPARSE_S,
+                global_batch=SPARSE_B, ckpt_dir=ckpt,
+                ckpt_every=PT_CKPT_AT if ckpt and not resume else 10 ** 9)
+    t0 = time.perf_counter()
+    if resume:
+        check(loop.maybe_restore() and loop.step == PT_CKPT_AT,
+              f"train mesh {key} {shape}: no checkpoint at step {PT_CKPT_AT}")
+    else:
+        loop.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, saved = [], None
+    if ckpt and not resume:
+        losses += loop.run(PT_CKPT_AT, log_every=0)
+        t1 = time.perf_counter()
+        saved = pt_ckpt_equal(torch, loop)
+        saved_s = time.perf_counter() - t1
+        loop.ckpt_every = 10 ** 9
+    losses += loop.run(SPARSE_STEPS, log_every=0)
+    last = loop.step_coll[-1]
+    med = statistics.median(loop.step_ms[1:]) if len(loop.step_ms) > 1 \
+        else loop.step_ms[0]
+    row = {"key": key, "mesh": list(shape), "coords": list(mesh.coords),
+           "transport": coll.transport, "pinned": getattr(coll, "pinned", None),
+           "resumed": resume, "losses": losses,
+           "init_s": init_s, "step_ms": loop.step_ms, "step_ms_median": med,
+           "tokens_per_s": SPARSE_B * SPARSE_S / med * 1e3,
+           "launches": loop.step_launches[-1],
+           "coll_calls": last["calls"], "coll_bytes": last["bytes"],
+           "coll_ms": {k: 1e3 * v for k, v in last["seconds"].items()},
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if saved is not None:
+        row.update(ckpt_equal=saved, ckpt_check_s=saved_s, save_s=loop.save_s)
+    del loop
+    free_card(torch)
+    dist.barrier()
+    return row
+
+
+def pt_kernel(torch, world, seed: int) -> dict:
+    """(d) The block kernel on rank 0's run of the sparse qwen's w_gate and
+    w_down on (1, 4), T = SPARSE_B · SPARSE_S = 1,024, integer-valued bf16:
+    the forward on the run and grad x on the run's Wᵀ stream (its block-
+    columns counted from the run's first block-row), each bit-equal to the
+    plain version, timed beside it and ``torch.matmul`` on the run's dense
+    rows (forward) or their transpose (grad x)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import instrument
+    from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_plain,
+                                               transposed_values)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sparse.layers import (_balanced_pattern, stream_layout,
+                                           with_run, with_transpose)
+
+    cfg = pt_configs()["sparse"]
+    mesh = make_local_mesh(PT_MESHES[0][1], world=world)
+    rows_out = []
+    if mesh.rank == 0:
+        device, T = mesh.device, SPARSE_B * SPARSE_S
+        r, c = cfg.sparse_block
+        gen = np.random.default_rng([seed, 25, 4])
+        for name in ("w_gate", "w_down"):
+            d_in, d_out = ffn_dims(cfg)[name]
+            browind, bcolind = _balanced_pattern(d_out // r, d_in // c, cfg.ffn_density)
+            nb_l = len(browind) // PT_MESHES[0][1]
+            run = {"browind": torch.from_numpy(browind[:nb_l]).to(device),
+                   "bcolind": torch.from_numpy(bcolind[:nb_l]).to(device),
+                   "bvalues": torch.from_numpy(gen.integers(-3, 4, (nb_l, r, c))
+                                               .astype(np.float32)).to(device,
+                                                                       torch.bfloat16)}
+            rows, lo, merge = stream_layout(nb_l, d_in, d_out, (r, c),
+                                            cfg.ffn_density, mesh)
+            local = with_transpose(with_run(run, d_in, d_out, cfg.ffn_density, mesh),
+                                   d_in, lo)
+            lb = (local["browind"] - lo).contiguous()
+            tv = transposed_values(local["bvalues"], local["t_perm"])
+            xt = torch.from_numpy(gen.integers(-3, 4, (d_in, T)).astype(np.float32)
+                                  ).to(device, torch.bfloat16)
+            gy = torch.from_numpy(gen.integers(-3, 4, (rows * r, T)).astype(np.float32)
+                                  ).to(device, torch.bfloat16)
+            dense = densified(torch, {"browind": lb, "bcolind": local["bcolind"],
+                                      "bvalues": local["bvalues"]}, d_in, rows * r)
+            cases = {
+                "forward": (lambda: bcoo_spmv(lb, local["bcolind"], local["bvalues"], xt,
+                                              rows * r, browptr=local["browptr"]),
+                            lambda: bcoo_spmv_plain(lb, local["bcolind"],
+                                                    local["bvalues"], xt, rows * r),
+                            lambda: dense @ xt,
+                            lm_bound(nb_l, r, c, rows, d_in, rows * r, T)),
+                "grad_x": (lambda: bcoo_spmv(local["t_browind"], local["t_bcolind"], tv,
+                                             gy, d_in, browptr=local["t_browptr"]),
+                           lambda: bcoo_spmv_plain(local["t_browind"],
+                                                   local["t_bcolind"], tv, gy, d_in),
+                           lambda: dense.T @ gy,
+                           lm_bound(nb_l, c, r, d_in // c, rows * r, d_in, T)),
+            }
+            for what, (kern, plain, lib, (bound, by)) in cases.items():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                instrument.reset()
+                ms = time_ms(torch, kern, PM_TIMED)
+                rows_out.append({
+                    "name": name, "pass": what, "T": T, "nb": nb_l, "block_rows": rows,
+                    "first_block_row": lo, "merge": merge,
+                    "kernel_equals_plain": bool(torch.equal(got, want)),
+                    "max_abs_err": max_err(torch, got, want), "ms": ms,
+                    "timed_launches": instrument.launches("bcoo"),
+                    "plain_ms": time_ms(torch, plain, 2, warmup=1),
+                    "library_ms": time_ms(torch, lib, PM_TIMED),
+                    "bound_ms": bound, "bound_by": by})
+            del dense, xt, gy, tv, local, run
+        free_card(torch)
+    dist.barrier()
+    return {"rows": rows_out}
+
+
+def pt_train(torch, world, seed: int, ckpt_root: str) -> dict:
+    """Phase 25 on this rank: (a), (b) with (c), (d), one path at a time
+    for all ranks (every path frees the card before the next); rank 0
+    prints each path's seconds."""
+
+    def path(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(torch, world, *args, **kw)
+        if world.rank == 0:
+            emit({"phase": "train_mesh_progress", "path": name,
+                  "seconds": time.perf_counter() - t0})
+        return res
+
+    out = {"f32": [path(f"f32 {key} {shape}", pt_f32, key, shape, seed)
+                   for shape in PT_MESHES for key in ("dense_f32", "sparse_f32")]}
+    ckpt = os.path.join(ckpt_root, "phase25_ckpt")
+    runs = (("dense", PT_MESHES[1], ckpt, False), ("dense", PT_MESHES[0], ckpt, True),
+            ("dense", PT_MESHES[0], None, False), ("sparse", PT_MESHES[0], None, False),
+            ("sparse", PT_MESHES[1], None, False))
+    out["loops"] = [path(f"loop {key} {shape}{' resumed' if resume else ''}", pt_loop,
+                         key, shape, ckpt=c, resume=resume)
+                    for key, shape, c, resume in runs]
+    out["kernel"] = path("kernel", pt_kernel, seed)
+    return out
+
+
+def pt_references(torch, device) -> dict:
+    """(b)'s one-process reference where phase 15 did not run in this
+    process: phase 15's qwen loops (the same seeds, batches and optimizer),
+    dense and sparse, ``SPARSE_STEPS`` losses each."""
+    from repro_torch.launch.train import TrainLoop
+
+    out = {}
+    for key in ("dense", "sparse"):
+        loop = TrainLoop(pt_configs()[key], pt_opt_cfg(), seq_len=SPARSE_S,
+                         global_batch=SPARSE_B, device=device)
+        loop.init_state()
+        out[key] = loop.run(SPARSE_STEPS, log_every=0)
+        del loop
+        free_card(torch)
+    return out
+
+
+def pt_checks(torch, ranks, ref_losses: dict, card: str) -> dict:
+    """Phase 25's rows, every one emitted before any is checked; returns
+    its block-kernel launches on the main path and the kernel's largest
+    error."""
+    from repro_torch.analysis import sharded as SHD
+
+    cfgs = pt_configs()
+    f32 = [[r["train"]["f32"][i] for r in ranks]
+           for i in range(len(ranks[0]["train"]["f32"]))]
+    loops = [[r["train"]["loops"][i] for r in ranks]
+             for i in range(len(ranks[0]["train"]["loops"]))]
+    krows = ranks[0]["train"]["kernel"]["rows"]
+    for per in f32:
+        emit({"phase": "train_mesh_f32", "key": per[0]["key"], "mesh": per[0]["mesh"],
+              "n_layers": PT_F32_LAYERS, "batch": SPARSE_B, "seq": SPARSE_S,
+              "loss_rel_err": max(r["loss_rel_err"] for r in per),
+              "grad_rel_err": max(r["grad_rel_err"] for r in per),
+              "param_rel_err": max(r["param_rel_err"] for r in per),
+              "bounds": [PT_LOSS_TOL, PT_GRAD_TOL, PT_PARAM_TOL],
+              "ranks": per, "card": card})
+    closed = []
+    for per in loops:
+        row0 = per[0]
+        cfg = cfgs[row0["key"]]
+        want = SHD.train_collectives(cfg, tuple(row0["mesh"]), SPARSE_B, SPARSE_S,
+                                     cfg.remat)
+        want_l = SHD.train_block_kernel_launches(cfg)
+        closed.append((want, want_l))
+        emit({"phase": "train_mesh", "key": row0["key"], "arch": cfg.name,
+              "mesh": row0["mesh"], "n_layers": cfg.n_layers, "dtype": "bfloat16",
+              "batch": SPARSE_B, "seq": SPARSE_S, "transport": row0["transport"],
+              "resumed": row0["resumed"], "losses": row0["losses"],
+              "one_process_losses": ref_losses[row0["key"]],
+              "closed_form": {"launches": want_l, **want},
+              "step_ms_median": max(r["step_ms_median"] for r in per),
+              "tokens_per_s": min(r["tokens_per_s"] for r in per),
+              "ranks": per, "card": card})
+    emit({"phase": "train_mesh_kernel", "arch": LM_ARCH, "mesh": list(PT_MESHES[0]),
+          "rank": 0, "rows": krows, "card": card})
+    for per in f32:
+        for row in per:
+            who = f"train mesh f32 {row['key']} {row['mesh']} at {row['coords']}"
+            check(row["loss_rel_err"] <= PT_LOSS_TOL,
+                  f"{who}: loss {row['loss']} vs one process {row['one_process_loss']}")
+            check(row["grad_rel_err"] <= PT_GRAD_TOL,
+                  f"{who}: grads {row['grad_rel_err']:.3g} of max |g|")
+            check(row["param_rel_err"] <= PT_PARAM_TOL,
+                  f"{who}: params {row['param_rel_err']:.3g} of the leaf's max |p|: "
+                  f"{row['param_worst']}")
+    launches = 0
+    for per, (want, want_l) in zip(loops, closed):
+        row0 = per[0]
+        ref = ref_losses[row0["key"]]
+        for row in per:
+            who = f"train mesh {row['key']} {row['mesh']} at {row['coords']}"
+            got = row["losses"]
+            check(len(got) == (SPARSE_STEPS - PT_CKPT_AT if row["resumed"]
+                               else SPARSE_STEPS) and all(np.isfinite(got)),
+                  f"{who}: losses {got}")
+            check(got == row0["losses"], f"{who}: losses differ from rank 0's")
+            if not row["resumed"]:
+                check(abs(got[0] - ref[0]) <= PT_FIRST_TOL * abs(ref[0]),
+                      f"{who}: first loss {got[0]} vs one process {ref[0]}")
+            check(abs(got[-1] - ref[-1]) <= PT_LAST_TOL * abs(ref[-1]),
+                  f"{who}: last loss {got[-1]} vs one process {ref[-1]}")
+            check(row["coll_calls"] == want["calls"]
+                  and row["coll_bytes"] == want["bytes"],
+                  f"{who}: collectives {row['coll_calls']} / {row['coll_bytes']} != "
+                  f"closed form {want}")
+            check(row["launches"] == want_l,
+                  f"{who}: {row['launches']} block-kernel launches in a step, "
+                  f"closed form {want_l}")
+            if "ckpt_equal" in row:
+                check(row["ckpt_equal"], f"{who}: the checkpoint at step "
+                      f"{PT_CKPT_AT} != the ranks' state")
+            launches += row["launches"]
+    dense22, resumed = loops[0][0], loops[1][0]
+    check(all(abs(a - b) <= PT_RESUME_TOL * abs(b) for a, b in
+              zip(resumed["losses"], dense22["losses"][PT_CKPT_AT:])),
+          f"train mesh: (1, 4) resumed {resumed['losses']} vs (2, 2) "
+          f"{dense22['losses'][PT_CKPT_AT:]}")
+    for row in krows:
+        check(row["kernel_equals_plain"], f"train mesh kernel {row['name']} "
+              f"{row['pass']}: != the plain version")
+        check(row["timed_launches"] == PM_TIMED + 3,
+              f"train mesh kernel {row['name']} {row['pass']}: timed "
+              f"{row['timed_launches']} launches")
+    return {"launches": launches,
+            "max_abs_err": max(row["max_abs_err"] for row in krows)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7455,7 +7951,8 @@ def run(args, torch, counts_future) -> int:
     free_card(torch)
     pw_run = phase_process_mesh(torch, args.seed, device)
     free_card(torch)
-    pm_run = phase_lm_mesh(torch, args.seed, device)
+    pm_run = phase_lm_mesh(torch, args.seed, device, train_ref={
+        key: train_run["sparse"][key]["losses"] for key in ("dense", "sparse")})
     free_card(torch)
     dr_run = phase_dryrun(torch, np.random.default_rng([args.seed, 20]), device,
                           counts_future,
@@ -7484,6 +7981,7 @@ def run(args, torch, counts_future) -> int:
     by_path["coo_spmv"]["process_mesh"] = pw_run["launches"]["coo"]
     by_path["bcoo_spmv"]["process_mesh"] = pw_run["launches"]["bcoo"]
     by_path["bcoo_spmv"]["lm_mesh"] = pm_run["launches"]
+    by_path["bcoo_spmv"]["lm_mesh_train"] = pm_run["train_launches"]
     by_path["coo_spmv"]["dryrun"] = dr_run["coo_launches"]
     by_path["bcoo_spmv"]["dryrun"] = dr_run["bcoo_launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
@@ -7523,6 +8021,7 @@ def run(args, torch, counts_future) -> int:
           "examples_phase_s": ex_run["seconds"],
           "process_mesh_phase_s": pw_run["seconds"],
           "lm_mesh_phase_s": pm_run["seconds"],
+          "lm_mesh_train_phase_s": pm_run["train_seconds"],
           "dryrun_phase_s": dr_run["seconds"],
           "card": card})
     emit({"kernels": kernels})

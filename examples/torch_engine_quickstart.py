@@ -19,7 +19,8 @@ import numpy as np
 
 from repro_torch.api.plan import check_device
 from repro_torch.data import paper_small_suite
-from repro_torch.engine import MicroBatcher, SpmvEngine
+from repro_torch.engine import SpmvEngine
+from repro_torch.engine.batcher import BurstBatcher
 
 
 def main(argv=None) -> dict:
@@ -57,7 +58,9 @@ def main(argv=None) -> dict:
           f"hits={eng.cache.stats.hits})")
 
     # ---- batched stream: concurrent requests coalesce into SpMM ----------
-    with MicroBatcher(eng, max_batch=8, buckets=(1, 2, 4, 8)) as mb:
+    # the flushes wait until all 32 are queued (BurstBatcher), so they form
+    # 4 batches of 8 however fast the host queues them
+    with BurstBatcher(eng, burst=32, max_batch=8, buckets=(1, 2, 4, 8)) as mb:
         vecs = [rng.standard_normal(a.shape[1]).astype(np.float32)
                 for _ in range(32)]
         futs = [mb.submit(spec.name, v) for v in vecs]

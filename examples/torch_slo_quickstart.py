@@ -17,7 +17,7 @@ contract:
     batch is not flagged as unfairness.
 
 The burst is held at the batcher until all of it is queued
-(:class:`BurstBatcher`): with the plain batcher the deep queue formed only
+(``repro_torch.engine.batcher.BurstBatcher``): with the plain batcher the deep queue formed only
 when the event loop enqueued the burst faster than the flush threads
 drained it, which a loaded host does not promise (the flush threads then
 popped a few requests at a time, in arrival order, and the rt tail lost
@@ -30,13 +30,13 @@ device; it runs on the card unless asked for the CPU:
 """
 import argparse
 import asyncio
-import time
 
 import numpy as np
 
 from repro_torch.api.plan import check_device
 from repro_torch.data.matrices import regular_matrix
-from repro_torch.engine import MicroBatcher, SpmvEngine
+from repro_torch.engine import SpmvEngine
+from repro_torch.engine.batcher import BurstBatcher
 from repro_torch.serve import (
     AsyncSpmvService,
     WorkloadSpec,
@@ -45,46 +45,6 @@ from repro_torch.serve import (
     replay,
     tenant_configs,
 )
-
-
-class BurstBatcher(MicroBatcher):
-    """A micro-batcher that holds every flush while a burst is arriving.
-
-    Flushes (deadline, queue-full and explicit ones alike) wait until
-    ``burst`` requests are queued, so the whole burst is in the queue when
-    the first flush sorts it by class.  If fewer ever arrive (admission
-    rejected some), the hold ends once no request has arrived for
-    ``quiet_s`` seconds.
-    """
-
-    def __init__(self, engine, burst: int, quiet_s: float = 0.5, **kwargs):
-        super().__init__(engine, **kwargs)
-        self.burst, self.quiet_s = burst, quiet_s
-        self._last_submit = time.monotonic()
-
-    def _held_locked(self, now: float) -> bool:
-        queued = sum(len(q) for q in self._queues.values())
-        return 0 < queued < self.burst and now - self._last_submit < self.quiet_s
-
-    def submit(self, name, x, *args, **kwargs):
-        with self._lock:
-            self._last_submit = time.monotonic()
-        return super().submit(name, x, *args, **kwargs)
-
-    def flush(self, name=None) -> int:
-        with self._lock:
-            if self._held_locked(time.monotonic()):
-                return 0
-        return super().flush(name)
-
-    def _earliest_deadline_locked(self):
-        now = time.monotonic()
-        if self._held_locked(now):  # look again when the quiet time is up
-            return self._last_submit + self.quiet_s
-        return super()._earliest_deadline_locked()
-
-    def _take_due_locked(self, now: float):
-        return {} if self._held_locked(now) else super()._take_due_locked(now)
 
 
 def main(argv=None) -> dict:

@@ -11,7 +11,13 @@ mesh=)``) holds and moves, from the spec trees and the config alone:
   of one MoE layer, counted as ``core/collectives.py`` counts them (the
   bytes of each call's result on the rank; a collective over one rank
   counts nothing);
-* :func:`block_kernel_launches`: its launches of the block kernel.
+* :func:`train_collectives`: the calls and bytes, by kind, of one train
+  step (``launch.steps.make_train_step`` on the mesh): the forward's, the
+  recompute's, the backward's transposes and ``model_in`` sums
+  (``core/sharding.py``'s convention), the gradient sums of the params
+  replicated over "data", and the clip's psum;
+* :func:`block_kernel_launches` and :func:`train_block_kernel_launches`:
+  its launches of the block kernel.
 
 Each term follows the code path it counts (``models/common.py``,
 ``attention.py``, ``moe.py``, ``sparse/layers.py``, ``lm.py``); the CPU
@@ -30,7 +36,8 @@ from ..core.mesh import dry_process_mesh
 from ..sparse.layers import blocks_per_row
 
 __all__ = ["param_bytes", "forward_collectives", "serve_collectives",
-           "moe_collectives", "block_kernel_launches"]
+           "moe_collectives", "train_collectives", "block_kernel_launches",
+           "train_block_kernel_launches"]
 
 AXES = ("data", "model")
 
@@ -102,12 +109,25 @@ def abstract_params(cfg, dtype=torch.bfloat16) -> dict:
 
 
 class _Tally:
-    def __init__(self):
-        self.calls, self.bytes = Counter(), Counter()
+    """Calls and bytes by kind.  A forward's collective is added with its
+    transpose (``back``: (kind, bytes) pairs, or None where the transpose
+    moves nothing); :meth:`grad` adds a collective of the backward alone
+    (``model_in``'s psum).  A serving tally counts the forwards only."""
 
-    def add(self, kind: str, nbytes: int, n: int = 1) -> None:
+    def __init__(self, train: bool = False):
+        self.calls, self.bytes = Counter(), Counter()
+        self.train = train
+
+    def add(self, kind: str, nbytes: int, n: int = 1, back=None) -> None:
         self.calls[kind] += n
         self.bytes[kind] += n * int(nbytes)
+        if self.train and back is not None:
+            self.grad(*back, n=n)
+
+    def grad(self, kind: str, nbytes: int, n: int = 1) -> None:
+        if self.train:
+            self.calls[kind] += n
+            self.bytes[kind] += n * int(nbytes)
 
     def add_all(self, other: "_Tally", times: int = 1) -> None:
         for k in KINDS:
@@ -119,91 +139,130 @@ class _Tally:
                 "bytes": {k: self.bytes[k] for k in KINDS}}
 
 
-def _col(t: _Tally, d_in: int, d_out: int, Dd: int, Dm: int, e: int) -> None:
+class _Ctx:
+    """The mesh extents, the element size and whether the batch of the call
+    is split over "data" (which decides the batch-axis transposes)."""
+
+    def __init__(self, t: _Tally, Dd: int, Dm: int, e: int, B: int):
+        self.t, self.Dd, self.Dm, self.e = t, Dd, Dm, e
+        self.bs = _split(B, Dd)
+
+    def data_gather(self, full_bytes: int) -> None:
+        """An all-gather over "data" of ``full_bytes`` gathered: its
+        transpose a reduce-scatter where the batch is split, a slice
+        otherwise."""
+        self.t.add("all-gather", full_bytes,
+                   back=("reduce-scatter", full_bytes // self.Dd) if self.bs else None)
+
+    def model_in(self, nbytes: int) -> None:
+        """``model_in``: a psum over "model" of the gradient."""
+        self.t.grad("all-reduce", nbytes)
+
+
+def _col(c: _Ctx, d_in: int, d_out: int) -> None:
     """A column-parallel weight (d_in over data, d_out over model): its
     FSDP all-gather."""
-    if _split(d_in, Dd):
-        t.add("all-gather", d_in * _local(d_out, Dm) * e)
+    if _split(d_in, c.Dd):
+        c.data_gather(d_in * _local(d_out, c.Dm) * c.e)
 
 
-def _row(t: _Tally, d_in: int, d_out: int, tokens: int, Dd: int, Dm: int,
-         e: int) -> None:
+def _row(c: _Ctx, d_in: int, d_out: int, tokens: int, whole_in: bool = False) -> None:
     """A row-parallel weight (d_in over model, d_out over data): its FSDP
-    all-gather and the psum of the partial products."""
-    if _split(d_out, Dd):
-        t.add("all-gather", _local(d_in, Dm) * d_out * e)
-    if _split(d_in, Dm):
-        t.add("all-reduce", tokens * d_out * e)
+    all-gather and the psum of the partial products; ``whole_in``: x holds
+    every feature and is sliced to the rank's block (its gradient
+    all-gathered)."""
+    if _split(d_out, c.Dd):
+        c.data_gather(_local(d_in, c.Dm) * d_out * c.e)
+    if _split(d_in, c.Dm):
+        if whole_in:
+            c.t.grad("all-gather", tokens * d_in * c.e)
+        c.t.add("all-reduce", tokens * d_out * c.e)
 
 
-def _swiglu(t, d, f, tokens, Dd, Dm, e) -> None:
-    _col(t, d, f, Dd, Dm, e)
-    _col(t, d, f, Dd, Dm, e)
-    _row(t, f, d, tokens, Dd, Dm, e)
+def _swiglu(c: _Ctx, d, f, tokens, varied: bool = False) -> None:
+    _col(c, d, f)
+    _col(c, d, f)
+    if _split(f, c.Dm) and not varied:
+        c.model_in(tokens * d * c.e)
+    _row(c, f, d, tokens)
 
 
-def _sparse_ffn(t, cfg, tokens, Dm, e) -> None:
+def _sparse_ffn(c: _Ctx, cfg, tokens) -> None:
     """The gate's and up's rows (one pattern: one layout) all-gathered once
-    as their product, or each summed; then the down-projection's."""
-    r, c = cfg.sparse_block
+    as their product, or each summed; then the down-projection's.  Each
+    run's input enters through ``model_in``."""
+    r, cc = cfg.sparse_block
     d, f = cfg.d_model, cfg.d_ff
     for d_in, d_out, runs in ((d, f, 2), (f, d, 1)):
-        per_row = blocks_per_row(d_in // c, cfg.ffn_density)
+        per_row = blocks_per_row(d_in // cc, cfg.ffn_density)
         nb = (d_out // r) * per_row
-        if not _split(nb, Dm):
+        if not _split(nb, c.Dm):
             continue
-        if (nb // Dm) % per_row == 0:  # whole block-rows: rows gathered
-            t.add("all-gather", d_out * tokens * e)
+        c.model_in(tokens * d_in * c.e)
+        if (nb // c.Dm) % per_row == 0:  # whole block-rows: rows gathered
+            c.t.add("all-gather", d_out * tokens * c.e)
         else:  # runs end inside block-rows: summed in the accumulation dtype
-            t.add("all-reduce", d_out * tokens * 4, runs)
+            c.t.add("all-reduce", d_out * tokens * 4, runs)
 
 
-def _mlp(t, cfg, tokens, Dd, Dm, e) -> None:
+def _mlp(c: _Ctx, cfg, tokens) -> None:
     if cfg.ffn_density < 1.0:
-        _sparse_ffn(t, cfg, tokens, Dm, e)
+        _sparse_ffn(c, cfg, tokens)
     else:
-        _swiglu(t, cfg.d_model, cfg.d_ff, tokens, Dd, Dm, e)
+        _swiglu(c, cfg.d_model, cfg.d_ff, tokens)
 
 
-def _gqa(t, cfg, tokens, Dd, Dm, e) -> None:
+def _gqa(c: _Ctx, cfg, tokens) -> None:
     d, dh, H, KV = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    Dm, e = c.Dm, c.e
     widths = (H * dh, KV * dh, KV * dh)
     for n in widths:
-        _col(t, d, n, Dd, Dm, e)
+        _col(c, d, n)
+    if any(_split(n, Dm) for n in widths):
+        c.model_in(tokens * d * e)
     local = Dm > 1 and H % Dm == 0 and KV % Dm == 0 \
         and all(_split(n, Dm) for n in widths)
     if not local:
         for n in widths:
             if _split(n, Dm):
-                t.add("all-gather", tokens * n * e)
-    _row(t, H * dh, d, tokens, Dd, Dm, e)
+                c.t.add("all-gather", tokens * n * e)
+    _row(c, H * dh, d, tokens, whole_in=not local)
 
 
-def _mla(t, cfg, tokens, Dd, Dm, e) -> None:
+def _mla(c: _Ctx, cfg, tokens) -> None:
     d, H, dh, dr = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.mla_rope_dim
     dc, dq = cfg.mla_kv_comp, cfg.mla_q_comp
-    _col(t, d, dq, Dd, Dm, e)
+    Dm, e = c.Dm, c.e
+    _col(c, d, dq)
+    if _split(dq, Dm) or _split(dc, Dm):
+        c.model_in(tokens * d * e)  # x into w_dq and w_dkv
     if _split(dq, Dm):
-        t.add("all-gather", tokens * dq * e)  # cq whole
-    _col(t, dq, H * dh, Dd, Dm, e)
-    _col(t, dq, H * dr, Dd, Dm, e)
+        c.t.add("all-gather", tokens * dq * e)  # cq whole
+    _col(c, dq, H * dh)
+    _col(c, dq, H * dr)
+    if _split(H * dh, Dm) or _split(H * dr, Dm):
+        c.model_in(tokens * dq * e)  # cq into w_uq and w_qr
     local = Dm > 1 and H % Dm == 0 and _split(H * dh, Dm) and _split(H * dr, Dm)
     if not local:
         for n in (H * dh, H * dr):
             if _split(n, Dm):
-                t.add("all-gather", tokens * n * e)
-    _col(t, d, dc, Dd, Dm, e)
+                c.t.add("all-gather", tokens * n * e)
+    _col(c, d, dc)
     if _split(dc, Dm):
-        t.add("all-gather", tokens * dc * e)  # ckv whole
+        c.t.add("all-gather", tokens * dc * e)  # ckv whole
+    if local:  # the rank's heads over the whole latents and rope key
+        c.model_in(tokens * dc * e)
+        c.model_in(tokens * dr * e)
     for _ in ("w_uk", "w_uv"):  # up-projections, in the attention
-        _col(t, dc, H * dh, Dd, Dm, e)
+        _col(c, dc, H * dh)
         if not local and _split(H * dh, Dm):
-            t.add("all-gather", dc * H * dh * e)
-    _row(t, H * dh, d, tokens, Dd, Dm, e)
+            c.t.add("all-gather", dc * H * dh * e)
+    _row(c, H * dh, d, tokens, whole_in=not local)
 
 
-def _moe(t, cfg, B: int, S: int, Dd, Dm, e) -> None:
+def _moe(c: _Ctx, cfg, B: int, S: int) -> None:
     """One MoE layer over the global batch (B, S)."""
+    Dd, Dm, e, t = c.Dd, c.Dm, c.e, c.t
     d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     T = B * S
     G = Dd if Dd > 1 else 1
@@ -211,74 +270,114 @@ def _moe(t, cfg, B: int, S: int, Dd, Dm, e) -> None:
         G = 1
     T_loc = T // G
     cap = cfg.moe_capacity(T_loc)
-    split = _split(B, Dd)
-    if G == 1 and split:
-        t.add("all-gather", T * d * e)  # every token into the one group
+    split = c.bs
+    if G == 1 and split:  # every token into the one group
+        c.data_gather(T * d * e)
+    if G > 1 and not split:  # the group's tokens sliced from the whole batch
+        t.grad("all-gather", T * d * e)
+    varied = False
     if E >= 64:
         E_l, d_l = _local(E, Dd), _local(d, Dm)
+        if d_l < d:
+            t.grad("all-gather", T_loc * d * e)  # x sliced to the d block
+            c.model_in(T_loc * cfg.moe_top_k * 4)  # the f32 gates
         if E_l < E and G > 1:
-            t.add("all-to-all", E * cap * d_l * e)
+            t.add("all-to-all", E * cap * d_l * e,
+                  back=("all-to-all", E * cap * d_l * e))
+        if E_l < E and G == 1 and not split:  # the experts sliced
+            t.grad("all-gather", E * cap * d_l * e)
         Gx = Dd if (E_l < E and G > 1) else 1
         if d_l < d:
             t.add("all-reduce", E_l * Gx * cap * f * e, 2)  # h and u
+            c.model_in(E_l * Gx * cap * f * e)
         if E_l < E:  # back: an all-to-all, or all-gather of the experts
-            t.add("all-to-all" if G > 1 else "all-gather", E * cap * d_l * e)
+            if G > 1:
+                t.add("all-to-all", E * cap * d_l * e,
+                      back=("all-to-all", E * cap * d_l * e))
+            else:
+                c.data_gather(E * cap * d_l * e)
         if d_l < d:
             t.add("all-gather", T_loc * d * e)
     else:
         f_l = _local(f, Dm)
+        if f_l < f:
+            c.model_in(T_loc * d * e)
+            varied = True
         if _split(d, Dd):
-            t.add("all-gather", E * d * f_l * e, 2)  # w_gate, w_up
-            t.add("all-gather", E * f_l * d * e)  # w_down
+            for _ in range(2):  # w_gate, w_up
+                c.data_gather(E * d * f_l * e)
+            c.data_gather(E * f_l * d * e)  # w_down
         if f_l < f:
             t.add("all-reduce", E * cap * d * e)
     if cfg.n_shared_experts:
-        _swiglu(t, d, f * cfg.n_shared_experts, T_loc, Dd, Dm, e)
+        _swiglu(c, d, f * cfg.n_shared_experts, T_loc, varied)
     if G > 1 and not split:
         t.add("all-gather", T * d * e)  # every group's tokens
 
 
-def _block(t, cfg, kind, B, S, Dd, Dm, e) -> None:
-    tokens = (B // Dd if _split(B, Dd) else B) * S
+def _block(c: _Ctx, cfg, kind, B, S) -> None:
+    tokens = (B // c.Dd if c.bs else B) * S
     if kind in ("mla_dense", "mla_moe"):
-        _mla(t, cfg, tokens, Dd, Dm, e)
+        _mla(c, cfg, tokens)
     else:
-        _gqa(t, cfg, tokens, Dd, Dm, e)
+        _gqa(c, cfg, tokens)
     if kind in ("moe", "mla_moe"):
-        _moe(t, cfg, B, S, Dd, Dm, e)
+        _moe(c, cfg, B, S)
     else:
-        _mlp(t, cfg, tokens, Dd, Dm, e)
+        _mlp(c, cfg, tokens)
+
+
+def _embed(c: _Ctx, cfg, rows: int) -> None:
+    if _split(cfg.vocab, c.Dm):
+        c.t.add("all-reduce", rows * cfg.d_model * c.e)
+
+
+def _head(c: _Ctx, cfg, B: int, Bl: int, S: int) -> None:
+    """The logits of S positions of the rank's Bl rows, gathered over
+    "model"."""
+    d, V, e, Dm = cfg.d_model, cfg.vocab, c.e, c.Dm
+    v_l = _local(V, Dm)
+    if cfg.tie_embeddings:
+        if v_l < V:
+            c.model_in(Bl * S * d * e)
+    else:
+        from ..models.lm import head_stationary
+
+        if head_stationary(Bl, B, S, d, _local(d, c.Dd), v_l):
+            d_l = _local(d, c.Dd)
+            if Bl < B:
+                c.data_gather(B * S * d * e)
+                if v_l < V:
+                    c.model_in(B * S * d_l * e)
+                c.t.add("reduce-scatter", Bl * S * v_l * e,
+                        back=("all-gather", B * S * v_l * e))
+            else:
+                c.t.grad("all-gather", B * S * d * e)  # h sliced over "data"
+                if v_l < V:
+                    c.model_in(B * S * d_l * e)
+                c.t.add("all-reduce", B * S * v_l * e)
+        else:
+            _col(c, d, V)
+            if v_l < V:
+                c.model_in(Bl * S * d * e)
+    if v_l < V:
+        c.t.add("all-gather", Bl * S * V * e)
 
 
 def forward_collectives(cfg, shape, B: int, S: int, itemsize: int) -> _Tally:
     """A forward pass (prefill of S tokens, or a decode step at S = 1)
     over the global batch B: the embedding's psum, every block's, and the
     last position's logits gathered over "model"."""
-    Dd, Dm = shape
     t = _Tally()
-    Bl = B // Dd if _split(B, Dd) else B
-    d, V, e = cfg.d_model, cfg.vocab, itemsize
-    if _split(V, Dm):
-        t.add("all-reduce", Bl * S * d * e)
+    c = _Ctx(t, shape[0], shape[1], itemsize, B)
+    Bl = B // c.Dd if c.bs else B
+    _embed(c, cfg, Bl * S)
     for kind in cfg.prefix_pattern:
-        _block(t, cfg, kind, B, S, Dd, Dm, e)
+        _block(c, cfg, kind, B, S)
     for _ in range(cfg.n_repeats):
         for kind in cfg.block_pattern:
-            _block(t, cfg, kind, B, S, Dd, Dm, e)
-    if not cfg.tie_embeddings:
-        from ..models.lm import head_stationary
-
-        v_l = _local(V, Dm)
-        if head_stationary(Bl, B, 1, d, _local(d, Dd), v_l):
-            if Bl < B:
-                t.add("all-gather", B * d * e)
-                t.add("reduce-scatter", Bl * v_l * e)
-            else:
-                t.add("all-reduce", B * v_l * e)
-        else:
-            _col(t, d, V, Dd, Dm, e)
-    if _split(V, Dm):
-        t.add("all-gather", Bl * V * e)
+            _block(c, cfg, kind, B, S)
+    _head(c, cfg, B, Bl, 1)
     return t
 
 
@@ -296,8 +395,119 @@ def serve_collectives(cfg, shape, B: int, S: int, steps: int,
 def moe_collectives(cfg, shape, B: int, S: int, itemsize: int) -> dict:
     """``{"calls", "bytes"}`` by kind of one ``moe_apply`` over (B, S)."""
     t = _Tally()
-    _moe(t, cfg, B, S, shape[0], shape[1], itemsize)
+    _moe(_Ctx(t, shape[0], shape[1], itemsize, B), cfg, B, S)
     return t.out()
+
+
+def _mtp_kind(cfg) -> str:
+    return cfg.prefix_pattern[0] if cfg.prefix_pattern else cfg.block_pattern[0]
+
+
+def _train_pass(t: _Tally, cfg, shape, B: int, S: int, remat: str, e: int) -> None:
+    """One forward and backward of ``lm.loss_fn`` over a global batch
+    (B, S): the forward's collectives with their transposes, the
+    ``model_in`` sums, the recompute of every repeat (``remat="full"``:
+    the repeat's whole forward again), the loss's psum and the sums of the
+    replicated params' gradients."""
+    c = _Ctx(t, shape[0], shape[1], e, B)
+    Bl = B // c.Dd if c.bs else B
+    _embed(c, cfg, Bl * S)
+    for kind in cfg.prefix_pattern:
+        _block(c, cfg, kind, B, S)
+    for _ in range(cfg.n_repeats):
+        for kind in cfg.block_pattern:
+            _block(c, cfg, kind, B, S)
+    if remat != "none" and cfg.n_repeats:
+        again = _Ctx(_Tally(), shape[0], shape[1], e, B)
+        for kind in cfg.block_pattern:
+            _block(again, cfg, kind, B, S)
+        t.add_all(again.t, cfg.n_repeats)
+    _head(c, cfg, B, Bl, S)
+    losses = 1
+    if cfg.mtp_depth:
+        d = cfg.d_model
+        _embed(c, cfg, Bl * S)
+        _col(c, 2 * d, d)
+        if _split(d, c.Dm):
+            c.model_in(Bl * S * 2 * d * e)
+            c.t.add("all-gather", Bl * S * d * e)
+        _block(c, cfg, _mtp_kind(cfg), B, S)
+        _head(c, cfg, B, Bl, S)
+        losses = 2
+    if c.bs:
+        t.add("all-reduce", 8, losses)  # each loss's (sum, count)
+        for nbytes in _replicated_grad_bytes(cfg, shape, e).values():
+            t.add("all-reduce", nbytes)
+
+
+def _replicated_grad_bytes(cfg, shape, e: int) -> dict:
+    """{dtype: bytes} of a rank's float param blocks that no batch axis
+    splits: the gradients ``launch.steps.sum_replicated_grads`` sums."""
+    from ..models import lm
+    from ..runtime.elastic import make_shardings, sanitize_shardings, spec_axes
+    from ..tree import leaves
+
+    dtype = {2: torch.bfloat16, 4: torch.float32}[e]
+    mesh = dry_process_mesh(shape, AXES)
+    params = abstract_params(cfg, dtype)
+    sh = sanitize_shardings(make_shardings(mesh, lm.param_specs(cfg)), params)
+    out: dict = {}
+    for p, s in zip(leaves(params), leaves(sh, is_leaf=lambda x: hasattr(x, "spec"))):
+        if p.is_floating_point() and p.numel() and "data" not in spec_axes(s.spec):
+            n = 1
+            for k in s.shard_shape(p.shape):
+                n *= k
+            out[p.dtype] = out.get(p.dtype, 0) + n * p.element_size()
+    return out
+
+
+def _float_leaves(cfg) -> int:
+    from ..tree import leaves
+
+    return sum(1 for p in leaves(abstract_params(cfg)) if p.is_floating_point())
+
+
+def train_collectives(cfg, shape, B: int, S: int, remat: str = "full", *,
+                      microbatches: int = 1, quantized: bool = False,
+                      itemsize: int = 2) -> dict:
+    """``{"calls", "bytes"}`` by kind of one ``launch.steps.
+    make_train_step`` step on a rank of a (data, model) mesh of ``shape``
+    over the global batch (B, S) of ``itemsize``-byte params and
+    activations: per microbatch (B / ``microbatches`` rows each) the
+    forward's collectives, the recompute's (``remat="full"``), the
+    transposes' and the ``model_in`` sums, the losses' psums and the
+    gradient sums of the params replicated over "data" (one psum per
+    dtype, where the batch is split); then the clip's psum over the mesh
+    and, with int8 moments (``quantized``), the all-gather of every leaf's
+    two maxima."""
+    if remat not in ("full", "none"):
+        raise NotImplementedError(f"remat={remat!r}: the closed form counts "
+                                  f"'full' and 'none'")
+    t = _Tally(train=True)
+    for _ in range(microbatches):
+        _train_pass(t, cfg, shape, B // microbatches, S, remat, itemsize)
+    world = shape[0] * shape[1]
+    if world > 1:
+        t.add("all-reduce", 4)  # the global norm's psum
+        if quantized:
+            t.add("all-gather", world * 2 * _float_leaves(cfg) * 4)
+    return t.out()
+
+
+def train_block_kernel_launches(cfg, microbatches: int = 1,
+                                remat: str = "full") -> int:
+    """A rank's block-kernel launches in one train step: per sparse
+    projection of a repeat, the forward, the recompute (``remat="full"``)
+    and grad x on Wᵀ; of a prefix block or the MTP block (not
+    rematerialized), the forward and grad x."""
+    if cfg.ffn_density >= 1.0:
+        return 0
+    dense = [k not in ("moe", "mla_moe") for k in cfg.block_pattern]
+    prefix = sum(1 for k in cfg.prefix_pattern if k not in ("moe", "mla_moe"))
+    if cfg.mtp_depth and _mtp_kind(cfg) not in ("moe", "mla_moe"):
+        prefix += 1
+    per = 3 if remat != "none" else 2
+    return 3 * microbatches * (per * sum(dense) * cfg.n_repeats + 2 * prefix)
 
 
 def block_kernel_launches(cfg, forwards: int) -> int:

@@ -28,13 +28,16 @@ order (rank ``p`` sits at flat place ``p`` of the grid).
 Over gloo, CUDA tensors are staged through pinned host buffers here and
 nowhere else (gloo on the GPU lacks most collectives): the transport the
 records call ``gloo-host-staged``.  Over NCCL the tensors stay on the card.
-Where every rank of a gloo world runs on one x86 host, the staged data
-skips gloo's sockets and moves through a shared file mapping of each
-process group (:class:`SharedMemoryCollectives`, ``shm-host-staged``;
-``shm`` for CPU tensors): a gloo collective over loopback sockets has
-taken milliseconds whatever its size (PERF.md), a round through shared
-memory costs a copy and a spin.  :func:`collectives_for` makes that
-choice from what the mesh records; nobody sets it.
+Where every rank of a gloo world runs on one x86 host, the data skips
+gloo's sockets and moves through a shared memory mapping of each process
+group (:class:`SharedMemoryCollectives`, ``shm-host-staged``; ``shm`` for
+CPU tensors): a gloo collective over loopback sockets has taken
+milliseconds whatever its size (PERF.md), a round through shared memory
+costs a copy and a spin.  CUDA tensors are copied straight between the
+card and the mapping (page-locked for the card's copy engines where the
+driver allows it), and sums are taken on the card.
+:func:`collectives_for` makes that choice from what the mesh records;
+nobody sets it.
 
 Each call adds to this object's counts, by kind (the names of the
 reference's ``collective_bytes``, ``repro/analysis/roofline.py:78``): its
@@ -45,16 +48,28 @@ A collective over one rank is the identity: it still runs through the
 backend (so a world of one exercises it) but counts nothing, as XLA
 removes it.  Seconds are host seconds from the call to its
 result being on this rank's device (each call waits on the current stream
-at its end; over ``gloo-host-staged``, until the copy back to the card is
-enqueued on the current stream, ahead of every later use of the result);
+at its end; over ``gloo-host-staged`` and ``shm-host-staged``, until the
+copies back to the card are enqueued on the current stream, ahead of every
+later use of the result);
 the ring's overlapped permutes count only the wait.
+
+Under autograd (a tensor that requires grad, with grad enabled) ``psum``,
+``psum_scatter`` and ``all_to_all`` are differentiable, each with the
+transpose GSPMD gives it: a psum's gradient passes through unchanged (its
+consumers hold the whole gradient on every rank), a psum-scatter's is
+all-gathered, an all-to-all's goes back by the reverse all-to-all.  The
+backward's collectives run through the same object and add to its counts.
+An all-gather's transpose depends on what its consumers hold
+(``core/sharding.py``: ``gather_dim``), so ``all_gather`` here is the plain
+move.
 """
 from __future__ import annotations
 
+import ctypes
 import mmap
 import os
 import platform
-import tempfile
+import socket
 import time
 from typing import Sequence, Tuple, Union
 
@@ -93,7 +108,8 @@ class _Pending:
         t0 = time.perf_counter()
         for r in self.reqs:
             r.wait()
-        out = self.coll._unstage(self.out, self.device)
+        # staged as the backend needs, as start_ppermute staged it
+        out = Collectives._unstage(self.coll, self.out, self.device)
         self.coll._done("collective-permute", t0)
         return out
 
@@ -210,7 +226,12 @@ class Collectives:
 
     def psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         """``psum(x, axes)``: the ranks' x summed elementwise, in x's dtype,
-        on every rank of the group."""
+        on every rank of the group.  Its gradient is the identity."""
+        if _recording(x):
+            return _Psum.apply(x, self, axes)
+        return self._psum(x, axes)
+
+    def _psum(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         group, n = self._group(axes)
         t0 = time.perf_counter()
         buf = self._stage(x)
@@ -223,7 +244,13 @@ class Collectives:
 
     def psum_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``psum_scatter(x, axis, tiled=True)``: the sum over the axis,
-        rank ``c`` keeping rows ``[c * h / n, (c + 1) * h / n)``."""
+        rank ``c`` keeping rows ``[c * h / n, (c + 1) * h / n)``.  Its
+        gradient is all-gathered over the axis."""
+        if _recording(x):
+            return _PsumScatter.apply(x, self, axis)
+        return self._psum_scatter(x, axis)
+
+    def _psum_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         group, n = self._group(axis)
         if x.shape[0] % n:
             raise ValueError(f"psum_scatter of {x.shape[0]} rows over {n} ranks")
@@ -241,7 +268,14 @@ class Collectives:
         """``all_to_all(x, axis, split_dim, concat_dim, tiled=True)``: x
         split along ``split_dim`` into one block per rank of the axis, block
         ``k`` sent to position ``k``; the blocks received concatenated along
-        ``concat_dim`` in position order."""
+        ``concat_dim`` in position order.  Its gradient goes back by the
+        reverse all-to-all."""
+        if _recording(x):
+            return _AllToAll.apply(x, self, axis, split_dim, concat_dim)
+        return self._all_to_all_move(x, axis, split_dim, concat_dim)
+
+    def _all_to_all_move(self, x: torch.Tensor, axis: str, split_dim: int,
+                         concat_dim: int) -> torch.Tensor:
         group, n = self._group(axis)
         if x.shape[split_dim] % n:
             raise ValueError(f"all_to_all of {x.shape[split_dim]} rows of dim "
@@ -283,13 +317,14 @@ class Collectives:
         srcs = [s for s, d in perm if d == me]
         if len(dsts) > 1 or len(srcs) > 1:
             raise ValueError(f"perm {perm} sends or receives twice at {me}")
-        out = self._buffer(tuple(x.shape), x)
+        # the permutes go over the backend, staged as it needs
+        out = Collectives._buffer(self, tuple(x.shape), x)
         ops = []
         if dsts and dsts[0] == me:  # to itself: a copy, no transfer
             out.copy_(x)
         else:
             if dsts:
-                ops.append((dist.isend, self._stage(x),
+                ops.append((dist.isend, Collectives._stage(self, x),
                             self._peer(axis, dsts[0])))
             if srcs:
                 ops.append((dist.irecv, out, self._peer(axis, srcs[0])))
@@ -305,6 +340,45 @@ class Collectives:
         position ``d`` for each ``(s, d)`` of ``perm``; a rank that is no
         destination receives zeros."""
         return self.start_ppermute(x, axis, perm).wait()
+
+
+def _recording(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll, axes):
+        return coll._psum(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll, axis):
+        ctx.coll, ctx.axis = coll, axis
+        return coll._psum_scatter(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.coll.all_gather(g, ctx.axis), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, coll, axis, split_dim, concat_dim):
+        ctx.args = (coll, axis, split_dim, concat_dim)
+        return coll._all_to_all_move(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        coll, axis, split_dim, concat_dim = ctx.args
+        return (coll._all_to_all_move(g, axis, concat_dim, split_dim),
+                None, None, None, None)
 
 
 class CountingCollectives(Collectives):
@@ -337,13 +411,22 @@ class CountingCollectives(Collectives):
 STORES_IN_ORDER = platform.machine().lower() in ("x86_64", "amd64")
 
 
+def _driver():
+    """The CUDA driver library (its calls leave the runtime's error state
+    alone), or None."""
+    try:
+        return ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return None
+
+
 class _HostMapping:
-    """A shared file mapping of one process group's ranks on one host: a
+    """A shared memory mapping of one process group's ranks on one host: a
     sequence counter per rank (one cache line each) and, for each of two
-    parities, one slot of ``slot`` bytes per rank.  Made collectively:
-    the group's first rank creates the file in the temporary directory,
-    the others map it, and it is unlinked once every rank has it (the
-    mapping lives on, nothing is left on disk)."""
+    parities, one slot of ``slot`` bytes per rank.  Made collectively: the
+    group's first rank creates an anonymous memory file (``memfd_create``)
+    and hands its descriptor to the others over a Unix socket in the
+    abstract namespace; nothing is left on disk or in the file system."""
 
     def __init__(self, group, slot: int, timeout: float):
         assert STORES_IN_ORDER, (
@@ -354,20 +437,66 @@ class _HostMapping:
         self.slot, self.timeout, self.k = slot, timeout, 0
         head = -(-64 * self.n // 4096) * 4096
         size = head + 2 * self.n * slot
-        path = [None]
+        addr = [None]
         if self.pos == 0:
-            fd, path[0] = tempfile.mkstemp(prefix="repro_torch_shm_")
+            fd = os.memfd_create("repro_torch_shm")
             os.ftruncate(fd, size)
-            os.close(fd)
-        dist.broadcast_object_list(path, src=ranks[0], group=group)
-        with open(path[0], "r+b") as f:
-            self.map = mmap.mmap(f.fileno(), size)
-        dist.barrier(group=group)
+            listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            listener.settimeout(timeout)
+            listener.bind(b"\0repro_torch_shm_" + os.urandom(8).hex().encode())
+            listener.listen(self.n)
+            addr[0] = listener.getsockname()
+        dist.broadcast_object_list(addr, src=ranks[0], group=group)
         if self.pos == 0:
-            os.unlink(path[0])
+            with listener:
+                for _ in range(self.n - 1):
+                    conn, _ = listener.accept()
+                    with conn:
+                        socket.send_fds(conn, [b"m"], [fd])
+        else:
+            with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as conn:
+                conn.settimeout(timeout)
+                conn.connect(addr[0])
+                fd = socket.recv_fds(conn, 1, 1)[1][0]
+        self.map = mmap.mmap(fd, size)
+        os.close(fd)
         self.seq = np.frombuffer(self.map, dtype=np.int64, count=8 * self.n)[::8]
         self.data = torch.frombuffer(self.map, dtype=torch.uint8, offset=head,
                                      count=2 * self.n * slot)
+        self.pinned = None  # the driver, once it has page-locked the slots
+        self.pin_error = None  # its refusal's CUresult
+        self.reads = None  # an event after the card's last reads of the slots
+
+    def pin(self, device: torch.device) -> None:
+        """Page-lock the slots for ``device``'s copy engines
+        (``cuMemHostRegister``), so copies to and from the card move
+        straight between it and the mapping; where the driver refuses
+        (``pin_error``), the copies go through its own staging."""
+        lib = _driver()
+        if lib is None:
+            self.pin_error = "no libcuda"
+            return
+        torch.cuda.set_device(device)  # its context current on this thread
+        reg = getattr(lib, "cuMemHostRegister_v2", None) or lib.cuMemHostRegister
+        reg.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint]
+        err = reg(self.data.data_ptr(), self.data.numel(), 0)
+        if err:
+            self.pin_error = int(err)
+        else:
+            self.pinned = lib
+
+    def __del__(self):
+        if getattr(self, "pinned", None) is not None:
+            self.pinned.cuMemHostUnregister.argtypes = [ctypes.c_void_p]
+            self.pinned.cuMemHostUnregister(self.data.data_ptr())
+
+    def read_on(self, device: torch.device) -> None:
+        """Mark the copies from this round's views enqueued on ``device``'s
+        current stream so far: the next round waits for them before it
+        lets the others write those slots again."""
+        if device.type == "cuda":
+            self.reads = torch.cuda.Event(blocking=True)
+            self.reads.record(torch.cuda.current_stream(device))
 
     def _slot(self, parity: int, pos: int) -> torch.Tensor:
         start = (parity * self.n + pos) * self.slot
@@ -375,13 +504,21 @@ class _HostMapping:
 
     def round(self, mine: torch.Tensor) -> list:
         """Post ``mine`` (uint8, at most ``slot`` bytes, the same length on
-        every rank) and return every rank's, in group order: views of the
-        mapping, valid until this rank's next round but one.  Each rank
-        writes its slot, then its counter; x86 keeps stores in order, so a
-        rank that sees a counter sees the data before it."""
+        every rank; on the host or the card) and return every rank's, in
+        group order: views of the mapping, valid until this rank's next
+        round but one.  Each rank writes its slot, then its counter; x86
+        keeps stores in order, so a rank that sees a counter sees the data
+        before it.  A copy from the card is complete before the counter is
+        written, and so are the card's reads of the last round's views
+        (:meth:`read_on`)."""
         self.k += 1
         parity, n_bytes = self.k & 1, mine.numel()
-        self._slot(parity, self.pos)[:n_bytes].copy_(mine)
+        self._slot(parity, self.pos)[:n_bytes].copy_(mine, non_blocking=True)
+        if mine.device.type == "cuda":
+            _host_wait(mine.device)
+        if self.reads is not None:  # the last round's slots are read: the
+            self.reads.synchronize()  # others may write them once this posts
+            self.reads = None
         self.seq[self.pos] = self.k
         deadline, spins = time.monotonic() + self.timeout, 0
         while not (self.seq >= self.k).all():
@@ -399,17 +536,34 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).view(torch.uint8)
 
 
+def _fetch(views, device: torch.device) -> list:
+    """``views`` (ranks' bytes in a mapping) where the sum is taken: on the
+    host as they are, on the card copied into one buffer."""
+    if device.type != "cuda":
+        return views
+    buf = torch.empty((len(views), views[0].numel()), dtype=torch.uint8,
+                      device=device)
+    for row, v in zip(buf, views):
+        row.copy_(v, non_blocking=True)
+    return list(buf)
+
+
 class SharedMemoryCollectives(Collectives):
     """The collectives of a process mesh whose ranks share one host, with
-    the data moving through a shared file mapping of each group
+    the data moving through a shared memory mapping of each group
     (:class:`_HostMapping`) instead of the backend's sockets: every rank
     posts its bytes and reads the others', round by round (messages longer
-    than a slot take several).  Sums are taken in group order, the same on
-    every rank.  CUDA tensors are staged through pinned host buffers, as
-    over gloo; the backend's groups still carry the setup and
-    ``ppermute``.  Over gloo on a host whose thread wake-ups are slow, each
-    gloo collective costs milliseconds; a round here costs a copy and a
-    spin on the counters."""
+    than a slot take several).  CUDA tensors are copied from the card into
+    the rank's slot and from the slots onto the card, with no staging
+    buffer, and their sums are taken on the card; sums are taken in group
+    order, the same on every rank.  The backend's groups still carry the
+    setup and ``ppermute`` (host-staged, as over gloo).  Over gloo on a
+    host whose thread wake-ups are slow, each gloo collective costs
+    milliseconds; a round here costs a copy and a spin on the counters.
+    A collective returns with its copies onto the card and its sums
+    enqueued on the current stream; a rank's next round waits for them
+    before it posts (the slots they read are the others' to write two
+    rounds on)."""
 
     SLOT = 1 << 24  # bytes a rank posts in one round
 
@@ -424,26 +578,53 @@ class SharedMemoryCollectives(Collectives):
     def transport(self) -> str:
         return "shm-host-staged" if self.staged else "shm"
 
+    @property
+    def pinned(self):
+        """Whether the card's copies move straight to and from the mappings
+        made so far: True where the driver page-locked every one, else the
+        first refusal's CUresult (None before any mapping)."""
+        maps = list(self.mesh.host_mappings.values())
+        if not maps:
+            return None
+        errors = [m.pin_error for m in maps if m.pinned is None]
+        return errors[0] if errors else True
+
     def _map(self, group) -> _HostMapping:
         maps = self.mesh.host_mappings  # shared by the mesh's collectives
         if (group, self.slot) not in maps:
-            maps[group, self.slot] = _HostMapping(group, self.slot, self.timeout)
+            m = maps[group, self.slot] = _HostMapping(group, self.slot, self.timeout)
+            if self.staged:
+                m.pin(self.mesh.device)
         return maps[group, self.slot]
+
+    # the data stays where it is: the rounds copy it to and from the slots
+    def _stage(self, x: torch.Tensor) -> torch.Tensor:
+        return x.contiguous()
+
+    def _buffer(self, shape, like: torch.Tensor) -> torch.Tensor:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+    def _unstage(self, out: torch.Tensor, device: torch.device) -> torch.Tensor:
+        return out  # its copies and sums are enqueued on the current stream
 
     def _rounds(self, src: torch.Tensor, group):
         """(offset, every rank's bytes) for each slot-sized piece of src's
-        bytes."""
+        bytes; the card's reads of each piece's views are marked before
+        the next piece."""
         m, data = self._map(group), _bytes(src)
         for off in range(0, data.numel(), self.slot):
             yield off, m.round(data[off:off + self.slot])
+            m.read_on(src.device)
 
     def _all_gather(self, out, src, group) -> None:
         dst, size = _bytes(out), src.numel() * src.element_size()
         for off, views in self._rounds(src, group):
             for p, v in enumerate(views):
-                dst[p * size + off:p * size + off + v.numel()].copy_(v)
+                dst[p * size + off:p * size + off + v.numel()].copy_(
+                    v, non_blocking=True)
 
     def _sum_into(self, dst: torch.Tensor, views, dtype) -> None:
+        views = _fetch(views, dst.device)
         acc = views[0].view(dtype).clone()
         for v in views[1:]:
             acc += v.view(dtype)
@@ -473,7 +654,8 @@ class SharedMemoryCollectives(Collectives):
             if lo < hi:
                 for q, v in enumerate(views):
                     start = q * block + lo - pos * block
-                    dst[start:start + hi - lo].copy_(v[lo - off:hi - off])
+                    dst[start:start + hi - lo].copy_(v[lo - off:hi - off],
+                                                     non_blocking=True)
 
 
 def collectives_for(mesh) -> Collectives:

@@ -107,6 +107,12 @@ class Mesh:
         """The device every part of this mesh runs on."""
         return self.devices.flat[0]
 
+    @cached_property
+    def memo(self) -> dict:
+        """What is made once for this mesh and dropped with it, by the
+        maker's key (``launch.steps.mesh_param_shardings``)."""
+        return {}
+
 
 @dataclass(frozen=True)
 class ProcessMesh(Mesh):
@@ -137,7 +143,7 @@ class ProcessMesh(Mesh):
 
     @cached_property
     def host_mappings(self) -> dict:
-        """The shared file mappings of this mesh's process groups, by
+        """The shared memory mappings of this mesh's process groups, by
         (group, slot size), made on first use by every collectives object
         of the mesh that moves data through shared memory, and dropped
         with the mesh."""

@@ -24,6 +24,35 @@ The ambient state is per context (``contextvars``): the mesh set by
 (:func:`batch_scope`), which tells a rank whether its activations hold a
 block of the batch or all of it (the reference's ``shard`` drops a batch
 entry whose extent does not divide the batch).
+
+Gradients.  Under autograd every move here is differentiable, with the
+transpose that GSPMD's partitioner gives the reference's program; the
+forward, and what it counts, is the same with or without autograd.  What a
+rank's gradient of a tensor means is one convention, per axis:
+
+* over "model", the consumers of a replicated tensor are replicated: every
+  rank holds the whole gradient of what it holds.  So a psum's transpose is
+  the identity, an all-gather's is this rank's slice, a slice's is an
+  all-gather.  A tensor replicated over "model" that enters a product split
+  over "model" (a column-parallel weight, a rank's heads, a rank's run of a
+  block stream) goes through :func:`model_in`: the identity, whose
+  transpose sums the ranks' partial gradients over "model" (JAX's
+  ``pvary``, Megatron's "copy to the model-parallel region").
+* over the batch axes ("pod", "data"), where the global batch of the call
+  in flight is split over them (:func:`batch_split`), the consumers hold
+  distinct rows, so a rank's gradient of a replicated tensor is its rows'
+  part of it: an all-gather's transpose is a ``psum_scatter`` (FSDP
+  weights, the stationary head's activations), a ``psum_scatter``'s an
+  all-gather, an all-to-all's the reverse all-to-all, a slice's zeros
+  beside the slice's gradient, and a psum's the identity (the loss: every
+  rank seeds its own gradient of the one global loss).  The gradients of
+  params replicated over the batch axes stay partial here and are summed
+  once, after the backward (``launch/steps.py``).  Where the batch is not
+  split, every rank computes every row and the batch axes take the
+  "model" convention.
+
+A max over ranks (the optimizer's int8 scales) is an all-gather of each
+rank's maxima, one vector, then a local max: it counts as an all-gather.
 """
 from __future__ import annotations
 
@@ -37,8 +66,8 @@ import torch
 __all__ = ["PartitionSpec", "P", "NamedSharding", "set_mesh",
            "get_abstract_mesh", "mesh_sizes", "axis_size", "axis_index",
            "entry_axes", "collectives", "reshard", "gather_dim", "slice_dim",
-           "batch_scope", "global_batch", "batch_split", "batch_shard",
-           "batch_unshard"]
+           "model_in", "psum", "world_max", "in_this_scope", "batch_scope",
+           "global_batch", "batch_split", "batch_shard", "batch_unshard"]
 
 
 def _entry(e):
@@ -164,11 +193,28 @@ def collectives(mesh=None):
     return mesh.collectives
 
 
-def slice_dim(t: torch.Tensor, axes, dim: int, mesh=None) -> torch.Tensor:
-    """This rank's block of ``t`` along ``dim`` over ``axes`` (a view)."""
+def _recording(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _grads_partial(axes, mesh=None) -> bool:
+    """Whether a rank's gradient of a tensor replicated over ``axes`` is
+    partial (its rows' part, summed over the axes later): the batch axes
+    while the global batch of the call in flight is split over them.  Over
+    "model", and over the batch axes otherwise, it is whole."""
+    mesh = get_abstract_mesh() if mesh is None else mesh
+    axes = entry_axes(axes)
+    batch = [a in _batch_axes(mesh) for a in axes]
+    if not any(batch):
+        return False
+    if not all(batch):
+        raise NotImplementedError(f"a differentiable move over {axes}: the "
+                                  "batch axes and others at once")
+    return global_batch() is not None and batch_split(mesh)
+
+
+def _narrow(t: torch.Tensor, axes, dim: int, mesh) -> torch.Tensor:
     n = axis_size(axes, mesh)
-    if n == 1:
-        return t
     if t.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
                          f"over {entry_axes(axes)} ({n} ranks)")
@@ -176,18 +222,126 @@ def slice_dim(t: torch.Tensor, axes, dim: int, mesh=None) -> torch.Tensor:
     return t.narrow(dim, axis_index(axes, mesh) * b, b)
 
 
+def _gather(t: torch.Tensor, axes, dim: int, mesh) -> torch.Tensor:
+    sizes = mesh_sizes(mesh)
+    coll = collectives(mesh)
+    for a in reversed(entry_axes(axes)):
+        if sizes.get(a, 1) > 1:
+            t = coll.all_gather(t.movedim(dim, 0), a).movedim(0, dim)
+    return t
+
+
+class _Slice(torch.autograd.Function):
+    """This rank's block; the gradient all-gathered (whole) or padded with
+    zeros (partial)."""
+
+    @staticmethod
+    def forward(ctx, t, axes, dim, mesh, partial):
+        ctx.args, ctx.shape = (axes, dim, mesh, partial), t.shape
+        return _narrow(t, axes, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axes, dim, mesh, partial = ctx.args
+        if partial:
+            out = g.new_zeros(ctx.shape)
+            _narrow(out, axes, dim, mesh).copy_(g)
+        else:
+            out = _gather(g, axes, dim, mesh)
+        return out, None, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The ranks' blocks over one axis; the gradient sliced (whole) or
+    psum-scattered (partial)."""
+
+    @staticmethod
+    def forward(ctx, t, axis, dim, mesh, partial):
+        ctx.args = (axis, dim, mesh, partial)
+        return _gather(t, axis, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, mesh, partial = ctx.args
+        if partial:
+            g = collectives(mesh).psum_scatter(g.movedim(dim, 0).contiguous(),
+                                               axis).movedim(0, dim)
+        else:
+            g = _narrow(g, axis, dim, mesh)
+        return g, None, None, None, None
+
+
+class _ModelIn(torch.autograd.Function):
+    """The identity; the gradient summed over "model"."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.detach()  # an alias, not a view: caching it on x makes no cycle
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives(ctx.mesh).psum(g, "model"), None
+
+
+def slice_dim(t: torch.Tensor, axes, dim: int, mesh=None) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` over ``axes`` (a view)."""
+    mesh = get_abstract_mesh() if mesh is None else mesh
+    if axis_size(axes, mesh) == 1:
+        return t
+    if _recording(t):
+        return _Slice.apply(t, axes, dim, mesh, _grads_partial(axes, mesh))
+    return _narrow(t, axes, dim, mesh)
+
+
 def gather_dim(t: torch.Tensor, axes, dim: int, mesh=None) -> torch.Tensor:
     """The ranks' blocks of ``t`` along ``dim`` over ``axes``
     concatenated in axis order (an all-gather per axis, the minor one
     first)."""
     mesh = get_abstract_mesh() if mesh is None else mesh
+    if not _recording(t):
+        return _gather(t, axes, dim, mesh)
     sizes = mesh_sizes(mesh)
-    coll = collectives(mesh)
     for a in reversed(entry_axes(axes)):
-        if sizes.get(a, 1) == 1:
-            continue
-        t = coll.all_gather(t.movedim(dim, 0), a).movedim(0, dim)
+        if sizes.get(a, 1) > 1:
+            t = _Gather.apply(t, a, dim, mesh, _grads_partial(a, mesh))
     return t
+
+
+def model_in(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x``, replicated over "model", as it enters products split over
+    "model": the identity, whose gradient is the ranks' partial gradients
+    summed over "model".  Idempotent: the products of one input share one
+    sum (a second call on ``x`` returns the first call's result)."""
+    mesh = get_abstract_mesh() if mesh is None else mesh
+    if not _recording(x) or axis_size("model", mesh) == 1:
+        return x
+    y = getattr(x, "_model_in", None)
+    if y is None:
+        y = _ModelIn.apply(x, mesh)
+        x._model_in = y
+    return y
+
+
+def psum(x: torch.Tensor, axes, mesh=None) -> torch.Tensor:
+    """``x`` summed over each of ``axes`` of extent > 1 (a psum per axis;
+    differentiable, as :meth:`Collectives.psum`)."""
+    mesh = get_abstract_mesh() if mesh is None else mesh
+    sizes = mesh_sizes(mesh)
+    for a in entry_axes(axes):
+        if sizes.get(a, 1) > 1:
+            x = collectives(mesh).psum(x, a)
+    return x
+
+
+def world_max(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The elementwise max of a 1-D ``x`` over every rank of the mesh: one
+    all-gather of it over all the mesh's axes, then a local max."""
+    mesh = get_abstract_mesh() if mesh is None else mesh
+    if mesh.devices.size == 1:
+        return x
+    every = collectives(mesh).all_gather(x.reshape(1, -1), tuple(mesh.axis_names))
+    return every.amax(dim=0)
 
 
 def _norm(spec, ndim: int) -> list:
@@ -255,6 +409,22 @@ def batch_scope(global_batch: int):
 
 def global_batch() -> Optional[int]:
     return _BATCH.get()
+
+
+def in_this_scope(fn):
+    """``fn`` bound to the ambient mesh and global batch of the call that
+    makes it: a recompute in the backward (``torch.utils.checkpoint``) runs
+    outside those contexts, on autograd's device thread for CUDA tensors."""
+    mesh, batch = get_abstract_mesh(), global_batch()
+
+    def bound(*args, **kwargs):
+        with set_mesh(mesh):
+            if batch is None:
+                return fn(*args, **kwargs)
+            with batch_scope(batch):
+                return fn(*args, **kwargs)
+
+    return bound
 
 
 def _batch_axes(mesh) -> tuple:

@@ -49,7 +49,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["MicroBatcher"]
+__all__ = ["MicroBatcher", "BurstBatcher"]
 
 
 #: Priority rank a submit gets when none is given ("standard" traffic).
@@ -398,3 +398,44 @@ class MicroBatcher:
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+
+class BurstBatcher(MicroBatcher):
+    """A micro-batcher that holds every flush while a burst is arriving.
+
+    Flushes (deadline, queue-full and explicit ones alike) wait until
+    ``burst`` requests are queued, so the whole burst is in the queue when
+    the first flush claims it: its chunks, their count and their order do
+    not depend on how fast the host queues the burst.  If fewer ever
+    arrive (admission rejected some), the hold ends once no request has
+    arrived for ``quiet_s`` seconds.
+    """
+
+    def __init__(self, engine, burst: int, quiet_s: float = 0.5, **kwargs):
+        super().__init__(engine, **kwargs)
+        self.burst, self.quiet_s = burst, quiet_s
+        self._last_submit = time.monotonic()
+
+    def _held_locked(self, now: float) -> bool:
+        queued = sum(len(q) for q in self._queues.values())
+        return 0 < queued < self.burst and now - self._last_submit < self.quiet_s
+
+    def submit(self, name, x, *args, **kwargs):
+        with self._lock:
+            self._last_submit = time.monotonic()
+        return super().submit(name, x, *args, **kwargs)
+
+    def flush(self, name=None) -> int:
+        with self._lock:
+            if self._held_locked(time.monotonic()):
+                return 0
+        return super().flush(name)
+
+    def _earliest_deadline_locked(self):
+        now = time.monotonic()
+        if self._held_locked(now):  # look again when the quiet time is up
+            return self._last_submit + self.quiet_s
+        return super()._earliest_deadline_locked()
+
+    def _take_due_locked(self, now: float):
+        return {} if self._held_locked(now) else super()._take_due_locked(now)

@@ -88,13 +88,9 @@ class Server:
     def _rank_params(self, cfg, dtype, params):
         """This rank's blocks of the params, with the port-only keys of its
         runs of the block streams."""
-        import gc
-
-        import torch.distributed as dist
-
         from repro_torch.analysis.sharded import abstract_params as reference_tree
         from repro_torch.convert import param_shardings
-        from repro_torch.runtime.elastic import empty_blocks, shard_tree
+        from repro_torch.runtime.elastic import seeded_blocks, shard_tree
 
         mesh = self.mesh
         if params is not None:
@@ -103,23 +99,8 @@ class Server:
                                self.device)
             return with_derived(local, cfg, mesh)
         like = reference_tree(cfg, dtype)
-        specs = param_shardings(cfg, mesh, like)
-        shared = len({str(d) for d in mesh.devices.flat}) == 1 and mesh.devices.size > 1
-        local = None
-        for turn in range(mesh.devices.size if shared else 1):
-            if not shared or turn == mesh.rank:
-                # the blocks first, so no block lands in a segment of the
-                # full tree's, and freeing the tree gives its memory back
-                local = empty_blocks(like, specs, self.device)
-                gen = torch.Generator(device=self.device).manual_seed(0)
-                full = strip_derived(lm.init_params(gen, cfg, dtype))
-                shard_tree(full, specs, out=local)
-                del full
-                gc.collect()
-                if self.device.type == "cuda":
-                    torch.cuda.empty_cache()
-            if shared:
-                dist.barrier(group=mesh.world_group)
+        local = seeded_blocks(cfg, like, param_shardings(cfg, mesh, like), mesh,
+                              0, dtype)
         return with_derived(local, cfg, mesh)
 
     def generate(self, prompts: np.ndarray, n_tokens: int,

@@ -16,8 +16,22 @@ encoder's output, kept by the caller), and its train batch carries
 (``FakeTensorMode``, CPU): the dry run's inputs and train state, with
 nothing allocated.  ``batch_spec``, ``cache_specs``,
 ``input_spec_shardings`` and ``state_specs`` are the reference's
-PartitionSpec trees (``core.sharding.P``), entry for entry; ``state_specs``
-is data only until training runs on a mesh (ROADMAP.md §1 item 7).
+PartitionSpec trees (``core.sharding.P``), entry for entry.
+
+On a process mesh (the step called under ``core.sharding.set_mesh``, as
+``TrainLoop(mesh=)`` does) the params and the optimizer state are the
+rank's blocks (``state_specs`` through ``make_shardings`` +
+``sanitize_shardings``), the batch is the global one on every rank, and
+``lm.loss_fn`` keeps the rank's rows.  After each backward the gradient
+of every float leaf that its spec leaves replicated over the batch axes
+(norms, biases, routers, a vocab-only embedding) is summed over them where
+the batch is split, one psum per dtype for all of them
+(:func:`sum_replicated_grads`); a leaf split over the batch axes (FSDP,
+experts) has its sum from the backward's psum-scatters.  Microbatch ``i``
+is block ``i`` of the global batch, as the reference splits it, so a rank
+holds its rows of that block.  The update then takes the norm and the
+int8 scales over the whole leaves (``optim.apply_updates(...,
+shardings=)``).
 
 A sparse LM's port-only keys (``sparse.layers.DERIVED``) ride along with
 the params: the loss reads them, the optimizer never sees them (its state
@@ -28,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig
+from repro_torch.core import sharding as SH
 from repro_torch.core.sharding import P
 from repro_torch.models import attention as A
 from repro_torch.models import linear_attn as LA
@@ -39,6 +54,7 @@ from repro_torch.tree import flatten, tree_map
 
 __all__ = ["value_and_grad_trainable", "make_train_step", "make_prefill_step",
            "make_decode_step", "carry_derived", "input_specs", "abstract_state",
+           "loss_and_grads", "sum_replicated_grads", "mesh_param_shardings",
            "BATCH_AXES", "batch_spec", "input_spec_shardings", "cache_specs",
            "state_specs"]
 
@@ -85,6 +101,58 @@ def carry_derived(new, old):
     return out
 
 
+def mesh_param_shardings(cfg: ArchConfig, mesh):
+    """The sanitized NamedSharding tree of ``lm.param_specs(cfg)`` on
+    ``mesh`` (the reference's tree, no port-only keys), made once per
+    config and kept on the mesh (``Mesh.memo``), so it goes with it."""
+    memo = mesh.memo.setdefault("param_shardings", {})
+    if cfg not in memo:
+        from repro_torch.analysis.sharded import abstract_params
+        from repro_torch.convert import param_shardings
+
+        memo[cfg] = param_shardings(cfg, mesh, abstract_params(cfg))
+    return memo[cfg]
+
+
+def sum_replicated_grads(grads, shardings, mesh):
+    """``grads`` (this rank's, the reference's tree) with every float leaf
+    whose sharding names no batch axis summed over the batch axes: one
+    psum over each batch axis per dtype, of those leaves laid end to end.
+    For a call inside ``batch_scope`` whose batch is split over them."""
+    from repro_torch.models.common import batch_axes
+    from repro_torch.runtime.elastic import spec_axes
+
+    flat, unflatten = flatten(grads)
+    shs = flatten(shardings, is_leaf=lambda x: hasattr(x, "spec"))[0]
+    bax = set(batch_axes(mesh))
+    todo: dict = {}
+    for i, (g, sh) in enumerate(zip(flat, shs)):
+        if g.is_floating_point() and g.numel() and not bax & spec_axes(sh.spec):
+            todo.setdefault(g.dtype, []).append(i)
+    flat = list(flat)
+    for idx in todo.values():
+        joined = SH.psum(torch.cat([flat[i].reshape(-1) for i in idx]),
+                         batch_axes(mesh), mesh)
+        for i, part in zip(idx, joined.split([flat[i].numel() for i in idx])):
+            flat[i] = part.view(flat[i].shape)
+    return unflatten(flat)
+
+
+def loss_and_grads(params, batch, cfg: ArchConfig):
+    """(loss, gradients as the reference's tree) of ``lm.loss_fn``; under
+    ``set_mesh``, this rank's, with the replicated leaves' batch-axis sums
+    taken where the batch is split."""
+    loss, grads = value_and_grad_trainable(lm.loss_fn)(params, batch, cfg)
+    grads = strip_derived(grads)
+    mesh = SH.get_abstract_mesh()
+    if mesh is not None:
+        with SH.batch_scope(batch["tokens"].shape[0]):
+            if SH.batch_split(mesh):
+                grads = sum_replicated_grads(grads, mesh_param_shardings(cfg, mesh),
+                                             mesh)
+    return loss, grads
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1,
                     *, donate: bool = False):
     """Train step with optional gradient-accumulation microbatching:
@@ -93,13 +161,15 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1
     Gradients accumulate in the param dtype over the microbatches, as the
     reference's ``lax.scan`` does; the optimizer update runs once on the
     mean.  ``donate=True`` updates ``params`` and ``opt`` in place
-    (``apply_updates``), as the reference's TrainLoop donates them.
+    (``apply_updates``), as the reference's TrainLoop donates them.  Under
+    ``core.sharding.set_mesh`` the step runs on the mesh (see the module
+    docstring).
     """
-    vag = value_and_grad_trainable(lm.loss_fn)
-
     def train_step(params, opt: OptState, batch):
+        mesh = SH.get_abstract_mesh()
+        sh = None if mesh is None else mesh_param_shardings(cfg, mesh)
         if microbatches == 1:
-            loss, grads = vag(params, batch, cfg)
+            loss, grads = loss_and_grads(params, batch, cfg)
         else:
             def split(x):
                 return x.reshape((microbatches, x.shape[0] // microbatches)
@@ -109,16 +179,17 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, microbatches: int = 1
             device = flatten(params)[0][0].device
             loss = torch.zeros((), dtype=torch.float32, device=device)
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype,
-                                                   device=p.device), params)
+                                                   device=p.device),
+                             strip_derived(params))
             for i in range(microbatches):
-                loss_i, g_i = vag(params, {k: v[i] for k, v in mb.items()}, cfg)
+                loss_i, g_i = loss_and_grads(params, {k: v[i] for k, v in mb.items()},
+                                             cfg)
                 grads = tree_map(lambda a, g: a + g.to(a.dtype), grads, g_i)
                 loss = loss + loss_i
             loss = loss / microbatches
             grads = tree_map(lambda g: g / microbatches, grads)
-        new, opt, metrics = apply_updates(strip_derived(params),
-                                          strip_derived(grads), opt, opt_cfg,
-                                          donate=donate)
+        new, opt, metrics = apply_updates(strip_derived(params), grads, opt,
+                                          opt_cfg, donate=donate, shardings=sh)
         metrics["loss"] = loss
         return carry_derived(new, params), opt, metrics
 
@@ -249,7 +320,8 @@ def cache_specs(cfg: ArchConfig):
 
 
 def state_specs(cfg: ArchConfig, opt_cfg: AdamWConfig):
-    """(param specs, optimizer-state specs) of a train state: data only
-    until training runs on a mesh."""
+    """(param specs, optimizer-state specs) of a train state: the shardings
+    of ``TrainLoop(mesh=)`` (through ``make_shardings`` +
+    ``sanitize_shardings``) and of the checkpoints it writes and reads."""
     ps = lm.param_specs(cfg)
     return ps, opt_specs(ps, opt_cfg)

@@ -22,6 +22,11 @@ column-parallel products): every local head attends over all of d_c, so
 the cache a rank holds is its batch block of the whole latent, not the
 d_c block over "model" that ``lm.cache_specs`` names.
 
+Under autograd the input enters the column-parallel q/k/v and latent
+products through ``common.model_in`` (its gradient summed over "model"),
+and so do MLA's whole latents ``ckv`` and rope key where the rank attends
+with its own heads; the output projection is ``row_apply``'s.
+
 Two departures, both invisible in the results:
 
 * ``KVCache.length`` / ``MLACache.length`` is a Python int.  Every layer
@@ -45,7 +50,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core import sharding as SH
 from ..core.sharding import P
 from .common import (col_apply, dense_apply, dense_bias_init, dense_init,
-                     dense_spec, fsdp, model_full, rope, row_apply, softcap)
+                     dense_spec, fsdp, model_full, model_in, rope, row_apply,
+                     softcap)
 
 __all__ = ["KVCache", "MLACache", "gqa_init", "gqa_spec", "gqa_apply",
            "gqa_decode", "mla_init", "mla_spec", "mla_apply", "mla_decode",
@@ -104,7 +110,8 @@ def _qkv(p, x, cfg):
     """q, k, v split into heads: this rank's heads where they divide over
     "model", every head otherwise."""
     dh, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q, k, v = (col_apply(p[n], x) for n in ("wq", "wk", "wv"))
+    q, k, v = (col_apply(p[n], x, w) for n, w in
+               (("wq", H * dh), ("wk", KV * dh), ("wv", KV * dh)))
     if not _heads_local((H, KV), (q, H * dh), (k, KV * dh), (v, KV * dh)):
         q, k, v = model_full(q, H * dh), model_full(k, KV * dh), model_full(v, KV * dh)
     return (_split_heads(q, q.shape[-1] // dh, dh), _split_heads(k, k.shape[-1] // dh, dh),
@@ -297,15 +304,19 @@ def _mla_q(p, x, cfg):
     key, for ``x`` (B, S, d)."""
     B, S, _ = x.shape
     H, dh, dr = cfg.n_heads, cfg.head_dim, cfg.mla_rope_dim
-    cq = model_full(col_apply(p["w_dq"], x), cfg.mla_q_comp)
-    q_nope = col_apply(p["w_uq"], cq)
-    q_rope = col_apply(p["w_qr"], cq)
+    cq = model_full(col_apply(p["w_dq"], x, cfg.mla_q_comp), cfg.mla_q_comp)
+    q_nope = col_apply(p["w_uq"], cq, H * dh)
+    q_rope = col_apply(p["w_qr"], cq, H * dr)
     uk, uv = p["w_uk"]["w"], p["w_uv"]["w"]
-    if not _heads_local((H,), (q_nope, H * dh), (q_rope, H * dr),
-                        (uk, H * dh), (uv, H * dh)):
+    local = _heads_local((H,), (q_nope, H * dh), (q_rope, H * dr),
+                         (uk, H * dh), (uv, H * dh))
+    if not local:
         q_nope, q_rope = model_full(q_nope, H * dh), model_full(q_rope, H * dr)
-    ckv = model_full(col_apply(p["w_dkv"], x), cfg.mla_kv_comp)
-    kr = col_apply(p["w_kr"], x)
+    ckv = model_full(col_apply(p["w_dkv"], x, cfg.mla_kv_comp), cfg.mla_kv_comp)
+    kr = col_apply(p["w_kr"], x, dr)
+    # the rank's heads attend over the whole latents: their gradients are
+    # the heads' parts
+    ckv, kr = model_in(ckv, local), model_in(kr, local)
     return (q_nope.reshape(B, S, -1, dh), q_rope.reshape(B, S, -1, dr), ckv, kr)
 
 
@@ -338,7 +349,8 @@ def mla_apply(p, x, cfg, *, positions=None):
             args = (p, q_nope[:, off:off + Q_CHUNK], q_rope[:, off:off + Q_CHUNK],
                     ckv, krope, cfg, off)
             if torch.is_grad_enabled():  # flash-style: recompute in backward
-                outs.append(checkpoint(_mla_chunk, *args, use_reentrant=False,
+                outs.append(checkpoint(SH.in_this_scope(_mla_chunk), *args,
+                                       use_reentrant=False,
                                        preserve_rng_state=False))
             else:
                 outs.append(_mla_chunk(*args))

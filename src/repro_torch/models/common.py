@@ -19,6 +19,12 @@ Without a mesh every function is the one-device program it was, with no
 collective.  Activations between blocks are (batch block, S, d) on every
 rank: a block of the batch over the batch axes where they divide it, and
 every feature.
+
+Under autograd the sharded program is differentiable (``core/sharding.py``
+states the convention): an activation replicated over "model" enters a
+column-parallel product through ``sharding.model_in`` (its gradient summed
+over "model"), the FSDP all-gathers' gradients are psum-scattered over the
+batch axes, and :func:`cross_entropy` is the mean over the global batch.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ __all__ = [
     "model_full",
     "col_apply",
     "row_apply",
+    "model_in",
     "map_params",
     "normal",
     "dense_init",
@@ -161,11 +168,24 @@ def model_full(x: torch.Tensor, full: int) -> torch.Tensor:
     return SH.gather_dim(x, "model", x.ndim - 1)
 
 
-def col_apply(p, x):
+def model_in(x: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """``x`` as it enters a product split over "model" (``split``):
+    ``sharding.model_in``, the identity whose gradient is summed over
+    "model"; ``x`` itself without a mesh or where nothing is split."""
+    if not split or SH.get_abstract_mesh() is None:
+        return x
+    return SH.model_in(x)
+
+
+def col_apply(p, x, d_out: int | None = None):
     """A column-parallel dense on x with every feature: the weight's in
     dim whole (FSDP-gathered), its out dim this rank's block where it is
-    split over "model" (so is the output's last dim, bias included)."""
+    split over "model" (so is the output's last dim, bias included).  On a
+    mesh ``d_out`` (the whole out dim) says whether it is: then x enters
+    through :func:`model_in`."""
     w = fsdp(p["w"], 0, x.shape[-1])
+    if d_out is not None:
+        x = model_in(x, w.shape[-1] < d_out)
     y = torch.matmul(*promoted(x, w))
     if "b" in p:
         y = y + p["b"]
@@ -179,7 +199,7 @@ def row_apply(p, x, d_in: int, d_out: int):
     w = fsdp(p["w"], 1, d_out)
     if w.shape[0] < d_in:
         y = torch.matmul(*promoted(model_block(x, d_in), w))
-        return SH.collectives().psum(y, "model")
+        return SH.psum(y, "model")
     return torch.matmul(*promoted(model_full(x, d_in), w))
 
 
@@ -294,7 +314,7 @@ def swiglu_apply(p, x, act=F.silu, d_ff=None):
     hidden activations are this rank's "model" block of it where the
     weights split it, and the down-projection's partial sums meet in a
     psum("model")."""
-    h = act(col_apply(p["w_gate"], x)) * col_apply(p["w_up"], x)
+    h = act(col_apply(p["w_gate"], x, d_ff)) * col_apply(p["w_up"], x, d_ff)
     return row_apply(p["w_down"], h, h.shape[-1] if d_ff is None else d_ff,
                      x.shape[-1])
 
@@ -306,12 +326,29 @@ def swiglu_apply(p, x, act=F.silu, d_ff=None):
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None):
     """Token cross-entropy in f32: logsumexp minus the gold logit, averaged
-    over the tokens (over the masked-in tokens where ``mask`` is given)."""
+    over the tokens (over the masked-in tokens where ``mask`` is given).
+
+    On a mesh, ``logits`` and ``labels`` are this rank's batch block and
+    the mean is the global batch's, as the reference's: the rank's sum of
+    the losses and its token count, one psum of the two over the batch
+    axes where the batch is split, then their quotient."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
+    if SH.get_abstract_mesh() is None:
+        if mask is not None:
+            nll = nll * mask
+            return nll.sum() / torch.clamp(mask.sum(), min=1)
+        return nll.mean()
     if mask is not None:
-        nll = nll * mask
-        return nll.sum() / torch.clamp(mask.sum(), min=1)
-    return nll.mean()
+        total, count = (nll * mask).sum(), mask.sum().float()
+    else:
+        total = nll.sum()
+        count = torch.full((), nll.numel(), dtype=torch.float32, device=nll.device)
+    both = torch.stack([total, count])
+    if SH.batch_split():
+        both = SH.psum(both, batch_axes())
+    if mask is not None:
+        return both[0] / torch.clamp(both[1], min=1)
+    return both[0] / both[1]

@@ -47,8 +47,15 @@ batch block (over the batch axes where they divide the batch), every
 block runs its sharded program (``models/blocks.py``), and the logits are
 the rank's batch block with the vocab whole (an all-gather over "model").
 Caches are the rank's: its batch block, its heads (KV) or the whole latent
-(MLA; ``attention``'s docstring says why).  Training on a mesh
-(``loss_fn``) is the next step of ROADMAP.md §1 item 7 and raises there.
+(MLA; ``attention``'s docstring says why).  ``loss_fn`` takes the global
+batch too and returns the global batch's mean loss on every rank; under
+autograd the sharded program is differentiable (``core/sharding.py``'s
+convention: a rank's gradient of a param it holds is the whole gradient of
+its block, except for the params replicated over the batch axes, whose
+gradients are the rank's rows' part until ``launch.steps`` sums them).
+With ``cfg.remat == "full"`` each repeat's forward, its collectives
+included, runs again in the backward on every rank in the same order (the
+recompute does not stop early on a mesh, so it is the whole forward).
 
 ``decode_step`` steps the caches it is given in place: the attention
 caches through ``attention.gqa_decode`` / ``mla_decode``, the recurrent
@@ -63,7 +70,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
-                                    noop_context_fn)
+                                    noop_context_fn, set_checkpoint_early_stop)
 
 from repro_torch.configs.base import ArchConfig
 from ..core import sharding as SH
@@ -71,9 +78,9 @@ from ..core.sharding import P
 from . import attention as A
 from .blocks import (_mlp_apply, block_apply, block_decode, block_init, block_spec,
                      check_kind, init_cache)
-from .common import (batch_shard, cross_entropy, dense_apply, embed_init, embed_spec,
-                     fsdp, map_params, model_full, normal, rmsnorm, rmsnorm_init,
-                     softcap)
+from .common import (batch_shard, col_apply, cross_entropy, dense_apply, embed_init,
+                     embed_spec, map_params, model_full, model_in, normal,
+                     rmsnorm, rmsnorm_init, softcap)
 
 __all__ = [
     "init_params",
@@ -257,7 +264,7 @@ def _embed(params, tokens, cfg):
         h = emb[torch.clamp(t, 0, emb.shape[0] - 1)]
         h = torch.where(inside[..., None], h, torch.zeros((), dtype=h.dtype,
                                                           device=h.device))
-        h = SH.collectives().psum(h, "model")
+        h = SH.psum(h, "model")
     else:
         h = emb[tokens.long()]
     if cfg.gemma_norm:
@@ -279,7 +286,8 @@ def _logits(params, h, cfg):
     """Logits over the whole vocab; on a mesh, this rank's vocab block of
     them all-gathered over "model"."""
     if cfg.tie_embeddings:
-        logits = torch.matmul(h, params["embed"]["emb"].T)
+        emb = params["embed"]["emb"]
+        logits = torch.matmul(model_in(h, emb.shape[0] < cfg.vocab), emb.T)
     else:
         w = params["lm_head"]["w"]
         batch = h.shape[0] * (SH.axis_size("data") if SH.get_abstract_mesh()
@@ -288,12 +296,13 @@ def _logits(params, h, cfg):
                            w.shape[1]):
             split = batch > h.shape[0]
             hs = SH.gather_dim(h, "data", 0) if split else h
-            part = torch.matmul(SH.slice_dim(hs, "data", hs.ndim - 1), w)
+            hs = model_in(SH.slice_dim(hs, "data", hs.ndim - 1), w.shape[1] < cfg.vocab)
+            part = torch.matmul(hs, w)
             coll = SH.collectives()
             logits = coll.psum_scatter(part, "data") if split \
                 else coll.psum(part, "data")
         else:
-            logits = torch.matmul(h, fsdp(w, 0, cfg.d_model))
+            logits = col_apply(params["lm_head"], h, cfg.vocab)
     return model_full(softcap(logits, cfg.logit_softcap), cfg.vocab)
 
 
@@ -374,10 +383,14 @@ def forward(params, tokens, cfg: ArchConfig, *, prefix_embeds=None, memory=None)
     remat = torch.is_grad_enabled() and cfg.remat != "none"
     # any other policy than "none" / "dots" is "full", as in the reference
     context_fn = _dots_context if cfg.remat == "dots" else noop_context_fn
+    # on a mesh every rank recomputes a repeat whole (collectives included)
+    whole = SH.get_abstract_mesh() is not None
     for layer in _repeats(params, cfg):
         if remat:  # the blocks draw no random numbers: no RNG state to keep
-            h = checkpoint(_repeat, h, layer, cfg, memory, use_reentrant=False,
-                           preserve_rng_state=False, context_fn=context_fn)
+            with set_checkpoint_early_stop(not whole):
+                h = checkpoint(SH.in_this_scope(_repeat), h, layer, cfg, memory,
+                               use_reentrant=False,
+                               preserve_rng_state=False, context_fn=context_fn)
         else:
             h = _repeat(h, layer, cfg, memory)
     h = rmsnorm(params["final_norm"], h, gemma_style=cfg.gemma_norm)
@@ -405,11 +418,16 @@ def loss_fn(params, batch, cfg: ArchConfig):
     """batch: dict(tokens, labels[, prefix_embeds, frames]).  Next-token
     cross-entropy over the text positions (the modality prefix dropped), in
     f32; with ``cfg.mtp_depth`` plus 0.3 times the multi-token prediction
-    loss.  Enc-dec archs encode ``frames`` first."""
-    if SH.get_abstract_mesh() is not None:
-        raise NotImplementedError(
-            "training on a process mesh is the next step of ROADMAP.md §1 "
-            "item 7 (7b's training half)")
+    loss.  Enc-dec archs encode ``frames`` first.  On a mesh the batch is
+    the global one (every rank's the same) and the loss its mean."""
+    if SH.get_abstract_mesh() is None:
+        return _loss(params, batch, cfg)
+    check_config(cfg)
+    with SH.batch_scope(batch["tokens"].shape[0]):
+        return _loss(params, batch, cfg)
+
+
+def _loss(params, batch, cfg):
     memory = None
     if cfg.encoder_layers:
         memory = encode(params, batch["frames"], cfg)
@@ -417,7 +435,8 @@ def loss_fn(params, batch, cfg: ArchConfig):
                         prefix_embeds=batch.get("prefix_embeds"), memory=memory)
     S_text = batch["tokens"].shape[1]
     logits_text = logits[:, -S_text:]  # drop modality prefix positions
-    loss = cross_entropy(logits_text[:, :-1], batch["labels"][:, 1:])
+    labels = batch_shard(batch["labels"])
+    loss = cross_entropy(logits_text[:, :-1], labels[:, 1:])
     if cfg.mtp_depth:
         loss = loss + 0.3 * _mtp_loss(params, h[:, -S_text:], batch, cfg)
     return loss
@@ -436,12 +455,12 @@ def _mtp_loss(params, h, batch, cfg):
     next_tokens = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
     emb_next = _embed(params, next_tokens, cfg)  # (B, S, d)
     x = torch.cat([rmsnorm(mtp["norm"], h), emb_next], dim=-1)
-    x = torch.matmul(x, mtp["proj"]["w"])
+    x = model_full(col_apply(mtp["proj"], x, cfg.d_model), cfg.d_model)
     x, _ = block_apply(mtp["block"], x, cfg, _mtp_kind(cfg))
     logits = _logits(params, x, cfg)  # position t predicts token t+2
     S = tokens.shape[1]
     mask = (torch.arange(S, device=tokens.device) < S - 2).float()[None, :]
-    labels = batch["labels"]
+    labels = batch_shard(batch["labels"])
     labels_t2 = torch.cat([labels[:, 2:], torch.zeros_like(labels[:, :2])], dim=1)
     return cross_entropy(logits, labels_t2, mask=mask.expand(labels_t2.shape))
 

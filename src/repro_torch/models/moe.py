@@ -45,6 +45,17 @@ reference's branch for the arch, with ``moe_spec``'s placement:
   "data" and the f-space partials of the down-projection meet in a
   psum("model").
 
+Under autograd the sharded branches are differentiable (``core/
+sharding.py`` states the convention): the all-to-alls go back by the
+reverse all-to-alls, the per-group gathers and slices over the batch axes
+by their transposes, the psums("model") by the identity; what is
+replicated over "model" and meets a product split over it enters through
+``common.model_in`` (mixtral's tokens before the f-split experts;
+deepseek's hidden activations before the d-split down-projection and its
+gates, which the combine meets on the rank's d block).  The router's
+weights are replicated: their gradients are summed over the batch axes
+after the backward (``launch/steps.py``).
+
 Two choices keep the port equal to the reference and deterministic:
 
 * :func:`_top_k` is a stable descending sort, so ties go to the lower
@@ -65,8 +76,8 @@ import torch.nn.functional as F
 
 from ..core import sharding as SH
 from ..core.sharding import P
-from .common import (batch_axes, dense_init, fsdp, normal, swiglu_apply,
-                     swiglu_init, swiglu_spec)
+from .common import (batch_axes, dense_init, fsdp, model_in, normal,
+                     swiglu_apply, swiglu_init, swiglu_spec)
 
 __all__ = ["moe_init", "moe_spec", "moe_apply", "Routing", "EP_AXES",
            "dispatch_log"]
@@ -290,7 +301,8 @@ def _moe_apply_sharded(p, x, cfg):
     g = SH.axis_index(bax) if G > 1 else 0
     # the tokens of this rank's group (T_loc, d)
     if G > 1:
-        xg = x.reshape(T_loc, d) if split else x.reshape(G, T_loc, d)[g]
+        xg = x.reshape(T_loc, d) if split else \
+            SH.slice_dim(x.reshape(G, T_loc, d), bax, 0)[0]
     else:
         xg = (SH.batch_unshard(x) if split else x).reshape(T, d)
     eid, gate = _route(p, xg, cfg)
@@ -314,6 +326,7 @@ def _experts_ep(p, xg, eid, gate, cfg, G, g, cap, d, dtype):
     E, bax = cfg.n_experts, batch_axes()
     E_l, d_l = p["w_gate"].shape[0], p["w_gate"].shape[1]
     x_dispatch = SH.slice_dim(xg, "model", 1) if d_l < d else xg
+    gate = model_in(gate, d_l < d)  # the combine meets it on the d block
     xbuf, meta = _local_dispatch(x_dispatch, eid, gate, E, cap)  # (E, cap, d_l)
     _record(meta, g, G, cap)
     buf = xbuf[None]  # (1, E, cap, d_l): this rank's group
@@ -325,8 +338,8 @@ def _experts_ep(p, xg, eid, gate, cfg, G, g, cap, d, dtype):
     h = torch.bmm(xe, p["w_gate"])
     u = torch.bmm(xe, p["w_up"])
     if d_l < d:  # f-space partials over the d blocks
-        h, u = (SH.collectives().psum(t, "model") for t in (h, u))
-    h = F.silu(h) * u
+        h, u = (SH.psum(t, "model") for t in (h, u))
+    h = model_in(F.silu(h) * u, d_l < d)
     ybuf = torch.bmm(h, p["w_down"]).to(dtype)  # (E_l, Gx * cap, d_l)
     ybuf = ybuf.reshape(E_l, Gx, cap, -1).transpose(0, 1)
     if E_l < E:  # E-sharded -> G-sharded (an all-gather of E with G = 1)
@@ -338,11 +351,13 @@ def _experts_ep(p, xg, eid, gate, cfg, G, g, cap, d, dtype):
 def _experts_local(p, xg, eid, gate, cfg, G, g, cap, d, dtype):
     """mixtral's branch: every expert on this rank's group; d gathered over
     the batch axes, the down-projection's f partials summed over "model"."""
-    xbuf, meta = _local_dispatch(xg, eid, gate, cfg.n_experts, cap)  # (E, cap, d)
+    split_f = p["w_gate"].shape[-1] < cfg.moe_d_ff
+    xbuf, meta = _local_dispatch(model_in(xg, split_f), eid, gate, cfg.n_experts,
+                                 cap)  # (E, cap, d)
     _record(meta, g, G, cap)
     w_gate, w_up = fsdp(p["w_gate"], 1, d), fsdp(p["w_up"], 1, d)
     h = F.silu(torch.bmm(xbuf, w_gate)) * torch.bmm(xbuf, w_up)
     ybuf = torch.bmm(h, fsdp(p["w_down"], 2, d)).to(dtype)
-    if p["w_down"].shape[1] < cfg.moe_d_ff:
-        ybuf = SH.collectives().psum(ybuf, "model")
+    if split_f:
+        ybuf = SH.psum(ybuf, "model")
     return _local_combine(ybuf, meta, xg.shape[0])

@@ -1,6 +1,7 @@
 """Optimizer substrate: AdamW, schedules, gradient compression.
-Counterpart of ``repro/optim``; ``opt_specs`` is data only until training
-runs on a mesh (ROADMAP.md §1 item 7)."""
+Counterpart of ``repro/optim``; ``opt_specs`` places the state of
+``TrainLoop(mesh=)``, whose update takes the global norm and the int8
+scales over the whole leaves (``apply_updates(..., shardings=)``)."""
 from .adamw import (  # noqa: F401
     AdamWConfig,
     OptState,

@@ -12,6 +12,15 @@ float32 tensors on the step counter's device, as JAX computes it without
 x64: Python floats are float64 and would not match.  ``apply_updates(...,
 donate=True)`` updates the state in place, as the reference's TrainLoop
 donates it to its jitted step.
+
+On a process mesh (``apply_updates(..., shardings=)``, the NamedSharding
+tree of the params) every rank updates its blocks, and the two quantities
+that span a whole leaf are taken across the ranks: the global norm (each
+rank's sum of squares of a leaf weighted by one over the ranks that
+replicate it, so every element counts once, then one psum over the mesh's
+ranks) and an int8 moment's per-tensor scale (the max over every rank's
+block: one all-gather of the ranks' maxima, ``core.sharding.world_max``),
+whose spec is the reference's ``P()``.
 """
 from __future__ import annotations
 
@@ -99,12 +108,44 @@ def warmup_cosine(cfg: AdamWConfig, step):
             * (_f32(1.0, dev) + torch.cos(_f32(math.pi, dev) * prog)))
 
 
-def global_norm_clip(grads, max_norm: float, *, inplace: bool = False):
+def _mesh_of(shardings):
+    """The mesh of a NamedSharding tree where it has more than one rank."""
+    if shardings is None:
+        return None
+    mesh = leaves(shardings, _is_sharding)[0].mesh
+    return mesh if mesh.devices.size > 1 else None
+
+
+def _is_sharding(x) -> bool:
+    return hasattr(x, "spec") and hasattr(x, "mesh")
+
+
+def _replicas(sh) -> int:
+    """The ranks of ``sh``'s mesh that hold the same block."""
+    split = 1
+    for i in range(len(sh.spec)):
+        split *= sh.extent(i)
+    return sh.mesh.devices.size // split
+
+
+def global_norm_clip(grads, max_norm: float, *, inplace: bool = False,
+                     shardings=None):
     """Scale ``grads`` to a global L2 norm of at most ``max_norm``.  Returns
     (clipped grads, norm before clipping); ``inplace`` scales the given
-    tensors a block at a time (the same values)."""
+    tensors a block at a time (the same values).  With ``shardings`` (a
+    mesh's NamedSharding tree of the leaves) ``grads`` are this rank's
+    blocks and the norm is the whole tree's."""
     flat, unflatten = flatten(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(F32))) for g in flat))
+    mesh = _mesh_of(shardings)
+    if mesh is None:
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.to(F32))) for g in flat))
+    else:
+        from ..core.sharding import collectives
+
+        shs = leaves(shardings, _is_sharding)
+        sq = sum(torch.sum(torch.square(g.to(F32))) / _replicas(sh)
+                 for g, sh in zip(flat, shs))
+        gn = torch.sqrt(collectives(mesh).psum(sq, tuple(mesh.axis_names)))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     if not inplace:
         return unflatten((g.to(F32) * scale).to(g.dtype) for g in flat), gn
@@ -132,11 +173,17 @@ def _vq_decode(vq):
     return vq["q"].to(F32) * vq["scale"]
 
 
-def _vq_encode(v):
+def _amax(v) -> torch.Tensor:
     # an empty leaf (the stack of a pattern with no repeats: deepseek cut
     # to its 3 prefix layers) takes the floor scale, where the reference's
     # ``jnp.max`` raises
-    amax = torch.max(torch.abs(v)) if v.numel() else v.new_zeros(())
+    return torch.max(torch.abs(v)) if v.numel() else v.new_zeros(())
+
+
+def _vq_encode(v, amax=None):
+    """int8 ``q`` and the per-tensor ``scale`` of ``v``, from the leaf's
+    max |v| (``amax``: the whole leaf's, where ``v`` is a rank's block)."""
+    amax = _amax(v) if amax is None else amax
     scale = torch.clamp(amax / 127.0, min=1e-12)
     return {"q": torch.round(v / scale).to(torch.int8), "scale": scale}
 
@@ -146,7 +193,7 @@ def _is_vq(x) -> bool:
 
 
 def apply_updates(params, grads, opt: OptState, cfg: AdamWConfig, *,
-                  donate: bool = False):
+                  donate: bool = False, shardings=None):
     """One AdamW step. Returns (new_params, new_opt, metrics).
 
     ``donate=True`` writes the clipped grads into ``grads`` and each leaf's
@@ -156,8 +203,11 @@ def apply_updates(params, grads, opt: OptState, cfg: AdamWConfig, *,
     The state is then never held twice (a full-width mixtral layer's is 29
     GB), and with float32 moments a leaf is updated a block at a time,
     so its float32 temporaries stay small (a mixtral expert stack is 805M
-    elements: 3.2 GB each)."""
-    grads, gnorm = global_norm_clip(grads, cfg.clip_norm, inplace=donate)
+    elements: 3.2 GB each).  ``shardings`` (the params' NamedSharding
+    tree on a mesh) makes the norm and the int8 scales the whole leaves'."""
+    grads, gnorm = global_norm_clip(grads, cfg.clip_norm, inplace=donate,
+                                    shardings=shardings)
+    mesh = _mesh_of(shardings)
     step = opt.step + 1
     lr = warmup_cosine(cfg, step)
     s = step.to(F32)
@@ -184,10 +234,12 @@ def apply_updates(params, grads, opt: OptState, cfg: AdamWConfig, *,
                                                              fv[sl])):
                     dst[sl] = src
             return p, m, v
-        p_new, m_f, v_f = new_values(p, g, _vq_decode(m) if cfg.quantized_m else m,
-                                     _vq_decode(v) if cfg.quantized_v else v)
-        m_new = _vq_encode(m_f) if cfg.quantized_m else m_f
-        v_new = _vq_encode(v_f) if cfg.quantized_v else v_f
+        return new_values(p, g, _vq_decode(m) if cfg.quantized_m else m,
+                          _vq_decode(v) if cfg.quantized_v else v)
+
+    def store(p, m, v, p_new, m_f, v_f, amax_m, amax_v):
+        m_new = _vq_encode(m_f, amax_m) if cfg.quantized_m else m_f
+        v_new = _vq_encode(v_f, amax_v) if cfg.quantized_v else v_f
         if donate:  # int8 moments: their scales need the whole leaf
             for dst, src in ((p, p_new), (m, m_new), (v, v_new)):
                 for d, s_ in (zip(dst.values(), src.values()) if isinstance(dst, dict)
@@ -200,7 +252,25 @@ def apply_updates(params, grads, opt: OptState, cfg: AdamWConfig, *,
     flat_g = leaves(grads)
     flat_m = leaves(opt.m, _is_vq if cfg.quantized_m else None)
     flat_v = leaves(opt.v, _is_vq if cfg.quantized_v else None)
-    out = [upd(p, g, m, v) for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v)]
+    rows = list(zip(flat_p, flat_g, flat_m, flat_v))
+    if not (cfg.quantized_m or cfg.quantized_v):
+        out = [upd(*r) for r in rows]
+    else:  # int8 moments: each leaf's new moments, encoded at its scale
+        floats = [r for r in rows if r[0].is_floating_point()]
+        amax = None
+        if mesh is not None:  # the scales first: the whole leaves' maxima
+            from ..core.sharding import world_max
+
+            amax = world_max(torch.stack([_amax(t) for r in floats
+                                          for t in upd(*r)[1:]]), mesh)
+        out, j = [], 0
+        for r in rows:
+            if not r[0].is_floating_point():
+                out.append((r[0], r[2], r[3]))  # structural: unchanged
+                continue
+            a = (None, None) if amax is None else (amax[2 * j], amax[2 * j + 1])
+            out.append(store(r[0], r[2], r[3], *upd(*r), *a))
+            j += 1
     new_p = unflatten(o[0] for o in out)
     new_m = unflatten(o[1] for o in out)
     new_v = unflatten(o[2] for o in out)

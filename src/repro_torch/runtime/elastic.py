@@ -8,8 +8,17 @@ that shape is :func:`rescale_mesh_shape`.  :func:`make_shardings` and
 reference's do; :func:`shard_tree` takes this rank's block of every full
 leaf (``convert.lm_params`` output, a checkpoint's leaves, a seeded init)
 and :func:`unshard_tree` gathers the full leaves back from the ranks'
-blocks.  Restoring a training run onto a smaller mesh is the next step of
-ROADMAP.md §1 item 7.
+blocks.
+
+Restoring a training run onto a smaller mesh: :func:`rescaled_mesh` lays
+the ranks that are left out as ``rescale_mesh_shape`` says (model
+parallelism kept, the data axis shrunk), and ``TrainLoop(cfg, opt_cfg,
+mesh=rescaled_mesh(world, model_parallel=m), global_batch=B, ...)``
+rebuilds its shardings from the same spec trees (``make_shardings`` +
+``sanitize_shardings``), takes its blocks of the checkpoint's full leaves
+(``restore_checkpoint(..., shardings=)``, :func:`shard_tree`) and keeps
+the global batch ``B``: each rank's rows grow, the step's numbers do not
+change.
 """
 from __future__ import annotations
 
@@ -20,8 +29,9 @@ import torch
 from ..core.sharding import NamedSharding, P, entry_axes
 from ..tree import tree_map
 
-__all__ = ["rescale_mesh_shape", "make_shardings", "sanitize_shardings",
-           "shard_tree", "unshard_tree", "empty_blocks", "RescalePlan"]
+__all__ = ["rescale_mesh_shape", "rescaled_mesh", "make_shardings",
+           "sanitize_shardings", "shard_tree", "unshard_tree", "empty_blocks",
+           "seeded_blocks", "spec_axes", "RescalePlan"]
 
 
 @dataclass(frozen=True)
@@ -43,6 +53,21 @@ def rescale_mesh_shape(n_devices: int, axis_names=("data", "model"),
     if len(axis_names) == 3:  # (pod, data, model): collapse pods on rescale
         return (1, data, model_parallel)
     return (data, model_parallel)
+
+
+def rescaled_mesh(world, axis_names=("data", "model"),
+                  model_parallel: int | None = None):
+    """The process mesh of ``world``'s ranks at
+    :func:`rescale_mesh_shape` (collective: every rank calls it)."""
+    from ..core.mesh import make_process_mesh
+
+    shape = rescale_mesh_shape(world.size, axis_names, model_parallel)
+    return make_process_mesh(world, shape, axis_names)
+
+
+def spec_axes(spec) -> set:
+    """The mesh axis names a PartitionSpec splits over."""
+    return {a for e in tuple(spec) for a in entry_axes(e)}
 
 
 def _is_spec(x) -> bool:
@@ -118,6 +143,39 @@ def empty_blocks(like, sh_tree, device):
     return tree_map(lambda t, sh: torch.empty(sh.shard_shape(t.shape), dtype=t.dtype,
                                               device=device),
                     like, sh_tree, is_leaf=lambda x: isinstance(x, NamedSharding))
+
+
+def seeded_blocks(cfg, like, sh_tree, mesh, seed: int = 0, dtype=torch.bfloat16):
+    """This rank's blocks of ``lm.init_params`` seeded with ``seed`` (the
+    reference's tree, no port-only keys) on the rank's device: the rank
+    draws the full tree and keeps its blocks.  The blocks are allocated
+    before the tree, so no block lands in a segment of the tree's and
+    freeing the tree gives its memory back.  Ranks that share one device
+    take turns (a barrier over the mesh after each), so one full tree at
+    a time lies on it.  Collective: every rank of ``mesh`` calls it."""
+    import gc
+
+    import torch.distributed as dist
+
+    from ..models import lm
+    from ..sparse.layers import strip_derived
+
+    device = mesh.device
+    shared = mesh.devices.size > 1 and len({str(d) for d in mesh.devices.flat}) == 1
+    local = None
+    for turn in range(mesh.devices.size if shared else 1):
+        if not shared or turn == mesh.rank:
+            local = empty_blocks(like, sh_tree, device)
+            gen = torch.Generator(device=device).manual_seed(seed)
+            full = strip_derived(lm.init_params(gen, cfg, dtype))
+            shard_tree(full, sh_tree, out=local)
+            del full
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        if shared:
+            dist.barrier(group=mesh.world_group)
+    return local
 
 
 def unshard_tree(tree, sh_tree):

@@ -35,7 +35,12 @@ activations, then one of the down-projection's output); where a run ends inside 
 block-row, its row pointer spans every block-row, its rows elsewhere stay
 zero, and a psum over "model" (in the accumulation dtype) merges the runs.
 A stream whose block count does not divide is left whole on every rank
-(``sanitize_shardings``), as in the reference.
+(``sanitize_shardings``), as in the reference.  Under autograd a rank's
+grad x is its run's part of Wᵀ·gy, so x enters a run through
+``common.model_in`` (its gradient summed over "model"), in both layouts;
+Wᵀ's stream of a run of whole block-rows indexes the run's rows of gy
+(its block-columns rebased by the run's first block-row, as the forward's
+rows are).
 
 Port-only keys (:data:`DERIVED`), beside the reference's three: the
 block-row pointer the kernel walks (``browptr``, :func:`with_row_pointer`)
@@ -59,7 +64,7 @@ from ..core import sharding as SH
 from ..core.sharding import P
 from ..kernels.bcsr_spmv import (bcoo_spmv, block_row_ptr, transposed_stream,
                                   transposed_values)
-from ..models.common import normal, promoted
+from ..models.common import model_in, normal, promoted
 
 __all__ = [
     "sparse_linear_init",
@@ -167,13 +172,16 @@ def with_row_pointer(p: dict, d_out: int, lo: int = 0, rows=None) -> dict:
     return dict(p, browptr=ptr)
 
 
-def with_transpose(p: dict, d_in: int) -> dict:
+def with_transpose(p: dict, d_in: int, lo: int = 0) -> dict:
     """``p`` with Wᵀ's static block stream (``t_perm``, ``t_browind``,
     ``t_bcolind``, ``t_browptr``; see ``kernels.bcsr_spmv.
-    transposed_stream``), one row per layer where the stream is stacked."""
+    transposed_stream``), one row per layer where the stream is stacked.
+    For a rank's run of block-rows from ``lo`` (:func:`with_run`), Wᵀ's
+    block-columns are the run's rows, counted from ``lo``."""
     c = p["bvalues"].shape[-1]
+    browind = p["browind"] - lo if lo else p["browind"]
     perm, t_browind, t_bcolind, t_browptr = transposed_stream(
-        p["browind"], p["bcolind"], d_in // c)
+        browind, p["bcolind"], d_in // c)
     return dict(p, t_perm=perm, t_browind=t_browind, t_bcolind=t_bcolind,
                 t_browptr=t_browptr)
 
@@ -210,8 +218,9 @@ def with_derived(params: dict, cfg, mesh=None) -> dict:
         return params
 
     def one(q, d_in, d_out):
-        return with_transpose(with_run(q, d_in, d_out, cfg.ffn_density, mesh),
-                              d_in)
+        q = with_run(q, d_in, d_out, cfg.ffn_density, mesh)
+        lo = int(q[RUN].reshape(-1, 3)[0, 1]) if RUN in q else 0
+        return with_transpose(q, d_in, lo)
 
     def block(blk):
         if "mlp" not in blk:
@@ -331,7 +340,6 @@ def _run_rows(p, x, d_out: int) -> tuple:
     dtype, and how they still have to merge (None, or "gather" over
     "model"); a "psum" layout is summed here, in the accumulation dtype."""
     lead = x.shape[:-1]
-    x2d, values = promoted(x.reshape(-1, x.shape[-1]), p["bvalues"])
     rows, merge = d_out, None
     if SH.get_abstract_mesh() is not None:
         if RUN not in p:
@@ -341,9 +349,11 @@ def _run_rows(p, x, d_out: int) -> tuple:
         merge = MERGES[code]
         if merge == "gather":
             p, rows = dict(p, browind=p["browind"] - lo), n * p["bvalues"].shape[-2]
+        x = model_in(x, merge is not None)  # the gate's and up's share one sum
+    x2d, values = promoted(x.reshape(-1, x.shape[-1]), p["bvalues"])
     y = BlockSpMM.apply(values, x2d, p, rows)
     if merge == "psum":
-        y, merge = SH.collectives().psum(y, "model"), None
+        y, merge = SH.psum(y, "model"), None
     return y.to(p["bvalues"].dtype).T.reshape(lead + (rows,)).to(x.dtype), merge
 
 

@@ -164,8 +164,8 @@ def test_collectives_match_their_closed_forms(sides, run):
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b", "seamless-m4t-medium"])
 def test_server_on_a_mesh_raises_for_the_kinds_without_a_sharded_apply(arch):
     """Linear attention and the encoder-decoder are never silently
-    replicated on a mesh: Server(mesh=) and lm.prefill there raise, naming
-    ROADMAP.md §1 item 7; so does training (lm.loss_fn) on a mesh."""
+    replicated on a mesh: Server(mesh=), lm.prefill and training (lm.loss_fn)
+    there raise, naming ROADMAP.md §1 item 7."""
     from repro_torch.core import sharding as SH
     from repro_torch.core.mesh import dry_process_mesh
     from repro_torch.launch.serve import Server
@@ -180,8 +180,9 @@ def test_server_on_a_mesh_raises_for_the_kinds_without_a_sharded_apply(arch):
     with SH.set_mesh(mesh), pytest.raises(NotImplementedError,
                                           match="ROADMAP.md §1 item 7"):
         lm.prefill(params, toks, cfg, 8)
-    qwen = get_config("qwen1.5-0.5b").reduced()
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.zeros((2, 4, cfg.d_model))
     with SH.set_mesh(mesh), pytest.raises(NotImplementedError,
                                           match="ROADMAP.md §1 item 7"):
-        lm.loss_fn(lm.init_params(torch.Generator().manual_seed(0), qwen),
-                   {"tokens": toks, "labels": toks}, qwen)
+        lm.loss_fn(params, batch, cfg)
