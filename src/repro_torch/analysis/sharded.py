@@ -6,18 +6,18 @@ mesh=)``) holds and moves, from the spec trees and the config alone:
 * :func:`param_bytes`: the bytes of its blocks of the params
   (``lm.param_specs`` through ``make_shardings`` / ``sanitize_shardings``);
 * :func:`forward_collectives`, :func:`serve_collectives`,
-  :func:`moe_collectives`: the calls and bytes, by kind, of the collectives
-  of a forward pass over (B, S) tokens, of a prefill plus decode steps, and
-  of one MoE layer, counted as ``core/collectives.py`` counts them (the
-  bytes of each call's result on the rank; a collective over one rank
-  counts nothing);
+  :func:`encode_collectives`, :func:`moe_collectives`: the calls and
+  bytes, by kind, of the collectives of a forward pass over (B, S) tokens,
+  of a prefill plus decode steps, of one encoder pass, and of one MoE
+  layer, counted as ``core/collectives.py`` counts them (the bytes of each
+  call's result on the rank; a collective over one rank counts nothing);
 * :func:`train_collectives`: the calls and bytes, by kind, of one train
   step (``launch.steps.make_train_step`` on the mesh): the forward's, the
   recompute's, the backward's transposes and ``model_in`` sums
   (``core/sharding.py``'s convention), the gradient sums of the params
   replicated over "data", and the clip's psum;
-* :func:`block_kernel_launches` and :func:`train_block_kernel_launches`:
-  its launches of the block kernel.
+* :func:`block_kernel_launches`, :func:`encode_block_kernel_launches` and
+  :func:`train_block_kernel_launches`: its launches of the block kernel.
 
 Each term follows the code path it counts (``models/common.py``,
 ``attention.py``, ``moe.py``, ``sparse/layers.py``, ``lm.py``); the CPU
@@ -36,7 +36,8 @@ from ..core.mesh import dry_process_mesh
 from ..sparse.layers import blocks_per_row
 
 __all__ = ["param_bytes", "forward_collectives", "serve_collectives",
-           "moe_collectives", "train_collectives", "block_kernel_launches",
+           "encode_collectives", "moe_collectives", "train_collectives",
+           "block_kernel_launches", "encode_block_kernel_launches",
            "train_block_kernel_launches"]
 
 AXES = ("data", "model")
@@ -212,21 +213,61 @@ def _mlp(c: _Ctx, cfg, tokens) -> None:
         _swiglu(c, cfg.d_model, cfg.d_ff, tokens)
 
 
-def _gqa(c: _Ctx, cfg, tokens) -> None:
+def _gqa(c: _Ctx, cfg, tokens, kv_tokens=None) -> None:
+    """GQA; cross-attention where k and v come from ``kv_tokens`` of the
+    memory (on a mesh, the rank's rows of it)."""
     d, dh, H, KV = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     Dm, e = c.Dm, c.e
+    cross = kv_tokens is not None
+    kv_tokens = tokens if kv_tokens is None else kv_tokens
     widths = (H * dh, KV * dh, KV * dh)
     for n in widths:
         _col(c, d, n)
-    if any(_split(n, Dm) for n in widths):
+    if any(_split(n, Dm) for n in (widths[:1] if cross else widths)):
         c.model_in(tokens * d * e)
+    if cross and _split(KV * dh, Dm):
+        c.model_in(kv_tokens * d * e)
     local = Dm > 1 and H % Dm == 0 and KV % Dm == 0 \
         and all(_split(n, Dm) for n in widths)
     if not local:
-        for n in widths:
+        for n, t in zip(widths, (tokens, kv_tokens, kv_tokens)):
             if _split(n, Dm):
-                c.t.add("all-gather", tokens * n * e)
+                c.t.add("all-gather", t * n * e)
     _row(c, H * dh, d, tokens, whole_in=not local)
+
+
+def _heads_split(c: _Ctx, heads: int) -> bool:
+    """Whether a recurrent block's heads are the rank's (its sharded
+    program raises where "model" does not divide them)."""
+    if c.Dm > 1 and heads % c.Dm:
+        raise NotImplementedError(f"{heads} heads over {c.Dm} ranks of 'model'")
+    return c.Dm > 1
+
+
+def _recurrent(c: _Ctx, cfg, kind, tokens) -> None:
+    """A Mamba2, mLSTM or sLSTM block: its column-parallel projections'
+    FSDP gathers (Mamba2's ``in_proj`` output then an all-to-all over
+    "model" of ``d_inner`` features a token: x's and z's blocks of the
+    rank's heads, in n slots), the norm's psum of an f32 partial sum of
+    squares a token, and the row-parallel ``out_proj``."""
+    d, e = cfg.d_model, c.e
+    if kind == "mamba":
+        H, di, N = cfg.ssm_heads, cfg.ssm_d_inner, cfg.ssm_state
+        cols = (2 * di, 2 * N * H, H)
+    else:
+        H = cfg.n_heads
+        di = d
+        cols = (d, d, d, H, H) if kind == "mlstm" else (4 * d,)
+    split = _heads_split(c, H)
+    for n in cols:
+        _col(c, d, n)
+    if split:
+        c.model_in(tokens * d * e)
+        if kind == "mamba":
+            c.t.add("all-to-all", tokens * di * e,
+                    back=("all-to-all", tokens * di * e))
+        c.t.add("all-reduce", tokens * 4)  # the norm's sum of squares
+    _row(c, di, d, tokens)
 
 
 def _mla(c: _Ctx, cfg, tokens) -> None:
@@ -315,12 +356,21 @@ def _moe(c: _Ctx, cfg, B: int, S: int) -> None:
         t.add("all-gather", T * d * e)  # every group's tokens
 
 
-def _block(c: _Ctx, cfg, kind, B, S) -> None:
-    tokens = (B // c.Dd if c.bs else B) * S
+RECURRENT = ("mamba", "mlstm", "slstm")
+
+
+def _block(c: _Ctx, cfg, kind, B, S, S_mem: int = 0) -> None:
+    rows = B // c.Dd if c.bs else B
+    tokens = rows * S
+    if kind in RECURRENT:
+        _recurrent(c, cfg, kind, tokens)
+        return
     if kind in ("mla_dense", "mla_moe"):
         _mla(c, cfg, tokens)
     else:
         _gqa(c, cfg, tokens)
+    if kind == "cross_attn":  # the memory's rows, every feature
+        _gqa(c, cfg, tokens, rows * S_mem)
     if kind in ("moe", "mla_moe"):
         _moe(c, cfg, B, S)
     else:
@@ -364,31 +414,56 @@ def _head(c: _Ctx, cfg, B: int, Bl: int, S: int) -> None:
         c.t.add("all-gather", Bl * S * V * e)
 
 
-def forward_collectives(cfg, shape, B: int, S: int, itemsize: int) -> _Tally:
+def _encode(c: _Ctx, cfg, B: int, S_enc: int) -> None:
+    """``lm.encode`` of (B, S_enc) frames: the column-parallel ``in_proj``
+    and its output gathered over "model", then the encoder's blocks."""
+    d = cfg.d_model
+    rows = B // c.Dd if c.bs else B
+    _col(c, d, d)
+    if _split(d, c.Dm):
+        c.model_in(rows * S_enc * d * c.e)
+        c.t.add("all-gather", rows * S_enc * d * c.e)
+    for _ in range(cfg.encoder_layers):
+        _block(c, cfg, "attn", B, S_enc)
+
+
+def forward_collectives(cfg, shape, B: int, S: int, itemsize: int,
+                        S_mem: int = 0) -> _Tally:
     """A forward pass (prefill of S tokens, or a decode step at S = 1)
-    over the global batch B: the embedding's psum, every block's, and the
-    last position's logits gathered over "model"."""
+    over the global batch B: the embedding's psum, every block's (a
+    ``cross_attn`` block's over S_mem positions of encoder memory), and
+    the last position's logits gathered over "model"."""
     t = _Tally()
     c = _Ctx(t, shape[0], shape[1], itemsize, B)
     Bl = B // c.Dd if c.bs else B
     _embed(c, cfg, Bl * S)
     for kind in cfg.prefix_pattern:
-        _block(c, cfg, kind, B, S)
+        _block(c, cfg, kind, B, S, S_mem)
     for _ in range(cfg.n_repeats):
         for kind in cfg.block_pattern:
-            _block(c, cfg, kind, B, S)
+            _block(c, cfg, kind, B, S, S_mem)
     _head(c, cfg, B, Bl, 1)
     return t
 
 
 def serve_collectives(cfg, shape, B: int, S: int, steps: int,
-                      itemsize: int) -> dict:
+                      itemsize: int, S_mem: int = 0) -> dict:
     """``{"calls", "bytes"}`` by kind of a prefill of (B, S) and ``steps``
     decode steps (``lm.prefill`` / ``lm.decode_step``; ``Server.generate``
     adds one all-gather of (B, 1) int32 tokens per token where the batch
-    is split over "data")."""
-    t = forward_collectives(cfg, shape, B, S, itemsize)
-    t.add_all(forward_collectives(cfg, shape, B, 1, itemsize), steps)
+    is split over "data").  An encoder-decoder's blocks read S_mem
+    positions of encoder memory; the encoder passes that make it are
+    :func:`encode_collectives`."""
+    t = forward_collectives(cfg, shape, B, S, itemsize, S_mem)
+    t.add_all(forward_collectives(cfg, shape, B, 1, itemsize, S_mem), steps)
+    return t.out()
+
+
+def encode_collectives(cfg, shape, B: int, S_enc: int, itemsize: int) -> dict:
+    """``{"calls", "bytes"}`` by kind of one ``lm.encode`` of (B, S_enc)
+    frames."""
+    t = _Tally()
+    _encode(_Ctx(t, shape[0], shape[1], itemsize, B), cfg, B, S_enc)
     return t.out()
 
 
@@ -511,11 +586,19 @@ def train_block_kernel_launches(cfg, microbatches: int = 1,
 
 
 def block_kernel_launches(cfg, forwards: int) -> int:
-    """A rank's block-kernel launches over ``forwards`` forward passes:
-    one per sparse projection of each dense-FFN block it runs (prefix and
-    repeats; the MTP block is not on the serving path)."""
+    """A rank's block-kernel launches over ``forwards`` forward passes: one
+    per sparse projection of each dense-FFN block it runs (prefix and
+    repeats; the MoE and recurrent blocks have none, and the MTP block is
+    not on the serving path; the encoder's are
+    :func:`encode_block_kernel_launches`)."""
     if cfg.ffn_density >= 1.0:
         return 0
     kinds = list(cfg.prefix_pattern) + list(cfg.block_pattern) * cfg.n_repeats
-    dense = sum(1 for k in kinds if k not in ("moe", "mla_moe"))
+    dense = sum(1 for k in kinds if k not in ("moe", "mla_moe") + RECURRENT)
     return 3 * dense * forwards
+
+
+def encode_block_kernel_launches(cfg) -> int:
+    """A rank's block-kernel launches in one ``lm.encode``: one per sparse
+    projection of each encoder block."""
+    return 3 * cfg.encoder_layers if cfg.ffn_density < 1.0 else 0

@@ -1,5 +1,6 @@
 """Launchers: the serving and training entry points, the train step, the
 dry runs (``dryrun``, ``dryrun_spmv``) and the mesh.  Counterpart of
 ``repro/launch``.  ``Server(mesh=)`` and ``TrainLoop(mesh=)`` run on a
-process mesh; the ``main`` entry points and the recurrent and
-encoder-decoder kinds on a mesh wait for ROADMAP.md §1 item 7."""
+process mesh (training there covers the attention and MoE families);
+started by ``torchrun``, the ``main`` entry points run on
+``mesh.make_local_mesh(world=)``."""

@@ -13,14 +13,22 @@ TPU chips out as (data, model) = (16, 16) or (pod, data, model) =
 * :func:`make_local_mesh` is a (world / mp, mp) process mesh over a world
   (the reference's over its host's devices), or, without one, the (1, 1)
   ``Mesh`` of one device.
+* :func:`env_world` joins the world that ``torchrun`` describes in the
+  environment, where it started this process as a rank: the launchers'
+  ``main``s run on ``make_local_mesh(world=)`` then, and on one device
+  otherwise.
 """
 from __future__ import annotations
+
+import os
+
+import torch
 
 from repro_torch.core.mesh import (Mesh, ProcessMesh, dry_process_mesh, make_mesh,
                                    make_process_mesh)
 
 __all__ = ["make_production_mesh", "make_local_mesh", "production_layout",
-           "MODEL_PARALLEL"]
+           "env_world", "MODEL_PARALLEL"]
 
 # the reference's model-parallel width on its pod (fixed by per-chip HBM)
 MODEL_PARALLEL = 16
@@ -73,3 +81,22 @@ def make_local_mesh(model_parallel: int = 1, device="cuda",
         raise ValueError(f"model_parallel={mp} does not divide a world of "
                          f"{world.size} ranks")
     return make_process_mesh(world, (world.size // mp, mp), ("data", "model"))
+
+
+def env_world(device="cuda"):
+    """This process's world where ``torchrun`` started it as a rank
+    (``RANK`` and ``WORLD_SIZE`` in the environment, the store at
+    ``MASTER_ADDR`` / ``MASTER_PORT``; ``core.world.init_world``), else
+    None.  ``device`` "cpu" puts every rank on the host over gloo;
+    otherwise each rank takes ``cuda:<LOCAL_RANK>``, over NCCL where the
+    host has a card for each of its ranks (``LOCAL_WORLD_SIZE``) and over
+    gloo where they share cards (NCCL refuses two ranks on one)."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None
+    from repro_torch.core.world import init_world
+
+    dev = torch.device(device)
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    own_card = dev.type == "cuda" and local <= torch.cuda.device_count()
+    on = None if dev.type == "cuda" and dev.index is None else dev
+    return init_world("nccl" if own_card else "gloo", device=on)

@@ -15,7 +15,10 @@ through ``make_shardings`` + ``sanitize_shardings``, as the reference's
 step (``launch.steps.make_train_step`` under ``set_mesh``) on its rows, and
 checkpoints the full leaves collectively; a restore takes its blocks, on
 this mesh or on a smaller one (``runtime.elastic.rescaled_mesh``).  ``main``
-runs on one device.
+runs on ``launch.mesh.make_local_mesh(world=)``, the data-parallel mesh of
+the ranks, where ``torchrun`` started it as the ranks of a world
+(``torchrun --nproc-per-node 4 -m repro_torch.launch.train``), as the
+reference's ``main`` on its host's devices, and on one device otherwise.
 
     world = repro_torch.core.world.init_world("gloo", rank, 4, store_path)
     mesh = repro_torch.core.mesh.make_process_mesh(world, (2, 2),
@@ -40,8 +43,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import sharding as SH
+from repro_torch.core.world import close_world
 from repro_torch.data import TokenStream
 from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import env_world, make_local_mesh
 from repro_torch.models import lm
 from repro_torch.optim import (AdamWConfig, apply_updates, compress_grads, init_opt,
                                init_residual)
@@ -70,6 +75,10 @@ class TrainLoop:
                  compress_pod_grads: bool = False, device=None, mesh=None):
         self.mesh = mesh
         if mesh is not None:
+            from repro_torch.models.blocks import check_mesh_train_kind
+
+            for kind in cfg.prefix_pattern + cfg.block_pattern:
+                check_mesh_train_kind(kind)
             self.device = mesh.device
         else:
             self.device = torch.device("cuda" if device is None else device)
@@ -254,16 +263,22 @@ def main(argv=None):
         cfg = cfg.reduced()
     opt_cfg = AdamWConfig(lr_peak=args.lr, warmup_steps=min(20, args.steps // 3),
                           total_steps=args.steps)
-    loop = TrainLoop(cfg, opt_cfg, seq_len=args.seq, global_batch=args.batch,
-                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                     compress_pod_grads=args.compress_pod_grads,
-                     device=args.device)
-    loop.init_state()
-    if args.resume:
-        loop.maybe_restore()
-    losses = loop.run(args.steps)
-    print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
-    return losses
+    world = env_world(args.device)
+    try:
+        where = {"device": args.device} if world is None else {
+            "mesh": make_local_mesh(world=world)}
+        loop = TrainLoop(cfg, opt_cfg, seq_len=args.seq, global_batch=args.batch,
+                         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                         compress_pod_grads=args.compress_pod_grads, **where)
+        loop.init_state()
+        if args.resume:
+            loop.maybe_restore()
+        losses = loop.run(args.steps)
+        print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
+        return losses
+    finally:
+        if world is not None:
+            close_world()
 
 
 if __name__ == "__main__":

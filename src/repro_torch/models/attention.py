@@ -49,7 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import sharding as SH
 from ..core.sharding import P
-from .common import (col_apply, dense_apply, dense_bias_init, dense_init,
+from .common import (col_apply, dense_bias_init, dense_init,
                      dense_spec, fsdp, model_full, model_in, rope, row_apply,
                      softcap)
 
@@ -106,12 +106,14 @@ def _heads_local(n_heads: int, *projected) -> bool:
         and all(y.shape[-1] < full for y, full in projected)
 
 
-def _qkv(p, x, cfg):
+def _qkv(p, x, cfg, kv_x=None):
     """q, k, v split into heads: this rank's heads where they divide over
-    "model", every head otherwise."""
+    "model", every head otherwise.  k and v are projected from ``kv_x``
+    where given (cross-attention's memory), else from x."""
     dh, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q, k, v = (col_apply(p[n], x, w) for n, w in
-               (("wq", H * dh), ("wk", KV * dh), ("wv", KV * dh)))
+    kv_x = x if kv_x is None else kv_x
+    q, k, v = (col_apply(p[n], a, w) for n, a, w in
+               (("wq", x, H * dh), ("wk", kv_x, KV * dh), ("wv", kv_x, KV * dh)))
     if not _heads_local((H, KV), (q, H * dh), (k, KV * dh), (v, KV * dh)):
         q, k, v = model_full(q, H * dh), model_full(k, KV * dh), model_full(v, KV * dh)
     return (_split_heads(q, q.shape[-1] // dh, dh), _split_heads(k, k.shape[-1] // dh, dh),
@@ -393,11 +395,9 @@ def cross_attn_apply(p, x, memory, cfg):
     mask, never query-chunked.  K and V are projected from ``memory`` on
     every call, decode steps included, as in the reference (no cross-KV
     cache).  f32 memory meets bf16 weights in f32; the output takes x's
-    dtype."""
-    B, S, _ = x.shape
-    dh, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = _split_heads(dense_apply(p["wq"], x), H, dh)
-    k = _split_heads(dense_apply(p["wk"], memory), KV, dh)
-    v = _split_heads(dense_apply(p["wv"], memory), KV, dh)
+    dtype.  On a mesh ``memory`` holds this rank's batch rows and every
+    feature; the rank attends with its heads, as :func:`gqa_apply` does."""
+    B, S, d = x.shape
+    q, k, v = _qkv(p, x, cfg, memory)
     out = _sdpa(q, k, v, None, scale=cfg.attn_scale)
-    return dense_apply(p["wo"], out.reshape(B, S, H * dh))
+    return row_apply(p["wo"], out.reshape(B, S, -1), cfg.n_heads * cfg.head_dim, d)

@@ -24,10 +24,13 @@ sparse/layers.py's BlockSparseFFN, whose three projections run on the
 block kernel.  The MoE kinds' experts stay dense, as in the reference.
 
 ``block_spec`` is the reference's PartitionSpec tree per kind.  On a
-process mesh (``core.sharding.set_mesh``) the attention kinds, the dense
-and block-sparse FFNs and the MoE FFNs run their sharded programs; the
-recurrent kinds and ``cross_attn`` raise ``NotImplementedError`` there
-(their sharded apply is a later step of ROADMAP.md §1 item 7).
+process mesh (``core.sharding.set_mesh``) every kind runs its sharded
+program: the attention kinds (``cross_attn``'s cross-attention included),
+the recurrent kinds (``linear_attn``), the dense and block-sparse FFNs and
+the MoE FFNs.  Training on a mesh covers the attention and MoE kinds;
+``lm.loss_fn`` raises ``NotImplementedError`` there for an arch with a
+recurrent kind or ``cross_attn`` (:func:`check_mesh_train_kind`: their
+backward on a mesh is a later step of ROADMAP.md §1 item 7).
 
 The attention kinds' caches are stepped in place by ``block_decode``; the
 recurrent kinds (``mamba``, ``mlstm``, ``slstm``) return a new state, which
@@ -38,7 +41,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core import sharding as SH
 from ..core.sharding import P
 from . import attention as A
 from . import linear_attn as LA
@@ -47,7 +49,8 @@ from .common import (gelu, rmsnorm, rmsnorm_init, swiglu_apply, swiglu_init,
                      swiglu_spec)
 
 __all__ = ["block_init", "block_spec", "block_apply", "block_decode",
-           "init_cache", "check_kind", "check_mesh_kind", "KINDS", "MESH_KINDS"]
+           "init_cache", "check_kind", "check_mesh_train_kind",
+           "KINDS", "MESH_KINDS", "MESH_TRAIN_KINDS"]
 
 _GQA_KINDS = ("attn", "attn_local", "attn_global", "moe", "shared_attn")
 _CROSS = "cross_attn"
@@ -59,28 +62,27 @@ _RECURRENT = {
     "slstm": ("slstm", LA.slstm_init, LA.slstm_apply, LA.slstm_decode),
 }
 KINDS = _GQA_KINDS + _MLA_KINDS + tuple(_RECURRENT) + (_CROSS,)
-# the kinds with a sharded program on a process mesh
-MESH_KINDS = _GQA_KINDS + _MLA_KINDS
+# the kinds with a sharded program on a process mesh: every kind
+MESH_KINDS = KINDS
+# the kinds whose sharded program is trained on a mesh
+MESH_TRAIN_KINDS = _GQA_KINDS + _MLA_KINDS
 
 
 def check_kind(kind: str) -> None:
-    """Raise ``ValueError`` for a block kind the reference does not have,
-    and ``NotImplementedError`` for one without a sharded program while a
-    mesh is set."""
+    """Raise ``ValueError`` for a block kind the reference does not have."""
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
-    if SH.get_abstract_mesh() is not None:
-        check_mesh_kind(kind)
 
 
-def check_mesh_kind(kind: str) -> None:
-    """Raise ``NotImplementedError`` for a kind whose sharded apply is not
-    ported (the recurrent kinds, ``cross_attn``)."""
-    if kind not in MESH_KINDS:
+def check_mesh_train_kind(kind: str) -> None:
+    """Raise ``NotImplementedError`` for a kind that is not trained on a
+    process mesh yet (the recurrent kinds, ``cross_attn``)."""
+    if kind not in MESH_TRAIN_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} has no sharded program on a process mesh "
-            "yet: the recurrent kinds' and the encoder-decoder's sharded "
-            "apply are a later step of ROADMAP.md §1 item 7")
+            f"block kind {kind!r} is served on a process mesh but not "
+            "trained there yet: training the recurrent kinds and the "
+            "encoder-decoder on a mesh is a later step of ROADMAP.md §1 "
+            "item 7")
 
 
 def _window(cfg, kind):
@@ -180,7 +182,8 @@ def _ffn(p, h, cfg, kind):
 
 def _cross(p, h, memory, cfg):
     """The cross_attn kind's second sublayer: pre-LN cross-attention over
-    the encoder's ``memory``, added to the residual."""
+    the encoder's ``memory`` (on a mesh, this rank's batch rows of it),
+    added to the residual."""
     return h + A.cross_attn_apply(p["xattn"], rmsnorm(p["ln_x"], h), memory, cfg)
 
 

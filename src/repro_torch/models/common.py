@@ -255,11 +255,23 @@ def rmsnorm_init(d: int, dtype=torch.bfloat16, device=None):
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
-def rmsnorm(p, x, eps: float = 1e-6, gemma_style: bool = False):
+def rmsnorm(p, x, eps: float = 1e-6, gemma_style: bool = False, d=None):
+    """RMS norm over x's last dim.  On a mesh ``d`` (the whole feature dim)
+    says whether x holds only this rank's "model" block of it (a rank's
+    heads): then the mean of squares is the rank's partial sum, psummed
+    over "model" (one (..., 1) tensor, no gather of the features), and the
+    rank scales its features by its slice of the replicated ``scale``.
+    The sum enters the rank's features through :func:`model_in`, so its
+    gradient is summed over "model" and the psum's passes through."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if d is not None and x.shape[-1] < d:
+        part = torch.sum(xf * xf, dim=-1, keepdim=True)
+        var = model_in(SH.psum(part, "model")) / d
+        scale = model_block(p["scale"], d).float()
+    else:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        scale = p["scale"].float()
     norm = xf * torch.rsqrt(var + eps)
-    scale = p["scale"].float()
     scale = (1.0 + scale) if gemma_style else scale  # gemma2 stores (w - 1)
     return (norm * scale).to(x.dtype)
 

@@ -20,10 +20,21 @@ computes any of this.
 The reference's simplifications are kept for parity (ROADMAP.md §3): the
 Mamba2 block has no causal convolution and its B / C projections are per
 head; mLSTM's normalizer is max(|q . n|, 1), not a stabilized maximum.
-The ``*_spec`` functions are the reference's PartitionSpec trees, data
-only: ``lm.param_specs`` needs them for every arch.  The recurrent kinds'
-sharded apply is a later step of ROADMAP.md §1 item 7 (``blocks.
-check_mesh_kind`` raises for them on a mesh).
+The ``*_spec`` functions are the reference's PartitionSpec trees.
+
+On a process mesh (``core.sharding.set_mesh``) each rank runs its heads,
+as the specs place the weights: the column-parallel projections' outputs
+are the rank's heads (``common.col_apply``), the state is the rank's
+heads, the norm over the heads' features is one psum of a partial sum of
+squares over "model" (``common.rmsnorm(..., d=)``), and ``out_proj`` is
+row-parallel (a psum over "model").  The per-token loops (the GLA chunks,
+sLSTM's cell) stay local to the rank: no collective a token.  Mamba2's
+``in_proj`` is column-parallel over its ``2 d_inner`` columns ``[x | z]``,
+so a rank's block holds x's or z's columns, not its heads' of both: one
+all-to-all over "model" of the local product moves them
+(:func:`_mamba2_xz`).  A "model" extent that does not divide the heads
+raises ``NotImplementedError``: a head is never split, and the block is
+never silently replicated.
 """
 from __future__ import annotations
 
@@ -33,8 +44,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..core import sharding as SH
 from ..core.sharding import P
-from .common import dense_apply, dense_init, dense_spec, rmsnorm, rmsnorm_init
+from .common import (col_apply, dense_apply, dense_init, dense_spec, model_block,
+                     rmsnorm, rmsnorm_init, row_apply)
 
 __all__ = [
     "gla_chunked",
@@ -188,26 +201,71 @@ def mamba2_spec(cfg) -> dict:
     }
 
 
+def _check_heads(n_heads: int) -> None:
+    """Raise where the ambient mesh's "model" extent splits a head."""
+    n = SH.axis_size("model")
+    if n > 1 and n_heads % n:
+        raise NotImplementedError(
+            f"a recurrent block of {n_heads} heads has no sharded program "
+            f"over {n} ranks of 'model': a rank would hold part of a head")
+
+
+def _heads_of(p, x, full: int) -> torch.Tensor:
+    """A column-parallel product of x split by heads over its ``full``
+    columns: this rank's block (sliced from the whole where the sanitized
+    spec left the weight whole)."""
+    return model_block(col_apply(p, x, full), full)
+
+
+def _mamba2_xz(p, x, di: int) -> tuple:
+    """(x, z) of this rank's heads from ``in_proj``'s ``[x | z]``.
+
+    With n ranks over "model", the 2 d_inner columns are 2n blocks of
+    d_inner / n; rank s holds blocks 2s and 2s + 1 and rank r needs blocks
+    r (its x) and n + r (its z).  One all-to-all over "model" sends block q
+    to rank q mod n in slot q mod n of a buffer of n slots (the others
+    zeros, as an all-to-all moves equal slots): rank r receives its x from
+    rank r // 2 and its z from rank (n + r) // 2.  ``in_proj`` stays as the
+    reference's spec shards it."""
+    xz = col_apply(p, x, 2 * di)
+    if xz.shape[-1] == 2 * di:
+        xin, z = xz.chunk(2, dim=-1)
+        return model_block(xin, di), model_block(z, di)
+    n, s = SH.axis_size("model"), SH.axis_index("model")
+    w = di // n
+    slots = [xz.new_zeros(xz.shape[:-1] + (w,))] * n
+    slots[(2 * s) % n], slots[(2 * s + 1) % n] = xz[..., :w], xz[..., w:]
+    got = SH.collectives().all_to_all(torch.cat(slots, dim=-1), "model",
+                                      split_dim=xz.ndim - 1,
+                                      concat_dim=xz.ndim - 1)
+    xs, zs = s // 2, (n + s) // 2
+    return got[..., xs * w:(xs + 1) * w], got[..., zs * w:(zs + 1) * w]
+
+
 def _mamba2_qkv(p, x, cfg):
     B, S, _ = x.shape
     H, N = cfg.ssm_heads, cfg.ssm_state
     dh = cfg.ssm_d_inner // H
-    xin, z = dense_apply(p["in_proj"], x).chunk(2, dim=-1)
-    b, c = dense_apply(p["bc_proj"], x).reshape(B, S, H, 2 * N).chunk(2, dim=-1)
-    dt = softplus(dense_apply(p["dt_proj"], x).float())  # (B, S, H)
-    log_a = -torch.exp(p["a_log"])[None, None, :] * dt  # (B, S, H), <= 0
-    v = xin.reshape(B, S, H, dh) * dt[..., None].to(xin.dtype)
+    _check_heads(H)
+    xin, z = _mamba2_xz(p["in_proj"], x, cfg.ssm_d_inner)
+    Hl = xin.shape[-1] // dh  # this rank's heads
+    bc = _heads_of(p["bc_proj"], x, 2 * N * H).reshape(B, S, Hl, 2 * N)
+    b, c = bc.chunk(2, dim=-1)
+    dt = softplus(_heads_of(p["dt_proj"], x, H).float())  # (B, S, Hl)
+    log_a = -torch.exp(model_block(p["a_log"], H))[None, None, :] * dt  # <= 0
+    v = xin.reshape(B, S, Hl, dh) * dt[..., None].to(xin.dtype)
     return b, c, v, log_a, z, xin
 
 
 def _mamba2_out(p, y, xin, z, x, cfg):
     """y + D x, cast to x's dtype, gated by silu(z), normed, projected."""
-    B, S, _ = x.shape
-    H = cfg.ssm_heads
-    y = y + p["d_skip"][None, None, :, None] * xin.reshape(B, S, H, -1).float()
-    y = y.reshape(B, S, cfg.ssm_d_inner).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z))
-    return dense_apply(p["out_proj"], y)
+    B, S, d = x.shape
+    Hl = y.shape[2]
+    d_skip = model_block(p["d_skip"], cfg.ssm_heads)
+    y = y + d_skip[None, None, :, None] * xin.reshape(B, S, Hl, -1).float()
+    y = y.reshape(B, S, -1).to(x.dtype)
+    y = rmsnorm(p["norm"], y * F.silu(z), d=cfg.ssm_d_inner)
+    return row_apply(p["out_proj"], y, cfg.ssm_d_inner, d)
 
 
 def mamba2_apply(p, x, cfg, chunk: int = 256):
@@ -257,20 +315,24 @@ def _mlstm_qkv(p, x, cfg):
     B, S, d = x.shape
     H = cfg.n_heads
     dh = d // H
-    q = dense_apply(p["wq"], x).reshape(B, S, H, dh) / math.sqrt(dh)
-    k = dense_apply(p["wk"], x).reshape(B, S, H, dh)
-    v = dense_apply(p["wv"], x).reshape(B, S, H, dh)
-    log_f = F.logsigmoid(dense_apply(p["w_fg"], x).float())
-    ig = dense_apply(p["w_ig"], x).float()
+    _check_heads(H)
+    q, k, v = (_heads_of(p[n], x, d) for n in ("wq", "wk", "wv"))
+    Hl = q.shape[-1] // dh  # this rank's heads
+    q = q.reshape(B, S, Hl, dh) / math.sqrt(dh)
+    k, v = k.reshape(B, S, Hl, dh), v.reshape(B, S, Hl, dh)
+    log_f = F.logsigmoid(_heads_of(p["w_fg"], x, H).float())
+    ig = _heads_of(p["w_ig"], x, H).float()
     # fold the (stabilized) exponential input gate into k
     k = k * torch.exp(torch.minimum(ig, _scalar(ig, 0.0)))[..., None].to(k.dtype)
     return q, k, v, log_f
 
 
 def _xlstm_out(p, y, x):
-    """mLSTM's / sLSTM's heads merged, cast to x's dtype, normed, projected."""
-    y = y.reshape(x.shape).to(x.dtype)
-    return dense_apply(p["out_proj"], rmsnorm(p["norm"], y))
+    """mLSTM's / sLSTM's heads (this rank's) merged, cast to x's dtype,
+    normed over d_model, projected (row-parallel)."""
+    d = x.shape[-1]
+    y = y.reshape(x.shape[:-1] + (-1,)).to(x.dtype)
+    return row_apply(p["out_proj"], rmsnorm(p["norm"], y, d=d), d, d)
 
 
 def mlstm_apply(p, x, cfg, chunk: int = 256):
@@ -320,15 +382,18 @@ def slstm_spec(cfg) -> dict:
     }
 
 
-def slstm_zero_state(B, cfg, device=None):
+def slstm_zero_state(B, cfg, device=None, heads=None):
+    """Zero state of ``heads`` heads (default: all of them)."""
     H = cfg.n_heads
     dh = cfg.d_model // H
+    H = H if heads is None else heads
     z = torch.zeros((B, H, dh), dtype=torch.float32, device=device)
     return SLSTMState(z, z, z, z)
 
 
 def _slstm_cell(p, state: SLSTMState, pre):
-    """pre: (B, H, 4*dh) input pre-activations for one step."""
+    """pre: (B, H, 4*dh) input pre-activations for one step; ``p["r"]``
+    the H heads' recurrent weights."""
     rec = torch.einsum("bhd,hde->bhe", state.h, p["r"])  # (B, H, 4dh)
     z_i, z_f, z_z, z_o = (pre.float() + rec).chunk(4, dim=-1)
     m_new = torch.maximum(z_f + state.m, z_i)  # log-space stabilizer
@@ -340,22 +405,30 @@ def _slstm_cell(p, state: SLSTMState, pre):
     return SLSTMState(c, n, h, m_new)
 
 
-def slstm_apply(p, x, cfg):
-    """The cell stepped over the sequence, one step per token."""
+def _slstm_pre(p, x, cfg) -> tuple:
+    """(pre-activations (B, S, Hl, 4 dh) of this rank's Hl heads, {"r":
+    their recurrent weights})."""
     B, S, d = x.shape
     H = cfg.n_heads
-    pre = dense_apply(p["w_in"], x).reshape(B, S, H, 4 * (d // H))
-    state = slstm_zero_state(B, cfg, x.device)
+    _check_heads(H)
+    pre = _heads_of(p["w_in"], x, 4 * d)
+    Hl = pre.shape[-1] * H // (4 * d)
+    r = p["r"] if p["r"].shape[0] == Hl else SH.slice_dim(p["r"], "model", 0)
+    return pre.reshape(B, S, Hl, 4 * (d // H)), {"r": r}
+
+
+def slstm_apply(p, x, cfg):
+    """The cell stepped over the sequence, one step per token."""
+    pre, r = _slstm_pre(p, x, cfg)
+    state = slstm_zero_state(x.shape[0], cfg, x.device, heads=pre.shape[2])
     hs = []
-    for t in range(S):
-        state = _slstm_cell(p, state, pre[:, t])
+    for t in range(x.shape[1]):
+        state = _slstm_cell(r, state, pre[:, t])
         hs.append(state.h)
     return _xlstm_out(p, torch.stack(hs, dim=1), x), state
 
 
 def slstm_decode(p, x, state: SLSTMState, cfg):
-    B, _, d = x.shape
-    H = cfg.n_heads
-    pre = dense_apply(p["w_in"], x).reshape(B, H, 4 * (d // H))
-    state = _slstm_cell(p, state, pre)
+    pre, r = _slstm_pre(p, x, cfg)
+    state = _slstm_cell(r, state, pre[:, 0])
     return _xlstm_out(p, state.h, x), state

@@ -46,9 +46,14 @@ rank's rows, then a psum over "model"), the activations are the rank's
 batch block (over the batch axes where they divide the batch), every
 block runs its sharded program (``models/blocks.py``), and the logits are
 the rank's batch block with the vocab whole (an all-gather over "model").
-Caches are the rank's: its batch block, its heads (KV) or the whole latent
-(MLA; ``attention``'s docstring says why).  ``loss_fn`` takes the global
-batch too and returns the global batch's mean loss on every rank; under
+Caches are the rank's: its batch block, its heads (KV, recurrent states)
+or the whole latent (MLA; ``attention``'s docstring says why).  ``encode``
+takes the global frames and returns the rank's batch rows of the memory;
+``prefill`` / ``decode_step`` take that memory (and raise on any other
+row count).  ``loss_fn`` takes the global
+batch too and returns the global batch's mean loss on every rank (the
+attention and MoE families; an arch with a recurrent kind or
+``cross_attn`` raises ``NotImplementedError`` there); under
 autograd the sharded program is differentiable (``core/sharding.py``'s
 convention: a rank's gradient of a param it holds is the whole gradient of
 its block, except for the params replicated over the batch axes, whose
@@ -77,8 +82,8 @@ from ..core import sharding as SH
 from ..core.sharding import P
 from . import attention as A
 from .blocks import (_mlp_apply, block_apply, block_decode, block_init, block_spec,
-                     check_kind, init_cache)
-from .common import (batch_shard, col_apply, cross_entropy, dense_apply, embed_init,
+                     check_kind, check_mesh_train_kind, init_cache)
+from .common import (batch_axes, batch_shard, col_apply, cross_entropy, embed_init,
                      embed_spec, map_params, model_full, model_in, normal,
                      rmsnorm, rmsnorm_init, softcap)
 
@@ -377,6 +382,7 @@ def forward(params, tokens, cfg: ArchConfig, *, prefix_embeds=None, memory=None)
     Returns (logits (B, S, vocab), h (B, S, d)).  While autograd records,
     each repeat is rematerialized as ``cfg.remat`` says."""
     check_config(cfg)
+    memory = _memory_rows(memory, tokens.shape[0])
     h = _with_prefix(params, tokens, cfg, prefix_embeds)
     for i, kind in enumerate(cfg.prefix_pattern):
         h, _ = block_apply(params[f"prefix{i}"], h, cfg, kind, memory=memory)
@@ -397,6 +403,7 @@ def forward(params, tokens, cfg: ArchConfig, *, prefix_embeds=None, memory=None)
     return _logits(params, h, cfg), h
 
 
+@_scoped
 def encode(params, frames, cfg: ArchConfig):
     """Encoder for enc-dec archs. frames: (B, S_enc, d) stub embeddings.
 
@@ -404,9 +411,12 @@ def encode(params, frames, cfg: ArchConfig):
     GQA (with RoPE) and the FFN (block-sparse when ``cfg.ffn_density < 1``),
     then the final norm.  The dtype follows ``jnp``'s promotion: f32 frames
     over bf16 params give an f32 encoder and f32 memory, bf16 frames a bf16
-    one."""
+    one.  On a mesh the rank encodes its batch rows of the global
+    ``frames``: the column-parallel ``in_proj`` (its output gathered over
+    "model"), then the blocks' sharded programs; it returns its rows."""
     enc = params["encoder"]
-    h = dense_apply(enc["in_proj"], frames)
+    d = cfg.d_model
+    h = model_full(col_apply(enc["in_proj"], batch_shard(frames), d), d)
     for bp in _unstacked(enc["blocks"], cfg.encoder_layers):
         a, _ = A.gqa_apply(bp["attn"], rmsnorm(bp["ln1"], h), cfg, causal=False)
         h = h + a
@@ -419,10 +429,14 @@ def loss_fn(params, batch, cfg: ArchConfig):
     cross-entropy over the text positions (the modality prefix dropped), in
     f32; with ``cfg.mtp_depth`` plus 0.3 times the multi-token prediction
     loss.  Enc-dec archs encode ``frames`` first.  On a mesh the batch is
-    the global one (every rank's the same) and the loss its mean."""
+    the global one (every rank's the same) and the loss its mean; an arch
+    with a kind that is not trained on a mesh raises
+    (``blocks.check_mesh_train_kind``)."""
     if SH.get_abstract_mesh() is None:
         return _loss(params, batch, cfg)
     check_config(cfg)
+    for kind in cfg.prefix_pattern + cfg.block_pattern:
+        check_mesh_train_kind(kind)
     with SH.batch_scope(batch["tokens"].shape[0]):
         return _loss(params, batch, cfg)
 
@@ -533,6 +547,20 @@ def _stack_caches(caches: list):
     return _map_cache(lambda *ts: torch.stack(ts), *caches)
 
 
+def _memory_rows(memory, B: int):
+    """``memory`` checked: on a mesh it is ``encode``'s output, the rank's
+    rows of the global batch B."""
+    mesh = SH.get_abstract_mesh()
+    if memory is None or mesh is None:
+        return memory
+    rows = B // SH.axis_size(batch_axes(mesh), mesh) if SH.batch_split(mesh) else B
+    if memory.shape[0] != rows:
+        raise ValueError(f"on a mesh the encoder memory holds the rank's {rows} "
+                         f"rows of the batch of {B} (lm.encode's output); got "
+                         f"{memory.shape[0]}")
+    return memory
+
+
 @_scoped
 def prefill(params, tokens, cfg: ArchConfig, max_len: int, *, prefix_embeds=None,
             memory=None):
@@ -543,6 +571,7 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int, *, prefix_embeds=None
     the encoder's output (enc-dec archs).
     """
     check_config(cfg)
+    memory = _memory_rows(memory, tokens.shape[0])
     h = _with_prefix(params, tokens, cfg, prefix_embeds)
     prefix_caches = []
     for i, kind in enumerate(cfg.prefix_pattern):
@@ -569,6 +598,7 @@ def decode_step(params, token, caches: Caches, cfg: ArchConfig, *, memory=None):
     slot (a state has no length).  ``memory`` is the encoder's output
     (enc-dec archs), read again by every cross_attn layer at every step."""
     check_config(cfg)
+    memory = _memory_rows(memory, token.shape[0])
     h = _embed(params, token, cfg)
     new_prefix = []
     for i, kind in enumerate(cfg.prefix_pattern):

@@ -163,26 +163,41 @@ def test_collectives_match_their_closed_forms(sides, run):
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b", "seamless-m4t-medium"])
 def test_server_on_a_mesh_raises_for_the_kinds_without_a_sharded_apply(arch):
-    """Linear attention and the encoder-decoder are never silently
-    replicated on a mesh: Server(mesh=), lm.prefill and training (lm.loss_fn)
-    there raise, naming ROADMAP.md §1 item 7."""
+    """The recurrent kinds and the encoder-decoder are served on a mesh
+    (tests/test_torch_lm_mesh_recurrent.py) but not trained there yet:
+    ``lm.loss_fn`` on a mesh and ``TrainLoop(mesh=)`` raise, naming
+    ROADMAP.md §1 item 7, and are never silently replicated."""
     from repro_torch.core import sharding as SH
     from repro_torch.core.mesh import dry_process_mesh
-    from repro_torch.launch.serve import Server
+    from repro_torch.launch.train import TrainLoop
     from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
 
     cfg = get_config(arch).reduced()
     mesh = dry_process_mesh((2, 2), ("data", "model"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-        Server(cfg, 16, mesh=mesh, dtype=torch.float32)
+        TrainLoop(cfg, AdamWConfig(), seq_len=8, global_batch=2, mesh=mesh)
     params = lm.init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
     toks = torch.zeros((2, 4), dtype=torch.int32)
-    with SH.set_mesh(mesh), pytest.raises(NotImplementedError,
-                                          match="ROADMAP.md §1 item 7"):
-        lm.prefill(params, toks, cfg, 8)
     batch = {"tokens": toks, "labels": toks}
     if cfg.encoder_layers:
         batch["frames"] = torch.zeros((2, 4, cfg.d_model))
     with SH.set_mesh(mesh), pytest.raises(NotImplementedError,
                                           match="ROADMAP.md §1 item 7"):
         lm.loss_fn(params, batch, cfg)
+
+
+def test_server_on_a_mesh_refuses_the_encoder_decoder_as_on_one_device():
+    """Server passes no encoder memory, on a mesh as on one device: the
+    same ValueError, naming the step builders that serve it."""
+    from repro_torch.core.mesh import dry_process_mesh
+    from repro_torch.launch.serve import Server
+
+    cfg = get_config("seamless-m4t-medium").reduced()
+    with pytest.raises(ValueError, match="encoder-decoder") as one:
+        Server(cfg, 16, device="cpu", dtype=torch.float32)
+    with pytest.raises(ValueError, match="encoder-decoder") as meshed:
+        Server(cfg, 16, mesh=dry_process_mesh((2, 2), ("data", "model")),
+               dtype=torch.float32)
+    assert str(meshed.value) == str(one.value)
+    assert "make_prefill_step" in str(one.value)
