@@ -92,7 +92,8 @@ Phases (every check raises, so any failure exits non-zero):
    error, every completed session verified, max |err| <= 1e-4.  Each part
    requires its launches to equal the multiplies plus the sessions' steps.
 11. Tuning on the card (``repro_torch.tune``), after phase 10 (d), with
-   inputs from its own generator.  (a) ``plan(scheme="tune")`` with a real
+   inputs from its own generator, on phase 13's matrices (phase 3's
+   recipes at ``SMALL_ROWS``).  (a) ``plan(scheme="tune")`` with a real
    Measurer (warmup 2, iters 5, trim 1) and a cache file: scale-free at
    B=1, block at B=8, single-device.  One line per
    candidate: ``mean_s`` (exe(x) with both copies, what the tuner ranks),
@@ -144,12 +145,14 @@ Phases (every check raises, so any failure exits non-zero):
    bytes (``mem_get_info``, sampled every 20 ms) rise by at least half of
    what the victim took.  The workers' launch counters start at 0 with them; their
    sum before the kill is the cluster path's count.
-13. Topology-aware placement (``repro_torch.topo``) at full width, right
-   after phase 10 (a)-(c), on phase 3's matrices, with inputs from its own
-   generator (``[seed, 13]``); integer-valued x throughout.  (a) The
-   detector: ``detect_topology()`` and ``detect_topology(["cuda"] * 16)``
-   (one flat axis); 16 parts of the regular matrix under the second, by
-   ``scheme="auto"`` and ``"2d"``, bit-equal to phase 7's flat plan.  (b)
+13. Topology-aware placement (``repro_torch.topo``), right after phase 10
+   (a)-(c), on phase 3's recipes at 262,144 / 262,144 / 131,072 rows
+   (``SMALL_ROWS``, built for it from ``[seed, 13, 1]``), with inputs from
+   its own generator (``[seed, 13]``); integer-valued x throughout.  (a)
+   The detector: ``detect_topology()`` and ``detect_topology(["cuda"] *
+   16)`` (one flat axis); 16 parts of the regular matrix under the second,
+   by ``scheme="auto"`` and ``"2d"``, bit-equal to the flat 16-part auto
+   plan, as phase 7 builds it.  (b)
    ``FakeTopology.pim_like((2, 2))`` over ``["cuda"] * 4`` and
    ``pim_like((4, 4))`` over ``["cuda"] * 16``: each matrix through
    ``plan(scheme="2d", topology=)`` and ``plan(topology=)``: the grid
@@ -2306,6 +2309,43 @@ TOPO_SHAPES = ((2, 2), (4, 4))  # the pim_like presets of phase 13 (b)
 # alone, the cheapest to partition (cut for the script's time from all
 # three)
 TOPO_MATRICES = {(2, 2): ("regular", "scale-free", "block"), (4, 4): ("scale-free",)}
+# phases 11 and 13's matrices: phase 3's recipes at these rows (regular,
+# scale-free, block), built for them; on phase 3's 2^21 / 2^21 / 2^20 the
+# two phases took 38.9 s and 56.3 s beside an NVIDIA H100 80GB HBM3, most
+# of it planning and partitioning on the host
+SMALL_ROWS = (1 << 18, 1 << 18, 1 << 17)
+
+
+def small_records(torch, rng, device) -> tuple:
+    """Phases 11 and 13's matrices (phase 3's recipes at ``SMALL_ROWS``),
+    as phases 3 and 7 leave theirs: each with its single-device auto plan's
+    program, cuSPARSE's CSR, its stats and shape; and the regular matrix's
+    auto plan on ``PARTS`` parts of the card (phase 7's flat plan at this
+    size)."""
+    from repro_torch.api import SparseMatrix
+
+    n_reg, n_sf, n_blk = SMALL_ROWS
+    records, autos = [], []
+    for name, make in (("regular", lambda: regular_triplets(rng, n_reg)),
+                       ("scale-free", lambda: scale_free_triplets(rng, n_sf, 8 * n_sf)),
+                       ("block", lambda: block_triplets(rng, n_blk))):
+        ri, ci, vals, shape = make()
+        sm = SparseMatrix.from_parts(ri, ci, vals, shape)
+        del ri, ci, vals
+        exe = sm.plan(scheme="auto", device=device).compile()
+        prog = exe.program
+        rec = dict(matrix=name, fmt=exe.plan.fmt, exe=exe, prog=prog,
+                   kernel="coo_spmv" if prog.kind == "coo" else "bcoo_spmv",
+                   A=library_csr(torch, sm, device), st=sm.stats, shape=shape, sm=sm)
+        records.append(rec)
+        if name == "regular":
+            flat = sm.plan(scheme="auto", devices=[device.type] * PARTS).compile()
+            autos.append((name, flat, rec))
+    emit({"phase": "small_matrices", "rows": list(SMALL_ROWS),
+          "nnz": [r["st"].nnz for r in records]})
+    return records, autos
+
+
 MODELLED = "modelled on the preset's declared links, not a time on any device"
 
 
@@ -2373,8 +2413,9 @@ def topo_row(torch, rng, device, exe, rec, lat) -> dict:
 
 
 def phase_topology(torch, rng, device, records, autos) -> dict:
-    """Phase 13: topology-aware placement (``repro_torch.topo``) at full
-    width on the card, on phase 3's matrices; returns its launches."""
+    """Phase 13: topology-aware placement (``repro_torch.topo``) on the
+    card, on phase 3's recipes at ``SMALL_ROWS`` (``small_records``);
+    returns its launches."""
     from repro_torch.api import plan_from_ir, resolve_scheme
     from repro_torch.engine import SpmvEngine
     from repro_torch.kernels import instrument
@@ -3182,10 +3223,12 @@ def lm_projection_kernels(torch, params, cfg, rng, device, f32: bool = False,
     (blocks in {±1, ±2}, x in {-2..2}: every f32 sum exact) bit-equal, the
     layer's own values (as bf16) with random x within rtol = atol = 2e-4
     (f32 sums in another order); with ``f32`` also the values and x in
-    float32 (3xTF32 on the tensor cores).  With ``gen`` the inputs are
-    drawn on the card.  Returns the largest random-input error."""
+    float32 (3xTF32 on the tensor cores).  The inputs are drawn on the card
+    from ``gen`` (default: seeded with 14; a host draw of deepseek's prefix
+    projections took seconds).  Returns the largest random-input error."""
     from repro_torch.kernels.bcsr_spmv import bcoo_spmv, block_route
 
+    gen = torch.Generator(device=device).manual_seed(14) if gen is None else gen
     worst, n = 0.0, 0
     projections = lm_projections(params, cfg)
     for r, name, d_in, d_out, p in projections:
@@ -3195,15 +3238,10 @@ def lm_projection_kernels(torch, params, cfg, rng, device, f32: bool = False,
             vals["random_f32"] = p["bvalues"].float()
         for batch in batches:
             for kind, v in vals.items():
-                if gen is not None:
-                    x = (torch.randint(-2, 3, (d_in, batch), generator=gen,
-                                       device=device) if kind == "integer" else
-                         torch.randn((d_in, batch), generator=gen, device=device))
-                    x = x.to(v.dtype)
-                else:
-                    xv = (rng.integers(-2, 3, (d_in, batch)) if kind == "integer"
-                          else rng.standard_normal((d_in, batch)))
-                    x = torch.from_numpy(xv).to(device, v.dtype)
+                x = (torch.randint(-2, 3, (d_in, batch), generator=gen, device=device)
+                     if kind == "integer" else
+                     torch.randn((d_in, batch), generator=gen, device=device))
+                x = x.to(v.dtype)
                 got = bcoo_spmv(p["browind"], p["bcolind"], v, x, d_out,
                                 browptr=p["browptr"])
                 want = block_plain(torch, p["browind"], p["bcolind"], v, x, d_out)
@@ -3498,13 +3536,15 @@ def timed_loop(torch, TrainLoop, instrument):
 def train_backward(torch, cfg, rng, device, draws=None) -> tuple:
     """(a) The sparse FFN's backward at full width: w_gate and w_down of
     qwen1.5-0.5b in (8, 128) blocks, T = 1,024 (the integer-valued blocks
-    drawn on the card from ``draws`` where given, as ``pm12``).  Returns
-    (rows, the largest random-input error of the forward and grad x against
-    their plain versions)."""
+    drawn on the card from ``draws``, as ``pm12``; default seeded with
+    215).  Returns (rows, the largest random-input error of the forward and
+    grad x against their plain versions)."""
     from repro_torch.kernels.bcsr_spmv import (bcoo_spmv, bcoo_spmv_plain,
                                                block_route, transposed_values)
     from repro_torch.sparse.layers import sparse_linear_apply, sparse_linear_init
 
+    if draws is None:
+        draws = torch.Generator(device=device).manual_seed(215)
     T = SPARSE_B * SPARSE_S
     gen = torch.Generator(device=device).manual_seed(15)
     rows, worst = [], 0.0
@@ -5118,8 +5158,9 @@ def tf_train(torch, T_, lm, instrument, name, c, device, steps: int,
     med = statistics.median(loop.step_ms[1:])
     checked = 0
     if c.ffn_density < 1:
-        card = (None if derived_repeats is None
-                else torch.Generator(device=device).manual_seed(c.n_layers))
+        # the blocks drawn on the card: on the host, deepseek's 12
+        # projections' 0.8G values took about 9 s beside an H100
+        card = torch.Generator(device=device).manual_seed(c.n_layers)
         checked = tf_derived_check(torch, loop.params, c,
                                    np.random.default_rng(c.n_layers), device,
                                    derived_repeats, card)
@@ -6726,8 +6767,8 @@ def pm_slices(torch, world, seed: int) -> dict:
     return out
 
 
-def pm_rank(world, seed: int, go: str, ref_path: str, phases=(24, 25, 26)) -> dict:
-    """One rank of phases 24-26: waits for the parent's turn, then runs
+def pm_rank(world, seed: int, go: str, ref_path: str, phases=(24, 25, 26, 27)) -> dict:
+    """One rank of phases 24-27: waits for the parent's turn, then runs
     every path of ``phases`` on its device, one path at a time for all
     ranks."""
     import torch
@@ -6784,6 +6825,9 @@ def pm_rank(world, seed: int, go: str, ref_path: str, phases=(24, 25, 26)) -> di
         out["train_s"] = time.perf_counter() - t_train
     if 26 in phases:
         out["rec"] = step("recurrent", pr_paths, seed, ref)
+    if 27 in phases:
+        out["trainrec"] = step("train recurrent", pq_paths, seed, ref,
+                               os.path.dirname(go))
     out["card_s"] = time.perf_counter() - t_card
     out["total_s"] = time.perf_counter() - t0
     return out
@@ -7384,7 +7428,7 @@ def pr_checks(torch, ranks, info: dict, card: str) -> dict:
 
 
 def phase_lm_mesh(torch, seed: int, device, train_ref: dict | None = None,
-                  phases=(24, 25, 26)) -> dict:
+                  phases=(24, 25, 26, 27), families_ref: dict | None = None) -> dict:
     """Phase 24: qwen1.5-0.5b on a (1, 4) process mesh and deepseek-v3 (2
     layers) on a (2, 2) one, 4 ranks of a gloo world on the one card, the
     collectives' data copied between the card and a shared memory mapping,
@@ -7399,8 +7443,11 @@ def phase_lm_mesh(torch, seed: int, device, train_ref: dict | None = None,
     one-process qwen losses (dense and sparse), which this process computes
     in its reference time where it is None.  Phase 26 (the recurrent kinds
     and the encoder-decoder, ``pr_*``) runs after it, its references
-    beside phase 24's.  ``phases`` picks which of the three run (a
-    script that runs one of them alone)."""
+    beside phase 24's.  Phase 27 (training them, ``pq_*``) runs last;
+    ``families_ref`` holds phase 19's one-process zamba2 and xlstm losses,
+    which this process computes in its reference time where it is None.
+    ``phases`` picks which of the four run (a script that runs one of them
+    alone)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import tempfile
@@ -7412,7 +7459,7 @@ def phase_lm_mesh(torch, seed: int, device, train_ref: dict | None = None,
     tmp = tempfile.mkdtemp(prefix="phase24_")
     go, ref_path = os.path.join(tmp, "turn"), os.path.join(tmp, "ref.npz")
     turn = "abort"
-    info, rec_info, ref = {}, {}, {}
+    info, rec_info, trec_info, ref = {}, {}, {}, {}
     try:
         card = f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu"
         ranks_f = pool.submit(spawn, pm_rank, PM_RANKS, "gloo", card,
@@ -7424,10 +7471,17 @@ def phase_lm_mesh(torch, seed: int, device, train_ref: dict | None = None,
             train_ref = pt_references(torch, device)
         if 26 in phases:
             rec_info["seconds"] = pr_references(torch, seed, device, ref)
+        if 27 in phases:
+            if families_ref is None:
+                t0 = time.perf_counter()
+                families_ref = pq_families_references(torch, device)
+                trec_info["families"] = time.perf_counter() - t0
+            trec_info.update(pq_references(torch, seed, device, ref, tmp))
         np.savez(ref_path, **ref)
         ref_s = time.perf_counter() - t_start
         emit({"phase": "lm_mesh_references", "seconds": ref_s,
               "recurrent_reference_s": rec_info.get("seconds"),
+              "train_recurrent_reference_s": trec_info,
               "allocated": torch.cuda.memory_allocated(),
               "reserved": torch.cuda.memory_reserved()})
         turn = "go"
@@ -7447,7 +7501,8 @@ def phase_lm_mesh(torch, seed: int, device, train_ref: dict | None = None,
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     out = {"launches": 0, "max_abs_err": 0.0, "train_launches": 0,
-           "train_seconds": 0.0, "rec_launches": 0, "rec_seconds": 0.0}
+           "train_seconds": 0.0, "rec_launches": 0, "rec_seconds": 0.0,
+           "trec_launches": 0, "trec_seconds": 0.0}
     if 24 in phases:
         out.update(pm_checks(torch, ranks, info, card))
     if 25 in phases:
@@ -7461,6 +7516,10 @@ def phase_lm_mesh(torch, seed: int, device, train_ref: dict | None = None,
         rec = pr_checks(torch, ranks, rec_info, card)
         out["max_abs_err"] = max(out["max_abs_err"], rec["max_abs_err"])
         out["rec_launches"], out["rec_seconds"] = rec["launches"], rec["seconds"]
+    if 27 in phases:
+        trec = pq_checks(torch, ranks, trec_info, families_ref, ref, card)
+        out["max_abs_err"] = max(out["max_abs_err"], trec["max_abs_err"])
+        out["trec_launches"], out["trec_seconds"] = trec["launches"], trec["seconds"]
     seconds = time.perf_counter() - t_start
     emit({"phase": "lm_mesh_done", "seconds": seconds, "reference_s": ref_s,
           "ranks_s": ranks_s, "rank_setup_s": [r["setup_s"] for r in ranks],
@@ -8057,13 +8116,15 @@ def pt_ckpt_equal(torch, loop) -> bool:
         for a, b in zip(leaves(back), leaves(live)))
 
 
-def pt_loop(torch, world, key: str, shape, ckpt: str | None = None,
+def pt_loop(torch, world, key: str, cfg, opt_cfg, shape, batch: tuple, stop: int,
+            ckpt: str | None = None, ckpt_at: int = PT_CKPT_AT,
             resume: bool = False) -> dict:
-    """(b) ``TrainLoop(mesh=)`` of the bf16 model for SPARSE_STEPS steps of
-    phase 15's batches; the last step counted (its collectives and block
-    kernel launches).  With ``ckpt``: (c) write a checkpoint at
-    PT_CKPT_AT and read it back onto the rank's blocks, or (``resume``)
-    restore it and run the steps after it."""
+    """``TrainLoop(mesh=)`` of ``cfg`` (bf16, seeded) on ``TokenStream``
+    batches of ``batch`` = (B, S) to step ``stop``, every step counted (its
+    collectives, block-kernel launches and host ms ending in a
+    synchronize).  With ``ckpt``: write a checkpoint at ``ckpt_at`` and read
+    it back onto the rank's blocks, or (``resume``) restore it and run on
+    from it.  Phase 25 (b) and (c), phase 27 (b)."""
     import torch.distributed as dist
 
     from repro_torch.core import sharding as SH
@@ -8071,17 +8132,16 @@ def pt_loop(torch, world, key: str, shape, ckpt: str | None = None,
     from repro_torch.kernels import instrument
     from repro_torch.launch.train import TrainLoop
 
-    cfg = pt_configs()[key]
     mesh = make_process_mesh(world, shape, ("data", "model"))
     coll = SH.collectives(mesh)
     Loop = pt_timed_loop(torch, TrainLoop, instrument, coll)
-    loop = Loop(cfg, pt_opt_cfg(), mesh=mesh, seq_len=SPARSE_S,
-                global_batch=SPARSE_B, ckpt_dir=ckpt,
-                ckpt_every=PT_CKPT_AT if ckpt and not resume else 10 ** 9)
+    B, S = batch
+    loop = Loop(cfg, opt_cfg, mesh=mesh, seq_len=S, global_batch=B, ckpt_dir=ckpt,
+                ckpt_every=ckpt_at if ckpt and not resume else 10 ** 9)
     t0 = time.perf_counter()
     if resume:
-        check(loop.maybe_restore() and loop.step == PT_CKPT_AT,
-              f"train mesh {key} {shape}: no checkpoint at step {PT_CKPT_AT}")
+        check(loop.maybe_restore() and loop.step == ckpt_at,
+              f"mesh loop {key} {shape}: no checkpoint at step {ckpt_at}")
     else:
         loop.init_state()
     torch.cuda.synchronize()
@@ -8089,24 +8149,25 @@ def pt_loop(torch, world, key: str, shape, ckpt: str | None = None,
     torch.cuda.reset_peak_memory_stats()
     losses, saved = [], None
     if ckpt and not resume:
-        losses += loop.run(PT_CKPT_AT, log_every=0)
+        losses += loop.run(ckpt_at, log_every=0)
         t1 = time.perf_counter()
         saved = pt_ckpt_equal(torch, loop)
         saved_s = time.perf_counter() - t1
         loop.ckpt_every = 10 ** 9
-    losses += loop.run(SPARSE_STEPS, log_every=0)
-    last = loop.step_coll[-1]
+    losses += loop.run(stop, log_every=0)
     med = statistics.median(loop.step_ms[1:]) if len(loop.step_ms) > 1 \
         else loop.step_ms[0]
     row = {"key": key, "mesh": list(shape), "coords": list(mesh.coords),
            "transport": coll.transport, "pinned": getattr(coll, "pinned", None),
-           "resumed": resume, "losses": losses,
-           "init_s": init_s, "step_ms": loop.step_ms, "step_ms_median": med,
-           "tokens_per_s": SPARSE_B * SPARSE_S / med * 1e3,
-           "launches": loop.step_launches[-1],
-           "coll_calls": last["calls"], "coll_bytes": last["bytes"],
-           "coll_ms": {k: 1e3 * v for k, v in last["seconds"].items()},
-           "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+           "resumed": resume, "first_step": ckpt_at if resume else 0,
+           "losses": losses, "init_s": init_s, "step_ms": loop.step_ms,
+           "step_ms_median": med, "tokens_per_s": B * S / med * 1e3,
+           "launches": loop.step_launches,
+           "coll_calls": [s["calls"] for s in loop.step_coll],
+           "coll_bytes": [s["bytes"] for s in loop.step_coll],
+           "coll_ms": {k: 1e3 * v for k, v in loop.step_coll[-1]["seconds"].items()},
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "param_bytes": pm_param_bytes(loop.params)}
     if saved is not None:
         row.update(ckpt_equal=saved, ckpt_check_s=saved_s, save_s=loop.save_s)
     del loop
@@ -8115,9 +8176,11 @@ def pt_loop(torch, world, key: str, shape, ckpt: str | None = None,
     return row
 
 
-def pt_kernel(torch, world, seed: int) -> dict:
+def pt_kernel(torch, world, seed: int, cfg=None, model_parallel: int = PT_MESHES[0][1],
+              tag: int = 25) -> dict:
     """(d) The block kernel on rank 0's run of the sparse qwen's w_gate and
-    w_down on (1, 4), T = SPARSE_B · SPARSE_S = 1,024, integer-valued bf16:
+    w_down (``cfg``'s: phase 27 passes zamba2's shared FFN) on (1, 4),
+    T = SPARSE_B · SPARSE_S = 1,024, integer-valued bf16:
     the forward on the run and grad x on the run's Wᵀ stream (its block-
     columns counted from the run's first block-row), each bit-equal to the
     plain version, timed beside it and ``torch.matmul`` on the run's dense
@@ -8131,17 +8194,17 @@ def pt_kernel(torch, world, seed: int) -> dict:
     from repro_torch.sparse.layers import (_balanced_pattern, stream_layout,
                                            with_run, with_transpose)
 
-    cfg = pt_configs()["sparse"]
-    mesh = make_local_mesh(PT_MESHES[0][1], world=world)
+    cfg = pt_configs()["sparse"] if cfg is None else cfg
+    mesh = make_local_mesh(model_parallel, world=world)
     rows_out = []
     if mesh.rank == 0:
         device, T = mesh.device, SPARSE_B * SPARSE_S
         r, c = cfg.sparse_block
-        gen = np.random.default_rng([seed, 25, 4])
+        gen = np.random.default_rng([seed, tag, 4])
         for name in ("w_gate", "w_down"):
             d_in, d_out = ffn_dims(cfg)[name]
             browind, bcolind = _balanced_pattern(d_out // r, d_in // c, cfg.ffn_density)
-            nb_l = len(browind) // PT_MESHES[0][1]
+            nb_l = len(browind) // model_parallel
             run = {"browind": torch.from_numpy(browind[:nb_l]).to(device),
                    "bcolind": torch.from_numpy(bcolind[:nb_l]).to(device),
                    "bvalues": torch.from_numpy(gen.integers(-3, 4, (nb_l, r, c))
@@ -8213,7 +8276,8 @@ def pt_train(torch, world, seed: int, ckpt_root: str) -> dict:
             ("dense", PT_MESHES[0], None, False), ("sparse", PT_MESHES[0], None, False),
             ("sparse", PT_MESHES[1], None, False))
     out["loops"] = [path(f"loop {key} {shape}{' resumed' if resume else ''}", pt_loop,
-                         key, shape, ckpt=c, resume=resume)
+                         key, pt_configs()[key], pt_opt_cfg(), shape,
+                         (SPARSE_B, SPARSE_S), SPARSE_STEPS, ckpt=c, resume=resume)
                     for key, shape, c, resume in runs]
     out["kernel"] = path("kernel", pt_kernel, seed)
     return out
@@ -8272,7 +8336,9 @@ def pt_checks(torch, ranks, ref_losses: dict, card: str) -> dict:
               "closed_form": {"launches": want_l, **want},
               "step_ms_median": max(r["step_ms_median"] for r in per),
               "tokens_per_s": min(r["tokens_per_s"] for r in per),
-              "ranks": per, "card": card})
+              "ranks": [{k: v for k, v in r.items() if k not in ("coll_calls",
+                                                                 "coll_bytes")}
+                        for r in per], "card": card})
     emit({"phase": "train_mesh_kernel", "arch": LM_ARCH, "mesh": list(PT_MESHES[0]),
           "rank": 0, "rows": krows, "card": card})
     for per in f32:
@@ -8301,17 +8367,17 @@ def pt_checks(torch, ranks, ref_losses: dict, card: str) -> dict:
                       f"{who}: first loss {got[0]} vs one process {ref[0]}")
             check(abs(got[-1] - ref[-1]) <= PT_LAST_TOL * abs(ref[-1]),
                   f"{who}: last loss {got[-1]} vs one process {ref[-1]}")
-            check(row["coll_calls"] == want["calls"]
-                  and row["coll_bytes"] == want["bytes"],
-                  f"{who}: collectives {row['coll_calls']} / {row['coll_bytes']} != "
-                  f"closed form {want}")
-            check(row["launches"] == want_l,
-                  f"{who}: {row['launches']} block-kernel launches in a step, "
+            check(all(c == want["calls"] for c in row["coll_calls"])
+                  and all(b == want["bytes"] for b in row["coll_bytes"]),
+                  f"{who}: collectives a step {row['coll_calls']} / "
+                  f"{row['coll_bytes']} != closed form {want}")
+            check(all(n == want_l for n in row["launches"]),
+                  f"{who}: block-kernel launches a step {row['launches']}, "
                   f"closed form {want_l}")
             if "ckpt_equal" in row:
                 check(row["ckpt_equal"], f"{who}: the checkpoint at step "
                       f"{PT_CKPT_AT} != the ranks' state")
-            launches += row["launches"]
+            launches += row["launches"][-1]
     dense22, resumed = loops[0][0], loops[1][0]
     check(all(abs(a - b) <= PT_RESUME_TOL * abs(b) for a, b in
               zip(resumed["losses"], dense22["losses"][PT_CKPT_AT:])),
@@ -8325,6 +8391,542 @@ def pt_checks(torch, ranks, ref_losses: dict, card: str) -> dict:
               f"{row['timed_launches']} launches")
     return {"launches": launches,
             "max_abs_err": max(row["max_abs_err"] for row in krows)}
+
+
+# ------- phase 27: training the recurrent kinds and the enc-dec on the mesh
+
+PQ_MESH = {"zamba2": (1, 4), "xlstm": (2, 2), "seamless": (2, 2)}
+PQ_F32 = ("zamba2_f32", "xlstm_f32", "seamless_f32")
+# (a): one f32 step a path at B = 4, S = 32 (and 32 stub frames a row for
+# seamless): PERF.md section 7 says why not longer (the decays' f32 sums
+# turn an ulp into 1e-5 of a logit at 128 tokens)
+PQ_B, PQ_S = 4, 32
+# (a)'s limits, phase 25's: the loss relative, each grad block of its leaf's
+# max |g|, each param block of its leaf's max |p| where |g| > PT_GRAD_FLOOR
+# of the tree's max |g|.  A reading whose control (the one-process step
+# from the weights moved by an epsilon, ``pr_nudged``) is past its limit
+# is held to PR_F32_CONTROL_X times the control, and the row says the
+# limit was not met (xlstm's grads: PERF.md section 6)
+PQ_BOUNDS = {"loss": PT_LOSS_TOL, "grads": PT_GRAD_TOL, "params": PT_PARAM_TOL}
+PQ_ED_LAYERS = 4  # (b): seamless cut to 4 + 4 layers, phase 18's batches
+PQ_ED_STEPS = 3
+PQ_RESUME_MESH = (2, 2)  # (b): zamba2's dense run resumes here from (1, 4)'s checkpoint
+
+
+def pq_configs() -> dict:
+    """Phase 27's configs, all at full width: the f32 cuts of phase 26
+    (zamba2 at 6 layers sparse, xlstm at 8, seamless at 2 + 2 sparse);
+    phase 19's bf16 zamba2 (6 layers, dense and sparse) and xlstm (8);
+    seamless cut to 4 + 4 layers, dense and sparse."""
+    from repro_torch.configs import get_config
+
+    s = dataclasses.replace(get_config("seamless-m4t-medium"), n_layers=PQ_ED_LAYERS,
+                            encoder_layers=PQ_ED_LAYERS)
+    rec = pr_configs()
+    out = {key: rec[key] for key in PQ_F32}
+    out.update({"zamba2_dense": tf_cfg("zamba2-2.7b"),
+                "zamba2_sparse": tf_cfg("zamba2-2.7b", ffn_density=0.5),
+                "xlstm": tf_cfg("xlstm-1.3b"), "seamless_dense": s,
+                "seamless_sparse": dataclasses.replace(s, ffn_density=0.5)})
+    return out
+
+
+def pq_opt_cfg():
+    """(a)'s AdamW, as phase 25's f32 steps."""
+    from repro_torch.optim import AdamWConfig
+
+    return AdamWConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+
+
+def pq_batch(torch, cfg, seed: int, device) -> dict:
+    """(a)'s global batch: tokens (the labels too) and seamless's f32 stub
+    frames, (B, S) and (B, S, d)."""
+    rng = np.random.default_rng([seed, 27, cfg.n_layers, cfg.vocab])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (PQ_B, PQ_S)).astype(np.int32))
+    batch = {"tokens": toks.to(device), "labels": toks.to(device)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (PQ_B, PQ_S, cfg.d_model)).astype(np.float32)).to(device)
+    return batch
+
+
+def pq_ed_batches(torch, cfg, device) -> list:
+    """(b)'s seamless batches: phase 18's first PQ_ED_STEPS (``TokenStream``
+    seed 18, B = 4 x 256, bf16 frames (4, 256, 1,024) from seed 184)."""
+    from repro_torch.data.tokens import TokenStream
+
+    stream = TokenStream(cfg.vocab, SPARSE_S, SPARSE_B, seed=18)
+    fgen = torch.Generator(device=device).manual_seed(184)
+    out = []
+    for i in range(PQ_ED_STEPS):
+        batch = dict(stream.batch(i, device))
+        batch["frames"] = torch.randn((SPARSE_B, SPARSE_S, cfg.d_model), generator=fgen,
+                                      device=device).to(torch.bfloat16)
+        out.append(batch)
+    return out
+
+
+def pq_ed_opt_cfg():
+    """Phase 18's AdamW."""
+    from repro_torch.optim import AdamWConfig
+
+    return AdamWConfig(lr_peak=1e-3, warmup_steps=3, total_steps=SPARSE_STEPS)
+
+
+def pq_one_step(torch, params, batch, cfg) -> tuple:
+    """(loss, grads, updated params) of one one-process f32 step (the
+    reference's trees, the port-only keys stripped)."""
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import apply_updates, init_opt
+    from repro_torch.sparse.layers import strip_derived
+
+    opt_cfg = pq_opt_cfg()
+    loss, grads = S.loss_and_grads(params, batch, cfg)
+    base = strip_derived(params)
+    new, _, _ = apply_updates(base, grads, init_opt(base, opt_cfg), opt_cfg)
+    return float(loss), grads, new
+
+
+def pq_names(tree, prefix: str = "") -> list:
+    """The paths of a param tree's leaves, in ``repro_torch.tree`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in pq_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def pq_errors(torch, loss, grads, new, ref_loss, ref_g, ref_p, g_max, p_max, floor,
+              names) -> tuple:
+    """A step against the one-process one: the loss's relative error, each
+    grad leaf's (or block's) largest error over the leaf's max |g|, each
+    param's over the leaf's max |p| where the reference |g| > ``floor``
+    (the lists are the trees' leaves, blocks or whole, in one order);
+    and the leaves (``names``) where the grads and params err most.  The
+    per-leaf errors stay on the device until one read at the end."""
+    errs = {"grads": [], "params": []}
+    for g, want, m, name in zip(grads, ref_g, g_max, names):
+        if g.is_floating_point() and m:
+            errs["grads"].append((name, (g.float() - want.float()).abs().max() / m))
+    for p, want, g, m, name in zip(new, ref_p, ref_g, p_max, names):
+        if not p.is_floating_point():
+            errs["params"].append((name, (p != want).any().float()))
+        elif m:
+            keep = g.abs() > floor  # 0 where no element is kept
+            diff = (p.float() - want.float()).abs() * keep
+            errs["params"].append((name, diff.max() / m))
+    out = {"loss": abs(loss - ref_loss) / abs(ref_loss)}
+    worst = {}
+    for k, pairs in errs.items():
+        vals = torch.stack([e.float() for _, e in pairs]).tolist() if pairs else []
+        i = int(np.argmax(vals)) if vals else None
+        out[k] = float(vals[i]) if vals else 0.0
+        worst[k] = pairs[i][0] if vals and vals[i] > 0 else None
+    return out, worst
+
+
+def pq_references(torch, seed: int, device, ref: dict, root: str) -> dict:
+    """Phase 27's one-process answers on the card, into ``ref`` and under
+    ``root``: (a) each f32 cut's step from the seeded init (seed 0, as
+    ``mesh_params``'): its loss, each leaf's max |g| and |p|, its grads
+    and updated params written as a checkpoint for the ranks to read their
+    blocks from, and its control (the same step from the weights moved by
+    an epsilon, ``pr_nudged``) against it; (b) seamless's 4 + 4-layer bf16
+    steps, dense and sparse.  Returns each part's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch import steps as S
+    from repro_torch.models import lm
+    from repro_torch.optim import init_opt
+    from repro_torch.runtime import save_checkpoint
+    from repro_torch.sparse.layers import strip_derived
+    from repro_torch.tree import leaves
+
+    cfgs, seconds = pq_configs(), {}
+    # each path's checkpoint written beside the later paths' steps (its
+    # tensors held until then)
+    writer, writes = ThreadPoolExecutor(1), []
+    for key in PQ_F32:
+        t0 = time.perf_counter()
+        cfg = cfgs[key]
+        batch = pq_batch(torch, cfg, seed, device)
+        params = lm.init_params(torch.Generator(device=device).manual_seed(0), cfg,
+                                torch.float32)
+        loss, g, new = pq_one_step(torch, params, batch, cfg)
+        writes.append(writer.submit(save_checkpoint,
+                                    os.path.join(root, f"phase27_{key}"), 0, (g, new)))
+        g_l, p_l = leaves(g), leaves(new)
+        g_max = [float(t.abs().max()) if t.is_floating_point() and t.numel() else 0.0
+                 for t in g_l]
+        p_max = [float(t.abs().max()) if t.is_floating_point() and t.numel() else 0.0
+                 for t in p_l]
+        floor = PT_GRAD_FLOOR * max(g_max)
+        ref.update({f"{key}|loss": loss, f"{key}|g_max": np.array(g_max),
+                    f"{key}|p_max": np.array(p_max), f"{key}|floor": floor})
+        nudged = pr_nudged(torch, params, seed)
+        del params
+        c_loss, c_g, c_new = pq_one_step(torch, nudged, batch, cfg)
+        control, worst = pq_errors(torch, c_loss, leaves(c_g), leaves(c_new), loss, g_l,
+                                   p_l, g_max, p_max, floor, pq_names(g))
+        ref.update({f"{key}|control|{k}": v for k, v in control.items()})
+        ref.update({f"{key}|control_leaf|{k}": str(v) for k, v in worst.items()})
+        del nudged, g, new, c_g, c_new, g_l, p_l
+        free_card(torch)
+        seconds[key] = time.perf_counter() - t0
+    for key in ("seamless_dense", "seamless_sparse"):
+        t0 = time.perf_counter()
+        cfg = cfgs[key]
+        params = ed_params(torch, lm, cfg, 0, device)
+        opt_cfg = pq_ed_opt_cfg()
+        opt = init_opt(strip_derived(params), opt_cfg)
+        step = S.make_train_step(cfg, opt_cfg)
+        losses = []
+        for batch in pq_ed_batches(torch, cfg, device):
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+        ref[f"{key}|losses"] = np.array(losses)
+        del params, opt
+        free_card(torch)
+        seconds[key] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for w in writes:
+        w.result()
+    writer.shutdown()
+    seconds["writes_left"] = time.perf_counter() - t0
+    return seconds
+
+
+def pq_families_references(torch, device) -> dict:
+    """(b)'s zamba2 and xlstm references where phase 19 did not run in this
+    process: its loops (the same seeds, batches and optimizer) on one
+    device, dense zamba2 for TF_STEPS steps, sparse for TF_SPARSE_STEPS,
+    xlstm for TF_STEPS."""
+    from repro_torch.launch.train import TrainLoop
+
+    out = {}
+    for key, steps_ in (("zamba2_dense", TF_STEPS), ("zamba2_sparse", TF_SPARSE_STEPS),
+                        ("xlstm", TF_STEPS)):
+        cfg = pq_configs()[key]
+        B, S = tf_shape(cfg)
+        loop = TrainLoop(cfg, tf_opt(cfg, steps_), seq_len=S, global_batch=B,
+                         device=device)
+        loop.init_state()
+        out[key] = loop.run(steps_, log_every=0)
+        del loop
+        free_card(torch)
+    return out
+
+
+def pq_params(torch, cfg, mesh, dtype):
+    """This rank's blocks of the seeded params (seed 0, as ``mesh_params``'
+    seeded init): every rank draws the whole tree at once and keeps its
+    blocks, the same values as ``seeded_blocks``' turns (which keep one
+    full tree at a time on a shared card, for the full-depth models)."""
+    from repro_torch.launch.serve import mesh_params
+    from repro_torch.models import lm
+
+    full = lm.init_params(torch.Generator(device=mesh.device).manual_seed(0), cfg,
+                          dtype)
+    return mesh_params(cfg, mesh, dtype, params=full)
+
+
+def pq_f32(torch, world, key: str, seed: int, ref, root: str) -> dict:
+    """(a) One ``make_train_step`` step of an f32 cut on its mesh, counted
+    (collectives, block-kernel launches, peak): the loss and each grad
+    block it computes (``launch.steps.loss_and_grads`` captured in it) and
+    each updated param block against the one-process step's, whose blocks
+    the rank reads from the parent's checkpoint."""
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding as SH
+    from repro_torch.kernels import instrument
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import init_opt
+    from repro_torch.runtime import restore_checkpoint
+    from repro_torch.sparse.layers import strip_derived
+    from repro_torch.tree import leaves
+
+    cfg = pq_configs()[key]
+    shape = PQ_MESH[pr_arch(key)]
+    mesh = make_local_mesh(shape[1], world=world)
+    coll = SH.collectives(mesh)
+    t0 = time.perf_counter()
+    params = pq_params(torch, cfg, mesh, torch.float32)
+    batch = pq_batch(torch, cfg, seed, mesh.device)
+    opt_cfg = pq_opt_cfg()
+    torch.cuda.synchronize()
+    seconds = {"init": time.perf_counter() - t0}
+    step = S.make_train_step(cfg, opt_cfg)
+    inner, seen = S.loss_and_grads, {}
+
+    def captured(*args):  # the step's own loss and grads (it does not donate)
+        seen["loss"], seen["grads"] = inner(*args)
+        return seen["loss"], seen["grads"]
+
+    opt = init_opt(strip_derived(params), opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    coll.reset()
+    instrument.reset()
+    S.loss_and_grads = captured
+    try:
+        t0 = time.perf_counter()
+        with SH.set_mesh(mesh):
+            new, _, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        S.loss_and_grads = inner
+    launches = instrument.launches("bcoo")
+    counted = coll.snapshot()
+    loss, grads = seen["loss"], seen["grads"]
+    peak = torch.cuda.max_memory_allocated()
+    sh = S.mesh_param_shardings(cfg, mesh)
+    new = strip_derived(new)
+    del params, opt
+    seconds["step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (g_ref, p_ref), _ = restore_checkpoint(os.path.join(root, f"phase27_{key}"),
+                                           (grads, new), device=mesh.device,
+                                           shardings=(sh, sh))
+    seconds["restore"] = time.perf_counter() - t0
+    errs, worst = pq_errors(torch, float(loss), leaves(grads), leaves(new),
+                            float(ref[f"{key}|loss"]), leaves(g_ref), leaves(p_ref),
+                            ref[f"{key}|g_max"].tolist(), ref[f"{key}|p_max"].tolist(),
+                            float(ref[f"{key}|floor"]), pq_names(grads))
+    out = {"key": key, "mesh": list(shape), "coords": list(mesh.coords),
+           "loss": float(loss), "step_loss": float(metrics["loss"]),
+           "one_process_loss": float(ref[f"{key}|loss"]), "rel_err": errs,
+           "worst_leaf": worst, "seconds": seconds,
+           "control": {k: float(ref[f"{key}|control|{k}"]) for k in errs},
+           "control_leaf": {k: str(ref[f"{key}|control_leaf|{k}"]) for k in worst},
+           "step_ms": step_ms, "launches": launches, "coll_calls": counted["calls"],
+           "coll_bytes": counted["bytes"], "peak_allocated_bytes": peak,
+           "param_bytes": pm_param_bytes(new)}
+    del grads, new, g_ref, p_ref
+    free_card(torch)
+    dist.barrier()
+    if world.rank == 0:  # every rank has read its blocks
+        shutil.rmtree(os.path.join(root, f"phase27_{key}"), ignore_errors=True)
+    return out
+
+
+def pq_ed(torch, world, key: str) -> dict:
+    """(b) seamless cut to 4 + 4 layers through ``make_train_step`` on (2,
+    2): phase 18's batches, with bf16 frames, from the seeded init, each
+    step counted as ``pt_loop``'s."""
+    import torch.distributed as dist
+
+    from repro_torch.core import sharding as SH
+    from repro_torch.kernels import instrument
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import init_opt
+    from repro_torch.sparse.layers import strip_derived
+
+    cfg = pq_configs()[key]
+    shape = PQ_MESH["seamless"]
+    mesh = make_local_mesh(shape[1], world=world)
+    coll = SH.collectives(mesh)
+    t0 = time.perf_counter()
+    params = pq_params(torch, cfg, mesh, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt_cfg = pq_ed_opt_cfg()
+    opt = init_opt(strip_derived(params), opt_cfg)
+    step = S.make_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, launches, counted = [], [], [], []
+    with SH.set_mesh(mesh):
+        for batch in pq_ed_batches(torch, cfg, mesh.device):
+            torch.cuda.synchronize()
+            coll.reset()
+            instrument.reset()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(instrument.launches("bcoo"))
+            counted.append(coll.snapshot())
+    med = statistics.median(step_ms[1:])
+    row = {"key": key, "mesh": list(shape), "coords": list(mesh.coords),
+           "transport": coll.transport, "resumed": False, "first_step": 0,
+           "losses": losses, "init_s": init_s, "step_ms": step_ms,
+           "step_ms_median": med,
+           "launches": launches,
+           "coll_calls": [c["calls"] for c in counted],
+           "coll_bytes": [c["bytes"] for c in counted],
+           "coll_ms": {k: 1e3 * v for k, v in counted[-1]["seconds"].items()},
+           "tokens_per_s": SPARSE_B * SPARSE_S / med * 1e3,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "param_bytes": pm_param_bytes(params)}
+    del params, opt, step
+    free_card(torch)
+    dist.barrier()
+    return row
+
+
+def pq_paths(torch, world, seed: int, ref, root: str) -> dict:
+    """Phase 27 on this rank: (a) the f32 steps, (b) the bf16 runs (zamba2
+    dense to its checkpoint on (1, 4) and on from it on (2, 2); zamba2
+    sparse; xlstm; seamless dense and sparse), (c) rank 0's runs of
+    zamba2's shared FFN; rank 0 prints each path's seconds."""
+
+    def path(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(torch, world, *args, **kw)
+        if world.rank == 0:
+            emit({"phase": "train_recurrent_mesh_progress", "path": name,
+                  "seconds": time.perf_counter() - t0})
+        return res
+
+    t0 = time.perf_counter()
+    out = {"f32": [path(f"f32 {key}", pq_f32, key, seed, ref, root) for key in PQ_F32]}
+    ckpt = os.path.join(root, "phase27_ckpt")
+    z = PQ_MESH["zamba2"]
+    # phase 19's bf16 runs: its seeded init, batches and optimizer
+    runs = (("zamba2_dense", z, PT_CKPT_AT, ckpt, False),
+            ("zamba2_dense", PQ_RESUME_MESH, TF_STEPS, ckpt, True),
+            ("zamba2_sparse", z, TF_SPARSE_STEPS, None, False),
+            ("xlstm", PQ_MESH["xlstm"], TF_STEPS, None, False))
+    cfgs = pq_configs()
+    out["loops"] = [path(f"loop {key} {shape}{' resumed' if resume else ''}", pt_loop,
+                         key, cfgs[key], tf_opt(cfgs[key], TF_SPARSE_STEPS if key ==
+                                                "zamba2_sparse" else TF_STEPS),
+                         shape, tf_shape(cfgs[key]), n, ckpt=c, ckpt_at=PT_CKPT_AT,
+                         resume=resume)
+                    for key, shape, n, c, resume in runs]
+    if world.rank == 0:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out["loops"] += [path(f"steps {key}", pq_ed, key)
+                     for key in ("seamless_dense", "seamless_sparse")]
+    out["kernel"] = path("kernel", pt_kernel, seed, pq_configs()["zamba2_sparse"],
+                         PQ_MESH["zamba2"][1], 27)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def pq_closed_forms(torch, key: str, shape, B: int, S: int, itemsize: int,
+                    S_mem: int) -> dict:
+    """A path's closed forms: the collectives and block-kernel launches of
+    one step over (B, S) (and S_mem frames a row), its param bytes."""
+    from repro_torch.analysis import sharded as SHD
+
+    cfg = pq_configs()[key]
+    dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
+    coll = SHD.train_collectives(cfg, tuple(shape), B, S, cfg.remat, itemsize=itemsize,
+                                 S_mem=S_mem if cfg.encoder_layers else 0)
+    return {"coll": coll, "launches": SHD.train_block_kernel_launches(cfg),
+            "param_bytes": SHD.param_bytes(cfg, tuple(shape), dtype)}
+
+
+def pq_checks(torch, ranks, info: dict, fam_ref: dict, ref: dict, card: str) -> dict:
+    """Phase 27's rows and checks (every row emitted before any check)."""
+    rows, fails = [], []
+
+    def need(cond, msg):
+        if not cond:
+            fails.append(msg)
+
+    res = [r["trainrec"] for r in ranks]
+    for i, key in enumerate(PQ_F32):
+        per = [r["f32"][i] for r in res]
+        want = pq_closed_forms(torch, key, per[0]["mesh"], PQ_B, PQ_S, 4, PQ_S)
+        worst = {k: max(row["rel_err"][k] for row in per) for k in per[0]["rel_err"]}
+        met = {k: worst[k] <= PQ_BOUNDS[k] for k in PQ_BOUNDS}
+        for row in per:
+            who = f"train recurrent mesh f32 {key} at {row['coords']}"
+            for k, bound in PQ_BOUNDS.items():
+                e, ctl = row["rel_err"][k], row["control"][k]
+                # the limit, or where rounding alone (the control) moves the
+                # reading past it, PR_F32_CONTROL_X times the control
+                gate = PR_F32_CONTROL_X * ctl if ctl > bound else bound
+                need(e <= gate, f"{who}: {k} {e:.3g} (limit {bound}, control "
+                     f"{ctl:.3g}, gate {gate:.3g}; worst leaf {row['worst_leaf']})")
+            need(row["coll_calls"] == want["coll"]["calls"]
+                 and row["coll_bytes"] == want["coll"]["bytes"],
+                 f"{who}: collectives {row['coll_calls']} / {row['coll_bytes']} != "
+                 f"closed form {want['coll']}")
+            need(row["launches"] == want["launches"], f"{who}: {row['launches']} "
+                 f"block-kernel launches, closed form {want['launches']}")
+            need(row["param_bytes"] == want["param_bytes"],
+                 f"{who}: {row['param_bytes']} param bytes, the specs {want['param_bytes']}")
+            need(row["peak_allocated_bytes"] >= row["param_bytes"],
+                 f"{who}: peak below its params")
+        rows.append({"phase": "train_recurrent_mesh_f32", "key": key,
+                     "mesh": per[0]["mesh"], "batch": PQ_B, "seq": PQ_S,
+                     "rel_err": worst, "control": per[0]["control"],
+                     "control_leaf": per[0]["control_leaf"], "bounds": PQ_BOUNDS,
+                     "limit_met": met, "control_x": PR_F32_CONTROL_X,
+                     "closed_form": {"launches": want["launches"], **want["coll"]},
+                     "reference_s": info.get(key), "ranks": per, "card": card})
+    launches = 0
+    loops = [[r["loops"][i] for r in res] for i in range(len(res[0]["loops"]))]
+    for per in loops:
+        row0 = per[0]
+        key = row0["key"]
+        cfg = pq_configs()[key]
+        B, S = (SPARSE_B, SPARSE_S) if cfg.encoder_layers else tf_shape(cfg)
+        want = pq_closed_forms(torch, key, row0["mesh"], B, S, 2, SPARSE_S)
+        one = (ref[f"{key}|losses"].tolist() if cfg.encoder_layers else fam_ref[key])
+        one = one[row0["first_step"]:row0["first_step"] + len(row0["losses"])]
+        for row in per:
+            who = f"train recurrent mesh {key} {row['mesh']} at {row['coords']}"
+            got = row["losses"]
+            need(len(got) == len(one) and all(np.isfinite(got)), f"{who}: losses {got}")
+            need(got == row0["losses"], f"{who}: losses differ from rank 0's")
+            if not row["resumed"]:
+                need(abs(got[0] - one[0]) <= PT_FIRST_TOL * abs(one[0]),
+                     f"{who}: first loss {got[0]} vs one process {one[0]}")
+            need(abs(got[-1] - one[-1]) <= PT_LAST_TOL * abs(one[-1]),
+                 f"{who}: last loss {got[-1]} vs one process {one[-1]}")
+            need(all(c == want["coll"]["calls"] for c in row["coll_calls"])
+                 and all(b == want["coll"]["bytes"] for b in row["coll_bytes"]),
+                 f"{who}: collectives a step {row['coll_calls']} / {row['coll_bytes']} "
+                 f"!= closed form {want['coll']}")
+            need(all(n == want["launches"] for n in row["launches"]),
+                 f"{who}: block-kernel launches a step {row['launches']}, closed form "
+                 f"{want['launches']}")
+            need(row["param_bytes"] == want["param_bytes"],
+                 f"{who}: {row['param_bytes']} param bytes, the specs {want['param_bytes']}")
+            need(row["peak_allocated_bytes"] >= row["param_bytes"],
+                 f"{who}: peak below its params")
+            if "ckpt_equal" in row:
+                need(row["ckpt_equal"], f"{who}: the checkpoint at step {PT_CKPT_AT} "
+                     "!= the ranks' state")
+            launches += row["launches"][-1]
+        rows.append({"phase": "train_recurrent_mesh", "key": key, "arch": cfg.name,
+                     "mesh": row0["mesh"], "n_layers": cfg.n_layers,
+                     "encoder_layers": cfg.encoder_layers, "dtype": "bfloat16",
+                     "batch": B, "seq": S, "transport": row0["transport"],
+                     "resumed": row0["resumed"], "losses": row0["losses"],
+                     "one_process_losses": one,
+                     "closed_form": {"launches": want["launches"], **want["coll"]},
+                     "step_ms_median": max(r["step_ms_median"] for r in per),
+                     "tokens_per_s": min(r["tokens_per_s"] for r in per),
+                     "reference_s": info.get(key),
+                     "ranks": [{k: v for k, v in r.items()
+                                if k not in ("coll_calls", "coll_bytes")} for r in per],
+                     "card": card})
+    krows = res[0]["kernel"]["rows"]
+    for row in krows:
+        need(row["kernel_equals_plain"], f"train recurrent mesh kernel {row['name']} "
+             f"{row['pass']}: != the plain version")
+        need(row["timed_launches"] == PM_TIMED + 3, f"train recurrent mesh kernel "
+             f"{row['name']} {row['pass']}: timed {row['timed_launches']} launches")
+    rows.append({"phase": "train_recurrent_mesh_kernel", "arch": "zamba2-2.7b",
+                 "mesh": list(PQ_MESH["zamba2"]), "rank": 0, "rows": krows, "card": card})
+    seconds = max(r["seconds"] for r in res)
+    rows.append({"phase": "train_recurrent_mesh_done", "launches": launches,
+                 "ranks_s": seconds, "reference_s": sum(info.values()), "card": card})
+    for row in rows:
+        emit(row)
+    for msg in fails:
+        check(False, msg)
+    return {"launches": launches,
+            "max_abs_err": max(row["max_abs_err"] for row in krows),
+            "seconds": seconds + sum(info.values())}
 
 
 def main(argv=None) -> int:
@@ -8400,8 +9002,11 @@ def run(args, torch, counts_future) -> int:
     solver_launches = phase_solver(torch, rng10, device, records, autos, times)
     solver_s = time.perf_counter() - t10
     t13 = time.perf_counter()
+    small, small_autos = small_records(torch, np.random.default_rng([args.seed, 13, 1]),
+                                       device)
     topo_launches = phase_topology(torch, np.random.default_rng([args.seed, 13]),
-                                   device, records, autos)
+                                   device, small, small_autos)
+    del small_autos
     topology_s = time.perf_counter() - t13
     del autos
     gc.collect()
@@ -8413,7 +9018,8 @@ def run(args, torch, counts_future) -> int:
     gc.collect()
     t11 = time.perf_counter()
     tune_launches = phase_tuning(torch, np.random.default_rng([args.seed, 11]),
-                                 device, records)
+                                 device, small)
+    del small
     tuning_s = time.perf_counter() - t11
     records.clear()  # free the main path's plans for the dense oracles
     gc.collect()
@@ -8449,8 +9055,12 @@ def run(args, torch, counts_future) -> int:
     free_card(torch)
     pw_run = phase_process_mesh(torch, args.seed, device)
     free_card(torch)
+    tf_losses = {key: tf_run["train"][name]["losses"] for key, name in (
+        ("zamba2_dense", "zamba2-2.7b"), ("zamba2_sparse", "zamba2-2.7b:sparse"),
+        ("xlstm", "xlstm-1.3b"))}
     pm_run = phase_lm_mesh(torch, args.seed, device, train_ref={
-        key: train_run["sparse"][key]["losses"] for key in ("dense", "sparse")})
+        key: train_run["sparse"][key]["losses"] for key in ("dense", "sparse")},
+        families_ref=tf_losses)
     free_card(torch)
     dr_run = phase_dryrun(torch, np.random.default_rng([args.seed, 20]), device,
                           counts_future,
@@ -8481,6 +9091,7 @@ def run(args, torch, counts_future) -> int:
     by_path["bcoo_spmv"]["lm_mesh"] = pm_run["launches"]
     by_path["bcoo_spmv"]["lm_mesh_train"] = pm_run["train_launches"]
     by_path["bcoo_spmv"]["lm_mesh_recurrent"] = pm_run["rec_launches"]
+    by_path["bcoo_spmv"]["lm_mesh_train_recurrent"] = pm_run["trec_launches"]
     by_path["coo_spmv"]["dryrun"] = dr_run["coo_launches"]
     by_path["bcoo_spmv"]["dryrun"] = dr_run["bcoo_launches"]
     by_path["ell_spmv"] = {"ell": ell_launches}
@@ -8522,6 +9133,7 @@ def run(args, torch, counts_future) -> int:
           "lm_mesh_phase_s": pm_run["seconds"],
           "lm_mesh_train_phase_s": pm_run["train_seconds"],
           "lm_mesh_recurrent_phase_s": pm_run["rec_seconds"],
+          "lm_mesh_train_recurrent_phase_s": pm_run["trec_seconds"],
           "dryrun_phase_s": dr_run["seconds"],
           "card": card})
     emit({"kernels": kernels})

@@ -12,10 +12,11 @@ mesh=)``) holds and moves, from the spec trees and the config alone:
   layer, counted as ``core/collectives.py`` counts them (the bytes of each
   call's result on the rank; a collective over one rank counts nothing);
 * :func:`train_collectives`: the calls and bytes, by kind, of one train
-  step (``launch.steps.make_train_step`` on the mesh): the forward's, the
-  recompute's, the backward's transposes and ``model_in`` sums
-  (``core/sharding.py``'s convention), the gradient sums of the params
-  replicated over "data", and the clip's psum;
+  step (``launch.steps.make_train_step`` on the mesh) of any arch: the
+  encoder's pass, the forward's, the recompute's, the backward's
+  transposes and ``model_in`` sums (``core/sharding.py``'s convention),
+  the gradient sums of the params replicated over "data", and the clip's
+  psum;
 * :func:`block_kernel_launches`, :func:`encode_block_kernel_launches` and
   :func:`train_block_kernel_launches`: its launches of the block kernel.
 
@@ -215,7 +216,9 @@ def _mlp(c: _Ctx, cfg, tokens) -> None:
 
 def _gqa(c: _Ctx, cfg, tokens, kv_tokens=None) -> None:
     """GQA; cross-attention where k and v come from ``kv_tokens`` of the
-    memory (on a mesh, the rank's rows of it)."""
+    memory (on a mesh, the rank's rows of it; the memory enters every
+    layer's k and v through one ``model_in``, which :func:`_train_pass`
+    counts)."""
     d, dh, H, KV = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     Dm, e = c.Dm, c.e
     cross = kv_tokens is not None
@@ -225,8 +228,6 @@ def _gqa(c: _Ctx, cfg, tokens, kv_tokens=None) -> None:
         _col(c, d, n)
     if any(_split(n, Dm) for n in (widths[:1] if cross else widths)):
         c.model_in(tokens * d * e)
-    if cross and _split(KV * dh, Dm):
-        c.model_in(kv_tokens * d * e)
     local = Dm > 1 and H % Dm == 0 and KV % Dm == 0 \
         and all(_split(n, Dm) for n in widths)
     if not local:
@@ -249,15 +250,22 @@ def _recurrent(c: _Ctx, cfg, kind, tokens) -> None:
     FSDP gathers (Mamba2's ``in_proj`` output then an all-to-all over
     "model" of ``d_inner`` features a token: x's and z's blocks of the
     rank's heads, in n slots), the norm's psum of an f32 partial sum of
-    squares a token, and the row-parallel ``out_proj``."""
+    squares a token, and the row-parallel ``out_proj``.  In the backward
+    the sum of squares' gradient is summed over "model" (it enters the
+    rank's features through ``model_in``), and the leaves replicated over
+    "model" that the rank slices to its heads (Mamba2's f32 ``a_log`` and
+    ``d_skip``, every norm's scale) have their slices' gradients
+    all-gathered (``core/sharding.py``: a slice's transpose)."""
     d, e = cfg.d_model, c.e
     if kind == "mamba":
         H, di, N = cfg.ssm_heads, cfg.ssm_d_inner, cfg.ssm_state
         cols = (2 * di, 2 * N * H, H)
+        sliced = (H * 4, H * 4, di * e)  # a_log, d_skip, norm.scale
     else:
         H = cfg.n_heads
         di = d
         cols = (d, d, d, H, H) if kind == "mlstm" else (4 * d,)
+        sliced = (d * e,)  # norm.scale
     split = _heads_split(c, H)
     for n in cols:
         _col(c, d, n)
@@ -267,6 +275,9 @@ def _recurrent(c: _Ctx, cfg, kind, tokens) -> None:
             c.t.add("all-to-all", tokens * di * e,
                     back=("all-to-all", tokens * di * e))
         c.t.add("all-reduce", tokens * 4)  # the norm's sum of squares
+        c.model_in(tokens * 4)
+        for nbytes in sliced:
+            c.t.grad("all-gather", nbytes)
     _row(c, di, d, tokens)
 
 
@@ -416,12 +427,13 @@ def _head(c: _Ctx, cfg, B: int, Bl: int, S: int) -> None:
 
 def _encode(c: _Ctx, cfg, B: int, S_enc: int) -> None:
     """``lm.encode`` of (B, S_enc) frames: the column-parallel ``in_proj``
-    and its output gathered over "model", then the encoder's blocks."""
+    and its output gathered over "model" (the frames take no gradient, so
+    no ``model_in``; the gather's transpose is a slice), then the
+    encoder's blocks."""
     d = cfg.d_model
     rows = B // c.Dd if c.bs else B
     _col(c, d, d)
     if _split(d, c.Dm):
-        c.model_in(rows * S_enc * d * c.e)
         c.t.add("all-gather", rows * S_enc * d * c.e)
     for _ in range(cfg.encoder_layers):
         _block(c, cfg, "attn", B, S_enc)
@@ -478,24 +490,32 @@ def _mtp_kind(cfg) -> str:
     return cfg.prefix_pattern[0] if cfg.prefix_pattern else cfg.block_pattern[0]
 
 
-def _train_pass(t: _Tally, cfg, shape, B: int, S: int, remat: str, e: int) -> None:
+def _train_pass(t: _Tally, cfg, shape, B: int, S: int, remat: str, e: int,
+                S_mem: int = 0) -> None:
     """One forward and backward of ``lm.loss_fn`` over a global batch
-    (B, S): the forward's collectives with their transposes, the
-    ``model_in`` sums, the recompute of every repeat (``remat="full"``:
-    the repeat's whole forward again), the loss's psum and the sums of the
+    (B, S): an enc-dec arch's encoder pass over (B, S_mem) frames (not
+    rematerialized) and the one ``model_in`` sum of its memory's gradient
+    over every decoder layer, the forward's collectives with their
+    transposes, the ``model_in`` sums, the recompute of every repeat
+    (``remat="full"``: the repeat's whole forward again, zamba2's shared
+    block once an invocation), the loss's psum and the sums of the
     replicated params' gradients."""
     c = _Ctx(t, shape[0], shape[1], e, B)
     Bl = B // c.Dd if c.bs else B
+    if cfg.encoder_layers:
+        _encode(c, cfg, B, S_mem)
+        if _split(cfg.n_kv_heads * cfg.head_dim, c.Dm):
+            c.model_in(Bl * S_mem * cfg.d_model * e)
     _embed(c, cfg, Bl * S)
     for kind in cfg.prefix_pattern:
-        _block(c, cfg, kind, B, S)
+        _block(c, cfg, kind, B, S, S_mem)
     for _ in range(cfg.n_repeats):
         for kind in cfg.block_pattern:
-            _block(c, cfg, kind, B, S)
+            _block(c, cfg, kind, B, S, S_mem)
     if remat != "none" and cfg.n_repeats:
         again = _Ctx(_Tally(), shape[0], shape[1], e, B)
         for kind in cfg.block_pattern:
-            _block(again, cfg, kind, B, S)
+            _block(again, cfg, kind, B, S, S_mem)
         t.add_all(again.t, cfg.n_repeats)
     _head(c, cfg, B, Bl, S)
     losses = 1
@@ -544,11 +564,12 @@ def _float_leaves(cfg) -> int:
 
 def train_collectives(cfg, shape, B: int, S: int, remat: str = "full", *,
                       microbatches: int = 1, quantized: bool = False,
-                      itemsize: int = 2) -> dict:
+                      itemsize: int = 2, S_mem: int = 0) -> dict:
     """``{"calls", "bytes"}`` by kind of one ``launch.steps.
     make_train_step`` step on a rank of a (data, model) mesh of ``shape``
     over the global batch (B, S) of ``itemsize``-byte params and
-    activations: per microbatch (B / ``microbatches`` rows each) the
+    activations (an enc-dec arch's batch also carries (B, S_mem) frames):
+    per microbatch (B / ``microbatches`` rows each) the encoder's pass, the
     forward's collectives, the recompute's (``remat="full"``), the
     transposes' and the ``model_in`` sums, the losses' psums and the
     gradient sums of the params replicated over "data" (one psum per
@@ -560,7 +581,7 @@ def train_collectives(cfg, shape, B: int, S: int, remat: str = "full", *,
                                   f"'full' and 'none'")
     t = _Tally(train=True)
     for _ in range(microbatches):
-        _train_pass(t, cfg, shape, B // microbatches, S, remat, itemsize)
+        _train_pass(t, cfg, shape, B // microbatches, S, remat, itemsize, S_mem)
     world = shape[0] * shape[1]
     if world > 1:
         t.add("all-reduce", 4)  # the global norm's psum
@@ -572,17 +593,20 @@ def train_collectives(cfg, shape, B: int, S: int, remat: str = "full", *,
 def train_block_kernel_launches(cfg, microbatches: int = 1,
                                 remat: str = "full") -> int:
     """A rank's block-kernel launches in one train step: per sparse
-    projection of a repeat, the forward, the recompute (``remat="full"``)
-    and grad x on Wᵀ; of a prefix block or the MTP block (not
-    rematerialized), the forward and grad x."""
+    projection of a repeat's dense-FFN block (zamba2's shared block once
+    an invocation; the MoE and recurrent blocks have none), the forward,
+    the recompute (``remat="full"``) and grad x on Wᵀ; of a prefix block,
+    the MTP block or an encoder layer (not rematerialized), the forward
+    and grad x."""
     if cfg.ffn_density >= 1.0:
         return 0
-    dense = [k not in ("moe", "mla_moe") for k in cfg.block_pattern]
-    prefix = sum(1 for k in cfg.prefix_pattern if k not in ("moe", "mla_moe"))
-    if cfg.mtp_depth and _mtp_kind(cfg) not in ("moe", "mla_moe"):
-        prefix += 1
+    none = ("moe", "mla_moe") + RECURRENT
+    dense = sum(1 for k in cfg.block_pattern if k not in none)
+    once = sum(1 for k in cfg.prefix_pattern if k not in none) + cfg.encoder_layers
+    if cfg.mtp_depth and _mtp_kind(cfg) not in none:
+        once += 1
     per = 3 if remat != "none" else 2
-    return 3 * microbatches * (per * sum(dense) * cfg.n_repeats + 2 * prefix)
+    return 3 * microbatches * (per * dense * cfg.n_repeats + 2 * once)
 
 
 def block_kernel_launches(cfg, forwards: int) -> int:

@@ -14,7 +14,11 @@ through ``make_shardings`` + ``sanitize_shardings``, as the reference's
 ``TrainLoop``), builds the whole ``TokenStream`` batch, runs the sharded
 step (``launch.steps.make_train_step`` under ``set_mesh``) on its rows, and
 checkpoints the full leaves collectively; a restore takes its blocks, on
-this mesh or on a smaller one (``runtime.elastic.rescaled_mesh``).  ``main``
+this mesh or on a smaller one (``runtime.elastic.rescaled_mesh``).  Every
+arch trains there that trains on one device: the attention and MoE
+families, zamba2 and xlstm (the encoder-decoder's batches carry frames,
+which ``TokenStream`` does not make, on a mesh as on one device:
+``launch.steps.make_train_step`` trains it).  ``main``
 runs on ``launch.mesh.make_local_mesh(world=)``, the data-parallel mesh of
 the ranks, where ``torchrun`` started it as the ranks of a world
 (``torchrun --nproc-per-node 4 -m repro_torch.launch.train``), as the
@@ -75,10 +79,6 @@ class TrainLoop:
                  compress_pod_grads: bool = False, device=None, mesh=None):
         self.mesh = mesh
         if mesh is not None:
-            from repro_torch.models.blocks import check_mesh_train_kind
-
-            for kind in cfg.prefix_pattern + cfg.block_pattern:
-                check_mesh_train_kind(kind)
             self.device = mesh.device
         else:
             self.device = torch.device("cuda" if device is None else device)

@@ -396,7 +396,10 @@ def cross_attn_apply(p, x, memory, cfg):
     every call, decode steps included, as in the reference (no cross-KV
     cache).  f32 memory meets bf16 weights in f32; the output takes x's
     dtype.  On a mesh ``memory`` holds this rank's batch rows and every
-    feature; the rank attends with its heads, as :func:`gqa_apply` does."""
+    feature; the rank attends with its heads, as :func:`gqa_apply` does.
+    Under autograd the memory enters k and v through ``model_in``, cached
+    on it, so its gradient is summed over "model" once for every decoder
+    layer that reads it, after the layers' parts have added up."""
     B, S, d = x.shape
     q, k, v = _qkv(p, x, cfg, memory)
     out = _sdpa(q, k, v, None, scale=cfg.attn_scale)

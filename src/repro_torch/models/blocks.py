@@ -27,10 +27,11 @@ block kernel.  The MoE kinds' experts stay dense, as in the reference.
 process mesh (``core.sharding.set_mesh``) every kind runs its sharded
 program: the attention kinds (``cross_attn``'s cross-attention included),
 the recurrent kinds (``linear_attn``), the dense and block-sparse FFNs and
-the MoE FFNs.  Training on a mesh covers the attention and MoE kinds;
-``lm.loss_fn`` raises ``NotImplementedError`` there for an arch with a
-recurrent kind or ``cross_attn`` (:func:`check_mesh_train_kind`: their
-backward on a mesh is a later step of ROADMAP.md §1 item 7).
+the MoE FFNs; under autograd each is differentiable, so every kind is
+trained on a mesh too (``core/sharding.py`` states the gradients'
+convention).  A "model" extent that would split a head raises
+``NotImplementedError`` in the kind's own program: nothing is silently
+replicated.
 
 The attention kinds' caches are stepped in place by ``block_decode``; the
 recurrent kinds (``mamba``, ``mlstm``, ``slstm``) return a new state, which
@@ -49,8 +50,7 @@ from .common import (gelu, rmsnorm, rmsnorm_init, swiglu_apply, swiglu_init,
                      swiglu_spec)
 
 __all__ = ["block_init", "block_spec", "block_apply", "block_decode",
-           "init_cache", "check_kind", "check_mesh_train_kind",
-           "KINDS", "MESH_KINDS", "MESH_TRAIN_KINDS"]
+           "init_cache", "check_kind", "KINDS", "MESH_KINDS"]
 
 _GQA_KINDS = ("attn", "attn_local", "attn_global", "moe", "shared_attn")
 _CROSS = "cross_attn"
@@ -62,27 +62,15 @@ _RECURRENT = {
     "slstm": ("slstm", LA.slstm_init, LA.slstm_apply, LA.slstm_decode),
 }
 KINDS = _GQA_KINDS + _MLA_KINDS + tuple(_RECURRENT) + (_CROSS,)
-# the kinds with a sharded program on a process mesh: every kind
+# the kinds with a sharded program on a process mesh, served and trained
+# there: every kind
 MESH_KINDS = KINDS
-# the kinds whose sharded program is trained on a mesh
-MESH_TRAIN_KINDS = _GQA_KINDS + _MLA_KINDS
 
 
 def check_kind(kind: str) -> None:
     """Raise ``ValueError`` for a block kind the reference does not have."""
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
-
-
-def check_mesh_train_kind(kind: str) -> None:
-    """Raise ``NotImplementedError`` for a kind that is not trained on a
-    process mesh yet (the recurrent kinds, ``cross_attn``)."""
-    if kind not in MESH_TRAIN_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is served on a process mesh but not "
-            "trained there yet: training the recurrent kinds and the "
-            "encoder-decoder on a mesh is a later step of ROADMAP.md §1 "
-            "item 7")
 
 
 def _window(cfg, kind):

@@ -28,13 +28,22 @@ are the rank's heads (``common.col_apply``), the state is the rank's
 heads, the norm over the heads' features is one psum of a partial sum of
 squares over "model" (``common.rmsnorm(..., d=)``), and ``out_proj`` is
 row-parallel (a psum over "model").  The per-token loops (the GLA chunks,
-sLSTM's cell) stay local to the rank: no collective a token.  Mamba2's
-``in_proj`` is column-parallel over its ``2 d_inner`` columns ``[x | z]``,
-so a rank's block holds x's or z's columns, not its heads' of both: one
-all-to-all over "model" of the local product moves them
-(:func:`_mamba2_xz`).  A "model" extent that does not divide the heads
-raises ``NotImplementedError``: a head is never split, and the block is
-never silently replicated.
+sLSTM's cell) stay local to the rank: no collective a token, forward or
+backward.  Mamba2's ``in_proj`` is column-parallel over its ``2 d_inner``
+columns ``[x | z]``, so a rank's block holds x's or z's columns, not its
+heads' of both: one all-to-all over "model" of the local product moves
+them (:func:`_mamba2_xz`).  A "model" extent that does not divide the
+heads raises ``NotImplementedError``: a head is never split, and the block
+is never silently replicated.
+
+Under autograd the sharded program is differentiable, with
+``core/sharding.py``'s convention: the block's input enters the rank's
+heads through ``model_in`` (its gradient summed over "model"), Mamba2's
+all-to-all is the collectives' differentiable one (its transpose the
+reverse all-to-all), and the leaves replicated over "model" that a rank
+slices to its heads (Mamba2's ``a_log``, ``d_skip`` and norm scale, the
+xLSTM blocks' norm scale) take the slice's transpose, an all-gather: every
+rank holds the whole gradient of the leaf.
 """
 from __future__ import annotations
 

@@ -51,9 +51,8 @@ or the whole latent (MLA; ``attention``'s docstring says why).  ``encode``
 takes the global frames and returns the rank's batch rows of the memory;
 ``prefill`` / ``decode_step`` take that memory (and raise on any other
 row count).  ``loss_fn`` takes the global
-batch too and returns the global batch's mean loss on every rank (the
-attention and MoE families; an arch with a recurrent kind or
-``cross_attn`` raises ``NotImplementedError`` there); under
+batch too and returns the global batch's mean loss on every rank, for every
+arch (an enc-dec arch's memory is the rank's rows of ``encode``); under
 autograd the sharded program is differentiable (``core/sharding.py``'s
 convention: a rank's gradient of a param it holds is the whole gradient of
 its block, except for the params replicated over the batch axes, whose
@@ -82,7 +81,7 @@ from ..core import sharding as SH
 from ..core.sharding import P
 from . import attention as A
 from .blocks import (_mlp_apply, block_apply, block_decode, block_init, block_spec,
-                     check_kind, check_mesh_train_kind, init_cache)
+                     check_kind, init_cache)
 from .common import (batch_axes, batch_shard, col_apply, cross_entropy, embed_init,
                      embed_spec, map_params, model_full, model_in, normal,
                      rmsnorm, rmsnorm_init, softcap)
@@ -413,7 +412,10 @@ def encode(params, frames, cfg: ArchConfig):
     over bf16 params give an f32 encoder and f32 memory, bf16 frames a bf16
     one.  On a mesh the rank encodes its batch rows of the global
     ``frames``: the column-parallel ``in_proj`` (its output gathered over
-    "model"), then the blocks' sharded programs; it returns its rows."""
+    "model"), then the blocks' sharded programs; it returns its rows.
+    Under autograd the gather's transpose is the rank's slice and
+    ``in_proj``'s FSDP gather's a psum-scatter over the batch axes; the
+    frames take no gradient."""
     enc = params["encoder"]
     d = cfg.d_model
     h = model_full(col_apply(enc["in_proj"], batch_shard(frames), d), d)
@@ -429,14 +431,10 @@ def loss_fn(params, batch, cfg: ArchConfig):
     cross-entropy over the text positions (the modality prefix dropped), in
     f32; with ``cfg.mtp_depth`` plus 0.3 times the multi-token prediction
     loss.  Enc-dec archs encode ``frames`` first.  On a mesh the batch is
-    the global one (every rank's the same) and the loss its mean; an arch
-    with a kind that is not trained on a mesh raises
-    (``blocks.check_mesh_train_kind``)."""
+    the global one (every rank's the same) and the loss its mean."""
     if SH.get_abstract_mesh() is None:
         return _loss(params, batch, cfg)
     check_config(cfg)
-    for kind in cfg.prefix_pattern + cfg.block_pattern:
-        check_mesh_train_kind(kind)
     with SH.batch_scope(batch["tokens"].shape[0]):
         return _loss(params, batch, cfg)
 

@@ -161,30 +161,53 @@ def test_collectives_match_their_closed_forms(sides, run):
         assert got["bytes"] == want["bytes"], case_id
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b", "seamless-m4t-medium"])
-def test_server_on_a_mesh_raises_for_the_kinds_without_a_sharded_apply(arch):
-    """The recurrent kinds and the encoder-decoder are served on a mesh
-    (tests/test_torch_lm_mesh_recurrent.py) but not trained there yet:
-    ``lm.loss_fn`` on a mesh and ``TrainLoop(mesh=)`` raise, naming
-    ROADMAP.md §1 item 7, and are never silently replicated."""
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
+def test_training_on_a_mesh_that_splits_a_head_raises(arch):
+    """The recurrent kinds train on a mesh (tests/test_torch_lm_mesh_train_
+    recurrent.py), a rank running whole heads: where "model" does not
+    divide the 4 heads of the reduced arch, ``lm.loss_fn`` raises
+    ``NotImplementedError``; a head is never split or silently
+    replicated."""
+    from repro_torch import convert
     from repro_torch.core import sharding as SH
+    from repro_torch.core.mesh import dry_process_mesh
+    from repro_torch.models import lm
+    from repro_torch.sparse.layers import strip_derived
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch).reduced()
+    mesh = dry_process_mesh((1, 8), ("data", "model"))
+    full = strip_derived(lm.init_params(torch.Generator().manual_seed(0), cfg,
+                                        torch.float32))
+    params = convert.lm_params(tree_map(lambda t: t.numpy(), full), cfg, mesh)
+    toks = torch.zeros((2, 8), dtype=torch.int32)
+    with SH.set_mesh(mesh), pytest.raises(NotImplementedError,
+                                          match="4 heads .* 8 ranks of 'model'"):
+        lm.loss_fn(params, {"tokens": toks, "labels": toks}, cfg)
+
+
+def test_train_loop_on_a_mesh_fails_for_the_encoder_decoder_as_on_one_device():
+    """``TrainLoop`` makes no frames, on one device or on a mesh, as the
+    reference's: its first seamless step fails with the same KeyError in
+    both (the step builders train seamless, its batch carrying frames)."""
     from repro_torch.core.mesh import dry_process_mesh
     from repro_torch.launch.train import TrainLoop
     from repro_torch.models import lm
     from repro_torch.optim import AdamWConfig
+    from repro_torch.sparse.layers import strip_derived
 
-    cfg = get_config(arch).reduced()
-    mesh = dry_process_mesh((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-        TrainLoop(cfg, AdamWConfig(), seq_len=8, global_batch=2, mesh=mesh)
-    params = lm.init_params(torch.Generator().manual_seed(0), cfg, torch.float32)
-    toks = torch.zeros((2, 4), dtype=torch.int32)
-    batch = {"tokens": toks, "labels": toks}
-    if cfg.encoder_layers:
-        batch["frames"] = torch.zeros((2, 4, cfg.d_model))
-    with SH.set_mesh(mesh), pytest.raises(NotImplementedError,
-                                          match="ROADMAP.md §1 item 7"):
-        lm.loss_fn(params, batch, cfg)
+    cfg = get_config("seamless-m4t-medium").reduced()
+    full = strip_derived(lm.init_params(torch.Generator().manual_seed(0), cfg,
+                                        torch.float32))
+    errors = []
+    for kw in (dict(device="cpu"), dict(mesh=dry_process_mesh((2, 2),
+                                                              ("data", "model")))):
+        loop = TrainLoop(cfg, AdamWConfig(), seq_len=8, global_batch=2, **kw)
+        loop.init_state(params=full)
+        with pytest.raises(KeyError) as err:
+            loop.run(1, log_every=0)
+        errors.append(err.value.args)
+    assert errors == [("frames",), ("frames",)]
 
 
 def test_server_on_a_mesh_refuses_the_encoder_decoder_as_on_one_device():

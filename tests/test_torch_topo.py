@@ -6,8 +6,9 @@ Two tiers, the same seeded numpy inputs through both packages:
   assignments, ``device_order`` over ints, the detector, the cost model
   and ``fit_plan`` with an abstract topology — run through both packages,
   results and error messages compared exactly; and ``fit_plan`` under
-  ``pim_like((2, 2))`` / ``pim_like((4, 4))`` at chip_smoke.py's full-width
-  shapes, so the grids the card runs are held against the JAX package here.
+  ``pim_like((2, 2))`` / ``pim_like((4, 4))`` at chip_smoke.py's shapes
+  (phase 3's full width and phase 13's), so the grids the card runs are
+  held against the JAX package here.
 * Against the JAX package on 4 fake devices in a subprocess
   (tests/_torch_topo_runner.py, once per module): ``build_mesh``,
   ``plan(topology=)`` model picks and every forced assignment on
@@ -61,7 +62,9 @@ from _torch_topo_runner import (BLOCK, PARTS, SHAPES, TO_JAX, forced, matrix,
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU4 = ["cpu"] * PARTS
-FULL_WIDTH = (1 << 21, 1 << 20)  # chip_smoke.py's regular / block sides
+# chip_smoke.py's regular / block sides: phase 3's, and phase 13's
+# (``SMALL_ROWS``: its regular and scale-free matrices, and its block one)
+FULL_WIDTH = (1 << 21, 1 << 20, 1 << 18, 1 << 17)
 
 # one namespace per package, so each case runs unchanged on either
 J = types.SimpleNamespace(
