@@ -219,7 +219,7 @@ Phases (every check raises, so any failure exits non-zero):
    fall by at least 1.0 (tests/test_system.py's bound); step ms (median
    of the last 20), tokens/s, peak memory and a torch.profiler trace of 3
    steps.  (c) qwen1.5-0.5b dense and with ``ffn_density=0.5`` in (8, 128)
-   blocks, bf16, B=4, S=256, 10 steps each through ``TrainLoop``: finite
+   blocks, bf16, B=4, S=256, 6 steps each through ``TrainLoop``: finite
    losses, the last below the first; every sparse step launches the block
    kernel 3 x 24 x 3 = 216 times (forward, remat recompute, grad x), and
    the last step's count, with the counters set to 0 just before it, is
@@ -310,7 +310,7 @@ Phases (every check raises, so any failure exits non-zero):
    one generate launching the block kernel 36 + 36 x 16 = 612 times
    (``launches_by_path["bcoo_spmv"]["lm_enc_dec"]``), the model within
    1e-3 of its densified ``torch.matmul`` oracle.  (d) ``make_train_step``
-   on bf16 params, dense and sparse, 10 steps of B=4 x 256 with bf16
+   on bf16 params, dense and sparse, 6 steps of B=4 x 256 with bf16
    frames: the loss falls; a sparse step launches the block kernel 180
    times (the encoder's 36 projections twice, the rematerialized
    decoder's three times).  (e) A bf16 encode at B=1, S_enc=4,096 (every
@@ -464,6 +464,32 @@ Phases (every check raises, so any failure exits non-zero):
    same programs at grids (1,) and (1, 1), bit-equal; NCCL's version.  A
    rank that fails or hangs fails the script.  Its launches are
    ``launches_by_path[...]["process_mesh"]``.
+28. The engine over that world (``pe_*``), in phase 23's ranks and turn
+   after its schemes: every rank opens ``SpmvEngine(world=, impl="cuda")``,
+   rank 0 leads it and the others follow (``core/control.py``).  Rank 0
+   registers phase 23's three matrices 1D and 2D as the engine plans them
+   (every 2D plan fits (4, 1) there), and the regular and block matrices
+   again on phase 23's (2, 2) equally-sized grid through ``plan=``
+   (``psum_scatter`` and ``psum``: the ranks get x's halves and merge);
+   it partitions each once and sends each rank its part, answers one B=1
+   and one B=8 request of
+   each, times 5 of each width, runs a 20-step power session, refines the
+   regular 2D registration with the real ``Measurer`` over 3 candidates,
+   times its COO and block tiles alone, and replays 48 requests (Zipf 1.1,
+   widths 1 / 4 / 8) through an ``AsyncSpmvService`` with cuSPARSE
+   oracles, whose close closes the engine.  Every answer, the session
+   and the refined winner's answer must be bit-equal (by digest) to the
+   one-process 4-part engine (``devices=[card] * 4``) that this process
+   runs meanwhile on the same inputs, itself bit-equal to cuSPARSE; the
+   replay must end with 0 lost, 0 errors and every answer bit-exact; each
+   rank's launches must equal its requests (calls and session steps); a
+   (2, 2) registration must scatter and merge at both widths.
+   Rows: multiply p50 at B = 1 and 8 beside phase 23's exe(x) and the
+   one-process engine, the bytes a request moves on rank 0 by kind
+   (``"scatter"`` the x shards), collective seconds by kind, the register
+   split (partition, send, bytes) beside sending the whole matrix, and
+   rank 0's COO and block tiles (kernel, plain, cuSPARSE, bound).  Its
+   launches are ``launches_by_path[...]["world_engine"]``.
 24. The LMs on a process mesh (``phase_lm_mesh``): qwen1.5-0.5b on (1, 4)
    and deepseek-v3 (2 layers) on (2, 2) through ``Server(mesh=)``, 4 gloo
    ranks sharing the card, against the one-process port.
@@ -473,14 +499,14 @@ Phases (every check raises, so any failure exits non-zero):
    and at ``ffn_density=0.5``, B=4 x 256, against the one-process port on
    the card (loss within 1e-5 relative, each grad block within 1e-4 of
    its leaf's max |g|, each updated param block within 1e-5 of its
-   leaf's max |p| where |g| > 1e-3 of the tree's max |g|); (b) 10 bf16 steps at 24
+   leaf's max |p| where |g| > 1e-3 of the tree's max |g|); (b) 6 bf16 steps at 24
    layers through ``TrainLoop(mesh=)`` on both meshes, dense and sparse,
    on phase 15's batches: the first loss within 1e-2 and the last within
    5 % of phase 15's one-process losses, each rank's collectives a step
    equal to ``analysis.sharded.train_collectives`` and its block-kernel
-   launches to 216; (c) the (2, 2) dense run's checkpoint at step 5 read
+   launches to 216; (c) the (2, 2) dense run's checkpoint at step 3 read
    back onto every rank's blocks bit for bit, then restored on (1, 4) for
-   steps 6-10 within 1e-2 of the (2, 2) run; (d) the block kernel on rank
+   steps 4-6 within 1e-2 of the (2, 2) run; (d) the block kernel on rank
    0's run of w_gate and w_down, forward and grad x on the run's Wᵀ, T =
    1,024, bit-equal to the plain version on integer-valued bf16, timed
    beside it, its bound and ``torch.matmul``.  Its launches are
@@ -3501,7 +3527,9 @@ def phase_lm(torch, rng, device) -> dict:
 
 TRAIN_ARCH = "smollm-360m"  # launch/train.py's default arch
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 512  # (b), through train.main
-SPARSE_B, SPARSE_S, SPARSE_STEPS = 4, 256, 10  # (a) and (c): T = 1,024
+# (a) and (c): T = 1,024; 6 steps (10 until phase 28: the steps of phases
+# 15 (c), 18 (d) and 25 (b) paid for it)
+SPARSE_B, SPARSE_S, SPARSE_STEPS = 4, 256, 6
 GRAD_TOL = 1e-4  # f32 grads vs the densified oracle, relative to the max
 
 
@@ -3695,7 +3723,7 @@ def train_dense_main(torch, T_, instrument) -> dict:
 
 
 def train_sparse_loops(torch, T_, cfg, AdamWConfig, instrument, device) -> dict:
-    """(c) qwen1.5-0.5b dense and block-sparse, bf16, 10 steps each through
+    """(c) qwen1.5-0.5b dense and block-sparse, bf16, 6 steps each through
     TrainLoop.  The block kernel's count of one train step (the last, with
     the counters set to 0 just before it) is the training path's."""
     Timed = timed_loop(torch, T_.TrainLoop, instrument)
@@ -6207,7 +6235,8 @@ def pw_post_turn(go: str, word: str) -> None:
     os.replace(go + ".tmp", go)
 
 
-def pw_rank(world, seed: int, timed: int, sms=None, go=None) -> dict:
+def pw_rank(world, seed: int, timed: int, sms=None, go=None,
+            engine: bool = False) -> dict:
     """One rank of phase 23: every scheme through ``SparseMatrix.plan`` on
     a process mesh of the world, this rank's part on its device (the
     matrices built from ``seed``, or ``sms``).  The matrices and plans are
@@ -6216,11 +6245,12 @@ def pw_rank(world, seed: int, timed: int, sms=None, go=None) -> dict:
     there while they are counted and timed.  Returns the digests of its
     answers, its launches, its collectives' bytes and seconds by kind, its
     exe(x) latencies and, in a world of more than one, its tile's kernel,
-    plain and cuSPARSE ms."""
+    plain and cuSPARSE ms.  With ``engine``, phase 28 follows in the same
+    world (:func:`pe_rank`)."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core.mesh import AXES_2D, AXIS_1D, make_process_mesh
+    from repro_torch.core.mesh import AXES_2D, AXIS_1D, world_mesh
     from repro_torch.kernels import instrument
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6229,8 +6259,8 @@ def pw_rank(world, seed: int, timed: int, sms=None, go=None) -> dict:
     if P > 1:  # the ranks and the parent share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // P))
     R = int(np.sqrt(P))
-    meshes = {"1d": make_process_mesh(world, (P,), (AXIS_1D,)),
-              "2d": make_process_mesh(world, (R, P // R), AXES_2D)}
+    meshes = {"1d": world_mesh(world, (P,), (AXIS_1D,)),
+              "2d": world_mesh(world, (R, P // R), AXES_2D)}
     sms = pw_matrices(seed) if sms is None else sms
     plans = pw_plans(sms, meshes, "cuda")  # every rank partitions the whole
     out = {"rank": world.rank, "transport": meshes["1d"].collectives.transport,
@@ -6297,8 +6327,321 @@ def pw_rank(world, seed: int, timed: int, sms=None, go=None) -> dict:
     if world.backend == "nccl":
         out["nccl_version"] = ".".join(map(str, torch.cuda.nccl.version()))
     out["card_s"] = time.perf_counter() - t_card
+    if engine:
+        out["engine"] = pe_rank(torch, world, seed, sms)
     out["total_s"] = time.perf_counter() - t0
     return out
+
+
+# ------------------------------------------------------------------------
+# phase 28: the engine, its tuner, sessions and the service over phase 23's
+# world (rank 0 leads SpmvEngine(world=), the other ranks follow)
+# ------------------------------------------------------------------------
+
+# (name, matrix, partitioning, forced (fmt, merge) or None): each matrix
+# registered 1D and 2D as the engine fits it (every 2D fit is (4, 1) at
+# these shapes: C = 1, no merge), and two forced through plan= onto phase
+# 23's (2, 2) equally-sized grid, so the ranks merge their partial rows
+PE_REGS = tuple((f"{m}.{p}", m, p, None) for m in PW_MATRICES
+                for p in ("1d", "2d")) + (
+    ("regular.2x2", "regular", "2d", ("coo", "psum_scatter")),
+    ("block.2x2", "block", "2d", ("bcoo", "psum")))
+PE_MERGES = {"psum_scatter": "reduce-scatter", "psum": "all-reduce"}
+PE_TIMED = 5  # multiplies timed a registration and width, after its checked two
+PE_SESSION = ("scale-free.1d", 20)  # (registration, power steps)
+PE_REFINE = "regular.2d"  # refined with the real Measurer
+PE_CANDIDATES = 3
+PE_REPLAY = 48  # requests of the service's replay
+PE_MIX = {1: 0.6, 4: 0.25, 8: 0.15}
+PE_TILES = ("scale-free.1d", "block.2d")  # rank 0's COO and block tiles
+
+
+def pe_plan(forced):
+    """The adaptive.Plan of a forced registration: 2D equally-sized on
+    (2, 2) in ``forced`` = (fmt, merge); None lets the engine plan."""
+    from repro_torch.core.adaptive import Plan
+
+    if forced is None:
+        return None
+    return Plan("2d", "equally-sized", forced[0], forced[1], (2, 2),
+                "phase 23's (2, 2) grid")
+
+
+def pe_inputs(seed: int, k: int, cols: int):
+    """Registration k's x (cols,) and X (cols, PW_BATCH), integer-valued."""
+    rng = np.random.default_rng([seed, 28, k])
+    return (rng.integers(-2, 3, cols).astype(np.float32),
+            rng.integers(-2, 3, (cols, PW_BATCH)).astype(np.float32))
+
+
+def pe_x0(seed: int, n: int):
+    return np.random.default_rng([seed, 28, 99]).integers(1, 4, n).astype(np.float32)
+
+
+def pe_timed(eng, name: str, x, n: int) -> list:
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        eng.multiply(name, x)
+        lat.append(1e3 * (time.perf_counter() - t0))
+    return lat
+
+
+def pe_delta(coll, before: dict) -> dict:
+    """The bytes a request moved on this rank, by kind (``coll`` counts)."""
+    after = coll.snapshot()["bytes"]
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
+
+
+def pe_references(torch, sms: dict, device, seed: int, libs: dict) -> dict:
+    """The parent's one-process 4-part engine (``devices=[card] * 4``) on
+    phase 28's registrations and inputs: digests at B = 1 and 8, each
+    checked against cuSPARSE, multiply p50s, and the power session's."""
+    from repro_torch.engine import SpmvEngine
+
+    t0 = time.perf_counter()
+    eng = SpmvEngine(devices=[device] * PW_RANKS, impl="cuda",
+                     cache_capacity=len(PE_REGS))
+    refs = {}
+    for k, (name, mat, part, forced) in enumerate(PE_REGS):
+        eng.register(name, sms[mat], partitioning=part, plan=pe_plan(forced))
+        x, X = pe_inputs(seed, k, sms[mat].shape[1])
+        y, Y = eng.multiply(name, x), eng.multiply(name, X)
+        lib_y = (libs[mat] @ torch.from_numpy(x).to(device)).cpu().numpy()
+        lib_Y = (libs[mat] @ torch.from_numpy(X).to(device)).cpu().numpy()
+        check(np.array_equal(y, lib_y) and np.array_equal(Y, lib_Y),
+              f"world engine {name}: the one-process 4-part engine != cuSPARSE")
+        check(not eng.plan_for(name).mesh.is_process,
+              f"world engine {name}: devices= made a process mesh")
+        refs[name] = {"scheme_id": eng.registry.get(name).plan.tag,
+                      "grid": list(eng.registry.get(name).plan.grid),
+                      "y": pw_digest(y), "Y": pw_digest(Y),
+                      "ms_b1": statistics.median(pe_timed(eng, name, x, PE_TIMED)),
+                      "ms_b8": statistics.median(pe_timed(eng, name, X, PE_TIMED))}
+    name, steps = PE_SESSION
+    n = sms[name.split(".")[0]].shape[0]
+    r = eng.solve(name, pe_x0(seed, n), steps=steps, combine="power")
+    refs["session"] = {"x": pw_digest(r.x), "steps": r.steps}
+    eng.close()
+    refs["seconds"] = time.perf_counter() - t0
+    return refs
+
+
+def pe_tile(torch, exe, x, name: str) -> dict:
+    """Rank 0's tile of ``exe`` alone: its kernel, plain and cuSPARSE ms
+    and its bound (phase 23's measures)."""
+    xd = torch.zeros(exe.x_pad, device=exe.device)
+    xd[: len(x)] = torch.from_numpy(x).to(exe.device)
+    flat, xin, A, n = pw_tile(torch, exe, xd)
+    local = exe.program.local
+    got, want = local.raw(flat, xin), local.plain(flat, xin)
+    torch.cuda.synchronize()
+    bound, by = pw_rank_bound(exe.part, n, xin.shape[0], 1)
+    return {"registration": name, "kernel": local.scalar and "coo_spmv" or "bcoo_spmv",
+            "equals_plain": bool(torch.equal(got, want)),
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "kernel_ms": time_ms(torch, lambda: local.raw(flat, xin), 20),
+            "plain_ms": time_ms(torch, lambda: local.plain(flat, xin), 3, warmup=1),
+            "library_ms": time_ms(torch, lambda: A @ xin, 10),
+            "bound_ms": bound, "bound_by": by, "tile_nnz": n}
+
+
+def pe_lead(torch, eng, world, seed: int, sms: dict) -> dict:
+    """Rank 0 of phase 28: registrations answered at B = 1 and 8 and timed,
+    the power session and a refinement with the real Measurer, every one
+    led through the world's control channel."""
+    from repro_torch.tune import CandidateGenerator, Measurer, Tuner
+
+    out, inputs = {"regs": {}}, {}
+    for k, (name, mat, part, forced) in enumerate(PE_REGS):
+        t0 = time.perf_counter()
+        entry = eng.register(name, sms[mat], partitioning=part,
+                             plan=pe_plan(forced))
+        register_s = time.perf_counter() - t0
+        exe = eng.plan_for(name).executor
+        check(exe.mesh.is_process and exe.control is not None,
+              f"world engine {name}: not led over the world's process mesh")
+        x, X = pe_inputs(seed, k, sms[mat].shape[1])
+        inputs[name] = x
+        coll = exe.collectives
+        before = coll.snapshot()["bytes"]
+        y = eng.multiply(name, x)
+        b1 = pe_delta(coll, before)
+        before = coll.snapshot()["bytes"]
+        Y = eng.multiply(name, X)
+        b8 = pe_delta(coll, before)
+        out["regs"][name] = {
+            "scheme_id": entry.plan.tag, "grid": list(entry.plan.grid),
+            "y": pw_digest(y), "Y": pw_digest(Y), "register_s": register_s,
+            "build_split": exe.build_split, "nnz": sms[mat].nnz,
+            "bytes_b1": b1, "bytes_b8": b8,
+            "ms_b1": pe_timed(eng, name, x, PE_TIMED),
+            "ms_b8": pe_timed(eng, name, X, PE_TIMED),
+            "coll_s": eng.telemetry.collectives(name)}
+    name, steps = PE_SESSION
+    n = sms[name.split(".")[0]].shape[0]
+    t0 = time.perf_counter()
+    r = eng.solve(name, pe_x0(seed, n), steps=steps, combine="power")
+    out["session"] = {"x": pw_digest(r.x), "steps": r.steps,
+                      "seconds": time.perf_counter() - t0}
+    eng._tuner = Tuner(generator=CandidateGenerator(max_candidates=PE_CANDIDATES),
+                       measurer=Measurer(warmup=1, iters=3))
+    t0 = time.perf_counter()
+    ev = eng.refine(PE_REFINE, x=inputs[PE_REFINE])
+    out["refine"] = {k: ev[k] for k in ("incumbent", "winner", "winner_impl",
+                                        "incumbent_s", "winner_s", "swapped",
+                                        "candidates")}
+    out["refine"]["seconds"] = time.perf_counter() - t0
+    out["refine"]["y"] = pw_digest(eng.multiply(PE_REFINE, inputs[PE_REFINE]))
+    out["refine"]["process"] = eng.plan_for(PE_REFINE).mesh.is_process
+
+    return out
+
+
+def pe_replay(torch, eng, world, seed: int, sms: dict) -> dict:
+    """Rank 0 of phase 28: the service's replay of PE_REPLAY requests over
+    the 1D registrations, cuSPARSE the oracles; the service's close closes
+    the engine (and releases the ranks that follow)."""
+    from repro_torch.serve import AsyncSpmvService, WorkloadSpec, generate_trace, replay
+
+    names = tuple(n for n, _, p, _ in PE_REGS if p == "1d")
+    spec = WorkloadSpec(names=names, tenants=("t0", "t1"), n_requests=PE_REPLAY,
+                        seed=seed, zipf_alpha=1.1, rate_rps=200.0,
+                        batch_mix=PE_MIX, integer_values=True)
+    oracles = {n: library_csr(torch, sms[n.split(".")[0]], world.device)
+               for n in names}
+    svc = AsyncSpmvService(eng, workers=3)
+
+    async def run():
+        async with svc:
+            return await bounded(replay(svc, generate_trace(spec), oracles=oracles,
+                                        integer_values=True))
+
+    rep = asyncio.run(run())
+    return {"requests": rep.requests, "completed": rep.completed,
+            "lost": rep.lost, "errors": rep.errors, "rejected": rep.rejected,
+            "verified": rep.verified, "bitexact": rep.bitexact,
+            "latency": rep.latency, "wall_s": rep.wall_s,
+            "throughput_rps": rep.throughput_rps,
+            "engine_closed": world.control.closed}
+
+
+def pe_rank(torch, world, seed: int, sms: dict) -> dict:
+    """One rank of phase 28, in phase 23's world after its schemes: every
+    rank opens ``SpmvEngine(world=, impl="cuda")``; rank 0 leads
+    (:func:`pe_lead`), the others follow until it closes the engine.
+    Returns the rank's launches and the requests it ran (calls, and the
+    session's steps), and on rank 0 what it led and its tile times."""
+    import torch.distributed as dist
+
+    from repro_torch.engine import SpmvEngine
+    from repro_torch.kernels import instrument
+
+    dist.barrier()
+    t0 = time.perf_counter()
+    instrument.reset()
+    eng = SpmvEngine(world=world, impl="cuda", cache_capacity=len(PE_REGS) + 2)
+    ctl = world.control
+    out = {"rank": world.rank, "open_s": time.perf_counter() - t0}
+    if world.rank != 0:
+        out["commands"] = eng.follow()
+        out["requests"] = ctl.served["call"] + ctl.session_steps
+    else:
+        try:
+            out.update(pe_lead(torch, eng, world, seed, sms))
+            # rank 0's tiles timed alone (the others idle in follow()),
+            # their launches kept out of the path's count
+            counted = {k: instrument.launches(k) for k in ("coo", "bcoo")}
+            out["tiles"] = [pe_tile(torch, eng.plan_for(n).executor,
+                                    pe_inputs(seed, [r[0] for r in PE_REGS].index(n),
+                                              sms[n.split(".")[0]].shape[1])[0], n)
+                            for n in PE_TILES]
+            instrument.reset()
+            out["replay"] = pe_replay(torch, eng, world, seed, sms)
+            out["requests"] = ctl.sent["call"] + ctl.session_steps
+            out["launches"] = {k: counted[k] + instrument.launches(k)
+                               for k in counted}
+            out["sent_bytes"] = dict(ctl.sent_bytes)
+        finally:
+            eng.close()
+    out.setdefault("launches", {k: instrument.launches(k) for k in ("coo", "bcoo")})
+    out["seconds"] = time.perf_counter() - t0
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def pe_checks(torch, ranks: list, refs: dict, pw_rows: dict, card: str) -> dict:
+    """Phase 28's checks and rows, in the parent, from the ranks' results
+    and its one-process engine's references."""
+    lead = ranks[0]["engine"]
+    launches = {"coo": 0, "bcoo": 0}
+    for r in ranks:
+        e = r["engine"]
+        got = e["launches"]["coo"] + e["launches"]["bcoo"]
+        check(got == e["requests"],
+              f"world engine: rank {e['rank']} launched {got} kernels for "
+              f"{e['requests']} requests")
+        for k in launches:
+            launches[k] += e["launches"][k]
+    for name, _, _, forced in PE_REGS:
+        got, ref = lead["regs"][name], refs[name]
+        check(got["scheme_id"] == ref["scheme_id"] and got["grid"] == ref["grid"],
+              f"world engine {name}: planned {got['scheme_id']} on {got['grid']}, "
+              f"the one-process engine {ref['scheme_id']} on {ref['grid']}")
+        if forced is not None:  # the ranks scatter x's halves and merge
+            merge = PE_MERGES[forced[1]]
+            check(got["grid"] == [2, 2] and all(
+                b.get("scatter", 0) > 0 and b.get(merge, 0) > 0
+                for b in (got["bytes_b1"], got["bytes_b8"])),
+                f"world engine {name}: on {got['grid']}, no scatter or "
+                f"{merge} ({got['bytes_b1']}, {got['bytes_b8']})")
+        check(got["y"] == ref["y"] and got["Y"] == ref["Y"],
+              f"world engine {name}: y != the one-process engine and cuSPARSE")
+        split = got["build_split"]
+        # the same matrix's scheme on the same grid (phase 23's 2D is (2, 2))
+        same = [row for row in pw_rows if row["scheme_id"] == got["scheme_id"]
+                and row["nnz"] == got["nnz"] and (
+                    got["scheme_id"].startswith("1d") or got["grid"] == [2, 2])]
+        emit({"phase": "world_engine", "registration": name,
+              "scheme_id": got["scheme_id"], "grid": got["grid"], "nnz": got["nnz"],
+              "register_s": got["register_s"], "build_split": split,
+              # design B (send the matrix, every rank partitions): its bytes,
+              # and its host time at this run's partition time and send rate
+              "send_matrix_bytes": (PW_RANKS - 1) * got["nnz"] * 12,
+              "send_matrix_host_s_est": split["partition_s"] + (
+                  (PW_RANKS - 1) * got["nnz"] * 12 * split["send_s"]
+                  / max(split["sent_bytes"], 1)),
+              "multiply_ms_p50_b1": statistics.median(got["ms_b1"]),
+              "multiply_ms_p50_b8": statistics.median(got["ms_b8"]),
+              "one_process_ms_p50_b1": ref["ms_b1"],
+              "one_process_ms_p50_b8": ref["ms_b8"],
+              "exe_ms_p50_phase23": (same[0]["exe_ms_p50"] if same else None),
+              "bytes_b1": got["bytes_b1"], "bytes_b8": got["bytes_b8"],
+              "collective_s": got["coll_s"], "card": card})
+    check({k: lead["session"][k] for k in ("x", "steps")} == refs["session"],
+          f"world engine: the {PE_SESSION[1]}-step power session != the "
+          f"one-process engine's ({lead['session']} vs {refs['session']})")
+    ref_y = refs[PE_REFINE]["y"]
+    check(lead["refine"]["y"] == ref_y and lead["refine"]["process"],
+          f"world engine: the refined {PE_REFINE} ({lead['refine']['winner']}) "
+          "!= the one-process engine")
+    rep = lead["replay"]
+    check(rep["lost"] == 0 and rep["errors"] == 0
+          and rep["bitexact"] == rep["completed"] == rep["requests"]
+          and rep["engine_closed"], f"world engine replay: {rep}")
+    for t in lead["tiles"]:
+        check(t["equals_plain"], f"world engine {t['registration']}: rank 0's "
+              "tile kernel != its plain version")
+    emit({"phase": "world_engine_done", "session": lead["session"],
+          "refine": lead["refine"], "replay": rep, "tiles": lead["tiles"],
+          "launches": launches, "sent_bytes": lead["sent_bytes"],
+          "rank_seconds": [r["engine"]["seconds"] for r in ranks],
+          "rank_open_s": [r["engine"]["open_s"] for r in ranks],
+          "reference_s": refs["seconds"], "card": card})
+    return {"launches": launches, "tiles": lead["tiles"],
+            "seconds": max(r["engine"]["seconds"] for r in ranks)}
 
 
 def phase_process_mesh(torch, seed: int, device) -> dict:
@@ -6325,7 +6668,7 @@ def phase_process_mesh(torch, seed: int, device) -> dict:
     try:
         card = f"cuda:{device.index or 0}" if device.type == "cuda" else "cpu"
         gloo = pool.submit(spawn, pw_rank, PW_RANKS, "gloo", card,
-                           (seed, PW_TIMED, None, go), 600)
+                           (seed, PW_TIMED, None, go, True), 600)
         sms, refs = pw_matrices(seed), {}
         meshes = {"1d": make_mesh((PW_RANKS,), (AXIS_1D,), [device] * PW_RANKS),
                   "2d": make_mesh((2, 2), AXES_2D, [device] * PW_RANKS)}
@@ -6342,6 +6685,7 @@ def phase_process_mesh(torch, seed: int, device) -> dict:
                           "Y": pw_digest(Y), "nnz": sms[mat].nnz,
                           "shape": list(sms[mat].shape)}
             del exe
+        pe_refs = pe_references(torch, sms, device, seed, libs)  # phase 28's
         del libs
         free_card(torch)
         ref_s = time.perf_counter() - t_start
@@ -6419,8 +6763,10 @@ def phase_process_mesh(torch, seed: int, device) -> dict:
                           "cuSPARSE, B=1 and B=8; NCCL at world size 1 too"}
         emit(rec)
         rows.append(rec)
+    engine = pe_checks(torch, ranks, pe_refs, rows, card)
     seconds = time.perf_counter() - t_start
     emit({"phase": "process_mesh_done", "seconds": seconds,
+          "world_engine_s": engine["seconds"],
           "reference_s": ref_s, "nccl_world_1_s": nccl_s,
           "gloo_turn_s": ranks_s,
           "rank_setup_s": [r["setup_s"] for r in ranks],
@@ -6429,7 +6775,8 @@ def phase_process_mesh(torch, seed: int, device) -> dict:
           "rank_total_s": [r["total_s"] for r in ranks],
           "nccl_version": solo.get("nccl_version"), "launches": launches,
           "card": card})
-    return {"seconds": seconds, "launches": launches, "rows": rows}
+    return {"seconds": seconds, "launches": launches, "rows": rows,
+            "engine": engine}
 
 
 # ------------------------------------------------------------------------
@@ -6439,7 +6786,8 @@ def phase_process_mesh(torch, seed: int, device) -> dict:
 PM_RANKS = 4
 PM_QWEN_MESH, PM_DS_MESH = (1, 4), (2, 2)
 PM_DS_ARCH = "deepseek-v3-671b"
-PM_GEN = {"qwen": 32, "deepseek": 8}  # tokens a generate
+# tokens a generate (qwen's 32 until phase 28: cut to pay for it)
+PM_GEN = {"qwen": 16, "deepseek": 8}
 PM_F32_LAYERS = 2  # the f32 cut of qwen held against the one-process port
 PM_LOGIT_TOL = 1e-5  # of max |logit|: f32, 2 layers, sums in another order
 PM_MARGIN = 1e-3  # f32 greedy tokens compared where the top-2 margin exceeds it
@@ -7956,7 +8304,7 @@ PT_PARAM_TOL = 1e-5  # of a leaf's max |p|, where |g| > PT_GRAD_FLOOR · the tre
 PT_GRAD_FLOOR = 1e-3  # AdamW's first step moves a param by about ±lr·sign(g)
 PT_FIRST_TOL, PT_LAST_TOL = 1e-2, 0.05  # bf16, 24 layers: relative to one process
 PT_RESUME_TOL = 1e-2  # (1, 4) resumed from (2, 2)'s checkpoint, relative
-PT_CKPT_AT = 5
+PT_CKPT_AT = 3  # 5 until phase 25 was cut to 6 steps
 
 
 def pt_configs() -> dict:
@@ -8411,6 +8759,7 @@ PQ_BOUNDS = {"loss": PT_LOSS_TOL, "grads": PT_GRAD_TOL, "params": PT_PARAM_TOL}
 PQ_ED_LAYERS = 4  # (b): seamless cut to 4 + 4 layers, phase 18's batches
 PQ_ED_STEPS = 3
 PQ_RESUME_MESH = (2, 2)  # (b): zamba2's dense run resumes here from (1, 4)'s checkpoint
+PQ_CKPT_AT = 5  # (b): the checkpoint's step, resumed for steps 6 to TF_STEPS
 
 
 def pq_configs() -> dict:
@@ -8786,7 +9135,7 @@ def pq_paths(torch, world, seed: int, ref, root: str) -> dict:
     ckpt = os.path.join(root, "phase27_ckpt")
     z = PQ_MESH["zamba2"]
     # phase 19's bf16 runs: its seeded init, batches and optimizer
-    runs = (("zamba2_dense", z, PT_CKPT_AT, ckpt, False),
+    runs = (("zamba2_dense", z, PQ_CKPT_AT, ckpt, False),
             ("zamba2_dense", PQ_RESUME_MESH, TF_STEPS, ckpt, True),
             ("zamba2_sparse", z, TF_SPARSE_STEPS, None, False),
             ("xlstm", PQ_MESH["xlstm"], TF_STEPS, None, False))
@@ -8794,7 +9143,7 @@ def pq_paths(torch, world, seed: int, ref, root: str) -> dict:
     out["loops"] = [path(f"loop {key} {shape}{' resumed' if resume else ''}", pt_loop,
                          key, cfgs[key], tf_opt(cfgs[key], TF_SPARSE_STEPS if key ==
                                                 "zamba2_sparse" else TF_STEPS),
-                         shape, tf_shape(cfgs[key]), n, ckpt=c, ckpt_at=PT_CKPT_AT,
+                         shape, tf_shape(cfgs[key]), n, ckpt=c, ckpt_at=PQ_CKPT_AT,
                          resume=resume)
                     for key, shape, n, c, resume in runs]
     if world.rank == 0:
@@ -8893,7 +9242,7 @@ def pq_checks(torch, ranks, info: dict, fam_ref: dict, ref: dict, card: str) -> 
             need(row["peak_allocated_bytes"] >= row["param_bytes"],
                  f"{who}: peak below its params")
             if "ckpt_equal" in row:
-                need(row["ckpt_equal"], f"{who}: the checkpoint at step {PT_CKPT_AT} "
+                need(row["ckpt_equal"], f"{who}: the checkpoint at step {PQ_CKPT_AT} "
                      "!= the ranks' state")
             launches += row["launches"][-1]
         rows.append({"phase": "train_recurrent_mesh", "key": key, "arch": cfg.name,
@@ -9088,6 +9437,8 @@ def run(args, torch, counts_future) -> int:
     by_path["bcoo_spmv"]["examples"] = ex_run["launches"]["bcoo"]
     by_path["coo_spmv"]["process_mesh"] = pw_run["launches"]["coo"]
     by_path["bcoo_spmv"]["process_mesh"] = pw_run["launches"]["bcoo"]
+    by_path["coo_spmv"]["world_engine"] = pw_run["engine"]["launches"]["coo"]
+    by_path["bcoo_spmv"]["world_engine"] = pw_run["engine"]["launches"]["bcoo"]
     by_path["bcoo_spmv"]["lm_mesh"] = pm_run["launches"]
     by_path["bcoo_spmv"]["lm_mesh_train"] = pm_run["train_launches"]
     by_path["bcoo_spmv"]["lm_mesh_recurrent"] = pm_run["rec_launches"]
@@ -9107,6 +9458,8 @@ def run(args, torch, counts_future) -> int:
             "launches_by_path": by_path[name],
             "max_abs_err": max([errs[name]] + ([dr_run["max_abs_err"]]
                                                if name == "coo_spmv" else [])
+                               + [t["max_abs_err"] for t in pw_run["engine"]["tiles"]
+                                  if t["kernel"] == name]
                                + ([lm_run["max_abs_err"],
                                                 train_run["max_abs_err"],
                                                 moe_run["max_abs_err"],
@@ -9130,6 +9483,7 @@ def run(args, torch, counts_future) -> int:
           "dense_archs_phase_s": da_run["seconds"],
           "examples_phase_s": ex_run["seconds"],
           "process_mesh_phase_s": pw_run["seconds"],
+          "world_engine_phase_s": pw_run["engine"]["seconds"],
           "lm_mesh_phase_s": pm_run["seconds"],
           "lm_mesh_train_phase_s": pm_run["train_seconds"],
           "lm_mesh_recurrent_phase_s": pm_run["rec_seconds"],

@@ -25,6 +25,17 @@ dtype before the merge, as the reference does.
 ``exe.iterate(x0, steps=k | tol=...)`` runs a solver session with x on
 the device between steps (:mod:`repro_torch.api.iterate`).
 
+A :class:`MeshExecutor` on a process mesh whose rank 0 leads
+(``core/control.py``; ``SpmvEngine(world=)`` makes one) is called on rank 0
+alone.  Each call validates x there, sends the other ranks a command and
+scatters each rank only its ``x_spec`` shard (the paper's Fig. 4 load, as
+JAX's sharded ``device_put``; counted as ``"scatter"`` in
+``exe.collectives``); every rank then runs its part and the merge, the
+assembled y comes back on rank 0, and the other ranks drop theirs.  The
+command holds the world's mesh lock from :meth:`~MeshExecutor.place` to
+the end of :meth:`~MeshExecutor.assemble`: a thread that calls the three
+phases one by one holds them in that order (``exe(x)`` does).
+
 Every request runs on the calling thread's own CUDA stream
 (:mod:`repro_torch.core.streams`), and each phase that blocks waits on
 that stream alone, as the reference blocks on the request's own arrays:
@@ -34,6 +45,7 @@ its own work only.
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -43,10 +55,11 @@ from ..core import formats as F
 from ..core.mesh import AXES_2D, AXIS_1D
 from ..core.streams import on_thread_stream, wait
 from ..kernels import ops
-from .iterate import IterateResult, run_iterate
+from .iterate import IterateResult, check_iterate, run_iterate
 
 __all__ = ["Executor", "SingleDeviceExecutor", "MeshExecutor", "to_host",
-           "IterateResult", "ExecutorReleased", "AXIS_1D", "AXES_2D"]
+           "IterateResult", "ExecutorReleased", "AXIS_1D", "AXES_2D",
+           "follower_handlers"]
 
 
 class ExecutorReleased(RuntimeError):
@@ -283,6 +296,12 @@ class MeshExecutor(Executor):
         self.merge = merge
         self.arrays = None  # placed matrix arrays (set by place_matrix)
         self.build_seconds = 0.0
+        # rank 0 of a led world (ExecutionPlan.compile sets both): the
+        # control channel, and the id the other ranks hold this plan under
+        self.control = None
+        self.wid = None
+        self.build_split = None  # rank 0 of a led world: partition / send
+        self._calls = threading.local()  # the command a thread has in flight
 
     @property
     def trace_count(self) -> int:
@@ -304,16 +323,59 @@ class MeshExecutor(Executor):
         Collectives` of this executor (None on a one-device mesh)."""
         return getattr(self.program, "coll", None)
 
-    def _shard(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of the padded x along ``x_spec``'s axis (the
-        whole x on a one-device mesh)."""
+    def _shard(self, x: torch.Tensor, rank=None) -> torch.Tensor:
+        """``rank``'s (default: this rank's) shard of the padded x along
+        ``x_spec``'s axis (the whole x on a one-device mesh)."""
         if not self.mesh.is_process:
             return x
         axis = self.mesh.axis_names.index(self.x_spec[0])
         n = self.mesh.devices.shape[axis]
         w = x.shape[0] // n
-        i = self.mesh.coords[axis]
+        coords = (self.mesh.coords if rank is None else
+                  np.unravel_index(rank, self.mesh.devices.shape))
+        i = int(coords[axis])
         return x[i * w: (i + 1) * w]
+
+    # -- rank 0 of a led world -------------------------------------------------
+
+    def _lead_place(self, x: torch.Tensor) -> torch.Tensor:
+        """Send the call to the other ranks and scatter each its shard of
+        the padded x; the command stays open (mesh lock held) until
+        :meth:`assemble` or a failure ends it."""
+        ctl = self.control
+        pieces = [self._shard(x, r) for r in range(self.mesh.devices.size)]
+        with ctl.lock:  # no release can slip in between the check and the send
+            if self.arrays is None:
+                raise ExecutorReleased("executor released; recompile")
+            cmd = ctl.command("call", {"wid": self.wid,
+                                       "shape": tuple(pieces[0].shape),
+                                       "dtype": x.dtype})
+            cmd.__enter__()
+        self._calls.cmd = cmd
+        try:
+            with on_thread_stream(self.device):
+                xs = self.collectives.scatter(pieces, pieces[0].shape, x.dtype)
+                wait(self.device)
+        except BaseException as e:
+            self._lead_end(e)
+            raise
+        return xs
+
+    def _lead_end(self, error=None) -> None:
+        """End this thread's open command: wait for the other ranks'
+        answers (raises RankFailed naming a rank that failed)."""
+        cmd = self._calls.__dict__.pop("cmd", None)
+        if cmd is not None:
+            cmd.__exit__(None if error is None else type(error), error, None)
+
+    def follow_call(self, shape, dtype) -> None:
+        """A rank that follows: the leader's call on this rank's part (the
+        scatter of its shard, the program, the gather of the parts); the
+        assembled y is dropped."""
+        with on_thread_stream(self.device):
+            xs = self.collectives.scatter(None, shape, dtype)
+            D.assemble_rows(self.program(self.arrays, xs))
+            wait(self.device)
 
     # -- the paper's three phases (Fig. 4), individually timeable ---------
 
@@ -333,8 +395,10 @@ class MeshExecutor(Executor):
         x = self._check_x(x, self.part.shape[1], self.part.dtype)
         if self.x_pad != x.shape[0]:
             pad = torch.zeros((self.x_pad - x.shape[0],) + tuple(x.shape[1:]),
-                              dtype=x.dtype)
+                              dtype=x.dtype, device=x.device)
             x = torch.cat([x, pad])
+        if self.control is not None:
+            return self._lead_place(x)
         with on_thread_stream(self.device):
             xs = self._shard(x).to(self.device).contiguous()
             wait(self.device)
@@ -353,11 +417,16 @@ class MeshExecutor(Executor):
           ExecutorReleased: if the executor was released.
         """
         arrays = self.arrays  # held until the wait: a release may race
-        if arrays is None:
-            raise ExecutorReleased("executor released or never placed; recompile")
-        with on_thread_stream(self.device):
-            out = self.program(arrays, xs)
-            wait(self.device)
+        try:
+            if arrays is None:
+                raise ExecutorReleased("executor released or never placed; "
+                                       "recompile")
+            with on_thread_stream(self.device):
+                out = self.program(arrays, xs)
+                wait(self.device)
+        except BaseException as e:
+            self._lead_end(e)
+            raise
         return out
 
     def assemble(self, raw: D.SpmvOutput) -> np.ndarray:
@@ -366,8 +435,14 @@ class MeshExecutor(Executor):
         Returns:
           The global y as a host ndarray (rows[, B]).
         """
-        with on_thread_stream(self.device):
-            return to_host(D.assemble_rows(raw))
+        try:
+            with on_thread_stream(self.device):
+                y = to_host(D.assemble_rows(raw))
+        except BaseException as e:
+            self._lead_end(e)
+            raise
+        self._lead_end()
+        return y
 
     # -- public surface ----------------------------------------------------
 
@@ -399,9 +474,44 @@ class MeshExecutor(Executor):
         return self(X)
 
     def warmup(self) -> None:
-        """Run the vector-shaped program once, off the request path."""
-        self.run_raw(self.place(torch.zeros(self.part.shape[1],
-                                            dtype=self.part.dtype)))
+        """Run the vector-shaped program once, off the request path (on a
+        led world the whole call: the other ranks run it whole)."""
+        zeros = torch.zeros(self.part.shape[1], dtype=self.part.dtype)
+        if self.control is not None:
+            self(zeros)
+        else:
+            self.run_raw(self.place(zeros))
+
+    def iterate(self, x0, steps=None, tol=None, combine="plain", *,
+                b=None, diag=None, omega: float = 1.0,
+                max_steps: int = 1000, check_every: int = 8) -> IterateResult:
+        """:meth:`Executor.iterate`; on rank 0 of a led world the session
+        is validated here, then sent to the other ranks whole (x0 and its
+        parameters with it), and rank 0 decides each tol-mode test for
+        every rank."""
+        ctl = self.control
+        if ctl is None:
+            return super().iterate(x0, steps, tol, combine, b=b, diag=diag,
+                                   omega=omega, max_steps=max_steps,
+                                   check_every=check_every)
+        kw = dict(steps=steps, tol=tol, combine=combine, b=b, diag=diag,
+                  omega=omega, max_steps=max_steps, check_every=check_every)
+        x0, _, params = check_iterate(self, x0, **kw)  # raises here alone
+        args = dict(kw, wid=self.wid, x0=x0.cpu(),
+                    b=params.get("b"), diag=params.get("diag"))
+
+        def tell(go: bool) -> bool:
+            ctl.tell(go)
+            return go
+
+        with ctl.lock:
+            if self.arrays is None:
+                raise ExecutorReleased("executor released; recompile")
+            with ctl.command("iterate", args), on_thread_stream(self.device):
+                result = run_iterate(self, self._iterate_apply(), x0, **kw,
+                                     decide=tell)
+            ctl.session_steps += result.steps
+        return result
 
     # -- solver-loop backend ----------------------------------------------
 
@@ -430,5 +540,37 @@ class MeshExecutor(Executor):
         return apply
 
     def release(self) -> None:
-        """Drop the placed matrix arrays (idempotent); recompile to reuse."""
-        self.arrays = None
+        """Drop the placed matrix arrays (idempotent); recompile to reuse.
+        On rank 0 of a led world the other ranks drop theirs with the next
+        command."""
+        ctl = self.control
+        if ctl is None:
+            self.arrays = None
+            return
+        with ctl.lock:  # never between a call's place and its assemble
+            if self.arrays is not None:
+                self.arrays = None
+                ctl.release(self.wid)
+
+
+def follower_handlers(world) -> dict:
+    """The commands a rank that follows runs (``Control.follow``): the
+    compile of a plan from its part (``api/plan.py``), a call and a
+    session of an executor it holds."""
+    from .plan import follow_compile
+
+    ctl = world.control
+
+    def call(_, args, part):
+        ctl.executors[args["wid"]].follow_call(args["shape"], args["dtype"])
+
+    def session(_, args, part):
+        exe = ctl.executors[args.pop("wid")]
+        x0 = args.pop("x0")
+        with on_thread_stream(exe.device):
+            result = run_iterate(exe, exe._iterate_apply(), x0, **args,
+                                 decide=lambda go: ctl.hear())
+        ctl.session_steps += result.steps
+
+    return {"compile": lambda _, args, part: follow_compile(world, args, part),
+            "call": call, "iterate": session}

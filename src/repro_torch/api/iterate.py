@@ -51,7 +51,7 @@ from ..core import formats as F
 from ..core.streams import wait
 
 __all__ = ["IterateResult", "Combine", "make_combine", "run_iterate",
-           "COMBINES"]
+           "check_iterate", "COMBINES"]
 
 _TINY = 1e-30  # normalization floor: keeps power iteration NaN-free on y=0
 
@@ -267,6 +267,33 @@ def _build_params(comb: Combine, n: int, dtype: torch.dtype, b, diag,
     return params
 
 
+def check_iterate(executor, x0, *, steps=None, tol=None, combine="plain",
+                  b=None, diag=None, omega: float = 1.0, max_steps: int = 1000,
+                  check_every: int = 8) -> tuple:
+    """Validate a session's arguments on the host, as :func:`run_iterate`
+    does before it places anything: ``(x0, combine, params)`` with x0 cast
+    to the matrix dtype and the params on the host.  A led executor calls
+    it before it sends the session to the other ranks.
+
+    Raises:
+      ValueError / TypeError: as :func:`run_iterate`.
+    """
+    if (steps is None) == (tol is None):
+        raise ValueError("iterate needs exactly one of steps= or tol=")
+    if steps is not None and steps < 1:
+        raise ValueError(f"steps must be >= 1; got {steps}")
+    if tol is not None and (tol <= 0 or max_steps < 1 or check_every < 1):
+        raise ValueError("tol mode needs tol > 0, max_steps >= 1 and "
+                         "check_every >= 1")
+    n, dtype = executor._iterate_shape()
+    x0 = executor._check_x(x0, n, dtype)
+    if x0.ndim != 1:
+        raise ValueError(f"iterate takes a single (n,) start vector; "
+                         f"got shape {tuple(x0.shape)}")
+    comb = make_combine(combine)
+    return x0, comb, _build_params(comb, n, dtype, b, diag, omega, "cpu")
+
+
 def run_iterate(
     executor,
     apply: Callable,
@@ -280,6 +307,7 @@ def run_iterate(
     omega: float = 1.0,
     max_steps: int = 1000,
     check_every: int = 8,
+    decide: Optional[Callable[[bool], bool]] = None,
 ) -> IterateResult:
     """Drive ``apply`` (device y = A @ v) as a solver loop on the device.
 
@@ -305,6 +333,11 @@ def run_iterate(
       omega: richardson damping factor.
       max_steps: tol-mode step bound — the never-hang guard.
       check_every: tol-mode steps between residual checks.
+      decide: on a world of ranks (``api/executor.py``), who decides each
+        tol-mode test: ``decide(go)`` returns the test's outcome, rank 0's
+        own result sent to the other ranks, so every rank runs the same
+        number of steps (one that stopped a chunk early would leave the
+        others waiting in a collective).
 
     Returns:
       :class:`IterateResult` (x on host, steps executed, convergence,
@@ -314,23 +347,13 @@ def run_iterate(
       ValueError: for both/neither of steps and tol, a non-square executor
         (callers check), bad combine/params, or a batched x0.
     """
-    if (steps is None) == (tol is None):
-        raise ValueError("iterate needs exactly one of steps= or tol=")
-    if steps is not None and steps < 1:
-        raise ValueError(f"steps must be >= 1; got {steps}")
-    if tol is not None and (tol <= 0 or max_steps < 1 or check_every < 1):
-        raise ValueError("tol mode needs tol > 0, max_steps >= 1 and "
-                         "check_every >= 1")
-    n, dtype = executor._iterate_shape()
-    x0 = executor._check_x(x0, n, dtype)
-    if x0.ndim != 1:
-        raise ValueError(f"iterate takes a single (n,) start vector; "
-                         f"got shape {tuple(x0.shape)}")
-    comb = make_combine(combine)
+    x0, comb, host_params = check_iterate(
+        executor, x0, steps=steps, tol=tol, combine=combine, b=b, diag=diag,
+        omega=omega, max_steps=max_steps, check_every=check_every)
     device = executor.device
 
     t0 = time.perf_counter()
-    params = _build_params(comb, n, dtype, b, diag, omega, device)
+    params = {k: v.to(device) for k, v in host_params.items()}
     x0_dev = x0.to(device).contiguous()
     wait(device)
     t1 = time.perf_counter()
@@ -348,7 +371,7 @@ def run_iterate(
         cache[key] = loop
 
     carry, k = loop(apply, x0_dev, params,
-                    None if tol is None else float(tol))
+                    None if tol is None else float(tol), decide)
     x = comb.solution(carry)
     wait(device)
     t2 = time.perf_counter()
@@ -370,11 +393,14 @@ def run_iterate(
 
 def _build_loop(comb: Combine, steps: Optional[int], max_steps: int,
                 check_every: int) -> Callable:
-    """The solver loop: (apply, x0_dev, params, tol) -> (carry, steps_run).
+    """The solver loop: (apply, x0_dev, params, tol, decide) -> (carry,
+    steps_run).
 
     Steps mode enqueues every step without reading the device.  Tol mode
     reads the residual once per test of the reference's ``while_loop``
-    condition, i.e. before each chunk of at most ``check_every`` steps.
+    condition, i.e. before each chunk of at most ``check_every`` steps;
+    ``decide`` (or None) settles each test's outcome (see
+    :func:`run_iterate`).
     """
 
     def one_step(apply, carry, params):
@@ -383,7 +409,7 @@ def _build_loop(comb: Combine, steps: Optional[int], max_steps: int,
 
     if steps is not None:
 
-        def loop_steps(apply, x0_dev, params, tol):
+        def loop_steps(apply, x0_dev, params, tol, decide):
             carry = comb.init(x0_dev, params, apply)
             for _ in range(steps):
                 carry = one_step(apply, carry, params)
@@ -391,10 +417,15 @@ def _build_loop(comb: Combine, steps: Optional[int], max_steps: int,
 
         return loop_steps
 
-    def loop_tol(apply, x0_dev, params, tol):
+    def loop_tol(apply, x0_dev, params, tol, decide):
         carry = comb.init(x0_dev, params, apply)
         k = 0
-        while k < max_steps and float(comb.residual(carry)) > tol:
+        while True:
+            go = k < max_steps and float(comb.residual(carry)) > tol
+            if decide is not None:
+                go = decide(go)
+            if not go:
+                break
             # chunked residual check: advance up to check_every steps before
             # the next test; the cap keeps the total under max_steps exactly
             n_inner = min(check_every, max_steps - k)

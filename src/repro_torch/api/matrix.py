@@ -23,7 +23,7 @@ import torch
 
 from ..core import formats as F
 from ..core.adaptive import HardwareModel, Plan, estimate_time
-from ..core.mesh import AXES_2D, AXIS_1D, make_mesh, same_device
+from ..core.mesh import AXES_2D, AXIS_1D, make_mesh, same_device, world_mesh
 from ..core.stats import MatrixStats, compute_stats
 from .plan import IMPLS, ExecutionPlan, check_device, resolve_scheme
 
@@ -260,6 +260,7 @@ class SparseMatrix:
         batch: Optional[int] = None,
         topology=None,
         assignment=None,
+        world=None,
     ) -> ExecutionPlan:
         """Resolve scheme + placement into an inspectable ExecutionPlan.
 
@@ -277,6 +278,14 @@ class SparseMatrix:
           devices: a pool of P devices, all the same one (e.g.
             ``["cuda"] * 16``): the plan is fitted to P parts and a mesh of
             the fitted grid is built on them.  ``device`` is then unused.
+          world: a :class:`repro_torch.core.world.World` of P ranks, one
+            part each: the plan is fitted to P parts and laid on the
+            world's process mesh of the fitted grid
+            (``core.mesh.world_mesh``: made collectively the first time,
+            so every rank calls ``plan`` then; on a world that rank 0 leads,
+            only rank 0 calls it, on the meshes the engine made).  Only
+            ``world=`` makes a process mesh: ``devices=`` never does,
+            whatever it names.
           partitioning: force "1d"/"2d" over the adaptive choice.
           fmt/merge/grid: override single dimensions of the resolved scheme.
           block: (r, c) tile for the block formats.
@@ -305,19 +314,26 @@ class SparseMatrix:
             candidate per assignment.  Requires ``topology``.
 
         Raises:
-          ValueError: unknown impl or scheme, both mesh= and devices=, a
-            mesh whose shape the fitted plan cannot lay out on,
+          ValueError: unknown impl or scheme, more than one of mesh=,
+            devices= and world=, a mesh whose shape the fitted plan cannot
+            lay out on,
             ``scheme="tune"`` with partitioning/fmt/merge/grid forced,
             ``assignment`` without ``topology``, or an abstract topology
             without ``devices``.
           RuntimeError: a CUDA device is asked for and none is present.
-          NotImplementedError: ``devices`` that name distinct devices
-            (multi-card meshes, ROADMAP.md).
+          NotImplementedError: ``devices`` that name distinct devices (one
+            process cannot drive them: pass ``world=``), or ``topology=``
+            with ``world=`` (multi-card meshes, ROADMAP.md).
         """
         if impl not in IMPLS:
             raise ValueError(f"unknown impl {impl!r}: one of {IMPLS}")
-        if mesh is not None and devices is not None:
-            raise ValueError("pass mesh= or devices=, not both")
+        if sum(v is not None for v in (mesh, devices, world)) > 1:
+            raise ValueError("pass one of mesh=, devices= and world=, not "
+                             "both")
+        if world is not None and topology is not None:
+            raise NotImplementedError(
+                "topology= over a world's ranks is a later step of "
+                "ROADMAP.md's 'Multi-card meshes'")
         if assignment is not None and topology is None:
             raise ValueError("assignment= requires topology=")
         if topology is not None and mesh is None and devices is None:
@@ -350,9 +366,10 @@ class SparseMatrix:
                 )
             return tuner.tune(
                 self, device=device, devices=devices, mesh=mesh, block=block,
-                hw=hw, batch=batch, topology=topology,
+                hw=hw, batch=batch, topology=topology, world=world,
             ).best
-        distributed = mesh is not None or devices is not None
+        distributed = mesh is not None or devices is not None \
+            or world is not None
         if mesh is not None:
             mesh_shape = tuple(mesh.devices.shape)
             n_devices = int(np.prod(mesh_shape))
@@ -363,6 +380,8 @@ class SparseMatrix:
             devices = list(devices)
             n_devices = len(devices)
             same_device(devices)  # fail before any planning work
+        elif world is not None:
+            n_devices = world.size
         else:
             n_devices = 1
             device = check_device(device)
@@ -386,7 +405,12 @@ class SparseMatrix:
             mesh_shape = ((plan.grid[0],) if plan.partitioning == "1d"
                           else tuple(plan.grid))
             axes = (AXIS_1D,) if plan.partitioning == "1d" else AXES_2D
-            if topology is not None:
+            if world is not None:
+                mesh = world_mesh(world, mesh_shape, axes)
+                if mesh.devices.size != world.size:  # fit_plan's contract
+                    raise AssertionError(
+                        f"a {mesh_shape} grid on a world of {world.size}")
+            elif topology is not None:
                 mesh, topo_assignment = self._place(
                     plan, mesh_shape, axes, devices, topology, assignment)
             else:

@@ -40,6 +40,7 @@ __all__ = [
     "resolve_scheme",
     "plan_from_ir",
     "plan_from_partitioned",
+    "follow_compile",
     "IR_VERSION",
     "FORMATS",
     "IMPLS",
@@ -449,9 +450,19 @@ class ExecutionPlan:
         plus, for impl="cuda", the kernels' chunk plans or block-row
         pointers — and return a :class:`MeshExecutor`.  On a process mesh
         every rank partitions the whole matrix the same way (host work)
-        and places only its own part; every rank calls ``compile``.  Ends in one wait on
-        the placing stream, so every thread's stream may read the placed
-        arrays from the first request on.
+        and places only its own part; every rank calls ``compile``.  Where
+        rank 0 leads the world (``core/control.py``), rank 0 alone calls it:
+        it partitions the matrix once and sends each other rank its part's
+        nonzeros and the partition's layout (``D.part_data`` /
+        ``D.part_layout``), and each rank builds and places its part from
+        that (:func:`follow_compile`).  Ends in one wait on the placing
+        stream, so every thread's stream may read the placed arrays from
+        the first request on.
+
+        Raises:
+          RankFailed: on a led world, another rank failed to build its
+            part (named); every rank drops what it built.
+          ValueError: a ring plan on a led world.
         """
         if not self.is_distributed:
             container = self.matrix.container(self.fmt, block=self.block,
@@ -459,8 +470,43 @@ class ExecutionPlan:
             exe = SingleDeviceExecutor(self, container, self.impl, self.device)
             wait(exe.device)
             return exe
+        from ..core.control import leading
+
+        ctl = leading(self.mesh)
+        if ctl is not None:
+            return self._compile_led(ctl)
+        return self._compile_part(self._partition(), time.perf_counter())
+
+    def _compile_led(self, ctl) -> MeshExecutor:
+        """Rank 0's compile on a led world (see :meth:`compile`)."""
+        if self.ring:
+            raise ValueError("the 1D ring schedule is not run on a led world: "
+                             "every rank would need every bucket's layout")
         t0 = time.perf_counter()
         part = self._partition()
+        partition_s = time.perf_counter() - t0
+        wid = ctl.new_id()
+        args = {"wid": wid, "scheme": self.scheme, "impl": self.impl,
+                "dtype": self.dtype, "block": tuple(self.block),
+                "shape": tuple(self.mesh.devices.shape), "axes": self.axes,
+                "layout": D.part_layout(part)}
+        parts = {r: D.part_data(part, r) for r in ctl.followers}
+        try:
+            with ctl.command("compile", args, parts=parts,
+                             collective=False) as cmd:
+                exe = self._compile_part(part, t0)
+        except BaseException:
+            ctl.release(wid)  # every rank drops what it built
+            raise
+        exe.control, exe.wid = ctl, wid
+        exe.build_seconds = time.perf_counter() - t0
+        # how the build's seconds split: what the register design costs
+        exe.build_split = {"partition_s": partition_s, "send_s": cmd.send_s,
+                           "sent_bytes": cmd.sent_bytes}
+        return exe
+
+    def _compile_part(self, part: PartitionedMatrix, t0: float) -> MeshExecutor:
+        """Build the program of ``part`` and place this rank's share."""
         axes = self.axes
         program = self._program(part)
         # a rank of a process mesh places its own part only
@@ -478,6 +524,22 @@ class ExecutionPlan:
         wait(exe.device)
         exe.build_seconds = time.perf_counter() - t0
         return exe
+
+
+def follow_compile(world, args: dict, data: dict) -> None:
+    """A rank that follows: build and place its part of the plan rank 0
+    compiled (:meth:`ExecutionPlan.compile`), from the part's nonzeros
+    ``data`` and the layout in ``args``, on the world's process mesh of
+    the plan's grid; the executor is held under rank 0's id."""
+    from ..core.mesh import world_mesh
+
+    mesh = world_mesh(world, args["shape"], args["axes"])
+    part = D.rank_partition(args["layout"], data, world.rank)
+    exe = ExecutionPlan(
+        matrix=None, scheme=args["scheme"], impl=args["impl"],
+        device=mesh.device, dtype=args["dtype"], block=args["block"],
+        mesh=mesh, part=part).compile()
+    world.control.executors[args["wid"]] = exe
 
 
 def plan_from_partitioned(part: PartitionedMatrix, mesh, *,
@@ -537,7 +599,9 @@ def plan_from_ir(ir: dict, matrix, *, device="cuda", devices=None,
     Raises:
       ValueError: unknown ``ir_version``, malformed record, unknown fmt or
         impl, or too few devices for the recorded mesh.
-      NotImplementedError: ``devices`` name distinct devices.
+      NotImplementedError: ``devices`` name distinct devices (one process
+        cannot drive them; a process ``mesh=`` over a world can carry the
+        record, one rank per part).
       RuntimeError: ``device="cuda"`` without a CUDA device.
     """
     version = ir.get("ir_version")

@@ -146,11 +146,12 @@ class Collectives:
 
     def _count(self, kind: str, result: torch.Tensor, n: int) -> None:
         if n > 1:  # over one rank the op is the identity (XLA drops it)
-            self.calls[kind] += 1
-            self.bytes[kind] += result.numel() * result.element_size()
+            self.calls[kind] = self.calls.get(kind, 0) + 1
+            self.bytes[kind] = (self.bytes.get(kind, 0)
+                                + result.numel() * result.element_size())
 
     def _done(self, kind: str, t0: float) -> None:
-        self.seconds[kind] += time.perf_counter() - t0
+        self.seconds[kind] = self.seconds.get(kind, 0.0) + time.perf_counter() - t0
 
     # -- groups and staging --------------------------------------------------
 
@@ -209,7 +210,33 @@ class Collectives:
     def _p2p(self, ops) -> list:
         return dist.batch_isend_irecv([dist.P2POp(*op) for op in ops])
 
+    def _scatter(self, out, src, group) -> None:
+        dist.scatter(out, src, src=0, group=group)
+
     # -- the collectives -----------------------------------------------------
+
+    def scatter(self, pieces, shape, dtype) -> torch.Tensor:
+        """Rank 0 of the mesh sends ``pieces[p]`` (host tensors of ``shape``
+        and ``dtype``; None on the other ranks) to rank ``p``, and every
+        rank returns its piece on its device: the load step of an executor
+        that rank 0 leads (``core/control.py``), the paper's Fig. 4 load,
+        which JAX's sharded ``device_put`` does.  It has no ``jax.lax``
+        counterpart and counts under a kind of its own, ``"scatter"``: the
+        bytes this rank received."""
+        group, n = self.mesh.world_group, self.mesh.devices.size
+        device = self.mesh.device
+        t0 = time.perf_counter()
+        out = self._buffer(tuple(shape), torch.empty(0, dtype=dtype,
+                                                     device=device))
+        src = None
+        if self.mesh.rank == 0:
+            to = device if self.mesh.world.backend == "nccl" else "cpu"
+            src = [p.to(to).contiguous() for p in pieces]
+        self._scatter(out, src, group)
+        self._count("scatter", out, n)
+        out = self._unstage(out, device)
+        self._done("scatter", t0)
+        return out
 
     def all_gather(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         """``all_gather(x, axes, tiled=True)``: the ranks' x concatenated
@@ -404,6 +431,9 @@ class CountingCollectives(Collectives):
     def _p2p(self, ops) -> list:
         return []
 
+    def _scatter(self, out, src, group) -> None:
+        pass
+
 
 # A rank publishes a round by storing its data and then its counter, and a
 # reader that sees the counter reads the data after it, with no fence: sound
@@ -502,18 +532,22 @@ class _HostMapping:
         start = (parity * self.n + pos) * self.slot
         return self.data[start:start + self.slot]
 
-    def round(self, mine: torch.Tensor) -> list:
+    def round(self, mine: torch.Tensor, read: int | None = None) -> list:
         """Post ``mine`` (uint8, at most ``slot`` bytes, the same length on
         every rank; on the host or the card) and return every rank's, in
         group order: views of the mapping, valid until this rank's next
-        round but one.  Each rank writes its slot, then its counter; x86
+        round but one (``read`` bytes of each, where ranks post different
+        lengths: a scatter's root posts, the others read).  Each rank
+        writes its slot, then its counter; x86
         keeps stores in order, so a rank that sees a counter sees the data
         before it.  A copy from the card is complete before the counter is
         written, and so are the card's reads of the last round's views
         (:meth:`read_on`)."""
         self.k += 1
         parity, n_bytes = self.k & 1, mine.numel()
-        self._slot(parity, self.pos)[:n_bytes].copy_(mine, non_blocking=True)
+        if n_bytes:
+            self._slot(parity, self.pos)[:n_bytes].copy_(mine, non_blocking=True)
+        n_bytes = n_bytes if read is None else read  # what is read of each
         if mine.device.type == "cuda":
             _host_wait(mine.device)
         if self.reads is not None:  # the last round's slots are read: the
@@ -645,6 +679,21 @@ class SharedMemoryCollectives(Collectives):
                 self._sum_into(dst[lo - pos * size:hi - pos * size],
                                [v[lo - off:hi - off] for v in views], out.dtype)
 
+    def _scatter(self, out, src, group) -> None:
+        m, dst = self._map(group), _bytes(out)
+        size = dst.numel()
+        data = (torch.cat([_bytes(p) for p in src]) if src is not None
+                else torch.empty(0, dtype=torch.uint8))
+        for off in range(0, size * m.n, self.slot):
+            n_read = min(self.slot, size * m.n - off)
+            views = m.round(data[off:off + n_read], read=n_read)
+            lo = max(off, m.pos * size)
+            hi = min(off + n_read, (m.pos + 1) * size)
+            if lo < hi:  # the root (position 0) posted; each reads its piece
+                dst[lo - m.pos * size:hi - m.pos * size].copy_(
+                    views[0][lo - off:hi - off], non_blocking=True)
+            m.read_on(out.device)
+
     def _all_to_all(self, out, src, group) -> None:
         dst, block = _bytes(out), src[0].numel() * src.element_size()
         pos = self._map(group).pos
@@ -665,5 +714,5 @@ def collectives_for(mesh) -> Collectives:
     if mesh.world.backend == "dry":
         return CountingCollectives(mesh)
     if mesh.world.backend == "gloo" and mesh.one_host and STORES_IN_ORDER:
-        return SharedMemoryCollectives(mesh)
+        return SharedMemoryCollectives(mesh, timeout=mesh.world.timeout)
     return Collectives(mesh)

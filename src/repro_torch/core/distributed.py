@@ -71,6 +71,9 @@ __all__ = [
     "kernel_chunk_arrays",
     "kernel_block_arrays",
     "part_view",
+    "part_layout",
+    "part_data",
+    "rank_partition",
 ]
 
 
@@ -233,6 +236,46 @@ def part_view(mat: PartitionedMatrix, p: int) -> PartitionedMatrix:
     ``mat``'s tensors): what a rank of a process mesh places and runs."""
     return dataclasses.replace(
         mat, grid=(1, 1), **{f: getattr(mat, f)[p: p + 1] for f in mat._tensors})
+
+
+_PART_DATA = ("rowind", "colind", "values")
+
+
+def part_layout(mat: PartitionedMatrix) -> dict:
+    """Everything of a partition but its parts' nonzeros: the per-part
+    counts and offsets and the static fields.  With a part's nonzeros
+    (:func:`part_data`) it makes that rank's partition
+    (:func:`rank_partition`)."""
+    out = {f: getattr(mat, f) for f in mat._tensors if f not in _PART_DATA}
+    out.update(shape=tuple(mat.shape), grid=tuple(mat.grid), fmt=mat.fmt,
+               scheme=mat.scheme, block=tuple(mat.block), h_pad=mat.h_pad,
+               w_pad=mat.w_pad)
+    return out
+
+
+def part_data(mat: PartitionedMatrix, p: int) -> dict:
+    """Part ``p``'s nonzeros (views of ``mat``'s tensors, one part each)."""
+    return {f: getattr(mat, f)[p: p + 1] for f in _PART_DATA}
+
+
+def rank_partition(layout: dict, data: dict, p: int) -> PartitionedMatrix:
+    """The partition as rank ``p`` of a process mesh holds it when rank 0
+    partitioned the matrix and sent it only part ``p``'s nonzeros
+    (:func:`part_data`) and the layout (:func:`part_layout`).  Every part
+    reads as part ``p`` (stride-0 views, no copies): a rank's program reads
+    its own part's nonzeros (:func:`part_view`) and every part's counts and
+    offsets, never another part's nonzeros."""
+    n = layout["grid"][0] * layout["grid"][1]
+    if not 0 <= p < n:
+        raise ValueError(f"part {p} of a {layout['grid']} grid")
+    fields = {f: t.expand((n,) + tuple(t.shape[1:])) for f, t in data.items()}
+    fields.update({k: layout[k] for k in PartitionedMatrix._tensors
+                   if k not in _PART_DATA})
+    return PartitionedMatrix(
+        **fields, shape=tuple(layout["shape"]), grid=tuple(layout["grid"]),
+        fmt=layout["fmt"], scheme=layout["scheme"],
+        block=tuple(layout["block"]), h_pad=layout["h_pad"],
+        w_pad=layout["w_pad"])
 
 
 def place_1d(mat: PartitionedMatrix, mesh,

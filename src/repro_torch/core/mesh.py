@@ -40,7 +40,8 @@ import numpy as np
 import torch
 
 __all__ = ["Mesh", "ProcessMesh", "make_mesh", "make_process_mesh",
-           "dry_process_mesh", "AXIS_1D", "AXES_2D", "same_device"]
+           "dry_process_mesh", "world_mesh", "world_grids", "AXIS_1D",
+           "AXES_2D", "same_device"]
 
 # Canonical mesh axis names (the JAX package's api-built meshes)
 AXIS_1D = "parts"
@@ -72,8 +73,10 @@ def same_device(devices) -> torch.device:
             f"one process cannot lay a mesh over distinct devices "
             f"{sorted(map(str, devs))}: run one rank per part on a process "
             "mesh (repro_torch.core.mesh.make_process_mesh over a "
-            "repro_torch.core.world world); the engine and the cluster over "
-            "one are later steps of ROADMAP.md's 'Multi-card meshes'")
+            "repro_torch.core.world world): SpmvEngine(world=), "
+            "SparseMatrix.plan(world=) and Tuner.tune(world=) serve, plan "
+            "and tune on one; the cluster and topology= over one are later "
+            "steps of ROADMAP.md's 'Multi-card meshes'")
     dev = devs.pop()
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but no CUDA device is available; "
@@ -236,6 +239,38 @@ def make_process_mesh(world, axis_shapes: Sequence[int],
                        groups=tuple(dmesh.get_group(a) for a in names),
                        world_group=dist.group.WORLD,
                        one_host=len(set(hosts)) == 1)
+
+
+def world_grids(n: int) -> list:
+    """Every (shape, axis names) a plan fitted to ``n`` parts can take: the
+    1D ``(n,)`` and each 2D ``(r, n / r)`` (``api.plan.fit_plan`` fits every
+    grid to exactly ``n`` places)."""
+    return [((n,), (AXIS_1D,))] + [((r, n // r), AXES_2D)
+                                   for r in range(1, n + 1) if n % r == 0]
+
+
+def world_mesh(world, shape: Sequence[int], axis_names: Sequence[str]
+               ) -> ProcessMesh:
+    """The process mesh of ``shape`` over ``world``, made once
+    (:func:`make_process_mesh`, collective) and kept in ``world.made``.
+
+    Raises:
+      RuntimeError: the mesh is not made yet and rank 0 leads the world
+        (``world.control.leading``): a led world makes its meshes inside a
+        command, or when every rank opens the engine, never on the leader
+        alone (the others would never join the collective).
+    """
+    key = (tuple(int(n) for n in shape), tuple(str(a) for a in axis_names))
+    mesh = world.made.get(key)
+    if mesh is None:
+        ctl = world.control
+        if ctl is not None and ctl.leading:
+            raise RuntimeError(
+                f"no {key[0]} process mesh over this led world: a led world "
+                "makes every grid of its size as the engine opens "
+                "(mesh.world_grids)")
+        mesh = world.made[key] = make_process_mesh(world, *key)
+    return mesh
 
 
 def dry_process_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],

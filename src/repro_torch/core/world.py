@@ -26,6 +26,12 @@ The backend is the caller's choice and nothing falls back:
   ranks share one card.
 * No entry point picks the CPU or gloo by itself: a rank's device defaults
   to ``cuda:<local rank>`` and raises where there is none.
+
+``World.made`` keeps what was made collectively over a world, once each:
+its process meshes by grid (:func:`repro_torch.core.mesh.world_mesh`) and,
+once a led engine (``repro_torch.engine.SpmvEngine(world=)``) opened on
+it, the control channel on which rank 0 leads the other ranks
+(:func:`repro_torch.core.control.channel`, ``World.control``).
 """
 from __future__ import annotations
 
@@ -64,6 +70,17 @@ class World:
     rank: int
     size: int
     device: torch.device  # where this rank's part lies
+    timeout: float = DEFAULT_TIMEOUT_S  # seconds a collective may wait
+    # made collectively over this world, once each: process meshes by
+    # (shape, axis names) (mesh.world_mesh), "control" (control.channel)
+    made: dict = dataclasses.field(default_factory=dict, compare=False,
+                                   repr=False)
+
+    @property
+    def control(self):
+        """The control channel of a led engine (core/control.py), None
+        until one opened on this world."""
+        return self.made.get("control")
 
     @property
     def transport(self) -> str:
@@ -170,7 +187,7 @@ def init_world(backend: str, rank: Optional[int] = None,
         torch.cuda.set_device(device)
     dist.init_process_group(backend, store=store, rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=timeout))
-    return World(backend, rank, world, device)
+    return World(backend, rank, world, device, timeout)
 
 
 def close_world() -> None:

@@ -16,13 +16,37 @@ is asked for a scheme as if every pool entry were a PIM core, and the
 resulting grid is fitted to the divisibility constraints of the 2D schemes
 (falling back to 1D element-balanced COO, which always fits) — the same
 ``repro_torch.api.fit_plan`` rules every other entry point uses.  As in
-``plan(devices=...)``, every entry of the pool names the same device: P
-entries are P parts on one card (or on the CPU), one launch serving them
-all.
+``plan(devices=...)``, every entry of ``devices=`` names the same device:
+P entries are P parts on one card (or on the CPU), one launch serving them
+all.  A pool of P distinct devices is served from a world of P ranks
+(``world=``, below), one part a rank.
 
 :meth:`SpmvEngine.solve` runs an on-device solver session
 (``Executor.iterate``: x stays on the card across the steps) as one
 request: one plan lookup and one Telemetry record (``kind="solve"``).
+
+``SpmvEngine(world=)`` serves from a world of ranks
+(:mod:`repro_torch.core.world`), one part per rank, as the JAX engine
+serves from every device of its pool.  Every rank opens the engine; rank
+0 leads: it runs every public call (register, multiply, solve, refine,
+the batcher's flushes, the refinement thread, reactivation, eviction,
+unregister) and sends each call's command to the others on the world's
+control channel (:mod:`repro_torch.core.control`), while they run
+:meth:`SpmvEngine.follow` until rank 0 calls :meth:`SpmvEngine.close`:
+
+    eng = SpmvEngine(world=world)           # every rank
+    if world.rank == 0:
+        eng.register("A", a); y = eng.multiply("A", x); ...; eng.close()
+    else:
+        eng.follow()
+
+Rank 0 partitions each matrix once and sends each rank its part; a
+request sends each rank its shard of x; the answers come back on rank 0.
+Validation raises on rank 0 before any command leaves it, as on one
+device; a rank that fails makes rank 0's call raise
+:class:`~repro_torch.core.world.RankFailed` naming it.  ``devices=["cuda"]
+* 4`` stays a one-process mesh of 4 parts: only ``world=`` makes a
+process mesh.
 
 ``SpmvEngine(tune=True)`` measures and refines plans off live traffic
 (:mod:`repro_torch.tune`): a background thread compiles and times the
@@ -46,8 +70,9 @@ from ..api.executor import ExecutorReleased
 from ..api.matrix import _dtype_str
 from ..api.plan import IMPLS, fit_plan
 from ..core.adaptive import HardwareModel, Plan
+from ..core.control import channel
 from ..core.formats import torch_dtype
-from ..core.mesh import make_mesh, same_device
+from ..core.mesh import make_mesh, same_device, world_grids, world_mesh
 from ..core.streams import on_thread_stream
 from ..obs import profile as obs_profile
 from .plan_cache import CompiledPlan, PlanCache, PlanKey
@@ -75,16 +100,18 @@ class SpmvEngine:
         drift_factor: Optional[float] = 2.0,
         drift_alpha: float = 0.25,
         topology=None,
+        world=None,
     ) -> None:
         """Create a serving engine over a device pool.
 
         Args:
           devices: the pool to serve from: one device (``"cuda"``, a
             ``torch.device``) or a list of P entries naming the same device
-            (``["cuda"] * 16``: 16 parts on the card).  Default: the
-            devices of ``topology``, else one part on the current CUDA
-            device.  There is no CPU fallback: pass ``["cpu"]`` to serve
-            from the CPU.
+            (``["cuda"] * 16``: 16 parts on the card, one process).
+            Default: the devices of ``topology``, else one part on the
+            current CUDA device.  There is no CPU fallback: pass
+            ``["cpu"]`` to serve from the CPU.  Distinct devices raise:
+            serve them from a world (``world=``).
           cache_capacity: max compiled plans held (LRU; placed matrices pin
             device memory, so this is the engine's memory bound).
           telemetry: a shared Telemetry sink (default: a fresh one).
@@ -116,13 +143,20 @@ class SpmvEngine:
             the cheapest axis assignment (``Mesh.slots``; see
             ``SparseMatrix.plan``) instead of flat order, and refinements
             measure one candidate per assignment.
+          world: a :class:`repro_torch.core.world.World` to serve from,
+            one part per rank (exclusive with ``devices``): every rank
+            calls this constructor (it makes the world's process meshes of
+            every grid of its size, collectively), then rank 0 leads and
+            the others :meth:`follow` (see the module docstring).
 
         Raises:
           ValueError: for an unknown ``impl``, a ``tune_margin`` outside
             (0, 1], a ``drift_factor`` <= 1 or a ``drift_alpha`` outside
-            (0, 1].
-          NotImplementedError: a pool naming distinct devices (multi-card
-            meshes).
+            (0, 1]; ``devices`` with ``world``, a world without a control
+            channel, or a world another engine leads.
+          NotImplementedError: a pool naming distinct devices (one process
+            cannot drive them: pass ``world=``), or ``topology`` with
+            ``world`` (multi-card meshes, ROADMAP.md).
           RuntimeError: a CUDA device is asked for and none is present.
         """
         if impl not in IMPLS:
@@ -137,6 +171,16 @@ class SpmvEngine:
         if not 0.0 < drift_alpha <= 1.0:
             raise ValueError(f"drift_alpha must be in (0, 1]; got {drift_alpha}")
         self.topology = topology
+        self.world = world
+        if world is not None:
+            if devices is not None:
+                raise ValueError("pass devices= or world=, not both: a world "
+                                 "serves one part per rank")
+            if topology is not None:
+                raise NotImplementedError(
+                    "topology= over a world's ranks is a later step of "
+                    "ROADMAP.md's 'Multi-card meshes'")
+            devices = [world.device] * world.size
         if devices is None and topology is not None:
             devices = topology.flat_devices()
         if devices is None:
@@ -168,6 +212,15 @@ class SpmvEngine:
         # reactivate() re-places without re-partitioning (let alone
         # rebuilding from dense)
         self.cache.on_evict = self._spill_evicted
+        if world is not None:
+            # collective, every rank: the control channel and each grid a
+            # plan fitted to the world can take (mesh.world_grids), so no
+            # mesh is made later, when only rank 0 would run the call that
+            # needs it
+            ctl = channel(world)
+            for shape, axes in world_grids(world.size):
+                self._meshes[(shape, axes)] = world_mesh(world, shape, axes)
+            ctl.begin()
 
     # ------------------------------------------------------------------ mesh
 
@@ -178,9 +231,57 @@ class SpmvEngine:
     def _mesh(self, shape: tuple, axes: tuple):
         key = (shape, axes)
         if key not in self._meshes:
+            if self.world is not None:  # every grid was made as it opened
+                raise AssertionError(f"a {shape} grid on a world of "
+                                     f"{self.world.size} ranks")
             n = int(np.prod(shape))
             self._meshes[key] = make_mesh(shape, axes, self.devices[:n])
         return self._meshes[key]
+
+    # ------------------------------------------------------------- the world
+
+    @property
+    def control(self):
+        """The world's control channel (None without a world)."""
+        return None if self.world is None else self.world.control
+
+    def _lead(self) -> None:
+        """Raise on a rank that follows: rank 0 runs every public call."""
+        if self.world is not None and self.world.rank != 0:
+            raise RuntimeError(
+                f"rank {self.world.rank} of the world follows: rank 0 runs "
+                "every call of a led engine; call follow() here")
+
+    def _flush(self) -> None:
+        """Send the releases an eviction queued (on a world), so every
+        rank's card frees the same plans now, not at the next command."""
+        if self.world is not None:
+            self.control.flush()
+
+    def follow(self) -> int:
+        """Run rank 0's commands on this rank's parts until rank 0 closes
+        the engine; returns the commands run.  Rank 0 never calls it.
+
+        Raises:
+          RuntimeError: on rank 0, or without a world.
+        """
+        if self.world is None:
+            raise RuntimeError("follow() needs an engine over a world")
+        from ..api.executor import follower_handlers
+
+        return self.control.follow(follower_handlers(self.world))
+
+    def close(self) -> None:
+        """Stop serving: wait for background refinements, release every
+        cached plan and, on rank 0 of a world, release the other ranks
+        from :meth:`follow` (idempotent; a no-op on a rank that follows)."""
+        if self.world is not None and self.world.rank != 0:
+            return
+        self.drain_tuning()
+        with self._swap_lock:
+            self.cache.clear()
+        if self.world is not None:
+            self.control.close()
 
     # ------------------------------------------------------------ plan fitting
 
@@ -301,6 +402,7 @@ class SpmvEngine:
           ValueError: for a non-2D matrix, an unknown ``impl``, or ``a=None``
             without a prior registration holding the host-side matrix.
         """
+        self._lead()
         prior = self.registry.find(name)
         if a is None:
             if prior is None or prior.matrix is None:
@@ -355,6 +457,7 @@ class SpmvEngine:
                 self.cache.evict(prior.cache_key)
         if warmup:
             compiled.executor.warmup()
+        self._flush()
         return entry
 
     def _compiled(self, entry: RegisteredMatrix) -> CompiledPlan:
@@ -397,6 +500,7 @@ class SpmvEngine:
           KeyError: unknown ``name``.
           ValueError: the entry has no host-side matrix to rebuild from.
         """
+        self._lead()
         entry = self.registry.get(name)
         with self._swap_lock:
             if self.cache.get(entry.cache_key) is not None:
@@ -417,6 +521,7 @@ class SpmvEngine:
         entry.spill = None  # the live CompiledPlan owns the partition again
         if warmup:
             self.plan_for(name).executor.warmup()
+        self._flush()
         return entry
 
     def multiply(self, name: str, x, *, obs=None) -> np.ndarray:
@@ -454,6 +559,7 @@ class SpmvEngine:
           RuntimeError: the plan was evicted from the cache (re-register).
           TypeError/ValueError: dtype or shape mismatch with the matrix.
         """
+        self._lead()
         entry = self.registry.get(name)
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x)
@@ -463,13 +569,8 @@ class SpmvEngine:
             cp = self._compiled(entry)
             exe = cp.executor
             traces_before = cp.trace_count
-            t0 = time.perf_counter()
-            with obs_profile.annotate(f"spmv_load:{name}"):
-                xs = exe.place(x)  # load: validate dtype/shape, pad, copy
-            t1 = time.perf_counter()
             try:
-                with obs_profile.annotate(f"spmv_kernel:{name}:b{batch}"):
-                    raw = exe.run_raw(xs)  # kernel: one part-axis launch + merge
+                y, (t0, t1, t2, t3) = self._request(exe, x, name, batch)
                 break
             except ExecutorReleased:
                 # released by a refinement's swap after the lookup: rerun on
@@ -479,10 +580,6 @@ class SpmvEngine:
                 current = self._serving(entry)
                 if current is None or current is cp:
                     raise
-        t2 = time.perf_counter()
-        with obs_profile.annotate(f"spmv_retrieve:{name}"):
-            y = exe.assemble(raw)  # retrieve: assemble rows, copy to host
-        t3 = time.perf_counter()
         if obs is not None:
             for ctx in (obs if isinstance(obs, (list, tuple)) else (obs,)):
                 ctx.add("load", t0, t1)
@@ -514,6 +611,42 @@ class SpmvEngine:
             if not entry.tuned:
                 self._maybe_refine(entry, x)
         return y
+
+    def _request(self, exe, x, name: str, batch: int) -> tuple:
+        """(y, (t0, t1, t2, t3)): one request's three phases on ``exe``.  On
+        a world they run under the mesh lock (the command spans them), and
+        rank 0's collective seconds go to the telemetry."""
+        if self.world is None:
+            return self._phases(exe, x, name, batch, None)
+        with self.control.lock:
+            return self._phases(exe, x, name, batch, exe.collectives)
+
+    def _phases(self, exe, x, name: str, batch: int, coll) -> tuple:
+        marks = []
+
+        def mark():
+            marks.append((time.perf_counter(),
+                          None if coll is None else dict(coll.seconds)))
+
+        mark()
+        with obs_profile.annotate(f"spmv_load:{name}"):
+            xs = exe.place(x)  # load: validate dtype/shape, pad, copy
+        mark()
+        with obs_profile.annotate(f"spmv_kernel:{name}:b{batch}"):
+            raw = exe.run_raw(xs)  # kernel: one part-axis launch + merge
+        mark()
+        with obs_profile.annotate(f"spmv_retrieve:{name}"):
+            y = exe.assemble(raw)  # retrieve: assemble rows, copy to host
+        mark()
+        if coll is not None:
+            def delta(a, b):
+                return {k: v - a.get(k, 0.0) for k, v in b.items()
+                        if v - a.get(k, 0.0) > 0.0}
+
+            self.telemetry.record_collectives(
+                name, delta(marks[0][1], marks[3][1]),
+                sum(delta(marks[1][1], marks[2][1]).values()))
+        return y, tuple(t for t, _ in marks)
 
     def solve(
         self,
@@ -561,6 +694,7 @@ class SpmvEngine:
           ValueError: non-square matrix, bad steps/tol/combine params.
           TypeError: x0 dtype mismatch.
         """
+        self._lead()
         entry = self.registry.get(name)
         while True:
             try:
@@ -726,6 +860,7 @@ class SpmvEngine:
           KeyError: unknown ``name``.
           RuntimeError: the entry carries no matrix to re-plan from.
         """
+        self._lead()
         entry = self.registry.get(name)
         if entry.matrix is None:
             raise RuntimeError(
@@ -741,13 +876,16 @@ class SpmvEngine:
         with on_thread_stream(self.device):
             if ready is not None:  # the snapshot's copy, on another stream
                 torch.cuda.current_stream(self.device).wait_event(ready)
-            return self._refine(entry, tuner, x, batch, trigger)
+            event = self._refine(entry, tuner, x, batch, trigger)
+        self._flush()
+        return event
 
     def _refine(self, entry: RegisteredMatrix, tuner, x, batch,
                 trigger: str) -> dict:
         result = tuner.tune(
             entry.matrix,
-            devices=self.devices,
+            devices=None if self.world is not None else self.devices,
+            world=self.world,
             block=self.block,
             hw=self.hw,
             batch=batch,
@@ -849,9 +987,11 @@ class SpmvEngine:
     def unregister(self, name: str) -> None:
         """Drop ``name``; evicts its compiled plan unless another registered
         name still shares it (same fingerprint/scheme/impl)."""
+        self._lead()
         entry = self.registry.remove(name)
         if entry is not None and not any(
             e.cache_key == entry.cache_key for e in self.registry
         ):
             with self._swap_lock:
                 self.cache.evict(entry.cache_key)
+            self._flush()

@@ -20,6 +20,15 @@ Each request appends one :class:`RequestRecord`; :meth:`Telemetry.breakdown`
 aggregates the per-phase fractions per matrix, which is exactly the stacked
 bar of Fig. 17 (and what benchmarks/engine_throughput.py prints).
 
+On a world of ranks (``SpmvEngine(world=)``) the records are rank 0's:
+load is validating x and scattering each rank its shard, kernel every
+rank's tile kernel and the merge, retrieve the gather of the parts and the
+copy of y to the host.  :meth:`Telemetry.record_collectives` adds, per
+matrix, the seconds rank 0 spent in each kind of collective
+(``exe.collectives``' kinds, ``"scatter"`` the load) and in the kernel
+phase's collectives (the merge), read with :meth:`Telemetry.collectives`;
+the records and :meth:`Telemetry.breakdown` stay the reference's.
+
 The per-request log is a **ring buffer**: only the most recent
 ``max_records`` records are retained (long replays used to hold millions of
 records alive), while the per-matrix aggregates in :meth:`breakdown` stay
@@ -93,6 +102,7 @@ class Telemetry:
         self._by_name: Dict[str, _Agg] = {}
         self._last: Dict[str, RequestRecord] = {}
         self._last_solve: Dict[str, RequestRecord] = {}
+        self._coll: Dict[str, dict] = {}  # name -> collective seconds
         # the batcher's flush thread and the service's workers record at
         # once; the aggregates must count every request
         self._lock = threading.Lock()
@@ -137,6 +147,28 @@ class Telemetry:
                 agg.solves += 1
                 agg.solve_steps += rec.steps
 
+    def record_collectives(self, name: str, seconds: Dict[str, float],
+                           merge_s: float) -> None:
+        """Add one request's collective seconds on rank 0 of a world, by
+        kind, and its kernel phase's (the merge) to ``name``'s sums."""
+        with self._lock:
+            agg = self._coll.setdefault(name, {"requests": 0, "merge_s": 0.0,
+                                               "seconds": {}})
+            agg["requests"] += 1
+            agg["merge_s"] += merge_s
+            for kind, v in seconds.items():
+                agg["seconds"][kind] = agg["seconds"].get(kind, 0.0) + v
+
+    def collectives(self, name: Optional[str] = None) -> dict:
+        """{matrix: {requests, merge_s, seconds: {kind: s}}} summed over the
+        requests served on a world (or the one dict when ``name`` given;
+        empty off a world)."""
+        with self._lock:
+            out = {n: {"requests": a["requests"], "merge_s": a["merge_s"],
+                       "seconds": dict(a["seconds"])}
+                   for n, a in self._coll.items()}
+        return out.get(name, {}) if name is not None else out
+
     def breakdown(self, name: Optional[str] = None) -> dict:
         """Fig.-17-style per-phase split (exact, full-lifetime aggregates).
 
@@ -174,3 +206,4 @@ class Telemetry:
             self._by_name.clear()
             self._last.clear()
             self._last_solve.clear()
+            self._coll.clear()

@@ -538,7 +538,9 @@ async def replay(
 
 
 def replay_sync(service, trace, **kwargs) -> SLOReport:
-    """One-shot convenience: start the service, replay, drain, close.
+    """One-shot convenience: start the service, replay, drain, close (over
+    a world of ranks the service's close closes the engine, which releases
+    the ranks that follow).
 
     Runs its own event loop — use from scripts/benchmarks, not from async
     code (there, ``await replay(...)`` directly).

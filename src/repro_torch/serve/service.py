@@ -190,7 +190,9 @@ class AsyncSpmvService:
         raise RuntimeError("drain did not converge: requests keep arriving")
 
     async def aclose(self) -> None:
-        """Drain, stop the flush thread and reject further traffic."""
+        """Drain, stop the flush thread and reject further traffic.  An
+        engine over a world of ranks (``SpmvEngine(world=)``) is closed
+        too: the service's lifetime bounds the other ranks' ``follow()``."""
         if self._closed:
             return
         self._closed = True
@@ -200,6 +202,8 @@ class AsyncSpmvService:
             await loop.run_in_executor(None, self.batcher.stop)
             self._started = False
         self._pool.shutdown(wait=False)
+        if getattr(self.engine, "world", None) is not None:
+            await loop.run_in_executor(None, self.engine.close)
 
     @property
     def closed(self) -> bool:

@@ -69,7 +69,7 @@ except ImportError:  # non-POSIX: degrade to lock-free (single-process) mode
 
 
 def topology_key(devices=None, mesh=None, topology=None, *,
-                 device="cuda") -> str:
+                 device="cuda", world=None) -> str:
     """Stable identity of the device pool a measurement is valid for.
 
     ``type:count`` (e.g. ``cuda:1``, ``cuda:16``, ``cpu:1``) — measurements
@@ -79,7 +79,16 @@ def topology_key(devices=None, mesh=None, topology=None, *,
     :class:`repro_torch.topo.DeviceTopology` appends its name and axis
     sizes (e.g. ``cuda:4|pim2x2:2x2``): placements measured against one
     declared interconnect say nothing about another.
+
+    One rank per part (``world``, or a process ``mesh``) appends
+    ``/ranks`` (``cuda:4/ranks``): a world of 4 ranks moves its merges
+    between processes, so its winners answer nothing about a one-process
+    pool of 4 parts, nor the other way round.
     """
+    if world is not None:
+        return f"{torch.device(world.device).type}:{world.size}/ranks"
+    if mesh is not None and mesh.is_process:
+        return f"{mesh.device.type}:{mesh.devices.size}/ranks"
     if mesh is not None:
         devices = list(mesh.devices.flat)
     elif devices is None and topology is not None \
@@ -323,6 +332,7 @@ def make_key(
     impls=("cuda",),
     block=(8, 16),
     topology=None,
+    world=None,
 ) -> TuneKey:
     """The TuneKey for tuning ``matrix`` on the given pool.
 
@@ -336,7 +346,7 @@ def make_key(
     return TuneKey(
         fingerprint=matrix.fingerprint(),
         topology=topology_key(devices=devices, mesh=mesh, topology=topology,
-                              device=device),
+                              device=device, world=world),
         dtype=dtype_name(matrix.dtype),
         batch=int(batch or 1),
         impls="+".join(sorted(set(impls))),

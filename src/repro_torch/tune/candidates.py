@@ -8,7 +8,9 @@ kernel impls, fitted to the pool by the same ``repro_torch.api.fit_plan``
 rules every other entry point uses, and deduplicated by fitted identity.
 Candidates that cannot be planned on the given mesh/devices (grid-shape
 mismatch, unfit formats) are silently dropped — the tuner only measures
-what would actually compile.
+what would actually compile.  A ``mesh=`` admits only plans of its own
+grid; ``world=`` instead lays each candidate on the world's process mesh
+of that candidate's grid, so none is dropped for its grid.
 
 The impls are the port's: ``"cuda"`` (the hand-written kernels, the
 counterpart of the reference's ``"pallas"``) and ``"torch"`` (the plain
@@ -52,6 +54,7 @@ class CandidateGenerator:
         block: Tuple[int, int] = (8, 16),
         hw: Optional[HardwareModel] = None,
         topology=None,
+        world=None,
     ) -> list:
         """Candidate ExecutionPlans for ``matrix`` on the given pool.
 
@@ -64,6 +67,9 @@ class CandidateGenerator:
           block: (r, c) tile for the block formats.
           hw: HardwareModel for the analytic ranking (default: one chip per
             device in the pool).
+          world: a world of ranks, one part each (``SparseMatrix.plan(
+            world=)``): each candidate is fitted to the world's size and
+            laid on the world's process mesh of its own grid.
           topology: a :class:`repro_torch.topo.DeviceTopology` — each
             distributed candidate is then expanded into one plan *per viable
             axis assignment* (model-ranked order), so the measurements can
@@ -77,6 +83,8 @@ class CandidateGenerator:
         """
         if mesh is not None:
             n_devices = int(mesh.devices.size)
+        elif world is not None:
+            n_devices = world.size
         elif devices is not None:
             n_devices = len(list(devices))
         else:
@@ -112,6 +120,7 @@ class CandidateGenerator:
                         block=block,
                         hw=hw,
                         topology=topology,
+                        world=world,
                     )
                 except ValueError:
                     continue  # unfit for this pool/mesh; not a candidate

@@ -26,6 +26,7 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 from ..core.adaptive import HardwareModel, Plan
+from ..core.world import RankFailed
 
 from .cache import TuneKey, TuningCache, make_key, record_to_plan
 from .candidates import CandidateGenerator
@@ -98,6 +99,7 @@ class Tuner:
         x=None,
         baseline: Optional[Tuple[Plan, str]] = None,
         topology=None,
+        world=None,
     ) -> TuningResult:
         """Measure candidates for ``matrix`` and return the fastest plan.
 
@@ -105,6 +107,12 @@ class Tuner:
           matrix: a :class:`repro_torch.api.SparseMatrix`.
           device: the device of single-device tuning ("cuda" or "cpu").
           devices/mesh: device pool (omit both for single-device tuning).
+          world: a world of ranks, one part each (exclusive with
+            devices/mesh): each candidate gets the world's process mesh of
+            its own grid, and every measurement is a call on that mesh
+            (on a world that rank 0 leads, a command to the other ranks
+            under the mesh lock; ``core/control.py``).  Keyed apart from a
+            one-process pool of as many parts (``topology_key``).
           block: (r, c) tile for the block formats.
           hw: HardwareModel for candidate enumeration/estimates.
           batch: representative batch width B (keyed into the cache: the
@@ -128,22 +136,24 @@ class Tuner:
           RuntimeError: no candidate ran (every one raised).
           Exception: whatever a ``cuda`` candidate on a CUDA device raised —
             a kernel that fails to build or launch is a fault, not an unfit
-            candidate, and must not leave the plain version to win.
+            candidate, and must not leave the plain version to win; and a
+            :class:`~repro_torch.core.world.RankFailed` on a world.
         """
         key = make_key(
             matrix, device=device, devices=devices, mesh=mesh, batch=batch,
             impls=self.generator.impls, block=block, topology=topology,
+            world=world,
         )
         record = self.cache.get(key)
         if record is not None and self._record_covers_baseline(record, baseline):
             return self._from_record(
                 matrix, record, key, device=device,
                 devices=devices, mesh=mesh, block=block, hw=hw,
-                baseline=baseline, topology=topology,
+                baseline=baseline, topology=topology, world=world,
             )
         plans = self.generator.plans(
             matrix, device=device, devices=devices, mesh=mesh, block=block,
-            hw=hw, topology=topology,
+            hw=hw, topology=topology, world=world,
         )
         if baseline is not None:
             base_plan, base_impl = baseline
@@ -152,7 +162,7 @@ class Tuner:
                 inc = matrix.plan(
                     scheme=base_plan, impl=base_impl, device=device,
                     devices=devices, mesh=mesh, block=block, hw=hw,
-                    topology=topology,
+                    topology=topology, world=world,
                 )
                 if (inc.scheme_id, inc.impl) not in have:
                     plans.insert(0, inc)
@@ -164,8 +174,9 @@ class Tuner:
         for plan in plans:
             try:
                 m = self.measurer.measure(plan, x)
-            except Exception:
-                if plan.impl == "cuda" and plan.device.type == "cuda":
+            except Exception as e:
+                if plan.impl == "cuda" and plan.device.type == "cuda" \
+                        or isinstance(e, RankFailed):
                     raise
                 continue  # a candidate that cannot run is not a winner
             measurements.append(m)
@@ -273,6 +284,7 @@ class Tuner:
     def _from_record(
         self, matrix, record: dict, key: TuneKey, *,
         device, devices, mesh, block, hw, baseline=None, topology=None,
+        world=None,
     ) -> TuningResult:
         """Rebuild the cached winner WITHOUT re-measuring (the cache's whole
         point: re-register never pays the measurement loop again), in its
@@ -285,7 +297,7 @@ class Tuner:
             scheme=record_to_plan(record),
             impl=record.get("impl", "cuda"),
             device=device, devices=devices, mesh=mesh, block=block, hw=hw,
-            topology=topology, assignment=assignment,
+            topology=topology, assignment=assignment, world=world,
         )
         best_m = Measurement(
             scheme_id=plan.scheme_id,

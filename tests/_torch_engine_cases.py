@@ -5,12 +5,16 @@ the tuner on P = 4 parts.
 Both processes build the same matrices and vectors from the same seeds.
 Matrix values and x are integer-valued float32, so every answer is exact
 and compares bit for bit; ``x_rand`` is random float32 (compared at 2e-4).
+The matrices come from the port's generators, array for array the JAX
+package's (tests/test_torch_tune.py), so the ranks of a world
+(tests/_torch_engine_world_runner.py) import this module without JAX.
 """
 import itertools
 
 import numpy as np
 
-from repro.data.matrices import block_matrix, regular_matrix, scale_free_matrix
+from repro_torch.data.matrices import (block_matrix, regular_matrix,
+                                       scale_free_matrix)
 
 PARTS = 4
 COLS = 128
@@ -23,6 +27,11 @@ CASES += [("regular", "1d", "pallas"), ("block", "2d", "pallas")]
 # the batcher case: vectors submitted to this engine name and flushed once
 BATCHER = ("scale-free", "1d", 3)
 
+
+# solver sessions on P = 4 parts (tests/test_torch_engine_world.py): the
+# cases of tests/_torch_mesh_cases.py's solver_inputs, registered 1D and 2D
+SESSIONS = [("plain", "1d"), ("plain", "2d"), ("power-tol", "1d"),
+            ("power-tol", "2d")]
 
 # tuning on P = 4 parts: candidate lists per (matrix, include_exotic,
 # max_candidates), searched over both impls

@@ -8,11 +8,17 @@ answers to x, X and x_rand; then it flushes the batcher case through a
 ``MicroBatcher`` and stores each future's answer.  Prints ``DEVICES <n>``
 first and ``ENGINE SKIP`` when forcing devices failed.
 
+It also runs the engine's solver sessions of SESSIONS (each
+``solver_inputs`` case of tests/_torch_mesh_cases.py registered with the
+partitioning forced) and stores each session's x, steps and convergence.
+
 With ``--tune`` it runs the tuning cases instead (tests/test_torch_tune.py):
 the candidate lists of TUNE_CASES, the Measurements of TUNE_MEASURE under
 a quadratic clock, and the FakeMeasurer winner of each matrix, as JSON.
+With ``--world`` it runs both into one file
+(tests/test_torch_engine_world.py).
 
-    python tests/_torch_engine_runner.py OUT.npz [--tune]
+    python tests/_torch_engine_runner.py OUT.npz [--tune | --world]
 """
 import json
 import os
@@ -27,9 +33,10 @@ from repro.api import SparseMatrix  # noqa: E402
 from repro.engine import MicroBatcher, SpmvEngine  # noqa: E402
 from repro.tune import CandidateGenerator, FakeMeasurer, Measurer, Tuner  # noqa: E402
 
-from _torch_engine_cases import (BATCHER, CASES, PARTS, TUNE_CASES,  # noqa: E402
-                                 TUNE_MEASURE, TUNE_SEED, case_id, case_key,
-                                 matrices, quadratic_clock, vectors)
+from _torch_engine_cases import (BATCHER, CASES, PARTS, SESSIONS,  # noqa: E402
+                                 TUNE_CASES, TUNE_MEASURE, TUNE_SEED, case_id,
+                                 case_key, matrices, quadratic_clock, vectors)
+from _torch_mesh_cases import solver_inputs  # noqa: E402
 
 
 def tune_cases(devices) -> dict:
@@ -61,7 +68,21 @@ def tune_cases(devices) -> dict:
     return {k: np.array(json.dumps(v)) for k, v in res.items()}
 
 
-def main(out_path: str, tune: bool = False) -> None:
+def sessions(eng) -> dict:
+    """The engine's solver sessions of SESSIONS on its P parts."""
+    res = {}
+    for combine, part in SESSIONS:
+        a, x0, kw = solver_inputs(combine)
+        name = f"session.{combine}.{part}"
+        eng.register(name, a, partitioning=part, impl="xla")
+        r = eng.solve(name, x0, **kw)
+        res[f"{name}|x"] = np.asarray(r.x)
+        res[f"{name}|steps"] = np.array(r.steps)
+        res[f"{name}|converged"] = np.array(r.converged)
+    return res
+
+
+def main(out_path: str, tune: bool = False, world: bool = False) -> None:
     print(f"DEVICES {jax.device_count()}", flush=True)
     if jax.device_count() < PARTS:
         print("ENGINE SKIP")
@@ -87,9 +108,13 @@ def main(out_path: str, tune: bool = False) -> None:
     futs = [mb.submit(case_id(matrix, part, "xla"), v) for v in vecs["batcher"]]
     mb.flush()
     res["batcher|y"] = np.stack([f.result(timeout=60) for f in futs])
+    res.update(sessions(eng))
+    if world:
+        res.update(tune_cases(jax.devices()[:PARTS]))
     np.savez(out_path, **res)
     print("ENGINE DONE")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], tune="--tune" in sys.argv[2:])
+    main(sys.argv[1], tune="--tune" in sys.argv[2:],
+         world="--world" in sys.argv[2:])

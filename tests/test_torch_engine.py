@@ -492,8 +492,9 @@ def test_cuda_without_a_card_raises_never_falls_back(monkeypatch):
     for devices in (None, "cuda", ["cuda"] * 4):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             SpmvEngine(devices=devices)
-    with pytest.raises(NotImplementedError, match="Multi-card"):
+    with pytest.raises(NotImplementedError, match="Multi-card") as e:
         SpmvEngine(devices=["cpu", "cuda:0"])
+    assert "SpmvEngine(world=)" in str(e.value)  # the way to serve a pool
 
 
 def test_engine_validation():
